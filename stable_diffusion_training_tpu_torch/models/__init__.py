@@ -1,0 +1,19 @@
+"""SD1.5 models in PyTorch: UNet2DConditionModel, AutoencoderKL, CLIP text
+encoder, ported from ``stable_diffusion_training_tpu/models`` with diffusers'
+(and transformers') attribute names, plus weight I/O (``hf_io``) and seeded
+random weights (``random_init_``)."""
+
+from . import configs
+from .clip import CLIPTextModel
+from .init import random_init_
+from .unet import UNet2DConditionModel
+from .vae import AutoencoderKL, DiagonalGaussianDistribution
+
+__all__ = [
+    "AutoencoderKL",
+    "CLIPTextModel",
+    "DiagonalGaussianDistribution",
+    "UNet2DConditionModel",
+    "configs",
+    "random_init_",
+]

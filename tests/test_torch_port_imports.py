@@ -1,0 +1,91 @@
+"""The port stands alone: no module of ``stable_diffusion_training_tpu_torch``
+and not ``chip_smoke.py`` imports JAX, flax or the JAX package; the package
+imports on a CPU-only torch with no nvcc and no triton; ``chip_smoke.py``
+refuses to run without a GPU or outside the repository."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PACKAGE = "stable_diffusion_training_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "stable_diffusion_training_tpu")
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, PACKAGE)):
+        files += [os.path.join(root, n) for n in sorted(names) if n.endswith(".py")]
+    return files
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", None) == "__import__":
+            yield from (a.value for a in node.args[:1] if isinstance(a, ast.Constant))
+
+
+def test_port_imports_no_jax_and_not_the_jax_package():
+    files = _port_files()
+    assert len(files) > 10
+    offenders = [
+        (os.path.relpath(path, REPO), module)
+        for path in files
+        for module in _imported_modules(path)
+        if module.split(".")[0] in FORBIDDEN
+    ]
+    assert offenders == []
+
+
+def test_package_imports_on_cpu_torch_without_jax():
+    """Every module imports in a fresh interpreter, and none of them pulls
+    JAX in (the build, nvcc and triton are only touched on first launch)."""
+    modules = sorted(
+        os.path.relpath(p, REPO)[:-3].replace(os.sep, ".").removesuffix(".__init__")
+        for p in _port_files()[1:]
+    )
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'triton')]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+def _run_chip_smoke(cwd):
+    return subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True, text=True, timeout=120
+    )
+
+
+def test_chip_smoke_alone_fails_without_result(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    proc = _run_chip_smoke(tmp_path)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    proc = _run_chip_smoke(REPO)
+    assert proc.returncode != 0
+    assert proc.stdout == ""
