@@ -8,14 +8,20 @@ NVIDIA GPU and check it end to end.
 Phases, one JSON line each:
 
 1. ``gpu``: the card's name and power limit (nvidia-smi), torch and CUDA.
-2. ``build``: ``nvcc`` builds the flash-attention forward kernel from
-   ``stable_diffusion_training_tpu_torch/csrc/`` for sm_90a; the compiler's
-   register and spill report goes to ``chiprun_out/chip_smoke_build.log``.
-3. ``kernels``: the kernel against its plain PyTorch version on the card at
-   the serving path's shapes, (16, 4096, 40) and (1, 4096, 512), in bf16 and
-   f32 (TF32 off), plus a ragged case; max abs error of O and lse against the
-   stated tolerances, kernel / plain / library times (CUDA events) and the
-   card's least time for the same work.
+2. ``build``: ``nvcc`` builds the three kernel libraries from
+   ``stable_diffusion_training_tpu_torch/csrc/`` for sm_90a, one ``nvcc``
+   each, all started together; the compiler's register and spill report
+   goes to ``chiprun_out/chip_smoke_build.log``.
+3. ``kernels``: each kernel against its plain PyTorch version on the card,
+   with max errors against the stated tolerances, kernel / plain / library
+   times (CUDA events) and the card's least time for the same work:
+   flash-attention forward (K1) at the serving path's shapes, (16, 4096, 40)
+   and (1, 4096, 512), in bf16 and f32 (TF32 off), plus ragged cases;
+   flash-attention backward (K2 dQ, K3 dK/dV) at the train step's
+   (64, 4096, 40) bf16 and at ragged and f32 cases; the 8-bit Lion kernel
+   at the largest SD1.5 leaf (single-leaf entry, K4) and at the UNet's
+   small-leaf bucket (multi-leaf entry, K5), bs 16, bf16 grads, exact and
+   fast companders, plus a bs-64 leaf set.
 4. ``parity``: one full-width SD1.5 UNet call at 512x512 in f32 (TF32 off),
    seeded weights, attention_backend "auto" (kernel) against "xla" (plain).
 5. ``slice``: the SD1.5 text-to-image pipeline at full width in bf16,
@@ -27,9 +33,26 @@ Phases, one JSON line each:
    host clock (medians and every run), and one denoise step runs under
    torch.profiler (``profile`` line: kernel times by name, the device's
    idle share).
+6. ``train_parity``: one full-width SD1.5 UNet forward and backward at
+   512x512, batch 1, f32 (TF32 off), "auto" (K1 + K2 + K3) against "xla"
+   (plain): the loss within 1e-5 relative, every grad within 1e-4 of its
+   tensor's max |grad|, and exactly 5 forward and 5 backward launches.
+7. ``train``: the SD1.5 train step at full width through
+   ``train.on_device_model_training_state`` and ``train.train_step``, with
+   the example config's training settings (v-prediction, zero-SNR,
+   BOS/EOS-stripped concat of 3 windows, both models' Lion state 8-bit at
+   bs 16 with the example exclusion lists, EMA 0.99998, bucket limit 65536,
+   exact compander), bf16, 512x512, batch 8, a synthetic batch from a seed:
+   2 warm-up steps, then 5 timed steps with the launch counts zeroed just
+   before and read just after (K1 5 + 1, K2 and K3 5 each, the Lion
+   single-leaf entry once per leaf over the bucket limit, the multi-leaf
+   entry twice, per step). Then one step under torch.profiler (``profile``
+   line).
 
 Any failed check raises, so the script exits non-zero and prints no result.
-The last line is ``{"ok": true, "device": {...}}``.
+Before the last line it prints the ``kernels`` record (every kernel and
+shape with its launches on the main path and its times) and the card's
+nvidia-smi line; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
@@ -42,9 +65,9 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = "stable_diffusion_training_tpu_torch"
-KERNEL_SOURCE = f"{PACKAGE}/csrc/flash_attention_fwd.cu"
-KERNEL_REPLACES = "stable_diffusion_training_tpu/ops/flash_attention.py:47"
-ALL_PHASES = ("gpu", "build", "kernels", "parity", "slice")
+CSRC = f"{PACKAGE}/csrc"
+JAX_OPS = "stable_diffusion_training_tpu/ops"
+ALL_PHASES = ("gpu", "build", "kernels", "parity", "slice", "train_parity", "train")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): 989 TFLOP/s bf16 tensor core,
 # 67 TFLOP/s f32 on the CUDA cores (TF32 would change the numerics), 3.35
@@ -64,10 +87,27 @@ TOLERANCE = {
     "float32": {"o": 1e-4, "lse": 1e-4},
     "bfloat16": {"o": 1e-2, "lse": 1e-3},
 }
+# backward kernels vs plain backward, max abs error over max(1, max |grad|):
+# f32 as the forward's O; bf16: dQ/dK/dV come back in bf16 (half an ulp is
+# 2^-9 relative) from f32 sums of bf16-rounded P and dS, so a few ulps of
+# |grad| ~ 1.
+BWD_TOLERANCE = {"float32": 1e-4, "bfloat16": 1e-2}
 # full-width f32 UNet, kernel vs plain attention: max |diff| / max |ref|.
 # Only the attention's summation order differs; 1e-4 relative is ~1000 f32
 # ulps of headroom through 16 transformer blocks and 22 resnets.
 PARITY_REL_TOL = 1e-4
+# train_parity: the loss (a mean of 32 K squares) to 1e-5 relative; each
+# grad to 1e-4 of its tensor's max |grad| (the backward sums the same
+# products in other orders through 16 transformer blocks and 22 resnets)
+TRAIN_LOSS_REL_TOL = 1e-5
+TRAIN_GRAD_REL_TOL = 1e-4
+# the example config (model_properties_example.json): what the train phase runs
+EXAMPLE_EXCLUDED_FROM_QUANTIZATION = [
+    "bias", "scale", "embedding", "conv_in", "conv_out", "time_embedding", "embeddings",
+    "time_emb_proj",
+]
+TRAIN_BATCH, TRAIN_RES, TRAIN_CONCAT = 8, 512, 3
+LION_BS, BUCKET_MAX_NB = 16, 65536
 
 
 def emit(phase, **fields):
@@ -132,28 +172,39 @@ def phase_gpu(state):
 
 
 def phase_build(state):
-    from stable_diffusion_training_tpu_torch.ops import cuda_build
+    from stable_diffusion_training_tpu_torch.ops import cuda_build, flash_attention, lion_kernel
 
     start = time.perf_counter()
-    path = cuda_build.build("flash_attention_fwd", ("flash_attention_fwd.cu",))
+    paths = cuda_build.build_many({**flash_attention.LIBRARIES, **lion_kernel.LIBRARIES})
     seconds = time.perf_counter() - start
-    log = cuda_build.BUILD_LOG.get("flash_attention_fwd", (0.0, "(already built)"))[1]
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    ptxas = {}
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke_build.log"), "w") as f:
-        f.write(log)
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    emit("build", seconds=round(seconds, 3), library=os.path.relpath(path, REPO), ptxas=ptxas)
+        for name in paths:
+            secs, log = cuda_build.BUILD_LOG.get(name, (0.0, "(already built)"))
+            f.write(f"== {name} ({secs:.1f} s)\n{log}\n")
+            spills = [ln.strip() for ln in log.splitlines() if "spill" in ln and "0 bytes spill" not in ln]
+            ptxas[name] = dict(seconds=round(secs, 3), spilling_functions=len(spills))
+    emit(
+        "build", seconds=round(seconds, 3),
+        libraries={n: os.path.relpath(p, REPO) for n, p in paths.items()}, ptxas=ptxas,
+    )
 
 
-def _bound(bh, sq, sk, d, dtype_name):
+def _bound(bh, sq, sk, d, dtype_name, products=2, exps=1, reads_q=2, reads_k=2, writes_q=0, writes_k=0, stats=1):
+    """Least time for attention work: ``products`` matmuls of 2*bh*sq*sk*d
+    flops and ``exps`` exps per logit against HBM traffic of ``reads_q`` +
+    ``writes_q`` (bh, sq, d) and ``reads_k`` + ``writes_k`` (bh, sk, d)
+    tensors and ``stats`` f32 (bh, sq) rows."""
     import torch
 
     itemsize = torch.finfo(getattr(torch, dtype_name)).bits // 8
-    flops = 4.0 * bh * sq * sk * d
-    exps = float(bh) * sq * sk
-    nbytes = itemsize * bh * d * (2 * sq + 2 * sk) + 4 * bh * sq
+    flops = 2.0 * products * bh * sq * sk * d
+    n_exps = float(exps) * bh * sq * sk
+    nbytes = itemsize * bh * d * ((reads_q + writes_q) * sq + (reads_k + writes_k) * sk)
+    nbytes += 4 * stats * bh * sq
     times = {
-        "operations": max(flops / PEAK_FLOPS[dtype_name], exps / PEAK_EXPS),
+        "operations": max(flops / PEAK_FLOPS[dtype_name], n_exps / PEAK_EXPS),
         "bytes": nbytes / PEAK_BYTES,
     }
     by = max(times, key=times.get)
@@ -199,7 +250,7 @@ def phase_kernels(state):
                 )
             except RuntimeError:  # no SDPA backend takes this shape/dtype
                 library_ms = None
-            bound_ms, bound_by, flops = _bound(bh, sq, sk, d, name_dt)
+            bound_ms, bound_by, flops = _bound(bh, sq, sk, d, name_dt, reads_q=1, writes_q=1)
             row = dict(
                 case=name, shape_q=[bh, sq, d], shape_k=[bh, sk, d], dtype=name_dt,
                 max_abs_err_o=err_o, max_abs_err_lse=err_lse, tol_o=tol["o"],
@@ -212,9 +263,162 @@ def phase_kernels(state):
             del q, k, v, o, lse, o_ref, lse_ref
             torch.cuda.empty_cache()
     state["kernel_cases"] = results
-    bad = [r for r in results if not r["ok"]]
+    state["bwd_cases"] = flash_backward_cases()
+    state["lion_cases"] = lion_cases()
+    bad = [r for r in results + state["bwd_cases"] + state["lion_cases"] if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
+
+
+def flash_backward_cases():
+    """K2 (dQ) and K3 (dK/dV) against ``flash_attention_bwd_reference``; the
+    library yardstick is SDPA's backward (timed only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    cases = [
+        ("unet_train", 64, 4096, 4096, 40, torch.bfloat16),
+        ("ragged", 4, 3000, 2100, 64, torch.bfloat16),
+        ("ragged_d36", 2, 1000, 777, 36, torch.bfloat16),  # off the tensor-core path
+        ("unet_train_f32", 8, 4096, 4096, 40, torch.float32),  # the train_parity shape
+    ]
+    rows = []
+    for name, bh, sq, sk, d, dtype in cases:
+        name_dt = str(dtype).replace("torch.", "")
+        q, k, v = (torch.randn(bh, s, d, generator=gen, device="cuda").to(dtype) for s in (sq, sk, sk))
+        do = torch.randn(bh, sq, d, generator=gen, device="cuda").to(dtype)
+        scale = d**-0.5
+        o, lse = fa.flash_attention_fwd(q, k, v, scale)
+        delta = (do.float() * o.float()).sum(-1)
+        grads = fa.flash_attention_bwd(q, k, v, do, lse, delta, scale)
+        torch.cuda.synchronize()
+        expected = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale)
+        errs = {}
+        ok = True
+        for gname, got, want in zip(("dq", "dk", "dv"), grads, expected):
+            err = (got.float() - want.float()).abs().max().item()
+            bound = BWD_TOLERANCE[name_dt] * max(1.0, want.float().abs().max().item())
+            errs[gname] = err
+            ok = ok and err <= bound and got.dtype == want.dtype
+        del grads, expected
+        reps = 10 if d <= 64 else 3
+        dq_ms = cuda_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale), reps)
+        dkv_ms = cuda_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale), reps)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale), 2, warmup=1)
+        library_ms = None
+        try:  # SDPA's backward on (1, B*H, S, D), the yardstick only
+            leaves = [t[None].detach().requires_grad_() for t in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves, scale=scale)
+            library_ms = cuda_ms(
+                lambda: torch.autograd.grad(out, leaves, do[None], retain_graph=True), reps
+            )
+            del out, leaves
+        except RuntimeError:  # no SDPA backend takes this shape/dtype
+            pass
+        # K2: S, dO V^T, dS K (3 products) and the exps; reads q, k, v, dO,
+        # lse, delta, writes dQ. K3: S, dO V^T, P^T dO, dS^T Q (4 products);
+        # reads the same, writes dK and dV.
+        dq_bound = _bound(bh, sq, sk, d, name_dt, products=3, reads_q=2, reads_k=2, writes_q=1, stats=2)
+        dkv_bound = _bound(bh, sq, sk, d, name_dt, products=4, reads_q=2, reads_k=2, writes_k=2, stats=2)
+        row = dict(
+            case=name, shape_q=[bh, sq, d], shape_k=[bh, sk, d], dtype=name_dt,
+            max_abs_err=errs, tol=BWD_TOLERANCE[name_dt], ok=ok, dq_ms=dq_ms, dkv_ms=dkv_ms,
+            plain_ms=plain_ms, library_ms=library_ms,
+            dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
+            dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
+            tflops=(dq_bound[2] + dkv_bound[2]) / (dq_ms + dkv_ms) / 1e9,
+        )
+        rows.append(row)
+        emit("kernels_bwd", **row)
+        del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
+    return rows
+
+
+def sd15_lion_leaves():
+    """Quantized SD1.5 leaves under the example config's masks: JAX-layout
+    sizes of the UNet's and CLIP's, split at the bucket limit."""
+    from stable_diffusion_training_tpu_torch.models import CLIPTextModel, UNet2DConditionModel, configs
+    from stable_diffusion_training_tpu_torch.optim import create_mask
+
+    leaves = {}
+    for model_name, model in (
+        ("unet", UNet2DConditionModel(**configs.SD15_UNET, device="meta")),
+        ("text_encoder", CLIPTextModel(**configs.CLIP_VIT_L, device="meta")),
+    ):
+        mask = create_mask(model, EXAMPLE_EXCLUDED_FROM_QUANTIZATION)
+        sizes = [p.numel() for n, p in model.named_parameters() if mask[n]]
+        big = [n for n in sizes if n // LION_BS > BUCKET_MAX_NB]
+        small = [n for n in sizes if n // LION_BS <= BUCKET_MAX_NB]
+        leaves[model_name] = dict(
+            quantized=len(sizes), elements=sum(sizes), single=len(big), single_elements=sum(big),
+            bucket=len(small), bucket_elements=sum(small), largest=max(sizes), bucket_sizes=small,
+        )
+    return leaves
+
+
+def lion_cases():
+    """K4 (single leaf) and K5 (many leaves) against
+    ``lion8bit_update_reference``: update signs and scales equal, codes at
+    most one apart (CUDA's powf vs torch's pow), counted."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+
+    leaves = sd15_lion_leaves()
+    emit("lion_leaves", **{m: {k: v for k, v in d.items() if k != "bucket_sizes"} for m, d in leaves.items()})
+    bs64_sizes = [n for n in leaves["unet"]["bucket_sizes"] if n % 64 == 0]
+    cases = [
+        ("largest_leaf", "single", [leaves["unet"]["largest"]], LION_BS, "exact"),
+        ("largest_leaf", "single", [leaves["unet"]["largest"]], LION_BS, "fast"),
+        ("unet_bucket", "multi", leaves["unet"]["bucket_sizes"], LION_BS, "exact"),
+        ("unet_bucket", "multi", leaves["unet"]["bucket_sizes"], LION_BS, "fast"),
+        ("unet_bucket_bs64", "multi", bs64_sizes, 64, "exact"),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    rows = []
+    for name, entry, sizes, bs, compander in cases:
+        grads = [(torch.randn(n, generator=gen, device="cuda") * 1e-3).bfloat16() for n in sizes]
+        moms = [lk.block_quantize(torch.randn(n, generator=gen, device="cuda") * 1e-4, bs) for n in sizes]
+        expected = [lk.lion8bit_update_reference(g, c, s, compander=compander) for g, (c, s) in zip(grads, moms)]
+        codes = [c.clone() for c, _ in moms]
+        scales = [s.clone() for _, s in moms]
+        if entry == "single":
+            run = lambda cs=codes, ss=scales: lk.lion8bit_update_(grads[0], cs[0], ss[0], compander=compander)
+            upds = [run()]
+        else:
+            run = lambda cs=codes, ss=scales: lk.lion8bit_update_multi_(grads, cs, ss, compander=compander)
+            upds = run()
+        torch.cuda.synchronize()
+        updates_equal = all(bool(torch.equal(u, e[0])) for u, e in zip(upds, expected))
+        scales_equal = all(bool(torch.equal(s, e[2])) for s, e in zip(scales, expected))
+        code_diff = [(c.int() - e[1].int()).abs() for c, e in zip(codes, expected)]
+        max_code_diff = max(int(d.max()) for d in code_diff)
+        codes_off = sum(int((d > 0).sum()) for d in code_diff)
+        n = sum(sizes)
+        del expected, code_diff
+        kernel_ms = cuda_ms(run, 10)
+        plain_ms = cuda_ms(
+            lambda: [lk.lion8bit_update_reference(g, c, s, compander=compander)
+                     for g, (c, s) in zip(grads, moms)], 2, warmup=1,
+        )
+        # bf16 grad in, bf16 sign out, int8 codes in and out, f32 scale in and out per block
+        nbytes = n * (2 + 2 + 1 + 1) + (n // bs) * 8
+        row = dict(
+            case=name, entry=entry, compander=compander, bs=bs, leaves=len(sizes), elements=n,
+            updates_equal=updates_equal, scales_equal=scales_equal, max_code_diff=max_code_diff,
+            codes_off_by_one=codes_off, ok=updates_equal and scales_equal and max_code_diff <= 1,
+            kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=nbytes / PEAK_BYTES * 1e3,
+            bound_by="bytes", gbytes_per_s=nbytes / kernel_ms / 1e6,
+        )
+        rows.append(row)
+        emit("kernels_lion", **row)
+        del grads, moms, codes, scales, upds
+        torch.cuda.empty_cache()
+    return rows
 
 
 def phase_parity(state):
@@ -361,23 +565,258 @@ def profile_denoise_step(pipe, latents, context, top=15):
     )
 
 
+def phase_train_parity(state):
+    """Full-width SD1.5 UNet forward and backward, f32, kernels against the
+    plain attention: loss, every grad, launch counts."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.models import UNet2DConditionModel, configs, random_init_
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+
+    set_tf32(False)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    unet = UNet2DConditionModel(**configs.SD15_UNET, attention_backend="auto", device="cuda")
+    random_init_(unet, gen)
+    plain = UNet2DConditionModel(**configs.SD15_UNET, attention_backend="xla", device="cuda")
+    plain.load_state_dict(unet.state_dict(), strict=True)
+    sample = torch.randn(1, 4, 64, 64, generator=gen, device="cuda")
+    ctx = torch.randn(1, 227, 768, generator=gen, device="cuda")
+    target = torch.randn(1, 4, 64, 64, generator=gen, device="cuda")
+    t = torch.tensor([421], device="cuda")
+    results = []
+    for model in (unet, plain):
+        fa.reset_launch_counts()
+        loss = ((model(sample, t, ctx) - target) ** 2).mean()
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        launches = dict(
+            fwd=fa.flash_attention_fwd.launches, bwd_dq=fa.flash_attention_bwd_dq.launches,
+            bwd_dkv=fa.flash_attention_bwd_dkv.launches,
+        )
+        results.append((loss.item(), grads, launches))
+    (loss_k, grads_k, launches_k), (loss_p, grads_p, launches_p) = results
+    worst, worst_name = 0.0, None
+    for (name, _), gk, gp in zip(unet.named_parameters(), grads_k, grads_p):
+        rel = (gk - gp).abs().max().item() / max(gp.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    ok = (
+        loss_rel <= TRAIN_LOSS_REL_TOL and worst <= TRAIN_GRAD_REL_TOL
+        and launches_k == dict(fwd=5, bwd_dq=5, bwd_dkv=5)
+        and launches_p == dict(fwd=0, bwd_dq=0, bwd_dkv=0)
+    )
+    emit(
+        "train_parity", loss_kernel=loss_k, loss_plain=loss_p, loss_rel_diff=loss_rel,
+        loss_rel_tol=TRAIN_LOSS_REL_TOL, worst_grad_rel_diff=worst, worst_grad=worst_name,
+        grad_rel_tol=TRAIN_GRAD_REL_TOL, n_grads=len(grads_k), kernel_launches=launches_k,
+        plain_launches=launches_p, ok=ok,
+    )
+    del unet, plain, results, grads_k, grads_p
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("full-width UNet training: kernel and plain attention disagree")
+
+
+def train_config(**overrides):
+    from stable_diffusion_training_tpu_torch.train import TrainingConfig
+
+    base = dict(  # model_properties_example.json's training settings
+        model_path="sd15", batch_size=TRAIN_BATCH, learning_rate=1e-06, unet_learning_rate=1e-06,
+        text_encoder_learning_rate=2.5e-07, lr_scheduler="constant", adam_to_lion_scale_factor=7.0,
+        compilation_cache_path="", keep_compiled_fn_in_cache=False,
+        text_encoder_context_window=77, context_window_concatenation_count=TRAIN_CONCAT,
+        aot_compile=False, strip_bos_eos_token=True, offset_noise_magnitude=0.0,
+        min_snr_gamma_magnitude=0.0, perturbation_noise_magnitude=0.0,
+        image_area_root=[TRAIN_RES], minimum_axis_length=[TRAIN_RES],
+        beta_scheduler="zero_snr_scaled_linear", prediction_type="v_prediction",
+        excluded_layer_pattern_from_weight_decay=["bias", "scale", "embedding"],
+        excluded_layer_from_quantization=EXAMPLE_EXCLUDED_FROM_QUANTIZATION,
+        quant_block_size=LION_BS, quantize_unet_state=True, quantize_text_encoder_state=True,
+        accumulate_unet_ema=True, accumulate_text_encoder_ema=True, ema_rate=0.99998,
+        model_family="sd15", mixed_precision="bfloat16", attention_backend="auto",
+        lion_bucket_max_nb=BUCKET_MAX_NB, lion_compander="exact", seed_init=0,
+    )
+    base.update(overrides)
+    return TrainingConfig(**base)
+
+
+def phase_train(state, warmup=2, steps=5, seed=0):
+    """The SD1.5 train step at full width, bf16, batch 8, 512x512."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+    from stable_diffusion_training_tpu_torch.optim import QuantizedMomentum
+    from stable_diffusion_training_tpu_torch.train import on_device_model_training_state, train_step
+
+    set_tf32(False)
+    cfg = train_config()
+    t0 = time.perf_counter()
+    states = on_device_model_training_state(cfg)
+    setup_s = time.perf_counter() - t0
+    unet_state, te_state, unet_ema, te_ema, frozen_vae, frozen_sched, _ = states
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batch = {
+        "pixel_values": torch.rand(TRAIN_BATCH, 3, TRAIN_RES, TRAIN_RES, generator=gen, device="cuda") * 2 - 1,
+        "input_ids": torch.randint(0, 49408, (TRAIN_BATCH * TRAIN_CONCAT, 77), generator=gen, device="cuda"),
+    }
+    train_rng = torch.Generator(device="cuda").manual_seed(seed + 1)
+
+    def lion_states():
+        return [s.opt_state[1][0] for s in (unet_state, te_state)]
+
+    def step():
+        out = train_step(
+            unet_state, te_state, unet_ema, te_ema, batch, train_rng, frozen_vae, frozen_sched,
+            strip_bos_eos_token=True, ema_rate=cfg.ema_rate,
+            text_context_window=cfg.text_encoder_context_window,
+        )
+        return out[4]["loss"]
+
+    losses, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    ms, loss = host_ms(step)  # step 1: momentum leaves its zero state
+    losses.append(loss.item())
+    step_ms.append(ms)
+    moms = [m for ls in lion_states() for m in ls.mu_quant.values() if isinstance(m, QuantizedMomentum)]
+    codes_changed = sum(int((m.codes != 3).sum()) for m in moms)
+    codes_total = sum(m.codes.numel() for m in moms)
+    for _ in range(warmup - 1):
+        ms, loss = host_ms(step)
+        losses.append(loss.item())
+        step_ms.append(ms)
+    fa.reset_launch_counts()
+    lk.reset_launch_counts()
+    timed = []
+    for _ in range(steps):
+        ms, loss = host_ms(step)
+        losses.append(loss.item())
+        timed.append(ms)
+    launches = dict(
+        flash_fwd=fa.flash_attention_fwd.launches, flash_bwd_dq=fa.flash_attention_bwd_dq.launches,
+        flash_bwd_dkv=fa.flash_attention_bwd_dkv.launches,
+        lion_single=lk.lion8bit_update_.launches, lion_multi=lk.lion8bit_update_multi_.launches,
+    )
+    fwd_by_shape = dict(fa.flash_attention_fwd.launches_by_shape)
+    peak = torch.cuda.max_memory_allocated()
+    leaves = sd15_lion_leaves()
+    expected = dict(
+        flash_fwd=6 * steps, flash_bwd_dq=5 * steps, flash_bwd_dkv=5 * steps,
+        lion_single=(leaves["unet"]["single"] + leaves["text_encoder"]["single"]) * steps,
+        lion_multi=2 * steps,
+    )
+    # the optimizer's share: both models' chains on stand-in grads, timed apart
+    opt_ms = []
+    for _ in range(3):
+        grads = [{n: torch.randn_like(p) * 1e-3 for n, p in s.params.items()} for s in (unet_state, te_state)]
+        ms, _ = host_ms(lambda: [s.apply_gradients(g) for s, g in zip((unet_state, te_state), grads)])
+        opt_ms.append(ms)
+        del grads
+    p50 = statistics.median(timed)
+    finite = all(torch.isfinite(torch.tensor(losses)).tolist())
+    row = dict(
+        batch=TRAIN_BATCH, resolution=TRAIN_RES, dtype="bfloat16", setup_s=setup_s,
+        warmup_ms=step_ms, step_ms=timed, p50_ms=p50, images_per_s=TRAIN_BATCH / p50 * 1e3,
+        losses=losses, finite=finite, max_memory_allocated=peak,
+        momentum_codes_changed_after_step_1=codes_changed, momentum_codes=codes_total,
+        launches=launches, expected_launches=expected,
+        launches_per_step={k: v / steps for k, v in launches.items()},
+        flash_fwd_by_shape={"x".join(map(str, k)): n for k, n in fwd_by_shape.items()},
+        optimizer_ms_median=statistics.median(opt_ms), optimizer_ms=opt_ms,
+        optimizer_share=statistics.median(opt_ms) / p50,
+    )
+    emit("train", **row)
+    state["train"] = row
+    state["train_fwd_by_shape"] = fwd_by_shape
+    if not (finite and codes_changed > 0 and launches == expected):
+        raise AssertionError("train step failed its checks")
+    profile_train_step(step)
+
+
+def profile_train_step(step, top=20):
+    """Where one train step's device time goes: torch.profiler's kernel
+    table and the device's busy share of the step's wall time (one stream)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_ms, _ = host_ms(step)
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kernels.append((us / 1e3, e.count, e.key))
+    kernels.sort(reverse=True)
+    busy_ms = sum(ms for ms, _, _ in kernels)
+
+    def total(*names):
+        return sum(ms for ms, _, name in kernels if any(n in name for n in names))
+
+    emit(
+        "profile", what="one SD1.5 train step (bf16, batch 8, 512x512)",
+        wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
+        flash_fwd_ms=total("flash_fwd"), flash_bwd_ms=total("bwd_dq", "bwd_dkv"),
+        lion_ms=total("lion_single", "lion_multi"),
+        h2d_copies=sum(n for _, n, name in kernels if "Memcpy HtoD" in name),
+        n_kernel_names=len(kernels), n_launches=sum(n for _, n, _ in kernels),
+        top=[dict(ms=ms, count=n, name=name[:120]) for ms, n, name in kernels[:top]],
+    )
+
+
 def kernels_line(state):
-    """The per-kernel record: each main-path shape of the kernel, its launches
-    in the slice run and its numbers from the kernels phase."""
-    by_shape = state.get("slice_by_shape", {})
+    """The per-kernel record: each main-path kernel and shape, its launches
+    in the run of its path (K1: the serving slice; K2-K5: the timed train
+    steps) and its numbers from the kernels phase."""
     entries = []
+    by_shape = state.get("slice_by_shape", {})
     for row in state.get("kernel_cases", []):
         if row["dtype"] != "bfloat16" or row["case"] not in ("unet_l0", "vae_mid"):
-            continue  # the slice runs the kernel in bf16 at these two shapes
+            continue  # the slice runs the forward kernel in bf16 at these two shapes
         bh, sq, d = row["shape_q"]
         sk = row["shape_k"][1]
         entries.append(dict(
             name=f"flash_attention_fwd[{row['case']} {bh}x{sq}x{sk}x{d} bf16]",
-            route="cuda", source=KERNEL_SOURCE, replaces=KERNEL_REPLACES,
+            route="cuda", source=f"{CSRC}/flash_attention_fwd.cu",
+            replaces=f"{JAX_OPS}/flash_attention.py:47",
             launches=by_shape.get((bh, sq, sk, d, "bfloat16"), 0),
             max_abs_err=row["max_abs_err_o"], ms=row["kernel_ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
+        ))
+    launches = state.get("train", {}).get("launches", {})
+    for row in state.get("bwd_cases", []):
+        if row["case"] != "unet_train":
+            continue  # the train step runs the backward kernels at this shape
+        bh, sq, d = row["shape_q"]
+        shape = f"{bh}x{sq}x{row['shape_k'][1]}x{d} bf16"
+        for kernel, grads, line in (("dq", ("dq",), 105), ("dkv", ("dk", "dv"), 147)):
+            entries.append(dict(
+                name=f"flash_attention_bwd_{kernel}[unet_train {shape}]", route="cuda",
+                source=f"{CSRC}/flash_attention_bwd.cu",
+                replaces=f"{JAX_OPS}/flash_attention.py:{line}",
+                launches=launches.get(f"flash_bwd_{kernel}", 0),
+                max_abs_err=max(row["max_abs_err"][g] for g in grads),
+                ms=row[f"{kernel}_ms"], plain_ms=row["plain_ms"],
+                bound_ms=row[f"{kernel}_bound_ms"], bound_by=row[f"{kernel}_bound_by"],
+                library_ms=row["library_ms"],
+            ))
+    for row in state.get("lion_cases", []):
+        if row["compander"] != "exact" or row["bs"] != LION_BS:
+            continue  # the train step's setting
+        single = row["entry"] == "single"
+        entries.append(dict(
+            name=(f"lion8bit_update{'' if single else '_multi'}[{row['case']} "
+                  f"{row['leaves']} leaves {row['elements']} elements bs{row['bs']} bf16 exact]"),
+            route="cuda", source=f"{CSRC}/lion8bit_update.cu",
+            replaces=f"{JAX_OPS}/lion_kernel.py:{56 if single else 274}",
+            launches=launches.get("lion_single" if single else "lion_multi", 0),
+            max_abs_err=float(row["max_code_diff"]), ms=row["kernel_ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=None,
         ))
     return {"kernels": entries}
 
@@ -411,6 +850,10 @@ def main(argv=None):
         phase_parity(state)
     if "slice" in phases:
         phase_slice(state)
+    if "train_parity" in phases:
+        phase_train_parity(state)
+    if "train" in phases:
+        phase_train(state)
 
     print(json.dumps(kernels_line(state)))
     print(state["smi"])

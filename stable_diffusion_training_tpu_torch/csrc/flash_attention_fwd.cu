@@ -58,41 +58,9 @@
 //      DP 128: BQ 32, BK 64  ( 92.7 KB)
 //      DP 256: BQ 16, BK 32  ( 85.2 KB)
 //      DP 512: BQ 16, BK 32  (167.2 KB, 1 block/SM)
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
-#include <cstdint>
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr float kNegInf = -1e30f;  // the TPU kernel's _NEG_INF
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 template <int DP, int BQ, int BK>
 struct Tile {
@@ -104,18 +72,6 @@ struct Tile {
   static constexpr size_t kSmemBytes =
       (size_t(BQ) * LD + 2 * size_t(BK) * LD + size_t(BQ) * BK) * sizeof(float);
 };
-
-// rows x DP tile of a (S, d) row-major matrix into f32 shared memory; rows
-// past `valid` and columns past `d` are zero (zero keys/values contribute
-// nothing: their P is 0, and zero columns add nothing to QK^T).
-template <typename T, int DP, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int rows, int valid, int d) {
-  for (int idx = threadIdx.x; idx < rows * DP; idx += kThreads) {
-    const int r = idx / DP;
-    const int c = idx - r * DP;
-    dst[r * LD + c] = (r < valid && c < d) ? to_f32(src[size_t(r) * d + c]) : 0.f;
-  }
-}
 
 template <typename T, int DP, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads)
@@ -268,71 +224,6 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float
 
 
 // --- tensor-core paths: bf16, D % 8 == 0 -------------------------------------
-
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// 16 bytes from global to shared memory without passing through registers
-// (cp.async); with `valid` false nothing is read and the 16 bytes are zero.
-__device__ __forceinline__ void cp_async_16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                            bool valid) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-// Starts copying a rows x DP tile of a (S, d) bf16 matrix into shared memory,
-// row stride LD, 16 bytes at a time; rows past `valid` (>= 1) and columns
-// past `d` land as zeros. Complete after cp_async_wait_all().
-template <int DP, int LD>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                int rows, int valid, int d) {
-  constexpr int kChunks = DP / 8;
-  for (int idx = threadIdx.x; idx < rows * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int c = (idx - r * kChunks) * 8;
-    const bool in = r < valid && c < d;
-    cp_async_16(dst + r * LD + c, in ? src + size_t(r) * d + c : src, in);
-  }
-}
-
-// The B fragments of P V for 16 keys and two adjacent 8-column tiles of V,
-// read from the row-major (keys x D) V tile in shared memory with ldmatrix,
-// which transposes on the way: lanes 8m..8m+7 give the row addresses of
-// 8x8 matrix m (keys +8 for odd m, columns +8 for m >= 2). b[0], b[1] feed
-// the column tile at `tile`, b[2], b[3] the one 8 columns on.
-template <int LD>
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&b)[4], const __nv_bfloat16* tile,
-                                                  int lane) {
-  const int m = lane / 8;
-  const __nv_bfloat16* row = tile + ((m & 1) * 8 + lane % 8) * LD + (m >> 1) * 8;
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-               : "r"(addr));
-}
 
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
@@ -695,12 +586,6 @@ cudaError_t launch_mma_wide(const void* q, const void* k, const void* v, void* o
   return cudaGetLastError();
 }
 
-bool mma_path(const void* q, const void* k, const void* v, const void* o, int d) {
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
-  return d % 8 == 0 && addr % 16 == 0;
-}
-
 }  // namespace
 
 // q (bh, sq, d), k/v (bh, sk, d), o (bh, sq, d): contiguous rows, all of one
@@ -717,7 +602,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     case 0:
       return int(dispatch<float>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
     case 1:
-      if (mma_path(q, k, v, o, d)) {
+      if (aligned16({q, k, v, o}, d)) {
         if (d <= 16) return int(launch_mma<16>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
         if (d <= 32) return int(launch_mma<32>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
         if (d <= 48) return int(launch_mma<48>(q, k, v, o, lse, bh, sq, sk, d, scale, s));

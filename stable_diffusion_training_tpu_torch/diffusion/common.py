@@ -1,5 +1,5 @@
 """Shared scheduler math: beta schedules, zero-terminal-SNR rescale, forward
-diffusion (``add_noise``) and velocity targets.
+diffusion (``add_noise``), velocity targets and per-timestep SNRs.
 
 Port of ``stable_diffusion_training_tpu/diffusion/common.py`` in PyTorch.
 The tables are f32 like the JAX package's; they differ from it by a few ulps
@@ -137,3 +137,9 @@ def get_velocity(
     """v-prediction target: v = sqrt(abar_t) eps - sqrt(1-abar_t) x_0."""
     sqrt_alpha_prod, sqrt_one_minus = _gather_sqrt_alpha_prod(state, timesteps, sample.dim())
     return sqrt_alpha_prod * noise - sqrt_one_minus * sample
+
+
+def compute_snrs(alphas_cumprod: torch.Tensor) -> torch.Tensor:
+    """Per-timestep signal-to-noise ratio abar / (1 - abar), the min-SNR-gamma
+    loss weight's input."""
+    return alphas_cumprod / (1 - alphas_cumprod)

@@ -9,6 +9,14 @@ The port's own copy of the name mapping in
   dense kernels ``(in, out)`` -> ``(out, in)``, ``scale``/``embedding`` ->
   ``weight``, ``name_N`` -> ``name.N``, ``to_out`` -> ``to_out.0``, and the
   CLIP tower into transformers' ``text_model.*`` layout.
+- ``jax_param_paths`` gives each torch parameter its path in the JAX
+  package's param tree and the permutation from the torch layout to the JAX
+  one: the optimizer matches its masks on those paths and keeps its
+  quantized momentum in the JAX leaf's element order.
+- ``momentum_from_jax`` and ``lion_momentum_from_jax`` carry the JAX 8-bit
+  Lion state across (any of its momentum layouts, numpy in), so a JAX train
+  state (params, EMA params through ``jax_params_to_state_dict``, Lion
+  momentum) continues in the port.
 - ``load_unet``/``load_vae``/``load_text_encoder`` build a model from a
   diffusers checkpoint directory (``config.json`` + ``.safetensors``), read
   by ``load_safetensors``, a small reader of the format's layout (u64 header
@@ -19,10 +27,11 @@ The port's own copy of the name mapping in
 import json
 import os
 import struct
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..utils.device import resolve_device
 from .clip import CLIPTextModel
@@ -88,6 +97,121 @@ def jax_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     if "token_embedding" in params:
         flat = {_clip_key(k): v for k, v in flat.items()}
     return flat
+
+
+# --- JAX parameter paths and the JAX train state ----------------------------
+
+_CLIP_PREFIXES = ("text_model.embeddings.", "text_model.encoder.", "text_model.")
+
+
+def _jax_module_path(module_name: str, clip: bool) -> Tuple[str, ...]:
+    """A torch module name as the JAX tree nests it: ``down_blocks.0`` ->
+    ``down_blocks_0``, ``to_out.0`` -> ``to_out``; the CLIP tower without
+    transformers' ``text_model``/``embeddings``/``encoder`` levels and with
+    ``mlp_fc1``/``mlp_fc2``."""
+    if clip:
+        for prefix in _CLIP_PREFIXES:
+            if module_name.startswith(prefix):
+                module_name = module_name[len(prefix):]
+                break
+        module_name = module_name.replace("mlp.fc", "mlp_fc")
+    path = []
+    for part in module_name.split(".") if module_name else []:
+        if part.isdigit():
+            if path[-1] != "to_out":
+                path[-1] = f"{path[-1]}_{part}"
+        else:
+            path.append(part)
+    return tuple(path)
+
+
+def jax_param_paths(
+    module: nn.Module,
+) -> Dict[str, Tuple[Tuple[str, ...], Optional[Tuple[int, ...]]]]:
+    """``{torch name: (JAX path, perm)}`` in ``named_parameters`` order.
+
+    The path's last component is JAX's leaf name: ``kernel`` for Dense and
+    Conv weights, ``scale`` for norm weights, ``embedding`` for embedding
+    tables, ``bias``. ``perm`` takes the torch tensor to the JAX layout
+    (``tensor.permute(perm)``): ``(1, 0)`` for a Dense kernel, ``(2, 3, 1,
+    0)`` for a Conv kernel, None where the layouts agree."""
+    clip = isinstance(module, CLIPTextModel)
+    out = {}
+    for name, param in module.named_parameters():
+        module_name, _, leaf = name.rpartition(".")
+        owner = module.get_submodule(module_name)
+        perm = None
+        if leaf == "bias":
+            pass
+        elif isinstance(owner, nn.Embedding):
+            leaf = "embedding"
+        elif isinstance(owner, (nn.GroupNorm, nn.LayerNorm)):
+            leaf = "scale"
+        else:
+            leaf = "kernel"
+            perm = {2: (1, 0), 4: (2, 3, 1, 0)}.get(param.dim())
+        out[name] = (_jax_module_path(module_name, clip) + (leaf,), perm)
+    return out
+
+
+def _momentum_layout(codes_shape, scales_shape) -> str:
+    """The JAX package's quantized-momentum layouts, told apart by the scales
+    shape: transposed ``(1, nb)``, narrow ``(nb, 1)``, dense tile-grouped
+    ``(gpr * x / r, r)`` (a single block is ``(1, 1)`` in both non-dense
+    layouts; its codes tell them apart)."""
+    if tuple(scales_shape) == (1, 1):
+        return "narrow" if codes_shape[0] == 1 and codes_shape[1] > 1 else "transposed"
+    if scales_shape[0] == 1:
+        return "transposed"
+    if scales_shape[1] == 1:
+        return "narrow"
+    return "dense"
+
+
+def momentum_from_jax(codes, scales) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One JAX quantized momentum leaf (numpy, any layout) -> the port's
+    codes ``(n_blocks, bs)`` int8 and scales ``(n_blocks,)`` f32, both in
+    the reference order of the leaf's flat elements."""
+    codes, scales = np.asarray(codes), np.asarray(scales)
+    layout = _momentum_layout(codes.shape, scales.shape)
+    if layout == "dense":
+        # codes are the leaf's (size/128, 128) flat view; scales tile-grouped:
+        # row t*gpr + j, lane c holds block (t*r + c) * gpr + j
+        x = codes.shape[0]
+        rows, r = scales.shape
+        gpr = rows * r // x
+        codes = codes.reshape(-1, 128 // gpr)
+        scales = scales.reshape(x // r, gpr, r).transpose(0, 2, 1)
+    elif layout == "transposed":
+        codes = codes.T
+    return (
+        torch.tensor(np.ascontiguousarray(codes, dtype=np.int8)),
+        torch.tensor(np.ascontiguousarray(scales, dtype=np.float32).reshape(-1)),
+    )
+
+
+def lion_momentum_from_jax(mu_quant: Dict[str, Any], module: nn.Module, device=None) -> Dict[str, Any]:
+    """The JAX 8-bit Lion momentum tree (``ScaleBy8bitLionState.mu_quant``,
+    numpy leaves) -> the port's ``{torch name: momentum}``: a
+    ``QuantizedMomentum`` for each ``(codes, scales)`` leaf, the dense f32
+    momentum permuted to the torch layout for the others."""
+    from ..optim.lion8bit import QuantizedMomentum
+
+    device = resolve_device(device)
+    out = {}
+    for name, (path, perm) in jax_param_paths(module).items():
+        node = mu_quant
+        for key in path:
+            node = node[key]
+        if isinstance(node, tuple):
+            codes, scales = momentum_from_jax(*node)
+            out[name] = QuantizedMomentum(codes.to(device), scales.to(device))
+        else:
+            dense = torch.tensor(np.asarray(node, dtype=np.float32))
+            if perm:
+                dense = dense.permute(*np.argsort(perm)).contiguous()
+            out[name] = dense.to(device)
+    return out
 
 
 # --- safetensors -------------------------------------------------------------

@@ -51,7 +51,8 @@ def library_path(name: str, sources: Sequence[str]) -> str:
     digest = hashlib.sha256()
     for flag in NVCC_FLAGS:
         digest.update(flag.encode())
-    for src in sources:
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for src in (*sources, *headers):  # every header: a source may include any
         with open(os.path.join(CSRC_DIR, src), "rb") as f:
             digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}", f"lib{name}.so")
@@ -60,23 +61,38 @@ def library_path(name: str, sources: Sequence[str]) -> str:
 def build(name: str, sources: Sequence[str]) -> str:
     """Compile ``sources`` (file names under ``csrc/``) into a shared
     library unless a build of the same sources exists; returns its path."""
-    path = library_path(name, sources)
-    if os.path.exists(path):
-        return path
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp]
-    cmd += [os.path.join(CSRC_DIR, s) for s in sources]
-    start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - start
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {name}:\n{proc.stderr}"
+    return build_many({name: sources})[name]
+
+
+def build_many(libraries: Dict[str, Sequence[str]]) -> Dict[str, str]:
+    """Build several libraries at once: one ``nvcc`` per library that is not
+    built yet, all started together, then waited for. Returns each path."""
+    paths = {name: library_path(name, srcs) for name, srcs in libraries.items()}
+    running = {}
+    for name, srcs in libraries.items():
+        path = paths[name]
+        if os.path.exists(path) or name in running:
+            continue
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp]
+        cmd += [os.path.join(CSRC_DIR, s) for s in srcs]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
-    os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
-    BUILD_LOG[name] = (seconds, proc.stdout + proc.stderr)
-    return path
+        running[name] = (proc, tmp, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, start) in running.items():
+        out, _ = proc.communicate()
+        seconds = time.perf_counter() - start
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) building {name}:\n{out}")
+            continue
+        os.replace(tmp, paths[name])  # atomic: a concurrent loader sees all or nothing
+        BUILD_LOG[name] = (seconds, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
 def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:

@@ -1,18 +1,26 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention: the CUDA kernels' wrappers, their plain versions, and
+the autograd Function that joins them.
 
-Port of ``stable_diffusion_training_tpu/ops/flash_attention.py`` (the Pallas
-``_fwd_kernel`` launched by ``_flash_fwd_impl``). The kernel is
-``csrc/flash_attention_fwd.cu``, built with ``nvcc`` at first use and called
-through ctypes. It computes O and the per-row logsumexp with f32 logits and
-accumulator, P cast to V's dtype before the PV product, and the ``l == 0``
-guard. The gradient (the TPU's ``_bwd_dq_kernel``/``_bwd_dkv_kernel``) comes
-with training; inference needs none.
+Port of ``stable_diffusion_training_tpu/ops/flash_attention.py``:
 
-Layouts: ``flash_attention`` takes the models' ``(B, S, H, D)``; the kernel
-takes heads folded to ``(B*H, S, D)`` with contiguous rows and returns lse as
-``(B*H, Sq)``, where the TPU kernel returned ``(B*H, Sq_padded, 1)``.
+- the forward (the Pallas ``_fwd_kernel`` launched by ``_flash_fwd_impl``)
+  is ``csrc/flash_attention_fwd.cu``: O and the per-row logsumexp with f32
+  logits and accumulator, P cast to V's dtype before the PV product, and the
+  ``l == 0`` guard;
+- the backward (``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, launched by
+  ``_flash_bwd``) is ``csrc/flash_attention_bwd.cu``: two kernels, dQ and
+  dK/dV, that recompute P from lse, with ``delta = rowsum(dO * O)`` computed
+  here in f32 as ``_flash_bwd`` does;
+- ``FlashAttention`` is the ``torch.autograd.Function`` around them, the
+  counterpart of the JAX package's ``jax.custom_vjp``: it saves q, k, v, O
+  and lse, and its backward is the two kernels.
 
-CPU tensors take the plain version; CUDA tensors take the kernel or raise.
+The kernels are built with ``nvcc`` at first use and called through ctypes.
+Layouts: ``flash_attention`` takes the models' ``(B, S, H, D)``; the kernels
+take heads folded to ``(B*H, S, D)`` with contiguous rows, and lse is
+``(B*H, Sq)`` where the TPU kernel kept ``(B*H, Sq_padded, 1)``.
+
+CPU tensors take the plain versions; CUDA tensors take the kernels or raise.
 """
 
 import ctypes
@@ -24,13 +32,18 @@ from .cuda_build import load_library
 
 MAX_HEAD_DIM = 512
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_SOURCES = ("flash_attention_fwd.cu",)
+# library name -> sources under csrc/
+LIBRARIES = {
+    "flash_attention_fwd": ("flash_attention_fwd.cu",),
+    "flash_attention_bwd": ("flash_attention_bwd.cu",),
+}
 
 
 def flash_attention_fwd_reference(
     q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor, scale: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the kernel: f32 logits -> lse -> softmax -> PV.
+    """Plain version of the forward kernel: f32 logits -> lse -> softmax ->
+    PV.
 
     ``q3`` ``(BH, Sq, D)``, ``k3``/``v3`` ``(BH, Sk, D)``. P is cast to V's
     dtype before the product, accumulated in f32; O comes back in Q's dtype,
@@ -41,6 +54,29 @@ def flash_attention_fwd_reference(
     p = torch.exp(logits - lse[..., None])
     o = torch.matmul(p.to(v3.dtype).float(), v3.float())
     return o.to(q3.dtype), lse
+
+
+def flash_attention_bwd_reference(
+    q3: torch.Tensor,
+    k3: torch.Tensor,
+    v3: torch.Tensor,
+    do3: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward kernels, in the TPU kernels' numerics:
+    P = exp(S * scale - lse), dV = P^T dO with P cast to dO's dtype,
+    dS = P (dO V^T - delta), dQ = scale dS K and dK = scale dS^T Q with dS
+    cast to K's/Q's dtype; f32 accumulation. Returns dQ, dK, dV in Q's, K's
+    and V's dtypes."""
+    qf, kf, vf, dof = q3.float(), k3.float(), v3.float(), do3.float()
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale - lse[..., None])
+    dv = torch.matmul(p.to(do3.dtype).float().transpose(-1, -2), dof)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta[..., None])
+    dq = scale * torch.matmul(ds.to(k3.dtype).float(), kf)
+    dk = scale * torch.matmul(ds.to(q3.dtype).float().transpose(-1, -2), qf)
+    return dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype)
 
 
 def _check(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor) -> None:
@@ -67,17 +103,71 @@ def _check(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor) -> None:
         )
 
 
-def _library() -> ctypes.CDLL:
-    lib = load_library("flash_attention_fwd", _SOURCES)
-    fn = lib.flash_attention_fwd
+def _check_bwd(q3, k3, v3, do3, lse, delta) -> None:
+    _check(q3, k3, v3)
+    if do3.shape != q3.shape or do3.dtype != q3.dtype or not do3.is_contiguous():
+        raise ValueError(
+            f"dO must be contiguous, shaped and typed as q {tuple(q3.shape)} {q3.dtype}; "
+            f"got {tuple(do3.shape)} {do3.dtype}"
+        )
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q3.shape[:2] or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 (B*H, Sq)")
+    if not (do3.device == lse.device == delta.device == q3.device):
+        raise ValueError("q, dO, lse and delta must be on one device")
+
+
+_FUNCTIONS = {
+    # name: (library, argtypes)
+    "flash_attention_fwd": (
+        "flash_attention_fwd",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    ),
+    "flash_attention_bwd_dq": (
+        "flash_attention_bwd",
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    ),
+    "flash_attention_bwd_dkv": (
+        "flash_attention_bwd",
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    ),
+}
+
+
+def _function(name: str):
+    library, argtypes = _FUNCTIONS[name]
+    fn = getattr(load_library(library, LIBRARIES[library]), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-            ctypes.c_float,
-            ctypes.c_int,
-            ctypes.c_void_p,
-        ]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib
+    return fn
+
+
+def _launch(name: str, q3: torch.Tensor, k3: torch.Tensor, *args) -> None:
+    """Call kernel entry ``name`` on the current stream of q's device and
+    count the launch (total and by shape) on its wrapper."""
+    bh, sq, d = q3.shape
+    sk = k3.shape[1]
+    with torch.cuda.device(q3.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _function(name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{name} launch failed: cudaError {rc} "
+            f"(q {tuple(q3.shape)}, k {tuple(k3.shape)}, {q3.dtype})"
+        )
+    wrapper = _WRAPPERS[name]
+    wrapper.launches += 1
+    shape = (bh, sq, sk, d, str(q3.dtype).replace("torch.", ""))
+    wrapper.launches_by_shape[shape] = wrapper.launches_by_shape.get(shape, 0) + 1
+
+
+def _on_cuda(name: str, t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {t.device}")
+    return True
 
 
 def flash_attention_fwd(
@@ -96,41 +186,101 @@ def flash_attention_fwd(
     _check(q3, k3, v3)
     if scale is None:
         scale = q3.shape[-1] ** -0.5
-    if q3.device.type == "cpu":
+    if not _on_cuda("flash_attention_fwd", q3):
         return flash_attention_fwd_reference(q3, k3, v3, scale)
-    if q3.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd runs on cuda or cpu, not {q3.device}")
-
     bh, sq, d = q3.shape
-    sk = k3.shape[1]
     o = torch.empty_like(q3)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q3.device)
-    with torch.cuda.device(q3.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _library().flash_attention_fwd(
-            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            bh, sq, sk, d, float(scale), _DTYPE_CODES[q3.dtype], stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"flash_attention_fwd launch failed: cudaError {rc} "
-            f"(q {tuple(q3.shape)}, k {tuple(k3.shape)}, {q3.dtype})"
-        )
-    flash_attention_fwd.launches += 1
-    shape = (bh, sq, sk, d, str(q3.dtype).replace("torch.", ""))
-    flash_attention_fwd.launches_by_shape[shape] = (
-        flash_attention_fwd.launches_by_shape.get(shape, 0) + 1
+    _launch(
+        "flash_attention_fwd", q3, k3,
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        bh, sq, k3.shape[1], d, float(scale), _DTYPE_CODES[q3.dtype],
     )
     return o, lse
 
 
-flash_attention_fwd.launches = 0
-flash_attention_fwd.launches_by_shape = {}
+def flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta, scale: float) -> torch.Tensor:
+    """dQ ``(BH, Sq, D)`` in Q's dtype from the CUDA kernel (K2), counted in
+    ``flash_attention_bwd_dq.launches``. CUDA tensors only."""
+    _check_bwd(q3, k3, v3, do3, lse, delta)
+    if not _on_cuda("flash_attention_bwd_dq", q3):
+        raise ValueError("flash_attention_bwd_dq launches the CUDA kernel: CUDA tensors only")
+    bh, sq, d = q3.shape
+    dq = torch.empty_like(q3)
+    _launch(
+        "flash_attention_bwd_dq", q3, k3,
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), bh, sq, k3.shape[1], d, float(scale),
+        _DTYPE_CODES[q3.dtype],
+    )
+    return dq
+
+
+def flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta, scale: float):
+    """dK and dV ``(BH, Sk, D)`` in K's and V's dtypes from the CUDA kernel
+    (K3), counted in ``flash_attention_bwd_dkv.launches``. CUDA tensors
+    only."""
+    _check_bwd(q3, k3, v3, do3, lse, delta)
+    if not _on_cuda("flash_attention_bwd_dkv", q3):
+        raise ValueError("flash_attention_bwd_dkv launches the CUDA kernel: CUDA tensors only")
+    bh, sq, d = q3.shape
+    dk = torch.empty_like(k3)
+    dv = torch.empty_like(v3)
+    _launch(
+        "flash_attention_bwd_dkv", q3, k3,
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, sq, k3.shape[1], d,
+        float(scale), _DTYPE_CODES[q3.dtype],
+    )
+    return dk, dv
+
+
+def flash_attention_bwd(q3, k3, v3, do3, lse, delta, scale: float):
+    """dQ, dK, dV: the two backward kernels for CUDA tensors,
+    ``flash_attention_bwd_reference`` for CPU tensors."""
+    _check_bwd(q3, k3, v3, do3, lse, delta)
+    if not _on_cuda("flash_attention_bwd", q3):
+        return flash_attention_bwd_reference(q3, k3, v3, do3, lse, delta, scale)
+    dq = flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta, scale)
+    dk, dv = flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta, scale)
+    return dq, dk, dv
+
+
+_WRAPPERS = {
+    "flash_attention_fwd": flash_attention_fwd,
+    "flash_attention_bwd_dq": flash_attention_bwd_dq,
+    "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+}
 
 
 def reset_launch_counts() -> None:
-    flash_attention_fwd.launches = 0
-    flash_attention_fwd.launches_by_shape = {}
+    for wrapper in _WRAPPERS.values():
+        wrapper.launches = 0
+        wrapper.launches_by_shape = {}
+
+
+reset_launch_counts()
+
+
+class FlashAttention(torch.autograd.Function):
+    """O = softmax(q k^T scale) v over folded ``(BH, S, D)`` tensors, with the
+    flash kernels as forward and backward. Saves q, k, v, O and lse, as the
+    JAX package's ``_flash_fwd`` does."""
+
+    @staticmethod
+    def forward(ctx, q3, k3, v3, scale):
+        o, lse = flash_attention_fwd(q3, k3, v3, scale)
+        ctx.save_for_backward(q3, k3, v3, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do3):
+        q3, k3, v3, o, lse = ctx.saved_tensors
+        do3 = do3.to(q3.dtype).contiguous()
+        delta = (do3.float() * o.float()).sum(-1)
+        dq, dk, dv = flash_attention_bwd(q3, k3, v3, do3, lse, delta, ctx.scale)
+        return dq, dk, dv, None
 
 
 def _fold_heads(x: torch.Tensor) -> torch.Tensor:
@@ -150,10 +300,13 @@ def flash_attention(
     value: torch.Tensor,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Flash attention over ``(B, S, H, D)`` tensors; numerics match
+    """Flash attention over ``(B, S, H, D)`` tensors, differentiable through
+    the backward kernels; numerics match
     ``ops.attention.dot_product_attention``."""
-    b, _, h, _ = query.shape
-    o, _ = flash_attention_fwd(
-        _fold_heads(query), _fold_heads(key), _fold_heads(value), scale
+    b, _, h, d = query.shape
+    if scale is None:
+        scale = d**-0.5
+    o = FlashAttention.apply(
+        _fold_heads(query), _fold_heads(key), _fold_heads(value), float(scale)
     )
     return _unfold_heads(o, b, h)

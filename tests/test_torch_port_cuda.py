@@ -1,4 +1,4 @@
-"""The CUDA flash-attention kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 These cases need an NVIDIA GPU and nvcc and skip elsewhere. The file imports
 no JAX, so it also runs on a machine with the card and no JAX installed:
@@ -6,11 +6,17 @@ no JAX, so it also runs on a machine with the card and no JAX installed:
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 
 (``tests/conftest.py`` imports JAX; ``--noconftest`` leaves it out.)
-Shapes cover the three kernels behind the entry point: tensor cores for bf16
-with D % 8 == 0 (D <= 64, and the wide-head kernel for D = 80, 128, 160,
-512) and CUDA cores for f32 and for D = 36; and the edges: one query and one
-key, a single ragged key tile, and a last key tile of one key.
-Tolerances are those of ``chip_smoke.py``.
+
+Flash attention, forward (K1) and backward (K2 dQ, K3 dK/dV): shapes cover
+the kernels behind each entry point, tensor cores for bf16 with D % 8 == 0
+(D <= 64 forward and backward, the forward's wide-head kernel for D = 80,
+128, 160, 512) and CUDA cores for f32, D = 36 and the backward above D = 64;
+and the edges: one query and one key, a single ragged key tile, and a last
+key tile of one key. 8-bit Lion (K4 single leaf, K5 many leaves): update
+signs and scales equal to the plain version's, codes at most one apart
+(CUDA's powf and torch's pow may differ by an ulp). Tolerances are those of
+``chip_smoke.py``. The fault this slice repaired is covered too: grads flow
+through the flash route on CUDA tensors.
 """
 
 import numpy as np
@@ -18,29 +24,35 @@ import pytest
 import torch
 
 from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+from stable_diffusion_training_tpu_torch.ops.attention import attention
 
-TOL = {"float32": dict(o=1e-4, lse=1e-4), "bfloat16": dict(o=1e-2, lse=1e-3)}
+TOL = {"float32": dict(o=1e-4, lse=1e-4, grad=1e-4), "bfloat16": dict(o=1e-2, lse=1e-3, grad=1e-2)}
+SHAPES = [(4, 300, 300, 40), (2, 257, 129, 64), (3, 100, 70, 36), (2, 130, 190, 80),
+          (1, 70, 100, 160), (1, 200, 333, 512), (3, 1, 1, 8), (2, 33, 5, 24),
+          (1, 17, 2049, 128)]
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _qkv(bh, sq, sk, d, dtype, seed=7):
+    rng = np.random.default_rng(seed)
+    return [
+        torch.tensor(rng.standard_normal((bh, s, d)), dtype=torch.float32).to(getattr(torch, dtype)).cuda()
+        for s in (sq, sk, sk, sq)
+    ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize(
-    "bh,sq,sk,d",
-    [(4, 300, 300, 40), (2, 257, 129, 64), (3, 100, 70, 36), (2, 130, 190, 80),
-     (1, 70, 100, 160), (1, 200, 333, 512), (3, 1, 1, 8), (2, 33, 5, 24),
-     (1, 17, 2049, 128)],
-)
+@pytest.mark.parametrize("bh,sq,sk,d", SHAPES)
 def test_cuda_kernel_matches_plain_version(bh, sq, sk, d, dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU and nvcc")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    rng = np.random.default_rng(7)
-    q, k, v = (
-        torch.tensor(rng.standard_normal((bh, s, d)), dtype=torch.float32)
-        .to(getattr(torch, dtype))
-        .cuda()
-        for s in (sq, sk, sk)
-    )
+    _need_cuda()
+    q, k, v, _ = _qkv(bh, sq, sk, d, dtype)
     fa.reset_launch_counts()
     o, lse = fa.flash_attention_fwd(q, k, v)
     torch.cuda.synchronize()
@@ -52,11 +64,94 @@ def test_cuda_kernel_matches_plain_version(bh, sq, sk, d, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bh,sq,sk,d", SHAPES)
+def test_backward_kernels_match_plain_version(bh, sq, sk, d, dtype):
+    _need_cuda()
+    q, k, v, do = _qkv(bh, sq, sk, d, dtype, seed=8)
+    scale = d**-0.5
+    o, lse = fa.flash_attention_fwd(q, k, v, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    fa.reset_launch_counts()
+    grads = fa.flash_attention_bwd(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd_dq.launches == 1 and fa.flash_attention_bwd_dkv.launches == 1
+    expected = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, expected):
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        bound = TOL[dtype]["grad"] * max(1.0, want.float().abs().max().item())
+        torch.testing.assert_close(got.float(), want.float(), atol=bound, rtol=0, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grads_flow_through_the_flash_route(dtype):
+    """q/k/v grads through ``attention(..., backend="flash")`` on CUDA tensors
+    are not None and match the plain route's (the forward kernel alone left
+    its output without a grad_fn)."""
+    _need_cuda()
+    rng = np.random.default_rng(9)
+    make = lambda s: torch.tensor(rng.standard_normal((2, s, 4, 40)), dtype=torch.float32).to(getattr(torch, dtype)).cuda()
+    q, k, v, do = make(300), make(250), make(250), make(300)
+    results = []
+    for backend in ("flash", "xla"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fa.reset_launch_counts()
+        out = attention(*leaves, backend=backend)
+        out.backward(do)
+        assert all(t.grad is not None for t in leaves), backend
+        launched = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq.launches,
+                    fa.flash_attention_bwd_dkv.launches)
+        assert launched == ((1, 1, 1) if backend == "flash" else (0, 0, 0)), backend
+        results.append([t.grad.float() for t in leaves])
+    for got, want in zip(*results):
+        torch.testing.assert_close(got, want, atol=TOL[dtype]["grad"], rtol=0)
+
+
+def _lion_leaves(sizes, bs, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    grads, codes, scales = [], [], []
+    for n in sizes:
+        grads.append((torch.randn(n, generator=gen, device="cuda") * 1e-3).to(dtype))
+        c, s = lk.block_quantize(torch.randn(n, generator=gen, device="cuda") * 1e-4, bs)
+        codes.append(c)
+        scales.append(s)
+    return grads, codes, scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compander", ["exact", "fast"])
+@pytest.mark.parametrize("bs,dtype", [(16, torch.bfloat16), (8, torch.float32), (64, torch.bfloat16),
+                                      (32, torch.float32)])
+def test_lion_kernel_matches_plain_version(bs, dtype, compander):
+    _need_cuda()
+    sizes = [bs * 100003, bs * 3, bs, bs * 4096]
+    grads, codes, scales = _lion_leaves(sizes, bs, dtype, seed=bs)
+    expected = [lk.lion8bit_update_reference(g, c, s, compander=compander) for g, c, s in zip(grads, codes, scales)]
+    lk.reset_launch_counts()
+    single = [(c.clone(), s.clone()) for c, s in zip(codes, scales)]
+    upd_single = [lk.lion8bit_update_(g, c, s, compander=compander) for g, (c, s) in zip(grads, single)]
+    multi = [(c.clone(), s.clone()) for c, s in zip(codes, scales)]
+    upd_multi = lk.lion8bit_update_multi_(grads, [c for c, _ in multi], [s for _, s in multi], compander=compander)
+    torch.cuda.synchronize()
+    assert lk.lion8bit_update_.launches == len(sizes) and lk.lion8bit_update_multi_.launches == 1
+    for (e_upd, e_codes, e_scales), u1, u2, (c1, s1), (c2, s2) in zip(expected, upd_single, upd_multi, single, multi):
+        for u, c, s in ((u1, c1, s1), (u2, c2, s2)):
+            assert u.dtype == dtype
+            torch.testing.assert_close(u, e_upd, atol=0, rtol=0)
+            torch.testing.assert_close(s, e_scales, atol=0, rtol=0)
+            assert int((c.int() - e_codes.int()).abs().max()) <= 1
+
+
+@pytest.mark.cuda
 def test_cuda_tensor_never_takes_the_plain_version():
     """A CUDA tensor the kernel does not take raises; it is not sent to the
     plain version."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU")
+    _need_cuda()
     x = torch.zeros(2, 8, 40, dtype=torch.float16, device="cuda")
     with pytest.raises(TypeError):
         fa.flash_attention_fwd(x, x, x)
+    g = torch.zeros(128, device="cuda")
+    with pytest.raises(ValueError, match="block sizes"):
+        lk.lion8bit_update_(g, torch.zeros(1, 128, dtype=torch.int8, device="cuda"),
+                            torch.ones(1, device="cuda"))

@@ -1,0 +1,168 @@
+"""The port's flash-attention backward against the JAX package's, on the CPU.
+
+The JAX side is ``jax.vjp`` of ``flash_attention(..., interpret=True)``, its
+custom VJP running the Pallas ``_bwd_dq_kernel``/``_bwd_dkv_kernel`` as
+``tests/test_flash_attention.py`` runs them. On the CPU the port's wrappers
+take the plain versions, so these tests hold ``flash_attention_bwd_reference``
+(which ``chip_smoke.py`` holds the CUDA kernels against on the card) and the
+``FlashAttention`` autograd Function's grads to the TPU kernels' numerics.
+
+Tolerance: f32, 1e-5 absolute on dQ, dK and dV (of magnitude ~1). Both sides
+form the same f32 products and sums in other orders, and JAX pads the
+sequences to its 128-row blocks with masked columns.
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from stable_diffusion_training_tpu.ops import flash_attention as jax_fa
+from stable_diffusion_training_tpu.ops.attention import attention as jax_attention
+from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+
+# the module, not the ``attention`` function the package exports under its name
+attention_mod = importlib.import_module("stable_diffusion_training_tpu_torch.ops.attention")
+
+ATOL = 1e-5
+SHAPES = [  # (B, Sq, Sk, H, D)
+    pytest.param(1, 256, 256, 2, 40, id="d40"),
+    pytest.param(2, 200, 130, 2, 40, id="ragged-sk-lt-sq-d40"),
+    pytest.param(1, 150, 300, 1, 64, id="ragged-sk-gt-sq-d64"),
+    pytest.param(1, 96, 77, 3, 36, id="cross-d36"),
+]
+
+
+def _inputs(b, sq, sk, h, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return (
+        rng.standard_normal((b, sq, h, d)).astype(np.float32),
+        rng.standard_normal((b, sk, h, d)).astype(np.float32),
+        rng.standard_normal((b, sk, h, d)).astype(np.float32),
+        rng.standard_normal((b, sq, h, d)).astype(np.float32),
+    )
+
+
+def _jax_grads(q, k, v, do):
+    fn = lambda q, k, v: jax_fa.flash_attention(q, k, v, block_q=128, block_k=128, interpret=True)
+    o, vjp = jax.vjp(fn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return np.asarray(o), [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+def _fold(x):
+    b, s, h, d = x.shape
+    return torch.tensor(x).permute(0, 2, 1, 3).reshape(b * h, s, d).contiguous()
+
+
+def _unfold(x, b, h):
+    bh, s, d = x.shape
+    return x.reshape(b, h, s, d).permute(0, 2, 1, 3).numpy()
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d", SHAPES)
+def test_plain_backward_matches_jax_vjp(b, sq, sk, h, d):
+    q, k, v, do = _inputs(b, sq, sk, h, d)
+    _, expected = _jax_grads(q, k, v, do)
+    q3, k3, v3, do3 = (_fold(x) for x in (q, k, v, do))
+    scale = d**-0.5
+    o3, lse = fa.flash_attention_fwd(q3, k3, v3, scale)
+    delta = (do3 * o3).sum(-1)
+    grads = fa.flash_attention_bwd_reference(q3, k3, v3, do3, lse, delta, scale)
+    assert [g.shape for g in grads] == [q3.shape, k3.shape, v3.shape]
+    for got, want in zip(grads, expected):
+        np.testing.assert_allclose(_unfold(got, b, h), want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d", SHAPES)
+def test_autograd_function_grads_match_jax_vjp(b, sq, sk, h, d):
+    """The public ``(B, S, H, D)`` entry through ``FlashAttention``: O, and
+    the grads autograd gets from its backward."""
+    q, k, v, do = _inputs(b, sq, sk, h, d, seed=1)
+    o_j, expected = _jax_grads(q, k, v, do)
+    tensors = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    o = fa.flash_attention(*tensors)
+    np.testing.assert_allclose(o.detach().numpy(), o_j, atol=2e-5, rtol=0)
+    o.backward(torch.tensor(do))
+    for t, want in zip(tensors, expected):
+        np.testing.assert_allclose(t.grad.numpy(), want, atol=ATOL, rtol=0)
+
+
+def test_bf16_backward_rounds_p_and_ds():
+    """bf16: P is rounded to dO's dtype before P^T dO and dS to K's/Q's
+    before the dQ/dK products (1e-2 at grads ~1: a few bf16 ulps of the
+    f32-accumulated sums, as in the forward's bf16 bound)."""
+    b, sq, sk, h, d = 1, 130, 90, 2, 40
+    q, k, v, do = _inputs(b, sq, sk, h, d, seed=2)
+    bf = jnp.bfloat16
+    fn = lambda q, k, v: jax_fa.flash_attention(q, k, v, block_q=128, block_k=128, interpret=True)
+    _, vjp = jax.vjp(fn, *(jnp.asarray(x).astype(bf) for x in (q, k, v)))
+    expected = [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(do).astype(bf))]
+    tensors = [torch.tensor(x).bfloat16().requires_grad_() for x in (q, k, v)]
+    fa.flash_attention(*tensors).backward(torch.tensor(do).bfloat16())
+    for t, want in zip(tensors, expected):
+        assert t.grad.dtype == torch.bfloat16
+        np.testing.assert_allclose(t.grad.float().numpy(), want, atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "sq,sk,masked",
+    [(2048, 77, False), (1024, 227, False), (1500, 77, False), (1024, 77, True), (256, 77, False)],
+    ids=["chunked", "one-chunk", "ragged-chunks", "masked", "short-query"],
+)
+def test_xla_remat_route_matches_jax(sq, sk, masked):
+    """``"xla_remat"``: query chunks of ``QUERY_CHUNK`` recomputed in the
+    backward; forward and grads equal the JAX route's (same f32 math in
+    another order: 1e-5)."""
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((1, sq, 2, 8)).astype(np.float32)
+    k = rng.standard_normal((1, sk, 2, 8)).astype(np.float32)
+    v = rng.standard_normal((1, sk, 2, 8)).astype(np.float32)
+    do = rng.standard_normal((1, sq, 2, 8)).astype(np.float32)
+    mask = np.where(rng.random((1, 1, sq, sk)) < 0.2, -1e9, 0.0).astype(np.float32) if masked else None
+    fn = lambda q, k, v: jax_attention(q, k, v, mask=None if mask is None else jnp.asarray(mask), backend="xla_remat")
+    o_j, vjp = jax.vjp(fn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    expected = vjp(jnp.asarray(do))
+    tensors = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    o = attention_mod.attention(
+        *tensors, mask=None if mask is None else torch.tensor(mask), backend="xla_remat"
+    )
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(o_j), atol=ATOL, rtol=0)
+    o.backward(torch.tensor(do))
+    for t, want in zip(tensors, expected):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+
+def test_auto_policy_is_the_jax_packages():
+    """``"auto"`` on CPU tensors: long queries take ``xla_remat``, short ones
+    ``xla`` (flash needs CUDA tensors), as the JAX package picks off the TPU."""
+    picked = []
+    real = attention_mod._remat_attention
+
+    def spy(*args):
+        picked.append(args[0].shape[1])
+        return real(*args)
+
+    attention_mod._remat_attention = spy
+    try:
+        for sq in (attention_mod.REMAT_MIN_QUERY - 1, attention_mod.REMAT_MIN_QUERY, 2 * attention_mod.QUERY_CHUNK):
+            x = torch.zeros(1, sq, 1, 8, requires_grad=True)
+            attention_mod.attention(x, x[:, :77], x[:, :77])
+    finally:
+        attention_mod._remat_attention = real
+    assert picked == [attention_mod.REMAT_MIN_QUERY] + [attention_mod.QUERY_CHUNK] * 2
+
+
+def test_backward_kernel_wrappers_reject_cpu_tensors():
+    """The K2/K3 wrappers launch the kernels: a CPU tensor is an error there
+    (``flash_attention_bwd`` is the entry that takes the plain version)."""
+    x = torch.zeros(1, 8, 40)
+    lse = torch.zeros(1, 8)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fa.flash_attention_bwd_dq(x, x, x, x, lse, lse, 0.1)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fa.flash_attention_bwd_dkv(x, x, x, x, lse, lse, 0.1)
+    with pytest.raises(ValueError, match="dO must be"):
+        fa.flash_attention_bwd(x, x, x, torch.zeros(1, 8, 40, dtype=torch.bfloat16), lse, lse, 0.1)

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``stable_diffusion_training_tpu_torch``
 and not ``chip_smoke.py`` imports JAX, flax or the JAX package; the package
-imports on a CPU-only torch with no nvcc and no triton; ``chip_smoke.py``
-refuses to run without a GPU or outside the repository."""
+imports on a CPU-only torch with no nvcc and no triton, the train slice's
+modules included; ``chip_smoke.py`` refuses to run without a GPU or outside
+the repository."""
 
 import ast
 import os
@@ -14,6 +15,14 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = "stable_diffusion_training_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "stable_diffusion_training_tpu")
+# the modules and kernel sources each slice adds; all are walked below
+SLICE_MODULES = (
+    "diffusion/ddim.py", "pipeline/stable_diffusion.py", "ops/flash_attention.py",  # serving
+    "diffusion/ddpm.py", "utils/context.py", "ops/lion_kernel.py", "optim/masks.py",
+    "optim/lion8bit.py", "optim/transforms.py", "train/config.py", "train/states.py",
+    "train/train_step.py",  # training
+)
+KERNEL_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "lion8bit_update.cu")
 
 
 def _port_files():
@@ -37,7 +46,10 @@ def _imported_modules(path):
 
 def test_port_imports_no_jax_and_not_the_jax_package():
     files = _port_files()
-    assert len(files) > 10
+    rel = {os.path.relpath(p, os.path.join(REPO, PACKAGE)) for p in files[1:]}
+    assert set(SLICE_MODULES) <= rel
+    for src in KERNEL_SOURCES:
+        assert os.path.exists(os.path.join(REPO, PACKAGE, "csrc", src)), src
     offenders = [
         (os.path.relpath(path, REPO), module)
         for path in files
