@@ -169,7 +169,7 @@ def lion8bit_update_(
         )
     if rc != 0:
         raise RuntimeError(f"lion8bit_update launch failed: cudaError {rc} ({nb} blocks of {bs})")
-    lion8bit_update_.launches += 1
+    _count(lion8bit_update_, (nb, bs, grad.dtype))
     return upd
 
 
@@ -199,33 +199,46 @@ def lion8bit_update_multi_(
         raise ValueError("all leaves of one launch are on one device")
     fast = fast_compander(compander)
     updates = [torch.empty_like(g) for g in grads]
-    rows = [
-        [g.data_ptr(), c.data_ptr(), s.data_ptr(), u.data_ptr()]
-        for g, c, s, u in zip(grads, codes, scales, updates)
-    ]
-    counts = torch.tensor([0] + [c.shape[0] for c in codes], dtype=torch.int64)
+    offsets = [0]
+    for c in codes:
+        offsets.append(offsets[-1] + c.shape[0])
     device = grads[0].device
-    table = torch.tensor(rows, dtype=torch.int64).to(device)
-    offsets = torch.cumsum(counts, 0).to(device)
+    # the leaf table (4 pointers per leaf, then the block offsets) goes over
+    # from pinned memory without waiting: a copy from pageable memory would
+    # first wait for all the work queued on the device
+    host = torch.tensor(
+        [t.data_ptr() for leaf in zip(grads, codes, scales, updates) for t in leaf] + offsets,
+        dtype=torch.int64,
+    ).pin_memory()
+    table = host.to(device, non_blocking=True)
     fn = _function(
         "lion8bit_update_multi",
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong] + _COMMON_ARGS,
     )
     with torch.cuda.device(device):
         rc = fn(
-            table.data_ptr(), offsets.data_ptr(), len(grads), int(counts.sum()), bs,
+            table.data_ptr(), table[4 * len(grads):].data_ptr(), len(grads), offsets[-1], bs,
             *_coefs(b1, b2), int(fast), _DTYPE_CODES[grads[0].dtype],
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"lion8bit_update_multi launch failed: cudaError {rc} ({len(grads)} leaves)")
-    lion8bit_update_multi_.launches += 1
+    _count(lion8bit_update_multi_, (len(grads), offsets[-1], bs, grads[0].dtype))
     return updates
 
 
+def _count(wrapper, shape) -> None:
+    """One launch of ``wrapper``: in total and by shape (single leaf: blocks,
+    block size, grad dtype; many leaves: leaves, blocks, block size, dtype)."""
+    wrapper.launches += 1
+    key = shape[:-1] + (str(shape[-1]).replace("torch.", ""),)
+    wrapper.launches_by_shape[key] = wrapper.launches_by_shape.get(key, 0) + 1
+
+
 def reset_launch_counts() -> None:
-    lion8bit_update_.launches = 0
-    lion8bit_update_multi_.launches = 0
+    for wrapper in (lion8bit_update_, lion8bit_update_multi_):
+        wrapper.launches = 0
+        wrapper.launches_by_shape = {}
 
 
 reset_launch_counts()

@@ -161,14 +161,7 @@ def scale_by_lion_8bit(
                     to_jax(name, g), m.codes, m.scales, b1, b2, compander
                 )
                 new_updates[name], new_mu[name] = from_jax(name, upd), m
-        if len(bucket) == 1:
-            name = bucket[0]
-            m = state.mu_quant[name]
-            upd = lion_kernel.lion8bit_update_(
-                to_jax(name, updates[name]), m.codes, m.scales, b1, b2, compander
-            )
-            new_updates[name], new_mu[name] = from_jax(name, upd), m
-        elif bucket:
+        if bucket:
             moms = [state.mu_quant[name] for name in bucket]
             upds = lion_kernel.lion8bit_update_multi_(
                 [to_jax(name, updates[name]) for name in bucket],

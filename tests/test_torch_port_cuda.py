@@ -27,7 +27,12 @@ from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
 from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
 from stable_diffusion_training_tpu_torch.ops.attention import attention
 
-TOL = {"float32": dict(o=1e-4, lse=1e-4, grad=1e-4), "bfloat16": dict(o=1e-2, lse=1e-3, grad=1e-2)}
+TOL = {"float32": dict(o=1e-4, lse=1e-4, grad=1e-4, grad_fro=1e-5),
+       "bfloat16": dict(o=1e-2, lse=1e-3, grad=1e-2, grad_fro=3.9e-3)}
+# Backward errors are relative to the tensor's max |grad| (and Frobenius
+# norm). Where the grads cancel to ~0 (one key: dS = dP - delta), both sides
+# are f32 rounding of unit-scale terms, so the scale never drops below 0.1.
+GRAD_SCALE_FLOOR = 0.1
 SHAPES = [(4, 300, 300, 40), (2, 257, 129, 64), (3, 100, 70, 36), (2, 130, 190, 80),
           (1, 70, 100, 160), (1, 200, 333, 512), (3, 1, 1, 8), (2, 33, 5, 24),
           (1, 17, 2049, 128)]
@@ -79,8 +84,11 @@ def test_backward_kernels_match_plain_version(bh, sq, sk, d, dtype):
     expected = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale)
     for name, got, want in zip(("dq", "dk", "dv"), grads, expected):
         assert got.dtype == want.dtype and got.shape == want.shape, name
-        bound = TOL[dtype]["grad"] * max(1.0, want.float().abs().max().item())
-        torch.testing.assert_close(got.float(), want.float(), atol=bound, rtol=0, msg=name)
+        got, want = got.float(), want.float()
+        bound = TOL[dtype]["grad"] * max(GRAD_SCALE_FLOOR, want.abs().max().item())
+        torch.testing.assert_close(got, want, atol=bound, rtol=0, msg=name)
+        fro_scale = max(want.norm().item(), GRAD_SCALE_FLOOR * want.numel() ** 0.5)
+        assert (got - want).norm().item() <= TOL[dtype]["grad_fro"] * fro_scale, name
 
 
 @pytest.mark.cuda
