@@ -25,7 +25,12 @@ Phases, one JSON line each:
    over every SD1.5 leaf above the bucket limit (single-leaf entry, K4, one
    launch each) and over the UNet's and CLIP's small-leaf buckets
    (multi-leaf entry, K5), bs 16, bf16 grads, exact and fast companders,
-   plus a bs-64 leaf set.
+   plus a bs-64 leaf set; the functional entry ``fused_lion8bit_update``
+   over the largest SD1.5 UNet leaf: narrow (K6) at bs 16 and 128 (the
+   cooperative variant) in bf16 and at bs 16 in f32, wide (K7) at bs 16 and
+   4 in bf16. That entry is the path that runs K6 and K7 (the JAX package
+   calls them from nowhere else): each case first drives it for three
+   updates with the counts zeroed just before and read just after.
 4. ``parity``: one full-width SD1.5 UNet call at 512x512 in f32 (TF32 off),
    seeded weights, attention_backend "auto" (kernel) against "xla" (plain).
 5. ``slice``: the SD1.5 text-to-image pipeline at full width in bf16,
@@ -40,10 +45,13 @@ Phases, one JSON line each:
 6. ``train_parity``: one full-width SD1.5 UNet forward and backward at
    512x512, batch 1, f32 (TF32 off), "auto" (K1 + K2 + K3) against "xla"
    (plain): the loss within 1e-5 relative, every grad within 1e-4 of its
-   tensor's max |grad|, and exactly 5 forward and 5 backward launches. Then
-   the same in bf16, where the tensor-core kernels run: each route's bf16
-   grads against the f32 plain grads, the kernels' no further off than
-   twice the plain route's, tensor by tensor.
+   tensor's max |grad|, and exactly 5 forward and 5 backward launches. The
+   same "auto" step with gradient checkpointing (every down, mid and up
+   block recomputed in the backward) against it within the same bounds,
+   with K1 launched 5 more times by the recompute. Then the same in bf16,
+   where the tensor-core kernels run: each route's bf16 grads against the
+   f32 plain grads, the kernels' no further off than twice the plain
+   route's, tensor by tensor.
 7. ``train``: the SD1.5 train step at full width through
    ``train.on_device_model_training_state`` and ``train.train_step``, with
    the example config's training settings (v-prediction, zero-SNR,
@@ -55,11 +63,26 @@ Phases, one JSON line each:
    single-leaf entry once per leaf over the bucket limit, the multi-leaf
    entry twice, per step). Then one step under torch.profiler (``profile``
    line).
+8. ``trainer``: the port's trainer through ``trainer.main``, the body of
+   ``python -m stable_diffusion_training_tpu_torch.training``, with the same
+   settings (SD1.5 ``sd15`` seeded weights, bf16, 512x512, batch 8) on
+   ``InMemoryDataLoader.synthetic`` batches, in a run directory under
+   ``.cache/`` that is deleted at the end: one chunk of 3 steps, then a
+   second invocation on the mutated JSON that resumes from the chunk's
+   ``train_state/``. Checks: the JSON fields and its backup, ``loss.csv``,
+   the save probe deleted, rotation, the EMA checkpoints, the chunk
+   checkpoint reloaded by the port's loader equal to the saved state's
+   params cast to f32, the restored momentum equal to the saved one, and
+   every kernel of the train step launched. Prints the step p50 inside the
+   trainer beside the ``train`` phase's, seconds per ``save_model`` and per
+   ``save_train_state``, bytes written and peak disk use.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Before the last line it prints the ``kernels`` record (every kernel and
 shape with its launches on the main path and its times) and the card's
-nvidia-smi line; the last line is ``{"ok": true, "device": {...}}``.
+nvidia-smi line; the last line is ``{"ok": true, "device": {...}}``. The
+phase lines and the ``kernels`` record also go, whole, to
+``chiprun_out/chip_smoke.jsonl``.
 """
 
 import argparse
@@ -74,7 +97,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = "stable_diffusion_training_tpu_torch"
 CSRC = f"{PACKAGE}/csrc"
 JAX_OPS = "stable_diffusion_training_tpu/ops"
-ALL_PHASES = ("gpu", "build", "kernels", "parity", "slice", "train_parity", "train")
+ALL_PHASES = ("gpu", "build", "kernels", "parity", "slice", "train_parity", "train", "trainer")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): 989 TFLOP/s bf16 tensor core,
 # 67 TFLOP/s f32 on the CUDA cores (TF32 would change the numerics), 3.35
@@ -128,8 +151,14 @@ TRAIN_BATCH, TRAIN_RES, TRAIN_CONCAT = 8, 512, 3
 LION_BS, BUCKET_MAX_NB = 16, 65536
 
 
+RECORD = os.path.join(REPO, "chiprun_out", "chip_smoke.jsonl")  # every phase line, in full
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    line = json.dumps({"phase": phase, **fields})
+    print(line, flush=True)
+    with open(RECORD, "a") as f:
+        f.write(line + "\n")
 
 
 def nvidia_smi_line():
@@ -320,7 +349,11 @@ def phase_kernels(state):
     state["kernel_cases"] = results
     state["bwd_cases"] = flash_backward_cases()
     state["lion_cases"] = lion_cases()
-    bad = [r for r in results + state["bwd_cases"] + state["lion_cases"] if not r["ok"]]
+    state["lion_fused_cases"] = lion_fused_cases()
+    bad = [
+        r for r in results + state["bwd_cases"] + state["lion_cases"] + state["lion_fused_cases"]
+        if not r["ok"]
+    ]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
 
@@ -495,6 +528,68 @@ def lion_cases():
     return rows
 
 
+def lion_fused_cases():
+    """K6 (narrow) and K7 (wide) through ``fused_lion8bit_update`` over the
+    largest SD1.5 UNet leaf, against ``lion8bit_update_reference``: update
+    signs and scales equal, codes at most one apart, counted. Each case
+    first drives the entry, its path, for three updates (new codes and
+    scales fed back) with the launch counts zeroed just before and read
+    just after; then compares one update with the plain version and times
+    the kernel alone (``ms``, in place on copies) and the whole functional
+    entry (``entry_ms``, with its copies of the codes and scales)."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+
+    n = max(sd15_lion_leaves()["unet"]["single_sizes"])
+    cases = [  # (layout, bs, grad dtype)
+        ("narrow", 16, torch.bfloat16), ("narrow", 128, torch.bfloat16), ("narrow", 16, torch.float32),
+        ("wide", 16, torch.bfloat16), ("wide", 4, torch.bfloat16),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    rows = []
+    for layout, bs, dtype in cases:
+        name_dt = str(dtype).replace("torch.", "")
+        grad = (torch.randn(n, generator=gen, device="cuda") * 1e-3).to(dtype)
+        codes, scales = lk.block_quantize(torch.randn(n, generator=gen, device="cuda") * 1e-4, bs)
+        scales = scales[:, None]
+        nb = n // bs
+        lk.reset_launch_counts()
+        c, s = codes, scales
+        for _ in range(3):
+            _, c, s = lk.fused_lion8bit_update(grad, c, s, layout=layout)
+        torch.cuda.synchronize()
+        launches = lk.fused_lion8bit_update.launches_by_shape.get((layout, nb, bs, name_dt), 0)
+        upd, new_codes, new_scales = lk.fused_lion8bit_update(grad, codes, scales, layout=layout)
+        torch.cuda.synchronize()
+        e_upd, e_codes, e_scales = lk.lion8bit_update_reference(grad, codes, scales[:, 0])
+        d = (new_codes.int() - e_codes.int()).abs()
+        updates_equal = bool(torch.equal(upd, e_upd))
+        scales_equal = bool(torch.equal(new_scales[:, 0], e_scales))
+        max_code_diff, codes_off = int(d.max()), int((d > 0).sum())
+        del d, e_upd, e_codes, e_scales, upd, new_codes, new_scales
+        work_codes, work_scales = codes.clone(), scales[:, 0].clone()
+        kernel_ms = cuda_ms(lambda: lk._launch_single(grad, work_codes, work_scales, 0.9, 0.99, False), 20)
+        entry_ms = cuda_ms(lambda: lk.fused_lion8bit_update(grad, codes, scales, layout=layout), 20)
+        plain_ms = cuda_ms(lambda: lk.lion8bit_update_reference(grad, codes, scales[:, 0]), 2, warmup=1)
+        # grad in, sign out (grad's dtype), int8 codes in and out, f32 scale in and out per block
+        nbytes = n * (2 * grad.element_size() + 2) + nb * 8
+        row = dict(
+            case=f"largest_unet_leaf_{layout}_bs{bs}_{name_dt}", layout=layout, bs=bs, dtype=name_dt,
+            elements=n, blocks=nb, cooperative=bs > 64, path_launches=launches,
+            updates_equal=updates_equal, scales_equal=scales_equal, max_code_diff=max_code_diff,
+            codes_off_by_one=codes_off,
+            ok=updates_equal and scales_equal and max_code_diff <= 1 and launches == 3,
+            kernel_ms=kernel_ms, entry_ms=entry_ms, plain_ms=plain_ms,
+            bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes", gbytes_per_s=nbytes / kernel_ms / 1e6,
+        )
+        rows.append(row)
+        emit("kernels_lion_fused", **row)
+        del grad, codes, scales, c, s, work_codes, work_scales
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_parity(state):
     import torch
 
@@ -665,9 +760,10 @@ def phase_train_parity(state):
     target = torch.randn(1, 4, 64, 64, generator=gen, device="cuda")
     t = torch.tensor([421], device="cuda")
 
-    def loss_and_grads(backend, dtype):
+    def loss_and_grads(backend, dtype, checkpointing=False):
         model = UNet2DConditionModel(**configs.SD15_UNET, attention_backend=backend, device="cuda", dtype=dtype)
         model.load_state_dict(weights, strict=True)
+        model.set_gradient_checkpointing(checkpointing)
         fa.reset_launch_counts()
         out = model(sample.to(dtype), t, ctx.to(dtype))
         loss = ((out.float() - target) ** 2).mean()
@@ -682,12 +778,31 @@ def phase_train_parity(state):
     kernel_launches, plain_launches = dict(fwd=5, bwd_dq=5, bwd_dkv=5), dict(fwd=0, bwd_dq=0, bwd_dkv=0)
     loss_k, grads_k, launches_k = loss_and_grads("auto", torch.float32)
     loss_p, grads_p, launches_p = loss_and_grads("xla", torch.float32)
-    worst, worst_name = 0.0, None
-    for name, gk, gp in zip(names, grads_k, grads_p):
-        rel = (gk - gp).abs().max().item() / max(gp.abs().max().item(), 1e-30)
-        if rel > worst:
-            worst, worst_name = rel, name
-    del grads_k
+    def worst_rel(grads, reference):  # worst max |diff| over the tensor's max |grad|
+        worst, worst_name = 0.0, None
+        for name, g, ref in zip(names, grads, reference):
+            rel = (g - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+            if rel > worst:
+                worst, worst_name = rel, name
+        return worst, worst_name
+
+    worst, worst_name = worst_rel(grads_k, grads_p)
+    # the same step with every down, mid and up block recomputed in the
+    # backward: K1 runs once more in each recompute
+    loss_gc, grads_gc, launches_gc = loss_and_grads("auto", torch.float32, checkpointing=True)
+    worst_gc, worst_gc_name = worst_rel(grads_gc, grads_k)
+    del grads_k, grads_gc
+    loss_gc_rel = abs(loss_gc - loss_k) / abs(loss_k)
+    ok_gc = (
+        loss_gc_rel <= TRAIN_LOSS_REL_TOL and worst_gc <= TRAIN_GRAD_REL_TOL
+        and launches_gc == dict(kernel_launches, fwd=2 * kernel_launches["fwd"])
+    )
+    emit(
+        "train_parity", dtype="float32", case="gradient_checkpointing", loss=loss_gc,
+        loss_without=loss_k, loss_rel_diff=loss_gc_rel, loss_rel_tol=TRAIN_LOSS_REL_TOL,
+        worst_grad_rel_diff=worst_gc, worst_grad=worst_gc_name, grad_rel_tol=TRAIN_GRAD_REL_TOL,
+        kernel_launches=launches_gc, kernel_launches_without=launches_k, ok=ok_gc,
+    )
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     ok = (
         loss_rel <= TRAIN_LOSS_REL_TOL and worst <= TRAIN_GRAD_REL_TOL
@@ -728,7 +843,7 @@ def phase_train_parity(state):
     )
     del grads_p
     torch.cuda.empty_cache()
-    if not (ok and ok_bf16):
+    if not (ok and ok_bf16 and ok_gc):
         raise AssertionError("full-width UNet training: kernel and plain attention disagree")
 
 
@@ -860,6 +975,173 @@ def phase_train(state, warmup=2, steps=5, seed=0):
     )
 
 
+TRAINER_STEPS = 3  # steps per chunk (the example config's chunks run to the loader's end)
+
+
+def _tree_bytes(path):
+    total = 0
+    for root, _, files in os.walk(path):
+        for name in files:
+            try:
+                total += os.path.getsize(os.path.join(root, name))
+            except OSError:  # deleted between the walk and the stat (rotation)
+                pass
+    return total
+
+
+def phase_trainer(state, seed=0):
+    """The port's trainer at full width through ``trainer.main``: one chunk,
+    then a resume from its ``train_state/``, with the artifacts checked."""
+    import gc
+    import shutil
+    import threading
+
+    import numpy as np
+    import torch
+
+    from stable_diffusion_training_tpu_torch.data import InMemoryDataLoader
+    from stable_diffusion_training_tpu_torch.models import configs, hf_io
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+    from stable_diffusion_training_tpu_torch.train import trainer
+    from stable_diffusion_training_tpu_torch.utils.json_io import read_json_file
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    set_tf32(False)
+    run_dir = os.path.join(REPO, ".cache", "chip_smoke_trainer")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    free_before = shutil.disk_usage(run_dir).free
+    base = os.path.join(run_dir, "ckpt", "run")
+    cfg = dict(
+        train_config().__dict__,
+        model_path=f"{base}@0", test_save_path=os.path.join(run_dir, "probe"),
+        loss_csv=os.path.join(run_dir, "loss.csv"), master_seed=seed, chunk_number=0,
+        chunk_limit=1, chunk_steps=0, keep_trained_model_buffer=1, loss_logging_interval=1,
+        DEBUG=False, numb_of_prefetched_batch=1, device_prefetch_depth=2,
+    )
+    config_path = os.path.join(run_dir, "model_properties.json")
+    with open(config_path, "w") as f:
+        json.dump(cfg, f)
+
+    # instrumentation of this run only: the time and bytes of each save, and
+    # the restored momentum held against the files it came from
+    timings = {"save_model": [], "save_train_state": []}
+    restored_ok = []
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            out_dir = kwargs.get("output_dir") or args[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            timings[name].append(dict(s=time.perf_counter() - t0, bytes=_tree_bytes(out_dir)))
+            return out
+        return wrapper
+
+    def checked_restore(directory, template):
+        restored = restore(directory, template)
+        for part in ("unet_state", "text_encoder_state"):
+            saved = hf_io.load_safetensors(os.path.join(directory, f"{part}.safetensors"))
+            for name, m in restored[part].opt_state[1][0].mu_quant.items():
+                if hasattr(m, "codes"):
+                    key = f"{part}/opt_state/1/0/mu_quant/{name}"
+                    restored_ok.append(
+                        torch.equal(m.codes.cpu(), saved[f"{key}/codes"])
+                        and torch.equal(m.scales.cpu(), saved[f"{key}/scales"])
+                    )
+            del saved
+        return restored
+
+    save_model, save_state, restore = trainer.save_model, trainer.save_train_state, trainer.restore_train_state
+    trainer.save_model = timed("save_model", save_model)
+    trainer.save_train_state = timed("save_train_state", save_state)
+    trainer.restore_train_state = checked_restore
+    peak = [0]
+    stop = threading.Event()
+
+    def watch_disk():
+        while not stop.is_set():
+            peak[0] = max(peak[0], _tree_bytes(run_dir))
+            stop.wait(0.2)
+
+    watcher = threading.Thread(target=watch_disk, daemon=True)
+    watcher.start()
+    vocab = configs.MODEL_FAMILIES[cfg["model_family"]]["text_encoder"]["vocab_size"]
+    try:
+        fa.reset_launch_counts()
+        lk.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(2):  # one chunk, then the resume on the mutated JSON
+            loader = InMemoryDataLoader.synthetic(
+                TRAINER_STEPS, TRAIN_BATCH, [(TRAIN_RES, TRAIN_RES)], concat_count=TRAIN_CONCAT,
+                vocab_size=vocab, seed=seed,
+            )
+            trainer.main(config_path, dataloader=loader, tokenizer=None)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = dict(
+            flash_fwd=fa.flash_attention_fwd.launches, flash_bwd_dq=fa.flash_attention_bwd_dq.launches,
+            flash_bwd_dkv=fa.flash_attention_bwd_dkv.launches,
+            lion_single=lk.lion8bit_update_.launches, lion_multi=lk.lion8bit_update_multi_.launches,
+        )
+    finally:
+        stop.set()
+        watcher.join(timeout=10)
+        trainer.save_model, trainer.save_train_state, trainer.restore_train_state = save_model, save_state, restore
+
+    final = read_json_file(config_path)
+    backup = read_json_file(os.path.join(run_dir, "backup_model_properties.json"))
+    with open(cfg["loss_csv"]) as f:
+        lines = f.read().splitlines()
+    rows = [line.split(",") for line in lines[1:] if line]
+    losses = [float(r[2]) for r in rows]
+    # interval 1: each row's time is one step's, host clock; the first row
+    # of each invocation also holds that invocation's first-step set-up
+    step_s = [float(r[3]) for i, r in enumerate(rows) if i % TRAINER_STEPS]
+    state_dir = os.path.join(f"{base}@1", trainer.TRAIN_STATE_SUBDIR)
+    reload_equal = True
+    for name, loader_fn in (("unet", hf_io.load_unet), ("text_encoder", hf_io.load_text_encoder)):
+        model = loader_fn(os.path.join(f"{base}@1", name), device="cpu")
+        saved = hf_io.load_safetensors(os.path.join(state_dir, f"{name}_state.safetensors"))
+        for k, p in model.named_parameters():
+            reload_equal = reload_equal and torch.equal(p, saved[f"{name}_state/params/{k}"].float())
+        del model, saved
+    checks = dict(
+        json=(final["chunk_number"], final["chunk_steps"], final["master_seed"], final["model_path"])
+        == (1, 2, seed + 2, f"{base}@1"),
+        backup=backup["chunk_steps"] == 1 and backup["model_path"] == f"{base}@0",
+        loss_csv=lines[0] == "steps, step_size, loss, time, chunk, seed"
+        and len(rows) == 2 * TRAINER_STEPS and bool(np.all(np.isfinite(losses))),
+        probe_deleted=not os.path.exists(cfg["test_save_path"])
+        and not os.path.exists(cfg["test_save_path"] + "-EMA"),
+        rotation=os.path.isdir(f"{base}@1") and not os.path.exists(f"{base}@0"),
+        ema=os.path.isdir(f"{base}-EMA@1") and not os.path.exists(f"{base}-EMA@0"),
+        reload_equal=reload_equal,
+        restored_momentum_equal=bool(restored_ok) and all(restored_ok),
+        kernels_launched=all(launches.values()),
+    )
+    p50_ms = statistics.median(step_s) * 1e3
+    train_p50 = state.get("train", {}).get("p50_ms")
+    row = dict(
+        steps=2 * TRAINER_STEPS, chunks=2, batch=TRAIN_BATCH, resolution=TRAIN_RES, dtype="bfloat16",
+        wall_s=wall_s, losses=losses, step_ms=[x * 1e3 for x in step_s], p50_ms=p50_ms,
+        train_phase_p50_ms=train_p50, ratio_to_train_phase=p50_ms / train_p50 if train_p50 else None,
+        save_model_s=[t["s"] for t in timings["save_model"]],
+        save_train_state_s=[t["s"] for t in timings["save_train_state"]],
+        save_model_bytes=[t["bytes"] for t in timings["save_model"]],
+        save_train_state_bytes=[t["bytes"] for t in timings["save_train_state"]],
+        bytes_written=sum(t["bytes"] for ts in timings.values() for t in ts),
+        peak_disk_bytes=peak[0], disk_free_before=free_before, launches=launches,
+        restored_momentum_leaves=len(restored_ok), checks=checks, ok=all(checks.values()),
+    )
+    emit("trainer", **row)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    if not row["ok"]:
+        raise AssertionError(f"trainer failed its checks: {checks}")
+
+
 def kernels_line(state):
     """The per-kernel record: each kernel at each shape its main paths give
     it, with its launches at that shape in the run of its path (the serving
@@ -914,6 +1196,18 @@ def kernels_line(state):
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=None,
         ))
+    for row in state.get("lion_fused_cases", []):
+        # K6/K7's path is their own entry: launches from each case's path run
+        entries.append(dict(
+            name=(f"fused_lion8bit_update[layout={row['layout']} {row['blocks']}x{row['bs']} "
+                  f"{row['dtype']} exact{', cooperative' if row['cooperative'] else ''}; "
+                  f"path: the fused_lion8bit_update entry]"),
+            route="cuda", source=f"{CSRC}/lion8bit_update.cu",
+            replaces=f"{JAX_OPS}/lion_kernel.py:{393 if row['layout'] == 'narrow' else 221}",
+            launches=row["path_launches"], max_abs_err=float(row["max_code_diff"]),
+            ms=row["kernel_ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=None,
+        ))
     return {"kernels": entries}
 
 
@@ -935,6 +1229,8 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    os.makedirs(os.path.dirname(RECORD), exist_ok=True)
+    open(RECORD, "w").close()
 
     state = {}
     phase_gpu(state)  # always: every number below stands beside this card
@@ -950,12 +1246,16 @@ def main(argv=None):
         phase_train_parity(state)
     if "train" in phases:
         phase_train(state)
+    if "trainer" in phases:
+        phase_trainer(state)
 
     line = kernels_line(state)
     if {"kernels", "slice", "train"} <= set(phases):
         idle = [e["name"] for e in line["kernels"] if not e["launches"]]
         if idle:
             raise AssertionError(f"checked at a shape its path never launched it at: {idle}")
+    with open(RECORD, "a") as f:
+        f.write(json.dumps(line) + "\n")
     print(json.dumps(line))
     print(state["smi"])
     print(json.dumps({

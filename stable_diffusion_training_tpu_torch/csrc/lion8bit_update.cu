@@ -3,11 +3,12 @@
 // momentum and requantizes it with a fresh per-block scale.
 //
 // Replaces the TPU kernels `_lion_kernel_dense` (K4, via
-// `fused_lion8bit_update_dense`) and `_lion_kernel_transposed` (K5, via
-// `fused_lion8bit_update_transposed_packed`) in
-// stable_diffusion_training_tpu/ops/lion_kernel.py. Both compute, for each
-// block of `bs` consecutive elements of a leaf in the JAX package's flat
-// element order:
+// `fused_lion8bit_update_dense`), `_lion_kernel_transposed` (K5, via
+// `fused_lion8bit_update_transposed_packed`), `_lion_kernel` (K6, via
+// `fused_lion8bit_update(layout="narrow")`) and `_lion_kernel_wide` (K7, via
+// `layout="wide"`) in stable_diffusion_training_tpu/ops/lion_kernel.py. All
+// four compute, for each block of `bs` consecutive elements of a leaf in the
+// JAX package's flat element order:
 //   mu    = ((q / 127)^5 - off) / scale            (exact compander)
 //         = (q^5 * 127^-5 - off) * (1 / scale)     (fast compander)
 //   upd   = sign((1 - b1) g + b1 mu)               (in the grad's dtype)
@@ -22,19 +23,27 @@
 //
 // Layout: codes (n_blocks, bs) int8 and scales (n_blocks,) f32 per leaf, the
 // reference order of lion_quant.py; codes and scales are updated in place.
-// One kernel serves both entries: `lion8bit_update` launches it over one
-// leaf (K4's role: every large leaf), `lion8bit_update_multi` over a table
-// of leaves (K5's role: all small leaves of a model in one launch, instead
-// of one launch per leaf or the JAX package's concat/split copies). A table
-// row is four pointers (grad, codes, scales, update) and a prefix sum of
-// block counts maps a thread's global block to its leaf.
+// One kernel serves every entry: `lion8bit_update` launches it over one
+// leaf (K4's role: every large leaf; and K6's and K7's, whose TPU layouts
+// differ only in how blocks sit on the 128 lanes, while the bytes are these
+// same (n_blocks, bs) rows), `lion8bit_update_multi` over a table of leaves
+// (K5's role: all small leaves of a model in one launch, instead of one
+// launch per leaf or the JAX package's concat/split copies). A table row is
+// four pointers (grad, codes, scales, update) and a prefix sum of block
+// counts maps a thread's global block to its leaf.
 //
 // What bounds it on this card: bytes. Per element it reads a bf16 grad and
 // an int8 code and writes a bf16 sign and an int8 code (6 B, plus 8 B of
 // scale per block), against ~40 flops and one powf: far below the ~295
-// flop/byte ridge. The design: one thread per block, so the absmax and the
-// requantization stay in registers with no shuffles or shared memory;
-// blocks are read and written as 16-byte vectors where their size allows.
+// flop/byte ridge. The design: for bs <= 64 one thread per block, so the
+// absmax and the requantization stay in registers with no shuffles or
+// shared memory; blocks are read and written as 16-, 8- or 4-byte vectors
+// where their size allows. At bs = 128 one thread would hold 3 x 128 values
+// and spill, so a group of 16 neighbouring lanes of a warp takes a block,
+// 8 elements each, and the block's absmax meets across the group through
+// __shfl_xor_sync: max does not depend on the order, so every element gets
+// the same bits whichever variant ran it. Block sizes 1, 2, 4, 8, 16, 32,
+// 64 and 128 are built; any other is refused (cudaErrorInvalidValue).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -45,6 +54,15 @@ namespace {
 constexpr float kOffset = 3.7398995e-09f;  // _ZERO_CROSSING_OFFSET
 constexpr float kPow5C = 0x1.0a3d1cp-35f;  // float32(127^-5), the fast compander's constant
 constexpr int kThreads = 256;
+
+// how a block of BS elements is split over threads: kVec elements on each
+// of kGroup neighbouring lanes (kGroup divides 32 and kThreads)
+template <int BS>
+struct Split {
+  static constexpr int kVec = BS <= 64 ? BS : 8;
+  static constexpr int kGroup = BS / kVec;
+  static_assert(kVec * kGroup == BS && 32 % kGroup == 0, "block size split");
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -61,7 +79,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 __device__ __forceinline__ float sign(float x) { return x > 0.f ? 1.f : (x < 0.f ? -1.f : x); }
 
 // copy N elements of T between global memory and a register array, in
-// 16-, 8- or 4-byte vectors as the size allows
+// 16-, 8- or 4-byte vectors as the size allows (the wrappers hand in
+// 16-byte aligned tensors; a part starts at a multiple of its own size)
 template <typename T, int N>
 __device__ __forceinline__ void copy_in(T (&dst)[N], const T* src) {
   constexpr int kBytes = N * sizeof(T);
@@ -73,6 +92,10 @@ __device__ __forceinline__ void copy_in(T (&dst)[N], const T* src) {
 #pragma unroll
     for (int i = 0; i < kBytes / 8; ++i)
       reinterpret_cast<uint2*>(dst)[i] = reinterpret_cast<const uint2*>(src)[i];
+  } else if constexpr (kBytes % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < kBytes / 4; ++i)
+      reinterpret_cast<unsigned*>(dst)[i] = reinterpret_cast<const unsigned*>(src)[i];
   } else {
 #pragma unroll
     for (int i = 0; i < N; ++i) dst[i] = src[i];
@@ -90,6 +113,10 @@ __device__ __forceinline__ void copy_out(T* dst, const T (&src)[N]) {
 #pragma unroll
     for (int i = 0; i < kBytes / 8; ++i)
       reinterpret_cast<uint2*>(dst)[i] = reinterpret_cast<const uint2*>(src)[i];
+  } else if constexpr (kBytes % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < kBytes / 4; ++i)
+      reinterpret_cast<unsigned*>(dst)[i] = reinterpret_cast<const unsigned*>(src)[i];
   } else {
 #pragma unroll
     for (int i = 0; i < N; ++i) dst[i] = src[i];
@@ -100,49 +127,61 @@ struct Coefs {
   float c1, b1, c2, b2;  // 1 - b1, b1, 1 - b2, b2, each rounded to f32
 };
 
-// one quantization block of one leaf
+// kVec consecutive elements of one quantization block of one leaf: part
+// `part` of the block's kGroup parts, which lie on neighbouring lanes of one
+// warp. `valid` is false for a lane past the last block: it still takes part
+// in the shuffles, which need every lane of the warp, and stores nothing.
 template <typename T, int BS, bool FAST>
-__device__ __forceinline__ void lion_block(const T* __restrict__ g, int8_t* __restrict__ codes,
-                                           float* __restrict__ scale, T* __restrict__ upd,
-                                           Coefs k) {
-  alignas(16) T gv[BS];
-  alignas(16) int8_t qv[BS];
-  alignas(16) T uv[BS];
-  float mu[BS];
-  copy_in(gv, g);
-  copy_in(qv, codes);
-  const float s = *scale;
-  const float inv = FAST ? 1.0f / s : 0.f;
+__device__ __forceinline__ void lion_part(const T* __restrict__ g, int8_t* __restrict__ codes,
+                                          float* __restrict__ scale, T* __restrict__ upd,
+                                          Coefs k, bool valid, int part) {
+  constexpr int kVec = Split<BS>::kVec;
+  constexpr int kGroup = Split<BS>::kGroup;
+  alignas(16) T gv[kVec];
+  alignas(16) int8_t qv[kVec];
+  alignas(16) T uv[kVec];
+  float mu[kVec];
   float amax = 0.f;
+  if (valid) {
+    copy_in(gv, g);
+    copy_in(qv, codes);
+    // read before the shuffles below, which part 0's store follows
+    const float s = *scale;
+    const float inv = FAST ? 1.0f / s : 0.f;
 #pragma unroll
-  for (int i = 0; i < BS; ++i) {
-    const float gi = to_f32(gv[i]);
-    const float q = static_cast<float>(qv[i]);
-    float m;
-    if (FAST) {
-      const float q2 = __fmul_rn(q, q);
-      const float q5 = __fmul_rn(__fmul_rn(q2, q2), q);
-      m = __fmul_rn(__fsub_rn(__fmul_rn(q5, kPow5C), kOffset), inv);
-    } else {
-      const float x = __fdiv_rn(q, 127.0f);
-      const float x2 = __fmul_rn(x, x);
-      const float x5 = __fmul_rn(x, __fmul_rn(x2, x2));
-      m = __fdiv_rn(__fsub_rn(x5, kOffset), s);
+    for (int i = 0; i < kVec; ++i) {
+      const float gi = to_f32(gv[i]);
+      const float q = static_cast<float>(qv[i]);
+      float m;
+      if (FAST) {
+        const float q2 = __fmul_rn(q, q);
+        const float q5 = __fmul_rn(__fmul_rn(q2, q2), q);
+        m = __fmul_rn(__fsub_rn(__fmul_rn(q5, kPow5C), kOffset), inv);
+      } else {
+        const float x = __fdiv_rn(q, 127.0f);
+        const float x2 = __fmul_rn(x, x);
+        const float x5 = __fmul_rn(x, __fmul_rn(x2, x2));
+        m = __fdiv_rn(__fsub_rn(x5, kOffset), s);
+      }
+      uv[i] = from_f32<T>(sign(__fadd_rn(__fmul_rn(k.c1, gi), __fmul_rn(k.b1, m))));
+      mu[i] = __fadd_rn(__fmul_rn(k.c2, gi), __fmul_rn(k.b2, m));
+      amax = fmaxf(amax, fabsf(mu[i]));
     }
-    uv[i] = from_f32<T>(sign(__fadd_rn(__fmul_rn(k.c1, gi), __fmul_rn(k.b1, m))));
-    mu[i] = __fadd_rn(__fmul_rn(k.c2, gi), __fmul_rn(k.b2, m));
-    amax = fmaxf(amax, fabsf(mu[i]));
   }
+#pragma unroll
+  for (int lane = kGroup / 2; lane > 0; lane >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, lane));
+  if (!valid) return;
   const float s_new = __fdiv_rn(1.0f, amax <= 0.f ? 1.0f : amax);
 #pragma unroll
-  for (int i = 0; i < BS; ++i) {
+  for (int i = 0; i < kVec; ++i) {
     const float shifted = __fadd_rn(__fmul_rn(mu[i], s_new), kOffset);
     const float p = powf(fabsf(shifted), 0.2f);
     qv[i] = static_cast<int8_t>(rintf(__fmul_rn(p * sign(shifted), 127.0f)));
   }
   copy_out(upd, uv);
   copy_out(codes, qv);
-  *scale = s_new;
+  if (part == 0) *scale = s_new;
 }
 
 template <typename T, int BS, bool FAST>
@@ -150,10 +189,13 @@ __global__ void __launch_bounds__(kThreads)
     lion_single_kernel(const T* __restrict__ g, int8_t* __restrict__ codes,
                        float* __restrict__ scales, T* __restrict__ upd, int64_t n_blocks,
                        Coefs k) {
-  const int64_t blk = int64_t(blockIdx.x) * kThreads + threadIdx.x;
-  if (blk >= n_blocks) return;
-  const int64_t off = blk * BS;
-  lion_block<T, BS, FAST>(g + off, codes + off, scales + blk, upd + off, k);
+  constexpr int kGroup = Split<BS>::kGroup;
+  const int64_t blk = (int64_t(blockIdx.x) * kThreads + threadIdx.x) / kGroup;
+  const int part = threadIdx.x % kGroup;
+  const bool valid = blk < n_blocks;
+  if (kGroup == 1 && !valid) return;  // no shuffles to take part in
+  const int64_t off = blk * BS + part * Split<BS>::kVec;
+  lion_part<T, BS, FAST>(g + off, codes + off, scales + blk, upd + off, k, valid, part);
 }
 
 // table: n_leaves rows of (grad, codes, scales, update) pointers; offsets:
@@ -162,8 +204,11 @@ template <typename T, int BS, bool FAST>
 __global__ void __launch_bounds__(kThreads)
     lion_multi_kernel(const int64_t* __restrict__ table, const int64_t* __restrict__ offsets,
                       int n_leaves, Coefs k) {
-  const int64_t blk = int64_t(blockIdx.x) * kThreads + threadIdx.x;
-  if (blk >= offsets[n_leaves]) return;
+  constexpr int kGroup = Split<BS>::kGroup;
+  const int64_t blk = (int64_t(blockIdx.x) * kThreads + threadIdx.x) / kGroup;
+  const int part = threadIdx.x % kGroup;
+  const bool valid = blk < offsets[n_leaves];
+  if (kGroup == 1 && !valid) return;  // no shuffles to take part in
   int lo = 0, hi = n_leaves;  // the leaf with offsets[lo] <= blk < offsets[lo + 1]
   while (hi - lo > 1) {
     const int mid = (lo + hi) / 2;
@@ -172,18 +217,18 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int64_t* row = table + 4 * lo;
   const int64_t local = blk - offsets[lo];
-  const int64_t off = local * BS;
-  lion_block<T, BS, FAST>(reinterpret_cast<const T*>(row[0]) + off,
-                          reinterpret_cast<int8_t*>(row[1]) + off,
-                          reinterpret_cast<float*>(row[2]) + local,
-                          reinterpret_cast<T*>(row[3]) + off, k);
+  const int64_t off = local * BS + part * Split<BS>::kVec;
+  lion_part<T, BS, FAST>(reinterpret_cast<const T*>(row[0]) + off,
+                         reinterpret_cast<int8_t*>(row[1]) + off,
+                         reinterpret_cast<float*>(row[2]) + local,
+                         reinterpret_cast<T*>(row[3]) + off, k, valid, part);
 }
 
 template <typename T, int BS, bool FAST>
 cudaError_t launch(const void* g, int8_t* codes, float* scales, void* upd, int64_t n_blocks,
                    const int64_t* table, const int64_t* offsets, int n_leaves, Coefs k,
                    cudaStream_t stream) {
-  const int64_t grid = (n_blocks + kThreads - 1) / kThreads;
+  const int64_t grid = (n_blocks * Split<BS>::kGroup + kThreads - 1) / kThreads;
   if (grid == 0) return cudaSuccess;
   if (grid > 0x7fffffff) return cudaErrorInvalidValue;
   if (table == nullptr) {
@@ -201,10 +246,14 @@ cudaError_t by_block_size(int bs, const void* g, int8_t* codes, float* scales, v
                           int64_t n_blocks, const int64_t* table, const int64_t* offsets,
                           int n_leaves, Coefs k, cudaStream_t s) {
   switch (bs) {
+    case 1: return launch<T, 1, FAST>(g, codes, scales, upd, n_blocks, table, offsets, n_leaves, k, s);
+    case 2: return launch<T, 2, FAST>(g, codes, scales, upd, n_blocks, table, offsets, n_leaves, k, s);
+    case 4: return launch<T, 4, FAST>(g, codes, scales, upd, n_blocks, table, offsets, n_leaves, k, s);
     case 8: return launch<T, 8, FAST>(g, codes, scales, upd, n_blocks, table, offsets, n_leaves, k, s);
     case 16: return launch<T, 16, FAST>(g, codes, scales, upd, n_blocks, table, offsets, n_leaves, k, s);
     case 32: return launch<T, 32, FAST>(g, codes, scales, upd, n_blocks, table, offsets, n_leaves, k, s);
     case 64: return launch<T, 64, FAST>(g, codes, scales, upd, n_blocks, table, offsets, n_leaves, k, s);
+    case 128: return launch<T, 128, FAST>(g, codes, scales, upd, n_blocks, table, offsets, n_leaves, k, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -225,7 +274,8 @@ cudaError_t dispatch(int dtype, int fast, int bs, const void* g, int8_t* codes, 
 
 // One leaf: g and upd (n_blocks * bs) of dtype 0 = float32 or 1 = bfloat16,
 // in the JAX package's flat element order; codes (n_blocks, bs) int8 and
-// scales (n_blocks,) float32, updated in place. bs in {8, 16, 32, 64};
+// scales (n_blocks,) float32, updated in place. bs in {1, 2, 4, 8, 16, 32,
+// 64, 128};
 // fast = 1 picks the fast compander. Launches on `stream` and returns
 // the launch's cudaError_t (0 on success); does not synchronise.
 extern "C" int lion8bit_update(const void* g, int8_t* codes, float* scales, void* upd,

@@ -6,6 +6,9 @@ names follow diffusers, so ``state_dict()`` keys are the checkpoint keys
 (``to_out.0``, ``ff.net.0.proj``, ``ff.net.2``). Self- and cross-attention
 both go through ``ops.attention.attention``, which sends long unmasked
 self-attention on CUDA tensors to the flash kernel. Spatial tensors are NCHW.
+A transformer block recomputes its feed-forward in the backward when
+``ff_gradient_checkpointing`` is set (the JAX package's
+``ff_gradient_checkpointing``, ``nn.remat`` around ``FeedForward``).
 """
 
 from typing import Optional
@@ -13,6 +16,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
 
@@ -104,13 +108,17 @@ class BasicTransformerBlock(nn.Module):
         )
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim)
+        self.ff_gradient_checkpointing = False
 
     def forward(self, hidden_states: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         hidden_states = hidden_states + self.attn1(
             self.norm1(hidden_states), context if self.only_cross_attention else None
         )
         hidden_states = hidden_states + self.attn2(self.norm2(hidden_states), context)
-        return hidden_states + self.ff(self.norm3(hidden_states))
+        normed = self.norm3(hidden_states)
+        if self.ff_gradient_checkpointing and torch.is_grad_enabled():
+            return hidden_states + checkpoint(self.ff, normed, use_reentrant=False)
+        return hidden_states + self.ff(normed)
 
 
 class Transformer2DModel(nn.Module):

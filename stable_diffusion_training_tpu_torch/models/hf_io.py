@@ -21,7 +21,8 @@ The port's own copy of the name mapping in
   diffusers checkpoint directory (``config.json`` + ``.safetensors``), read
   by ``load_safetensors``, a small reader of the format's layout (u64 header
   length, JSON header, raw little-endian tensors), so no ``safetensors``
-  package is needed.
+  package is needed; ``save_safetensors`` writes that layout, and
+  ``save_weights`` a model's params in f32 under their diffusers names.
 """
 
 import json
@@ -253,6 +254,50 @@ def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
             tensor = torch.empty(0, dtype=dtype)
         out[key] = tensor.reshape(info["shape"])
     return out
+
+
+_ST_NAMES = {dtype: name for name, dtype in _ST_DTYPES.items()}
+
+
+def save_safetensors(
+    tensors: Dict[str, torch.Tensor],
+    path: str,
+    metadata: Optional[Dict[str, str]] = None,
+    dtype: Optional[torch.dtype] = None,
+) -> None:
+    """Write ``tensors`` as a ``.safetensors`` file: u64 header length, the
+    JSON header (padded with spaces to 8 bytes), then each tensor's raw
+    little-endian bytes, in the given order, with no gaps. Tensors move to
+    the host one at a time, each cast to ``dtype`` on the way if given."""
+    header: Dict[str, Any] = {"__metadata__": dict(metadata)} if metadata else {}
+    offset = 0
+    for key, t in tensors.items():
+        dt = dtype or t.dtype
+        if dt not in _ST_NAMES:
+            raise ValueError(f"tensor {key} has unsupported dtype {dt}")
+        nbytes = t.numel() * dt.itemsize
+        header[key] = {
+            "dtype": _ST_NAMES[dt], "shape": list(t.shape), "data_offsets": [offset, offset + nbytes],
+        }
+        offset += nbytes
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            if t.numel():
+                host = t.detach().to(dtype or t.dtype).contiguous().cpu().reshape(-1)
+                f.write(host.view(torch.uint8).numpy().data)
+
+
+def save_weights(params: Dict[str, torch.Tensor], directory: str, filename: str) -> None:
+    """A model's params (``{diffusers name: tensor}``) as f32 safetensors in
+    ``directory``, the layout the JAX package's ``hf_io`` writes and reads."""
+    os.makedirs(directory, exist_ok=True)
+    save_safetensors(
+        params, os.path.join(directory, filename), metadata={"format": "pt"}, dtype=torch.float32
+    )
 
 
 def _load_weights(directory: str) -> Dict[str, torch.Tensor]:

@@ -2,8 +2,12 @@
 
 Port of ``stable_diffusion_training_tpu/models/unet.py``. Attention goes
 through ``ops.attention`` (the CUDA flash kernel for the 64x64 latent level
-on the card). The SDXL ``text_time`` add-embedding and gradient
-checkpointing come with later slices.
+on the card). ``set_gradient_checkpointing`` is the JAX package's
+``gradient_checkpointing`` (``nn.remat`` around each down, mid and up block)
+and ``ff_gradient_checkpointing`` (around each transformer feed-forward),
+with ``torch.utils.checkpoint``: the wrapped forward runs again in the
+backward, the flash kernel included, and its launch counter counts that
+run. The SDXL ``text_time`` add-embedding comes with a later slice.
 """
 
 from typing import Optional, Sequence, Tuple
@@ -11,9 +15,11 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..utils.configuration import ConfigurableMixin
 from ..utils.device import resolve_device
+from .attention import BasicTransformerBlock
 from .blocks import (
     CrossAttnDownBlock2D,
     CrossAttnUpBlock2D,
@@ -149,6 +155,21 @@ class UNet2DConditionModel(ConfigurableMixin, nn.Module):
             self.conv_norm_out = nn.GroupNorm(32, ch0, eps=1e-5)
             self.conv_out = nn.Conv2d(ch0, out_channels, 3, padding=1)
         self.to(dtype)
+        self.gradient_checkpointing = False
+
+    def set_gradient_checkpointing(self, blocks: bool, feed_forward: bool = False) -> None:
+        """Recompute each down, mid and up block (``blocks``) and each
+        transformer feed-forward (``feed_forward``) in the backward instead of
+        saving their activations. The values do not change."""
+        self.gradient_checkpointing = bool(blocks)
+        for module in self.modules():
+            if isinstance(module, BasicTransformerBlock):
+                module.ff_gradient_checkpointing = bool(feed_forward)
+
+    def _block(self, fn, *args):
+        if self.gradient_checkpointing and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -175,13 +196,20 @@ class UNet2DConditionModel(ConfigurableMixin, nn.Module):
         hidden_states = self.conv_in(sample)
         skips = [hidden_states]
         for block in self.down_blocks:
-            hidden_states, res = block(hidden_states, t_emb, encoder_hidden_states)
+            hidden_states, res = self._block(block, hidden_states, t_emb, encoder_hidden_states)
             skips.extend(res)
 
-        hidden_states = self.mid_block(hidden_states, t_emb, encoder_hidden_states)
+        hidden_states = self._block(self.mid_block, hidden_states, t_emb, encoder_hidden_states)
 
         for block in self.up_blocks:
-            hidden_states = block(hidden_states, skips, t_emb, encoder_hidden_states)
+            # each call gets its own list of skips: an up block pops from the
+            # list, and a recompute calls it again on the same arguments
+            n = len(block.resnets)
+            res, skips = skips[-n:], skips[:-n]
+            hidden_states = self._block(
+                lambda h, t, c, *r, block=block: block(h, list(r), t, c),
+                hidden_states, t_emb, encoder_hidden_states, *res,
+            )
 
         hidden_states = F.silu(self.conv_norm_out(hidden_states))
         return self.conv_out(hidden_states)

@@ -6,17 +6,22 @@ shaped by its lane tiling; the card needs none of them. The port keeps one
 layout, the reference order of ``lion_quant.py``: codes ``(n_blocks, bs)``
 int8 and scales ``(n_blocks,)`` f32 per leaf, over the JAX leaf's flat
 element order. One kernel, ``csrc/lion8bit_update.cu``, computes the update
-(see its header for the math and the numerics it keeps). It has two entries:
+(see its header for the math and the numerics it keeps). It has three
+entries:
 
 - ``lion8bit_update_`` (the role of the TPU's ``fused_lion8bit_update_dense``,
   K4): one leaf per launch, for every leaf above the bucket limit;
 - ``lion8bit_update_multi_`` (the role of
   ``fused_lion8bit_update_transposed_packed``, K5): many small leaves in one
-  launch through a table of pointers.
+  launch through a table of pointers;
+- ``fused_lion8bit_update`` (the TPU's public single-leaf entry, K6 with
+  ``layout="narrow"`` and K7 with ``layout="wide"``): functional, with the
+  JAX signature, scales ``(n_blocks, 1)``; both layouts hold the same
+  ``(n_blocks, bs)`` bytes, so both launch the one kernel.
 
-Both update codes and scales in place and return the update sign in the
-grad's dtype. CPU tensors take ``lion8bit_update_reference``; CUDA tensors
-take the kernel or raise.
+The first two update codes and scales in place and return the update sign
+in the grad's dtype. CPU tensors take ``lion8bit_update_reference``; CUDA
+tensors take the kernel or raise.
 """
 
 import ctypes
@@ -30,7 +35,8 @@ LIBRARIES = {"lion8bit_update": ("lion8bit_update.cu",)}
 # offset ensuring x = 0 round-trips to exactly 0 through the odd-power compander
 ZERO_CROSSING_OFFSET = 3.7398995e-09
 POW5_C = float(127.0**-5)  # the fast compander's folded (q/127)^5 constant
-BLOCK_SIZES = (8, 16, 32, 64)  # block sizes the kernel is built for
+# block sizes the kernel is built for; 128 on its cooperative variant
+BLOCK_SIZES = (1, 2, 4, 8, 16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -137,6 +143,28 @@ def _function(name: str, argtypes):
 _COMMON_ARGS = [ctypes.c_int] + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
+def _launch_single(grad, codes, scales, b1, b2, fast) -> torch.Tensor:
+    """One launch over one checked CUDA leaf; returns the update sign.
+    Counting is the calling entry's."""
+    nb, bs = codes.shape
+    for name, t in (("grad", grad), ("codes", codes), ("scales", scales)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the Lion kernel's vector loads")
+    upd = torch.empty_like(grad)
+    fn = _function(
+        "lion8bit_update", [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + _COMMON_ARGS
+    )
+    with torch.cuda.device(grad.device):
+        rc = fn(
+            grad.data_ptr(), codes.data_ptr(), scales.data_ptr(), upd.data_ptr(), nb, bs,
+            *_coefs(b1, b2), int(fast), _DTYPE_CODES[grad.dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"lion8bit_update launch failed: cudaError {rc} ({nb} blocks of {bs})")
+    return upd
+
+
 def lion8bit_update_(
     grad: torch.Tensor,
     codes: torch.Tensor,
@@ -157,18 +185,7 @@ def lion8bit_update_(
         codes.copy_(new_codes)
         scales.copy_(new_scales)
         return upd
-    upd = torch.empty_like(grad)
-    fn = _function(
-        "lion8bit_update", [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + _COMMON_ARGS
-    )
-    with torch.cuda.device(grad.device):
-        rc = fn(
-            grad.data_ptr(), codes.data_ptr(), scales.data_ptr(), upd.data_ptr(), nb, bs,
-            *_coefs(b1, b2), int(fast), _DTYPE_CODES[grad.dtype],
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"lion8bit_update launch failed: cudaError {rc} ({nb} blocks of {bs})")
+    upd = _launch_single(grad, codes, scales, b1, b2, fast)
     _count(lion8bit_update_, (nb, bs, grad.dtype))
     return upd
 
@@ -227,16 +244,73 @@ def lion8bit_update_multi_(
     return updates
 
 
+def fused_lion8bit_update(
+    grad: torch.Tensor,
+    codes: torch.Tensor,
+    scales: torch.Tensor,
+    b1: float = 0.9,
+    b2: float = 0.99,
+    mu_scale_dtype: torch.dtype = torch.float32,
+    rows_per_tile: int = 1024,
+    layout: str = "narrow",
+    compander: str = "exact",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused update for one quantized leaf, the JAX package's
+    ``fused_lion8bit_update`` (``layout="narrow"``: K6; ``"wide"``: K7).
+
+    ``grad``: any shape with ``grad.numel() == codes.numel()``, in the JAX
+    leaf's flat order; ``codes`` ``(n_blocks, bs)`` int8; ``scales``
+    ``(n_blocks, 1)``. Returns ``(update_sign, new_codes, new_scales)``: the
+    sign shaped and typed like ``grad``, new codes ``(n_blocks, bs)`` and new
+    scales ``(n_blocks, 1)`` in ``mu_scale_dtype``. Functional: the inputs
+    are not changed. Scales in another dtype are upcast to f32 going in and
+    the new ones cast coming out, exactly as the TPU kernel divides in f32.
+
+    ``layout="wide"`` takes the TPU entry's checks: a block size below 128
+    that divides 128, and the exact compander only. The two layouts differ
+    only in how the TPU's 128 lanes hold the blocks; the card computes both
+    with the one kernel over the same bytes. ``rows_per_tile`` is the TPU's
+    tile height and has no effect on the card. CUDA tensors launch the kernel
+    (block sizes ``BLOCK_SIZES``; others raise) and are counted in
+    ``fused_lion8bit_update.launches``, by ``(layout, n_blocks, bs, grad
+    dtype)``; CPU tensors take ``lion8bit_update_reference``.
+    """
+    if layout not in ("narrow", "wide"):
+        raise ValueError(f"unknown layout {layout!r}; use 'narrow' or 'wide'")
+    nb, bs = codes.shape
+    fast = fast_compander(compander)
+    if layout == "wide":
+        if bs >= 128 or 128 % bs:
+            raise ValueError(f"layout='wide' requires block_size < 128 dividing 128, got {bs}")
+        if fast:
+            raise ValueError("compander='fast' is not implemented for the retired 'wide' layout")
+    if tuple(scales.shape) != (nb, 1):
+        raise ValueError(f"scales must be ({nb}, 1), got {tuple(scales.shape)}")
+    new_codes = codes.clone(memory_format=torch.contiguous_format)
+    new_scales = scales.reshape(nb).to(torch.float32, copy=True)
+    flat = grad.reshape(-1)
+    if flat.data_ptr() % 16:  # a view at an odd offset: the kernel loads 16-byte vectors
+        flat = flat.clone()
+    _check_leaf(flat, new_codes, new_scales)
+    if _on_cuda(flat, bs):
+        upd = _launch_single(flat, new_codes, new_scales, b1, b2, fast)
+        _count(fused_lion8bit_update, (layout, nb, bs, grad.dtype))
+    else:
+        upd, new_codes, new_scales = lion8bit_update_reference(flat, codes, new_scales, b1, b2, compander)
+    return upd.reshape(grad.shape), new_codes, new_scales.reshape(nb, 1).to(mu_scale_dtype)
+
+
 def _count(wrapper, shape) -> None:
     """One launch of ``wrapper``: in total and by shape (single leaf: blocks,
-    block size, grad dtype; many leaves: leaves, blocks, block size, dtype)."""
+    block size, grad dtype; many leaves: leaves, blocks, block size, dtype;
+    the functional entry: layout, blocks, block size, dtype)."""
     wrapper.launches += 1
     key = shape[:-1] + (str(shape[-1]).replace("torch.", ""),)
     wrapper.launches_by_shape[key] = wrapper.launches_by_shape.get(key, 0) + 1
 
 
 def reset_launch_counts() -> None:
-    for wrapper in (lion8bit_update_, lion8bit_update_multi_):
+    for wrapper in (lion8bit_update_, lion8bit_update_multi_, fused_lion8bit_update):
         wrapper.launches = 0
         wrapper.launches_by_shape = {}
 

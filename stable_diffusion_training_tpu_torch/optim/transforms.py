@@ -70,6 +70,15 @@ def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     return GradientTransformation(lambda params: (), update)
 
 
+def set_to_zero() -> GradientTransformation:
+    """``optax.set_to_zero``: every update is zero, and there is no state."""
+
+    def update(updates, state, params=None):
+        return {name: torch.zeros_like(u) for name, u in updates.items()}, state
+
+    return GradientTransformation(lambda params: (), update)
+
+
 def add_decayed_weights(
     weight_decay: float, mask: Optional[Dict[str, bool]] = None
 ) -> GradientTransformation:

@@ -1,7 +1,10 @@
-"""The SD1.5 train step and its state assembly, ported from
-``stable_diffusion_training_tpu/train``: ``on_device_model_training_state``
-then ``train_step``, the pair the JAX package's tests drive."""
+"""The SD1.5 train step, its state assembly, checkpoints and the chunked
+trainer, ported from ``stable_diffusion_training_tpu/train``:
+``on_device_model_training_state`` then ``train_step``, the pair the JAX
+package's tests drive, and ``trainer.main``, the body of the command line."""
 
+from .aot import all_unique_resolutions, batch_dispatch_key, bucket_train_steps
+from .checkpoint import restore_train_state, save_model, save_train_state
 from .config import TrainingConfig, training_config_from_dict
 from .states import (
     FrozenModel,
@@ -15,6 +18,12 @@ from .states import (
 from .train_step import train_step
 
 __all__ = [
+    "all_unique_resolutions",
+    "batch_dispatch_key",
+    "bucket_train_steps",
+    "restore_train_state",
+    "save_model",
+    "save_train_state",
     "FrozenModel",
     "TrainState",
     "TrainingConfig",

@@ -6,9 +6,8 @@ reference trainer's 29 fields plus the JAX package's additions), and
 ``training_config_from_dict``, which keeps only the dataclass fields of a
 raw ``model_properties`` JSON dict. Fields that name JAX or TPU machinery
 (``compilation_cache_path``, ``mesh_shape``, ``use_pallas_lion`` ...) keep
-their names so one JSON file configures both packages; the port's train
-step says which of them it runs and raises on the side paths it does not
-have yet.
+their names so one JSON file configures both packages; the comments below
+say which of them the port ignores or does not have yet.
 """
 
 import dataclasses
@@ -25,11 +24,11 @@ class TrainingConfig:
     text_encoder_learning_rate: float
     lr_scheduler: str
     adam_to_lion_scale_factor: float
-    compilation_cache_path: str
-    keep_compiled_fn_in_cache: bool
+    compilation_cache_path: str  # XLA's compilation cache: ignored by the port
+    keep_compiled_fn_in_cache: bool  # XLA's compilation cache: ignored by the port
     text_encoder_context_window: int
     context_window_concatenation_count: int
-    aot_compile: bool
+    aot_compile: bool  # XLA ahead-of-time compiles: ignored by the port (eager steps)
     strip_bos_eos_token: bool
     offset_noise_magnitude: float
     min_snr_gamma_magnitude: float
@@ -53,10 +52,10 @@ class TrainingConfig:
     mesh_axis_names: Optional[List[str]] = None
     fsdp_shard_params: bool = False  # param sharding (not ported)
     tensor_parallel_shard_params: bool = False  # tensor parallelism (not ported)
-    gradient_checkpointing: bool = False  # UNet block remat (not ported; raises)
-    ff_gradient_checkpointing: bool = False  # feed-forward remat (not ported; raises)
+    gradient_checkpointing: bool = False  # recompute each UNet block in the backward
+    ff_gradient_checkpointing: bool = False  # recompute each transformer feed-forward
     train_unet: bool = True
-    train_text_encoder: bool = True  # False: frozen text encoder (not ported; raises)
+    train_text_encoder: bool = True  # False: frozen text encoder
     mixed_precision: str = "bfloat16"  # computation and param dtype of the models
     attention_backend: str = "auto"  # "auto" | "flash" | "xla" | "xla_remat"
     # the VAE encoder's stride-2 convs as four stride-1 polyphase convs
@@ -83,13 +82,14 @@ class TrainingConfig:
     lr_warmup_steps: int = 0
     lr_decay_steps: int = 0
     seed_init: int = 0  # seed of the fresh-family random weights
-    grad_accumulation_steps: int = 1  # micro-batches per update (not ported; raises)
-    use_latent_cache: bool = False  # batches carry latent_moments (not ported)
-    vae_encode_chunk: int = 0  # VAE encode micro-batch, 0 = whole (not ported)
-    # batches carry a precomputed encoder_hidden_states (not ported); pair
-    # with train_text_encoder=False
+    grad_accumulation_steps: int = 1  # micro-batches per update
+    use_latent_cache: bool = False  # batches carry latent_moments
+    vae_encode_chunk: int = 0  # VAE encode micro-batch, 0 = whole
+    # batches carry a precomputed encoder_hidden_states; pair with
+    # train_text_encoder=False
     cached_text_context: bool = False
-    sdxl_micro_conditioning: bool = False  # batches carry pooled embeds + time_ids
+    # batches carry pooled embeds + time_ids (SDXL; not ported, the step raises)
+    sdxl_micro_conditioning: bool = False
     # micro-conditioning time ids: 6 for the SDXL base model, 5 for the refiner
     sdxl_time_ids_count: int = 6
     device_prefetch_depth: int = 1  # batches in flight ahead of the step (loader)

@@ -14,7 +14,9 @@ package does:
 
 Each trained model has its own chain, clip_by_global_norm(1) -> Lion
 (8-bit or dense) with decoupled weight decay -> learning rate, and its own
-optimizer state.
+optimizer state. A frozen text encoder (``train_text_encoder=False``) keeps
+the ``TrainState`` surface with ``set_to_zero`` as its chain, as the JAX
+package does: no optimizer state, and its params take no grad.
 """
 
 import os
@@ -83,12 +85,9 @@ def load_models(training_config: TrainingConfig, device=None) -> dict:
     """UNet, VAE, text encoder and the training scheduler, in the JAX
     package's nested dict. ``model_path`` is a diffusers checkpoint directory
     (unet/vae/text_encoder) or a family name (``sd15``, ``tiny``...), whose
-    models get seeded random weights (``seed_init``)."""
-    if training_config.gradient_checkpointing or training_config.ff_gradient_checkpointing:
-        raise NotImplementedError(
-            "gradient_checkpointing / ff_gradient_checkpointing are not ported yet "
-            "(ROADMAP Queue 1)"
-        )
+    models get seeded random weights (``seed_init``). The UNet recomputes its
+    blocks and feed-forwards in the backward as ``gradient_checkpointing`` and
+    ``ff_gradient_checkpointing`` say."""
     device = resolve_device(device)
     dtype = _DTYPES[training_config.mixed_precision]
     backend = training_config.attention_backend
@@ -107,6 +106,9 @@ def load_models(training_config: TrainingConfig, device=None) -> dict:
         for model in (unet, vae, text_encoder):
             random_init_(model, torch.Generator(device).manual_seed(training_config.seed_init))
     vae.requires_grad_(False)
+    unet.set_gradient_checkpointing(
+        training_config.gradient_checkpointing, training_config.ff_gradient_checkpointing
+    )
 
     noise_scheduler = DDPMScheduler(
         beta_start=0.00085,
@@ -241,10 +243,6 @@ def on_device_model_training_state(training_config: TrainingConfig, device=None)
     (cuda unless told otherwise). Returns the JAX package's 7-tuple:
     ``(unet_state, text_encoder_state, unet_ema_params,
     text_encoder_ema_params, frozen_vae, frozen_schedulers, models)``."""
-    if not training_config.train_text_encoder:
-        raise NotImplementedError(
-            "train_text_encoder=False (frozen text encoder) is not ported yet (ROADMAP Queue 1)"
-        )
     models = load_models(training_config, device)
     # the reference hard-codes scale 7 and drops the configured LRs;
     # honor_learning_rates opts out of that quirk
@@ -261,7 +259,7 @@ def on_device_model_training_state(training_config: TrainingConfig, device=None)
     states = create_lion_optimizer_states(
         models=models,
         train_unet=True,
-        train_text_encoder=True,
+        train_text_encoder=training_config.train_text_encoder,
         **lr_kwargs,
         excluded_layer_pattern_from_weight_decay=(
             training_config.excluded_layer_pattern_from_weight_decay
@@ -275,6 +273,12 @@ def on_device_model_training_state(training_config: TrainingConfig, device=None)
         compander=training_config.lion_compander,
         momentum_layout=training_config.lion_momentum_layout,
     )
+    if not training_config.train_text_encoder:
+        # frozen text encoder: the TrainState surface the step expects, with
+        # a chain that allocates no momentum
+        text_encoder = models["text_encoder"]["text_encoder_model"]
+        text_encoder.requires_grad_(False)
+        states["text_encoder_state"] = TrainState(text_encoder, transforms.set_to_zero())
     frozen = create_frozen_states(models)
 
     def ema_copy(params):  # distinct buffers from the params

@@ -16,17 +16,20 @@ package draws them from ``dropout, sample, next = split(rng, 3)`` and
 ``sample`` in NHWC and the mean's dtype; torch cannot reproduce threefry, so
 the tests make those draws with ``jax.random`` and pass them here.
 
-The side paths of the JAX step (``grad_accumulation_steps > 1``,
-``train_text_encoder=False``, ``latent_moments`` and
-``encoder_hidden_states`` batches, ``vae_encode_chunk``) raise
-``NotImplementedError``; they are ROADMAP Queue 1's next items.
+The JAX step's side paths are here too: ``grad_accumulation_steps > 1``
+(per-micro draws: the JAX package splits ``sample`` and ``dropout`` into one
+key per micro-batch, and the seam takes one dict of draws per micro-batch),
+``train_text_encoder=False``, ``latent_moments`` batches (the latent cache),
+``encoder_hidden_states`` batches (the cached context) and
+``vae_encode_chunk``.
 """
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence, Union
 
 import torch
 
 from ..diffusion import compute_snrs
+from ..models.vae import DiagonalGaussianDistribution
 from ..optim.transforms import weak
 from ..utils.context import concat_context_windows
 
@@ -65,8 +68,93 @@ def ema_update_(ema: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor], r
         e.copy_(weak(rate, e) * e + weak(1 - rate, p) * p)
 
 
-def _side_path(name: str) -> NotImplementedError:
-    return NotImplementedError(f"{name} is a side path of the train step not ported yet (ROADMAP Queue 1)")
+def _latent_dist(batch: Dict[str, torch.Tensor], vae, vae_encode_chunk: int):
+    """The latents' posterior: from the batch's ``latent_moments`` (the
+    offline latent cache; the VAE is skipped), else from the frozen VAE, over
+    the whole batch or ``vae_encode_chunk`` samples at a time (the same
+    values: the encode is per-sample)."""
+    if "latent_moments" in batch:
+        return DiagonalGaussianDistribution(batch["latent_moments"], dim=1)
+    with torch.no_grad():
+        pixels = batch["pixel_values"].to(vae.dtype)
+        if not vae_encode_chunk:
+            return vae.encode(pixels).latent_dist
+        if pixels.shape[0] % vae_encode_chunk:
+            raise ValueError(
+                f"vae_encode_chunk={vae_encode_chunk} must divide batch size {pixels.shape[0]}"
+            )
+        moments = []
+        for chunk in pixels.split(vae_encode_chunk):
+            d = vae.encode(chunk).latent_dist
+            # logvar is clipped already; the distribution clips again (idempotent)
+            moments.append(torch.cat([d.mean, d.logvar], dim=1))
+        return DiagonalGaussianDistribution(torch.cat(moments), dim=1)
+
+
+def _loss(
+    unet_state, text_encoder_state, frozen_vae_state, frozen_noise_scheduler_state,
+    batch, train_rng, draws, *, strip_bos_eos_token, offset_noise_magnitude,
+    min_snr_gamma_magnitude, perturbation_noise_magnitude, text_context_window,
+    train_text_encoder, vae_encode_chunk,
+) -> torch.Tensor:
+    """The JAX step's ``_compute_loss_with_rngs`` for one (micro-)batch."""
+    scheduler = frozen_noise_scheduler_state.call
+    scheduler_state = frozen_noise_scheduler_state.params
+    unet = unet_state.model
+
+    latent_dist = _latent_dist(batch, frozen_vae_state.call, vae_encode_chunk)
+    mean = latent_dist.mean
+    if draws is None:
+        draws = make_draws(
+            train_rng, mean.shape, mean.dtype, scheduler.config.num_train_timesteps, mean.device
+        )
+    latents = mean + latent_dist.std * draws["latent_eps"].to(mean.dtype)
+    latents = latents * weak(0.18215, latents)
+    b = latents.shape[0]
+
+    noise = draws["noise"]
+    if offset_noise_magnitude:
+        noise = noise + draws["noise_offset"] * weak(offset_noise_magnitude, noise)
+    if perturbation_noise_magnitude:
+        perturb = draws["perturb_noise"]
+        noise = noise + weak(perturbation_noise_magnitude, perturb) * perturb
+    timesteps = draws["timesteps"]
+    noisy_latents = scheduler.add_noise(scheduler_state, latents, noise, timesteps)
+
+    if "encoder_hidden_states" in batch:
+        # the cached context (a frozen text encoder's, precomputed offline)
+        context = batch["encoder_hidden_states"]
+    else:
+        with torch.set_grad_enabled(train_text_encoder and torch.is_grad_enabled()):
+            hidden = text_encoder_state.model(batch["input_ids"])[0]
+        # (batch*concat, win, dim) -> (batch, concat, win, dim) -> context
+        hidden = hidden.reshape(b, -1, text_context_window, hidden.shape[-1])
+        context = concat_context_windows(hidden, strip_bos_eos_token)
+
+    model_pred = unet(noisy_latents.to(unet.dtype), timesteps, context.to(unet.dtype))
+    prediction_type = scheduler.config.prediction_type
+    if prediction_type == "epsilon":
+        target = noise
+    elif prediction_type == "v_prediction":
+        target = scheduler.get_velocity(scheduler_state, latents, noise, timesteps)
+    else:
+        raise ValueError(f"Unknown prediction type {prediction_type}")
+
+    loss = (target - model_pred) ** 2
+    if min_snr_gamma_magnitude:
+        # weight = min(snr, gamma) / snr (epsilon) or / (snr + 1) (velocity)
+        snr = compute_snrs(scheduler_state.common.alphas_cumprod)[timesteps]
+        min_snr_gamma = torch.clamp(snr, max=min_snr_gamma_magnitude)
+        denom = snr + 1 if prediction_type == "v_prediction" else snr
+        loss = loss * (min_snr_gamma / denom).float()[:, None, None, None]
+    return loss.mean()
+
+
+def _grads(loss: torch.Tensor, params: Dict[str, torch.Tensor]):
+    """d loss / d params; zeros for params the loss does not use (a trained
+    text encoder under a cached context), as JAX's grad gives them."""
+    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params.values())]
 
 
 def train_step(
@@ -91,80 +179,73 @@ def train_step(
     grad_accumulation_steps: int = 1,
     train_text_encoder: bool = True,
     vae_encode_chunk: int = 0,
-    draws: Optional[Dict[str, torch.Tensor]] = None,
+    draws: Union[None, Dict[str, torch.Tensor], Sequence[Dict[str, torch.Tensor]]] = None,
 ):
     """One optimization step. Returns ``(unet_state, text_encoder_state,
     unet_ema, text_ema, {"loss"}, train_rng)`` in the JAX package's order;
     the states and EMA buffers are updated in place. ``batch`` holds NCHW
-    ``pixel_values`` and ``input_ids`` ``(B * concat, window)``."""
-    if grad_accumulation_steps > 1:
-        raise _side_path("grad_accumulation_steps > 1")
-    if not train_text_encoder:
-        raise _side_path("train_text_encoder=False")
-    if vae_encode_chunk:
-        raise _side_path("vae_encode_chunk")
-    for key in ("latent_moments", "encoder_hidden_states"):
-        if key in batch:
-            raise _side_path(f"a batch with {key!r}")
+    ``pixel_values`` (or ``latent_moments``, NCHW with twice the latent
+    channels), ``input_ids`` ``(B * concat, window)`` and optionally
+    ``encoder_hidden_states`` ``(B, tokens, cross_attention_dim)``.
 
-    scheduler = frozen_noise_scheduler_state.call
-    scheduler_state = frozen_noise_scheduler_state.params
-    vae = frozen_vae_state.call
-    unet = unet_state.model
-    text_encoder = text_encoder_state.model
-
-    with torch.no_grad():
-        pixels = batch["pixel_values"].to(vae.dtype)
-        latent_dist = vae.encode(pixels).latent_dist
-    if draws is None:
-        draws = make_draws(
-            train_rng, latent_dist.mean.shape, latent_dist.mean.dtype,
-            scheduler.config.num_train_timesteps, pixels.device,
+    ``grad_accumulation_steps = n > 1`` splits every batch entry into ``n``
+    micro-batches along its leading axis, each with its own draws (``draws``
+    is then a sequence of ``n`` dicts), sums ``grad / n`` and ``loss / n`` in
+    f32, casts the grads back to the params' dtype and applies one update.
+    ``train_text_encoder=False`` takes no text-encoder grads and applies no
+    text-encoder update; its EMA, if any, still follows its params."""
+    if "pooled_text_embeds" in batch:
+        raise NotImplementedError(
+            "SDXL micro-conditioning (pooled_text_embeds, time_ids) is not ported yet "
+            "(ROADMAP Queue 1 item 6)"
         )
-    latents = latent_dist.mean + latent_dist.std * draws["latent_eps"].to(latent_dist.mean.dtype)
-    latents = latents * weak(0.18215, latents)
-    b = latents.shape[0]
-
-    noise = draws["noise"]
-    if offset_noise_magnitude:
-        noise = noise + draws["noise_offset"] * weak(offset_noise_magnitude, noise)
-    if perturbation_noise_magnitude:
-        perturb = draws["perturb_noise"]
-        noise = noise + weak(perturbation_noise_magnitude, perturb) * perturb
-    timesteps = draws["timesteps"]
-    noisy_latents = scheduler.add_noise(scheduler_state, latents, noise, timesteps)
-
-    hidden = text_encoder(batch["input_ids"])[0]
-    # (batch*concat, win, dim) -> (batch, concat, win, dim) -> context
-    hidden = hidden.reshape(b, -1, text_context_window, hidden.shape[-1])
-    context = concat_context_windows(hidden, strip_bos_eos_token)
-
-    model_pred = unet(noisy_latents.to(unet.dtype), timesteps, context)
-    prediction_type = scheduler.config.prediction_type
-    if prediction_type == "epsilon":
-        target = noise
-    elif prediction_type == "v_prediction":
-        target = scheduler.get_velocity(scheduler_state, latents, noise, timesteps)
-    else:
-        raise ValueError(f"Unknown prediction type {prediction_type}")
-
-    loss = (target - model_pred) ** 2
-    if min_snr_gamma_magnitude:
-        # weight = min(snr, gamma) / snr (epsilon) or / (snr + 1) (velocity)
-        snr = compute_snrs(scheduler_state.common.alphas_cumprod)[timesteps]
-        min_snr_gamma = torch.clamp(snr, max=min_snr_gamma_magnitude)
-        denom = snr + 1 if prediction_type == "v_prediction" else snr
-        loss = loss * (min_snr_gamma / denom).float()[:, None, None, None]
-    loss = loss.mean()
-
+    loss_kw = dict(
+        strip_bos_eos_token=strip_bos_eos_token, offset_noise_magnitude=offset_noise_magnitude,
+        min_snr_gamma_magnitude=min_snr_gamma_magnitude,
+        perturbation_noise_magnitude=perturbation_noise_magnitude,
+        text_context_window=text_context_window, train_text_encoder=train_text_encoder,
+        vae_encode_chunk=vae_encode_chunk,
+    )
+    states = (unet_state, text_encoder_state, frozen_vae_state, frozen_noise_scheduler_state)
     unet_params = unet_state.params
-    text_params = text_encoder_state.params
-    grads = torch.autograd.grad(loss, [*unet_params.values(), *text_params.values()])
-    unet_grads = dict(zip(unet_params, grads[: len(unet_params)]))
-    text_grads = dict(zip(text_params, grads[len(unet_params):]))
+    diff_params = dict(unet_params)
+    if train_text_encoder:
+        diff_params.update({f"text_encoder/{k}": v for k, v in text_encoder_state.params.items()})
+
+    if grad_accumulation_steps <= 1:
+        loss = _loss(*states, batch, train_rng, draws, **loss_kw)
+        grads = dict(zip(diff_params, _grads(loss, diff_params)))
+    else:
+        accum = grad_accumulation_steps
+        image_key = "pixel_values" if "pixel_values" in batch else "latent_moments"
+        total_b = batch[image_key].shape[0]
+        if total_b % accum:
+            raise ValueError(
+                f"batch size {total_b} not divisible by grad_accumulation_steps={accum}"
+            )
+        if draws is not None and len(draws) != accum:
+            raise ValueError(f"draws: one dict per micro-batch ({accum}), got {len(draws)}")
+        # leading dims are batch-derived (pixel_values B; ids B * concat)
+        micro = {k: v.chunk(accum) for k, v in batch.items()}
+        loss = torch.zeros((), dtype=torch.float32, device=batch[image_key].device)
+        grads = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in diff_params.items()}
+        for i in range(accum):
+            mb = {k: v[i] for k, v in micro.items()}
+            micro_loss = _loss(*states, mb, train_rng, None if draws is None else draws[i], **loss_kw)
+            micro_grads = _grads(micro_loss, diff_params)
+            with torch.no_grad():
+                for acc, g in zip(grads.values(), micro_grads):
+                    acc.add_(g / weak(accum, g))  # JAX's a + b / n: b / n in b's dtype
+                loss = loss + micro_loss.detach() / accum
+            del micro_loss, micro_grads
+        grads = {k: g.to(diff_params[k].dtype) for k, g in grads.items()}
+
+    unet_state.apply_gradients({k: grads[k] for k in unet_params})
+    if train_text_encoder:
+        text_encoder_state.apply_gradients(
+            {k: grads[f"text_encoder/{k}"] for k in text_encoder_state.params}
+        )
     del grads
-    unet_state.apply_gradients(unet_grads)
-    text_encoder_state.apply_gradients(text_grads)
 
     if not ema_rate:
         unet_ema_params = text_encoder_ema_params = None

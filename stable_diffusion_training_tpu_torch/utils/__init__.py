@@ -1,5 +1,5 @@
-"""Configuration records, device selection and the text-context window
-math for the port."""
+"""Configuration records, device selection, the text-context window math,
+JSON state IO and the metrics writers for the port."""
 
 from .configuration import ConfigurableMixin, FrozenConfig
 from .context import concat_context_windows, context_token_count

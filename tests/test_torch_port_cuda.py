@@ -12,9 +12,10 @@ the kernels behind each entry point, tensor cores for bf16 with D % 8 == 0
 (D <= 64 forward and backward, the forward's wide-head kernel for D = 80,
 128, 160, 512) and CUDA cores for f32, D = 36 and the backward above D = 64;
 and the edges: one query and one key, a single ragged key tile, and a last
-key tile of one key. 8-bit Lion (K4 single leaf, K5 many leaves): update
-signs and scales equal to the plain version's, codes at most one apart
-(CUDA's powf and torch's pow may differ by an ulp). Tolerances are those of
+key tile of one key. 8-bit Lion (K4 single leaf, K5 many leaves, and the
+functional entry: K6 narrow, K7 wide) at block sizes 1 to 128 (128 on the
+cooperative variant): update signs and scales equal to the plain version's,
+codes at most one apart (CUDA's powf and torch's pow may differ by an ulp). Tolerances are those of
 ``chip_smoke.py``. The fault this slice repaired is covered too: grads flow
 through the flash route on CUDA tensors.
 """
@@ -130,7 +131,8 @@ def _lion_leaves(sizes, bs, dtype, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("compander", ["exact", "fast"])
 @pytest.mark.parametrize("bs,dtype", [(16, torch.bfloat16), (8, torch.float32), (64, torch.bfloat16),
-                                      (32, torch.float32)])
+                                      (32, torch.float32), (1, torch.bfloat16), (2, torch.float32),
+                                      (4, torch.bfloat16), (128, torch.bfloat16), (128, torch.float32)])
 def test_lion_kernel_matches_plain_version(bs, dtype, compander):
     _need_cuda()
     sizes = [bs * 100003, bs * 3, bs, bs * 4096]
@@ -159,7 +161,37 @@ def test_cuda_tensor_never_takes_the_plain_version():
     x = torch.zeros(2, 8, 40, dtype=torch.float16, device="cuda")
     with pytest.raises(TypeError):
         fa.flash_attention_fwd(x, x, x)
-    g = torch.zeros(128, device="cuda")
+    g = torch.zeros(12, device="cuda")
     with pytest.raises(ValueError, match="block sizes"):
-        lk.lion8bit_update_(g, torch.zeros(1, 128, dtype=torch.int8, device="cuda"),
+        lk.lion8bit_update_(g, torch.zeros(1, 12, dtype=torch.int8, device="cuda"),
                             torch.ones(1, device="cuda"))
+    with pytest.raises(ValueError, match="block sizes"):
+        lk.fused_lion8bit_update(g, torch.zeros(1, 12, dtype=torch.int8, device="cuda"),
+                                 torch.ones(1, 1, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "layout,bs,dtype",
+    [("narrow", 16, torch.bfloat16), ("narrow", 128, torch.bfloat16), ("narrow", 128, torch.float32),
+     ("wide", 4, torch.bfloat16), ("wide", 16, torch.bfloat16), ("wide", 16, torch.float32)],
+)
+def test_fused_entry_matches_plain_version(layout, bs, dtype):
+    """K6 and K7 through ``fused_lion8bit_update`` on a ragged block count:
+    functional (inputs unchanged), counted once by layout and shape."""
+    _need_cuda()
+    n_blocks = 100003
+    (grad,), (codes,), (scales,) = _lion_leaves([bs * n_blocks], bs, dtype, seed=bs + 1)
+    e_upd, e_codes, e_scales = lk.lion8bit_update_reference(grad, codes, scales)
+    codes_in, scales_in = codes.clone(), scales[:, None].clone()
+    lk.reset_launch_counts()
+    upd, new_codes, new_scales = lk.fused_lion8bit_update(grad, codes_in, scales_in, layout=layout)
+    torch.cuda.synchronize()
+    assert lk.fused_lion8bit_update.launches_by_shape == {
+        (layout, n_blocks, bs, str(dtype).replace("torch.", "")): 1
+    }
+    assert torch.equal(codes_in, codes) and torch.equal(scales_in[:, 0], scales)
+    assert upd.dtype == dtype and upd.shape == grad.shape and new_scales.shape == (n_blocks, 1)
+    torch.testing.assert_close(upd, e_upd, atol=0, rtol=0)
+    torch.testing.assert_close(new_scales[:, 0], e_scales, atol=0, rtol=0)
+    assert int((new_codes.int() - e_codes.int()).abs().max()) <= 1

@@ -1,8 +1,11 @@
 """The port stands alone: no module of ``stable_diffusion_training_tpu_torch``
 and not ``chip_smoke.py`` imports JAX, flax or the JAX package; the package
-imports on a CPU-only torch with no nvcc and no triton, the train slice's
-modules included; ``chip_smoke.py`` refuses to run without a GPU or outside
-the repository."""
+imports on a CPU-only torch with no nvcc and no triton, the train and
+trainer slices' modules included, and none of its modules imports tqdm,
+transformers, safetensors, orbax or tensorboard when it is imported (the
+card machine has none of them; the trainer imports transformers inside
+``main``, only for a checkpoint's tokenizer); ``chip_smoke.py`` refuses to
+run without a GPU or outside the repository."""
 
 import ast
 import os
@@ -15,12 +18,17 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = "stable_diffusion_training_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "stable_diffusion_training_tpu")
+# packages the card machine lacks: never imported when a module is imported
+NOT_AT_IMPORT = ("tqdm", "transformers", "safetensors", "orbax", "tensorboard")
 # the modules and kernel sources each slice adds; all are walked below
 SLICE_MODULES = (
     "diffusion/ddim.py", "pipeline/stable_diffusion.py", "ops/flash_attention.py",  # serving
     "diffusion/ddpm.py", "utils/context.py", "ops/lion_kernel.py", "optim/masks.py",
     "optim/lion8bit.py", "optim/transforms.py", "train/config.py", "train/states.py",
     "train/train_step.py",  # training
+    "utils/json_io.py", "data/buckets.py", "data/memory.py", "train/checkpoint.py",
+    "train/aot.py", "utils/tb_events.py", "utils/metrics.py", "train/trainer.py",
+    "training.py",  # the trainer
 )
 KERNEL_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "lion8bit_update.cu")
 
@@ -59,6 +67,32 @@ def test_port_imports_no_jax_and_not_the_jax_package():
     assert offenders == []
 
 
+def _module_level_imports(path):
+    """Modules imported by the statements that run when ``path`` is
+    imported: the top level, not function bodies."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    pending = list(tree.body)
+    while pending:
+        node = pending.pop()
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, (ast.If, ast.Try, ast.With, ast.ClassDef)):
+            pending += [child for child in ast.iter_child_nodes(node) if isinstance(child, ast.stmt)]
+
+
+def test_port_imports_no_host_only_package_at_import():
+    offenders = [
+        (os.path.relpath(path, REPO), module)
+        for path in _port_files()
+        for module in _module_level_imports(path)
+        if module.split(".")[0] in NOT_AT_IMPORT
+    ]
+    assert offenders == []
+
+
 def test_package_imports_on_cpu_torch_without_jax():
     """Every module imports in a fresh interpreter, and none of them pulls
     JAX in (the build, nvcc and triton are only touched on first launch)."""
@@ -68,8 +102,11 @@ def test_package_imports_on_cpu_torch_without_jax():
     )
     code = (
         "import importlib, sys\n"
+        "import torch\n"
+        "before = set(sys.modules)  # torch may bring some of NOT_AT_IMPORT itself\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'triton')]\n"
+        f"bad += [m for m in set(sys.modules) - before if m.split('.')[0] in {NOT_AT_IMPORT!r}]\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
