@@ -11,7 +11,11 @@ Phases, one JSON line each:
 2. ``build``: ``nvcc`` builds the three kernel libraries from
    ``stable_diffusion_training_tpu_torch/csrc/`` for sm_90a, one ``nvcc``
    each, all started together; the compiler's register and spill report
-   goes to ``chiprun_out/chip_smoke_build.log``.
+   goes to ``chiprun_out/chip_smoke_build.log``. Prints every kernel's
+   registers and spill bytes and, for the forward kernels, the count of
+   wgmma (``HGMMA``) and TMA load (``UTMALDG``) instructions in
+   ``cuobjdump -sass`` of the built library; fails if a Hopper forward
+   kernel spills or lacks either.
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
    with max errors against the stated tolerances, kernel / plain / library
    device times (CUDA events; the calls queued behind a spin kernel so the
@@ -19,7 +23,9 @@ Phases, one JSON line each:
    and the card's least time for the same work:
    flash-attention forward (K1) at the serving path's shapes, (16, 4096, 40)
    and (1, 4096, 512), in bf16 and f32 (TF32 off), at the train step's,
-   (64, 4096, 40) and (8, 4096, 512) bf16, plus ragged cases;
+   (64, 4096, 40) and (8, 4096, 512) bf16, plus ragged cases (bf16 at
+   D = 40 and 512 with query and key counts off the tiles), with the host's
+   ms per call and the bytes the kernel streams from L2;
    flash-attention backward (K2 dQ, K3 dK/dV) at the train step's
    (64, 4096, 40) bf16 and at ragged and f32 cases; the 8-bit Lion kernel
    over every SD1.5 leaf above the bucket limit (single-leaf entry, K4, one
@@ -88,6 +94,7 @@ phase lines and the ``kernels`` record also go, whole, to
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -251,23 +258,110 @@ def phase_gpu(state):
 
 
 def phase_build(state):
+    """Builds every kernel library; reads back, from the ptxas report and
+    the built code, what each kernel became: registers and spill bytes of
+    every kernel, and for each flash-attention forward kernel its count of
+    wgmma (``HGMMA``) and TMA load (``UTMALDG``) instructions. The forward's
+    Hopper kernels must use both and spill nothing."""
     from stable_diffusion_training_tpu_torch.ops import cuda_build, flash_attention, lion_kernel
 
     start = time.perf_counter()
     paths = cuda_build.build_many({**flash_attention.LIBRARIES, **lion_kernel.LIBRARIES})
     seconds = time.perf_counter() - start
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    ptxas = {}
+    ptxas, kernels, advisories = {}, {}, []
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke_build.log"), "w") as f:
         for name in paths:
             secs, log = cuda_build.BUILD_LOG.get(name, (0.0, "(already built)"))
             f.write(f"== {name} ({secs:.1f} s)\n{log}\n")
             spills = [ln.strip() for ln in log.splitlines() if "spill" in ln and "0 bytes spill" not in ln]
             ptxas[name] = dict(seconds=round(secs, 3), spilling_functions=len(spills))
+            advisories += [ln.strip() for ln in log.splitlines() if "Performance" in ln or "serializ" in ln]
+            for fn, props in ptxas_functions(log).items():
+                kernels[fn] = dict(library=name, **props)
+    for fn, counts in sass_counts(paths["flash_attention_fwd"], ("HGMMA", "UTMALDG")).items():
+        kernels.setdefault(fn, dict(library="flash_attention_fwd")).update(counts)
+    names = demangle_all(kernels)
+    kernels = {names[fn]: props for fn, props in kernels.items()}
+    hopper = {n: k for n, k in kernels.items() if "flash_fwd_tma_kernel" in n}
     emit(
         "build", seconds=round(seconds, 3),
         libraries={n: os.path.relpath(p, REPO) for n, p in paths.items()}, ptxas=ptxas,
+        kernels=kernels, ptxas_advisories=advisories,
     )
+    bad = {
+        n: k for n, k in hopper.items()
+        if k.get("spill_stores", 1) or k.get("spill_loads", 1) or not k.get("HGMMA") or not k.get("UTMALDG")
+    }
+    if not hopper or bad:
+        raise AssertionError(f"forward Hopper kernels spill or lack wgmma/TMA: {bad or 'none built'}")
+
+
+def ptxas_functions(log):
+    """{mangled kernel name: registers, stack, spill bytes} from a
+    ``-Xptxas=-v`` report."""
+    out, current = {}, None
+    for line in log.splitlines():
+        props = re.search(r"Function properties for (\S+)", line)
+        spills = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if props:
+            current = out.setdefault(props.group(1), {})
+        elif current is not None and spills:
+            current.update(zip(("stack_bytes", "spill_stores", "spill_loads"), map(int, spills.groups())))
+        elif current is not None and regs:
+            current["registers"] = int(regs.group(1))
+    return out
+
+
+def sass_counts(lib, opcodes):
+    """For each kernel with "flash_fwd" in its name in the built library,
+    how many of its SASS instructions start with each of ``opcodes``
+    (``cuobjdump -sass``)."""
+    from stable_diffusion_training_tpu_torch.ops import cuda_build
+
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, current = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            current = name if "flash_fwd" in name else None
+            if current:
+                counts[current] = dict.fromkeys(opcodes, 0)
+        elif current and "*/" in line:
+            op = line.split("*/", 1)[1].split()
+            op = op[1] if op and op[0].startswith("@") and len(op) > 1 else (op[0] if op else "")
+            for code in opcodes:
+                counts[current][code] += op.startswith(code)
+    return counts
+
+
+def demangle_all(names):
+    """{mangled: the kernel's name and template arguments} (``cu++filt``;
+    the mangled name where that fails)."""
+    from stable_diffusion_training_tpu_torch.ops import cuda_build
+
+    names = list(names)
+    filt = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cu++filt")
+    try:
+        plain = subprocess.run([filt, *names], capture_output=True, text=True, timeout=60, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return {n: n for n in names}
+    out = {}
+    for name, line in zip(names, plain.splitlines()):
+        line = line.strip()
+        if line.endswith(")"):  # drop the parameter list: the last top-level (...)
+            depth, i = 0, len(line)
+            for i in range(len(line) - 1, -1, -1):
+                depth += {")": 1, "(": -1}.get(line[i], 0)
+                if depth == 0:
+                    break
+            line = line[:i]
+        for junk in ("void ", "(anonymous namespace)::", "<unnamed>::", "(int)", "(bool)"):
+            line = line.replace(junk, "")
+        out[name] = line.strip() or name
+    return out
 
 
 def _bound(bh, sq, sk, d, dtype_name, products=2, exps=1, reads_q=2, reads_k=2, writes_q=0, writes_k=0, stats=1):
@@ -290,6 +384,17 @@ def _bound(bh, sq, sk, d, dtype_name, products=2, exps=1, reads_q=2, reads_k=2, 
     return times[by] * 1e3, by, flops
 
 
+def fwd_l2_bytes(bh, sq, sk, d, dtype_name):
+    """Bytes that K1 moves from L2 into the SMs in one call: every block
+    streams its head's whole K and V, so query blocks x K+V bytes of a head.
+    Query rows per block as in csrc/flash_attention_fwd.cu (TmaTile: 256 at
+    D <= 64, 64 above); None off the Hopper kernels (f32, D % 8 != 0)."""
+    if dtype_name != "bfloat16" or d % 8:
+        return None
+    rows = 256 if d <= 64 else 64
+    return -(-sq // rows) * bh * 2 * sk * d * 2
+
+
 def phase_kernels(state):
     import torch
     import torch.nn.functional as F
@@ -306,6 +411,9 @@ def phase_kernels(state):
         ("vae_encode", 8, 4096, 4096, 512, ("bfloat16",)),  # train: VAE encode mid-block
         ("ragged", 4, 3000, 2100, 64, both),
         ("ragged_d36", 2, 1000, 777, 36, both),  # bf16 off the tensor-core path
+        # query and key counts that are no multiple of either Hopper kernel's tiles
+        ("ragged_d40", 3, 4000, 3900, 40, ("bfloat16",)),
+        ("ragged_d512", 2, 1000, 4100, 512, ("bfloat16",)),
     ]
     results = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -325,7 +433,8 @@ def phase_kernels(state):
             err_lse = (lse - lse_ref).abs().max().item()
             ok = err_o <= tol["o"] and err_lse <= tol["lse"]
             reps = 20 if d <= 64 else 5
-            kernel_ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, scale), reps)
+            host = []
+            kernel_ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, scale), reps, host=host)
             plain_ms = cuda_ms(lambda: fa.flash_attention_fwd_reference(q, k, v, scale), reps)
             try:  # as (1, B*H, S, D), the 4-D layout its fused backends take
                 library_ms = cuda_ms(
@@ -340,7 +449,8 @@ def phase_kernels(state):
                 max_abs_err_o=err_o, max_abs_err_lse=err_lse, tol_o=tol["o"],
                 tol_lse=tol["lse"], ok=ok, kernel_ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                kernel_tflops=flops / kernel_ms / 1e9,
+                kernel_tflops=flops / kernel_ms / 1e9, host_ms_per_call=host[0],
+                l2_to_sm_bytes=fwd_l2_bytes(bh, sq, sk, d, name_dt),
             )
             results.append(row)
             emit("kernels", **row)

@@ -1,64 +1,92 @@
 // Flash-attention forward for Hopper (sm_90a), f32 and bf16 I/O.
 //
-// Replaces the TPU kernel `_fwd_kernel` in
-// stable_diffusion_training_tpu/ops/flash_attention.py (launched by
-// `_flash_fwd_impl`): blockwise online-softmax attention over heads folded to
-// (B*H, S, D), f32 logits and accumulator, P cast to V's dtype before the PV
-// product, keys past kv_len masked, the `l == 0` guard, and the per-row
-// logsumexp written beside O.
+// Replaces the TPU kernel `_fwd_kernel` (stable_diffusion_training_tpu/ops/
+// flash_attention.py:47), launched by `_flash_fwd_impl` (:237): blockwise
+// online-softmax attention over heads folded to (B*H, S, D), f32 logits and
+// accumulator, P cast to V's dtype before the PV product with l summing the
+// unrounded f32 P, keys past kv_len masked, the `l == 0` guard, and the
+// per-row logsumexp written beside O.
 //
-// What bounds it on this card. At the serving path's shapes it is compute:
-// the UNet's 64x64 latent self-attention, (16, 4096, 40), is 4*16*4096^2*40
-// ~ 43 GFLOP and 268 M exps per launch against 16*4096*40*2 B * 4 ~ 21 MB
-// of traffic; the VAE mid-block, (1, 4096, 512), is ~ 34 GFLOP and 17 M exps
-// against ~ 17 MB. Both sit far above the card's ~295 FLOP/byte ridge, so
-// the bound is the product rate, and at D = 40 the exp (MUFU) rate is a
-// large share of it (0.064 ms of exps against 0.043 ms of bf16 products).
+// What bounds it on this card (H100 SXM: 989 TFLOP/s bf16 on the tensor
+// cores, 16 exps per clock per SM, 50 MB of L2):
+// - D = 40, the UNet's 64x64 latent self-attention ((64, 4096, 40) in the
+//   train step, (16, 4096, 40) when serving): the exps. A logit costs one
+//   exp and 160 flops of products; the train shape's 1.07 G exps take the
+//   SFUs 0.257 ms, its 172 GFLOP the tensor cores 0.174 ms. Around each exp
+//   the softmax issues a max, an FFMA, an add and half a bf16 pack, so the
+//   issue slots and the latency of that chain matter as much as the SFU.
+// - D = 512, the VAE's single-head mid-block ((8, 4096, 512) in the train
+//   step, (1, 4096, 512) when serving): the products (275 GFLOP, 0.278 ms
+//   for the train shape), then the bytes from L2: every block streams its
+//   head's whole K and V (8 MB), query blocks x 8 MB per head.
 //
-// What the design does about that. Three kernels share the entry point; the
-// input picks one.
+// The design. Three kernels share the entry point; the input picks one.
+// The two bf16 kernels are one template (`flash_fwd_tma_kernel`), warp-
+// specialised: warpgroup 0 produces (setmaxnreg down to 24 or 40), the
+// others consume (up to 112 or 232). One producer thread streams Q once
+// and the K tiles, another the V tiles, each by TMA into a ring of stages
+// with a full and an empty mbarrier per stage; K and V have separate rings
+// because a tile's K is free once S is computed and its V only after P V.
+// A consumer warpgroup owns 64 query rows and runs, per key tile j:
+//   S_j = Q K_j^T          wgmma, both operands K-major in shared memory
+//   O  *= corr_{j-1}       while S_j runs
+//   O  += P_{j-1} V_{j-1}  wgmma, P the bf16 register A operand, V MN-major
+//                          (row-major tiles, the transpose bit)
+//   softmax of S_j         while P_{j-1} V_{j-1} runs: a tree of row maxima,
+//                          one FFMA and one exp2 per logit
+//                          (s * scale_log2 - m * scale_log2), the mask only
+//                          on the last tile
+// ptxas hoists a wgmma wait to the top of its basic block; the wait for the
+// next K tile (a loop) ends the block before the wait for P V, which keeps
+// the softmax above it.
 //
-// 1. Tensor cores, narrow heads (`flash_fwd_mma_kernel`): bf16 with
-//    D % 8 == 0 and D <= 64, the UNet's 64x64 latent self-attention.
-//    mma.sync m16n8k16 (bf16 in, f32 accumulate) for both products,
-//    FlashAttention-2 style: each of four warps owns 16 query rows, keeps its
-//    Q fragments and its O accumulator in registers, and turns the S
-//    accumulator straight into the bf16 A fragment of the PV product, so P
-//    never touches shared memory. D is zero-padded to a multiple of 16 in
-//    shared memory (40 -> 48), which changes neither product. The softmax
-//    runs in base 2 (exp2 of logits pre-scaled by log2 e), one MUFU op per
-//    logit. K and V tiles are staged row-major, rows padded by 8 bf16 so
-//    that fragment loads hit distinct banks: a K fragment is one 32-bit
-//    shared load, a V fragment comes transposed from ldmatrix.trans. Key
-//    tiles are double-buffered with cp.async, so tile i + 1 streams in
-//    while tile i is multiplied. wgmma, TMA and a warp-specialised pipeline
-//    are later work.
-// 2. Tensor cores, wide heads (`flash_fwd_mma_wide_kernel`): bf16 with
-//    D % 8 == 0 and 64 < D <= 512, the VAE's single-head mid-block. One
-//    warp's 16 rows of O at D = 512 would take 256 f32 registers a thread,
-//    so the four warps of a block share one 16-row query tile and split D:
-//    partial S tiles are summed through shared memory in a fixed order
-//    (every warp then holds the same S, m and l) and each warp multiplies P
-//    by its own quarter of V. Same staging as (1), 16-key tiles: 88 KB of
-//    shared memory at D = 512, 2 blocks/SM; the VAE call has 4096/16 = 256
-//    blocks for 132 SMs, and each streams all of K and V, so L2-to-SM
-//    traffic (16 query rows per 8 MB of K and V) bounds it before the
-//    tensor cores do.
+// 1. bf16, D % 8 == 0, D <= 64 (`flash_fwd_tma_kernel<DP, false>`, DP = D
+//    rounded up to 16, 40 kept as is): four consumer warpgroups, 256 query
+//    rows per block, 64-key tiles, three stages. QK^T runs 3 k-steps at
+//    D = 40 (TMA zero-fills columns 40-47 of the 64-column box); P V is
+//    m64n40k16. Four consumer warps on each SM sub-partition hide the
+//    softmax's dependency chain better than two warpgroups of 128 rows did
+//    (PERF.md, PR 4). 256 rows per block also quarter the L2 bytes of the
+//    64-row mma.sync kernel this replaces. Shared memory: Q
+//    32 KB, K and V 2 x 3 x 8 KB = 80 KB (+1 KB for alignment); 640 threads,
+//    one block per SM.
+// 2. bf16, D % 8 == 0, 64 < D <= 512 (`flash_fwd_tma_kernel<DP, true>`, DP
+//    = 128, 256 or 512): O for 64 rows at D = 512 is 256 f32 registers a
+//    thread in one warpgroup, so two consumer warpgroups split D: each owns
+//    half of O's columns (m64n256k16 at D = 512: 128 registers) and
+//    computes the partial S over its half of D (16 k-steps of m64n32k16).
+//    The halves meet through shared memory (double-buffered by tile parity,
+//    one named barrier a tile), so S is computed once and both warpgroups
+//    hold identical S, m and l. O's 128 registers are corrected only where
+//    a warp's row maxima moved (a warp vote). 64 query rows per block (4x
+//    fewer L2 bytes than the 16-row kernel this replaces), 32-key tiles, two
+//    stages: Q 64 KB, K and V 2 x 2 x 32 KB, S halves 32 KB = 224 KB at
+//    DP = 512 (+1 KB), which leaves no room for a third stage or wider key
+//    tiles; 384 threads, one block per SM.
 // 3. CUDA cores (`flash_fwd_kernel`): everything else — f32 I/O (exact f32
-//    products; TF32 would change the numerics), bf16 with D % 8 != 0 —
-//    for head dims up to 512. f32 FMA with both operands staged in shared
-//    memory as f32. Each block owns BQ query rows of one (batch*head); its
-//    four warps own BQ/4 rows each, so the row max and row sum are warp
-//    shuffles and P never leaves the warp's own slice of shared memory. K
-//    and V tiles are re-read from shared memory as float4 (rows padded by 4
-//    floats, so the 8 lanes of a 128-bit phase hit 8 distinct bank groups).
-//    O stays in registers: each lane owns the columns lane, lane + 32, ...
-//    of its warp's rows. The head dim picks the tile shape (DP = padded D):
+//    products; TF32 would change the numerics), bf16 with D % 8 != 0 or an
+//    unaligned base — for head dims up to 512. f32 FMA with both operands
+//    staged in shared memory as f32. Each block owns BQ query rows of one
+//    (batch*head); its four warps own BQ/4 rows each, so the row max and
+//    row sum are warp shuffles and P never leaves the warp's own slice of
+//    shared memory. K and V tiles are re-read from shared memory as float4
+//    (rows padded by 4 floats, so the 8 lanes of a 128-bit phase hit 8
+//    distinct bank groups). O stays in registers: each lane owns the
+//    columns lane, lane + 32, ... of its warp's rows. The head dim picks the
+//    tile shape (DP = padded D):
 //      DP  64: BQ 64, BK 64  ( 68.6 KB smem, 3 blocks/SM)
 //      DP 128: BQ 32, BK 64  ( 92.7 KB)
 //      DP 256: BQ 16, BK 32  ( 85.2 KB)
 //      DP 512: BQ 16, BK 32  (167.2 KB, 1 block/SM)
+//
+// TMA: Q, K and V are 3-D tensor maps {D, S, B*H} with boxes of 64 columns
+// (128 bytes, 128-byte swizzle), so rows past S inside a head and columns
+// past D arrive as zeros (a 2-D (B*H*S, D) map would read the next head's
+// rows into a ragged tile). The maps are encoded on the host at every call
+// (the pointers change) and pass as __grid_constant__ parameters. The TMA,
+// mbarrier and wgmma helpers are in hopper_common.cuh.
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -223,366 +251,357 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float
 }
 
 
-// --- tensor-core paths: bf16, D % 8 == 0 -------------------------------------
+// --- tensor-core kernels: bf16, D % 8 == 0 (TMA, wgmma, warp-specialised) ----
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                         float* __restrict__ lse, int sq, int sk, int d, float scale_log2) {
-  constexpr int BQ = 16 * kWarps, BK = 64;
-  constexpr int LDQ = DP + 8;  // bf16 per smem row of Q, K and V
-  constexpr int KS = DP / 16;  // k-steps of QK^T over D
-  constexpr int NT = BK / 8;   // 8-key column tiles of S
-  constexpr int OT = DP / 8;   // 8-wide column tiles of O
-  static_assert(OT % 2 == 0, "V fragments are loaded two column tiles at a time");
-  __shared__ __align__(16) __nv_bfloat16 sQ[BQ * LDQ];
-  // two stages: key tile i + 1 lands while tile i is in use
-  __shared__ __align__(16) __nv_bfloat16 sK[2][BK * LDQ];
-  __shared__ __align__(16) __nv_bfloat16 sV[2][BK * LDQ];
-
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // fragment row (and row + 8)
-  const int t = lane % 4;  // fragment column pair
-  const __nv_bfloat16* kb = k + size_t(bh) * sk * d;
-  const __nv_bfloat16* vb = v + size_t(bh) * sk * d;
-
-  const int n_tiles = (sk + BK - 1) / BK;
-  load_tile_async<DP, LDQ>(sQ, q + (size_t(bh) * sq + q0) * d, BQ, sq - q0, d);
-  load_tile_async<DP, LDQ>(sK[0], kb, BK, min(BK, sk), d);
-  load_tile_async<DP, LDQ>(sV[0], vb, BK, min(BK, sk), d);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-  uint32_t qa[KS][4];
-  const __nv_bfloat16* qrow = sQ + (warp * 16 + g) * LDQ + 2 * t;
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    qa[ks][0] = ld32(qrow + ks * 16);
-    qa[ks][1] = ld32(qrow + 8 * LDQ + ks * 16);
-    qa[ks][2] = ld32(qrow + ks * 16 + 8);
-    qa[ks][3] = ld32(qrow + 8 * LDQ + ks * 16 + 8);
-  }
-
-  // this thread's two rows: g and g + 8 of the warp's 16
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[OT][4];
-#pragma unroll
-  for (int j = 0; j < OT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * BK;
-    const int kv = min(BK, sk - k0);
-    const __nv_bfloat16* sKt = sK[it & 1];
-    const __nv_bfloat16* sVt = sV[it & 1];
-    if (it > 0) {  // tile `it` has landed, and every warp is done with tile it - 1
-      cp_async_wait_all();
-      __syncthreads();
-    }
-    if (it + 1 < n_tiles) {  // prefetch tile it + 1 into the stage tile it - 1 used
-      const int k1 = k0 + BK;
-      load_tile_async<DP, LDQ>(sK[(it + 1) & 1], kb + size_t(k1) * d, BK, min(BK, sk - k1), d);
-      load_tile_async<DP, LDQ>(sV[(it + 1) & 1], vb + size_t(k1) * d, BK, min(BK, sk - k1), d);
-      cp_async_commit();
-    }
-
-    // S = Q K^T; s[j] holds rows (g, g, g+8, g+8) x keys (8j+2t, 8j+2t+1)
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* krow = sKt + (j * 8 + g) * LDQ + 2 * t;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        mma_16816(s[j], qa[ks], ld32(krow + ks * 16), ld32(krow + ks * 16 + 8));
-    }
-
-    // online softmax in base 2; the 4 lanes of a quad share a row
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool valid = j * 8 + 2 * t + (e & 1) < kv;
-        s[j][e] = valid ? s[j][e] * scale_log2 : kNegInf;
-        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
-      }
-    float corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      corr[r] = exp2f(m[r] - m_new);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool valid = j * 8 + 2 * t + (e & 1) < kv;
-        s[j][e] = valid ? exp2f(s[j][e] - m[e / 2]) : 0.f;
-        sum[e / 2] += s[j][e];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      l[r] = l[r] * corr[r] + sum[r];  // l sums P in f32
-    }
-#pragma unroll
-    for (int j = 0; j < OT; ++j) {
-      acc[j][0] *= corr[0];
-      acc[j][1] *= corr[0];
-      acc[j][2] *= corr[1];
-      acc[j][3] *= corr[1];
-    }
-
-    // O += P V, with P rounded to bf16 (V's dtype) as the A fragment
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < OT; j += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans<LDQ>(b, sVt + kk * 16 * LDQ + j * 8, lane);
-        mma_16816(acc[j], pa, b[0], b[1]);
-        mma_16816(acc[j + 1], pa, b[2], b[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    if (row >= sq) continue;
-    const float safe_l = l[r] == 0.f ? 1.f : l[r];
-    __nv_bfloat16* orow = o + (size_t(bh) * sq + row) * d;
-#pragma unroll
-    for (int j = 0; j < OT; ++j) {
-      const int c = j * 8 + 2 * t;  // d % 8 == 0: the pair is in or out together
-      if (c < d)
-        *reinterpret_cast<__nv_bfloat162*>(orow + c) =
-            __floats2bfloat162_rn(acc[j][2 * r] / safe_l, acc[j][2 * r + 1] / safe_l);
-    }
-    if (t == 0) lse[size_t(bh) * sq + row] = (m[r] + log2f(safe_l)) * kLn2;
-  }
-}
-
-template <int DP>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-                       int sq, int sk, int d, float scale, cudaStream_t stream) {
-  constexpr int BQ = 16 * kWarps;
-  const dim3 grid((sq + BQ - 1) / BQ, bh);
-  flash_fwd_mma_kernel<DP><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, sq, sk, d,
-      scale * kLog2e);
-  return cudaGetLastError();
-}
-
-
-// --- tensor-core path for wide heads: bf16, D % 8 == 0, 64 < D <= 512 -------
-//
-// A 16-row query tile per block; its four warps split D, each owning DW =
-// DP/4 columns of Q, K, V and O (the VAE's D = 512 would need 256 f32
-// accumulator registers per thread in one warp). Each warp computes S over
-// its slice of D; the four partial S tiles are summed through shared memory
-// in a fixed order, so every warp holds the same S, m and l, and each warp
-// then multiplies P by its slice of V.
-
-template <int DP>
-struct WideTile {
-  static constexpr int BQ = 16, BK = 16;
-  static constexpr int DW = DP / kWarps;  // D columns per warp
-  static constexpr int LDQ = DP + 8;      // bf16 per smem row of Q, K and V
-  static constexpr int LDS = BK + 8;      // f32 per smem row of a partial S
-  static_assert(DW % 16 == 0, "each warp's slice of D is whole k-steps");
-  // Q, two stages of K and V, the partial S tiles
-  static constexpr size_t kSmemBytes =
-      (size_t(BQ) * LDQ + 4 * size_t(BK) * LDQ) * 2 + size_t(kWarps) * BQ * LDS * 4;
+template <int DP, bool kWide>
+struct TmaTile {
+  // consumer warpgroups; warpgroup 0 produces
+  static constexpr int kConsumers = kWide ? 2 : 4;
+  static constexpr int kThreadsTotal = 128 * (1 + kConsumers);
+  static constexpr int BQ = kWide ? 64 : 64 * kConsumers;  // query rows per block
+  static constexpr int BK = kWide ? 32 : 64;               // keys per shared-memory tile
+  static constexpr int kStages = kWide ? 2 : 3;            // K and V tiles in flight
+  // Registers a thread. At launch every thread has kLaunchRegs (ptxas
+  // gives a kernel that uses setmaxnreg all that its launch bounds allow);
+  // then the producer drops to kProducerRegs and the consumers take what it
+  // freed, out of the block's own allocation.
+  static constexpr int kLaunchRegs = 65536 / kThreadsTotal / 8 * 8;
+  static constexpr int kProducerRegs = kConsumers > 2 ? 24 : 40;
+  static constexpr int kSpareRegs =
+      (kLaunchRegs * kThreadsTotal - 128 * kProducerRegs) / (128 * kConsumers) / 8 * 8;
+  static constexpr int kConsumerRegs = kSpareRegs > 240 ? 240 : kSpareRegs;
+  static constexpr int kChunks = (DP + 63) / 64;  // 64-column boxes per row
+  // 16-deep k-steps of one consumer's S: all of D, or its share of the chunks
+  static constexpr int kQkSteps = kWide ? kChunks / kConsumers * 4 : (DP + 15) / 16;
+  static constexpr int kPvN = kWide ? DP / kConsumers : DP;  // O columns per consumer
+  static constexpr int kSRegs = BK / 2;           // f32 registers of S per thread
+  static constexpr int kORegs = kPvN / 2;         // f32 registers of O per thread
+  static constexpr uint32_t kQBytes = kChunks * BQ * 128;
+  static constexpr uint32_t kKvBytes = kChunks * BK * 128;  // one stage of K (or of V)
+  // wide: the consumers' partial S, two tiles' worth (by parity)
+  static constexpr uint32_t kXBytes = kWide ? 2 * kConsumers * kSRegs * 128 * 4 : 0;
+  static constexpr uint32_t kOffK = kQBytes;
+  static constexpr uint32_t kOffV = kOffK + kStages * kKvBytes;
+  static constexpr uint32_t kOffX = kOffV + kStages * kKvBytes;
+  static constexpr uint32_t kOffBar = kOffX + kXBytes;
+  static constexpr uint32_t kBars = 1 + 4 * kStages;  // Q full; K and V full and empty per stage
+  static constexpr size_t kSmemBytes = kOffBar + kBars * 8 + 1024;  // + slack to align to 1024
+  static_assert(kWide ? (DP % (64 * kConsumers) == 0 && DP <= 512) : (DP % 8 == 0 && DP <= 64),
+                "head dim");
+  static_assert(kSmemBytes <= 232448, "shared memory per block");
 };
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_mma_wide_kernel(const __nv_bfloat16* __restrict__ q,
-                              const __nv_bfloat16* __restrict__ k,
-                              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                              float* __restrict__ lse, int sq, int sk, int d, float scale_log2) {
-  using W = WideTile<DP>;
-  constexpr int BQ = W::BQ, BK = W::BK, DW = W::DW, LDQ = W::LDQ, LDS = W::LDS;
-  constexpr int KS = DW / 16;  // k-steps of the warp's partial QK^T
-  constexpr int NT = BK / 8;   // 8-key column tiles of S
-  constexpr int OT = DW / 8;   // 8-wide column tiles of the warp's O
-  static_assert(OT % 2 == 0, "V fragments are loaded two column tiles at a time");
-  extern __shared__ __align__(16) unsigned char wide_smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(wide_smem);
-  __nv_bfloat16* sK = sQ + BQ * LDQ;    // [2][BK][LDQ]
-  __nv_bfloat16* sV = sK + 2 * BK * LDQ;  // [2][BK][LDQ]
-  float* sS = reinterpret_cast<float*>(sV + 2 * BK * LDQ);  // [kWarps][BQ][LDS]
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int c0 = warp * DW;  // this warp's slice of D
-  const __nv_bfloat16* kb = k + size_t(bh) * sk * d;
-  const __nv_bfloat16* vb = v + size_t(bh) * sk * d;
-
-  const int n_tiles = (sk + BK - 1) / BK;
-  load_tile_async<DP, LDQ>(sQ, q + (size_t(bh) * sq + q0) * d, BQ, sq - q0, d);
-  load_tile_async<DP, LDQ>(sK, kb, BK, min(BK, sk), d);
-  load_tile_async<DP, LDQ>(sV, vb, BK, min(BK, sk), d);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-  uint32_t qa[KS][4];
-  const __nv_bfloat16* qrow = sQ + g * LDQ + c0 + 2 * t;
+// S = Q K^T for one key tile over this consumer's k-steps; K-major both.
+// `q` and `k` describe the first k-step; the others are fixed byte offsets.
+template <class C>
+__device__ __forceinline__ void issue_qk(float (&s)[C::kSRegs], uint64_t q, uint64_t k) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    qa[ks][0] = ld32(qrow + ks * 16);
-    qa[ks][1] = ld32(qrow + 8 * LDQ + ks * 16);
-    qa[ks][2] = ld32(qrow + ks * 16 + 8);
-    qa[ks][3] = ld32(qrow + 8 * LDQ + ks * 16 + 8);
-  }
-
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[OT][4];
-#pragma unroll
-  for (int j = 0; j < OT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * BK;
-    const int kv = min(BK, sk - k0);
-    const __nv_bfloat16* sKt = sK + (it & 1) * BK * LDQ;
-    const __nv_bfloat16* sVt = sV + (it & 1) * BK * LDQ;
-    if (it > 0) {  // tile `it` has landed, and every warp is done with tile it - 1 and S
-      cp_async_wait_all();
-      __syncthreads();
-    }
-    if (it + 1 < n_tiles) {  // prefetch tile it + 1 into the stage tile it - 1 used
-      const int k1 = k0 + BK;
-      const size_t stage = ((it + 1) & 1) * BK * LDQ;
-      load_tile_async<DP, LDQ>(sK + stage, kb + size_t(k1) * d, BK, min(BK, sk - k1), d);
-      load_tile_async<DP, LDQ>(sV + stage, vb + size_t(k1) * d, BK, min(BK, sk - k1), d);
-      cp_async_commit();
-    }
-
-    // this warp's partial S over its slice of D, to shared memory
-    float s[NT][4];
-    float* mine = sS + warp * BQ * LDS;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* krow = sKt + (j * 8 + g) * LDQ + c0 + 2 * t;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        mma_16816(s[j], qa[ks], ld32(krow + ks * 16), ld32(krow + ks * 16 + 8));
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mine[(g + 8 * (e / 2)) * LDS + j * 8 + 2 * t + (e & 1)] = s[j][e];
-    }
-    __syncthreads();
-
-    // the full S, summed over the warps in a fixed order: identical in all
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int idx = (g + 8 * (e / 2)) * LDS + j * 8 + 2 * t + (e & 1);
-        float tot = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) tot += sS[w * BQ * LDS + idx];
-        const bool valid = j * 8 + 2 * t + (e & 1) < kv;
-        s[j][e] = valid ? tot * scale_log2 : kNegInf;
-        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
-      }
-    float corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      corr[r] = exp2f(m[r] - m_new);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool valid = j * 8 + 2 * t + (e & 1) < kv;
-        s[j][e] = valid ? exp2f(s[j][e] - m[e / 2]) : 0.f;
-        sum[e / 2] += s[j][e];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      l[r] = l[r] * corr[r] + sum[r];
-    }
-#pragma unroll
-    for (int j = 0; j < OT; ++j) {
-      acc[j][0] *= corr[0];
-      acc[j][1] *= corr[0];
-      acc[j][2] *= corr[1];
-      acc[j][3] *= corr[1];
-    }
-
-    // O[:, slice] += P V[:, slice], P rounded to bf16
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < OT; j += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans<LDQ>(b, sVt + kk * 16 * LDQ + c0 + j * 8, lane);
-        mma_16816(acc[j], pa, b[0], b[1]);
-        mma_16816(acc[j + 1], pa, b[2], b[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + g + 8 * r;
-    if (row >= sq) continue;
-    const float safe_l = l[r] == 0.f ? 1.f : l[r];
-    __nv_bfloat16* orow = o + (size_t(bh) * sq + row) * d;
-#pragma unroll
-    for (int j = 0; j < OT; ++j) {
-      const int c = c0 + j * 8 + 2 * t;
-      if (c < d)
-        *reinterpret_cast<__nv_bfloat162*>(orow + c) =
-            __floats2bfloat162_rn(acc[j][2 * r] / safe_l, acc[j][2 * r + 1] / safe_l);
-    }
-    if (warp == 0 && t == 0) lse[size_t(bh) * sq + row] = (m[r] + log2f(safe_l)) * kLn2;
+  for (int ks = 0; ks < C::kQkSteps; ++ks) {
+    const uint32_t col_bytes = (ks % 4) * 32, chunk = ks / 4;
+    Wgmma<C::BK>::ss(s, wgmma_desc_advance(q, chunk * C::BQ * 128 + col_bytes),
+                     wgmma_desc_advance(k, chunk * C::BK * 128 + col_bytes), ks > 0);
   }
 }
 
-template <int DP>
-cudaError_t launch_mma_wide(const void* q, const void* k, const void* v, void* o, float* lse,
-                            int bh, int sq, int sk, int d, float scale, cudaStream_t stream) {
-  constexpr size_t smem = WideTile<DP>::kSmemBytes;
-  auto kernel = flash_fwd_mma_wide_kernel<DP>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+// O += P V for one key tile; P in registers, V (described by `v`) MN-major.
+template <class C>
+__device__ __forceinline__ void issue_pv(float (&o)[C::kORegs], const uint32_t (&p)[C::BK / 16][4],
+                                         uint64_t v) {
+#pragma unroll
+  for (int kk = 0; kk < C::BK / 16; ++kk)
+    Wgmma<C::kPvN>::rs(o, p[kk], wgmma_desc_advance(v, kk * 16 * 128), 1);
+}
+
+// Online softmax over one tile of raw logits in `s` (this thread's rows g
+// and g + 8, base 2): masks keys at or past `kv` (only when kv < 2 * NR),
+// folds the new row max into m, turns s into P = exp2(s * c - m * c) in
+// place, and gives each row's correction for O. l holds this thread's share
+// of each row's sum (the quad's four shares are added at the end).
+template <int NR>
+__device__ __forceinline__ void online_softmax(float (&s)[NR], float (&m)[2], float (&l)[2],
+                                               float (&corr)[2], float c, int kv, int t) {
+  if (kv < 2 * NR) {
+#pragma unroll
+    for (int i = 0; i < NR / 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * i + 2 * t + (e & 1) >= kv) s[4 * i + e] = kNegInf;
+  }
+  // four running maxima per row, combined at the end: a short dependency chain
+  float part[2][4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) part[e / 2][e % 2] = s[e], part[e / 2][2 + e % 2] = s[4 + e];
+#pragma unroll
+  for (int i = 2; i < NR / 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      part[e / 2][(i % 2) * 2 + e % 2] = fmaxf(part[e / 2][(i % 2) * 2 + e % 2], s[4 * i + e]);
+  float mx[2], ms[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(fmaxf(m[r], fmaxf(part[r][0], part[r][1])), fmaxf(part[r][2], part[r][3]));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    ms[r] = mx[r] * c;  // = max of s * c: rounding is monotone
+    corr[r] = fast_exp2(m[r] * c - ms[r]);
+    m[r] = mx[r];
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < NR / 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = fmaf(s[4 * i + e], c, -ms[e / 2]);  // one FFMA: scale and shift
+      s[4 * i + e] = fast_exp2(x);
+      sum[e / 2] += s[4 * i + e];  // l sums P in f32; the product takes it in bf16
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+}
+
+// O's rows scaled by their corrections (rows g and g + 8 of the accumulator)
+template <int NR>
+__device__ __forceinline__ void rescale_o(float (&o)[NR], const float (&corr)[2]) {
+  // A wide O (64 or 128 registers): once the row maxima settle most tiles
+  // correct by exactly 1, and where the whole warp's are 1 the multiplies
+  // change nothing. (At D <= 64 the vote costs more than the multiplies.)
+  if (NR > 32 && !__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) return;
+#pragma unroll
+  for (int i = 0; i < NR / 4; ++i) {
+    o[4 * i] *= corr[0];
+    o[4 * i + 1] *= corr[0];
+    o[4 * i + 2] *= corr[1];
+    o[4 * i + 3] *= corr[1];
+  }
+}
+
+// P (f32 accumulator layout) as the bf16 A fragments of P V, one per 16 keys
+template <int NR>
+__device__ __forceinline__ void pack_p(uint32_t (&p)[NR / 8][4], const float (&s)[NR]) {
+#pragma unroll
+  for (int kk = 0; kk < NR / 8; ++kk) {
+    p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// Wide heads: adds the other consumer's partial S (same thread, same
+// registers) to this one's through shared memory, so both hold the full S.
+// Buffers alternate with the tile's parity: a consumer rewrites one only
+// after the barrier of the next tile, which the other passes only after
+// reading it. mine + other == other + mine bit for bit.
+template <int NR>
+__device__ __forceinline__ void exchange_partial_s(float (&s)[NR], float* x, int tile, int w, int tid) {
+  float* mine = x + ((tile & 1) * 2 + w) * NR * 128;
+  const float* other = x + ((tile & 1) * 2 + 1 - w) * NR * 128;
+#pragma unroll
+  for (int i = 0; i < NR; ++i) mine[i * 128 + tid] = s[i];
+  named_barrier_sync(1, 256);  // the two consumers of a wide block
+#pragma unroll
+  for (int i = 0; i < NR; ++i) s[i] += other[i * 128 + tid];
+}
+
+template <int DP, bool kWide>
+__global__ void __launch_bounds__(TmaTile<DP, kWide>::kThreadsTotal, 1)
+    flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                         float* __restrict__ lse, int sq, int sk, int d, float scale_log2) {
+  using C = TmaTile<DP, kWide>;
+  constexpr int BQ = C::BQ, BK = C::BK, NS = C::kStages;
+  extern __shared__ unsigned char tma_smem_raw[];
+  // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows of 128 bytes
+  unsigned char* smem = tma_smem_raw + ((1024 - (smem_u32(tma_smem_raw) & 1023)) & 1023);
+  unsigned char* sQ = smem;
+  unsigned char* sK = smem + C::kOffK;
+  unsigned char* sV = smem + C::kOffV;
+  float* sX = reinterpret_cast<float*>(smem + C::kOffX);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::kOffBar);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* k_empty = k_full + NS;
+  uint64_t* v_full = k_empty + NS;
+  uint64_t* v_empty = v_full + NS;
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * BQ;
+  const int n_tiles = (sk + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(k_full + st, 1);
+      mbar_init(v_full + st, 1);
+      mbar_init(k_empty + st, 128 * C::kConsumers);
+      mbar_init(v_empty + st, 128 * C::kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: one thread streams Q and the K tiles, one in the next warp
+    // the V tiles, each as fast as its ring frees up; the warpgroup's
+    // registers go to the consumers
+    setmaxnreg_dec<C::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, C::kQBytes);
+#pragma unroll
+      for (int c = 0; c < C::kChunks; ++c) tma_load_3d(sQ + c * BQ * 128, &tm_q, q_full, c * 64, q0, bh);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % NS;
+        mbar_wait(k_empty + st, ((j / NS) & 1) ^ 1);
+        mbar_arrive_expect_tx(k_full + st, C::kKvBytes);
+#pragma unroll
+        for (int c = 0; c < C::kChunks; ++c)
+          tma_load_3d(sK + st * C::kKvBytes + c * BK * 128, &tm_k, k_full + st, c * 64, j * BK, bh);
+      }
+    } else if (threadIdx.x == 32) {
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % NS;
+        mbar_wait(v_empty + st, ((j / NS) & 1) ^ 1);
+        mbar_arrive_expect_tx(v_full + st, C::kKvBytes);
+#pragma unroll
+        for (int c = 0; c < C::kChunks; ++c)
+          tma_load_3d(sV + st * C::kKvBytes + c * BK * 128, &tm_v, v_full + st, c * 64, j * BK, bh);
+      }
+    }
+  } else {
+    setmaxnreg_inc<C::kConsumerRegs>();
+    const int w = threadIdx.x / 128 - 1;  // consumer warpgroup
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    // narrow: this consumer's 64 rows of Q; wide: its half of D, in Q, K and V
+    const int chunk0 = kWide ? w * C::kChunks / C::kConsumers : 0;
+    const uint64_t q_desc = wgmma_desc(sQ + (kWide ? chunk0 * BQ * 128 : w * 64 * 128), 16, 1024);
+    const uint64_t k_desc = wgmma_desc(sK + chunk0 * BK * 128, 16, 1024);  // stage 0
+    const uint64_t v_desc = wgmma_desc(sV + chunk0 * BK * 128, BK * 128, 1024);
+    const float c = scale_log2;
+
+    float s[C::kSRegs];
+    uint32_t p[C::kSRegs / 8][4];
+    float acc[C::kORegs];
+#pragma unroll
+    for (int i = 0; i < C::kORegs; ++i) acc[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
+
+    auto k_tile = [&](int j) { return wgmma_desc_advance(k_desc, (j % NS) * C::kKvBytes); };
+    auto v_tile = [&](int j) { return wgmma_desc_advance(v_desc, (j % NS) * C::kKvBytes); };
+    auto softmax = [&](int j) {
+      if constexpr (kWide) exchange_partial_s(s, sX, j, w, tid);
+      online_softmax(s, m, l, corr, c, j == n_tiles - 1 ? sk - j * BK : BK, t);
+    };
+
+    mbar_wait(q_full, 0);
+    // tile 0: S, softmax, P
+    mbar_wait(k_full, 0);
+    wgmma_fence();
+    issue_qk<C>(s, q_desc, k_desc);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    mbar_arrive(k_empty);
+    softmax(0);
+    pack_p(p, s);
+    if (n_tiles > 1) mbar_wait(k_full + 1 % NS, (1 / NS) & 1);
+
+    for (int j = 1; j < n_tiles; ++j) {
+      const int st = j % NS, pst = (j - 1) % NS;
+      // K_j has landed (waited for at the end of the last tile). S_j and
+      // PV_{j-1} go to the tensor cores back to back; O's correction for
+      // tile j-1 runs under S_j.
+      mbar_wait(v_full + pst, ((j - 1) / NS) & 1);
+      wgmma_fence();
+      issue_qk<C>(s, q_desc, k_tile(j));
+      wgmma_commit();
+      rescale_o(acc, corr);
+      wgmma_fence();
+      issue_pv<C>(acc, p, v_tile(j - 1));
+      wgmma_commit();
+      wgmma_wait<1>();  // S_j is done
+      fence_regs(s);
+      mbar_arrive(k_empty + st);
+      softmax(j);
+      // The softmax must run under PV_{j-1}. ptxas hoists a wgmma wait to
+      // the top of its basic block, above register-only work; the wait for
+      // the next K tile (a loop) ends the block, so the wait for PV_{j-1}
+      // stays below the softmax.
+      fence_regs(s);
+      fence_regs(m);
+      fence_regs(l);
+      fence_regs(corr);
+      if (j + 1 < n_tiles) mbar_wait(k_full + (j + 1) % NS, ((j + 1) / NS) & 1);
+      wgmma_wait<0>();  // PV_{j-1} is done
+      fence_regs(acc);
+      fence_regs(p);
+      mbar_arrive(v_empty + pst);
+      pack_p(p, s);
+    }
+    const int last = n_tiles - 1;
+    mbar_wait(v_full + last % NS, (last / NS) & 1);
+    rescale_o(acc, corr);
+    wgmma_fence();
+    issue_pv<C>(acc, p, v_tile(last));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(p);
+    mbar_arrive(v_empty + last % NS);
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    const int col0 = kWide ? w * C::kPvN : 0;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + (kWide ? 0 : w * 64) + warp * 16 + g + 8 * r;
+      if (row >= sq) continue;
+      const float safe_l = l[r] == 0.f ? 1.f : l[r];
+      __nv_bfloat16* orow = o + (size_t(bh) * sq + row) * d;
+#pragma unroll
+      for (int i = 0; i < C::kPvN / 8; ++i) {
+        const int col = col0 + 8 * i + 2 * t;  // d % 8 == 0: the pair is in or out together
+        if (col < d)
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(acc[4 * i + 2 * r] / safe_l, acc[4 * i + 2 * r + 1] / safe_l);
+      }
+      if (t == 0 && (!kWide || w == 0))
+        lse[size_t(bh) * sq + row] = (m[r] * c + log2f(safe_l)) * kLn2;
+    }
+  }
+}
+
+template <int DP, bool kWide>
+cudaError_t launch_tma(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                       int sq, int sk, int d, float scale, cudaStream_t stream) {
+  using C = TmaTile<DP, kWide>;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!encode_bf16_3d(&tm_q, q, bh, sq, d, C::BQ) || !encode_bf16_3d(&tm_k, k, bh, sk, d, C::BK) ||
+      !encode_bf16_3d(&tm_v, v, bh, sk, d, C::BK))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_tma_kernel<DP, kWide>;
+  // the shared-memory limit is an attribute of the kernel on each device: set once per device
+  static unsigned devices_set = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + WideTile<DP>::BQ - 1) / WideTile<DP>::BQ, bh);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, sq, sk, d,
-      scale * kLog2e);
+  if (dev >= 32 || !(devices_set >> dev & 1u)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::kSmemBytes));
+    if (err != cudaSuccess) return err;
+    if (dev < 32) devices_set |= 1u << dev;
+  }
+  const dim3 grid((sq + C::BQ - 1) / C::BQ, bh);
+  kernel<<<grid, C::kThreadsTotal, C::kSmemBytes, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse, sq, sk, d, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -603,13 +622,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
       return int(dispatch<float>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
     case 1:
       if (aligned16({q, k, v, o}, d)) {
-        if (d <= 16) return int(launch_mma<16>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
-        if (d <= 32) return int(launch_mma<32>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
-        if (d <= 48) return int(launch_mma<48>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
-        if (d <= 64) return int(launch_mma<64>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
-        if (d <= 128) return int(launch_mma_wide<128>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
-        if (d <= 256) return int(launch_mma_wide<256>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
-        return int(launch_mma_wide<512>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
+        if (d <= 16) return int(launch_tma<16, false>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
+        if (d <= 32) return int(launch_tma<32, false>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
+        if (d <= 40) return int(launch_tma<40, false>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
+        if (d <= 48) return int(launch_tma<48, false>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
+        if (d <= 64) return int(launch_tma<64, false>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
+        if (d <= 128) return int(launch_tma<128, true>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
+        if (d <= 256) return int(launch_tma<256, true>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
+        return int(launch_tma<512, true>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
       }
       return int(dispatch<__nv_bfloat16>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
     default:

@@ -1,8 +1,9 @@
 // Helpers shared by the flash-attention forward (flash_attention_fwd.cu) and
 // backward (flash_attention_bwd.cu) kernels: dtype conversion, warp
-// reductions, f32 tile staging for the CUDA-core kernels, and the bf16
-// tensor-core pieces (mma.sync m16n8k16, fragment packing, cp.async tile
-// loads, ldmatrix.trans).
+// reductions, f32 tile staging for the CUDA-core kernels, bf16 packing, and
+// the backward's tensor-core pieces (mma.sync m16n8k16, fragments, cp.async
+// tile loads, ldmatrix.trans). The forward's Hopper pieces (TMA, mbarriers,
+// wgmma) are in hopper_common.cuh.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -11,8 +11,9 @@ Flash attention, forward (K1) and backward (K2 dQ, K3 dK/dV): shapes cover
 the kernels behind each entry point, tensor cores for bf16 with D % 8 == 0
 (D <= 64 forward and backward, the forward's wide-head kernel for D = 80,
 128, 160, 512) and CUDA cores for f32, D = 36 and the backward above D = 64;
-and the edges: one query and one key, a single ragged key tile, and a last
-key tile of one key. 8-bit Lion (K4 single leaf, K5 many leaves, and the
+and the edges: one query and one key, a single ragged key tile, a last key
+tile of one key, and at the main path's D = 40 and 512 query and key counts
+that are no multiple of the forward kernels' tiles. 8-bit Lion (K4 single leaf, K5 many leaves, and the
 functional entry: K6 narrow, K7 wide) at block sizes 1 to 128 (128 on the
 cooperative variant): update signs and scales equal to the plain version's,
 codes at most one apart (CUDA's powf and torch's pow may differ by an ulp). Tolerances are those of
@@ -36,7 +37,7 @@ TOL = {"float32": dict(o=1e-4, lse=1e-4, grad=1e-4, grad_fro=1e-5),
 GRAD_SCALE_FLOOR = 0.1
 SHAPES = [(4, 300, 300, 40), (2, 257, 129, 64), (3, 100, 70, 36), (2, 130, 190, 80),
           (1, 70, 100, 160), (1, 200, 333, 512), (3, 1, 1, 8), (2, 33, 5, 24),
-          (1, 17, 2049, 128)]
+          (1, 17, 2049, 128), (3, 4000, 3900, 40), (2, 1000, 4100, 512)]
 
 
 def _need_cuda():
