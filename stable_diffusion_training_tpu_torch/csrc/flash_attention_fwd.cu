@@ -45,9 +45,9 @@
 //    rows per block, 64-key tiles, three stages. QK^T runs 3 k-steps at
 //    D = 40 (TMA zero-fills columns 40-47 of the 64-column box); P V is
 //    m64n40k16. Four consumer warps on each SM sub-partition hide the
-//    softmax's dependency chain better than two warpgroups of 128 rows did
-//    (PERF.md, PR 4). 256 rows per block also quarter the L2 bytes of the
-//    64-row mma.sync kernel this replaces. Shared memory: Q
+//    softmax's dependency chain better than two warpgroups of 128 rows
+//    (PERF.md has the measurements). 256 rows per block also quarter the L2
+//    bytes of the 64-row mma.sync kernel this replaces. Shared memory: Q
 //    32 KB, K and V 2 x 3 x 8 KB = 80 KB (+1 KB for alignment); 640 threads,
 //    one block per SM.
 // 2. bf16, D % 8 == 0, 64 < D <= 512 (`flash_fwd_tma_kernel<DP, true>`, DP
