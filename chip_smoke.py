@@ -12,10 +12,10 @@ Phases, one JSON line each:
    ``stable_diffusion_training_tpu_torch/csrc/`` for sm_90a, one ``nvcc``
    each, all started together; the compiler's register and spill report
    goes to ``chiprun_out/chip_smoke_build.log``. Prints every kernel's
-   registers and spill bytes and, for the forward kernels, the count of
-   wgmma (``HGMMA``) and TMA load (``UTMALDG``) instructions in
-   ``cuobjdump -sass`` of the built library; fails if a Hopper forward
-   kernel spills or lacks either.
+   registers and spill bytes and, for the flash-attention Hopper kernels
+   (the forward's and the fused backward), the count of wgmma (``HGMMA``)
+   and TMA load (``UTMALDG``) instructions in ``cuobjdump -sass`` of the
+   built library; fails if one is missing, spills or lacks either.
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
    with max errors against the stated tolerances, kernel / plain / library
    device times (CUDA events; the calls queued behind a spin kernel so the
@@ -26,8 +26,13 @@ Phases, one JSON line each:
    (64, 4096, 40) and (8, 4096, 512) bf16, plus ragged cases (bf16 at
    D = 40 and 512 with query and key counts off the tiles), with the host's
    ms per call and the bytes the kernel streams from L2;
-   flash-attention backward (K2 dQ, K3 dK/dV) at the train step's
-   (64, 4096, 40) bf16 and at ragged and f32 cases; the 8-bit Lion kernel
+   flash-attention backward at the train step's (64, 4096, 40) bf16 and at
+   ragged cases (D = 64, and D = 40 with both counts off the tiles) on the
+   fused kernel (K2 and K3 in one), at D = 36 bf16 and the f32 train_parity
+   shape on the CUDA-core K2 and K3: the whole call's time, each kernel's
+   (torch.profiler), host ms per call, the fused kernel's dQ reduce-add
+   bytes, and two runs on the same inputs (max |dQ1 - dQ2|; dK and dV must
+   be bitwise equal); the 8-bit Lion kernel
    over every SD1.5 leaf above the bucket limit (single-leaf entry, K4, one
    launch each) and over the UNet's and CLIP's small-leaf buckets
    (multi-leaf entry, K5), bs 16, bf16 grads, exact and fast companders,
@@ -51,11 +56,13 @@ Phases, one JSON line each:
 6. ``train_parity``: one full-width SD1.5 UNet forward and backward at
    512x512, batch 1, f32 (TF32 off), "auto" (K1 + K2 + K3) against "xla"
    (plain): the loss within 1e-5 relative, every grad within 1e-4 of its
-   tensor's max |grad|, and exactly 5 forward and 5 backward launches. The
+   tensor's max |grad|, and exactly 5 forward launches and 5 of each
+   CUDA-core backward kernel (f32 does not take the fused one). The
    same "auto" step with gradient checkpointing (every down, mid and up
    block recomputed in the backward) against it within the same bounds,
    with K1 launched 5 more times by the recompute. Then the same in bf16,
-   where the tensor-core kernels run: each route's bf16 grads against the
+   where the tensor-core kernels run (K1 5 times, the fused backward 5
+   times, the CUDA-core pair never): each route's bf16 grads against the
    f32 plain grads, the kernels' no further off than twice the plain
    route's, tensor by tensor.
 7. ``train``: the SD1.5 train step at full width through
@@ -65,7 +72,8 @@ Phases, one JSON line each:
    bs 16 with the example exclusion lists, EMA 0.99998, bucket limit 65536,
    exact compander), bf16, 512x512, batch 8, a synthetic batch from a seed:
    2 warm-up steps, then 5 timed steps with the launch counts zeroed just
-   before and read just after (K1 5 + 1, K2 and K3 5 each, the Lion
+   before and read just after (K1 5 + 1, the fused backward 5, the
+   CUDA-core K2 and K3 none, the Lion
    single-leaf entry once per leaf over the bucket limit, the multi-leaf
    entry twice, per step). Then one step under torch.profiler (``profile``
    line).
@@ -159,6 +167,8 @@ LION_BS, BUCKET_MAX_NB = 16, 65536
 
 
 RECORD = os.path.join(REPO, "chiprun_out", "chip_smoke.jsonl")  # every phase line, in full
+# the flash-attention kernels built on TMA and wgmma (names as in csrc/)
+HOPPER_KERNELS = ("flash_fwd_tma_kernel", "flash_bwd_fused_kernel")
 
 
 def emit(phase, **fields):
@@ -260,9 +270,10 @@ def phase_gpu(state):
 def phase_build(state):
     """Builds every kernel library; reads back, from the ptxas report and
     the built code, what each kernel became: registers and spill bytes of
-    every kernel, and for each flash-attention forward kernel its count of
-    wgmma (``HGMMA``) and TMA load (``UTMALDG``) instructions. The forward's
-    Hopper kernels must use both and spill nothing."""
+    every kernel, and for each flash-attention Hopper kernel (the forward's
+    and the fused backward) its count of wgmma (``HGMMA``) and TMA load
+    (``UTMALDG``) instructions. Those kernels must be built, use both and
+    spill nothing."""
     from stable_diffusion_training_tpu_torch.ops import cuda_build, flash_attention, lion_kernel
 
     start = time.perf_counter()
@@ -279,11 +290,12 @@ def phase_build(state):
             advisories += [ln.strip() for ln in log.splitlines() if "Performance" in ln or "serializ" in ln]
             for fn, props in ptxas_functions(log).items():
                 kernels[fn] = dict(library=name, **props)
-    for fn, counts in sass_counts(paths["flash_attention_fwd"], ("HGMMA", "UTMALDG")).items():
-        kernels.setdefault(fn, dict(library="flash_attention_fwd")).update(counts)
+    for lib in ("flash_attention_fwd", "flash_attention_bwd"):
+        for fn, counts in sass_counts(paths[lib], ("HGMMA", "UTMALDG")).items():
+            kernels.setdefault(fn, dict(library=lib)).update(counts)
     names = demangle_all(kernels)
     kernels = {names[fn]: props for fn, props in kernels.items()}
-    hopper = {n: k for n, k in kernels.items() if "flash_fwd_tma_kernel" in n}
+    hopper = {n: k for n, k in kernels.items() if any(h in n for h in HOPPER_KERNELS)}
     emit(
         "build", seconds=round(seconds, 3),
         libraries={n: os.path.relpath(p, REPO) for n, p in paths.items()}, ptxas=ptxas,
@@ -293,8 +305,9 @@ def phase_build(state):
         n: k for n, k in hopper.items()
         if k.get("spill_stores", 1) or k.get("spill_loads", 1) or not k.get("HGMMA") or not k.get("UTMALDG")
     }
-    if not hopper or bad:
-        raise AssertionError(f"forward Hopper kernels spill or lack wgmma/TMA: {bad or 'none built'}")
+    missing = [h for h in HOPPER_KERNELS if not any(h in n for n in hopper)]
+    if missing or bad:
+        raise AssertionError(f"Hopper kernels missing {missing}, or spilling or lacking wgmma/TMA: {bad}")
 
 
 def ptxas_functions(log):
@@ -315,9 +328,9 @@ def ptxas_functions(log):
 
 
 def sass_counts(lib, opcodes):
-    """For each kernel with "flash_fwd" in its name in the built library,
-    how many of its SASS instructions start with each of ``opcodes``
-    (``cuobjdump -sass``)."""
+    """For each flash-attention Hopper kernel in the built library (a name
+    holding one of ``HOPPER_KERNELS``), how many of its SASS instructions
+    start with each of ``opcodes`` (``cuobjdump -sass``)."""
     from stable_diffusion_training_tpu_torch.ops import cuda_build
 
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
@@ -326,7 +339,7 @@ def sass_counts(lib, opcodes):
     for line in out.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            current = name if "flash_fwd" in name else None
+            current = name if any(h in name for h in HOPPER_KERNELS) else None
             if current:
                 counts[current] = dict.fromkeys(opcodes, 0)
         elif current and "*/" in line:
@@ -364,18 +377,20 @@ def demangle_all(names):
     return out
 
 
-def _bound(bh, sq, sk, d, dtype_name, products=2, exps=1, reads_q=2, reads_k=2, writes_q=0, writes_k=0, stats=1):
+def _bound(bh, sq, sk, d, dtype_name, products=2, exps=1, reads_q=2, reads_k=2, writes_q=0, writes_k=0, stats=1,
+           f32_q=0):
     """Least time for attention work: ``products`` matmuls of 2*bh*sq*sk*d
     flops and ``exps`` exps per logit against HBM traffic of ``reads_q`` +
     ``writes_q`` (bh, sq, d) and ``reads_k`` + ``writes_k`` (bh, sk, d)
-    tensors and ``stats`` f32 (bh, sq) rows."""
+    tensors, ``stats`` f32 (bh, sq) rows and ``f32_q`` passes over an f32
+    (bh, sq, d) tensor."""
     import torch
 
     itemsize = torch.finfo(getattr(torch, dtype_name)).bits // 8
     flops = 2.0 * products * bh * sq * sk * d
     n_exps = float(exps) * bh * sq * sk
     nbytes = itemsize * bh * d * ((reads_q + writes_q) * sq + (reads_k + writes_k) * sk)
-    nbytes += 4 * stats * bh * sq
+    nbytes += 4 * stats * bh * sq + 4 * f32_q * bh * sq * d
     times = {
         "operations": max(flops / PEAK_FLOPS[dtype_name], n_exps / PEAK_EXPS),
         "bytes": nbytes / PEAK_BYTES,
@@ -469,8 +484,13 @@ def phase_kernels(state):
 
 
 def flash_backward_cases():
-    """K2 (dQ) and K3 (dK/dV) against ``flash_attention_bwd_reference``; the
-    library yardstick is SDPA's backward (timed only)."""
+    """The backward against ``flash_attention_bwd_reference``, by route: the
+    fused kernel (bf16, D % 8 == 0, D <= 64) or the CUDA-core K2 (dQ) and K3
+    (dK/dV). Times the whole call (for the fused route: zeroing the dQ
+    buffer, the kernel, the conversion) and, from torch.profiler, each
+    kernel in it; runs the call twice on the same inputs (dQ's sum over key
+    blocks lands in another order each run). The library yardstick is
+    SDPA's backward (timed only)."""
     import torch
     import torch.nn.functional as F
 
@@ -480,6 +500,8 @@ def flash_backward_cases():
     cases = [
         ("unet_train", 64, 4096, 4096, 40, torch.bfloat16),
         ("ragged", 4, 3000, 2100, 64, torch.bfloat16),
+        # query and key counts that are no multiple of the fused kernel's tiles
+        ("ragged_d40", 3, 4000, 3900, 40, torch.bfloat16),
         ("ragged_d36", 2, 1000, 777, 36, torch.bfloat16),  # off the tensor-core path
         ("unet_train_f32", 8, 4096, 4096, 40, torch.float32),  # the train_parity shape
     ]
@@ -491,11 +513,17 @@ def flash_backward_cases():
         scale = d**-0.5
         o, lse = fa.flash_attention_fwd(q, k, v, scale)
         delta = (do.float() * o.float()).sum(-1)
-        grads = fa.flash_attention_bwd(q, k, v, do, lse, delta, scale)
+        fused = fa.takes_fused_backward(q, k, v, do)
+        args = (q, k, v, do, lse, delta, scale)
+        fa.reset_launch_counts()
+        grads = fa.flash_attention_bwd(*args)
+        again = fa.flash_attention_bwd(*args)
         torch.cuda.synchronize()
-        expected = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale)
+        launches = dict(bwd_fused=fa.flash_attention_bwd_fused.launches, bwd_dq=fa.flash_attention_bwd_dq.launches,
+                        bwd_dkv=fa.flash_attention_bwd_dkv.launches)
+        expected = fa.flash_attention_bwd_reference(*args)
         errs, fro_errs, max_grads = {}, {}, {}
-        ok = True
+        ok = launches == (dict(bwd_fused=2, bwd_dq=0, bwd_dkv=0) if fused else dict(bwd_fused=0, bwd_dq=2, bwd_dkv=2))
         for gname, got, want in zip(("dq", "dk", "dv"), grads, expected):
             diff = got.float() - want.float()
             errs[gname] = diff.abs().max().item()
@@ -507,11 +535,18 @@ def flash_backward_cases():
                 and fro_errs[gname] <= BWD_FRO_TOLERANCE[name_dt]
             )
             del diff
-        del grads, expected
+        # run to run: dK and dV are summed in one order, dQ's adds may land in another
+        repeat = dict(
+            dq_max_abs_diff=(grads[0].float() - again[0].float()).abs().max().item(),
+            dk_equal=bool(torch.equal(grads[1], again[1])), dv_equal=bool(torch.equal(grads[2], again[2])),
+        )
+        ok = ok and repeat["dk_equal"] and repeat["dv_equal"] and (fused or repeat["dq_max_abs_diff"] == 0)
+        del grads, again, expected
         reps = 10 if d <= 64 else 3
-        dq_ms = cuda_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale), reps)
-        dkv_ms = cuda_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale), reps)
-        plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale), 2, warmup=1)
+        host = []
+        call_ms = cuda_ms(lambda: fa.flash_attention_bwd(*args), reps, host=host)
+        kernel_ms = profiled_kernel_ms(lambda: fa.flash_attention_bwd(*args), reps)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(*args), 2, warmup=1)
         library_ms = None
         try:  # SDPA's backward on (1, B*H, S, D), the yardstick only
             leaves = [t[None].detach().requires_grad_() for t in (q, k, v)]
@@ -522,25 +557,61 @@ def flash_backward_cases():
             del out, leaves
         except RuntimeError:  # no SDPA backend takes this shape/dtype
             pass
-        # K2: S, dO V^T, dS K (3 products) and the exps; reads q, k, v, dO,
-        # lse, delta, writes dQ. K3: S, dO V^T, P^T dO, dS^T Q (4 products);
-        # reads the same, writes dK and dV.
-        dq_bound = _bound(bh, sq, sk, d, name_dt, products=3, reads_q=2, reads_k=2, writes_q=1, stats=2)
-        dkv_bound = _bound(bh, sq, sk, d, name_dt, products=4, reads_q=2, reads_k=2, writes_k=2, stats=2)
+        # Both routes compute dQ, dK and dV from q, k, v, dO, lse and delta.
+        # Fused: 5 products (S, dO V^T, P^T dO, dS^T Q, dS K) and the exps
+        # once; the dQ buffer written and read in f32. Two kernels: K2 3
+        # products and the exps, K3 4 products and the exps again.
+        if fused:
+            bound = _bound(bh, sq, sk, d, name_dt, products=5, reads_q=2, reads_k=2, writes_q=1, writes_k=2,
+                           stats=2, f32_q=2)
+        else:
+            bound = _bound(bh, sq, sk, d, name_dt, products=7, exps=2, reads_q=2, reads_k=2, writes_q=1,
+                           writes_k=2, stats=2)
         row = dict(
             case=name, shape_q=[bh, sq, d], shape_k=[bh, sk, d], dtype=name_dt,
+            route="fused" if fused else "two CUDA-core kernels", launches=launches,
             max_abs_err=errs, max_abs_grad=max_grads, tol=BWD_TOLERANCE[name_dt],
-            rel_fro_err=fro_errs, fro_tol=BWD_FRO_TOLERANCE[name_dt], ok=ok, dq_ms=dq_ms, dkv_ms=dkv_ms,
-            plain_ms=plain_ms, library_ms=library_ms,
-            dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
-            dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
-            tflops=(dq_bound[2] + dkv_bound[2]) / (dq_ms + dkv_ms) / 1e9,
+            rel_fro_err=fro_errs, fro_tol=BWD_FRO_TOLERANCE[name_dt], repeat=repeat, ok=ok,
+            call_ms=call_ms, kernel_ms=kernel_ms, host_ms_per_call=host[0], plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound[0], bound_by=bound[1],
+            tflops=2.0 * 5 * bh * sq * sk * d / call_ms / 1e9,
+            dq_reduce_bytes=-(-sk // fa.FUSED_BWD_KEYS) * bh * sq * d * 4 if fused else None,
         )
         rows.append(row)
         emit("kernels_bwd", **row)
         del q, k, v, do, o, lse, delta
         torch.cuda.empty_cache()
     return rows
+
+
+def profiled_kernel_ms(fn, reps):
+    """Device ms per call of each kernel ``fn`` launches (torch.profiler over
+    ``reps`` calls after a warm-up), by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {name[:100]: ms / reps for ms, _, name in device_kernels(prof)}
+
+
+def device_kernels(prof):
+    """(device ms, launches, name) of each kernel in a torch.profiler trace."""
+    import torch
+
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kernels.append((us / 1e3, e.count, e.key))
+    return kernels
 
 
 def sd15_lion_leaves():
@@ -829,15 +900,7 @@ def profile_step(fn, what, groups, top):
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall_ms, _ = host_ms(fn)
-    kernels = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        kernels.append((us / 1e3, e.count, e.key))
-    kernels.sort(reverse=True)
+    kernels = sorted(device_kernels(prof), reverse=True)
     busy_ms = sum(ms for ms, _, _ in kernels)
     emit(
         "profile", what=what, wall_ms=wall_ms, device_busy_ms=busy_ms,
@@ -881,13 +944,22 @@ def phase_train_parity(state):
         torch.cuda.synchronize()
         launches = dict(
             fwd=fa.flash_attention_fwd.launches, bwd_dq=fa.flash_attention_bwd_dq.launches,
-            bwd_dkv=fa.flash_attention_bwd_dkv.launches,
+            bwd_dkv=fa.flash_attention_bwd_dkv.launches, bwd_fused=fa.flash_attention_bwd_fused.launches,
         )
+        if dtype == torch.float32 and backend == "auto" and not checkpointing:
+            state["train_parity_f32_by_shape"] = {
+                kernel: dict(getattr(fa, f"flash_attention_{kernel}").launches_by_shape)
+                for kernel in ("bwd_dq", "bwd_dkv")
+            }
         return loss.item(), [g.float() for g in grads], launches
 
-    kernel_launches, plain_launches = dict(fwd=5, bwd_dq=5, bwd_dkv=5), dict(fwd=0, bwd_dq=0, bwd_dkv=0)
+    # f32 takes the CUDA-core backward kernels, bf16 the fused one
+    kernel_launches = dict(fwd=5, bwd_dq=5, bwd_dkv=5, bwd_fused=0)
+    bf16_launches = dict(fwd=5, bwd_dq=0, bwd_dkv=0, bwd_fused=5)
+    plain_launches = dict(fwd=0, bwd_dq=0, bwd_dkv=0, bwd_fused=0)
     loss_k, grads_k, launches_k = loss_and_grads("auto", torch.float32)
     loss_p, grads_p, launches_p = loss_and_grads("xla", torch.float32)
+
     def worst_rel(grads, reference):  # worst max |diff| over the tensor's max |grad|
         worst, worst_name = 0.0, None
         for name, g, ref in zip(names, grads, reference):
@@ -939,7 +1011,7 @@ def phase_train_parity(state):
     attn = [j for j, n in enumerate(names) if ".attn1.to_" in n]
     ok_bf16 = (
         ratios[i] <= BF16_GRAD_ERR_RATIO
-        and launches_kb == kernel_launches and launches_pb == plain_launches
+        and launches_kb == bf16_launches and launches_pb == plain_launches
     )
     emit(
         "train_parity", dtype="bfloat16", loss_kernel=loss_kb, loss_plain=loss_pb,
@@ -1032,13 +1104,10 @@ def phase_train(state, warmup=2, steps=5, seed=0):
         ms, loss = host_ms(step)
         losses.append(loss.item())
         timed.append(ms)
-    launches = dict(
-        flash_fwd=fa.flash_attention_fwd.launches, flash_bwd_dq=fa.flash_attention_bwd_dq.launches,
-        flash_bwd_dkv=fa.flash_attention_bwd_dkv.launches,
-        lion_single=lk.lion8bit_update_.launches, lion_multi=lk.lion8bit_update_multi_.launches,
-    )
+    launches = train_launches(fa, lk)
     by_shape = dict(
         flash_fwd=dict(fa.flash_attention_fwd.launches_by_shape),
+        flash_bwd_fused=dict(fa.flash_attention_bwd_fused.launches_by_shape),
         flash_bwd_dq=dict(fa.flash_attention_bwd_dq.launches_by_shape),
         flash_bwd_dkv=dict(fa.flash_attention_bwd_dkv.launches_by_shape),
         lion_single=dict(lk.lion8bit_update_.launches_by_shape),
@@ -1047,7 +1116,7 @@ def phase_train(state, warmup=2, steps=5, seed=0):
     peak = torch.cuda.max_memory_allocated()
     leaves = sd15_lion_leaves()
     expected = dict(
-        flash_fwd=6 * steps, flash_bwd_dq=5 * steps, flash_bwd_dkv=5 * steps,
+        flash_fwd=6 * steps, flash_bwd_fused=5 * steps, flash_bwd_dq=0, flash_bwd_dkv=0,
         lion_single=(leaves["unet"]["single"] + leaves["text_encoder"]["single"]) * steps,
         lion_multi=2 * steps,
     )
@@ -1080,8 +1149,17 @@ def phase_train(state, warmup=2, steps=5, seed=0):
         raise AssertionError("train step failed its checks")
     profile_step(
         step, "one SD1.5 train step (bf16, batch 8, 512x512)",
-        {"flash_fwd_ms": ("flash_fwd",), "flash_bwd_ms": ("bwd_dq", "bwd_dkv"),
+        {"flash_fwd_ms": ("flash_fwd",), "flash_bwd_ms": ("flash_bwd", "bwd_dq_kernel", "bwd_dkv_kernel"),
          "lion_ms": ("lion_single", "lion_multi")}, top=20,
+    )
+
+
+def train_launches(fa, lk):
+    """The launch counts of the train step's kernels, by wrapper."""
+    return dict(
+        flash_fwd=fa.flash_attention_fwd.launches, flash_bwd_fused=fa.flash_attention_bwd_fused.launches,
+        flash_bwd_dq=fa.flash_attention_bwd_dq.launches, flash_bwd_dkv=fa.flash_attention_bwd_dkv.launches,
+        lion_single=lk.lion8bit_update_.launches, lion_multi=lk.lion8bit_update_multi_.launches,
     )
 
 
@@ -1191,11 +1269,7 @@ def phase_trainer(state, seed=0):
             trainer.main(config_path, dataloader=loader, tokenizer=None)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        launches = dict(
-            flash_fwd=fa.flash_attention_fwd.launches, flash_bwd_dq=fa.flash_attention_bwd_dq.launches,
-            flash_bwd_dkv=fa.flash_attention_bwd_dkv.launches,
-            lion_single=lk.lion8bit_update_.launches, lion_multi=lk.lion8bit_update_multi_.launches,
-        )
+        launches = train_launches(fa, lk)
     finally:
         stop.set()
         watcher.join(timeout=10)
@@ -1230,7 +1304,9 @@ def phase_trainer(state, seed=0):
         ema=os.path.isdir(f"{base}-EMA@1") and not os.path.exists(f"{base}-EMA@0"),
         reload_equal=reload_equal,
         restored_momentum_equal=bool(restored_ok) and all(restored_ok),
-        kernels_launched=all(launches.values()),
+        # the bf16 step's kernels, and not the CUDA-core backward
+        kernels_launched=all(n for k, n in launches.items() if k not in ("flash_bwd_dq", "flash_bwd_dkv"))
+        and launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
     )
     p50_ms = statistics.median(step_s) * 1e3
     train_p50 = state.get("train", {}).get("p50_ms")
@@ -1274,21 +1350,28 @@ def kernels_line(state):
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
         ))
+    f32_path = state.get("train_parity_f32_by_shape")
     for row in state.get("bwd_cases", []):
-        if row["case"] != "unet_train":
-            continue  # the train step runs the backward kernels at this shape
         bh, sq, d = row["shape_q"]
         shape = (bh, sq, row["shape_k"][1], d, row["dtype"])
-        for kernel, grads, line in (("dq", ("dq",), 105), ("dkv", ("dk", "dv"), 147)):
+        dims = "x".join(map(str, shape[:4]))
+        common = dict(
+            route="cuda", source=f"{CSRC}/flash_attention_bwd.cu", max_abs_err=max(row["max_abs_err"].values()),
+            ms=row["call_ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"],
+        )
+        if row["case"] == "unet_train":  # the train step runs the fused kernel at this shape
             entries.append(dict(
-                name=f"flash_attention_bwd_{kernel}[unet_train {'x'.join(map(str, shape[:4]))} bf16]",
-                route="cuda", source=f"{CSRC}/flash_attention_bwd.cu",
-                replaces=f"{JAX_OPS}/flash_attention.py:{line}",
-                launches=train.get(f"flash_bwd_{kernel}", {}).get(shape, 0),
-                max_abs_err=max(row["max_abs_err"][g] for g in grads),
-                ms=row[f"{kernel}_ms"], plain_ms=row["plain_ms"],
-                bound_ms=row[f"{kernel}_bound_ms"], bound_by=row[f"{kernel}_bound_by"],
-                library_ms=row["library_ms"],
+                common, name=f"flash_attention_bwd_fused[unet_train {dims} bf16; K2 and K3 in one kernel]",
+                replaces=f"{JAX_OPS}/flash_attention.py:105,147",
+                launches=train.get("flash_bwd_fused", {}).get(shape, 0),
+            ))
+        elif row["case"] == "unet_train_f32" and f32_path is not None:
+            # the CUDA-core pair; its path is train_parity's f32 step
+            entries.append(dict(
+                common, name=f"flash_attention_bwd_dq+dkv[unet_train_f32 {dims} f32; path: train_parity f32]",
+                replaces=f"{JAX_OPS}/flash_attention.py:105,147",
+                launches=f32_path["bwd_dq"].get(shape, 0) + f32_path["bwd_dkv"].get(shape, 0),
             ))
     for row in state.get("lion_cases", []):
         if row["compander"] != "exact" or row["bs"] != LION_BS:

@@ -1,45 +1,77 @@
-// Flash-attention backward for Hopper (sm_90a), f32 and bf16 I/O: dQ, and
-// dK with dV.
+// Flash-attention backward for Hopper (sm_90a), f32 and bf16 I/O: dQ, dK
+// and dV.
 //
 // Replaces the TPU kernels `_bwd_dq_kernel` (K2) and `_bwd_dkv_kernel` (K3)
 // in stable_diffusion_training_tpu/ops/flash_attention.py (launched by
 // `_flash_bwd`). Both recompute P = exp(S * scale - lse) from the forward's
 // logsumexp, with keys past kv_len masked, and dS = P * (dO V^T - delta),
 // where delta = rowsum(dO * O) is computed outside the kernels as on the TPU:
-//   K2: dQ = scale * dS K            (one block per query tile, loops keys)
-//   K3: dV = P^T dO, dK = scale * dS^T Q  (one block per key tile, loops queries)
+//   K2: dQ = scale * dS K
+//   K3: dV = P^T dO, dK = scale * dS^T Q
 // P is rounded to dO's dtype before P^T dO and dS to K's/Q's dtype before
 // the dQ/dK products; every product accumulates in f32. dQ comes back in Q's
 // dtype, dK/dV in K's/V's.
 //
-// Two kernels following the TPU grid, not one fused kernel: dK/dV sum over
-// query tiles and dQ over key tiles, so a fused kernel would need f32 atomics
-// on dQ (an order that changes from run to run) or a second pass. The split
-// recomputes S and dO V^T once more (7 products of 2*S^2*D per head instead
-// of 5) and is deterministic.
-//
 // What bounds it on this card. At the train step's shape, (64, 4096, 40) bf16
 // (the UNet's 64x64 latent self-attention, batch 8, 8 heads), it is compute:
-// 7 * 2 * 64 * 4096^2 * 40 ~ 0.60 TFLOP and 2 * 64 * 4096^2 ~ 2.1 G exps
-// against ~ 0.1 GB of traffic. At D = 40 the exps (MUFU) weigh nearly as
-// much as the products.
+// five products of 2 * 64 * 4096^2 * 40 flops (S, dO V^T, P^T dO, dS^T Q,
+// dS K: 0.43 TFLOP, 0.434 ms at 989 TFLOP/s) and 1.07 G exps (0.257 ms on the
+// SFUs), against ~0.1 GB of inputs and outputs. At D = 40 the exps weigh
+// nearly as much as the products.
 //
-// What the design does about that. bf16 with D % 8 == 0 and D <= 64 runs on
-// the tensor cores (`bwd_dq_mma_kernel`, `bwd_dkv_mma_kernel`): mma.sync
-// m16n8k16 with f32 accumulators, FlashAttention-2 style, each of four warps
-// owning 16 rows (queries for K2, keys for K3) whose operand fragments stay
-// in registers for the whole loop. Score tiles (S, P, dS) never leave
-// registers: the f32 accumulator layout of one product is repacked as the
-// bf16 A fragment of the next (`acc_to_a`), and the operand it is multiplied
-// with comes from shared memory through ldmatrix.trans. D is zero-padded to a
-// multiple of 16 in shared memory (40 -> 48). The streamed tiles are
-// double-buffered with cp.async. The exps run in base 2. Everything else (f32,
-// bf16 with D % 8 != 0 or D > 64) runs on the CUDA cores
-// (`bwd_dq_kernel`, `bwd_dkv_kernel`): f32 FMA with the tiles staged in
-// shared memory as f32, dS (and P) rounded to the input dtype through shared
-// memory, tile shapes picked by the head dim as in the forward's CUDA-core
-// kernel. wgmma, TMA and a warp-specialised pipeline are later work.
+// The design. Two routes, picked by the caller (ops/flash_attention.py) by
+// dtype, head dim and alignment:
+//
+// 1. bf16, D % 8 == 0, D <= 64 (`flash_bwd_fused_kernel<DP>`, DP = D rounded
+//    up to 16, 40 and 48 kept): one fused kernel, so S, dO V^T and the exps
+//    are computed once (the TPU's two kernels compute them twice: 7 products
+//    for 5). One block per (head, 128 keys); warpgroup 0 produces
+//    (setmaxnreg down to 40), two consumer warpgroups own 64 keys each (up to
+//    232). K and V of the block arrive once by TMA; one producer thread
+//    streams 128-query tiles of Q and dO by TMA, and one producer warp each
+//    tile's lse (times log2 e; +1e30 past sq, which zeroes P there) and
+//    delta, through a two-stage mbarrier ring. Per query tile a consumer runs
+//      S^T = K Q^T, dP^T = V dO^T   wgmma, both operands K-major (m64n128k16)
+//      P^T = exp2(S^T c - lse2)     in registers, keys past sk masked
+//      dS^T = P^T (dP^T - delta)    in registers
+//      dV += P^T dO, dK += dS^T Q   wgmma, P^T / dS^T the bf16 register A
+//                                   operand, dO / Q MN-major (the transpose
+//                                   bit), dK and dV in f32 registers to the end
+//      dQ_tile = dS K               dS^T written to shared memory as bf16
+//                                   (128-byte swizzle, double-buffered by
+//                                   tile); after a barrier of both consumers
+//                                   each computes dQ for 64 of the tile's
+//                                   queries over all 128 keys, wgmma with A
+//                                   = dS^T MN-major and B = K MN-major
+//    and adds its f32 dQ rows into an f32 (B*H, Sq, D) buffer that the
+//    caller zeroed, with one bulk reduce-add (cp.reduce.async.bulk .add.f32)
+//    of the rows' contiguous bytes, clipped at sq (the next rows belong to
+//    the next head). A second kernel (`flash_bwd_dq_convert_kernel`) writes
+//    dQ = bf16(scale * buffer). dK and dV are deterministic; dQ's sum over
+//    key blocks lands in an order that changes from run to run. dQ traffic
+//    into L2: Sk / 128 * B*H * Sq * D * 4 bytes (1.34 GB at the train
+//    shape).
+//    Each tile drains a consumer's wgmma queue twice (after S^T/dP^T, and
+//    after dV/dK/dQ), and those drains, not the exps or any one product,
+//    set the pace. What was tried against it and measured slower on the
+//    card: 64-query halves with their own waits (more drains); the next
+//    tile's S^T issued before the dQ wait (its accumulators then stay in
+//    flight across the loop's back edge and ptxas serialises every
+//    wgmma); per-consumer dQ partials with no barrier between the
+//    consumers, started half a tile apart (twice the reduce-add bytes).
+// 2. CUDA cores (`bwd_dq_kernel`, `bwd_dkv_kernel`): everything else (f32,
+//    bf16 with D % 8 != 0 or D > 64). Two kernels following the TPU grid (dQ
+//    per query tile over the keys; dK/dV per key tile over the queries),
+//    deterministic. f32 FMA with the tiles staged in shared memory as f32,
+//    dS (and P) rounded to the input dtype through shared memory, tile
+//    shapes picked by the head dim as in the forward's CUDA-core kernel.
+//
+// TMA: Q, dO, K and V are 3-D tensor maps {D, S, B*H} with boxes of 64
+// columns and 128 rows (128-byte swizzle), so rows past S inside a head and
+// columns past D arrive as zeros. The TMA, mbarrier, wgmma and bulk
+// reduce helpers are in hopper_common.cuh.
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -394,324 +426,302 @@ cudaError_t dispatch_dkv(const void* q, const void* k, const void* v, const void
   return launch_dkv<T, 512, 16, 32>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, scale, s);
 }
 
-// --- tensor-core kernels: bf16, D % 8 == 0, D <= 64 ----------------------------
-//
-// Fragment bookkeeping (m16n8k16): a thread holds rows g = lane / 4 and
-// g + 8 of its warp's 16, and in each 8-column n-tile columns 2t, 2t + 1
-// (t = lane % 4). Score tiles are 16 rows x 64 columns: NT = 8 n-tiles.
+// --- fused tensor-core kernel: bf16, D % 8 == 0, D <= 64 (TMA, wgmma) ---------
+
+constexpr float kLseMasked = 1e30f;  // lse of a query past sq: exp2(s c - lse) = 0
 
 template <int DP>
-struct MmaTile {
-  static constexpr int BR = 16 * kWarps;  // rows a block owns (queries for dQ, keys for dK/dV)
-  static constexpr int BS = 64;           // rows of each streamed tile
-  static constexpr int LD = DP + 8;       // bf16 per smem row
-  static constexpr int KS = DP / 16;      // k-steps over D
-  static constexpr int NT = BS / 8;       // 8-column n-tiles of a score tile
-  static constexpr int OT = DP / 8;       // 8-column n-tiles of an output row
-  static_assert(OT % 2 == 0, "B fragments are loaded two column tiles at a time");
-  // the block's two row tiles, two stages of the two streamed tiles, and
-  // two stages of the streamed tile's lse and delta (dK/dV only)
-  static constexpr size_t kSmemBytes =
-      (2 * size_t(BR) * LD + 4 * size_t(BS) * LD) * 2 + 4 * size_t(BS) * sizeof(float);
+struct FusedTile {
+  // consumer warpgroups, 64 keys each; warpgroup 0 produces
+  static constexpr int kConsumers = 2;
+  static constexpr int kThreadsTotal = 128 * (1 + kConsumers);
+  static constexpr int BK = 64 * kConsumers;  // keys per block
+  static constexpr int BQ = 128;              // queries per streamed tile
+  static constexpr int kStages = 2;           // Q and dO tiles in flight
+  // registers a thread: at launch, then after setmaxnreg (as TmaTile in
+  // flash_attention_fwd.cu: the consumers take what the producer frees)
+  static constexpr int kLaunchRegs = 65536 / kThreadsTotal / 8 * 8;
+  static constexpr int kProducerRegs = 40;
+  static constexpr int kSpareRegs =
+      (kLaunchRegs * kThreadsTotal - 128 * kProducerRegs) / (128 * kConsumers) / 8 * 8;
+  static constexpr int kConsumerRegs = kSpareRegs > 240 ? 240 : kSpareRegs;
+  static constexpr int kQkSteps = (DP + 15) / 16;  // 16-deep k-steps of S^T and dP^T over D
+  static constexpr int kSRegs = BQ / 2;            // f32 registers of S^T (and of dP^T) a thread
+  static constexpr int kGRegs = DP / 2;            // f32 registers of dK, dV, dQ a thread
+  static constexpr uint32_t kQBytes = BQ * 128;    // a tile of Q or dO: one box of 64 columns
+  static constexpr uint32_t kKBytes = BK * 128;    // the block's K or V
+  static constexpr uint32_t kStageBytes = 2 * kQBytes;       // Q, then dO
+  static constexpr uint32_t kDsBytes = BQ / 64 * BK * 128;  // dS^T: 64-query chunks of BK rows
+  static constexpr uint32_t kStgBytes = BQ * DP * 4;        // a tile's f32 dQ rows, row-major
+  static constexpr uint32_t kOffK = kStages * kStageBytes;
+  static constexpr uint32_t kOffV = kOffK + kKBytes;
+  static constexpr uint32_t kOffDs = kOffV + kKBytes;
+  static constexpr uint32_t kOffStg = kOffDs + 2 * kDsBytes;
+  static constexpr uint32_t kOffStats = kOffStg + kStgBytes;  // [stage][lse2 | delta][BQ] f32
+  static constexpr uint32_t kOffBar = kOffStats + kStages * 2 * BQ * 4;
+  static constexpr uint32_t kBars = 1 + 2 * kStages;  // K/V full; Q/dO full and empty per stage
+  static constexpr size_t kSmemBytes = kOffBar + kBars * 8 + 1024;  // + slack to align to 1024
+  static_assert(DP % 8 == 0 && DP <= 64, "head dim");
+  static_assert(kSmemBytes <= 232448, "shared memory per block");
 };
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-    bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ delta,
-                      __nv_bfloat16* __restrict__ dq, int sq, int sk, int d, float scale) {
-  using M = MmaTile<DP>;
-  constexpr int BQ = M::BR, BK = M::BS, LD = M::LD, KS = M::KS, NT = M::NT, OT = M::OT;
-  extern __shared__ __align__(16) unsigned char mma_smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(mma_smem);
-  __nv_bfloat16* sO = sQ + BQ * LD;  // dO
-  __nv_bfloat16* sK = sO + BQ * LD;  // [2][BK][LD]
-  __nv_bfloat16* sV = sK + 2 * BK * LD;  // [2][BK][LD]
-
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const float scale_log2 = scale * kLog2e;
-  const __nv_bfloat16* kb = k + size_t(bh) * sk * d;
-  const __nv_bfloat16* vb = v + size_t(bh) * sk * d;
-
-  const int n_tiles = (sk + BK - 1) / BK;
-  load_tile_async<DP, LD>(sQ, q + (size_t(bh) * sq + q0) * d, BQ, sq - q0, d);
-  load_tile_async<DP, LD>(sO, dout + (size_t(bh) * sq + q0) * d, BQ, sq - q0, d);
-  load_tile_async<DP, LD>(sK, kb, BK, min(BK, sk), d);
-  load_tile_async<DP, LD>(sV, vb, BK, min(BK, sk), d);
-  cp_async_commit();
-
-  // lse (base 2) and delta of this thread's rows g and g + 8
-  float l2[2], dl[2];
+// This thread's dS^T entries (block rows 64w + 16 warp + g and + 8, queries
+// 8i + 2t and + 1 of the tile) into the MN-major A of dQ: 64-query chunk
+// i / 8, the row's 128 bytes, the 16-byte unit (i % 8) swizzled by the row
+// (row % 8 == g), as a TMA box with the 128-byte swizzle would hold it.
+template <int BK, int NT>
+__device__ __forceinline__ void store_ds(unsigned char* ds, const uint32_t (&da)[NT / 2][4], int row,
+                                         int g, int t) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    l2[r] = row < sq ? lse[size_t(bh) * sq + row] * kLog2e : 0.f;
-    dl[r] = row < sq ? delta[size_t(bh) * sq + row] : 0.f;
-  }
-
-  cp_async_wait_all();
-  __syncthreads();
-  uint32_t qa[KS][4], oa[KS][4];
-  load_a_frags<KS, LD>(qa, sQ + warp * 16 * LD, g, t);
-  load_a_frags<KS, LD>(oa, sO + warp * 16 * LD, g, t);
-
-  float acc[OT][4];
+  for (int i = 0; i < NT; ++i)
 #pragma unroll
-  for (int j = 0; j < OT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * BK;
-    const int kv = min(BK, sk - k0);
-    const __nv_bfloat16* sKt = sK + (it & 1) * BK * LD;
-    const __nv_bfloat16* sVt = sV + (it & 1) * BK * LD;
-    if (it > 0) {  // tile `it` has landed, and every warp is done with tile it - 1
-      cp_async_wait_all();
-      __syncthreads();
-    }
-    if (it + 1 < n_tiles) {  // prefetch tile it + 1 into the stage tile it - 1 used
-      const int k1 = k0 + BK;
-      const size_t stage = ((it + 1) & 1) * BK * LD;
-      load_tile_async<DP, LD>(sK + stage, kb + size_t(k1) * d, BK, min(BK, sk - k1), d);
-      load_tile_async<DP, LD>(sV + stage, vb + size_t(k1) * d, BK, min(BK, sk - k1), d);
-      cp_async_commit();
-    }
-
-    // S = Q K^T and dP = dO V^T; [j] holds rows (g, g, g+8, g+8) x keys (8j+2t, 8j+2t+1)
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-      const __nv_bfloat16* krow = sKt + (j * 8 + g) * LD + 2 * t;
-      const __nv_bfloat16* vrow = sVt + (j * 8 + g) * LD + 2 * t;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        mma_16816(s[j], qa[ks], ld32(krow + ks * 16), ld32(krow + ks * 16 + 8));
-        mma_16816(dp[j], oa[ks], ld32(vrow + ks * 16), ld32(vrow + ks * 16 + 8));
-      }
-    }
-
-    // P = exp(S scale - lse), keys past kv_len masked to 0; dS = P (dP - delta)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool valid = j * 8 + 2 * t + (e & 1) < kv;
-        const float p = valid ? exp2f(s[j][e] * scale_log2 - l2[e / 2]) : 0.f;
-        s[j][e] = p * (dp[j][e] - dl[e / 2]);
-      }
-
-    // dQ += dS K, dS rounded to bf16 as the A fragment, K through ldmatrix.trans
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t da[4];
-      acc_to_a(da, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int j = 0; j < OT; j += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans<LD>(b, sKt + kk * 16 * LD + j * 8, lane);
-        mma_16816(acc[j], da, b[0], b[1]);
-        mma_16816(acc[j + 1], da, b[2], b[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    if (row >= sq) continue;
-    __nv_bfloat16* out = dq + (size_t(bh) * sq + row) * d;
-#pragma unroll
-    for (int j = 0; j < OT; ++j) {
-      const int c = j * 8 + 2 * t;  // d % 8 == 0: the pair is in or out together
-      if (c < d)
-        *reinterpret_cast<__nv_bfloat162*>(out + c) =
-            __floats2bfloat162_rn(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
-    }
-  }
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<uint32_t*>(ds + (i / 8) * BK * 128 + (row + 8 * r) * 128 + (((i % 8) ^ g) << 4) +
+                                   4 * t) = da[i / 2][(i % 2) * 2 + r];
 }
 
 template <int DP>
-__global__ void __launch_bounds__(kThreads)
-    bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
-                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int sq,
-                       int sk, int d, float scale) {
-  using M = MmaTile<DP>;
-  constexpr int BKB = M::BR, BQ = M::BS, LD = M::LD, KS = M::KS, NT = M::NT, OT = M::OT;
-  extern __shared__ __align__(16) unsigned char mma_smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(mma_smem);
-  __nv_bfloat16* sV = sK + BKB * LD;
-  __nv_bfloat16* sQ = sV + BKB * LD;     // [2][BQ][LD]
-  __nv_bfloat16* sO = sQ + 2 * BQ * LD;  // dO, [2][BQ][LD]
-  float* sL = reinterpret_cast<float*>(sO + 2 * BQ * LD);  // [2][BQ] lse * log2 e
-  float* sD = sL + 2 * BQ;                                  // [2][BQ] delta
+__global__ void __launch_bounds__(FusedTile<DP>::kThreadsTotal, 1)
+    flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           float* __restrict__ dq_acc, __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int sq, int sk, int d, float scale) {
+  using C = FusedTile<DP>;
+  constexpr int BQ = C::BQ, BK = C::BK, NS = C::kStages;
+  extern __shared__ unsigned char fused_smem_raw[];
+  // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows of 128 bytes
+  unsigned char* smem = fused_smem_raw + ((1024 - (smem_u32(fused_smem_raw) & 1023)) & 1023);
+  unsigned char* sQ = smem;  // stage st: Q at st * kStageBytes, dO kQBytes after it
+  unsigned char* sK = smem + C::kOffK;
+  unsigned char* sV = smem + C::kOffV;
+  unsigned char* sDs = smem + C::kOffDs;
+  float* sStg = reinterpret_cast<float*>(smem + C::kOffStg);
+  float* sStats = reinterpret_cast<float*>(smem + C::kOffStats);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + C::kOffBar);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + NS;
 
   const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BKB;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const float scale_log2 = scale * kLog2e;
-  const __nv_bfloat16* qb = q + size_t(bh) * sq * d;
-  const __nv_bfloat16* ob = dout + size_t(bh) * sq * d;
-  const float* lb = lse + size_t(bh) * sq;
-  const float* db = delta + size_t(bh) * sq;
-
-  // the lse and delta of query tile q0 into stage `st` (plain stores, seen
-  // after the next __syncthreads)
-  auto load_stats = [&](int st, int q1) {
-    for (int i = threadIdx.x; i < BQ; i += kThreads) {
-      const bool in = q1 + i < sq;
-      sL[st * BQ + i] = in ? lb[q1 + i] * kLog2e : 0.f;
-      sD[st * BQ + i] = in ? db[q1 + i] : 0.f;
-    }
-  };
-
+  const int k0 = blockIdx.x * BK;
   const int n_tiles = (sq + BQ - 1) / BQ;
-  load_tile_async<DP, LD>(sK, k + (size_t(bh) * sk + k0) * d, BKB, sk - k0, d);
-  load_tile_async<DP, LD>(sV, v + (size_t(bh) * sk + k0) * d, BKB, sk - k0, d);
-  load_tile_async<DP, LD>(sQ, qb, BQ, min(BQ, sq), d);
-  load_tile_async<DP, LD>(sO, ob, BQ, min(BQ, sq), d);
-  cp_async_commit();
-  load_stats(0, 0);
-  cp_async_wait_all();
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+#pragma unroll
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(full + st, 1 + 32);  // the TMA thread and the stats warp
+      mbar_init(empty + st, 128 * C::kConsumers);
+    }
+    mbar_fence_init();
+  }
   __syncthreads();
-  uint32_t ka[KS][4], va[KS][4];
-  load_a_frags<KS, LD>(ka, sK + warp * 16 * LD, g, t);
-  load_a_frags<KS, LD>(va, sV + warp * 16 * LD, g, t);
 
-  float ak[OT][4], av[OT][4];
-#pragma unroll
-  for (int j = 0; j < OT; ++j) {
-    ak[j][0] = ak[j][1] = ak[j][2] = ak[j][3] = 0.f;
-    av[j][0] = av[j][1] = av[j][2] = av[j][3] = 0.f;
-  }
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int q0 = it * BQ;
-    const int qv = min(BQ, sq - q0);
-    const int st = it & 1;
-    const __nv_bfloat16* sQt = sQ + st * BQ * LD;
-    const __nv_bfloat16* sOt = sO + st * BQ * LD;
-    const float* sLt = sL + st * BQ;
-    const float* sDt = sD + st * BQ;
-    if (it > 0) {  // tile `it` has landed, and every warp is done with tile it - 1
-      cp_async_wait_all();
-      __syncthreads();
-    }
-    if (it + 1 < n_tiles) {  // prefetch tile it + 1 into the stage tile it - 1 used
-      const int q1 = q0 + BQ;
-      const size_t stage = (st ^ 1) * BQ * LD;
-      load_tile_async<DP, LD>(sQ + stage, qb + size_t(q1) * d, BQ, min(BQ, sq - q1), d);
-      load_tile_async<DP, LD>(sO + stage, ob + size_t(q1) * d, BQ, min(BQ, sq - q1), d);
-      cp_async_commit();
-      load_stats(st ^ 1, q1);
-    }
-
-    // S^T = K Q^T and dP^T = V dO^T; [j] holds keys (g, g, g+8, g+8) x queries (8j+2t, 8j+2t+1)
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-      const __nv_bfloat16* qrow = sQt + (j * 8 + g) * LD + 2 * t;
-      const __nv_bfloat16* orow = sOt + (j * 8 + g) * LD + 2 * t;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        mma_16816(s[j], ka[ks], ld32(qrow + ks * 16), ld32(qrow + ks * 16 + 8));
-        mma_16816(dp[j], va[ks], ld32(orow + ks * 16), ld32(orow + ks * 16 + 8));
+  if (threadIdx.x < 128) {
+    // producer: one thread loads K and V once, then streams the Q and dO
+    // tiles; the next warp stages each tile's lse (base 2) and delta
+    setmaxnreg_dec<C::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * C::kKBytes);
+      tma_load_3d(sK, &tm_k, kv_full, 0, k0, bh);
+      tma_load_3d(sV, &tm_v, kv_full, 0, k0, bh);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % NS;
+        mbar_wait(empty + st, ((j / NS) & 1) ^ 1);
+        mbar_arrive_expect_tx(full + st, C::kStageBytes);
+        tma_load_3d(sQ + st * C::kStageBytes, &tm_q, full + st, 0, j * BQ, bh);
+        tma_load_3d(sQ + st * C::kStageBytes + C::kQBytes, &tm_do, full + st, 0, j * BQ, bh);
+      }
+    } else if (threadIdx.x / 32 == 1) {
+      const int lane = threadIdx.x % 32;
+      const float* lb = lse + size_t(bh) * sq;
+      const float* db = delta + size_t(bh) * sq;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % NS;
+        mbar_wait(empty + st, ((j / NS) & 1) ^ 1);
+        float* stats = sStats + st * 2 * BQ;
+        for (int i = lane; i < BQ; i += 32) {
+          const int q = j * BQ + i;
+          stats[i] = q < sq ? lb[q] * kLog2e : kLseMasked;
+          stats[BQ + i] = q < sq ? db[q] : 0.f;
+        }
+        mbar_arrive(full + st);
       }
     }
+  } else {
+    setmaxnreg_inc<C::kConsumerRegs>();
+    const int w = threadIdx.x / 128 - 1;  // consumer warpgroup: keys 64w.. of the block
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int row = 64 * w + 16 * warp + g;  // this thread's first key row in the block
+    const float c = scale * kLog2e;
+    // descriptors of stage 0 / buffer 0; the others are fixed byte offsets
+    const uint64_t k_desc = wgmma_desc(sK + w * 64 * 128, 16, 1024);  // A of S^T, K-major
+    const uint64_t v_desc = wgmma_desc(sV + w * 64 * 128, 16, 1024);  // A of dP^T
+    const uint64_t q_desc = wgmma_desc(sQ, 16, 1024);                 // B of S^T, K-major
+    const uint64_t do_desc = wgmma_desc(sQ + C::kQBytes, 16, 1024);   // B of dP^T
+    const uint64_t q_mn = wgmma_desc(sQ, BQ * 128, 1024);                // B of dK, MN-major
+    const uint64_t do_mn = wgmma_desc(sQ + C::kQBytes, BQ * 128, 1024);  // B of dV, MN-major
+    const uint64_t ds_mn = wgmma_desc(sDs + w * BK * 128, BK * 128, 1024);  // A of dQ: chunk w, MN-major
+    const uint64_t k_mn = wgmma_desc(sK, BK * 128, 1024);                   // B of dQ, MN-major
+    // keys past sk (the last block) arrive as zeros; their P must be 0, not exp2(-lse2)
+    const bool ragged = k0 + BK > sk;
+    const bool row_ok[2] = {k0 + row < sk, k0 + row + 8 < sk};
+    float* stg = sStg + w * 64 * d;  // this warpgroup's 64 dQ rows
 
-    // P^T (queries past sq give 0) into s, dS^T = P^T (dP^T - delta) into dp
+    float s[C::kSRegs], dp[C::kSRegs];
+    uint32_t pa[C::kSRegs / 8][4], da[C::kSRegs / 8][4];
+    float dk_acc[C::kGRegs], dv_acc[C::kGRegs], dq[C::kGRegs];
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int i = 0; i < C::kGRegs; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % NS;
+      const uint32_t stage = st * C::kStageBytes;
+      const uint32_t buf = (j & 1) * C::kDsBytes;
+      mbar_wait(full + st, (j / NS) & 1);
+      wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + 2 * t + (e & 1);
-        const float p = col < qv ? exp2f(s[j][e] * scale_log2 - sLt[col]) : 0.f;
-        s[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - sDt[col]);
+      for (int ks = 0; ks < C::kQkSteps; ++ks)
+        Wgmma<BQ>::ss(s, wgmma_desc_advance(k_desc, ks * 32), wgmma_desc_advance(q_desc, stage + ks * 32),
+                      ks > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int ks = 0; ks < C::kQkSteps; ++ks)
+        Wgmma<BQ>::ss(dp, wgmma_desc_advance(v_desc, ks * 32), wgmma_desc_advance(do_desc, stage + ks * 32),
+                      ks > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // S^T is done
+      fence_regs(s);
+      // P^T = exp2(S^T c - lse2) in place, while dP^T runs
+      const float* stats = sStats + st * 2 * BQ;
+#pragma unroll
+      for (int i = 0; i < BQ / 8; ++i) {
+        const float2 l = *reinterpret_cast<const float2*>(stats + 8 * i + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[4 * i + e] = fast_exp2(fmaf(s[4 * i + e], c, -((e & 1) ? l.y : l.x)));
       }
-
-    // dV += P^T dO and dK += dS^T Q; P^T and dS^T rounded to bf16 as A
-    // fragments, dO and Q through ldmatrix.trans
+      if (ragged) {
 #pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t pa[4], da[4];
-      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-      acc_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+        for (int i = 0; i < C::kSRegs; ++i)
+          if (!row_ok[(i % 4) / 2]) s[i] = 0.f;
+      }
+      wgmma_wait<0>();  // dP^T is done
+      fence_regs(dp);
+      // dS^T = P^T (dP^T - delta) in place
 #pragma unroll
-      for (int j = 0; j < OT; j += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans<LD>(b, sOt + kk * 16 * LD + j * 8, lane);
-        mma_16816(av[j], pa, b[0], b[1]);
-        mma_16816(av[j + 1], pa, b[2], b[3]);
-        ldmatrix_x4_trans<LD>(b, sQt + kk * 16 * LD + j * 8, lane);
-        mma_16816(ak[j], da, b[0], b[1]);
-        mma_16816(ak[j + 1], da, b[2], b[3]);
+      for (int i = 0; i < BQ / 8; ++i) {
+        const float2 dl = *reinterpret_cast<const float2*>(stats + BQ + 8 * i + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[4 * i + e] = s[4 * i + e] * (dp[4 * i + e] - ((e & 1) ? dl.y : dl.x));
+      }
+      pack_p(pa, s);
+      pack_p(da, dp);
+      // dS^T to shared memory first: the registers of an in-flight wgmma's
+      // A operand may not be read
+      store_ds<BK, BQ / 8>(sDs + buf, da, row, g, t);
+      fence_proxy_async_smem();
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        Wgmma<DP>::rs(dv_acc, pa[kk], wgmma_desc_advance(do_mn, stage + kk * 16 * 128), 1);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        Wgmma<DP>::rs(dk_acc, da[kk], wgmma_desc_advance(q_mn, stage + kk * 16 * 128), 1);
+      wgmma_commit();
+      if (tid == 0) bulk_wait_read<0>();  // the last tile's dQ rows have left the staging buffer
+      named_barrier_sync(1, 128 * C::kConsumers);  // both consumers' dS^T are in shared memory
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        Wgmma<DP>::template ss<1, 1>(dq, wgmma_desc_advance(ds_mn, buf + kk * 16 * 128),
+                                     wgmma_desc_advance(k_mn, kk * 16 * 128), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(dk_acc);
+      fence_regs(dv_acc);
+      fence_regs(pa);
+      fence_regs(da);
+      mbar_arrive(empty + st);
+      // this warpgroup's 64 dQ rows (f32, unscaled) row-major, then one
+      // bulk reduce-add of the rows inside sq
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int i = 0; i < DP / 8; ++i) {
+          const int col = 8 * i + 2 * t;  // d % 8 == 0: the pair is in or out together
+          if (col < d)
+            *reinterpret_cast<float2*>(stg + (16 * warp + g + 8 * r) * d + col) =
+                make_float2(dq[4 * i + 2 * r], dq[4 * i + 2 * r + 1]);
+        }
+      fence_proxy_async_smem();
+      named_barrier_sync(2 + w, 128);
+      if (tid == 0) {
+        const int q0 = j * BQ + 64 * w;
+        const int rows = min(64, sq - q0);
+        if (rows > 0) bulk_reduce_add_f32(dq_acc + (size_t(bh) * sq + q0) * d, stg, uint32_t(rows) * d * 4);
+        bulk_commit();
       }
     }
-  }
+    if (tid == 0) bulk_wait<0>();
 
+    // dK = scale dS^T Q and dV = P^T dO for this thread's keys
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = k0 + warp * 16 + g + 8 * r;
-    if (key >= sk) continue;
-    __nv_bfloat16* okr = dk + (size_t(bh) * sk + key) * d;
-    __nv_bfloat16* ovr = dv + (size_t(bh) * sk + key) * d;
+    for (int r = 0; r < 2; ++r) {
+      const int key = k0 + row + 8 * r;
+      if (key >= sk) continue;
+      __nv_bfloat16* okr = dk + (size_t(bh) * sk + key) * d;
+      __nv_bfloat16* ovr = dv + (size_t(bh) * sk + key) * d;
 #pragma unroll
-    for (int j = 0; j < OT; ++j) {
-      const int c = j * 8 + 2 * t;
-      if (c < d) {
-        *reinterpret_cast<__nv_bfloat162*>(okr + c) =
-            __floats2bfloat162_rn(ak[j][2 * r] * scale, ak[j][2 * r + 1] * scale);
-        *reinterpret_cast<__nv_bfloat162*>(ovr + c) =
-            __floats2bfloat162_rn(av[j][2 * r], av[j][2 * r + 1]);
+      for (int i = 0; i < DP / 8; ++i) {
+        const int col = 8 * i + 2 * t;
+        if (col < d) {
+          *reinterpret_cast<__nv_bfloat162*>(okr + col) =
+              __floats2bfloat162_rn(dk_acc[4 * i + 2 * r] * scale, dk_acc[4 * i + 2 * r + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(ovr + col) =
+              __floats2bfloat162_rn(dv_acc[4 * i + 2 * r], dv_acc[4 * i + 2 * r + 1]);
+        }
       }
     }
   }
 }
 
-template <int DP>
-cudaError_t launch_dq_mma(const void* q, const void* k, const void* v, const void* dout,
-                          const float* lse, const float* delta, void* dq, int bh, int sq, int sk,
-                          int d, float scale, cudaStream_t stream) {
-  using M = MmaTile<DP>;
-  auto kernel = bwd_dq_mma_kernel<DP>;
-  cudaError_t err = allow_smem(kernel, M::kSmemBytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((sq + M::BR - 1) / M::BR, bh);
-  using B = __nv_bfloat16;
-  kernel<<<grid, kThreads, M::kSmemBytes, stream>>>(
-      static_cast<const B*>(q), static_cast<const B*>(k), static_cast<const B*>(v),
-      static_cast<const B*>(dout), lse, delta, static_cast<B*>(dq), sq, sk, d, scale);
-  return cudaGetLastError();
+// dQ = bf16(scale * acc), four elements a thread per step (n4 = elements / 4)
+__global__ void __launch_bounds__(256)
+    flash_bwd_dq_convert_kernel(const float4* __restrict__ acc, __nv_bfloat162* __restrict__ dq, size_t n4,
+                                float scale) {
+  for (size_t i = blockIdx.x * size_t(blockDim.x) + threadIdx.x; i < n4; i += size_t(gridDim.x) * blockDim.x) {
+    const float4 a = acc[i];
+    dq[2 * i] = __floats2bfloat162_rn(a.x * scale, a.y * scale);
+    dq[2 * i + 1] = __floats2bfloat162_rn(a.z * scale, a.w * scale);
+  }
 }
 
 template <int DP>
-cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v, const void* dout,
-                           const float* lse, const float* delta, void* dk, void* dv, int bh,
-                           int sq, int sk, int d, float scale, cudaStream_t stream) {
-  using M = MmaTile<DP>;
-  auto kernel = bwd_dkv_mma_kernel<DP>;
-  cudaError_t err = allow_smem(kernel, M::kSmemBytes);
+cudaError_t launch_fused(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                         const float* delta, float* dq_acc, void* dq, void* dk, void* dv, int bh, int sq,
+                         int sk, int d, float scale, cudaStream_t stream) {
+  using C = FusedTile<DP>;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  if (!encode_bf16_3d(&tm_q, q, bh, sq, d, C::BQ) || !encode_bf16_3d(&tm_do, dout, bh, sq, d, C::BQ) ||
+      !encode_bf16_3d(&tm_k, k, bh, sk, d, C::BK) || !encode_bf16_3d(&tm_v, v, bh, sk, d, C::BK))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_bwd_fused_kernel<DP>;
+  static unsigned devices_set = 0;
+  cudaError_t err = allow_smem_once(kernel, C::kSmemBytes, devices_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sk + M::BR - 1) / M::BR, bh);
   using B = __nv_bfloat16;
-  kernel<<<grid, kThreads, M::kSmemBytes, stream>>>(
-      static_cast<const B*>(q), static_cast<const B*>(k), static_cast<const B*>(v),
-      static_cast<const B*>(dout), lse, delta, static_cast<B*>(dk), static_cast<B*>(dv), sq,
-      sk, d, scale);
+  const dim3 grid((sk + C::BK - 1) / C::BK, bh);
+  kernel<<<grid, C::kThreadsTotal, C::kSmemBytes, stream>>>(tm_q, tm_k, tm_v, tm_do, lse, delta, dq_acc,
+                                                            static_cast<B*>(dk), static_cast<B*>(dv), sq, sk,
+                                                            d, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t n4 = size_t(bh) * sq * d / 4;
+  const unsigned blocks = unsigned(n4 / 256 + 1 < 132 * 16 ? n4 / 256 + 1 : 132 * 16);
+  flash_bwd_dq_convert_kernel<<<blocks, 256, 0, stream>>>(reinterpret_cast<const float4*>(dq_acc),
+                                                          static_cast<__nv_bfloat162*>(dq), n4, scale);
   return cudaGetLastError();
 }
 
@@ -723,8 +733,9 @@ bool valid_shape(int bh, int sq, int sk, int d) {
 
 // q/dout/dq (bh, sq, d), k/v (bh, sk, d): contiguous rows, all of one dtype
 // (0 = float32, 1 = bfloat16); lse and delta (bh, sq) float32, lse as the
-// forward wrote it. Launch on `stream` and return the launch's cudaError_t
-// (0 on success); they do not synchronise.
+// forward wrote it. The CUDA-core kernels: dQ, and dK with dV. Launch on
+// `stream` and return the launch's cudaError_t (0 on success); they do not
+// synchronise.
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                       const void* dout, const float* lse, const float* delta,
                                       void* dq, int bh, int sq, int sk, int d, float scale,
@@ -735,12 +746,6 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
     case 0:
       return int(dispatch_dq<float>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d, scale, s));
     case 1:
-      if (d <= 64 && aligned16({q, k, v, dout, dq}, d)) {
-        if (d <= 16) return int(launch_dq_mma<16>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d, scale, s));
-        if (d <= 32) return int(launch_dq_mma<32>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d, scale, s));
-        if (d <= 48) return int(launch_dq_mma<48>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d, scale, s));
-        return int(launch_dq_mma<64>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d, scale, s));
-      }
       return int(dispatch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d, scale, s));
     default:
       return int(cudaErrorInvalidValue);
@@ -757,14 +762,27 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
     case 0:
       return int(dispatch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, scale, s));
     case 1:
-      if (d <= 64 && aligned16({q, k, v, dout, dk, dv}, d)) {
-        if (d <= 16) return int(launch_dkv_mma<16>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, scale, s));
-        if (d <= 32) return int(launch_dkv_mma<32>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, scale, s));
-        if (d <= 48) return int(launch_dkv_mma<48>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, scale, s));
-        return int(launch_dkv_mma<64>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, scale, s));
-      }
       return int(dispatch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, scale, s));
     default:
       return int(cudaErrorInvalidValue);
   }
+}
+
+// The fused kernel: bf16 only, d % 8 == 0, d <= 64, every pointer 16-byte
+// aligned. dq_acc (bh, sq, d) float32 must hold zeros; it ends holding dQ /
+// scale in f32, and dq the bf16 dQ. Launches the fused kernel and the dQ
+// conversion on `stream`; returns the first failed launch's cudaError_t
+// (0 on success); does not synchronise.
+extern "C" int flash_attention_bwd_fused(const void* q, const void* k, const void* v,
+                                         const void* dout, const float* lse, const float* delta,
+                                         float* dq_acc, void* dq, void* dk, void* dv, int bh, int sq,
+                                         int sk, int d, float scale, void* stream) {
+  if (!valid_shape(bh, sq, sk, d) || d > 64 || !aligned16({q, k, v, dout, dq_acc, dq, dk, dv}, d))
+    return int(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d <= 16) return int(launch_fused<16>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, bh, sq, sk, d, scale, s));
+  if (d <= 32) return int(launch_fused<32>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, bh, sq, sk, d, scale, s));
+  if (d <= 40) return int(launch_fused<40>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, bh, sq, sk, d, scale, s));
+  if (d <= 48) return int(launch_fused<48>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, bh, sq, sk, d, scale, s));
+  return int(launch_fused<64>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, bh, sq, sk, d, scale, s));
 }

@@ -291,12 +291,6 @@ struct TmaTile {
   static_assert(kSmemBytes <= 232448, "shared memory per block");
 };
 
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // S = Q K^T for one key tile over this consumer's k-steps; K-major both.
 // `q` and `k` describe the first k-step; the others are fixed byte offsets.
 template <class C>
@@ -378,18 +372,6 @@ __device__ __forceinline__ void rescale_o(float (&o)[NR], const float (&corr)[2]
     o[4 * i + 1] *= corr[0];
     o[4 * i + 2] *= corr[1];
     o[4 * i + 3] *= corr[1];
-  }
-}
-
-// P (f32 accumulator layout) as the bf16 A fragments of P V, one per 16 keys
-template <int NR>
-__device__ __forceinline__ void pack_p(uint32_t (&p)[NR / 8][4], const float (&s)[NR]) {
-#pragma unroll
-  for (int kk = 0; kk < NR / 8; ++kk) {
-    p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
   }
 }
 
@@ -589,16 +571,9 @@ cudaError_t launch_tma(const void* q, const void* k, const void* v, void* o, flo
       !encode_bf16_3d(&tm_v, v, bh, sk, d, C::BK))
     return cudaErrorInvalidValue;
   auto kernel = flash_fwd_tma_kernel<DP, kWide>;
-  // the shared-memory limit is an attribute of the kernel on each device: set once per device
   static unsigned devices_set = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = allow_smem_once(kernel, C::kSmemBytes, devices_set);
   if (err != cudaSuccess) return err;
-  if (dev >= 32 || !(devices_set >> dev & 1u)) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::kSmemBytes));
-    if (err != cudaSuccess) return err;
-    if (dev < 32) devices_set |= 1u << dev;
-  }
   const dim3 grid((sq + C::BQ - 1) / C::BQ, bh);
   kernel<<<grid, C::kThreadsTotal, C::kSmemBytes, stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse, sq, sk, d, scale * kLog2e);

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for warp-specialised kernels: mbarriers,
-// TMA tile loads through tensor maps, wgmma shared-memory descriptors and
-// the wgmma instructions themselves, register hand-over between warpgroups
-// (setmaxnreg), and the host-side encoding of a tensor map.
+// TMA tile loads through tensor maps, the bulk f32 reduce-add into device
+// memory, wgmma shared-memory descriptors and the wgmma instructions
+// themselves, register hand-over between warpgroups (setmaxnreg), and the
+// host-side encoding of a tensor map.
 //
 // Layout convention: every tile that wgmma reads is a TMA box of 64 bf16
 // columns (128 bytes) by some rows, loaded with CU_TENSOR_MAP_SWIZZLE_128B
@@ -12,8 +13,8 @@
 //     SBO = 1024 bytes between 8-row groups, LBO unused; a 16-deep k-step
 //     moves the start address 32 bytes along the row, the next chunk starts
 //     rows x 128 bytes on.
-//   MN-major operand (V in P V: the reduction runs along the rows, the
-//     output columns along the 64 columns; the transpose bit set):
+//   MN-major operand (V in P V, or an A whose 64 rows run along the 64
+//     columns: the reduction runs along the rows; the transpose bit set):
 //     SBO = 1024 bytes between 8-row (8-key) groups, LBO = rows x 128 bytes
 //     between 64-column chunks; a 16-deep k-step moves the start 2048 bytes.
 #pragma once
@@ -83,6 +84,39 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// Orders this thread's plain writes to shared memory before later reads of
+// it by the async proxy (wgmma operands, bulk copies); then a barrier.
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// --- bulk reduce-add (no tensor map) ----------------------------------------------
+
+// Adds `bytes` (a multiple of 16) of f32 from shared memory at `src` into
+// device memory at `dst`, element by element, both 16-byte aligned: one
+// asynchronous operation in this thread's bulk group. The adds of different
+// blocks land in an order that changes from run to run.
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// until at most `kPending` committed bulk groups of this thread still read
+// their shared-memory source (the source may then be rewritten)
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending) : "memory");
+}
+
+// until at most `kPending` committed bulk groups of this thread are in flight
+template <int kPending>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
 // --- warpgroups ----------------------------------------------------------------
 
 template <int kRegs>
@@ -148,7 +182,10 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[R][4]) {
 }
 
 // D (64 x N, f32, in registers) += A B over one 16-deep k-step, bf16 in.
-//   ss: A (64 x 16) and B (N x 16) both K-major in shared memory;
+//   ss: A (64 x 16) and B (N x 16) in shared memory, K-major unless
+//       kTransA / kTransB is 1 (MN-major: the 64 rows of A, or the N
+//       columns of B, run along the 128-byte rows, as in the note at the
+//       top of this file);
 //   rs: A from registers (the m16n8k16 A fragment of each warp's 16 rows),
 //       B MN-major (16 x N, rows of N) in shared memory.
 // scale_d = 0 overwrites D instead of adding. Accumulator layout: thread
@@ -160,6 +197,16 @@ struct Wgmma;
 
 template <>
 struct Wgmma<16> {
+  template <int kTransA = 0, int kTransB = 0>
+  __device__ static __forceinline__ void ss(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+  }
   __device__ static __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
                                             int scale_d) {
     asm volatile(
@@ -174,15 +221,16 @@ struct Wgmma<16> {
 
 template <>
 struct Wgmma<32> {
+  template <int kTransA = 0, int kTransB = 0>
   __device__ static __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
   }
   __device__ static __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
                                             int scale_d) {
@@ -199,6 +247,19 @@ struct Wgmma<32> {
 
 template <>
 struct Wgmma<40> {
+  template <int kTransA = 0, int kTransB = 0>
+  __device__ static __forceinline__ void ss(float (&d)[20], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19"
+        "}, %20, %21, p, 1, 1, %23, %24;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+  }
   __device__ static __forceinline__ void rs(float (&d)[20], const uint32_t (&a)[4], uint64_t b,
                                             int scale_d) {
     asm volatile(
@@ -216,6 +277,19 @@ struct Wgmma<40> {
 
 template <>
 struct Wgmma<48> {
+  template <int kTransA = 0, int kTransB = 0>
+  __device__ static __forceinline__ void ss(float (&d)[24], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23"
+        "}, %24, %25, p, 1, 1, %27, %28;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+  }
   __device__ static __forceinline__ void rs(float (&d)[24], const uint32_t (&a)[4], uint64_t b,
                                             int scale_d) {
     asm volatile(
@@ -233,18 +307,19 @@ struct Wgmma<48> {
 
 template <>
 struct Wgmma<64> {
+  template <int kTransA = 0, int kTransB = 0>
   __device__ static __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
   }
   __device__ static __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
                                             int scale_d) {
@@ -264,6 +339,26 @@ struct Wgmma<64> {
 
 template <>
 struct Wgmma<128> {
+  template <int kTransA = 0, int kTransB = 0>
+  __device__ static __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+  }
   __device__ static __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
                                             int scale_d) {
     asm volatile(
@@ -323,6 +418,19 @@ struct Wgmma<256> {
 };
 
 // --- host ----------------------------------------------------------------------
+
+// Raises `kernel`'s dynamic shared-memory limit to `bytes` on the current
+// device, the first time on each device (`devices_set`, the caller's static:
+// a bit per device done; the attribute belongs to the kernel on a device).
+template <typename Kernel>
+cudaError_t allow_smem_once(Kernel kernel, size_t bytes, unsigned& devices_set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 32 && (devices_set >> dev & 1u))) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (err == cudaSuccess && dev < 32) devices_set |= 1u << dev;
+  return err;
+}
 
 // cuTensorMapEncodeTiled is a driver function; the library links only the
 // runtime, so it is looked up once through the runtime's entry-point query.

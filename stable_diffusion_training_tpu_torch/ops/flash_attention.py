@@ -8,12 +8,16 @@ Port of ``stable_diffusion_training_tpu/ops/flash_attention.py``:
   logits and accumulator, P cast to V's dtype before the PV product, and the
   ``l == 0`` guard;
 - the backward (``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, launched by
-  ``_flash_bwd``) is ``csrc/flash_attention_bwd.cu``: two kernels, dQ and
-  dK/dV, that recompute P from lse, with ``delta = rowsum(dO * O)`` computed
-  here in f32 as ``_flash_bwd`` does;
+  ``_flash_bwd``) is ``csrc/flash_attention_bwd.cu``, with ``delta =
+  rowsum(dO * O)`` computed here in f32 as ``_flash_bwd`` does. bf16 with
+  D % 8 == 0, D <= 64 and 16-byte aligned tensors takes one fused kernel
+  (``flash_attention_bwd_fused``: S, P and dS once per key block, dQ summed
+  across key blocks into a zeroed f32 buffer, so its order of additions
+  changes from run to run); everything else takes two CUDA-core kernels,
+  dQ (``flash_attention_bwd_dq``) and dK/dV (``flash_attention_bwd_dkv``);
 - ``FlashAttention`` is the ``torch.autograd.Function`` around them, the
   counterpart of the JAX package's ``jax.custom_vjp``: it saves q, k, v, O
-  and lse, and its backward is the two kernels.
+  and lse, and its backward is ``flash_attention_bwd``.
 
 The kernels are built with ``nvcc`` at first use and called through ctypes.
 Layouts: ``flash_attention`` takes the models' ``(B, S, H, D)``; the kernels
@@ -31,6 +35,10 @@ import torch
 from .cuda_build import load_library
 
 MAX_HEAD_DIM = 512
+# the fused backward kernel: head dims it takes, and keys per block (dQ is
+# added into its f32 buffer once per block of keys)
+FUSED_BWD_MAX_HEAD_DIM = 64
+FUSED_BWD_KEYS = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # library name -> sources under csrc/
 LIBRARIES = {
@@ -131,6 +139,10 @@ _FUNCTIONS = {
         "flash_attention_bwd",
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     ),
+    "flash_attention_bwd_fused": (
+        "flash_attention_bwd",
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
+    ),
 }
 
 
@@ -200,7 +212,8 @@ def flash_attention_fwd(
 
 
 def flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta, scale: float) -> torch.Tensor:
-    """dQ ``(BH, Sq, D)`` in Q's dtype from the CUDA kernel (K2), counted in
+    """dQ ``(BH, Sq, D)`` in Q's dtype from the CUDA-core kernel (K2's
+    route off the fused kernel), counted in
     ``flash_attention_bwd_dq.launches``. CUDA tensors only."""
     _check_bwd(q3, k3, v3, do3, lse, delta)
     if not _on_cuda("flash_attention_bwd_dq", q3):
@@ -217,9 +230,9 @@ def flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta, scale: float) -> torch.T
 
 
 def flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta, scale: float):
-    """dK and dV ``(BH, Sk, D)`` in K's and V's dtypes from the CUDA kernel
-    (K3), counted in ``flash_attention_bwd_dkv.launches``. CUDA tensors
-    only."""
+    """dK and dV ``(BH, Sk, D)`` in K's and V's dtypes from the CUDA-core
+    kernel (K3's route off the fused kernel), counted in
+    ``flash_attention_bwd_dkv.launches``. CUDA tensors only."""
     _check_bwd(q3, k3, v3, do3, lse, delta)
     if not _on_cuda("flash_attention_bwd_dkv", q3):
         raise ValueError("flash_attention_bwd_dkv launches the CUDA kernel: CUDA tensors only")
@@ -235,12 +248,52 @@ def flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta, scale: float):
     return dk, dv
 
 
+def takes_fused_backward(q3, k3, v3, do3) -> bool:
+    """Whether ``flash_attention_bwd`` sends these CUDA tensors to the fused
+    kernel: bf16, D % 8 == 0, D <= ``FUSED_BWD_MAX_HEAD_DIM``, every base
+    16-byte aligned (the tensor maps and the bulk adds need it)."""
+    d = q3.shape[-1]
+    return (
+        q3.dtype == torch.bfloat16 and d % 8 == 0 and d <= FUSED_BWD_MAX_HEAD_DIM
+        and all(t.data_ptr() % 16 == 0 for t in (q3, k3, v3, do3))
+    )
+
+
+def flash_attention_bwd_fused(q3, k3, v3, do3, lse, delta, scale: float):
+    """dQ, dK, dV in bf16 from the fused kernel (K2 and K3 in one), counted
+    in ``flash_attention_bwd_fused.launches``; the dQ buffer it adds into is
+    zeroed here. CUDA tensors that ``takes_fused_backward`` accepts only."""
+    _check_bwd(q3, k3, v3, do3, lse, delta)
+    if not _on_cuda("flash_attention_bwd_fused", q3):
+        raise ValueError("flash_attention_bwd_fused launches the CUDA kernel: CUDA tensors only")
+    if not takes_fused_backward(q3, k3, v3, do3):
+        raise ValueError(
+            f"flash_attention_bwd_fused takes bf16 with D % 8 == 0, D <= {FUSED_BWD_MAX_HEAD_DIM} and "
+            f"16-byte aligned bases; got {q3.dtype}, D = {q3.shape[-1]}"
+        )
+    bh, sq, d = q3.shape
+    dq_acc = torch.zeros((bh, sq, d), dtype=torch.float32, device=q3.device)
+    dq = torch.empty_like(q3)
+    dk = torch.empty_like(k3)
+    dv = torch.empty_like(v3)
+    _launch(
+        "flash_attention_bwd_fused", q3, k3,
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        bh, sq, k3.shape[1], d, float(scale),
+    )
+    return dq, dk, dv
+
+
 def flash_attention_bwd(q3, k3, v3, do3, lse, delta, scale: float):
-    """dQ, dK, dV: the two backward kernels for CUDA tensors,
+    """dQ, dK, dV: for CUDA tensors the fused kernel where
+    ``takes_fused_backward`` says so, else the two CUDA-core kernels;
     ``flash_attention_bwd_reference`` for CPU tensors."""
     _check_bwd(q3, k3, v3, do3, lse, delta)
     if not _on_cuda("flash_attention_bwd", q3):
         return flash_attention_bwd_reference(q3, k3, v3, do3, lse, delta, scale)
+    if takes_fused_backward(q3, k3, v3, do3):
+        return flash_attention_bwd_fused(q3, k3, v3, do3, lse, delta, scale)
     dq = flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta, scale)
     dk, dv = flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta, scale)
     return dq, dk, dv
@@ -250,6 +303,7 @@ _WRAPPERS = {
     "flash_attention_fwd": flash_attention_fwd,
     "flash_attention_bwd_dq": flash_attention_bwd_dq,
     "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+    "flash_attention_bwd_fused": flash_attention_bwd_fused,
 }
 
 

@@ -7,13 +7,16 @@ no JAX, so it also runs on a machine with the card and no JAX installed:
 
 (``tests/conftest.py`` imports JAX; ``--noconftest`` leaves it out.)
 
-Flash attention, forward (K1) and backward (K2 dQ, K3 dK/dV): shapes cover
-the kernels behind each entry point, tensor cores for bf16 with D % 8 == 0
-(D <= 64 forward and backward, the forward's wide-head kernel for D = 80,
-128, 160, 512) and CUDA cores for f32, D = 36 and the backward above D = 64;
+Flash attention, forward (K1) and backward (K2 dQ and K3 dK/dV, fused into
+one kernel for bf16 with D % 8 == 0 and D <= 64): shapes cover the kernels
+behind each entry point, tensor cores for bf16 with D % 8 == 0 (D <= 64
+forward and backward, the forward's wide-head kernel for D = 80, 128, 160,
+512) and CUDA cores for f32, D = 36 and the backward above D = 64;
 and the edges: one query and one key, a single ragged key tile, a last key
 tile of one key, and at the main path's D = 40 and 512 query and key counts
-that are no multiple of the forward kernels' tiles. 8-bit Lion (K4 single leaf, K5 many leaves, and the
+that are no multiple of the kernels' tiles. The fused backward adds dQ
+across key blocks in an order that changes from run to run: dK and dV
+repeat bitwise, dQ within a bf16 ulp. 8-bit Lion (K4 single leaf, K5 many leaves, and the
 functional entry: K6 narrow, K7 wide) at block sizes 1 to 128 (128 on the
 cooperative variant): update signs and scales equal to the plain version's,
 codes at most one apart (CUDA's powf and torch's pow may differ by an ulp). Tolerances are those of
@@ -82,7 +85,10 @@ def test_backward_kernels_match_plain_version(bh, sq, sk, d, dtype):
     fa.reset_launch_counts()
     grads = fa.flash_attention_bwd(q, k, v, do, lse, delta, scale)
     torch.cuda.synchronize()
-    assert fa.flash_attention_bwd_dq.launches == 1 and fa.flash_attention_bwd_dkv.launches == 1
+    fused = dtype == "bfloat16" and d % 8 == 0 and d <= fa.FUSED_BWD_MAX_HEAD_DIM
+    launched = (fa.flash_attention_bwd_fused.launches, fa.flash_attention_bwd_dq.launches,
+                fa.flash_attention_bwd_dkv.launches)
+    assert launched == ((1, 0, 0) if fused else (0, 1, 1))
     expected = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale)
     for name, got, want in zip(("dq", "dk", "dv"), grads, expected):
         assert got.dtype == want.dtype and got.shape == want.shape, name
@@ -110,12 +116,47 @@ def test_grads_flow_through_the_flash_route(dtype):
         out = attention(*leaves, backend=backend)
         out.backward(do)
         assert all(t.grad is not None for t in leaves), backend
-        launched = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq.launches,
-                    fa.flash_attention_bwd_dkv.launches)
-        assert launched == ((1, 1, 1) if backend == "flash" else (0, 0, 0)), backend
+        launched = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_fused.launches,
+                    fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
+        by_route = (1, 1, 0, 0) if dtype == "bfloat16" else (1, 0, 1, 1)
+        assert launched == (by_route if backend == "flash" else (0, 0, 0, 0)), backend
         results.append([t.grad.float() for t in leaves])
     for got, want in zip(*results):
         torch.testing.assert_close(got, want, atol=TOL[dtype]["grad"], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,sk,d", [(64, 4096, 4096, 40), (3, 4000, 3900, 40), (2, 257, 129, 64)])
+def test_fused_backward_repeats(bh, sq, sk, d):
+    """The same inputs twice through the fused kernel: dK and dV bitwise
+    equal (each block sums its own queries in one order); dQ's f32 sums over
+    key blocks may land in another order, which after rounding to bf16 moves
+    an element by at most one ulp (2^-7 relative, of the largest |dQ|)."""
+    _need_cuda()
+    q, k, v, do = _qkv(bh, sq, sk, d, "bfloat16", seed=10)
+    scale = d**-0.5
+    o, lse = fa.flash_attention_fwd(q, k, v, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    first = fa.flash_attention_bwd_fused(q, k, v, do, lse, delta, scale)
+    second = fa.flash_attention_bwd_fused(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+    dq1, dq2 = first[0].float(), second[0].float()
+    assert (dq1 - dq2).abs().max().item() <= 2.0**-7 * dq1.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_fused_backward_takes_only_its_route():
+    """The fused wrapper raises on what it does not take (f32, D % 8 != 0,
+    D > 64) rather than computing it; ``flash_attention_bwd`` sends those to
+    the CUDA-core kernels."""
+    _need_cuda()
+    for dtype, d in (("float32", 40), ("bfloat16", 36), ("bfloat16", 80)):
+        q, k, v, do = _qkv(1, 64, 64, d, dtype)
+        lse = torch.zeros(1, 64, device="cuda")
+        assert not fa.takes_fused_backward(q, k, v, do)
+        with pytest.raises(ValueError, match="flash_attention_bwd_fused takes"):
+            fa.flash_attention_bwd_fused(q, k, v, do, lse, lse, 0.1)
 
 
 def _lion_leaves(sizes, bs, dtype, seed):

@@ -10,6 +10,11 @@ take the plain versions, so these tests hold ``flash_attention_bwd_reference``
 Tolerance: f32, 1e-5 absolute on dQ, dK and dV (of magnitude ~1). Both sides
 form the same f32 products and sums in other orders, and JAX pads the
 sequences to its 128-row blocks with masked columns.
+
+The fused CUDA kernel (bf16 on the card) sums dQ over blocks of
+``FUSED_BWD_KEYS`` keys into one f32 buffer and scales and rounds it once at
+the end; ``test_fused_kernel_order_matches_jax_vjp`` holds that order of
+operations, written out in plain torch, to the JAX package.
 """
 
 import importlib
@@ -90,6 +95,46 @@ def test_autograd_function_grads_match_jax_vjp(b, sq, sk, h, d):
         np.testing.assert_allclose(t.grad.numpy(), want, atol=ATOL, rtol=0)
 
 
+def _fused_order_backward(q3, k3, v3, do3, lse, delta, scale, keys=fa.FUSED_BWD_KEYS):
+    """The fused kernel's arithmetic in plain torch: per block of ``keys``
+    keys, P and dS in f32 and the block's dQ partial (dS rounded to K's
+    dtype) added into one f32 buffer, which is scaled and rounded to Q's
+    dtype once at the end; the block's dK and dV over all queries."""
+    qf, kf, vf, dof = (t.float() for t in (q3, k3, v3, do3))
+    acc = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for k0 in range(0, k3.shape[1], keys):
+        kb, vb = kf[:, k0:k0 + keys], vf[:, k0:k0 + keys]
+        p = torch.exp(torch.matmul(qf, kb.transpose(-1, -2)) * scale - lse[..., None])
+        ds = p * (torch.matmul(dof, vb.transpose(-1, -2)) - delta[..., None])
+        acc += torch.matmul(ds.to(k3.dtype).float(), kb)
+        dvs.append(torch.matmul(p.to(do3.dtype).float().transpose(-1, -2), dof))
+        dks.append(scale * torch.matmul(ds.to(q3.dtype).float().transpose(-1, -2), qf))
+    return (scale * acc).to(q3.dtype), torch.cat(dks, 1).to(k3.dtype), torch.cat(dvs, 1).to(v3.dtype)
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", ATOL), ("bfloat16", 1e-2)])
+def test_fused_kernel_order_matches_jax_vjp(dtype, atol):
+    """Sq and Sk off the kernel's tiles (Sk = 300: key blocks of 128, 128
+    and 44; Sq = 200: a ragged 128-query tile). f32: 1e-5 as above; bf16:
+    1e-2 at grads ~1, as ``test_bf16_backward_rounds_p_and_ds`` (the JAX
+    kernel also rounds dQ once, from its f32 scratch)."""
+    b, sq, sk, h, d = 1, 200, 300, 2, 40
+    q, k, v, do = _inputs(b, sq, sk, h, d, seed=4)
+    jdt = getattr(jnp, dtype)
+    fn = lambda q, k, v: jax_fa.flash_attention(q, k, v, block_q=128, block_k=128, interpret=True)
+    _, vjp = jax.vjp(fn, *(jnp.asarray(x).astype(jdt) for x in (q, k, v)))
+    expected = [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(do).astype(jdt))]
+    q3, k3, v3, do3 = (_fold(x).to(getattr(torch, dtype)) for x in (q, k, v, do))
+    scale = d**-0.5
+    o3, lse = fa.flash_attention_fwd(q3, k3, v3, scale)
+    delta = (do3.float() * o3.float()).sum(-1)
+    grads = _fused_order_backward(q3, k3, v3, do3, lse, delta, scale)
+    for got, want in zip(grads, expected):
+        assert got.dtype == getattr(torch, dtype)
+        np.testing.assert_allclose(_unfold(got.float(), b, h), want, atol=atol, rtol=0)
+
+
 def test_bf16_backward_rounds_p_and_ds():
     """bf16: P is rounded to dO's dtype before P^T dO and dS to K's/Q's
     before the dQ/dK products (1e-2 at grads ~1: a few bf16 ulps of the
@@ -156,7 +201,7 @@ def test_auto_policy_is_the_jax_packages():
 
 
 def test_backward_kernel_wrappers_reject_cpu_tensors():
-    """The K2/K3 wrappers launch the kernels: a CPU tensor is an error there
+    """The backward kernels' wrappers launch them: a CPU tensor is an error there
     (``flash_attention_bwd`` is the entry that takes the plain version)."""
     x = torch.zeros(1, 8, 40)
     lse = torch.zeros(1, 8)
@@ -164,5 +209,7 @@ def test_backward_kernel_wrappers_reject_cpu_tensors():
         fa.flash_attention_bwd_dq(x, x, x, x, lse, lse, 0.1)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         fa.flash_attention_bwd_dkv(x, x, x, x, lse, lse, 0.1)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fa.flash_attention_bwd_fused(x, x, x, x, lse, lse, 0.1)
     with pytest.raises(ValueError, match="dO must be"):
         fa.flash_attention_bwd(x, x, x, torch.zeros(1, 8, 40, dtype=torch.bfloat16), lse, lse, 0.1)
