@@ -557,24 +557,31 @@ def flash_backward_cases():
             del out, leaves
         except RuntimeError:  # no SDPA backend takes this shape/dtype
             pass
-        # Both routes compute dQ, dK and dV from q, k, v, dO, lse and delta.
-        # Fused: 5 products (S, dO V^T, P^T dO, dS^T Q, dS K) and the exps
-        # once; the dQ buffer written and read in f32. Two kernels: K2 3
-        # products and the exps, K3 4 products and the exps again.
-        if fused:
-            bound = _bound(bh, sq, sk, d, name_dt, products=5, reads_q=2, reads_k=2, writes_q=1, writes_k=2,
-                           stats=2, f32_q=2)
-        else:
-            bound = _bound(bh, sq, sk, d, name_dt, products=7, exps=2, reads_q=2, reads_k=2, writes_q=1,
-                           writes_k=2, stats=2)
+        # The function: dQ, dK and dV from q, k, v, dO, lse and delta, 5
+        # products (S, dO V^T, P^T dO, dS^T Q, dS K) and the exps once; the
+        # fused route also writes and reads its f32 dQ buffer. The CUDA-core
+        # route's own work, kernel by kernel: K2 S, dO V^T, dS K (3 products)
+        # and the exps, writing dQ; K3 S, dO V^T, P^T dO, dS^T Q (4 products)
+        # and the exps again, writing dK and dV.
+        bound = _bound(bh, sq, sk, d, name_dt, products=5, writes_q=1, writes_k=2, stats=2, f32_q=2 * fused)
+        per_kernel = {}
+        if not fused:
+            for kernel, products, writes in (("dq", 3, dict(writes_q=1)), ("dkv", 4, dict(writes_k=2))):
+                own = _bound(bh, sq, sk, d, name_dt, products=products, stats=2, **writes)
+                per_kernel[kernel] = dict(
+                    ms=sum(ms for n, ms in kernel_ms.items() if f"bwd_{kernel}_kernel" in n),
+                    bound_ms=own[0], bound_by=own[1], flops=own[2],
+                )
+        ok = ok and all(k["ms"] > 0 for k in per_kernel.values())  # the profiler saw both kernels
+        flops_run = sum(k["flops"] for k in per_kernel.values()) if per_kernel else bound[2]
         row = dict(
             case=name, shape_q=[bh, sq, d], shape_k=[bh, sk, d], dtype=name_dt,
             route="fused" if fused else "two CUDA-core kernels", launches=launches,
             max_abs_err=errs, max_abs_grad=max_grads, tol=BWD_TOLERANCE[name_dt],
             rel_fro_err=fro_errs, fro_tol=BWD_FRO_TOLERANCE[name_dt], repeat=repeat, ok=ok,
             call_ms=call_ms, kernel_ms=kernel_ms, host_ms_per_call=host[0], plain_ms=plain_ms,
-            library_ms=library_ms, bound_ms=bound[0], bound_by=bound[1],
-            tflops=2.0 * 5 * bh * sq * sk * d / call_ms / 1e9,
+            library_ms=library_ms, bound_ms=bound[0], bound_by=bound[1], per_kernel=per_kernel,
+            tflops=flops_run / call_ms / 1e9,
             dq_reduce_bytes=-(-sk // fa.FUSED_BWD_KEYS) * bh * sq * d * 4 if fused else None,
         )
         rows.append(row)
@@ -1356,8 +1363,7 @@ def kernels_line(state):
         shape = (bh, sq, row["shape_k"][1], d, row["dtype"])
         dims = "x".join(map(str, shape[:4]))
         common = dict(
-            route="cuda", source=f"{CSRC}/flash_attention_bwd.cu", max_abs_err=max(row["max_abs_err"].values()),
-            ms=row["call_ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            route="cuda", source=f"{CSRC}/flash_attention_bwd.cu", plain_ms=row["plain_ms"],
             library_ms=row["library_ms"],
         )
         if row["case"] == "unet_train":  # the train step runs the fused kernel at this shape
@@ -1365,14 +1371,22 @@ def kernels_line(state):
                 common, name=f"flash_attention_bwd_fused[unet_train {dims} bf16; K2 and K3 in one kernel]",
                 replaces=f"{JAX_OPS}/flash_attention.py:105,147",
                 launches=train.get("flash_bwd_fused", {}).get(shape, 0),
+                max_abs_err=max(row["max_abs_err"].values()), ms=row["call_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"],
             ))
         elif row["case"] == "unet_train_f32" and f32_path is not None:
-            # the CUDA-core pair; its path is train_parity's f32 step
-            entries.append(dict(
-                common, name=f"flash_attention_bwd_dq+dkv[unet_train_f32 {dims} f32; path: train_parity f32]",
-                replaces=f"{JAX_OPS}/flash_attention.py:105,147",
-                launches=f32_path["bwd_dq"].get(shape, 0) + f32_path["bwd_dkv"].get(shape, 0),
-            ))
+            # the CUDA-core pair, each kernel with its own time and work; the
+            # plain and library times are the whole backward's. Its path is
+            # train_parity's f32 step.
+            for kernel, grads, line in (("dq", ("dq",), 105), ("dkv", ("dk", "dv"), 147)):
+                own = row["per_kernel"][kernel]
+                entries.append(dict(
+                    common, name=f"flash_attention_bwd_{kernel}[unet_train_f32 {dims} f32; path: train_parity f32]",
+                    replaces=f"{JAX_OPS}/flash_attention.py:{line}",
+                    launches=f32_path[f"bwd_{kernel}"].get(shape, 0),
+                    max_abs_err=max(row["max_abs_err"][g] for g in grads), ms=own["ms"],
+                    bound_ms=own["bound_ms"], bound_by=own["bound_by"],
+                ))
     for row in state.get("lion_cases", []):
         if row["compander"] != "exact" or row["bs"] != LION_BS:
             continue  # the train step's setting

@@ -36,7 +36,9 @@ from .cuda_build import load_library
 
 MAX_HEAD_DIM = 512
 # the fused backward kernel: head dims it takes, and keys per block (dQ is
-# added into its f32 buffer once per block of keys)
+# added into its f32 buffer once per block of keys). Both copy the kernel's
+# own: the entry's d > 64 check and FusedTile::BK in
+# csrc/flash_attention_bwd.cu, which must stay equal to these.
 FUSED_BWD_MAX_HEAD_DIM = 64
 FUSED_BWD_KEYS = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

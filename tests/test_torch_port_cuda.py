@@ -85,7 +85,7 @@ def test_backward_kernels_match_plain_version(bh, sq, sk, d, dtype):
     fa.reset_launch_counts()
     grads = fa.flash_attention_bwd(q, k, v, do, lse, delta, scale)
     torch.cuda.synchronize()
-    fused = dtype == "bfloat16" and d % 8 == 0 and d <= fa.FUSED_BWD_MAX_HEAD_DIM
+    fused = fa.takes_fused_backward(q, k, v, do)
     launched = (fa.flash_attention_bwd_fused.launches, fa.flash_attention_bwd_dq.launches,
                 fa.flash_attention_bwd_dkv.launches)
     assert launched == ((1, 0, 0) if fused else (0, 1, 1))

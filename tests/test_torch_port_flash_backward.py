@@ -13,8 +13,12 @@ sequences to its 128-row blocks with masked columns.
 
 The fused CUDA kernel (bf16 on the card) sums dQ over blocks of
 ``FUSED_BWD_KEYS`` keys into one f32 buffer and scales and rounds it once at
-the end; ``test_fused_kernel_order_matches_jax_vjp`` holds that order of
-operations, written out in plain torch, to the JAX package.
+the end. ``test_fused_kernel_order_matches_jax_vjp`` holds a model of that
+summation order, written out in plain torch inside the test, to the JAX
+package; it runs none of the port's backward code. The kernel itself is
+held on the card against ``flash_attention_bwd_reference``
+(``chip_smoke.py``, ``tests/test_torch_port_cuda.py``), which the tests here
+hold against the JAX package.
 """
 
 import importlib

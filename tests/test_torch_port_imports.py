@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``stable_diffusion_training_tpu_torch``
-and not ``chip_smoke.py`` imports JAX, flax or the JAX package; the package
+and neither of the root scripts ``chip_smoke.py`` and ``probe_flash_bwd.py``
+imports JAX, flax or the JAX package; the package
 imports on a CPU-only torch with no nvcc and no triton, the train and
 trainer slices' modules included, and none of its modules imports tqdm,
 transformers, safetensors, orbax or tensorboard when it is imported (the
@@ -31,10 +32,12 @@ SLICE_MODULES = (
     "training.py",  # the trainer
 )
 KERNEL_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "lion8bit_update.cu")
+SCRIPTS = ("chip_smoke.py", "probe_flash_bwd.py")  # run from the root on the card
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    """The root scripts, then every module of the package."""
+    files = [os.path.join(REPO, name) for name in SCRIPTS]
     for root, _, names in os.walk(os.path.join(REPO, PACKAGE)):
         files += [os.path.join(root, n) for n in sorted(names) if n.endswith(".py")]
     return files
@@ -54,7 +57,7 @@ def _imported_modules(path):
 
 def test_port_imports_no_jax_and_not_the_jax_package():
     files = _port_files()
-    rel = {os.path.relpath(p, os.path.join(REPO, PACKAGE)) for p in files[1:]}
+    rel = {os.path.relpath(p, os.path.join(REPO, PACKAGE)) for p in files[len(SCRIPTS):]}
     assert set(SLICE_MODULES) <= rel
     for src in KERNEL_SOURCES:
         assert os.path.exists(os.path.join(REPO, PACKAGE, "csrc", src)), src
@@ -98,7 +101,7 @@ def test_package_imports_on_cpu_torch_without_jax():
     JAX in (the build, nvcc and triton are only touched on first launch)."""
     modules = sorted(
         os.path.relpath(p, REPO)[:-3].replace(os.sep, ".").removesuffix(".__init__")
-        for p in _port_files()[1:]
+        for p in _port_files()[len(SCRIPTS):]
     )
     code = (
         "import importlib, sys\n"
@@ -138,3 +141,21 @@ def test_chip_smoke_fails_without_a_gpu():
     proc = _run_chip_smoke(REPO)
     assert proc.returncode != 0
     assert proc.stdout == ""
+
+
+def test_probe_edits_match_the_fused_kernel_once():
+    """Each variant of ``probe_flash_bwd.py`` replaces statements that occur
+    exactly once in the fused backward's source, so the probe times the
+    kernel as it stands and not a stale copy of it."""
+    sys.path.insert(0, REPO)
+    try:
+        import probe_flash_bwd as probe
+    finally:
+        sys.path.remove(REPO)
+    with open(os.path.join(REPO, PACKAGE, "csrc", "flash_attention_bwd.cu")) as f:
+        src = f.read()
+    assert set(probe.VARIANTS) >= {"base", "no_exp", "no_dkv", "no_dq", "no_reduce", "no_barrier"}
+    for name, edits in probe.VARIANTS.items():
+        out = probe.variant_source(src, edits)
+        assert (out == src) == (name == "base"), name
+        assert probe.FUSED in out, name
