@@ -4,6 +4,7 @@ NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --phases gpu,build,kernels
+    python3 chip_smoke.py --phases gpu,build,train_f32   # the f32 train step alone
 
 Phases, one JSON line each:
 
@@ -13,9 +14,10 @@ Phases, one JSON line each:
    each, all started together; the compiler's register and spill report
    goes to ``chiprun_out/chip_smoke_build.log``. Prints every kernel's
    registers and spill bytes and, for the flash-attention Hopper kernels
-   (the forward's and the fused backward), the count of wgmma (``HGMMA``)
-   and TMA load (``UTMALDG``) instructions in ``cuobjdump -sass`` of the
-   built library; fails if one is missing, spills or lacks either.
+   (the forward's and the fused bf16 backward), the count of wgmma
+   (``HGMMA``) and TMA load (``UTMALDG``) instructions in ``cuobjdump
+   -sass`` of the built library; fails if one is missing, spills or lacks
+   either, or if the fused f32 backward is missing or spills.
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
    with max errors against the stated tolerances, kernel / plain / library
    device times (CUDA events; the calls queued behind a spin kernel so the
@@ -23,16 +25,20 @@ Phases, one JSON line each:
    and the card's least time for the same work:
    flash-attention forward (K1) at the serving path's shapes, (16, 4096, 40)
    and (1, 4096, 512), in bf16 and f32 (TF32 off), at the train step's,
-   (64, 4096, 40) and (8, 4096, 512) bf16, plus ragged cases (bf16 at
-   D = 40 and 512 with query and key counts off the tiles), with the host's
-   ms per call and the bytes the kernel streams from L2;
-   flash-attention backward at the train step's (64, 4096, 40) bf16 and at
-   ragged cases (D = 64, and D = 40 with both counts off the tiles) on the
-   fused kernel (K2 and K3 in one), at D = 36 bf16 and the f32 train_parity
-   shape on the CUDA-core K2 and K3: the whole call's time, each kernel's
-   (torch.profiler), host ms per call, the fused kernel's dQ reduce-add
-   bytes, and two runs on the same inputs (max |dQ1 - dQ2|; dK and dV must
-   be bitwise equal); the 8-bit Lion kernel
+   (64, 4096, 40) and (8, 4096, 512) in bf16 and f32, plus ragged cases
+   (bf16 at D = 40 and 512 with query and key counts off the tiles), with
+   the host's ms per call and the bytes the kernel streams from L2;
+   flash-attention backward on its three routes (``backward_route``): the
+   fused tensor-core kernel (bf16, K2 and K3 in one) at the train step's
+   (64, 4096, 40) and at ragged cases (D = 64, and D = 40 with both counts
+   off the tiles); the fused f32 kernel (K2 and K3 in one, CUDA cores) at
+   train_parity's (8, 4096, 40), train_f32's (64, 4096, 40) and the same
+   two ragged cases; the CUDA-core K2 and K3 at D = 36 bf16 (and, timed
+   only, at (8, 4096, 40) f32 beside the fused f32 kernel): the whole
+   call's time, each kernel's (torch.profiler), host ms per call, the fused
+   kernels' dQ reduce-add or partial bytes, and two runs on the same inputs
+   (dK and dV must be bitwise equal, and dQ too except on the bf16 route,
+   whose dQ adds land in any order); the 8-bit Lion kernel
    over every SD1.5 leaf above the bucket limit (single-leaf entry, K4, one
    launch each) and over the UNet's and CLIP's small-leaf buckets
    (multi-leaf entry, K5), bs 16, bf16 grads, exact and fast companders,
@@ -56,13 +62,13 @@ Phases, one JSON line each:
 6. ``train_parity``: one full-width SD1.5 UNet forward and backward at
    512x512, batch 1, f32 (TF32 off), "auto" (K1 + K2 + K3) against "xla"
    (plain): the loss within 1e-5 relative, every grad within 1e-4 of its
-   tensor's max |grad|, and exactly 5 forward launches and 5 of each
-   CUDA-core backward kernel (f32 does not take the fused one). The
+   tensor's max |grad|, and exactly 5 forward launches and 5 of the fused
+   f32 backward (none of the bf16 one or the CUDA-core pair). The
    same "auto" step with gradient checkpointing (every down, mid and up
    block recomputed in the backward) against it within the same bounds,
    with K1 launched 5 more times by the recompute. Then the same in bf16,
    where the tensor-core kernels run (K1 5 times, the fused backward 5
-   times, the CUDA-core pair never): each route's bf16 grads against the
+   times, the f32 one and the CUDA-core pair never): each route's bf16 grads against the
    f32 plain grads, the kernels' no further off than twice the plain
    route's, tensor by tensor.
 7. ``train``: the SD1.5 train step at full width through
@@ -72,12 +78,18 @@ Phases, one JSON line each:
    bs 16 with the example exclusion lists, EMA 0.99998, bucket limit 65536,
    exact compander), bf16, 512x512, batch 8, a synthetic batch from a seed:
    2 warm-up steps, then 5 timed steps with the launch counts zeroed just
-   before and read just after (K1 5 + 1, the fused backward 5, the
-   CUDA-core K2 and K3 none, the Lion
+   before and read just after (K1 5 + 1, the fused bf16 backward 5, the
+   f32 one and the CUDA-core K2 and K3 none, the Lion
    single-leaf entry once per leaf over the bucket limit, the multi-leaf
    entry twice, per step). Then one step under torch.profiler (``profile``
    line).
-8. ``trainer``: the port's trainer through ``trainer.main``, the body of
+8. ``train_f32``: the same step with ``mixed_precision: "float32"`` (TF32
+   off), the fidelity configuration: 2 warm-up steps, then 3 timed (K1 5 +
+   1 in f32, the fused f32 backward 5, the bf16 one and the CUDA-core pair
+   none, Lion's entries as above), step p50, images/s, peak memory, then
+   one step under torch.profiler (``profile`` line: the backward's device
+   time, the idle share). f32 dQ repeats bitwise; bf16 dQ does not.
+9. ``trainer``: the port's trainer through ``trainer.main``, the body of
    ``python -m stable_diffusion_training_tpu_torch.training``, with the same
    settings (SD1.5 ``sd15`` seeded weights, bf16, 512x512, batch 8) on
    ``InMemoryDataLoader.synthetic`` batches, in a run directory under
@@ -112,7 +124,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = "stable_diffusion_training_tpu_torch"
 CSRC = f"{PACKAGE}/csrc"
 JAX_OPS = "stable_diffusion_training_tpu/ops"
-ALL_PHASES = ("gpu", "build", "kernels", "parity", "slice", "train_parity", "train", "trainer")
+ALL_PHASES = ("gpu", "build", "kernels", "parity", "slice", "train_parity", "train", "train_f32", "trainer")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): 989 TFLOP/s bf16 tensor core,
 # 67 TFLOP/s f32 on the CUDA cores (TF32 would change the numerics), 3.35
@@ -169,6 +181,8 @@ LION_BS, BUCKET_MAX_NB = 16, 65536
 RECORD = os.path.join(REPO, "chiprun_out", "chip_smoke.jsonl")  # every phase line, in full
 # the flash-attention kernels built on TMA and wgmma (names as in csrc/)
 HOPPER_KERNELS = ("flash_fwd_tma_kernel", "flash_bwd_fused_kernel")
+# the fused f32 backward (CUDA cores, cp.async): built, and spilling nothing
+F32_BWD_KERNEL = "flash_bwd_f32_fused_kernel"
 
 
 def emit(phase, **fields):
@@ -296,18 +310,18 @@ def phase_build(state):
     names = demangle_all(kernels)
     kernels = {names[fn]: props for fn, props in kernels.items()}
     hopper = {n: k for n, k in kernels.items() if any(h in n for h in HOPPER_KERNELS)}
+    f32_bwd = {n: k for n, k in kernels.items() if F32_BWD_KERNEL in n}
     emit(
         "build", seconds=round(seconds, 3),
         libraries={n: os.path.relpath(p, REPO) for n, p in paths.items()}, ptxas=ptxas,
         kernels=kernels, ptxas_advisories=advisories,
     )
-    bad = {
-        n: k for n, k in hopper.items()
-        if k.get("spill_stores", 1) or k.get("spill_loads", 1) or not k.get("HGMMA") or not k.get("UTMALDG")
-    }
-    missing = [h for h in HOPPER_KERNELS if not any(h in n for n in hopper)]
+    spills = lambda k: k.get("spill_stores", 1) or k.get("spill_loads", 1)
+    bad = {n: k for n, k in hopper.items() if spills(k) or not k.get("HGMMA") or not k.get("UTMALDG")}
+    bad.update({n: k for n, k in f32_bwd.items() if spills(k)})
+    missing = [h for h in HOPPER_KERNELS if not any(h in n for n in hopper)] + ([] if f32_bwd else [F32_BWD_KERNEL])
     if missing or bad:
-        raise AssertionError(f"Hopper kernels missing {missing}, or spilling or lacking wgmma/TMA: {bad}")
+        raise AssertionError(f"flash kernels missing {missing}, or spilling or lacking wgmma/TMA: {bad}")
 
 
 def ptxas_functions(log):
@@ -422,8 +436,8 @@ def phase_kernels(state):
     cases = [
         ("unet_l0", 16, 4096, 4096, 40, both),  # serving: 64x64 self-attention, CFG batch 2
         ("vae_mid", 1, 4096, 4096, 512, both),  # serving: VAE decode mid-block
-        ("unet_train", 64, 4096, 4096, 40, ("bfloat16",)),  # train: 64x64 self-attention, batch 8
-        ("vae_encode", 8, 4096, 4096, 512, ("bfloat16",)),  # train: VAE encode mid-block
+        ("unet_train", 64, 4096, 4096, 40, both),  # train: 64x64 self-attention, batch 8
+        ("vae_encode", 8, 4096, 4096, 512, both),  # train: VAE encode mid-block
         ("ragged", 4, 3000, 2100, 64, both),
         ("ragged_d36", 2, 1000, 777, 36, both),  # bf16 off the tensor-core path
         # query and key counts that are no multiple of either Hopper kernel's tiles
@@ -483,14 +497,30 @@ def phase_kernels(state):
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
 
 
+# launches of one flash_attention_bwd call, by route (fa.backward_route)
+BWD_ROUTE_LAUNCHES = {
+    "fused": dict(bwd_fused=1, bwd_f32=0, bwd_dq=0, bwd_dkv=0),
+    "f32_fused": dict(bwd_fused=0, bwd_f32=1, bwd_dq=0, bwd_dkv=0),
+    "cuda_cores": dict(bwd_fused=0, bwd_f32=0, bwd_dq=1, bwd_dkv=1),
+}
+
+
+def bwd_launches(fa):
+    return dict(bwd_fused=fa.flash_attention_bwd_fused.launches, bwd_f32=fa.flash_attention_bwd_f32_fused.launches,
+                bwd_dq=fa.flash_attention_bwd_dq.launches, bwd_dkv=fa.flash_attention_bwd_dkv.launches)
+
+
 def flash_backward_cases():
     """The backward against ``flash_attention_bwd_reference``, by route: the
-    fused kernel (bf16, D % 8 == 0, D <= 64) or the CUDA-core K2 (dQ) and K3
-    (dK/dV). Times the whole call (for the fused route: zeroing the dQ
-    buffer, the kernel, the conversion) and, from torch.profiler, each
-    kernel in it; runs the call twice on the same inputs (dQ's sum over key
-    blocks lands in another order each run). The library yardstick is
-    SDPA's backward (timed only)."""
+    fused tensor-core kernel (bf16, D % 8 == 0, D <= 64), the fused f32
+    kernel (f32, D % 4 == 0, D <= 64) or the CUDA-core K2 (dQ) and K3
+    (dK/dV). Times the whole call (fused bf16: zeroing the dQ buffer, the
+    kernel, the conversion; fused f32: the kernel and the dQ sum) and, from
+    torch.profiler, each kernel in it; runs the call twice on the same
+    inputs (dQ's sum over key blocks lands in another order each run on the
+    bf16 route, in one order on the others). The library yardstick is SDPA's
+    backward (timed only); at the train_parity f32 shape the CUDA-core pair
+    is timed beside the fused f32 kernel on the same inputs."""
     import torch
     import torch.nn.functional as F
 
@@ -502,8 +532,11 @@ def flash_backward_cases():
         ("ragged", 4, 3000, 2100, 64, torch.bfloat16),
         # query and key counts that are no multiple of the fused kernel's tiles
         ("ragged_d40", 3, 4000, 3900, 40, torch.bfloat16),
-        ("ragged_d36", 2, 1000, 777, 36, torch.bfloat16),  # off the tensor-core path
+        ("ragged_d36", 2, 1000, 777, 36, torch.bfloat16),  # off both fused kernels: the CUDA-core pair
         ("unet_train_f32", 8, 4096, 4096, 40, torch.float32),  # the train_parity shape
+        ("unet_train_f32_b8", 64, 4096, 4096, 40, torch.float32),  # the train_f32 shape
+        ("ragged_f32", 4, 3000, 2100, 64, torch.float32),  # SD2.1/SDXL's head dim, counts off the tiles
+        ("ragged_d40_f32", 3, 4000, 3900, 40, torch.float32),
     ]
     rows = []
     for name, bh, sq, sk, d, dtype in cases:
@@ -513,17 +546,17 @@ def flash_backward_cases():
         scale = d**-0.5
         o, lse = fa.flash_attention_fwd(q, k, v, scale)
         delta = (do.float() * o.float()).sum(-1)
-        fused = fa.takes_fused_backward(q, k, v, do)
+        route = fa.backward_route(q, k, v, do)
+        fused = route == "fused"
         args = (q, k, v, do, lse, delta, scale)
         fa.reset_launch_counts()
         grads = fa.flash_attention_bwd(*args)
         again = fa.flash_attention_bwd(*args)
         torch.cuda.synchronize()
-        launches = dict(bwd_fused=fa.flash_attention_bwd_fused.launches, bwd_dq=fa.flash_attention_bwd_dq.launches,
-                        bwd_dkv=fa.flash_attention_bwd_dkv.launches)
+        launches = bwd_launches(fa)
         expected = fa.flash_attention_bwd_reference(*args)
         errs, fro_errs, max_grads = {}, {}, {}
-        ok = launches == (dict(bwd_fused=2, bwd_dq=0, bwd_dkv=0) if fused else dict(bwd_fused=0, bwd_dq=2, bwd_dkv=2))
+        ok = launches == {k: 2 * n for k, n in BWD_ROUTE_LAUNCHES[route].items()}
         for gname, got, want in zip(("dq", "dk", "dv"), grads, expected):
             diff = got.float() - want.float()
             errs[gname] = diff.abs().max().item()
@@ -535,12 +568,14 @@ def flash_backward_cases():
                 and fro_errs[gname] <= BWD_FRO_TOLERANCE[name_dt]
             )
             del diff
-        # run to run: dK and dV are summed in one order, dQ's adds may land in another
+        # run to run: dK and dV are summed in one order; dQ's adds may land
+        # in another on the bf16 fused route, and must not on the others
         repeat = dict(
             dq_max_abs_diff=(grads[0].float() - again[0].float()).abs().max().item(),
+            dq_equal=bool(torch.equal(grads[0], again[0])),
             dk_equal=bool(torch.equal(grads[1], again[1])), dv_equal=bool(torch.equal(grads[2], again[2])),
         )
-        ok = ok and repeat["dk_equal"] and repeat["dv_equal"] and (fused or repeat["dq_max_abs_diff"] == 0)
+        ok = ok and repeat["dk_equal"] and repeat["dv_equal"] and (fused or repeat["dq_equal"])
         del grads, again, expected
         reps = 10 if d <= 64 else 3
         host = []
@@ -557,15 +592,27 @@ def flash_backward_cases():
             del out, leaves
         except RuntimeError:  # no SDPA backend takes this shape/dtype
             pass
+        pair_ms = None
+        if name == "unet_train_f32":  # the route it replaces, on the same inputs
+            pair_ms = cuda_ms(
+                lambda: (fa.flash_attention_bwd_dq(*args), fa.flash_attention_bwd_dkv(*args)), 3, warmup=1
+            )
         # The function: dQ, dK and dV from q, k, v, dO, lse and delta, 5
         # products (S, dO V^T, P^T dO, dS^T Q, dS K) and the exps once; the
-        # fused route also writes and reads its f32 dQ buffer. The CUDA-core
-        # route's own work, kernel by kernel: K2 S, dO V^T, dS K (3 products)
-        # and the exps, writing dQ; K3 S, dO V^T, P^T dO, dS^T Q (4 products)
-        # and the exps again, writing dK and dV.
-        bound = _bound(bh, sq, sk, d, name_dt, products=5, writes_q=1, writes_k=2, stats=2, f32_q=2 * fused)
+        # fused bf16 route also writes and reads its f32 dQ buffer, the
+        # fused f32 route its dQ partials (one (bh, sq, d) f32 tensor per
+        # block of keys). The CUDA-core route's own work, kernel by kernel:
+        # K2 S, dO V^T, dS K (3 products) and the exps, writing dQ; K3 S,
+        # dO V^T, P^T dO, dS^T Q (4 products) and the exps again, writing dK
+        # and dV.
+        n_parts = -(-sk // fa.F32_BWD_KEYS)
+        f32_q = {"fused": 2, "f32_fused": 2 * n_parts, "cuda_cores": 0}[route]
+        bound = _bound(bh, sq, sk, d, name_dt, products=5, writes_q=1, writes_k=2, stats=2, f32_q=f32_q)
         per_kernel = {}
-        if not fused:
+        if route == "f32_fused":
+            for kernel in ("flash_bwd_f32_fused_kernel", "flash_bwd_f32_dq_sum_kernel"):
+                per_kernel[kernel] = dict(ms=sum(ms for n, ms in kernel_ms.items() if kernel in n))
+        if route == "cuda_cores":
             for kernel, products, writes in (("dq", 3, dict(writes_q=1)), ("dkv", 4, dict(writes_k=2))):
                 own = _bound(bh, sq, sk, d, name_dt, products=products, stats=2, **writes)
                 per_kernel[kernel] = dict(
@@ -573,16 +620,16 @@ def flash_backward_cases():
                     bound_ms=own[0], bound_by=own[1], flops=own[2],
                 )
         ok = ok and all(k["ms"] > 0 for k in per_kernel.values())  # the profiler saw both kernels
-        flops_run = sum(k["flops"] for k in per_kernel.values()) if per_kernel else bound[2]
+        flops_run = bound[2] if route != "cuda_cores" else sum(k["flops"] for k in per_kernel.values())
         row = dict(
-            case=name, shape_q=[bh, sq, d], shape_k=[bh, sk, d], dtype=name_dt,
-            route="fused" if fused else "two CUDA-core kernels", launches=launches,
+            case=name, shape_q=[bh, sq, d], shape_k=[bh, sk, d], dtype=name_dt, route=route, launches=launches,
             max_abs_err=errs, max_abs_grad=max_grads, tol=BWD_TOLERANCE[name_dt],
             rel_fro_err=fro_errs, fro_tol=BWD_FRO_TOLERANCE[name_dt], repeat=repeat, ok=ok,
             call_ms=call_ms, kernel_ms=kernel_ms, host_ms_per_call=host[0], plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=bound[0], bound_by=bound[1], per_kernel=per_kernel,
-            tflops=flops_run / call_ms / 1e9,
+            tflops=flops_run / call_ms / 1e9, cuda_core_pair_ms=pair_ms,
             dq_reduce_bytes=-(-sk // fa.FUSED_BWD_KEYS) * bh * sq * d * 4 if fused else None,
+            dq_partial_bytes=n_parts * bh * sq * d * 4 if route == "f32_fused" else None,
         )
         rows.append(row)
         emit("kernels_bwd", **row)
@@ -799,6 +846,7 @@ def phase_parity(state):
         fa.reset_launch_counts()
         out_k = unet(sample, t, ctx)
         launches = fa.flash_attention_fwd.launches
+        state["parity_by_shape"] = dict(fa.flash_attention_fwd.launches_by_shape)
         out_p = plain(sample, t, ctx)
         plain_launches = fa.flash_attention_fwd.launches - launches
     diff = (out_k - out_p).abs().max().item()
@@ -949,21 +997,15 @@ def phase_train_parity(state):
         loss = ((out.float() - target) ** 2).mean()
         grads = torch.autograd.grad(loss, list(model.parameters()))
         torch.cuda.synchronize()
-        launches = dict(
-            fwd=fa.flash_attention_fwd.launches, bwd_dq=fa.flash_attention_bwd_dq.launches,
-            bwd_dkv=fa.flash_attention_bwd_dkv.launches, bwd_fused=fa.flash_attention_bwd_fused.launches,
-        )
+        launches = dict(fwd=fa.flash_attention_fwd.launches, **bwd_launches(fa))
         if dtype == torch.float32 and backend == "auto" and not checkpointing:
-            state["train_parity_f32_by_shape"] = {
-                kernel: dict(getattr(fa, f"flash_attention_{kernel}").launches_by_shape)
-                for kernel in ("bwd_dq", "bwd_dkv")
-            }
+            state["train_parity_f32_by_shape"] = dict(fa.flash_attention_bwd_f32_fused.launches_by_shape)
         return loss.item(), [g.float() for g in grads], launches
 
-    # f32 takes the CUDA-core backward kernels, bf16 the fused one
-    kernel_launches = dict(fwd=5, bwd_dq=5, bwd_dkv=5, bwd_fused=0)
-    bf16_launches = dict(fwd=5, bwd_dq=0, bwd_dkv=0, bwd_fused=5)
-    plain_launches = dict(fwd=0, bwd_dq=0, bwd_dkv=0, bwd_fused=0)
+    # f32 takes the fused f32 backward kernel, bf16 the fused tensor-core one
+    kernel_launches = dict(fwd=5, bwd_fused=0, bwd_f32=5, bwd_dq=0, bwd_dkv=0)
+    bf16_launches = dict(fwd=5, bwd_fused=5, bwd_f32=0, bwd_dq=0, bwd_dkv=0)
+    plain_launches = dict(fwd=0, bwd_fused=0, bwd_f32=0, bwd_dq=0, bwd_dkv=0)
     loss_k, grads_k, launches_k = loss_and_grads("auto", torch.float32)
     loss_p, grads_p, launches_p = loss_and_grads("xla", torch.float32)
 
@@ -1059,8 +1101,11 @@ def train_config(**overrides):
     return TrainingConfig(**base)
 
 
-def phase_train(state, warmup=2, steps=5, seed=0):
-    """The SD1.5 train step at full width, bf16, batch 8, 512x512."""
+def phase_train(state, warmup=2, steps=5, seed=0, dtype="bfloat16"):
+    """The SD1.5 train step at full width, batch 8, 512x512: bf16 (the
+    ``train`` phase) or f32 (``train_f32``, the fidelity configuration)."""
+    import gc
+
     import torch
 
     from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
@@ -1068,8 +1113,11 @@ def phase_train(state, warmup=2, steps=5, seed=0):
     from stable_diffusion_training_tpu_torch.optim import QuantizedMomentum
     from stable_diffusion_training_tpu_torch.train import on_device_model_training_state, train_step
 
+    phase = "train" if dtype == "bfloat16" else "train_f32"
+    gc.collect()
+    torch.cuda.empty_cache()
     set_tf32(False)
-    cfg = train_config()
+    cfg = train_config(mixed_precision=dtype)
     t0 = time.perf_counter()
     states = on_device_model_training_state(cfg)
     setup_s = time.perf_counter() - t0
@@ -1115,6 +1163,7 @@ def phase_train(state, warmup=2, steps=5, seed=0):
     by_shape = dict(
         flash_fwd=dict(fa.flash_attention_fwd.launches_by_shape),
         flash_bwd_fused=dict(fa.flash_attention_bwd_fused.launches_by_shape),
+        flash_bwd_f32=dict(fa.flash_attention_bwd_f32_fused.launches_by_shape),
         flash_bwd_dq=dict(fa.flash_attention_bwd_dq.launches_by_shape),
         flash_bwd_dkv=dict(fa.flash_attention_bwd_dkv.launches_by_shape),
         lion_single=dict(lk.lion8bit_update_.launches_by_shape),
@@ -1122,11 +1171,15 @@ def phase_train(state, warmup=2, steps=5, seed=0):
     )
     peak = torch.cuda.max_memory_allocated()
     leaves = sd15_lion_leaves()
+    # K1 5 + 1 (the VAE encode's mid-block) a step; the backward on its
+    # dtype's fused kernel, the CUDA-core pair never
+    bwd = "flash_bwd_fused" if dtype == "bfloat16" else "flash_bwd_f32"
     expected = dict(
-        flash_fwd=6 * steps, flash_bwd_fused=5 * steps, flash_bwd_dq=0, flash_bwd_dkv=0,
+        flash_fwd=6 * steps, flash_bwd_fused=0, flash_bwd_f32=0, flash_bwd_dq=0, flash_bwd_dkv=0,
         lion_single=(leaves["unet"]["single"] + leaves["text_encoder"]["single"]) * steps,
         lion_multi=2 * steps,
     )
+    expected[bwd] = 5 * steps
     # the optimizer's share: both models' chains on stand-in grads, timed apart
     opt_ms = []
     for _ in range(3):
@@ -1137,7 +1190,7 @@ def phase_train(state, warmup=2, steps=5, seed=0):
     p50 = statistics.median(timed)
     finite = all(torch.isfinite(torch.tensor(losses)).tolist())
     row = dict(
-        batch=TRAIN_BATCH, resolution=TRAIN_RES, dtype="bfloat16", setup_s=setup_s,
+        batch=TRAIN_BATCH, resolution=TRAIN_RES, dtype=dtype, setup_s=setup_s,
         warmup_ms=step_ms, step_ms=timed, p50_ms=p50, images_per_s=TRAIN_BATCH / p50 * 1e3,
         losses=losses, finite=finite, max_memory_allocated=peak,
         momentum_codes_changed_after_step_1=codes_changed, momentum_codes=codes_total,
@@ -1149,13 +1202,13 @@ def phase_train(state, warmup=2, steps=5, seed=0):
         optimizer_ms_median=statistics.median(opt_ms), optimizer_ms=opt_ms,
         optimizer_share=statistics.median(opt_ms) / p50,
     )
-    emit("train", **row)
-    state["train"] = row
-    state["train_by_shape"] = by_shape
+    emit(phase, **row)
+    state[phase] = row
+    state[f"{phase}_by_shape"] = by_shape
     if not (finite and codes_changed > 0 and launches == expected):
-        raise AssertionError("train step failed its checks")
+        raise AssertionError(f"{phase} step failed its checks")
     profile_step(
-        step, "one SD1.5 train step (bf16, batch 8, 512x512)",
+        step, f"one SD1.5 train step ({dtype}, batch 8, 512x512)",
         {"flash_fwd_ms": ("flash_fwd",), "flash_bwd_ms": ("flash_bwd", "bwd_dq_kernel", "bwd_dkv_kernel"),
          "lion_ms": ("lion_single", "lion_multi")}, top=20,
     )
@@ -1165,12 +1218,14 @@ def train_launches(fa, lk):
     """The launch counts of the train step's kernels, by wrapper."""
     return dict(
         flash_fwd=fa.flash_attention_fwd.launches, flash_bwd_fused=fa.flash_attention_bwd_fused.launches,
+        flash_bwd_f32=fa.flash_attention_bwd_f32_fused.launches,
         flash_bwd_dq=fa.flash_attention_bwd_dq.launches, flash_bwd_dkv=fa.flash_attention_bwd_dkv.launches,
         lion_single=lk.lion8bit_update_.launches, lion_multi=lk.lion8bit_update_multi_.launches,
     )
 
 
 TRAINER_STEPS = 3  # steps per chunk (the example config's chunks run to the loader's end)
+OFF_BF16_STEP = ("flash_bwd_f32", "flash_bwd_dq", "flash_bwd_dkv")  # kernels the bf16 step never launches
 
 
 def _tree_bytes(path):
@@ -1311,9 +1366,9 @@ def phase_trainer(state, seed=0):
         ema=os.path.isdir(f"{base}-EMA@1") and not os.path.exists(f"{base}-EMA@0"),
         reload_equal=reload_equal,
         restored_momentum_equal=bool(restored_ok) and all(restored_ok),
-        # the bf16 step's kernels, and not the CUDA-core backward
-        kernels_launched=all(n for k, n in launches.items() if k not in ("flash_bwd_dq", "flash_bwd_dkv"))
-        and launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
+        # the bf16 step's kernels, and neither the f32 nor the CUDA-core backward
+        kernels_launched=all(n for k, n in launches.items() if k not in OFF_BF16_STEP)
+        and not any(launches[k] for k in OFF_BF16_STEP),
     )
     p50_ms = statistics.median(step_s) * 1e3
     train_p50 = state.get("train", {}).get("p50_ms")
@@ -1335,29 +1390,43 @@ def phase_trainer(state, seed=0):
         raise AssertionError(f"trainer failed its checks: {checks}")
 
 
+# forward cases whose f32 shape a path runs: the f32 UNet call of the parity
+# phase, the f32 train step
+F32_FWD_PATHS = {"unet_l0": "parity", "unet_train": "train_f32", "vae_encode": "train_f32"}
+SHORT = {"bfloat16": "bf16", "float32": "f32"}
+
+
 def kernels_line(state):
     """The per-kernel record: each kernel at each shape its main paths give
     it, with its launches at that shape in the run of its path (the serving
-    slice's, the timed train steps') and its numbers from the kernels
-    phase."""
-    paths = [state.get("slice_by_shape", {}), state.get("train_by_shape", {}).get("flash_fwd", {})]
+    slice's, the timed train steps', the parity and train_parity calls) and
+    its numbers from the kernels phase."""
     train = state.get("train_by_shape", {})
+    train_f32 = state.get("train_f32_by_shape", {})
+    paths = {
+        "bfloat16": [state.get("slice_by_shape", {}), train.get("flash_fwd", {})],
+        "float32": [state.get("parity_by_shape", {}), train_f32.get("flash_fwd", {})],
+    }
     entries = []
     for row in state.get("kernel_cases", []):
         bh, sq, d = row["shape_q"]
         shape = (bh, sq, row["shape_k"][1], d, row["dtype"])
-        launches = sum(path.get(shape, 0) for path in paths)
-        if row["dtype"] != "bfloat16" or row["case"].startswith("ragged"):
-            continue  # the paths run the forward kernel in bf16 at the other four shapes
+        if row["case"].startswith("ragged") or (row["dtype"] == "float32" and row["case"] not in F32_FWD_PATHS):
+            continue  # no path runs the forward kernel at this shape and dtype
+        path = "" if row["dtype"] == "bfloat16" else f"; path: {F32_FWD_PATHS[row['case']]}"
         entries.append(dict(
-            name=f"flash_attention_fwd[{row['case']} {'x'.join(map(str, shape[:4]))} bf16]",
+            name=f"flash_attention_fwd[{row['case']} {'x'.join(map(str, shape[:4]))} {SHORT[row['dtype']]}{path}]",
             route="cuda", source=f"{CSRC}/flash_attention_fwd.cu",
-            replaces=f"{JAX_OPS}/flash_attention.py:47", launches=launches,
+            replaces=f"{JAX_OPS}/flash_attention.py:47",
+            launches=sum(p.get(shape, 0) for p in paths[row["dtype"]]),
             max_abs_err=row["max_abs_err_o"], ms=row["kernel_ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
         ))
-    f32_path = state.get("train_parity_f32_by_shape")
+    f32_paths = {  # the fused f32 kernel's launches by shape, and the run they come from
+        "unet_train_f32": (state.get("train_parity_f32_by_shape", {}), "train_parity f32"),
+        "unet_train_f32_b8": (train_f32.get("flash_bwd_f32", {}), "train_f32"),
+    }
     for row in state.get("bwd_cases", []):
         bh, sq, d = row["shape_q"]
         shape = (bh, sq, row["shape_k"][1], d, row["dtype"])
@@ -1374,16 +1443,26 @@ def kernels_line(state):
                 max_abs_err=max(row["max_abs_err"].values()), ms=row["call_ms"], bound_ms=row["bound_ms"],
                 bound_by=row["bound_by"],
             ))
-        elif row["case"] == "unet_train_f32" and f32_path is not None:
+        elif row["case"] in f32_paths:
+            counts, path = f32_paths[row["case"]]
+            entries.append(dict(
+                common, name=f"flash_attention_bwd_f32_fused[{row['case']} {dims} f32; K2 and K3 in one kernel; "
+                f"path: {path}]",
+                replaces=f"{JAX_OPS}/flash_attention.py:105,147", launches=counts.get(shape, 0),
+                max_abs_err=max(row["max_abs_err"].values()), ms=row["call_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"],
+            ))
+        elif row["route"] == "cuda_cores":
             # the CUDA-core pair, each kernel with its own time and work; the
-            # plain and library times are the whole backward's. Its path is
-            # train_parity's f32 step.
+            # plain and library times are the whole backward's. No model
+            # path takes it (f32 and bf16 at D <= 64 have their fused
+            # kernels): its path is its own case, two calls.
             for kernel, grads, line in (("dq", ("dq",), 105), ("dkv", ("dk", "dv"), 147)):
                 own = row["per_kernel"][kernel]
                 entries.append(dict(
-                    common, name=f"flash_attention_bwd_{kernel}[unet_train_f32 {dims} f32; path: train_parity f32]",
-                    replaces=f"{JAX_OPS}/flash_attention.py:{line}",
-                    launches=f32_path[f"bwd_{kernel}"].get(shape, 0),
+                    common, name=f"flash_attention_bwd_{kernel}[{row['case']} {dims} {SHORT[row['dtype']]}; "
+                    f"path: its kernels-phase case]",
+                    replaces=f"{JAX_OPS}/flash_attention.py:{line}", launches=row["launches"][f"bwd_{kernel}"],
                     max_abs_err=max(row["max_abs_err"][g] for g in grads), ms=own["ms"],
                     bound_ms=own["bound_ms"], bound_by=own["bound_by"],
                 ))
@@ -1453,11 +1532,13 @@ def main(argv=None):
         phase_train_parity(state)
     if "train" in phases:
         phase_train(state)
+    if "train_f32" in phases:
+        phase_train(state, warmup=2, steps=3, dtype="float32")
     if "trainer" in phases:
         phase_trainer(state)
 
     line = kernels_line(state)
-    if {"kernels", "slice", "train"} <= set(phases):
+    if {"kernels", "parity", "slice", "train_parity", "train", "train_f32"} <= set(phases):
         idle = [e["name"] for e in line["kernels"] if not e["launches"]]
         if idle:
             raise AssertionError(f"checked at a shape its path never launched it at: {idle}")

@@ -19,8 +19,12 @@
 // SFUs), against ~0.1 GB of inputs and outputs. At D = 40 the exps weigh
 // nearly as much as the products.
 //
-// The design. Two routes, picked by the caller (ops/flash_attention.py) by
-// dtype, head dim and alignment:
+// In f32 (the fidelity path: every product exact f32 FMA on the CUDA cores,
+// no TF32) the same five products at 67 TFLOP/s bound it: 6.41 ms at
+// (64, 4096, 40), 0.80 ms at train_parity's (8, 4096, 40).
+//
+// The design. Three routes, picked by the caller (ops/flash_attention.py,
+// `backward_route`) by dtype, head dim and alignment:
 //
 // 1. bf16, D % 8 == 0, D <= 64 (`flash_bwd_fused_kernel<DP>`, DP = D rounded
 //    up to 16, 40 and 48 kept): one fused kernel, so S, dO V^T and the exps
@@ -59,8 +63,40 @@
 //    flight across the loop's back edge and ptxas serialises every
 //    wgmma); per-consumer dQ partials with no barrier between the
 //    consumers, started half a tile apart (twice the reduce-add bytes).
-// 2. CUDA cores (`bwd_dq_kernel`, `bwd_dkv_kernel`): everything else (f32,
-//    bf16 with D % 8 != 0 or D > 64). Two kernels following the TPU grid (dQ
+// 2. f32, D % 4 == 0, D <= 64 (`flash_bwd_f32_fused_kernel<DP>`, DP = D
+//    rounded up to 16, 32, 40, 48 or 64): one fused CUDA-core kernel, so
+//    S^T, dP^T and the exps are computed once (5 products, not the pair's
+//    7), deterministic. One block of 256 threads per (head, 128 keys); K and
+//    V of the block stay in shared memory as f32; 64-query tiles of Q, dO,
+//    lse and delta stream through a two-stage cp.async ring (16-byte copies,
+//    zero-filled past sq), the next tile in flight while this one is
+//    computed. Per tile:
+//      S^T, dP^T        8 keys x 4 queries a thread in registers, each
+//                       float4 of K/V/Q/dO read from shared memory feeding
+//                       16 FMAs; P^T = exp2(S^T c - lse2), dS^T = P^T (dP^T -
+//                       delta), keys past sk zeroed in the last block; P^T
+//                       and dS^T to shared memory as [query][key]
+//      dV += P^T dO,    4 keys x D/8 columns a thread (columns cg + 8c: the
+//      dK += dS^T Q     D = 40 columns split 8 ways with no padded column),
+//                       in registers to the end
+//      dQ_tile = dS K   4 queries x D/8 columns a thread over one 64-key
+//                       half; the second half hands its sums over through
+//                       shared memory and the first writes half + half as
+//                       the block's unscaled partial of those rows
+//    Two barriers a tile. Each block of keys writes its own slice of an f32
+//    scratch (ceil(Sk / 128), B*H, Sq, D); `flash_bwd_f32_dq_sum_kernel`
+//    writes dQ = scale * (the slices summed in key-block order), so f32 dQ,
+//    like dK and dV, repeats bitwise. The scratch is 2 x 1.34 GB of traffic
+//    at (64, 4096, 40), ~0.8 ms at 3.35 TB/s against 6.41 ms of products; a
+//    separate dQ kernel would recompute two products (~2.6 ms). With up to
+//    254 registers a thread (no spill) one block runs per SM. In the S^T /
+//    dP^T phase each float4 load feeds 16 FMAs; the dV/dK and dQ phases
+//    read their column operands as scalars (one load per 4 FMAs), and with
+//    8 warps an SM the two barriers a tile are not hidden: these hold the
+//    kernel at about 2x its bound.
+// 3. CUDA cores (`bwd_dq_kernel`, `bwd_dkv_kernel`): everything else (f32
+//    with D % 4 != 0 or D > 64, bf16 with D % 8 != 0 or D > 64). Two kernels
+//    following the TPU grid (dQ
 //    per query tile over the keys; dK/dV per key tile over the queries),
 //    deterministic. f32 FMA with the tiles staged in shared memory as f32,
 //    dS (and P) rounded to the input dtype through shared memory, tile
@@ -725,6 +761,315 @@ cudaError_t launch_fused(const void* q, const void* k, const void* v, const void
   return cudaGetLastError();
 }
 
+// --- fused CUDA-core kernel: f32, D % 4 == 0, D <= 64 (cp.async, dQ by partials) ---
+
+template <int DP>
+struct F32Tile {
+  static constexpr int kThreads = 256;
+  static constexpr int BK = 128;      // keys per block
+  static constexpr int BQ = 64;       // queries per streamed tile
+  static constexpr int CPG = DP / 8;  // dK, dV and dQ columns a thread: cg + 8 c, c < CPG
+  static constexpr int LD = DP + 4;   // row stride (floats) of K, V, Q, dO: [row][column]
+  static constexpr int LDP = BK + 4;  // row stride of P^T and dS^T, kept as [query][key]
+  // row stride of the dQ half handed between the two key halves (a bank
+  // offset of 8 or 24 a row: the 4 rows x 8 columns a warp writes hit 32 banks)
+  static constexpr int LDR = (DP % 32 == 8 || DP % 32 == 24) ? DP : DP + 8;
+  static constexpr int kStage = 2 * BQ * LD + 2 * BQ;  // Q, dO, lse, delta of one query tile
+  static constexpr int kOffV = BK * LD;
+  static constexpr int kOffStage = 2 * BK * LD;
+  static constexpr int kOffP = kOffStage + 2 * kStage;
+  static constexpr int kOffDs = kOffP + BQ * LDP;
+  static constexpr int kOffRed = kOffDs + BQ * LDP;
+  static constexpr size_t kSmemBytes = size_t(kOffRed + BQ * LDR) * sizeof(float);
+  static_assert(DP % 8 == 0 && DP <= 64, "head dim");
+  static_assert(kSmemBytes <= 232448, "shared memory per block");
+};
+
+template <int DP>
+__global__ void __launch_bounds__(F32Tile<DP>::kThreads, 1)
+    flash_bwd_f32_fused_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ dout,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               float* __restrict__ dq_part, float* __restrict__ dk, float* __restrict__ dv,
+                               int sq, int sk, int d, float scale) {
+  using C = F32Tile<DP>;
+  constexpr int BK = C::BK, BQ = C::BQ, CPG = C::CPG, LD = C::LD, LDP = C::LDP, LDR = C::LDR;
+  constexpr int kThreadsF32 = C::kThreads;
+  extern __shared__ __align__(16) float f32_smem[];
+  float* sK = f32_smem;                 // [key][column], zeros past sk and d
+  float* sV = f32_smem + C::kOffV;
+  float* sP = f32_smem + C::kOffP;      // P^T of the tile, [query][key]
+  float* sDs = f32_smem + C::kOffDs;    // dS^T of the tile, [query][key]
+  float* sRed = f32_smem + C::kOffRed;  // the second key half's dQ rows, [query][column]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.y, k0 = blockIdx.x * BK;
+  const int n_tiles = (sq + BQ - 1) / BQ;
+  const int d4 = d / 4;
+  const float* qb = q + size_t(bh) * sq * d;
+  const float* ob = dout + size_t(bh) * sq * d;
+  const float* lb = lse + size_t(bh) * sq;
+  const float* db = delta + size_t(bh) * sq;
+  // stage st: Q [BQ][LD], dO [BQ][LD], lse [BQ], delta [BQ]
+  auto stage = [&](int st) { return f32_smem + C::kOffStage + st * C::kStage; };
+
+  // query tile j's Q and dO rows (16-byte copies, columns < d), lse and delta
+  // into stage st, as one cp.async group; rows past sq arrive as zeros
+  auto fetch = [&](int j, int st) {
+    float* s = stage(st);
+    const int q0 = j * BQ;
+    for (int e = tid; e < BQ * d4; e += kThreadsF32) {
+      const int r = e / d4, c = 4 * (e - r * d4);
+      const bool ok = q0 + r < sq;
+      const size_t off = ok ? size_t(q0 + r) * d + c : 0;
+      cp_async16(s + r * LD + c, qb + off, ok);
+      cp_async16(s + (BQ + r) * LD + c, ob + off, ok);
+    }
+    if (tid < 2 * BQ) {
+      const int r = tid % BQ;
+      const bool ok = q0 + r < sq;
+      cp_async4(s + 2 * BQ * LD + tid, (tid < BQ ? lb : db) + (ok ? q0 + r : 0), ok);
+    }
+    cp_async_commit();
+  };
+
+  // K and V of the block, and zeros in the stages' columns d..DP-1, which
+  // the copies never write
+  for (int e = tid; e < BK * (DP / 4); e += kThreadsF32) {
+    const int r = e / (DP / 4), c = 4 * (e - r * (DP / 4));
+    float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
+    if (k0 + r < sk && c < d) {
+      const size_t off = (size_t(bh) * sk + k0 + r) * d + c;
+      kk = *reinterpret_cast<const float4*>(k + off);
+      vv = *reinterpret_cast<const float4*>(v + off);
+    }
+    *reinterpret_cast<float4*>(sK + r * LD + c) = kk;
+    *reinterpret_cast<float4*>(sV + r * LD + c) = vv;
+  }
+  const int pad4 = (DP - d) / 4;
+  for (int e = tid; e < 4 * BQ * pad4; e += kThreadsF32) {
+    const int row = e / pad4;  // stage row / (2 BQ); Q's rows, then dO's
+    const int c = d + 4 * (e - row * pad4);
+    *reinterpret_cast<float4*>(stage(row / (2 * BQ)) + (row % (2 * BQ)) * LD + c) =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  fetch(0, 0);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // S^T and dP^T: keys s_kg + 16 i (i < 8) x queries s_qg + 16 j (j < 4)
+  const int s_kg = lane / 8 + 4 * (warp % 4), s_qg = lane % 8 + 8 * (warp / 4);
+  // dK and dV: keys 4 kv_kg + r (r < 4) x columns cg + 8 c
+  const int cg = lane % 8, kv_kg = lane / 8 + 4 * warp;
+  // dQ: queries dq_qg + 16 i (i < 4) x columns cg + 8 c over keys 64 half ..
+  // 64 half + 63; the two halves' sums meet in sRed
+  const int half = warp / 4, dq_qg = lane / 8 + 4 * (warp % 4);
+  const float c2 = scale * kLog2e;
+  const bool ragged = k0 + BK > sk;  // the last block: its keys past sk get P = 0
+
+  float dk_acc[4][CPG], dv_acc[4][CPG];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < CPG; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1;
+    // the other stage was last read before the previous tile's second barrier
+    if (j + 1 < n_tiles) fetch(j + 1, st ^ 1);
+    const float* sQ = stage(st);
+    const float* sO = sQ + BQ * LD;
+    const float* sL = sQ + 2 * BQ * LD;
+    const float* sD = sL + BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T, f32 FMA over the (padded) head dim
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) s[i][jj] = dp[i][jj] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DP; c += 4) {
+      float4 qq[4], oo[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        qq[jj] = *reinterpret_cast<const float4*>(sQ + (s_qg + 16 * jj) * LD + c);
+        oo[jj] = *reinterpret_cast<const float4*>(sO + (s_qg + 16 * jj) * LD + c);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 kk = *reinterpret_cast<const float4*>(sK + (s_kg + 16 * i) * LD + c);
+        const float4 vv = *reinterpret_cast<const float4*>(sV + (s_kg + 16 * i) * LD + c);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          s[i][jj] = fmaf(kk.x, qq[jj].x, s[i][jj]);
+          s[i][jj] = fmaf(kk.y, qq[jj].y, s[i][jj]);
+          s[i][jj] = fmaf(kk.z, qq[jj].z, s[i][jj]);
+          s[i][jj] = fmaf(kk.w, qq[jj].w, s[i][jj]);
+          dp[i][jj] = fmaf(vv.x, oo[jj].x, dp[i][jj]);
+          dp[i][jj] = fmaf(vv.y, oo[jj].y, dp[i][jj]);
+          dp[i][jj] = fmaf(vv.z, oo[jj].z, dp[i][jj]);
+          dp[i][jj] = fmaf(vv.w, oo[jj].w, dp[i][jj]);
+        }
+      }
+    }
+
+    // P^T = exp2(S^T c2 - lse log2 e), dS^T = P^T (dP^T - delta). Queries
+    // past sq have zero Q, dO, lse and delta: P = 1 there, but dS = 0 and P
+    // meets only zero dO rows, so they add nothing.
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int qi = s_qg + 16 * jj;
+      const float l2 = sL[qi] * kLog2e, dl = sD[qi];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int key = s_kg + 16 * i;
+        float p = fast_exp2(fmaf(s[i][jj], c2, -l2));
+        if (ragged && k0 + key >= sk) p = 0.f;
+        sP[qi * LDP + key] = p;
+        sDs[qi * LDP + key] = p * (dp[i][jj] - dl);
+      }
+    }
+    __syncthreads();  // P^T and dS^T of the tile are in shared memory
+
+    // dV += P^T dO and dK += dS^T Q over the tile's queries, in query order
+#pragma unroll 4
+    for (int qi = 0; qi < BQ; ++qi) {
+      const float4 p = *reinterpret_cast<const float4*>(sP + qi * LDP + 4 * kv_kg);
+      const float4 ds = *reinterpret_cast<const float4*>(sDs + qi * LDP + 4 * kv_kg);
+      float o[CPG], x[CPG];
+#pragma unroll
+      for (int c = 0; c < CPG; ++c) {
+        o[c] = sO[qi * LD + cg + 8 * c];
+        x[c] = sQ[qi * LD + cg + 8 * c];
+      }
+#pragma unroll
+      for (int c = 0; c < CPG; ++c) {
+        dv_acc[0][c] = fmaf(p.x, o[c], dv_acc[0][c]);
+        dv_acc[1][c] = fmaf(p.y, o[c], dv_acc[1][c]);
+        dv_acc[2][c] = fmaf(p.z, o[c], dv_acc[2][c]);
+        dv_acc[3][c] = fmaf(p.w, o[c], dv_acc[3][c]);
+        dk_acc[0][c] = fmaf(ds.x, x[c], dk_acc[0][c]);
+        dk_acc[1][c] = fmaf(ds.y, x[c], dk_acc[1][c]);
+        dk_acc[2][c] = fmaf(ds.z, x[c], dk_acc[2][c]);
+        dk_acc[3][c] = fmaf(ds.w, x[c], dk_acc[3][c]);
+      }
+    }
+
+    // this block's dQ rows of the tile, dS K, over this thread's key half in
+    // key order
+    float dq_acc[4][CPG];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < CPG; ++c) dq_acc[i][c] = 0.f;
+#pragma unroll 2
+    for (int kk = 64 * half; kk < 64 * half + 64; kk += 4) {
+      float ds[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 x = *reinterpret_cast<const float4*>(sDs + (dq_qg + 16 * i) * LDP + kk);
+        ds[i][0] = x.x;
+        ds[i][1] = x.y;
+        ds[i][2] = x.z;
+        ds[i][3] = x.w;
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        float kr[CPG];
+#pragma unroll
+        for (int c = 0; c < CPG; ++c) kr[c] = sK[(kk + t) * LD + cg + 8 * c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < CPG; ++c) dq_acc[i][c] = fmaf(ds[i][t], kr[c], dq_acc[i][c]);
+      }
+    }
+    if (half == 1) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < CPG; ++c) sRed[(dq_qg + 16 * i) * LDR + cg + 8 * c] = dq_acc[i][c];
+    }
+    cp_async_wait<0>();  // this thread's copies of the next tile have landed
+    __syncthreads();     // the tile is consumed, sRed is written, the next tile is in
+
+    // first half + second half, written as this key block's dQ partial
+    // (unscaled) of the tile's rows inside sq; the next tile's sRed is
+    // written only after its first barrier
+    if (half == 0) {
+      float* out = dq_part + ((size_t(blockIdx.x) * gridDim.y + bh) * sq + size_t(j) * BQ) * d;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qi = dq_qg + 16 * i;
+        if (j * BQ + qi >= sq) continue;
+#pragma unroll
+        for (int c = 0; c < CPG; ++c) {
+          const int col = cg + 8 * c;
+          if (col < d) out[size_t(qi) * d + col] = dq_acc[i][c] + sRed[qi * LDR + col];
+        }
+      }
+    }
+  }
+
+  // dK = scale dS^T Q and dV = P^T dO for this thread's keys
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int key = k0 + 4 * kv_kg + r;
+    if (key >= sk) continue;
+    float* okr = dk + (size_t(bh) * sk + key) * d;
+    float* ovr = dv + (size_t(bh) * sk + key) * d;
+#pragma unroll
+    for (int c = 0; c < CPG; ++c) {
+      const int col = cg + 8 * c;
+      if (col < d) {
+        okr[col] = dk_acc[r][c] * scale;
+        ovr[col] = dv_acc[r][c];
+      }
+    }
+  }
+}
+
+// dQ = scale * (part[0] + part[1] + ... + part[n_parts - 1]), summed in key
+// block order; four elements a thread per step (n4 = elements / 4)
+__global__ void __launch_bounds__(256)
+    flash_bwd_f32_dq_sum_kernel(const float4* __restrict__ part, float4* __restrict__ dq, size_t n4, int n_parts,
+                                float scale) {
+  for (size_t i = blockIdx.x * size_t(blockDim.x) + threadIdx.x; i < n4; i += size_t(gridDim.x) * blockDim.x) {
+    float4 a = part[i];
+#pragma unroll 8
+    for (int b = 1; b < n_parts; ++b) {
+      const float4 x = part[size_t(b) * n4 + i];
+      a.x += x.x;
+      a.y += x.y;
+      a.z += x.z;
+      a.w += x.w;
+    }
+    dq[i] = make_float4(a.x * scale, a.y * scale, a.z * scale, a.w * scale);
+  }
+}
+
+template <int DP>
+cudaError_t launch_f32_fused(const float* q, const float* k, const float* v, const float* dout, const float* lse,
+                             const float* delta, float* dq_part, float* dq, float* dk, float* dv, int bh, int sq,
+                             int sk, int d, float scale, cudaStream_t stream) {
+  using C = F32Tile<DP>;
+  auto kernel = flash_bwd_f32_fused_kernel<DP>;
+  static unsigned devices_set = 0;
+  cudaError_t err = allow_smem_once(kernel, C::kSmemBytes, devices_set);
+  if (err != cudaSuccess) return err;
+  const int n_parts = (sk + C::BK - 1) / C::BK;
+  kernel<<<dim3(n_parts, bh), C::kThreads, C::kSmemBytes, stream>>>(q, k, v, dout, lse, delta, dq_part, dk, dv,
+                                                                    sq, sk, d, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t n4 = size_t(bh) * sq * d / 4;
+  const unsigned blocks = unsigned(n4 / 256 + 1 < 132 * 16 ? n4 / 256 + 1 : 132 * 16);
+  flash_bwd_f32_dq_sum_kernel<<<blocks, 256, 0, stream>>>(reinterpret_cast<const float4*>(dq_part),
+                                                         reinterpret_cast<float4*>(dq), n4, n_parts, scale);
+  return cudaGetLastError();
+}
+
 bool valid_shape(int bh, int sq, int sk, int d) {
   return bh >= 1 && bh <= 65535 && sq >= 1 && sk >= 1 && d >= 1 && d <= 512;
 }
@@ -785,4 +1130,28 @@ extern "C" int flash_attention_bwd_fused(const void* q, const void* k, const voi
   if (d <= 40) return int(launch_fused<40>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, bh, sq, sk, d, scale, s));
   if (d <= 48) return int(launch_fused<48>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, bh, sq, sk, d, scale, s));
   return int(launch_fused<64>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, bh, sq, sk, d, scale, s));
+}
+
+// The fused f32 kernel: f32 only, d % 4 == 0, d <= 64, q, k, v, dout, dq_part
+// and dq 16-byte aligned. dq_part (ceil(sk / 128), bh, sq, d) float32 is
+// scratch: each block of 128 keys writes its unscaled dQ partial there, and
+// a second kernel writes dq = scale * (the partials summed in key-block
+// order). Returns the first failed launch's cudaError_t (0 on success); does
+// not synchronise.
+extern "C" int flash_attention_bwd_f32_fused(const float* q, const float* k, const float* v, const float* dout,
+                                             const float* lse, const float* delta, float* dq_part, float* dq,
+                                             float* dk, float* dv, int bh, int sq, int sk, int d, float scale,
+                                             void* stream) {
+  uintptr_t addr = 0;
+  for (const void* p : {static_cast<const void*>(q), static_cast<const void*>(k), static_cast<const void*>(v),
+                        static_cast<const void*>(dout), static_cast<const void*>(dq_part),
+                        static_cast<const void*>(dq)})
+    addr |= reinterpret_cast<uintptr_t>(p);
+  if (!valid_shape(bh, sq, sk, d) || d > 64 || d % 4 != 0 || addr % 16 != 0) return int(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d <= 16) return int(launch_f32_fused<16>(q, k, v, dout, lse, delta, dq_part, dq, dk, dv, bh, sq, sk, d, scale, s));
+  if (d <= 32) return int(launch_f32_fused<32>(q, k, v, dout, lse, delta, dq_part, dq, dk, dv, bh, sq, sk, d, scale, s));
+  if (d <= 40) return int(launch_f32_fused<40>(q, k, v, dout, lse, delta, dq_part, dq, dk, dv, bh, sq, sk, d, scale, s));
+  if (d <= 48) return int(launch_f32_fused<48>(q, k, v, dout, lse, delta, dq_part, dq, dk, dv, bh, sq, sk, d, scale, s));
+  return int(launch_f32_fused<64>(q, k, v, dout, lse, delta, dq_part, dq, dk, dv, bh, sq, sk, d, scale, s));
 }

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for warp-specialised kernels: mbarriers,
 // TMA tile loads through tensor maps, the bulk f32 reduce-add into device
-// memory, wgmma shared-memory descriptors and the wgmma instructions
-// themselves, register hand-over between warpgroups (setmaxnreg), and the
-// host-side encoding of a tensor map.
+// memory, per-thread cp.async copies (with zero fill), wgmma shared-memory
+// descriptors and the wgmma instructions themselves, register hand-over
+// between warpgroups (setmaxnreg), and the host-side encoding of a tensor
+// map.
 //
 // Layout convention: every tile that wgmma reads is a TMA box of 64 bf16
 // columns (128 bytes) by some rows, loaded with CU_TENSOR_MAP_SWIZZLE_128B
@@ -115,6 +116,33 @@ __device__ __forceinline__ void bulk_wait_read() {
 template <int kPending>
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// --- cp.async (per-thread asynchronous copies into shared memory) -----------------
+
+// 16 (or 4) bytes from device memory at `src` to shared memory at `dst`,
+// both aligned to the size, in this thread's current cp.async group; zeros
+// instead when `valid` is false (then nothing is read from `src`).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// until at most `kPending` committed cp.async groups of this thread are in
+// flight; the copies are then visible to this thread (to the block after a
+// barrier)
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // --- warpgroups ----------------------------------------------------------------

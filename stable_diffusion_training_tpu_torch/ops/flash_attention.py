@@ -9,12 +9,18 @@ Port of ``stable_diffusion_training_tpu/ops/flash_attention.py``:
   ``l == 0`` guard;
 - the backward (``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, launched by
   ``_flash_bwd``) is ``csrc/flash_attention_bwd.cu``, with ``delta =
-  rowsum(dO * O)`` computed here in f32 as ``_flash_bwd`` does. bf16 with
-  D % 8 == 0, D <= 64 and 16-byte aligned tensors takes one fused kernel
+  rowsum(dO * O)`` computed here in f32 as ``_flash_bwd`` does. Three
+  routes (``backward_route``): bf16 with D % 8 == 0, D <= 64 and 16-byte
+  aligned tensors takes one fused tensor-core kernel
   (``flash_attention_bwd_fused``: S, P and dS once per key block, dQ summed
   across key blocks into a zeroed f32 buffer, so its order of additions
-  changes from run to run); everything else takes two CUDA-core kernels,
-  dQ (``flash_attention_bwd_dq``) and dK/dV (``flash_attention_bwd_dkv``);
+  changes from run to run); f32 with D % 4 == 0, D <= 64 and 16-byte
+  aligned tensors takes one fused CUDA-core kernel
+  (``flash_attention_bwd_f32_fused``: exact f32 products, each key block's
+  dQ partial written apart and summed in key-block order by a second
+  kernel, so dQ repeats bitwise); everything else takes two CUDA-core
+  kernels, dQ (``flash_attention_bwd_dq``) and dK/dV
+  (``flash_attention_bwd_dkv``);
 - ``FlashAttention`` is the ``torch.autograd.Function`` around them, the
   counterpart of the JAX package's ``jax.custom_vjp``: it saves q, k, v, O
   and lse, and its backward is ``flash_attention_bwd``.
@@ -41,6 +47,10 @@ MAX_HEAD_DIM = 512
 # csrc/flash_attention_bwd.cu, which must stay equal to these.
 FUSED_BWD_MAX_HEAD_DIM = 64
 FUSED_BWD_KEYS = 128
+# the fused f32 backward kernel: the same, from the entry's d > 64 check and
+# F32Tile::BK (each key block writes one dQ partial)
+F32_BWD_MAX_HEAD_DIM = 64
+F32_BWD_KEYS = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # library name -> sources under csrc/
 LIBRARIES = {
@@ -87,6 +97,35 @@ def flash_attention_bwd_reference(
     dq = scale * torch.matmul(ds.to(k3.dtype).float(), kf)
     dk = scale * torch.matmul(ds.to(q3.dtype).float().transpose(-1, -2), qf)
     return dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype)
+
+
+def flash_attention_bwd_f32_fused_model(
+    q3: torch.Tensor,
+    k3: torch.Tensor,
+    v3: torch.Tensor,
+    do3: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused f32 kernel's order of operations in plain torch (f32 in,
+    f32 out): per block of ``F32_BWD_KEYS`` keys, P = exp2(S scale log2 e -
+    lse log2 e) and dS = P (dO V^T - delta); the block's dK and dV over all
+    queries; its dQ partial as the sum of its two 64-key halves' dS K. dQ is
+    scale times the partials summed in key-block order. A model for the CPU
+    tests; CUDA tensors take the kernel through ``flash_attention_bwd``."""
+    log2e = 1.4426950408889634
+    lse2 = lse[..., None] * log2e
+    dks, dvs, dq = [], [], None
+    for k0 in range(0, k3.shape[1], F32_BWD_KEYS):
+        kb, vb = k3[:, k0:k0 + F32_BWD_KEYS], v3[:, k0:k0 + F32_BWD_KEYS]
+        p = torch.exp2(torch.matmul(q3, kb.transpose(-1, -2)) * (scale * log2e) - lse2)
+        ds = p * (torch.matmul(do3, vb.transpose(-1, -2)) - delta[..., None])
+        part = torch.matmul(ds[..., :64], kb[:, :64]) + torch.matmul(ds[..., 64:], kb[:, 64:])
+        dq = part if dq is None else dq + part
+        dvs.append(torch.matmul(p.transpose(-1, -2), do3))
+        dks.append(torch.matmul(ds.transpose(-1, -2), q3) * scale)
+    return dq * scale, torch.cat(dks, 1), torch.cat(dvs, 1)
 
 
 def _check(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor) -> None:
@@ -142,6 +181,10 @@ _FUNCTIONS = {
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     ),
     "flash_attention_bwd_fused": (
+        "flash_attention_bwd",
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
+    ),
+    "flash_attention_bwd_f32_fused": (
         "flash_attention_bwd",
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
     ),
@@ -215,7 +258,7 @@ def flash_attention_fwd(
 
 def flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta, scale: float) -> torch.Tensor:
     """dQ ``(BH, Sq, D)`` in Q's dtype from the CUDA-core kernel (K2's
-    route off the fused kernel), counted in
+    route off the fused kernels), counted in
     ``flash_attention_bwd_dq.launches``. CUDA tensors only."""
     _check_bwd(q3, k3, v3, do3, lse, delta)
     if not _on_cuda("flash_attention_bwd_dq", q3):
@@ -233,7 +276,7 @@ def flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta, scale: float) -> torch.T
 
 def flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta, scale: float):
     """dK and dV ``(BH, Sk, D)`` in K's and V's dtypes from the CUDA-core
-    kernel (K3's route off the fused kernel), counted in
+    kernel (K3's route off the fused kernels), counted in
     ``flash_attention_bwd_dkv.launches``. CUDA tensors only."""
     _check_bwd(q3, k3, v3, do3, lse, delta)
     if not _on_cuda("flash_attention_bwd_dkv", q3):
@@ -287,15 +330,69 @@ def flash_attention_bwd_fused(q3, k3, v3, do3, lse, delta, scale: float):
     return dq, dk, dv
 
 
+def takes_f32_fused_backward(q3, k3, v3, do3) -> bool:
+    """Whether ``flash_attention_bwd`` sends these CUDA tensors to the fused
+    f32 kernel: f32, D % 4 == 0, D <= ``F32_BWD_MAX_HEAD_DIM``, every base
+    16-byte aligned (its 16-byte copies need it)."""
+    d = q3.shape[-1]
+    return (
+        q3.dtype == torch.float32 and d % 4 == 0 and d <= F32_BWD_MAX_HEAD_DIM
+        and all(t.data_ptr() % 16 == 0 for t in (q3, k3, v3, do3))
+    )
+
+
+def backward_route(q3, k3, v3, do3) -> str:
+    """The backward kernel(s) ``flash_attention_bwd`` launches for these CUDA
+    tensors: ``"fused"`` (bf16, tensor cores), ``"f32_fused"`` (f32, CUDA
+    cores, one fused kernel) or ``"cuda_cores"`` (the dQ and dK/dV pair, for
+    what neither fused kernel takes)."""
+    if takes_fused_backward(q3, k3, v3, do3):
+        return "fused"
+    if takes_f32_fused_backward(q3, k3, v3, do3):
+        return "f32_fused"
+    return "cuda_cores"
+
+
+def flash_attention_bwd_f32_fused(q3, k3, v3, do3, lse, delta, scale: float):
+    """dQ, dK, dV in f32 from the fused f32 kernel (K2 and K3 in one) and its
+    dQ sum, counted in ``flash_attention_bwd_f32_fused.launches``; the dQ
+    partials' scratch ``(ceil(Sk / F32_BWD_KEYS), BH, Sq, D)`` is allocated
+    here. Deterministic: the same inputs give bitwise the same grads. CUDA
+    tensors that ``takes_f32_fused_backward`` accepts only."""
+    _check_bwd(q3, k3, v3, do3, lse, delta)
+    if not _on_cuda("flash_attention_bwd_f32_fused", q3):
+        raise ValueError("flash_attention_bwd_f32_fused launches the CUDA kernel: CUDA tensors only")
+    if not takes_f32_fused_backward(q3, k3, v3, do3):
+        raise ValueError(
+            f"flash_attention_bwd_f32_fused takes f32 with D % 4 == 0, D <= {F32_BWD_MAX_HEAD_DIM} and "
+            f"16-byte aligned bases; got {q3.dtype}, D = {q3.shape[-1]}"
+        )
+    bh, sq, d = q3.shape
+    sk = k3.shape[1]
+    dq_part = torch.empty((-(-sk // F32_BWD_KEYS), bh, sq, d), dtype=torch.float32, device=q3.device)
+    dq = torch.empty_like(q3)
+    dk = torch.empty_like(k3)
+    dv = torch.empty_like(v3)
+    _launch(
+        "flash_attention_bwd_f32_fused", q3, k3,
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq_part.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        bh, sq, sk, d, float(scale),
+    )
+    return dq, dk, dv
+
+
 def flash_attention_bwd(q3, k3, v3, do3, lse, delta, scale: float):
-    """dQ, dK, dV: for CUDA tensors the fused kernel where
-    ``takes_fused_backward`` says so, else the two CUDA-core kernels;
+    """dQ, dK, dV: for CUDA tensors the kernel(s) of ``backward_route``;
     ``flash_attention_bwd_reference`` for CPU tensors."""
     _check_bwd(q3, k3, v3, do3, lse, delta)
     if not _on_cuda("flash_attention_bwd", q3):
         return flash_attention_bwd_reference(q3, k3, v3, do3, lse, delta, scale)
-    if takes_fused_backward(q3, k3, v3, do3):
+    route = backward_route(q3, k3, v3, do3)
+    if route == "fused":
         return flash_attention_bwd_fused(q3, k3, v3, do3, lse, delta, scale)
+    if route == "f32_fused":
+        return flash_attention_bwd_f32_fused(q3, k3, v3, do3, lse, delta, scale)
     dq = flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta, scale)
     dk, dv = flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta, scale)
     return dq, dk, dv
@@ -306,6 +403,7 @@ _WRAPPERS = {
     "flash_attention_bwd_dq": flash_attention_bwd_dq,
     "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
     "flash_attention_bwd_fused": flash_attention_bwd_fused,
+    "flash_attention_bwd_f32_fused": flash_attention_bwd_f32_fused,
 }
 
 

@@ -7,12 +7,20 @@ reference trainer's 29 fields plus the JAX package's additions), and
 raw ``model_properties`` JSON dict. Fields that name JAX or TPU machinery
 (``compilation_cache_path``, ``mesh_shape``, ``use_pallas_lion`` ...) keep
 their names so one JSON file configures both packages; the comments below
-say which of them the port ignores or does not have yet.
+say which of them the port ignores. A field that asks for what the port
+does not have yet (a mesh of more than one device, FSDP or TP sharding,
+the polyphase VAE downsample, SDXL micro-conditioning) raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
+
+
+def not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to the PyTorch trainer yet (ROADMAP Queue 1 item {item})")
 
 
 @dataclass
@@ -48,10 +56,11 @@ class TrainingConfig:
 
     # --- the JAX package's additions, defaulted so reference configs load ---
     model_family: str = "sd15"  # architecture family when building fresh models
-    mesh_shape: Optional[List[int]] = None  # multi-device layout (not ported)
+    # multi-device layout: one device only (more raises, not ported)
+    mesh_shape: Optional[List[int]] = None
     mesh_axis_names: Optional[List[str]] = None
-    fsdp_shard_params: bool = False  # param sharding (not ported)
-    tensor_parallel_shard_params: bool = False  # tensor parallelism (not ported)
+    fsdp_shard_params: bool = False  # param sharding (True raises, not ported)
+    tensor_parallel_shard_params: bool = False  # tensor parallelism (True raises, not ported)
     gradient_checkpointing: bool = False  # recompute each UNet block in the backward
     ff_gradient_checkpointing: bool = False  # recompute each transformer feed-forward
     train_unet: bool = True
@@ -59,7 +68,7 @@ class TrainingConfig:
     mixed_precision: str = "bfloat16"  # computation and param dtype of the models
     attention_backend: str = "auto"  # "auto" | "flash" | "xla" | "xla_remat"
     # the VAE encoder's stride-2 convs as four stride-1 polyphase convs
-    # (not ported; off by default in the JAX package)
+    # (True raises, not ported; off by default in the JAX package)
     vae_polyphase_downsample: bool = False
     # quantized momentum through the fused kernel; None = on (the default),
     # False = the plain jnp-path math
@@ -88,7 +97,7 @@ class TrainingConfig:
     # batches carry a precomputed encoder_hidden_states; pair with
     # train_text_encoder=False
     cached_text_context: bool = False
-    # batches carry pooled embeds + time_ids (SDXL; not ported, the step raises)
+    # batches carry pooled embeds + time_ids (SDXL; True raises, not ported)
     sdxl_micro_conditioning: bool = False
     # micro-conditioning time ids: 6 for the SDXL base model, 5 for the refiner
     sdxl_time_ids_count: int = 6
@@ -96,6 +105,16 @@ class TrainingConfig:
     bucket_rounding: int = 64  # aspect-ratio bucket grid step (loader)
 
     def __post_init__(self):
+        if self.mesh_shape is not None and math.prod(self.mesh_shape) > 1:
+            raise not_ported(f"mesh_shape={list(self.mesh_shape)} (more than one device)", 7)
+        if self.fsdp_shard_params:
+            raise not_ported("fsdp_shard_params=True", 7)
+        if self.tensor_parallel_shard_params:
+            raise not_ported("tensor_parallel_shard_params=True", 7)
+        if self.vae_polyphase_downsample:
+            raise not_ported("vae_polyphase_downsample=True (ops/conv.py)", 9)
+        if self.sdxl_micro_conditioning:
+            raise not_ported("sdxl_micro_conditioning=True (SDXL)", 6)
         if self.cached_text_context and self.train_text_encoder:
             # zero grads + Lion weight decay would silently decay the
             # "trainable" TE toward zero while conditioning comes from the

@@ -47,7 +47,7 @@ from ..utils.json_io import delete_file_or_folder, read_json_file, save_dict_to_
 from ..utils.metrics import MetricsWriter
 from .aot import batch_dispatch_key, bucket_train_steps
 from .checkpoint import restore_train_state, save_model, save_train_state
-from .config import training_config_from_dict
+from .config import not_ported, training_config_from_dict
 from .states import on_device_model_training_state
 
 # subfolder of each chunk checkpoint that holds the full training state
@@ -226,10 +226,6 @@ def _maybe_restore_full_state(
     )
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to the PyTorch trainer yet (ROADMAP Queue 1 item {item})")
-
-
 def main(
     config_dict_path: str = "model_properties.json",
     dataloader: Optional[Any] = None,
@@ -242,11 +238,11 @@ def main(
     protocol)."""
     config_dict, training_config = load_run_config(config_dict_path)
     if config_dict.get("eval_sample_interval"):
-        raise _not_ported("eval_sample_interval (train/eval_sampler.py)", 5)
+        raise not_ported("eval_sample_interval (train/eval_sampler.py)", 5)
     if config_dict.get("profile_trace_dir"):
-        raise _not_ported("profile_trace_dir (the profiler trace)", 8)
+        raise not_ported("profile_trace_dir (the profiler trace)", 8)
     if dataloader is None:
-        raise _not_ported("the streaming DataLoader (dataloader=None)", 4)
+        raise not_ported("the streaming DataLoader (dataloader=None)", 4)
     device = resolve_device(device)
 
     if tokenizer is None:

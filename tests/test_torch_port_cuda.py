@@ -8,15 +8,19 @@ no JAX, so it also runs on a machine with the card and no JAX installed:
 (``tests/conftest.py`` imports JAX; ``--noconftest`` leaves it out.)
 
 Flash attention, forward (K1) and backward (K2 dQ and K3 dK/dV, fused into
-one kernel for bf16 with D % 8 == 0 and D <= 64): shapes cover the kernels
-behind each entry point, tensor cores for bf16 with D % 8 == 0 (D <= 64
-forward and backward, the forward's wide-head kernel for D = 80, 128, 160,
-512) and CUDA cores for f32, D = 36 and the backward above D = 64;
-and the edges: one query and one key, a single ragged key tile, a last key
-tile of one key, and at the main path's D = 40 and 512 query and key counts
-that are no multiple of the kernels' tiles. The fused backward adds dQ
-across key blocks in an order that changes from run to run: dK and dV
-repeat bitwise, dQ within a bf16 ulp. 8-bit Lion (K4 single leaf, K5 many leaves, and the
+one tensor-core kernel for bf16 with D % 8 == 0 and D <= 64, and into one
+CUDA-core kernel for f32 with D % 4 == 0 and D <= 64): shapes cover the
+kernels behind each entry point, tensor cores for bf16 with D % 8 == 0
+(D <= 64 forward and backward, the forward's wide-head kernel for D = 80,
+128, 160, 512), CUDA cores for the f32 forward, the f32 backward at D <= 64
+(fused) and above (the dQ and dK/dV pair), and the bf16 backward at D = 36
+and above D = 64 (the pair); and the edges: one query and one key, a single
+ragged key tile, a last key tile of one key, and at the main path's D = 40
+and 512 query and key counts that are no multiple of the kernels' tiles.
+The fused bf16 backward adds dQ across key blocks in an order that changes
+from run to run: dK and dV repeat bitwise, dQ within a bf16 ulp. The fused
+f32 backward sums its dQ partials in key-block order: all three repeat
+bitwise. 8-bit Lion (K4 single leaf, K5 many leaves, and the
 functional entry: K6 narrow, K7 wide) at block sizes 1 to 128 (128 on the
 cooperative variant): update signs and scales equal to the plain version's,
 codes at most one apart (CUDA's powf and torch's pow may differ by an ulp). Tolerances are those of
@@ -41,6 +45,15 @@ GRAD_SCALE_FLOOR = 0.1
 SHAPES = [(4, 300, 300, 40), (2, 257, 129, 64), (3, 100, 70, 36), (2, 130, 190, 80),
           (1, 70, 100, 160), (1, 200, 333, 512), (3, 1, 1, 8), (2, 33, 5, 24),
           (1, 17, 2049, 128), (3, 4000, 3900, 40), (2, 1000, 4100, 512)]
+
+
+# (fused bf16, fused f32, dQ, dK/dV) launches of one backward call, by route
+ROUTE_LAUNCHES = {"fused": (1, 0, 0, 0), "f32_fused": (0, 1, 0, 0), "cuda_cores": (0, 0, 1, 1)}
+
+
+def _bwd_launches():
+    return (fa.flash_attention_bwd_fused.launches, fa.flash_attention_bwd_f32_fused.launches,
+            fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
 
 
 def _need_cuda():
@@ -85,10 +98,10 @@ def test_backward_kernels_match_plain_version(bh, sq, sk, d, dtype):
     fa.reset_launch_counts()
     grads = fa.flash_attention_bwd(q, k, v, do, lse, delta, scale)
     torch.cuda.synchronize()
-    fused = fa.takes_fused_backward(q, k, v, do)
-    launched = (fa.flash_attention_bwd_fused.launches, fa.flash_attention_bwd_dq.launches,
-                fa.flash_attention_bwd_dkv.launches)
-    assert launched == ((1, 0, 0) if fused else (0, 1, 1))
+    route = fa.backward_route(q, k, v, do)
+    fused_route, align = ("fused", 8) if dtype == "bfloat16" else ("f32_fused", 4)
+    assert route == (fused_route if d <= 64 and d % align == 0 else "cuda_cores")
+    assert _bwd_launches() == ROUTE_LAUNCHES[route]
     expected = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale)
     for name, got, want in zip(("dq", "dk", "dv"), grads, expected):
         assert got.dtype == want.dtype and got.shape == want.shape, name
@@ -116,10 +129,9 @@ def test_grads_flow_through_the_flash_route(dtype):
         out = attention(*leaves, backend=backend)
         out.backward(do)
         assert all(t.grad is not None for t in leaves), backend
-        launched = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_fused.launches,
-                    fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
-        by_route = (1, 1, 0, 0) if dtype == "bfloat16" else (1, 0, 1, 1)
-        assert launched == (by_route if backend == "flash" else (0, 0, 0, 0)), backend
+        launched = (fa.flash_attention_fwd.launches, *_bwd_launches())
+        by_route = (1, *ROUTE_LAUNCHES["fused" if dtype == "bfloat16" else "f32_fused"])
+        assert launched == (by_route if backend == "flash" else (0, 0, 0, 0, 0)), backend
         results.append([t.grad.float() for t in leaves])
     for got, want in zip(*results):
         torch.testing.assert_close(got, want, atol=TOL[dtype]["grad"], rtol=0)
@@ -143,6 +155,35 @@ def test_fused_backward_repeats(bh, sq, sk, d):
     assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
     dq1, dq2 = first[0].float(), second[0].float()
     assert (dq1 - dq2).abs().max().item() <= 2.0**-7 * dq1.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,sk,d", [(8, 4096, 4096, 40), (3, 4000, 3900, 40), (4, 3000, 2100, 64), (2, 33, 5, 24)])
+def test_f32_fused_backward_repeats(bh, sq, sk, d):
+    """The same inputs twice through the fused f32 kernel: dQ, dK and dV
+    bitwise equal (dQ's partials are summed in key-block order)."""
+    _need_cuda()
+    q, k, v, do = _qkv(bh, sq, sk, d, "float32", seed=11)
+    scale = d**-0.5
+    o, lse = fa.flash_attention_fwd(q, k, v, scale)
+    delta = (do * o).sum(-1)
+    first = fa.flash_attention_bwd_f32_fused(q, k, v, do, lse, delta, scale)
+    second = fa.flash_attention_bwd_f32_fused(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_f32_fused_backward_takes_only_its_route():
+    """The fused f32 wrapper raises on what it does not take (bf16, D > 64,
+    D % 4 != 0); ``flash_attention_bwd`` sends those elsewhere."""
+    _need_cuda()
+    for dtype, d in (("bfloat16", 40), ("float32", 128), ("float32", 30)):
+        q, k, v, do = _qkv(1, 64, 64, d, dtype)
+        lse = torch.zeros(1, 64, device="cuda")
+        assert not fa.takes_f32_fused_backward(q, k, v, do)
+        with pytest.raises(ValueError, match="flash_attention_bwd_f32_fused takes"):
+            fa.flash_attention_bwd_f32_fused(q, k, v, do, lse, lse, 0.1)
 
 
 @pytest.mark.cuda

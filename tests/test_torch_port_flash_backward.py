@@ -18,7 +18,10 @@ summation order, written out in plain torch inside the test, to the JAX
 package; it runs none of the port's backward code. The kernel itself is
 held on the card against ``flash_attention_bwd_reference``
 (``chip_smoke.py``, ``tests/test_torch_port_cuda.py``), which the tests here
-hold against the JAX package.
+hold against the JAX package. The fused f32 kernel's order of operations
+(key block by key block, dQ partials summed in key-block order) has its
+plain-torch model in the module, ``flash_attention_bwd_f32_fused_model``,
+held here against the JAX package the same way.
 """
 
 import importlib
@@ -139,6 +142,47 @@ def test_fused_kernel_order_matches_jax_vjp(dtype, atol):
         np.testing.assert_allclose(_unfold(got.float(), b, h), want, atol=atol, rtol=0)
 
 
+def test_f32_fused_kernel_order_matches_jax_vjp():
+    """The fused f32 kernel's order model (``flash_attention_bwd_f32_fused_model``)
+    against ``jax.vjp`` in interpret mode, with Sq and Sk off the kernel's
+    tiles (Sk = 300: key blocks of 128, 128 and 44, the last one inside its
+    first 64-key half; Sq = 200: a ragged 64-query tile) at D = 40 and 36
+    (the kernel pads 36 to 40); f32, 1e-5 as above."""
+    for b, sq, sk, h, d in ((1, 200, 300, 2, 40), (1, 100, 130, 3, 36)):
+        q, k, v, do = _inputs(b, sq, sk, h, d, seed=5)
+        _, expected = _jax_grads(q, k, v, do)
+        q3, k3, v3, do3 = (_fold(x) for x in (q, k, v, do))
+        scale = d**-0.5
+        o3, lse = fa.flash_attention_fwd(q3, k3, v3, scale)
+        delta = (do3 * o3).sum(-1)
+        grads = fa.flash_attention_bwd_f32_fused_model(q3, k3, v3, do3, lse, delta, scale)
+        for got, want in zip(grads, expected):
+            assert got.dtype == torch.float32
+            np.testing.assert_allclose(_unfold(got, b, h), want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "dtype,d,route",
+    [("float32", 40, "f32_fused"), ("float32", 64, "f32_fused"), ("float32", 36, "f32_fused"),
+     ("float32", 8, "f32_fused"), ("float32", 128, "cuda_cores"), ("float32", 30, "cuda_cores"),
+     ("bfloat16", 40, "fused"), ("bfloat16", 64, "fused"), ("bfloat16", 36, "cuda_cores"),
+     ("bfloat16", 128, "cuda_cores")],
+)
+def test_backward_routes_by_dtype_and_head_dim(dtype, d, route):
+    """``backward_route``, the choice ``flash_attention_bwd`` makes for CUDA
+    tensors: f32 with D % 4 == 0 and D <= 64 takes the fused f32 kernel,
+    bf16 with D % 8 == 0 and D <= 64 the fused tensor-core kernel, and the
+    rest (bf16 D = 36, f32 D = 128) the CUDA-core pair. The choice reads
+    dtype, head dim and alignment only, so it is checked on CPU tensors."""
+    x = torch.zeros(2, 16, d, dtype=getattr(torch, dtype))
+    assert fa.backward_route(x, x, x, x) == route
+    assert fa.takes_f32_fused_backward(x, x, x, x) == (route == "f32_fused")
+    assert fa.takes_fused_backward(x, x, x, x) == (route == "fused")
+    # an unaligned base (a view one element in) leaves the fused kernels
+    y = torch.zeros(2 * 16 * d + 1, dtype=x.dtype)[1:].view(2, 16, d)
+    assert fa.backward_route(y, y, y, y) == "cuda_cores"
+
+
 def test_bf16_backward_rounds_p_and_ds():
     """bf16: P is rounded to dO's dtype before P^T dO and dS to K's/Q's
     before the dQ/dK products (1e-2 at grads ~1: a few bf16 ulps of the
@@ -215,5 +259,7 @@ def test_backward_kernel_wrappers_reject_cpu_tensors():
         fa.flash_attention_bwd_dkv(x, x, x, x, lse, lse, 0.1)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         fa.flash_attention_bwd_fused(x, x, x, x, lse, lse, 0.1)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fa.flash_attention_bwd_f32_fused(x, x, x, x, lse, lse, 0.1)
     with pytest.raises(ValueError, match="dO must be"):
         fa.flash_attention_bwd(x, x, x, torch.zeros(1, 8, 40, dtype=torch.bfloat16), lse, lse, 0.1)

@@ -263,6 +263,36 @@ def test_features_not_ported_yet_raise(tmp_path):
         trainer.main(path, dataloader=None, device="cpu")
 
 
+@pytest.mark.parametrize(
+    "overrides,item",
+    [
+        (dict(mesh_shape=[2, 1]), "item 7"),
+        (dict(fsdp_shard_params=True), "item 7"),
+        (dict(tensor_parallel_shard_params=True), "item 7"),
+        (dict(vae_polyphase_downsample=True), "item 9"),
+        (dict(sdxl_micro_conditioning=True), "item 6"),
+    ],
+    ids=["mesh", "fsdp", "tensor-parallel", "polyphase", "sdxl-micro-conditioning"],
+)
+def test_options_not_ported_raise(tmp_path, overrides, item):
+    """A config that asks the JAX package for a multi-device mesh, sharding,
+    the polyphase VAE downsample or SDXL micro-conditioning stops the port's
+    trainer with the ROADMAP item instead of training without it."""
+    _, path = make_config_dict(tmp_path, "o", **overrides)
+    with pytest.raises(NotImplementedError, match=item):
+        trainer.main(path, dataloader=_loader(), device="cpu")
+
+
+def test_example_config_and_one_device_mesh_are_accepted():
+    """``model_properties_example.json`` (``mesh_shape: null``) and a mesh of
+    one device build a config: only what the port lacks raises."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    example = read_json_file(os.path.join(repo, "model_properties_example.json"))
+    cfg = training_config_from_dict(example)
+    assert cfg.mesh_shape is None and not cfg.fsdp_shard_params
+    assert training_config_from_dict(dict(example, mesh_shape=[1, 1, 1])).mesh_shape == [1, 1, 1]
+
+
 class _FakeLoader:
     def __init__(self, items):
         self.items = list(items)
