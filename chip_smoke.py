@@ -17,7 +17,8 @@ Phases, one JSON line each:
    (the forward's and the fused bf16 backward), the count of wgmma
    (``HGMMA``) and TMA load (``UTMALDG``) instructions in ``cuobjdump
    -sass`` of the built library; fails if one is missing, spills or lacks
-   either, or if the fused f32 backward is missing or spills.
+   either, or if an f32 kernel (the fused backward, the forward's narrow
+   and wide kernels) is missing or spills.
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
    with max errors against the stated tolerances, kernel / plain / library
    device times (CUDA events; the calls queued behind a spin kernel so the
@@ -26,8 +27,13 @@ Phases, one JSON line each:
    flash-attention forward (K1) at the serving path's shapes, (16, 4096, 40)
    and (1, 4096, 512), in bf16 and f32 (TF32 off), at the train step's,
    (64, 4096, 40) and (8, 4096, 512) in bf16 and f32, plus ragged cases
-   (bf16 at D = 40 and 512 with query and key counts off the tiles), with
-   the host's ms per call and the bytes the kernel streams from L2;
+   (D = 40 and 512 with query and key counts off the tiles, D = 64 and 36),
+   each with its route (``forward_route``: bf16 narrow or wide tensor-core
+   kernel, the f32 kernels, the older CUDA-core kernel), whose counter
+   alone must move, a repeat on the same inputs (bitwise equal on the f32
+   route), the host's ms per call and the bytes the kernel streams from
+   L2; at the four f32 shapes the older CUDA-core kernel, which the f32
+   route replaced, checked and timed on the same inputs;
    flash-attention backward on its three routes (``backward_route``): the
    fused tensor-core kernel (bf16, K2 and K3 in one) at the train step's
    (64, 4096, 40) and at ragged cases (D = 64, and D = 40 with both counts
@@ -49,12 +55,14 @@ Phases, one JSON line each:
    calls them from nowhere else): each case first drives it for three
    updates with the counts zeroed just before and read just after.
 4. ``parity``: one full-width SD1.5 UNet call at 512x512 in f32 (TF32 off),
-   seeded weights, attention_backend "auto" (kernel) against "xla" (plain).
+   seeded weights, attention_backend "auto" (kernel) against "xla" (plain);
+   K1 5 times, all on the f32 route.
 5. ``slice``: the SD1.5 text-to-image pipeline at full width in bf16,
    seeded weights, 512x512, one prompt (CFG batch 2), a few DDIM steps after
    a warm-up run. Launch counts are zeroed just before one run and read
    just after it: the kernel must run 5 times per step (the 64x64 latent
-   self-attentions) and once in the VAE decode. Then the pipeline and its
+   self-attentions, on the narrow tensor-core kernel) and once in the VAE
+   decode (the wide one). Then the pipeline and its
    stages (encode, denoise loop, decode) are timed five times each on the
    host clock (medians and every run), and one denoise step runs under
    torch.profiler (``profile`` line: kernel times by name, the device's
@@ -78,14 +86,16 @@ Phases, one JSON line each:
    bs 16 with the example exclusion lists, EMA 0.99998, bucket limit 65536,
    exact compander), bf16, 512x512, batch 8, a synthetic batch from a seed:
    2 warm-up steps, then 5 timed steps with the launch counts zeroed just
-   before and read just after (K1 5 + 1, the fused bf16 backward 5, the
+   before and read just after (K1 5 + 1 on the narrow and wide tensor-core
+   kernels, the fused bf16 backward 5, the
    f32 one and the CUDA-core K2 and K3 none, the Lion
    single-leaf entry once per leaf over the bucket limit, the multi-leaf
    entry twice, per step). Then one step under torch.profiler (``profile``
    line).
 8. ``train_f32``: the same step with ``mixed_precision: "float32"`` (TF32
    off), the fidelity configuration: 2 warm-up steps, then 3 timed (K1 5 +
-   1 in f32, the fused f32 backward 5, the bf16 one and the CUDA-core pair
+   1 on the f32 route, none on the older CUDA-core forward; the fused f32
+   backward 5, the bf16 one and the CUDA-core pair
    none, Lion's entries as above), step p50, images/s, peak memory, then
    one step under torch.profiler (``profile`` line: the backward's device
    time, the idle share). f32 dQ repeats bitwise; bf16 dQ does not.
@@ -181,8 +191,9 @@ LION_BS, BUCKET_MAX_NB = 16, 65536
 RECORD = os.path.join(REPO, "chiprun_out", "chip_smoke.jsonl")  # every phase line, in full
 # the flash-attention kernels built on TMA and wgmma (names as in csrc/)
 HOPPER_KERNELS = ("flash_fwd_tma_kernel", "flash_bwd_fused_kernel")
-# the fused f32 backward (CUDA cores, cp.async): built, and spilling nothing
-F32_BWD_KERNEL = "flash_bwd_f32_fused_kernel"
+# the f32 kernels (CUDA cores, cp.async): the fused backward and the
+# forward's two; each built, and spilling nothing
+F32_KERNELS = ("flash_bwd_f32_fused_kernel", "flash_fwd_f32_narrow_kernel", "flash_fwd_f32_wide_kernel")
 
 
 def emit(phase, **fields):
@@ -287,6 +298,7 @@ def phase_build(state):
     every kernel, and for each flash-attention Hopper kernel (the forward's
     and the fused backward) its count of wgmma (``HGMMA``) and TMA load
     (``UTMALDG``) instructions. Those kernels must be built, use both and
+    spill nothing; the f32 kernels (``F32_KERNELS``) must be built and
     spill nothing."""
     from stable_diffusion_training_tpu_torch.ops import cuda_build, flash_attention, lion_kernel
 
@@ -310,7 +322,7 @@ def phase_build(state):
     names = demangle_all(kernels)
     kernels = {names[fn]: props for fn, props in kernels.items()}
     hopper = {n: k for n, k in kernels.items() if any(h in n for h in HOPPER_KERNELS)}
-    f32_bwd = {n: k for n, k in kernels.items() if F32_BWD_KERNEL in n}
+    f32 = {n: k for n, k in kernels.items() if any(h in n for h in F32_KERNELS)}
     emit(
         "build", seconds=round(seconds, 3),
         libraries={n: os.path.relpath(p, REPO) for n, p in paths.items()}, ptxas=ptxas,
@@ -318,8 +330,8 @@ def phase_build(state):
     )
     spills = lambda k: k.get("spill_stores", 1) or k.get("spill_loads", 1)
     bad = {n: k for n, k in hopper.items() if spills(k) or not k.get("HGMMA") or not k.get("UTMALDG")}
-    bad.update({n: k for n, k in f32_bwd.items() if spills(k)})
-    missing = [h for h in HOPPER_KERNELS if not any(h in n for n in hopper)] + ([] if f32_bwd else [F32_BWD_KERNEL])
+    bad.update({n: k for n, k in f32.items() if spills(k)})
+    missing = [h for h in HOPPER_KERNELS + F32_KERNELS if not any(h in n for n in kernels)]
     if missing or bad:
         raise AssertionError(f"flash kernels missing {missing}, or spilling or lacking wgmma/TMA: {bad}")
 
@@ -413,15 +425,16 @@ def _bound(bh, sq, sk, d, dtype_name, products=2, exps=1, reads_q=2, reads_k=2, 
     return times[by] * 1e3, by, flops
 
 
-def fwd_l2_bytes(bh, sq, sk, d, dtype_name):
+def fwd_l2_bytes(bh, sq, sk, d, dtype_name, route):
     """Bytes that K1 moves from L2 into the SMs in one call: every block
     streams its head's whole K and V, so query blocks x K+V bytes of a head.
-    Query rows per block as in csrc/flash_attention_fwd.cu (TmaTile: 256 at
-    D <= 64, 64 above); None off the Hopper kernels (f32, D % 8 != 0)."""
-    if dtype_name != "bfloat16" or d % 8:
+    Query rows a block as in csrc/flash_attention_fwd.cu (TmaTile and
+    F32NarrowTile: 256 at D <= 64; F32WideTile and the wide TmaTile: 64
+    above); None on the older CUDA-core route."""
+    if route == "cuda_cores":
         return None
     rows = 256 if d <= 64 else 64
-    return -(-sq // rows) * bh * 2 * sk * d * 2
+    return -(-sq // rows) * bh * 2 * sk * d * (2 if dtype_name == "bfloat16" else 4)
 
 
 def phase_kernels(state):
@@ -441,8 +454,8 @@ def phase_kernels(state):
         ("ragged", 4, 3000, 2100, 64, both),
         ("ragged_d36", 2, 1000, 777, 36, both),  # bf16 off the tensor-core path
         # query and key counts that are no multiple of either Hopper kernel's tiles
-        ("ragged_d40", 3, 4000, 3900, 40, ("bfloat16",)),
-        ("ragged_d512", 2, 1000, 4100, 512, ("bfloat16",)),
+        ("ragged_d40", 3, 4000, 3900, 40, both),
+        ("ragged_d512", 2, 1000, 4100, 512, both),
     ]
     results = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -455,16 +468,38 @@ def phase_kernels(state):
             k = torch.randn(bh, sk, d, generator=gen, device="cuda").to(dtype)
             v = torch.randn(bh, sk, d, generator=gen, device="cuda").to(dtype)
             scale = d**-0.5
+            route = fa.forward_route(q, k, v)
+            fa.reset_launch_counts()
             o, lse = fa.flash_attention_fwd(q, k, v, scale)
+            again = fa.flash_attention_fwd(q, k, v, scale)
             torch.cuda.synchronize()
+            by_route = dict(fa.flash_attention_fwd.launches_by_route)
             o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, scale)
             err_o = (o.float() - o_ref.float()).abs().max().item()
             err_lse = (lse - lse_ref).abs().max().item()
-            ok = err_o <= tol["o"] and err_lse <= tol["lse"]
+            # the f32 kernels sum in fixed orders: a repeat is bitwise equal
+            repeats = bool(torch.equal(o, again[0]) and torch.equal(lse, again[1]))
+            del again
+            ok = (
+                err_o <= tol["o"] and err_lse <= tol["lse"] and by_route == {route: 2}
+                and (repeats or route != "f32")
+            )
             reps = 20 if d <= 64 else 5
             host = []
             kernel_ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, scale), reps, host=host)
             plain_ms = cuda_ms(lambda: fa.flash_attention_fwd_reference(q, k, v, scale), reps)
+            cuda_cores = {}
+            if name_dt == "float32" and not name.startswith("ragged"):
+                # the kernel the f32 route replaced, on the same inputs
+                o_cc, lse_cc = fa.flash_attention_fwd_cuda_cores(q, k, v, scale)
+                cuda_cores = dict(
+                    cuda_cores_ms=cuda_ms(lambda: fa.flash_attention_fwd_cuda_cores(q, k, v, scale), reps),
+                    cuda_cores_max_abs_err_o=(o_cc - o_ref).abs().max().item(),
+                    cuda_cores_max_abs_err_lse=(lse_cc - lse_ref).abs().max().item(),
+                )
+                ok = ok and cuda_cores["cuda_cores_max_abs_err_o"] <= tol["o"]
+                ok = ok and cuda_cores["cuda_cores_max_abs_err_lse"] <= tol["lse"]
+                del o_cc, lse_cc
             try:  # as (1, B*H, S, D), the 4-D layout its fused backends take
                 library_ms = cuda_ms(
                     lambda: F.scaled_dot_product_attention(q[None], k[None], v[None], scale=scale),
@@ -474,12 +509,13 @@ def phase_kernels(state):
                 library_ms = None
             bound_ms, bound_by, flops = _bound(bh, sq, sk, d, name_dt, reads_q=1, writes_q=1)
             row = dict(
-                case=name, shape_q=[bh, sq, d], shape_k=[bh, sk, d], dtype=name_dt,
+                case=name, shape_q=[bh, sq, d], shape_k=[bh, sk, d], dtype=name_dt, route=route,
+                launches_by_route=by_route, repeats_bitwise=repeats,
                 max_abs_err_o=err_o, max_abs_err_lse=err_lse, tol_o=tol["o"],
                 tol_lse=tol["lse"], ok=ok, kernel_ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                 kernel_tflops=flops / kernel_ms / 1e9, host_ms_per_call=host[0],
-                l2_to_sm_bytes=fwd_l2_bytes(bh, sq, sk, d, name_dt),
+                l2_to_sm_bytes=fwd_l2_bytes(bh, sq, sk, d, name_dt, route), **cuda_cores,
             )
             results.append(row)
             emit("kernels", **row)
@@ -846,6 +882,7 @@ def phase_parity(state):
         fa.reset_launch_counts()
         out_k = unet(sample, t, ctx)
         launches = fa.flash_attention_fwd.launches
+        by_route = dict(fa.flash_attention_fwd.launches_by_route)
         state["parity_by_shape"] = dict(fa.flash_attention_fwd.launches_by_shape)
         out_p = plain(sample, t, ctx)
         plain_launches = fa.flash_attention_fwd.launches - launches
@@ -856,11 +893,11 @@ def phase_parity(state):
     emit(
         "parity", shape=list(out_k.shape), max_abs_diff=diff, max_abs_ref=ref_max,
         max_rel_diff=rel, rel_tol=PARITY_REL_TOL, kernel_launches=launches,
-        plain_launches=plain_launches, ok=ok,
+        kernel_launches_by_route=by_route, plain_launches=plain_launches, ok=ok,
     )
     del unet, plain
     torch.cuda.empty_cache()
-    if not ok or launches != 5 or plain_launches != 0:
+    if not ok or launches != 5 or by_route != {"f32": 5} or plain_launches != 0:
         raise AssertionError("full-width UNet: kernel and plain attention disagree")
 
 
@@ -904,6 +941,7 @@ def phase_slice(state, steps=4, seed=0, repeats=5):
         images = pipe(prompt_ids, generator=torch.Generator("cuda").manual_seed(seed), **kw)["images"]
         torch.cuda.synchronize()
         launches = fa.flash_attention_fwd.launches
+        by_route = dict(fa.flash_attention_fwd.launches_by_route)
         by_shape = dict(fa.flash_attention_fwd.launches_by_shape)
         peak = torch.cuda.max_memory_allocated()
         # host clock, repeated: the loop is eager and its host time varies
@@ -929,14 +967,17 @@ def phase_slice(state, steps=4, seed=0, repeats=5):
         "slice", steps=steps, image_shape=list(images.shape), finite=finite,
         in_range=in_range, image_mean=float(images.float().mean()),
         image_std=float(images.float().std()), flash_launches=launches,
-        expected_launches=expected,
+        expected_launches=expected, flash_launches_by_route=by_route,
         launches_by_shape={"x".join(map(str, k)): n for k, n in by_shape.items()},
         total_ms=median["total"], images_per_s=1e3 / median["total"],
         encode_ms=median["encode"], denoise_ms_per_step=median["denoise_per_step"],
         decode_ms=median["decode"], runs_ms=runs, max_memory_allocated=peak,
     )
     state["slice_by_shape"] = by_shape
-    if not (shape_ok and in_range and launches == expected):
+    # the UNet's self-attention on the narrow tensor-core kernel, the VAE
+    # decode's mid-block on the wide one
+    routes_ok = by_route == {"tma_narrow": 5 * steps, "tma_wide": 1}
+    if not (shape_ok and in_range and launches == expected and routes_ok):
         raise AssertionError("text-to-image slice failed its checks")
     with torch.no_grad():
         profile_step(
@@ -997,15 +1038,16 @@ def phase_train_parity(state):
         loss = ((out.float() - target) ** 2).mean()
         grads = torch.autograd.grad(loss, list(model.parameters()))
         torch.cuda.synchronize()
-        launches = dict(fwd=fa.flash_attention_fwd.launches, **bwd_launches(fa))
+        launches = dict(fwd=fa.flash_attention_fwd.launches, fwd_routes=dict(fa.flash_attention_fwd.launches_by_route),
+                        **bwd_launches(fa))
         if dtype == torch.float32 and backend == "auto" and not checkpointing:
             state["train_parity_f32_by_shape"] = dict(fa.flash_attention_bwd_f32_fused.launches_by_shape)
         return loss.item(), [g.float() for g in grads], launches
 
     # f32 takes the fused f32 backward kernel, bf16 the fused tensor-core one
-    kernel_launches = dict(fwd=5, bwd_fused=0, bwd_f32=5, bwd_dq=0, bwd_dkv=0)
-    bf16_launches = dict(fwd=5, bwd_fused=5, bwd_f32=0, bwd_dq=0, bwd_dkv=0)
-    plain_launches = dict(fwd=0, bwd_fused=0, bwd_f32=0, bwd_dq=0, bwd_dkv=0)
+    kernel_launches = dict(fwd=5, fwd_routes={"f32": 5}, bwd_fused=0, bwd_f32=5, bwd_dq=0, bwd_dkv=0)
+    bf16_launches = dict(fwd=5, fwd_routes={"tma_narrow": 5}, bwd_fused=5, bwd_f32=0, bwd_dq=0, bwd_dkv=0)
+    plain_launches = dict(fwd=0, fwd_routes={}, bwd_fused=0, bwd_f32=0, bwd_dq=0, bwd_dkv=0)
     loss_k, grads_k, launches_k = loss_and_grads("auto", torch.float32)
     loss_p, grads_p, launches_p = loss_and_grads("xla", torch.float32)
 
@@ -1026,7 +1068,7 @@ def phase_train_parity(state):
     loss_gc_rel = abs(loss_gc - loss_k) / abs(loss_k)
     ok_gc = (
         loss_gc_rel <= TRAIN_LOSS_REL_TOL and worst_gc <= TRAIN_GRAD_REL_TOL
-        and launches_gc == dict(kernel_launches, fwd=2 * kernel_launches["fwd"])
+        and launches_gc == dict(kernel_launches, fwd=10, fwd_routes={"f32": 10})
     )
     emit(
         "train_parity", dtype="float32", case="gradient_checkpointing", loss=loss_gc,
@@ -1160,6 +1202,7 @@ def phase_train(state, warmup=2, steps=5, seed=0, dtype="bfloat16"):
         losses.append(loss.item())
         timed.append(ms)
     launches = train_launches(fa, lk)
+    fwd_routes = dict(fa.flash_attention_fwd.launches_by_route)
     by_shape = dict(
         flash_fwd=dict(fa.flash_attention_fwd.launches_by_shape),
         flash_bwd_fused=dict(fa.flash_attention_bwd_fused.launches_by_shape),
@@ -1180,6 +1223,11 @@ def phase_train(state, warmup=2, steps=5, seed=0, dtype="bfloat16"):
         lion_multi=2 * steps,
     )
     expected[bwd] = 5 * steps
+    # K1's routes: the UNet's 5 and the VAE encode's 1 a step, never the
+    # older CUDA-core kernel
+    expected_routes = (
+        {"tma_narrow": 5 * steps, "tma_wide": steps} if dtype == "bfloat16" else {"f32": 6 * steps}
+    )
     # the optimizer's share: both models' chains on stand-in grads, timed apart
     opt_ms = []
     for _ in range(3):
@@ -1195,6 +1243,7 @@ def phase_train(state, warmup=2, steps=5, seed=0, dtype="bfloat16"):
         losses=losses, finite=finite, max_memory_allocated=peak,
         momentum_codes_changed_after_step_1=codes_changed, momentum_codes=codes_total,
         launches=launches, expected_launches=expected,
+        flash_fwd_launches_by_route=fwd_routes, expected_flash_fwd_routes=expected_routes,
         launches_per_step={k: v / steps for k, v in launches.items()},
         launches_by_shape={
             kernel: {"x".join(map(str, k)): n for k, n in shapes.items()} for kernel, shapes in by_shape.items()
@@ -1205,7 +1254,7 @@ def phase_train(state, warmup=2, steps=5, seed=0, dtype="bfloat16"):
     emit(phase, **row)
     state[phase] = row
     state[f"{phase}_by_shape"] = by_shape
-    if not (finite and codes_changed > 0 and launches == expected):
+    if not (finite and codes_changed > 0 and launches == expected and fwd_routes == expected_routes):
         raise AssertionError(f"{phase} step failed its checks")
     profile_step(
         step, f"one SD1.5 train step ({dtype}, batch 8, 512x512)",
@@ -1410,12 +1459,13 @@ def kernels_line(state):
     entries = []
     for row in state.get("kernel_cases", []):
         bh, sq, d = row["shape_q"]
-        shape = (bh, sq, row["shape_k"][1], d, row["dtype"])
+        shape = (bh, sq, row["shape_k"][1], d, row["dtype"], row["route"])  # the forward's by-shape key
         if row["case"].startswith("ragged") or (row["dtype"] == "float32" and row["case"] not in F32_FWD_PATHS):
             continue  # no path runs the forward kernel at this shape and dtype
         path = "" if row["dtype"] == "bfloat16" else f"; path: {F32_FWD_PATHS[row['case']]}"
         entries.append(dict(
-            name=f"flash_attention_fwd[{row['case']} {'x'.join(map(str, shape[:4]))} {SHORT[row['dtype']]}{path}]",
+            name=(f"flash_attention_fwd[{row['case']} {'x'.join(map(str, shape[:4]))} {SHORT[row['dtype']]}; "
+                  f"route {row['route']}{path}]"),
             route="cuda", source=f"{CSRC}/flash_attention_fwd.cu",
             replaces=f"{JAX_OPS}/flash_attention.py:47",
             launches=sum(p.get(shape, 0) for p in paths[row["dtype"]]),

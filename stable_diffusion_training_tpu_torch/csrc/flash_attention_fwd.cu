@@ -20,8 +20,12 @@
 //   for the train shape), then the bytes from L2: every block streams its
 //   head's whole K and V (8 MB), query blocks x 8 MB per head.
 //
-// The design. Three kernels share the entry point; the input picks one.
-// The two bf16 kernels are one template (`flash_fwd_tma_kernel`), warp-
+// The design. Four routes share the entry point `flash_attention_fwd`, which
+// picks one from the dtype, the head dim and the bases' alignment (the same
+// choice as ops/flash_attention.py's `forward_route`) and reports it:
+//
+// bf16, D % 8 == 0, every base 16-byte aligned: the tensor cores. The two
+// bf16 kernels are one template (`flash_fwd_tma_kernel`), warp-
 // specialised: warpgroup 0 produces (setmaxnreg down to 24 or 40), the
 // others consume (up to 112 or 232). One producer thread streams Q once
 // and the K tiles, another the V tiles, each by TMA into a ring of stages
@@ -63,11 +67,46 @@
 //    stages: Q 64 KB, K and V 2 x 2 x 32 KB, S halves 32 KB = 224 KB at
 //    DP = 512 (+1 KB), which leaves no room for a third stage or wider key
 //    tiles; 384 threads, one block per SM.
-// 3. CUDA cores (`flash_fwd_kernel`): everything else — f32 I/O (exact f32
-//    products; TF32 would change the numerics), bf16 with D % 8 != 0 or an
-//    unaligned base — for head dims up to 512. f32 FMA with both operands
-//    staged in shared memory as f32. Each block owns BQ query rows of one
-//    (batch*head); its four warps own BQ/4 rows each, so the row max and
+// 3. f32, D % 4 == 0, every base 16-byte aligned (`flash_fwd_f32_narrow_kernel`
+//    at D <= 64, `flash_fwd_f32_wide_kernel` above): exact f32 FMA on the
+//    CUDA cores (TF32 would change the numerics), so 67 TFLOP/s bounds them:
+//    2.56 ms at (64, 4096, 40), 4.10 ms at (8, 4096, 512). Both are
+//    FMA-issue problems, so both hold big register micro-tiles (one block of
+//    8 warps an SM, up to 254 registers a thread): each float4 read from
+//    shared memory feeds 16 to 32 FMAs. The softmax is one FFMA and one exp2
+//    a logit (scale * log2 e folded in, the mask only on the last tile); row
+//    maxima are reduced over the few lanes that share a row; the next chunk
+//    of K or V arrives by cp.async (zero-filled past S and D) while this one
+//    is computed. Fixed orders throughout: O and lse repeat bitwise.
+//    - narrow (DP = D rounded up to 16, 32, 40, 48 or 64): 256 threads own
+//      one head's 256 query rows, Q staged once. K and V tiles of 64 keys
+//      stream through a two-stage ring. A thread holds S for 8 rows x 8 keys
+//      (rows rg + 32 i, keys kg + 8 j: a row's 64 keys on 8 lanes, 3
+//      shuffles for its max; the sum is reduced once at the end); P goes to
+//      shared memory, and O += P V holds 8 rows x D/8 columns a thread
+//      (columns kg + 8 c, so D = 40 has no padded column; V is read as
+//      scalars, one load per 8 FMAs). Two barriers a tile; 164 KB of shared
+//      memory at DP = 40. Four rows a thread at two blocks an SM (16 warps,
+//      128 registers) measured slower.
+//    - wide (DP = 128, 256 or 512): O for 64 rows x 512 columns is 128 f32
+//      registers a thread across 256 threads, and Q (132 KB at D = 512) fits
+//      beside a two-stage ring of 32 KB chunks but not beside whole K and V
+//      tiles. Each 128-key tile's K streams as 64-column chunks (S, 8 rows x
+//      4 keys a thread, sums them in column order), then its V as chunks of
+//      64 keys x 128 columns (a thread holds 8 rows x 4 columns of every
+//      128-column pair). A warp spans 4 rows x 8 keys (or columns), so every
+//      load hits 32 distinct banks (K's float4s are permuted by key % 8)
+//      and feeds 16 or 32 FMAs; a row's keys span 4 warps, whose partial maxima
+//      meet in P's spare columns (one more barrier a tile). One barrier a
+//      chunk; 232,448 bytes of shared memory, the most a block may have.
+//      64 query rows a block stream a quarter of the L2 bytes of the
+//      CUDA-core kernel's 16-row blocks.
+// 4. CUDA cores (`flash_fwd_kernel`): what no route above takes: bf16 with
+//    D % 8 != 0, f32 with D % 4 != 0, or an unaligned base; head dims up to
+//    512. `flash_attention_fwd_cuda_cores` runs it on any input, to compare.
+//    f32 FMA with both operands staged in shared memory as f32. Each block
+//    owns BQ query rows of one (batch*head); its four warps own BQ/4 rows
+//    each, so the row max and
 //    row sum are warp shuffles and P never leaves the warp's own slice of
 //    shared memory. K and V tiles are re-read from shared memory as float4
 //    (rows padded by 4 floats, so the 8 lanes of a 128-bit phase hit 8
@@ -248,6 +287,458 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float
   if (d <= 128) return launch<T, 128, 32, 64>(q, k, v, o, lse, bh, sq, sk, d, scale, stream);
   if (d <= 256) return launch<T, 256, 16, 32>(q, k, v, o, lse, bh, sq, sk, d, scale, stream);
   return launch<T, 512, 16, 32>(q, k, v, o, lse, bh, sq, sk, d, scale, stream);
+}
+
+
+// --- f32 kernels: d % 4 == 0, 16-byte aligned (exact f32 FMA, cp.async rings) ---
+
+constexpr int kF32Threads = 256;
+
+// Rows [0, rows) x columns [0, DP) of a row-major (., d) f32 matrix at
+// `src` into shared memory at `dst` (row stride LD floats), as 16-byte
+// cp.async copies in this thread's current group; rows at or past `valid`
+// and columns at or past d arrive as zeros.
+template <int DP, int LD>
+__device__ __forceinline__ void fetch_rows_f32(float* dst, const float* src, int rows, int valid, int d, int tid) {
+  for (int e = tid; e < rows * (DP / 4); e += kF32Threads) {
+    const int r = e / (DP / 4), c = 4 * (e - r * (DP / 4));
+    const bool ok = r < valid && c < d;
+    cp_async16(dst + r * LD + c, ok ? src + size_t(r) * d + c : src, ok);
+  }
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+
+__device__ __forceinline__ float lane_of(const float4& x, int t) {
+  return t == 0 ? x.x : t == 1 ? x.y : t == 2 ? x.z : x.w;
+}
+
+template <int DP>
+struct F32NarrowTile {
+  static constexpr int RT = 8;        // query rows a thread: rg + 32 i, i < RT
+  static constexpr int BQ = 32 * RT;  // query rows a block
+  static constexpr int BK = 64;       // keys a tile; a thread's logits are keys kg + 8 j, j < 8
+  static constexpr int CPG = DP / 8;  // O columns a thread: kg + 8 c, c < CPG (no padded column at 40)
+  static constexpr int LD = DP + 4;   // row stride (floats) of Q, K and V: 8 keys' float4s hit 32 banks
+  static constexpr int LDP = BK + 8;  // row stride of P: a warp's 4 rows x 8 keys hit 32 banks
+  static constexpr int kStage = 2 * BK * LD;  // K and V of one tile
+  static constexpr int kOffKV = BQ * LD;
+  static constexpr int kOffP = kOffKV + 2 * kStage;
+  static constexpr size_t kSmemBytes = size_t(kOffP + BQ * LDP) * sizeof(float);
+  static_assert(DP % 8 == 0 && DP <= 64, "head dim");
+  static_assert(kSmemBytes <= 232448, "shared memory per block");
+};
+
+// D <= 64: one block of 256 threads per (head, 256 query rows); the design
+// is in the note at the top of this file.
+template <int DP>
+__global__ void __launch_bounds__(kF32Threads, 1)
+    flash_fwd_f32_narrow_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                                int sq, int sk, int d, float scale_log2) {
+  using C = F32NarrowTile<DP>;
+  constexpr int RT = C::RT, BQ = C::BQ, BK = C::BK, CPG = C::CPG, LD = C::LD, LDP = C::LDP;
+  extern __shared__ __align__(16) float f32_smem[];
+  float* sQ = f32_smem;
+  float* sP = f32_smem + C::kOffP;  // P of the tile, [query][key]
+
+  const int tid = threadIdx.x;
+  const int rg = tid / 8, kg = tid % 8;  // the 8 lanes of a row group share its rows
+  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int n_tiles = (sk + BK - 1) / BK;
+  const float* kb = k + size_t(bh) * sk * d;
+  const float* vb = v + size_t(bh) * sk * d;
+  auto stage = [&](int j) { return f32_smem + C::kOffKV + (j & 1) * C::kStage; };
+  auto fetch = [&](int j) {  // tile j's K and V, zeros past sk, as one cp.async group
+    float* s = stage(j);
+    const int k0 = j * BK;
+    fetch_rows_f32<DP, LD>(s, kb + size_t(k0) * d, BK, sk - k0, d, tid);
+    fetch_rows_f32<DP, LD>(s + BK * LD, vb + size_t(k0) * d, BK, sk - k0, d, tid);
+    cp_async_commit();
+  };
+  fetch_rows_f32<DP, LD>(sQ, q + (size_t(bh) * sq + q0) * d, BQ, sq - q0, d, tid);
+  fetch(0);  // Q and the first tile: one group
+
+  const float c = scale_log2;
+  float m[RT], l[RT], acc[RT][CPG];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < CPG; ++cc) acc[i][cc] = 0.f;
+  }
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile j is in for every thread; tile j - 1's stage and P are consumed
+    if (j + 1 < n_tiles) fetch(j + 1);
+    const float* sK = stage(j);
+    const float* sV = sK + BK * LD;
+
+    // S = Q K^T: RT rows x 8 keys a thread, each float4 of K feeding 4 RT FMAs
+    float s[RT][8];
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) s[i][jj] = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < DP; cc += 4) {
+      float4 qq[RT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) qq[i] = lds4(sQ + (rg + 32 * i) * LD + cc);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float4 kk = lds4(sK + (kg + 8 * jj) * LD + cc);
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          s[i][jj] = fmaf(qq[i].x, kk.x, s[i][jj]);
+          s[i][jj] = fmaf(qq[i].y, kk.y, s[i][jj]);
+          s[i][jj] = fmaf(qq[i].z, kk.z, s[i][jj]);
+          s[i][jj] = fmaf(qq[i].w, kk.w, s[i][jj]);
+        }
+      }
+    }
+
+    // online softmax in base 2: the row max over the row group's 8 lanes,
+    // then one FFMA and one exp2 a logit; keys past sk masked on the last tile
+    const int kv = sk - j * BK;
+    if (kv < BK) {
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+          if (kg + 8 * jj >= kv) s[i][jj] = kNegInf;
+    }
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) mx = fmaxf(mx, s[i][jj]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float ms = mx * c;  // = max of s * c: rounding is monotone
+      const float corr = fast_exp2(m[i] * c - ms);
+      m[i] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float p = fast_exp2(fmaf(s[i][jj], c, -ms));
+        sum += p;
+        sP[(rg + 32 * i) * LDP + kg + 8 * jj] = p;
+      }
+      l[i] = l[i] * corr + sum;  // this lane's share of the row sum
+#pragma unroll
+      for (int cc = 0; cc < CPG; ++cc) acc[i][cc] *= corr;
+    }
+    __syncthreads();  // P of the tile is in shared memory
+
+    // O += P V: RT rows x CPG columns a thread, in key order (P and V are 0 past sk)
+#pragma unroll 4
+    for (int kk = 0; kk < BK; kk += 4) {
+      float4 p[RT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) p[i] = lds4(sP + (rg + 32 * i) * LDP + kk);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        float vv[CPG];
+#pragma unroll
+        for (int cc = 0; cc < CPG; ++cc) vv[cc] = sV[(kk + t) * LD + kg + 8 * cc];
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          const float pt = lane_of(p[i], t);
+#pragma unroll
+          for (int cc = 0; cc < CPG; ++cc) acc[i][cc] = fmaf(pt, vv[cc], acc[i][cc]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
+  }
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int row = q0 + rg + 32 * i;
+    if (row >= sq) continue;
+    const float safe_l = l[i] == 0.f ? 1.f : l[i];
+    float* orow = o + (size_t(bh) * sq + row) * d;
+#pragma unroll
+    for (int cc = 0; cc < CPG; ++cc) {
+      const int col = kg + 8 * cc;
+      if (col < d) orow[col] = acc[i][cc] / safe_l;
+    }
+    if (kg == 0) lse[size_t(bh) * sq + row] = (m[i] * c + log2f(safe_l)) * kLn2;
+  }
+}
+
+template <int DP>
+struct F32WideTile {
+  static constexpr int BQ = 64;        // query rows a block; a thread's rows are rg + 8 i, i < 8
+  static constexpr int BK = 128;       // keys a tile; a thread's logits are keys kg + 32 j, j < 4
+  static constexpr int NK = DP / 64;   // K chunks a tile: 128 keys x 64 columns, summed in column order
+  static constexpr int NV = DP / 64;   // V chunks a tile: 64 keys x 128 columns (column pairs x key halves)
+  static constexpr int NPAIR = DP / 128;  // O's 128-column pairs; a thread holds 8 rows x 4 columns of each
+  static constexpr int LDQ = DP + 4;   // row stride (floats) of Q: 4 consecutive rows' float4s hit 16 banks
+  static constexpr int LDP = BK + 8;   // row stride of P: a warp's 4 rows x 8 keys hit 32 banks; columns
+                                       // 128-131 hold the row's 4 partial maxima (one per warp pair)
+  static constexpr int kChunk = 128 * 64;  // floats of a ring stage: a K or a V chunk, unpadded
+  static constexpr int kOffRing = BQ * LDQ;
+  static constexpr int kOffP = kOffRing + 2 * kChunk;
+  static constexpr size_t kSmemBytes = size_t(kOffP + BQ * LDP) * sizeof(float);
+  static_assert(DP % 128 == 0 && DP <= 512, "head dim");
+  static_assert(kSmemBytes <= 232448, "shared memory per block");
+};
+
+// 64 < D <= 512: one block of 256 threads per (head, 64 query rows); the
+// design is in the note at the top of this file.
+template <int DP>
+__global__ void __launch_bounds__(kF32Threads, 1)
+    flash_fwd_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse, int sq,
+                              int sk, int d, float scale_log2) {
+  using C = F32WideTile<DP>;
+  constexpr int BQ = C::BQ, BK = C::BK, NK = C::NK, NV = C::NV, NPAIR = C::NPAIR, LDQ = C::LDQ, LDP = C::LDP;
+  extern __shared__ __align__(16) float f32_smem[];
+  float* sQ = f32_smem;
+  float* ring = f32_smem + C::kOffRing;
+  float* sP = f32_smem + C::kOffP;  // P of the tile, [query][key]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // rows rg + 8 i; keys kg + 32 j in S, columns 128 p + 4 kg in O. A row's
+  // 128 keys lie on 8 lanes of each of 4 warps (kh = warp / 2).
+  const int kh = warp / 2;
+  const int rg = 4 * (warp % 2) + lane / 8, kg = 8 * kh + lane % 8;
+  const int sw = lane % 8;  // K rows kg + 32 j are stored with their float4s permuted by key % 8 = sw
+  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int n_tiles = (sk + BK - 1) / BK;
+  const int n_chunks = n_tiles * (NK + NV);
+  const float* kb = k + size_t(bh) * sk * d;
+  const float* vb = v + size_t(bh) * sk * d;
+  // chunk g into its ring stage as one cp.async group; zeros past sk and d
+  auto fetch = [&](int g) {
+    float* dst = ring + (g & 1) * C::kChunk;
+    const int j = g / (NK + NV), x = g % (NK + NV);
+    if (x < NK) {  // K: keys j BK .. + 127, columns 64 x .. + 63, float4 c4 stored at c4 ^ (key % 8)
+      const float* src = kb + size_t(j) * BK * d;
+      const int valid = sk - j * BK;
+      for (int e = tid; e < BK * 16; e += kF32Threads) {
+        const int r = e / 16, c4 = e % 16, col = 64 * x + 4 * c4;
+        const bool ok = r < valid && col < d;
+        cp_async16(dst + r * 64 + 4 * (c4 ^ (r % 8)), ok ? src + size_t(r) * d + col : src, ok);
+      }
+    } else {  // V: keys j BK + 64 h .. + 63, columns 128 p .. + 127 (y = x - NK = 2 p + h)
+      const int y = x - NK, p = y / 2, h = y % 2;
+      const float* src = vb + (size_t(j) * BK + 64 * h) * d;
+      const int valid = sk - j * BK - 64 * h;
+      for (int e = tid; e < 64 * 32; e += kF32Threads) {
+        const int r = e / 32, c4 = e % 32, col = 128 * p + 4 * c4;
+        const bool ok = r < valid && col < d;
+        cp_async16(dst + r * 128 + 4 * c4, ok ? src + size_t(r) * d + col : src, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  fetch_rows_f32<DP, LDQ>(sQ, q + (size_t(bh) * sq + q0) * d, BQ, sq - q0, d, tid);
+  fetch(0);  // Q joins the first chunk's group
+
+  const float c = scale_log2;
+  float m[8], l[8], acc[NPAIR][8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int p = 0; p < NPAIR; ++p)
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) acc[p][i][cc] = 0.f;
+  }
+  // the next chunk's wait and barrier, then its successor's copies
+  auto next_chunk = [&](int g) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk g is in; chunk g - 1's stage is consumed
+    if (g + 1 < n_chunks) fetch(g + 1);
+    return ring + (g & 1) * C::kChunk;
+  };
+
+  int g = 0;  // the chunk being consumed
+  for (int j = 0; j < n_tiles; ++j) {
+    // S = Q K^T over the chunks of D in column order
+    float s[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
+#pragma unroll 1
+    for (int ch = 0; ch < NK; ++ch, ++g) {
+      const float* sK = next_chunk(g);
+      const float* qc = sQ + 64 * ch;
+#pragma unroll 1
+      for (int c4 = 0; c4 < 16; ++c4) {
+        float4 kk[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) kk[jj] = lds4(sK + (kg + 32 * jj) * 64 + 4 * (c4 ^ sw));
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 qq = lds4(qc + (rg + 8 * i) * LDQ + 4 * c4);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            s[i][jj] = fmaf(qq.x, kk[jj].x, s[i][jj]);
+            s[i][jj] = fmaf(qq.y, kk[jj].y, s[i][jj]);
+            s[i][jj] = fmaf(qq.z, kk[jj].z, s[i][jj]);
+            s[i][jj] = fmaf(qq.w, kk[jj].w, s[i][jj]);
+          }
+        }
+      }
+    }
+
+    // online softmax in base 2: row maxima over 8 lanes, then over the 4
+    // warp pairs through P's spare columns; one FFMA and one exp2 a logit
+    const int kv = sk - j * BK;
+    if (kv < BK) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          if (kg + 32 * jj >= kv) s[i][jj] = kNegInf;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      if (sw == 0) sP[(rg + 8 * i) * LDP + BK + kh] = mx;
+    }
+    __syncthreads();  // the partial maxima are in
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 part = lds4(sP + (rg + 8 * i) * LDP + BK);
+      const float mx = fmaxf(m[i], fmaxf(fmaxf(part.x, part.y), fmaxf(part.z, part.w)));
+      const float ms = mx * c;
+      const float corr = fast_exp2(m[i] * c - ms);
+      m[i] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float p = fast_exp2(fmaf(s[i][jj], c, -ms));
+        sum += p;
+        sP[(rg + 8 * i) * LDP + kg + 32 * jj] = p;
+      }
+      l[i] = l[i] * corr + sum;  // this thread's share of the row sum
+#pragma unroll
+      for (int p = 0; p < NPAIR; ++p)
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) acc[p][i][cc] *= corr;
+    }
+
+    // O += P V: column pair by column pair, each over the tile's two key
+    // halves in order (the first chunk's barrier publishes P)
+#pragma unroll
+    for (int p = 0; p < NPAIR; ++p) {
+#pragma unroll 1
+      for (int h = 0; h < 2; ++h, ++g) {
+        const float* sV = next_chunk(g);
+        const float* pk = sP + 64 * h;
+#pragma unroll 1
+        for (int kk = 0; kk < 64; kk += 4) {
+          float4 vv[4];
+#pragma unroll
+          for (int t = 0; t < 4; ++t) vv[t] = lds4(sV + (kk + t) * 128 + 4 * kg);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float4 pp = lds4(pk + (rg + 8 * i) * LDP + kk);
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+              const float pt = lane_of(pp, t);
+              acc[p][i][0] = fmaf(pt, vv[t].x, acc[p][i][0]);
+              acc[p][i][1] = fmaf(pt, vv[t].y, acc[p][i][1]);
+              acc[p][i][2] = fmaf(pt, vv[t].z, acc[p][i][2]);
+              acc[p][i][3] = fmaf(pt, vv[t].w, acc[p][i][3]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // l: over 8 lanes, then the 4 warp pairs' shares through P's spare
+  // columns, in warp-pair order
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
+  }
+  __syncthreads();  // the last tile's partial maxima are read
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    if (sw == 0) sP[(rg + 8 * i) * LDP + BK + kh] = l[i];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = q0 + rg + 8 * i;
+    if (row >= sq) continue;
+    const float4 part = lds4(sP + (rg + 8 * i) * LDP + BK);
+    const float sum = ((part.x + part.y) + part.z) + part.w;
+    const float safe_l = sum == 0.f ? 1.f : sum;
+    float* orow = o + (size_t(bh) * sq + row) * d;
+#pragma unroll
+    for (int p = 0; p < NPAIR; ++p) {
+      const int col = 128 * p + 4 * kg;  // d % 4 == 0: the float4 is in or out together
+      if (col < d)
+        *reinterpret_cast<float4*>(orow + col) =
+            make_float4(acc[p][i][0] / safe_l, acc[p][i][1] / safe_l, acc[p][i][2] / safe_l,
+                        acc[p][i][3] / safe_l);
+    }
+    if (kg == 0) lse[size_t(bh) * sq + row] = (m[i] * c + log2f(safe_l)) * kLn2;
+  }
+}
+
+template <typename Kernel>
+cudaError_t launch_f32(Kernel kernel, size_t smem, int bq, unsigned& devices_set, const void* q, const void* k,
+                       const void* v, void* o, float* lse, int bh, int sq, int sk, int d, float scale,
+                       cudaStream_t stream) {
+  cudaError_t err = allow_smem_once(kernel, smem, devices_set);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((sq + bq - 1) / bq, bh), kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, sq, sk, d, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_f32_narrow(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int sq,
+                              int sk, int d, float scale, cudaStream_t stream) {
+  using C = F32NarrowTile<DP>;
+  static unsigned devices_set = 0;
+  return launch_f32(flash_fwd_f32_narrow_kernel<DP>, C::kSmemBytes, C::BQ, devices_set, q, k, v, o, lse, bh, sq,
+                    sk, d, scale, stream);
+}
+
+template <int DP>
+cudaError_t launch_f32_wide(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int sq,
+                            int sk, int d, float scale, cudaStream_t stream) {
+  using C = F32WideTile<DP>;
+  static unsigned devices_set = 0;
+  return launch_f32(flash_fwd_f32_wide_kernel<DP>, C::kSmemBytes, C::BQ, devices_set, q, k, v, o, lse, bh, sq,
+                    sk, d, scale, stream);
+}
+
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int sq, int sk,
+                         int d, float scale, cudaStream_t s) {
+  if (d <= 16) return launch_f32_narrow<16>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
+  if (d <= 32) return launch_f32_narrow<32>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
+  if (d <= 40) return launch_f32_narrow<40>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
+  if (d <= 48) return launch_f32_narrow<48>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
+  if (d <= 64) return launch_f32_narrow<64>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
+  if (d <= 128) return launch_f32_wide<128>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
+  if (d <= 256) return launch_f32_wide<256>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
+  return launch_f32_wide<512>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
 }
 
 
@@ -580,34 +1071,64 @@ cudaError_t launch_tma(const void* q, const void* k, const void* v, void* o, flo
   return cudaGetLastError();
 }
 
+// The forward's routes, as ops/flash_attention.py's `forward_route` names
+// them; chosen from the dtype, the head dim and the bases' alignment.
+enum FwdRoute { kRouteCudaCores = 0, kRouteTmaNarrow = 1, kRouteTmaWide = 2, kRouteF32 = 3 };
+
+int forward_route(const void* q, const void* k, const void* v, const void* o, int d, int dtype) {
+  const bool aligned = bases_aligned16({q, k, v, o});
+  if (dtype == 1 && aligned && d % 8 == 0) return d <= 64 ? kRouteTmaNarrow : kRouteTmaWide;
+  if (dtype == 0 && aligned && d % 4 == 0) return kRouteF32;
+  return kRouteCudaCores;
+}
+
+bool valid_fwd(int bh, int sq, int sk, int d, int dtype) {
+  return bh >= 1 && bh <= 65535 && sq >= 1 && sk >= 1 && d >= 1 && d <= 512 && (dtype == 0 || dtype == 1);
+}
+
+cudaError_t launch_cuda_cores(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int sq,
+                              int sk, int d, float scale, int dtype, cudaStream_t s) {
+  return dtype == 0 ? dispatch<float>(q, k, v, o, lse, bh, sq, sk, d, scale, s)
+                    : dispatch<__nv_bfloat16>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
+}
+
 }  // namespace
 
 // q (bh, sq, d), k/v (bh, sk, d), o (bh, sq, d): contiguous rows, all of one
-// dtype (0 = float32, 1 = bfloat16); lse (bh, sq) float32. Launches on
-// `stream` and returns the launch's cudaError_t (0 on success); does not
+// dtype (0 = float32, 1 = bfloat16); lse (bh, sq) float32. Launches the
+// kernel of the inputs' route on `stream`, writes the route to `*route`
+// (FwdRoute) and returns the launch's cudaError_t (0 on success); does not
 // synchronise.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    float* lse, int bh, int sq, int sk, int d, float scale,
-                                   int dtype, void* stream) {
-  if (bh < 1 || bh > 65535 || sq < 1 || sk < 1 || d < 1 || d > 512)
-    return int(cudaErrorInvalidValue);
+                                   int dtype, int* route, void* stream) {
+  if (!valid_fwd(bh, sq, sk, d, dtype)) return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return int(dispatch<float>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
-    case 1:
-      if (aligned16({q, k, v, o}, d)) {
-        if (d <= 16) return int(launch_tma<16, false>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
-        if (d <= 32) return int(launch_tma<32, false>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
-        if (d <= 40) return int(launch_tma<40, false>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
-        if (d <= 48) return int(launch_tma<48, false>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
-        if (d <= 64) return int(launch_tma<64, false>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
-        if (d <= 128) return int(launch_tma<128, true>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
-        if (d <= 256) return int(launch_tma<256, true>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
-        return int(launch_tma<512, true>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
-      }
-      return int(dispatch<__nv_bfloat16>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
+  *route = forward_route(q, k, v, o, d, dtype);
+  switch (*route) {
+    case kRouteF32:
+      return int(dispatch_f32(q, k, v, o, lse, bh, sq, sk, d, scale, s));
+    case kRouteTmaNarrow:
+      if (d <= 16) return int(launch_tma<16, false>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
+      if (d <= 32) return int(launch_tma<32, false>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
+      if (d <= 40) return int(launch_tma<40, false>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
+      if (d <= 48) return int(launch_tma<48, false>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
+      return int(launch_tma<64, false>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
+    case kRouteTmaWide:
+      if (d <= 128) return int(launch_tma<128, true>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
+      if (d <= 256) return int(launch_tma<256, true>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
+      return int(launch_tma<512, true>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
     default:
-      return int(cudaErrorInvalidValue);
+      return int(launch_cuda_cores(q, k, v, o, lse, bh, sq, sk, d, scale, dtype, s));
   }
+}
+
+// The CUDA-core kernel (`flash_fwd_kernel`) on any input the entry above
+// takes, whatever its route: the kernel the f32 and bf16 routes replaced,
+// kept callable to compare against them on the same inputs.
+extern "C" int flash_attention_fwd_cuda_cores(const void* q, const void* k, const void* v, void* o, float* lse,
+                                              int bh, int sq, int sk, int d, float scale, int dtype,
+                                              void* stream) {
+  if (!valid_fwd(bh, sq, sk, d, dtype)) return int(cudaErrorInvalidValue);
+  return int(launch_cuda_cores(q, k, v, o, lse, bh, sq, sk, d, scale, dtype, static_cast<cudaStream_t>(stream)));
 }

@@ -86,12 +86,14 @@ __device__ __forceinline__ void pack_p(uint32_t (&p)[NR / 8][4], const float (&s
   }
 }
 
-// The tensor-core kernels take 16-byte aligned rows: d % 8 == 0 and every
-// base pointer 16-byte aligned.
-inline bool aligned16(std::initializer_list<const void*> ptrs, int d) {
+inline bool bases_aligned16(std::initializer_list<const void*> ptrs) {
   uintptr_t addr = 0;
   for (const void* p : ptrs) addr |= reinterpret_cast<uintptr_t>(p);
-  return d % 8 == 0 && addr % 16 == 0;
+  return addr % 16 == 0;
 }
+
+// The tensor-core kernels take 16-byte aligned bf16 rows: d % 8 == 0 and
+// every base pointer 16-byte aligned.
+inline bool aligned16(std::initializer_list<const void*> ptrs, int d) { return d % 8 == 0 && bases_aligned16(ptrs); }
 
 }  // namespace

@@ -6,7 +6,13 @@ Port of ``stable_diffusion_training_tpu/ops/flash_attention.py``:
 - the forward (the Pallas ``_fwd_kernel`` launched by ``_flash_fwd_impl``)
   is ``csrc/flash_attention_fwd.cu``: O and the per-row logsumexp with f32
   logits and accumulator, P cast to V's dtype before the PV product, and the
-  ``l == 0`` guard;
+  ``l == 0`` guard. Four routes (``forward_route``): bf16 with D % 8 == 0
+  and 16-byte aligned tensors takes a tensor-core kernel, narrow (D <= 64)
+  or wide; f32 with D % 4 == 0 and 16-byte aligned tensors takes the f32
+  CUDA-core kernels (exact f32 products, fixed order: O and lse repeat
+  bitwise; ``flash_attention_fwd_f32_model`` is their order in plain
+  torch); everything else the older CUDA-core kernel, which
+  ``flash_attention_fwd_cuda_cores`` also runs on any input, to compare;
 - the backward (``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, launched by
   ``_flash_bwd``) is ``csrc/flash_attention_bwd.cu``, with ``delta =
   rowsum(dO * O)`` computed here in f32 as ``_flash_bwd`` does. Three
@@ -51,6 +57,15 @@ FUSED_BWD_KEYS = 128
 # F32Tile::BK (each key block writes one dQ partial)
 F32_BWD_MAX_HEAD_DIM = 64
 F32_BWD_KEYS = 128
+# the f32 forward kernels: keys per tile of the narrow (D <= 64) and the
+# wide kernel (F32NarrowTile::BK and F32WideTile::BK in
+# csrc/flash_attention_fwd.cu) and the columns per chunk of D in whose order
+# S is summed; all must stay equal to the kernels'
+F32_FWD_KEYS = 64
+F32_FWD_WIDE_KEYS = 128
+F32_FWD_CHUNK = 64
+# the forward's routes, indexed by the entry's FwdRoute code
+FWD_ROUTES = ("cuda_cores", "tma_narrow", "tma_wide", "f32")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # library name -> sources under csrc/
 LIBRARIES = {
@@ -74,6 +89,40 @@ def flash_attention_fwd_reference(
     p = torch.exp(logits - lse[..., None])
     o = torch.matmul(p.to(v3.dtype).float(), v3.float())
     return o.to(q3.dtype), lse
+
+
+def flash_attention_fwd_f32_model(
+    q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor, scale: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 forward kernels' order of operations in plain torch (f32 in,
+    f32 out): key tiles of ``F32_FWD_KEYS`` (``F32_FWD_WIDE_KEYS`` at D >
+    64) in order; per tile S = Q K^T summed over ``F32_FWD_CHUNK``-column
+    chunks of D in chunk order (one chunk at D <= 64), the running row max
+    m, P = exp2(S c - m c) with c = scale log2 e, O and l rescaled by
+    exp2(m_old c - m c) before P V and P's row sum are added; at the end
+    O = O / l and lse = (m c + log2 l) ln 2, l == 0 taken as 1. A model for
+    the CPU tests; CUDA tensors take the kernels through
+    ``flash_attention_fwd``."""
+    c = scale * 1.4426950408889634
+    bh, sq, d = q3.shape
+    m = torch.full((bh, sq, 1), -1e30, dtype=torch.float32, device=q3.device)
+    l = torch.zeros((bh, sq, 1), dtype=torch.float32, device=q3.device)
+    acc = torch.zeros((bh, sq, d), dtype=torch.float32, device=q3.device)
+    keys = F32_FWD_KEYS if d <= 64 else F32_FWD_WIDE_KEYS
+    for k0 in range(0, k3.shape[1], keys):
+        kb, vb = k3[:, k0:k0 + keys], v3[:, k0:k0 + keys]
+        s = torch.matmul(q3[..., :F32_FWD_CHUNK], kb[..., :F32_FWD_CHUNK].transpose(-1, -2))
+        for c0 in range(F32_FWD_CHUNK, d, F32_FWD_CHUNK):
+            s = s + torch.matmul(q3[..., c0:c0 + F32_FWD_CHUNK], kb[..., c0:c0 + F32_FWD_CHUNK].transpose(-1, -2))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        ms = m_new * c
+        corr = torch.exp2(m * c - ms)
+        p = torch.exp2(s * c - ms)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + torch.matmul(p, vb)
+        m = m_new
+    safe_l = torch.where(l == 0, torch.ones_like(l), l)
+    return acc / safe_l, ((m * c + torch.log2(safe_l)) * 0.6931471805599453)[..., 0]
 
 
 def flash_attention_bwd_reference(
@@ -170,6 +219,11 @@ _FUNCTIONS = {
     # name: (library, argtypes)
     "flash_attention_fwd": (
         "flash_attention_fwd",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p],
+    ),
+    "flash_attention_fwd_cuda_cores": (
+        "flash_attention_fwd",
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     ),
     "flash_attention_bwd_dq": (
@@ -200,23 +254,32 @@ def _function(name: str):
     return fn
 
 
-def _launch(name: str, q3: torch.Tensor, k3: torch.Tensor, *args) -> None:
+def _launch(name: str, q3: torch.Tensor, k3: torch.Tensor, *args, route: Optional[str] = None) -> None:
     """Call kernel entry ``name`` on the current stream of q's device and
-    count the launch (total and by shape) on its wrapper."""
+    count the launch (total and by shape) on its wrapper. ``route``: the
+    forward's, which its entry reports back (an argument before the stream)
+    and which must be the one it took; then the launch is counted by route
+    too, and the route ends the shape key."""
     bh, sq, d = q3.shape
     sk = k3.shape[1]
+    taken = ctypes.c_int(-1)
+    reported = () if route is None else (ctypes.byref(taken),)
     with torch.cuda.device(q3.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _function(name)(*args, stream)
+        rc = _function(name)(*args, *reported, stream)
     if rc != 0:
         raise RuntimeError(
             f"{name} launch failed: cudaError {rc} "
             f"(q {tuple(q3.shape)}, k {tuple(k3.shape)}, {q3.dtype})"
         )
+    if route is not None and FWD_ROUTES[taken.value] != route:
+        raise RuntimeError(f"{name} took route {FWD_ROUTES[taken.value]}, forward_route gives {route}")
     wrapper = _WRAPPERS[name]
     wrapper.launches += 1
-    shape = (bh, sq, sk, d, str(q3.dtype).replace("torch.", ""))
+    shape = (bh, sq, sk, d, str(q3.dtype).replace("torch.", "")) + (() if route is None else (route,))
     wrapper.launches_by_shape[shape] = wrapper.launches_by_shape.get(shape, 0) + 1
+    if route is not None:
+        wrapper.launches_by_route[route] = wrapper.launches_by_route.get(route, 0) + 1
 
 
 def _on_cuda(name: str, t: torch.Tensor) -> bool:
@@ -235,10 +298,10 @@ def flash_attention_fwd(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """O ``(BH, Sq, D)`` in Q's dtype and lse ``(BH, Sq)`` f32.
 
-    ``scale`` defaults to ``D**-0.5``. Launches the CUDA kernel on the
-    current stream for CUDA tensors (counted in
-    ``flash_attention_fwd.launches``); CPU tensors take
-    ``flash_attention_fwd_reference``.
+    ``scale`` defaults to ``D**-0.5``. Launches the kernel of
+    ``forward_route`` on the current stream for CUDA tensors (counted in
+    ``flash_attention_fwd.launches`` and ``.launches_by_route``); CPU
+    tensors take ``flash_attention_fwd_reference``.
     """
     _check(q3, k3, v3)
     if scale is None:
@@ -250,6 +313,41 @@ def flash_attention_fwd(
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q3.device)
     _launch(
         "flash_attention_fwd", q3, k3,
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        bh, sq, k3.shape[1], d, float(scale), _DTYPE_CODES[q3.dtype], route=forward_route(q3, k3, v3),
+    )
+    return o, lse
+
+
+def forward_route(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor) -> str:
+    """The forward kernel ``flash_attention_fwd`` launches for these CUDA
+    tensors (the C entry makes the same choice and reports it): bf16 with
+    D % 8 == 0 ``"tma_narrow"`` (D <= 64) or ``"tma_wide"`` (tensor cores),
+    f32 with D % 4 == 0 ``"f32"`` (the f32 CUDA-core kernels), each with
+    every base 16-byte aligned; anything else ``"cuda_cores"`` (the older
+    CUDA-core kernel)."""
+    d = q3.shape[-1]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q3, k3, v3))
+    if q3.dtype == torch.bfloat16 and aligned and d % 8 == 0:
+        return "tma_narrow" if d <= 64 else "tma_wide"
+    if q3.dtype == torch.float32 and aligned and d % 4 == 0:
+        return "f32"
+    return "cuda_cores"
+
+
+def flash_attention_fwd_cuda_cores(q3, k3, v3, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """O and lse from the older CUDA-core kernel on any input, whatever its
+    route: the kernel the f32 and bf16 routes replaced, to compare with them
+    on the same inputs. Counted in ``flash_attention_fwd_cuda_cores.launches``.
+    CUDA tensors only."""
+    _check(q3, k3, v3)
+    if not _on_cuda("flash_attention_fwd_cuda_cores", q3):
+        raise ValueError("flash_attention_fwd_cuda_cores launches the CUDA kernel: CUDA tensors only")
+    bh, sq, d = q3.shape
+    o = torch.empty_like(q3)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q3.device)
+    _launch(
+        "flash_attention_fwd_cuda_cores", q3, k3,
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(), lse.data_ptr(),
         bh, sq, k3.shape[1], d, float(scale), _DTYPE_CODES[q3.dtype],
     )
@@ -400,6 +498,7 @@ def flash_attention_bwd(q3, k3, v3, do3, lse, delta, scale: float):
 
 _WRAPPERS = {
     "flash_attention_fwd": flash_attention_fwd,
+    "flash_attention_fwd_cuda_cores": flash_attention_fwd_cuda_cores,
     "flash_attention_bwd_dq": flash_attention_bwd_dq,
     "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
     "flash_attention_bwd_fused": flash_attention_bwd_fused,
@@ -411,6 +510,7 @@ def reset_launch_counts() -> None:
     for wrapper in _WRAPPERS.values():
         wrapper.launches = 0
         wrapper.launches_by_shape = {}
+        wrapper.launches_by_route = {}
 
 
 reset_launch_counts()

@@ -7,7 +7,10 @@ no JAX, so it also runs on a machine with the card and no JAX installed:
 
 (``tests/conftest.py`` imports JAX; ``--noconftest`` leaves it out.)
 
-Flash attention, forward (K1) and backward (K2 dQ and K3 dK/dV, fused into
+Flash attention, forward (K1: the route ``forward_route`` names, whose
+counter alone moves; the f32 kernels repeat bitwise; the older CUDA-core
+kernel on every route's inputs through ``flash_attention_fwd_cuda_cores``)
+and backward (K2 dQ and K3 dK/dV, fused into
 one tensor-core kernel for bf16 with D % 8 == 0 and D <= 64, and into one
 CUDA-core kernel for f32 with D % 4 == 0 and D <= 64): shapes cover the
 kernels behind each entry point, tensor cores for bf16 with D % 8 == 0
@@ -80,10 +83,50 @@ def test_cuda_kernel_matches_plain_version(bh, sq, sk, d, dtype):
     o, lse = fa.flash_attention_fwd(q, k, v)
     torch.cuda.synchronize()
     assert fa.flash_attention_fwd.launches == 1
+    # only the counter of the inputs' route moved: f32 always takes the f32
+    # kernels here (D % 4 == 0, fresh aligned tensors), bf16 the tensor
+    # cores unless D % 8 != 0
+    route = fa.forward_route(q, k, v)
+    assert route == ("f32" if dtype == "float32" else "cuda_cores" if d % 8 else
+                     "tma_narrow" if d <= 64 else "tma_wide")
+    assert fa.flash_attention_fwd.launches_by_route == {route: 1}
     o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, d**-0.5)
     tol = TOL[dtype]
     torch.testing.assert_close(o.float(), o_ref.float(), atol=tol["o"], rtol=0)
     torch.testing.assert_close(lse, lse_ref, atol=tol["lse"], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,sk,d", [(64, 4096, 4096, 40), (3, 4000, 3900, 40), (2, 1000, 4100, 512),
+                                        (1, 200, 333, 512), (2, 33, 5, 24)])
+def test_f32_forward_repeats(bh, sq, sk, d):
+    """The same inputs twice through the f32 forward kernels: O and lse
+    bitwise equal (every sum runs in one fixed order)."""
+    _need_cuda()
+    q, k, v, _ = _qkv(bh, sq, sk, d, "float32", seed=12)
+    assert fa.forward_route(q, k, v) == "f32"
+    first = fa.flash_attention_fwd(q, k, v)
+    second = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bh,sq,sk,d", [(4, 300, 300, 40), (1, 200, 333, 512), (3, 100, 70, 36)])
+def test_cuda_cores_forward_matches_plain_version(bh, sq, sk, d, dtype):
+    """The older CUDA-core forward, which the routes above replaced where
+    they apply, on inputs of every route (``flash_attention_fwd_cuda_cores``
+    launches it whatever ``forward_route`` says)."""
+    _need_cuda()
+    q, k, v, _ = _qkv(bh, sq, sk, d, dtype, seed=13)
+    fa.reset_launch_counts()
+    o, lse = fa.flash_attention_fwd_cuda_cores(q, k, v, d**-0.5)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd_cuda_cores.launches == 1 and fa.flash_attention_fwd.launches == 0
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, d**-0.5)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=TOL[dtype]["o"], rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=TOL[dtype]["lse"], rtol=0)
 
 
 @pytest.mark.cuda

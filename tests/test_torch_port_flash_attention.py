@@ -8,6 +8,13 @@ TPU kernel's numerics. lse layout: the TPU kernel returns ``(B*H, Sq_pad,
 1)`` with Sq padded to its block; the port returns ``(B*H, Sq)``, which is
 ``lse_jax[:, :Sq, 0]``.
 
+The f32 CUDA kernels' own order of operations (64- or 128-key tiles, S
+summed over 64-column chunks of D, base-2 online softmax) has its
+plain-torch model in the module, ``flash_attention_fwd_f32_model``, held
+here against the Pallas kernel at 1e-5; ``forward_route``, the kernel a CUDA
+tensor takes, reads only dtype, head dim and alignment and is checked on
+CPU tensors.
+
 Tolerances: f32, 2e-5 on O and lse (the two sides sum the same f32 products
 in other orders; the JAX tests use 2e-5 between the kernel and its jnp
 reference). bf16: the TPU kernel casts the unnormalised P to bf16 and
@@ -81,6 +88,57 @@ def test_plain_version_matches_jax_kernel(bh, sq, sk, d, scale, dtype):
     np.testing.assert_allclose(lse_t.numpy(), _f32(lse_j)[:, :sq, 0], atol=tol["lse"], rtol=0)
 
 
+@pytest.mark.parametrize(
+    "bh,sq,sk,d",
+    [
+        pytest.param(2, 200, 300, 40, id="d40"),
+        pytest.param(2, 130, 190, 36, id="d36-padded-to-40"),
+        pytest.param(3, 129, 65, 64, id="d64-one-key-past-a-tile"),
+        pytest.param(1, 96, 160, 512, id="d512"),
+        pytest.param(2, 70, 100, 160, id="d160-ragged-chunk"),
+    ],
+)
+def test_f32_kernel_model_matches_jax_kernel(bh, sq, sk, d):
+    """``flash_attention_fwd_f32_model``, the f32 kernels' order of
+    operations (64-key tiles, S summed over 64-column chunks of D, base-2
+    online softmax with the scale folded in), against the Pallas kernel in
+    interpret mode at query and key counts off both sides' tiles; f32, 1e-5
+    on O and lse."""
+    q, k, v = _qkv(bh, sq, sk, d, seed=6)
+    s = d**-0.5
+    o_j, lse_j = jax_fa._flash_fwd_impl(_jax(q, "float32"), _jax(k, "float32"), _jax(v, "float32"), s, 128, 128, True)
+    o_t, lse_t = fa.flash_attention_fwd_f32_model(torch.tensor(q), torch.tensor(k), torch.tensor(v), s)
+    assert o_t.dtype == lse_t.dtype == torch.float32
+    assert o_t.shape == (bh, sq, d) and lse_t.shape == (bh, sq)
+    np.testing.assert_allclose(o_t.numpy(), _f32(o_j), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(lse_t.numpy(), _f32(lse_j)[:, :sq, 0], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("d", [8, 36, 40, 64, 128, 512, 30])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_routes_by_dtype_and_head_dim(dtype, d, aligned):
+    """``forward_route``, the choice ``flash_attention_fwd`` (and its C
+    entry) makes for CUDA tensors: bf16 with D % 8 == 0 a tensor-core kernel,
+    narrow up to D = 64 and wide above; f32 with D % 4 == 0 the f32 kernels;
+    the rest (bf16 D = 36 or 30, f32 D = 30, any unaligned base) the older
+    CUDA-core kernel. It reads dtype, head dim and alignment only, so it is
+    checked on CPU tensors."""
+    dt = getattr(torch, dtype)
+    if aligned:
+        x = torch.zeros(2, 16, d, dtype=dt)
+    else:  # a view one element in
+        x = torch.zeros(2 * 16 * d + 1, dtype=dt)[1:].view(2, 16, d)
+    if not aligned:
+        route = "cuda_cores"
+    elif dtype == "bfloat16":
+        route = "cuda_cores" if d % 8 else ("tma_narrow" if d <= 64 else "tma_wide")
+    else:
+        route = "cuda_cores" if d % 4 else "f32"
+    assert fa.forward_route(x, x, x) == route
+    assert route in fa.FWD_ROUTES
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_bshd_matches_jax(dtype):
     """The public ``(B, S, H, D)`` entry: head folding and unfolding."""
@@ -129,6 +187,15 @@ def test_cpu_tensors_never_launch_the_kernel(backend):
     assert fa.flash_attention_fwd.launches == 0
     assert fa.flash_attention_fwd.launches_by_shape == {}
     torch.testing.assert_close(got, dot_product_attention(q, k, v), atol=2e-6, rtol=0)
+
+
+def test_cuda_cores_wrapper_rejects_cpu_tensors():
+    """``flash_attention_fwd_cuda_cores`` launches the older kernel: a CPU
+    tensor is an error there (``flash_attention_fwd`` takes the plain
+    version for it)."""
+    x = torch.zeros(1, 8, 40)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fa.flash_attention_fwd_cuda_cores(x, x, x, 0.1)
 
 
 def test_unknown_backend_raises():
