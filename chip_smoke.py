@@ -44,11 +44,21 @@ Phases, one JSON line each:
    call's time, each kernel's (torch.profiler), host ms per call, the fused
    kernels' dQ reduce-add or partial bytes, and two runs on the same inputs
    (dK and dV must be bitwise equal, and dQ too except on the bf16 route,
-   whose dQ adds land in any order); the 8-bit Lion kernel
-   over every SD1.5 leaf above the bucket limit (single-leaf entry, K4, one
-   launch each) and over the UNet's and CLIP's small-leaf buckets
-   (multi-leaf entry, K5), bs 16, bf16 grads, exact and fast companders,
-   plus a bs-64 leaf set; the functional entry ``fused_lion8bit_update``
+   whose dQ adds land in any order); the 8-bit Lion update of each SD1.5
+   model (``lion_model``: every quantized leaf at its real torch shape and
+   permutation, bs 16, bf16 grads with both companders and f32 grads): the
+   leaf-table entry ``lion8bit_update_leaves_`` (one launch, grads and
+   signs in torch layout) against its plain version (signs and scales
+   bitwise, codes at most one apart) and against the old route on the same
+   inputs (permute copies, then the single-leaf entry per leaf over the
+   bucket limit and the multi-leaf entry over the rest; codes and scales
+   bitwise), with each route's device and host ms, the old route's copies
+   and kernels apart, the bound and GB/s, and the aims met or missed; the
+   earlier entries on grads in JAX order over every SD1.5 leaf above the
+   bucket limit (single-leaf entry, one launch each) and over the UNet's
+   and CLIP's small-leaf buckets (multi-leaf entry), bs 16, bf16 grads,
+   exact and fast companders, plus a bs-64 leaf set, each counted on its
+   own case; the functional entry ``fused_lion8bit_update``
    over the largest SD1.5 UNet leaf: narrow (K6) at bs 16 and 128 (the
    cooperative variant) in bf16 and at bs 16 in f32, wide (K7) at bs 16 and
    4 in bf16. That entry is the path that runs K6 and K7 (the JAX package
@@ -88,15 +98,15 @@ Phases, one JSON line each:
    2 warm-up steps, then 5 timed steps with the launch counts zeroed just
    before and read just after (K1 5 + 1 on the narrow and wide tensor-core
    kernels, the fused bf16 backward 5, the
-   f32 one and the CUDA-core K2 and K3 none, the Lion
-   single-leaf entry once per leaf over the bucket limit, the multi-leaf
-   entry twice, per step). Then one step under torch.profiler (``profile``
-   line).
+   f32 one and the CUDA-core K2 and K3 none, Lion's leaf-table entry
+   twice (one launch per model) and its single- and multi-leaf entries
+   never, per step, and no grad copied before Lion). Then one step under
+   torch.profiler (``profile`` line).
 8. ``train_f32``: the same step with ``mixed_precision: "float32"`` (TF32
    off), the fidelity configuration: 2 warm-up steps, then 3 timed (K1 5 +
    1 on the f32 route, none on the older CUDA-core forward; the fused f32
    backward 5, the bf16 one and the CUDA-core pair
-   none, Lion's entries as above), step p50, images/s, peak memory, then
+   none, Lion as above with f32 grads), step p50, images/s, peak memory, then
    one step under torch.profiler (``profile`` line: the backward's device
    time, the idle share). f32 dQ repeats bitwise; bf16 dQ does not.
 9. ``trainer``: the port's trainer through ``trainer.main``, the body of
@@ -123,6 +133,7 @@ phase lines and the ``kernels`` record also go, whole, to
 
 import argparse
 import json
+import math
 import os
 import re
 import statistics
@@ -525,9 +536,10 @@ def phase_kernels(state):
     state["bwd_cases"] = flash_backward_cases()
     state["lion_cases"] = lion_cases()
     state["lion_fused_cases"] = lion_fused_cases()
+    state["lion_model_cases"] = lion_model_cases()
     bad = [
         r for r in results + state["bwd_cases"] + state["lion_cases"] + state["lion_fused_cases"]
-        if not r["ok"]
+        + state["lion_model_cases"] if not r["ok"]
     ]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
@@ -705,18 +717,12 @@ def device_kernels(prof):
 
 
 def sd15_lion_leaves():
-    """Quantized SD1.5 leaves under the example config's masks: JAX-layout
-    sizes of the UNet's and CLIP's, split at the bucket limit."""
-    from stable_diffusion_training_tpu_torch.models import CLIPTextModel, UNet2DConditionModel, configs
-    from stable_diffusion_training_tpu_torch.optim import create_mask
-
+    """Quantized SD1.5 leaves under the example config's masks: sizes of the
+    UNet's and CLIP's, split at the bucket limit (the earlier entries'
+    grouping)."""
     leaves = {}
-    for model_name, model in (
-        ("unet", UNet2DConditionModel(**configs.SD15_UNET, device="meta")),
-        ("text_encoder", CLIPTextModel(**configs.CLIP_VIT_L, device="meta")),
-    ):
-        mask = create_mask(model, EXAMPLE_EXCLUDED_FROM_QUANTIZATION)
-        sizes = [p.numel() for n, p in model.named_parameters() if mask[n]]
+    for model_name, quantized in sd15_quantized_leaves().items():
+        sizes = [math.prod(shape) for _, shape, _ in quantized]
         big = [n for n in sizes if n // LION_BS > BUCKET_MAX_NB]
         small = [n for n in sizes if n // LION_BS <= BUCKET_MAX_NB]
         leaves[model_name] = dict(
@@ -763,8 +769,11 @@ def lion_cases():
             ]
         else:
             run = lambda cs=codes, ss=scales: lk.lion8bit_update_multi_(grads, cs, ss, compander=compander)
+        lk.reset_launch_counts()
         upds = run()
         torch.cuda.synchronize()
+        wrapper = lk.lion8bit_update_ if entry == "single" else lk.lion8bit_update_multi_
+        path_launches = wrapper.launches
         updates_equal = all(bool(torch.equal(u, e[0])) for u, e in zip(upds, expected))
         scales_equal = all(bool(torch.equal(s, e[2])) for s, e in zip(scales, expected))
         max_code_diff, codes_off = 0, 0
@@ -784,6 +793,7 @@ def lion_cases():
         nbytes = n * (2 + 2 + 1 + 1) + (n // bs) * 8
         row = dict(
             case=name, entry=entry, compander=compander, bs=bs, leaves=len(sizes), elements=n,
+            path_launches=path_launches,
             launch_shapes=sorted({(m // bs, bs) for m in sizes}) if entry == "single"
             else [(len(sizes), n // bs, bs)],
             updates_equal=updates_equal, scales_equal=scales_equal, max_code_diff=max_code_diff,
@@ -858,6 +868,154 @@ def lion_fused_cases():
         emit("kernels_lion_fused", **row)
         del grad, codes, scales, c, s, work_codes, work_scales
         torch.cuda.empty_cache()
+    return rows
+
+
+def sd15_quantized_leaves():
+    """{model: [(name, torch shape, permutation to the JAX layout)]} of the
+    SD1.5 leaves that the example config quantizes."""
+    from stable_diffusion_training_tpu_torch.models import CLIPTextModel, UNet2DConditionModel, configs, hf_io
+    from stable_diffusion_training_tpu_torch.optim import create_mask
+
+    out = {}
+    for model_name, model in (
+        ("unet", UNet2DConditionModel(**configs.SD15_UNET, device="meta")),
+        ("text_encoder", CLIPTextModel(**configs.CLIP_VIT_L, device="meta")),
+    ):
+        mask = create_mask(model, EXAMPLE_EXCLUDED_FROM_QUANTIZATION)
+        paths = hf_io.jax_param_paths(model)
+        out[model_name] = [(n, tuple(p.shape), paths[n][1]) for n, p in model.named_parameters() if mask[n]]
+    return out
+
+
+def lion_model_inputs(leaves, dtype, bs, seed):
+    """Torch-layout grads ~N(0, 1e-3) in ``dtype`` and momentum (codes and
+    scales in JAX order, from ~N(0, 1e-4)) for each of ``leaves``."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    grads, codes, scales = [], [], []
+    for _, shape, _ in leaves:
+        grads.append((torch.randn(shape, generator=gen, device="cuda") * 1e-3).to(dtype))
+        c, s = lk.block_quantize(torch.randn(shape, generator=gen, device="cuda").reshape(-1) * 1e-4, bs)
+        codes.append(c)
+        scales.append(s)
+    return grads, codes, scales
+
+
+def old_lion_route(leaves, grads, codes, scales, compander, copies=None):
+    """The train step's Lion route before the leaf table: each grad permuted
+    into JAX order (a copy), then the single-leaf entry for every leaf above
+    the bucket limit and the multi-leaf entry over the rest. ``copies``, if
+    given, replaces the permuted grads (the kernels alone)."""
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+
+    jax_grads = copies if copies is not None else permute_grads(leaves, grads)
+    bucket = [i for i, c in enumerate(codes) if c.shape[0] <= BUCKET_MAX_NB]
+    for i, c in enumerate(codes):
+        if c.shape[0] > BUCKET_MAX_NB:
+            lk.lion8bit_update_(jax_grads[i], c, scales[i], compander=compander)
+    lk.lion8bit_update_multi_([jax_grads[i] for i in bucket], [codes[i] for i in bucket],
+                              [scales[i] for i in bucket], compander=compander)
+
+
+def permute_grads(leaves, grads):
+    return [g.permute(*perm).contiguous() if perm else g for (_, _, perm), g in zip(leaves, grads)]
+
+
+def lion_model_cases():
+    """The whole 8-bit Lion update of each SD1.5 model at its real leaf
+    shapes and permutations, bs 16: the new route (``lion8bit_update_leaves_``,
+    one launch, grads in torch layout) against its plain version
+    (``lion8bit_update_leaves_reference``) and against the old route (permute
+    copies, the single-leaf entry per leaf over the bucket limit, the
+    multi-leaf entry over the rest) on the same inputs: update signs and
+    scales bitwise equal to the plain version, codes at most one apart
+    (counted), codes bitwise equal to the old route's (both are powf's).
+    Times: each route's device ms and host ms a call, the old route's copies
+    and kernels apart, the bound (bytes of the fused update) and GB/s."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+
+    rows = []
+    for model_name, leaves in sd15_quantized_leaves().items():
+        for dtype, compander in ((torch.bfloat16, "exact"), (torch.bfloat16, "fast"), (torch.float32, "exact")):
+            name_dt = str(dtype).replace("torch.", "")
+            grads, codes, scales = lion_model_inputs(leaves, dtype, LION_BS, seed=5)
+            perms = [perm for _, _, perm in leaves]
+            shapes = [shape for _, shape, _ in leaves]
+            e_upd, e_codes, e_scales = lk.lion8bit_update_leaves_reference(grads, codes, scales, perms,
+                                                                          compander=compander)
+            new_c, new_s = [c.clone() for c in codes], [s.clone() for s in scales]
+            old_c, old_s = [c.clone() for c in codes], [s.clone() for s in scales]
+            table = lk.LeafTable(new_c, new_s, shapes, perms)
+            lk.reset_launch_counts()
+            upds = lk.lion8bit_update_leaves_(grads, table, compander=compander)
+            torch.cuda.synchronize()
+            launches = lk.lion8bit_update_leaves_.launches
+            old_route = lambda: old_lion_route(leaves, grads, old_c, old_s, compander)
+            old_route()
+            torch.cuda.synchronize()
+            updates_equal = all(bool(torch.equal(u, e)) for u, e in zip(upds, e_upd))
+            contiguous = all(u.is_contiguous() and u.shape == g.shape for u, g in zip(upds, grads))
+            scales_equal = all(bool(torch.equal(s, e)) for s, e in zip(new_s, e_scales))
+            max_code_diff = max(int((c.int() - e.int()).abs().max()) for c, e in zip(new_c, e_codes))
+            codes_off = sum(int((c != e).sum()) for c, e in zip(new_c, e_codes))
+            codes_differ_from_old = sum(int((c != o).sum()) for c, o in zip(new_c, old_c))
+            scales_differ_from_old = sum(int((s != o).sum()) for s, o in zip(new_s, old_s))
+            del e_upd, e_codes, e_scales, upds
+            n = sum(g.numel() for g in grads)
+            nb = n // LION_BS
+            host_new, host_old = [], []
+            new_ms = cuda_ms(lambda: lk.lion8bit_update_leaves_(grads, table, compander=compander), 10, host=host_new)
+            old_ms = cuda_ms(old_route, 5, host=host_old)
+            copies_ms = cuda_ms(lambda: permute_grads(leaves, grads), 5)
+            jax_grads = permute_grads(leaves, grads)
+            old_kernels_ms = cuda_ms(lambda: old_lion_route(leaves, grads, old_c, old_s, compander, jax_grads), 5)
+            del jax_grads
+            plain_ms = cuda_ms(lambda: lk.lion8bit_update_leaves_reference(grads, codes, scales, perms,
+                                                                           compander=compander), 1, warmup=1)
+            # grad in, sign out (grad's dtype), int8 code in and out, f32 scale in and out per block
+            nbytes = n * (2 * grads[0].element_size() + 2) + nb * 8
+            bound_ms = nbytes / PEAK_BYTES * 1e3
+            ok = (updates_equal and contiguous and scales_equal and max_code_diff <= 1 and launches == 1
+                  and codes_differ_from_old == 0 and scales_differ_from_old == 0)
+            row = dict(
+                case=f"{model_name}_{name_dt}_{compander}", model=model_name, dtype=name_dt, compander=compander,
+                bs=LION_BS, leaves=len(leaves), transposed_leaves=sum(perm is not None for perm in perms),
+                elements=n, launches_per_call=launches, table_tiles=table.n_tiles,
+                updates_equal=updates_equal, updates_contiguous_torch_layout=contiguous, scales_equal=scales_equal,
+                max_code_diff=max_code_diff, codes_off_by_one=codes_off,
+                codes_differ_from_old_route=codes_differ_from_old,
+                scales_differ_from_old_route=scales_differ_from_old, ok=ok,
+                kernel_ms=new_ms, host_ms_per_call=host_new[0], plain_ms=plain_ms,
+                old_route_ms=old_ms, old_route_host_ms_per_call=host_old[0], old_permute_copies_ms=copies_ms,
+                old_kernels_ms=old_kernels_ms, bound_ms=bound_ms, bound_by="bytes",
+                share_of_bound=bound_ms / new_ms, gbytes_per_s=nbytes / new_ms / 1e6,
+                launch_shape=[len(leaves), n, LION_BS, name_dt],
+            )
+            rows.append(row)
+            emit("kernels_lion_model", **row)
+            del grads, codes, scales, new_c, new_s, old_c, old_s, table
+            torch.cuda.empty_cache()
+    both = {}
+    for r in rows:
+        key = (r["dtype"], r["compander"])
+        acc = both.setdefault(key, dict(kernel_ms=0.0, bound_ms=0.0, old_route_ms=0.0, old_permute_copies_ms=0.0,
+                                        host_ms=[]))
+        for k in ("kernel_ms", "bound_ms", "old_route_ms", "old_permute_copies_ms"):
+            acc[k] += r[k]
+        acc["host_ms"].append(r["host_ms_per_call"])
+    for (dt, compander), acc in both.items():
+        summary = dict(case=f"both_models_{dt}_{compander}", dtype=dt, compander=compander, **acc,
+                       share_of_bound=acc["bound_ms"] / acc["kernel_ms"])
+        if (dt, compander) == ("bfloat16", "exact"):  # the aims of the redesign
+            summary["aim_device_within_2x_bound"] = acc["kernel_ms"] <= 2 * acc["bound_ms"]
+            summary["aim_host_ms_per_model_call_le_0_5"] = max(acc["host_ms"]) <= 0.5
+        emit("kernels_lion_model_both", **summary)
     return rows
 
 
@@ -1153,6 +1311,7 @@ def phase_train(state, warmup=2, steps=5, seed=0, dtype="bfloat16"):
     from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
     from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
     from stable_diffusion_training_tpu_torch.optim import QuantizedMomentum
+    from stable_diffusion_training_tpu_torch.optim.lion8bit import GRAD_COPIES
     from stable_diffusion_training_tpu_torch.train import on_device_model_training_state, train_step
 
     phase = "train" if dtype == "bfloat16" else "train_f32"
@@ -1196,6 +1355,7 @@ def phase_train(state, warmup=2, steps=5, seed=0, dtype="bfloat16"):
         step_ms.append(ms)
     fa.reset_launch_counts()
     lk.reset_launch_counts()
+    GRAD_COPIES["count"] = 0
     timed = []
     for _ in range(steps):
         ms, loss = host_ms(step)
@@ -1209,18 +1369,19 @@ def phase_train(state, warmup=2, steps=5, seed=0, dtype="bfloat16"):
         flash_bwd_f32=dict(fa.flash_attention_bwd_f32_fused.launches_by_shape),
         flash_bwd_dq=dict(fa.flash_attention_bwd_dq.launches_by_shape),
         flash_bwd_dkv=dict(fa.flash_attention_bwd_dkv.launches_by_shape),
+        lion_leaves=dict(lk.lion8bit_update_leaves_.launches_by_shape),
         lion_single=dict(lk.lion8bit_update_.launches_by_shape),
         lion_multi=dict(lk.lion8bit_update_multi_.launches_by_shape),
     )
+    grad_copies = GRAD_COPIES["count"]
     peak = torch.cuda.max_memory_allocated()
-    leaves = sd15_lion_leaves()
     # K1 5 + 1 (the VAE encode's mid-block) a step; the backward on its
-    # dtype's fused kernel, the CUDA-core pair never
+    # dtype's fused kernel, the CUDA-core pair never; Lion one launch per
+    # model over its leaf table, the earlier entries never
     bwd = "flash_bwd_fused" if dtype == "bfloat16" else "flash_bwd_f32"
     expected = dict(
         flash_fwd=6 * steps, flash_bwd_fused=0, flash_bwd_f32=0, flash_bwd_dq=0, flash_bwd_dkv=0,
-        lion_single=(leaves["unet"]["single"] + leaves["text_encoder"]["single"]) * steps,
-        lion_multi=2 * steps,
+        lion_leaves=2 * steps, lion_single=0, lion_multi=0,
     )
     expected[bwd] = 5 * steps
     # K1's routes: the UNet's 5 and the VAE encode's 1 a step, never the
@@ -1242,7 +1403,7 @@ def phase_train(state, warmup=2, steps=5, seed=0, dtype="bfloat16"):
         warmup_ms=step_ms, step_ms=timed, p50_ms=p50, images_per_s=TRAIN_BATCH / p50 * 1e3,
         losses=losses, finite=finite, max_memory_allocated=peak,
         momentum_codes_changed_after_step_1=codes_changed, momentum_codes=codes_total,
-        launches=launches, expected_launches=expected,
+        launches=launches, expected_launches=expected, grad_copies_before_lion=grad_copies,
         flash_fwd_launches_by_route=fwd_routes, expected_flash_fwd_routes=expected_routes,
         launches_per_step={k: v / steps for k, v in launches.items()},
         launches_by_shape={
@@ -1254,12 +1415,13 @@ def phase_train(state, warmup=2, steps=5, seed=0, dtype="bfloat16"):
     emit(phase, **row)
     state[phase] = row
     state[f"{phase}_by_shape"] = by_shape
-    if not (finite and codes_changed > 0 and launches == expected and fwd_routes == expected_routes):
+    if not (finite and codes_changed > 0 and launches == expected and fwd_routes == expected_routes
+            and grad_copies == 0):
         raise AssertionError(f"{phase} step failed its checks")
     profile_step(
         step, f"one SD1.5 train step ({dtype}, batch 8, 512x512)",
         {"flash_fwd_ms": ("flash_fwd",), "flash_bwd_ms": ("flash_bwd", "bwd_dq_kernel", "bwd_dkv_kernel"),
-         "lion_ms": ("lion_single", "lion_multi")}, top=20,
+         "lion_ms": ("lion_leaves", "lion_single", "lion_multi")}, top=20,
     )
 
 
@@ -1269,12 +1431,15 @@ def train_launches(fa, lk):
         flash_fwd=fa.flash_attention_fwd.launches, flash_bwd_fused=fa.flash_attention_bwd_fused.launches,
         flash_bwd_f32=fa.flash_attention_bwd_f32_fused.launches,
         flash_bwd_dq=fa.flash_attention_bwd_dq.launches, flash_bwd_dkv=fa.flash_attention_bwd_dkv.launches,
-        lion_single=lk.lion8bit_update_.launches, lion_multi=lk.lion8bit_update_multi_.launches,
+        lion_leaves=lk.lion8bit_update_leaves_.launches, lion_single=lk.lion8bit_update_.launches,
+        lion_multi=lk.lion8bit_update_multi_.launches,
     )
 
 
 TRAINER_STEPS = 3  # steps per chunk (the example config's chunks run to the loader's end)
-OFF_BF16_STEP = ("flash_bwd_f32", "flash_bwd_dq", "flash_bwd_dkv")  # kernels the bf16 step never launches
+# kernels the bf16 step never launches: the f32 and CUDA-core backwards, and
+# Lion's earlier entries (the leaf table takes every SD1.5 leaf)
+OFF_BF16_STEP = ("flash_bwd_f32", "flash_bwd_dq", "flash_bwd_dkv", "lion_single", "lion_multi")
 
 
 def _tree_bytes(path):
@@ -1516,18 +1681,35 @@ def kernels_line(state):
                     max_abs_err=max(row["max_abs_err"][g] for g in grads), ms=own["ms"],
                     bound_ms=own["bound_ms"], bound_by=own["bound_by"],
                 ))
+    # the leaf-table entry: the train step's Lion, one launch per model a step
+    train_paths = {"bfloat16": (train, "train"), "float32": (train_f32, "train_f32")}
+    for row in state.get("lion_model_cases", []):
+        if row["compander"] != "exact":
+            continue  # the train step's setting
+        counts, path = train_paths[row["dtype"]]
+        entries.append(dict(
+            name=(f"lion8bit_update_leaves[{row['model']} {row['leaves']} leaves {row['elements']} elements "
+                  f"bs{row['bs']} {SHORT[row['dtype']]} exact, grads in torch layout, one launch; path: {path}]"),
+            route="cuda", source=f"{CSRC}/lion8bit_update.cu",
+            replaces=f"{JAX_OPS}/lion_kernel.py:56,274",
+            launches=counts.get("lion_leaves", {}).get(tuple(row["launch_shape"]), 0),
+            max_abs_err=float(row["max_code_diff"]), ms=row["kernel_ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=None,
+        ))
     for row in state.get("lion_cases", []):
         if row["compander"] != "exact" or row["bs"] != LION_BS:
             continue  # the train step's setting
+        # the earlier entries over grads in JAX order: no model path takes
+        # them since the leaf table; their path is their kernels-phase case
         single = row["entry"] == "single"
-        counts = train.get("lion_single" if single else "lion_multi", {})
         entries.append(dict(
             name=(f"lion8bit_update{'' if single else '_multi'}[{row['case']} "
                   f"{row['leaves']} leaves {row['elements']} elements bs{row['bs']} bf16 exact"
-                  f"{', one launch per leaf' if single else ''}]"),
+                  f"{', one launch per leaf' if single else ''}; path: its kernels-phase case]"),
             route="cuda", source=f"{CSRC}/lion8bit_update.cu",
             replaces=f"{JAX_OPS}/lion_kernel.py:{56 if single else 274}",
-            launches=sum(counts.get((*shape, "bfloat16"), 0) for shape in map(tuple, row["launch_shapes"])),
+            launches=row["path_launches"],
             max_abs_err=float(row["max_code_diff"]), ms=row["kernel_ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=None,

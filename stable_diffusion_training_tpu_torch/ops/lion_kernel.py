@@ -1,31 +1,39 @@
-"""Fused 8-bit Lion update: the CUDA kernel's wrappers and its plain version.
+"""Fused 8-bit Lion update: the CUDA kernels' wrappers and their plain versions.
 
 Port of ``stable_diffusion_training_tpu/ops/lion_kernel.py``. The TPU has
 four layouts of the same update (dense, transposed, narrow, wide), each
 shaped by its lane tiling; the card needs none of them. The port keeps one
-layout, the reference order of ``lion_quant.py``: codes ``(n_blocks, bs)``
-int8 and scales ``(n_blocks,)`` f32 per leaf, over the JAX leaf's flat
-element order. One kernel, ``csrc/lion8bit_update.cu``, computes the update
-(see its header for the math and the numerics it keeps). It has three
-entries:
+layout of the momentum, the reference order of ``lion_quant.py``: codes
+``(n_blocks, bs)`` int8 and scales ``(n_blocks,)`` f32 per leaf, over the
+JAX leaf's flat element order. ``csrc/lion8bit_update.cu`` computes the
+update (see its header for the math and the numerics it keeps) with two
+kernels behind four entries:
 
-- ``lion8bit_update_`` (the role of the TPU's ``fused_lion8bit_update_dense``,
-  K4): one leaf per launch, for every leaf above the bucket limit;
-- ``lion8bit_update_multi_`` (the role of
-  ``fused_lion8bit_update_transposed_packed``, K5): many small leaves in one
-  launch through a table of pointers;
+- ``lion8bit_update_leaves_`` (the role of the TPU's
+  ``fused_lion8bit_update_dense``, K4, and
+  ``fused_lion8bit_update_transposed_packed``, K5, on the train step):
+  every leaf of a ``LeafTable`` in one launch, grads and update signs in
+  torch layout; the table is built once per optimizer state;
+- ``lion8bit_update_`` (K4's earlier entry): one leaf per launch, the grad
+  in JAX order; the train step sends it only a leaf the table cannot take;
+- ``lion8bit_update_multi_`` (K5's earlier entry): many leaves in JAX order
+  in one launch through a table of pointers built per call;
 - ``fused_lion8bit_update`` (the TPU's public single-leaf entry, K6 with
   ``layout="narrow"`` and K7 with ``layout="wide"``): functional, with the
   JAX signature, scales ``(n_blocks, 1)``; both layouts hold the same
   ``(n_blocks, bs)`` bytes, so both launch the one kernel.
 
-The first two update codes and scales in place and return the update sign
-in the grad's dtype. CPU tensors take ``lion8bit_update_reference``; CUDA
+The in-place entries update codes and scales and return the update sign in
+the grad's dtype. CPU tensors take the plain versions
+(``lion8bit_update_reference``, ``lion8bit_update_leaves_reference``); CUDA
 tensors take the kernel or raise.
 """
 
+import array
 import ctypes
-from typing import List, Sequence, Tuple
+import math
+import operator
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -300,17 +308,294 @@ def fused_lion8bit_update(
     return upd.reshape(grad.shape), new_codes, new_scales.reshape(nb, 1).to(mu_scale_dtype)
 
 
+# --- every leaf of a model in one launch, in torch layout -------------------
+
+# lion_leaves_kernel's tile at each block size: (JAX blocks per torch column,
+# torch columns); csrc/lion8bit_update.cu LeafTile, read back from the
+# library (lion8bit_leaf_tile) before the first launch
+LEAF_TILE = {1: (4, 64), 2: (4, 64), 4: (4, 64), 8: (4, 64), 16: (4, 64), 32: (2, 64), 64: (1, 64),
+             128: (1, 32)}
+MAX_LEAVES_PER_LAUNCH = 1024  # the kernel's by-value grad pointers (kMaxLeaves)
+# the torch-to-JAX permutations whose JAX block is bs output channels at one
+# torch column: Dense (O, I) -> (I, O), Conv (O, I, kh, kw) -> (kh, kw, I, O)
+_TRANSPOSED = {2: (1, 0), 4: (2, 3, 1, 0)}
+
+
+def _leaf_kind(shape: Sequence[int], perm: Optional[Sequence[int]], bs: int) -> Optional[int]:
+    """0: a transposed leaf the table takes, 1: a leaf whose torch and JAX
+    orders agree, None: neither (the leaf keeps the single-leaf entry)."""
+    if not perm or tuple(perm) == tuple(range(len(shape))):
+        return 1
+    if _TRANSPOSED.get(len(shape)) == tuple(perm) and shape[0] % bs == 0:
+        return 0
+    return None
+
+
+def table_takes(shape: Sequence[int], perm: Optional[Sequence[int]], bs: int) -> bool:
+    """Whether ``LeafTable`` takes a leaf of torch ``shape`` whose JAX layout
+    is ``permute(perm)``: an identity, or a Dense or Conv kernel whose
+    output channels (torch axis 0) ``bs`` divides."""
+    return _leaf_kind(shape, perm, bs) is not None
+
+
+def _leaf_geometry(shape, perm, bs):
+    """(kind, rows, cols, in, kk, row_tiles, tiles) of one leaf, as the
+    kernel walks it (``LeafRecord``)."""
+    groups, cols_per_tile = LEAF_TILE[bs]
+    numel = math.prod(shape)
+    kind = _leaf_kind(shape, perm, bs)
+    if kind is None:
+        raise ValueError(f"the leaf table does not take shape {tuple(shape)} with permutation {perm} at bs {bs}")
+    if kind == 1:
+        n_blocks = numel // bs
+        return 1, n_blocks, 1, 1, 1, 1, -(-n_blocks // (groups * cols_per_tile))
+    out_ch, cols = shape[0], numel // shape[0]
+    kk = cols // shape[1]
+    row_tiles = -(-(out_ch // bs) // groups)
+    return 0, out_ch, cols, shape[1], kk, row_tiles, row_tiles * -(-cols // cols_per_tile)
+
+
+def leaf_tile_addresses(shape: Sequence[int], perm: Optional[Sequence[int]], bs: int):
+    """The kernel's addressing of one leaf in plain torch: for each tile and
+    each thread, the torch offsets of its ``bs`` elements and its JAX block
+    (``-1`` for a thread past the leaf's edge). ``p.reshape(-1)[offsets[t,
+    j]]`` is block ``blocks[t, j]`` of ``p.permute(perm).reshape(-1, bs)``.
+    Returns ``(offsets (tiles, threads, bs), blocks (tiles, threads))``."""
+    kind, rows, cols, in_ch, kk, row_tiles, tiles = _leaf_geometry(shape, perm, bs)
+    groups, cols_per_tile = LEAF_TILE[bs]
+    t = torch.arange(tiles)[:, None]
+    thread = torch.arange(groups * cols_per_tile)[None, :]
+    gl, cl = thread // cols_per_tile, thread % cols_per_tile
+    lane = torch.arange(bs)
+    if kind == 0:
+        n_og = rows // bs
+        og = (t % row_tiles) * groups + gl
+        c = (t // row_tiles) * cols_per_tile + cl
+        valid = (og < n_og) & (c < cols)
+        blocks = ((c % kk) * in_ch + c // kk) * n_og + og
+        offsets = (og[..., None] * bs + lane) * cols + c[..., None]
+    else:
+        blocks = t * (groups * cols_per_tile) + gl * cols_per_tile + cl
+        valid = blocks < rows
+        offsets = blocks[..., None] * bs + lane
+    blocks = torch.where(valid, blocks, -1)
+    return torch.where(valid[..., None], offsets, -1), blocks
+
+
+class _Launch:
+    """The device part of one launch: up to ``MAX_LEAVES_PER_LAUNCH`` leaves'
+    records and the leaf of each tile."""
+
+    def __init__(self, leaves: range, records: torch.Tensor, tile_leaf: torch.Tensor, elements: int):
+        self.leaves, self.records, self.tile_leaf, self.elements = leaves, records, tile_leaf, elements
+        self.n_tiles = tile_leaf.numel()
+
+    def grads(self, grads: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
+        return grads[self.leaves.start:self.leaves.stop]
+
+
+class LeafTable:
+    """Every quantized leaf of a model for ``lion8bit_update_leaves_``, built
+    once per optimizer state: each leaf's codes and scales (held, and
+    checked by identity on each call), its torch shape and permutation to
+    the JAX layout, and on the device the kernel's leaf records and the
+    leaf of each tile. The update signs of a call go into one buffer, the
+    leaves of one shape next to each other so that one ``unbind`` makes
+    their views."""
+
+    def __init__(self, codes: Sequence[torch.Tensor], scales: Sequence[torch.Tensor],
+                 shapes: Sequence[Sequence[int]], perms: Sequence[Optional[Sequence[int]]]):
+        if not codes or not (len(codes) == len(scales) == len(shapes) == len(perms)):
+            raise ValueError("need one or more leaves, each with codes, scales, a shape and a permutation")
+        bs = codes[0].shape[1]
+        if bs not in BLOCK_SIZES:
+            raise ValueError(f"the Lion kernel takes block sizes {BLOCK_SIZES}, not {bs}")
+        self.codes, self.scales = list(codes), list(scales)
+        self.shapes = [torch.Size(s) for s in shapes]
+        self.perms = [tuple(p) if p else None for p in perms]
+        self.bs, self.device = bs, codes[0].device
+        self.n_leaves = len(codes)
+        for c, s, shape in zip(self.codes, self.scales, self.shapes):
+            if c.dim() != 2 or c.dtype != torch.int8 or not c.is_contiguous() or c.numel() != shape.numel():
+                raise ValueError(f"codes must be contiguous int8 (n_blocks, bs) of {tuple(shape)}, got "
+                                 f"{tuple(c.shape)} {c.dtype}")
+            if s.shape != (c.shape[0],) or s.dtype != torch.float32 or not s.is_contiguous():
+                raise ValueError(f"scales must be contiguous float32 ({c.shape[0]},), got {tuple(s.shape)} {s.dtype}")
+            if c.shape[1] != bs or c.device != self.device or s.device != self.device:
+                raise ValueError("all leaves of a table share the block size and the device")
+        self.n_tiles = sum(_leaf_geometry(shape, perm, bs)[-1] for shape, perm in zip(self.shapes, self.perms))
+        # the update buffer: one run per shape, each run 16-element aligned
+        by_shape: Dict[torch.Size, List[int]] = {}
+        for i, shape in enumerate(self.shapes):
+            by_shape.setdefault(shape, []).append(i)
+        self.upd_off = [0] * self.n_leaves
+        self.runs = []  # (shape, offset, leaf indices)
+        offset = 0
+        for shape, members in by_shape.items():
+            self.runs.append((shape, offset, members))
+            for j, i in enumerate(members):
+                self.upd_off[i] = offset + j * shape.numel()
+            offset += -(-len(members) * shape.numel() // 16) * 16
+        self.upd_numel = offset
+        self._launches: Optional[List[_Launch]] = None
+
+    def matches(self, codes: Sequence[torch.Tensor], scales: Sequence[torch.Tensor]) -> bool:
+        """True when ``codes`` and ``scales`` are this table's own tensors."""
+        return (len(codes) == self.n_leaves
+                and all(a is b for a, b in zip(codes, self.codes))
+                and all(a is b for a, b in zip(scales, self.scales)))
+
+    def launches(self) -> List[_Launch]:
+        """The device records, built at the first launch (CUDA only)."""
+        if self._launches is None:
+            lib_tile = _leaf_tile(self.bs)
+            if lib_tile != LEAF_TILE[self.bs]:
+                raise RuntimeError(f"LEAF_TILE[{self.bs}] = {LEAF_TILE[self.bs]}, the kernel's tile is {lib_tile}")
+            for name, t in (("codes", self.codes), ("scales", self.scales)):
+                if any(x.data_ptr() % 16 for x in t):
+                    raise ValueError(f"{name} must be 16-byte aligned for the Lion kernel's vector loads")
+            self._launches = []
+            for start in range(0, self.n_leaves, MAX_LEAVES_PER_LAUNCH):
+                leaves = range(start, min(start + MAX_LEAVES_PER_LAUNCH, self.n_leaves))
+                rows, tiles, tile0 = [], [], 0
+                for i in leaves:
+                    kind, n_rows, cols, in_ch, kk, row_tiles, n_tiles = _leaf_geometry(
+                        self.shapes[i], self.perms[i], self.bs)
+                    # csrc LeafRecord: ten int64
+                    rows.append([self.codes[i].data_ptr(), self.scales[i].data_ptr(), self.upd_off[i], tile0,
+                                 n_rows, cols, in_ch, kk, row_tiles, kind])
+                    tiles.append(n_tiles)
+                    tile0 += n_tiles
+                records = torch.tensor(rows, dtype=torch.int64).to(self.device)
+                tile_leaf = torch.repeat_interleave(
+                    torch.arange(len(leaves), dtype=torch.int32), torch.tensor(tiles)).to(self.device)
+                self._launches.append(_Launch(leaves, records, tile_leaf,
+                                              sum(self.shapes[i].numel() for i in leaves)))
+        return self._launches
+
+    def views(self, buffer: torch.Tensor) -> List[torch.Tensor]:
+        """Each leaf's update, in torch shape, in the leaves' order."""
+        out: List[Optional[torch.Tensor]] = [None] * self.n_leaves
+        for shape, offset, members in self.runs:
+            run = buffer.as_strided((len(members), *shape), (shape.numel(), *_contiguous_strides(shape)), offset)
+            for i, view in zip(members, run.unbind(0)):
+                out[i] = view
+        return out
+
+
+def _contiguous_strides(shape: Sequence[int]) -> Tuple[int, ...]:
+    strides, step = [], 1
+    for n in reversed(shape):
+        strides.append(step)
+        step *= n
+    return tuple(reversed(strides))
+
+
+def _leaf_tile(bs: int) -> Tuple[int, int]:
+    fn = _function("lion8bit_leaf_tile", [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)])
+    groups, cols = ctypes.c_int(), ctypes.c_int()
+    if fn(bs, ctypes.byref(groups), ctypes.byref(cols)) != 0:
+        raise ValueError(f"the leaf kernel is not built for bs {bs}")
+    return groups.value, cols.value
+
+
+def inverse_permutation(perm: Sequence[int]) -> List[int]:
+    """The permutation that undoes ``permute(perm)``."""
+    inv = [0] * len(perm)
+    for i, p in enumerate(perm):
+        inv[p] = i
+    return inv
+
+
+def lion8bit_update_leaves_reference(
+    grads: Sequence[torch.Tensor],
+    codes: Sequence[torch.Tensor],
+    scales: Sequence[torch.Tensor],
+    perms: Sequence[Optional[Sequence[int]]],
+    b1: float = 0.9,
+    b2: float = 0.99,
+    compander: str = "exact",
+) -> Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]:
+    """Plain version of ``lion8bit_update_leaves_``: for each leaf, permute
+    the torch-layout grad into JAX order, ``lion8bit_update_reference``, and
+    the update back through the inverse permutation (contiguous, torch
+    layout). Returns ``(updates, new_codes, new_scales)``."""
+    updates, new_codes, new_scales = [], [], []
+    for g, c, s, perm in zip(grads, codes, scales, perms):
+        gj = g.permute(*perm).contiguous() if perm else g
+        upd, nc, ns = lion8bit_update_reference(gj, c, s, b1, b2, compander)
+        updates.append(upd.permute(*inverse_permutation(perm)).contiguous() if perm else upd)
+        new_codes.append(nc)
+        new_scales.append(ns)
+    return updates, new_codes, new_scales
+
+
+_DTYPE, _SHAPE, _DEVICE = (operator.attrgetter(name) for name in ("dtype", "shape", "device"))
+_LEAVES_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p] + _COMMON_ARGS
+
+
+def lion8bit_update_leaves_(
+    grads: Sequence[torch.Tensor],
+    table: LeafTable,
+    b1: float = 0.9,
+    b2: float = 0.99,
+    compander: str = "exact",
+) -> List[torch.Tensor]:
+    """Update every leaf of ``table``: codes and scales in place; returns the
+    update signs in the grads' dtype, in torch layout (views of one buffer),
+    in the table's order. ``grads`` are contiguous, in torch layout, of one
+    dtype, shaped as the table's leaves. CUDA tensors launch
+    ``lion_leaves_kernel`` once per ``MAX_LEAVES_PER_LAUNCH`` leaves (counted
+    in ``lion8bit_update_leaves_.launches``, by leaves, elements, block size
+    and dtype); CPU tensors take ``lion8bit_update_leaves_reference``."""
+    fast = fast_compander(compander)
+    if len(grads) != table.n_leaves:
+        raise ValueError(f"the table has {table.n_leaves} leaves, got {len(grads)} grads")
+    # one C-level pass per property: this runs once a step on every leaf
+    dtype = grads[0].dtype
+    if dtype not in _DTYPE_CODES or set(map(_DTYPE, grads)) != {dtype}:
+        raise TypeError(f"grads must share one dtype of {list(_DTYPE_CODES)}")
+    if list(map(_SHAPE, grads)) != table.shapes or not all(map(torch.Tensor.is_contiguous, grads)):
+        raise ValueError("grads must be contiguous and shaped as the table's leaves (torch layout)")
+    if not _on_cuda(table.codes[0], table.bs):
+        updates, new_codes, new_scales = lion8bit_update_leaves_reference(
+            grads, table.codes, table.scales, table.perms, b1, b2, compander)
+        for c, s, nc, ns in zip(table.codes, table.scales, new_codes, new_scales):
+            c.copy_(nc)
+            s.copy_(ns)
+        return updates
+    device = table.device
+    if set(map(_DEVICE, grads)) != {device}:
+        raise ValueError(f"grads must be on the table's device {device}")
+    launches = table.launches()
+    buffer = torch.empty(table.upd_numel, dtype=dtype, device=device)
+    fn = _function("lion8bit_update_leaves", _LEAVES_ARGS)
+    coefs = _coefs(b1, b2)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for launch in launches:
+            ptrs = array.array("q", map(torch.Tensor.data_ptr, launch.grads(grads)))
+            rc = fn(launch.records.data_ptr(), launch.tile_leaf.data_ptr(), ptrs.buffer_info()[0],
+                    len(launch.leaves), launch.n_tiles, buffer.data_ptr(), table.bs, *coefs, int(fast),
+                    _DTYPE_CODES[dtype], stream)
+            if rc != 0:
+                raise RuntimeError(f"lion8bit_update_leaves launch failed: cudaError {rc} ({len(launch.leaves)} leaves)")
+            _count(lion8bit_update_leaves_, (len(launch.leaves), launch.elements, table.bs, dtype))
+    return table.views(buffer)
+
+
 def _count(wrapper, shape) -> None:
     """One launch of ``wrapper``: in total and by shape (single leaf: blocks,
     block size, grad dtype; many leaves: leaves, blocks, block size, dtype;
-    the functional entry: layout, blocks, block size, dtype)."""
+    the leaf table: leaves, elements, block size, dtype; the functional
+    entry: layout, blocks, block size, dtype)."""
     wrapper.launches += 1
     key = shape[:-1] + (str(shape[-1]).replace("torch.", ""),)
     wrapper.launches_by_shape[key] = wrapper.launches_by_shape.get(key, 0) + 1
 
 
 def reset_launch_counts() -> None:
-    for wrapper in (lion8bit_update_, lion8bit_update_multi_, fused_lion8bit_update):
+    for wrapper in (lion8bit_update_leaves_, lion8bit_update_, lion8bit_update_multi_, fused_lion8bit_update):
         wrapper.launches = 0
         wrapper.launches_by_shape = {}
 

@@ -19,22 +19,28 @@ and Conv kernels ``(kh, kw, I, O)`` where torch holds ``(out, in)`` and
 ``(O, I, kh, kw)``, so 16 consecutive JAX elements are a strided set in
 torch memory, and quantizing in torch order would be another optimizer.
 ``leaf_orders`` gives each leaf's permutation from torch to JAX layout
-(``models.hf_io.jax_param_paths``): the grad is permuted into JAX order
-(one copy per leaf per step), and the update comes back through the
-inverse permutation as a view.
+(``models.hf_io.jax_param_paths``).
 
 The default (``use_pallas`` None or True) sends quantized leaves through the
 fused kernel (``ops.lion_kernel``), which takes the Pallas kernels'
 numerics: the grad is upcast to f32 before ``(1 - b1) g`` and the update
-sign comes back in the grad's dtype. Leaves with at most ``bucket_max_nb``
-blocks update together in one launch (``lion8bit_update_multi_``), the rest
-one launch each. ``use_pallas=False`` is the JAX package's jnp path, an
+sign comes back in the grad's dtype. Every leaf whose JAX block is
+``block_size`` output channels at one torch column (a Dense or Conv kernel
+whose axis 0 ``block_size`` divides) or whose layouts agree goes into one
+``LeafTable`` per grad dtype, built at the first update and kept while the
+state holds the same codes and scales: one launch of
+``lion8bit_update_leaves_`` a step, the grads read and the update signs
+written in torch layout, no permute copy. Any other quantized leaf is
+permuted into JAX order (a copy) and takes ``lion8bit_update_`` (counted
+there), its update coming back through the inverse permutation as a view.
+``bucket_max_nb`` is accepted and changes nothing: the result is bitwise
+the same for any value. ``use_pallas=False`` is the JAX package's jnp path, an
 explicit, non-default choice of the plain math: the grad keeps its dtype in
 ``(1 - b1) g`` and the update is f32.
 """
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Union
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -58,11 +64,10 @@ class ScaleByLion8bitState(NamedTuple):
     mu_quant_flag: Dict[str, bool]
 
 
-def _inverse(perm: Sequence[int]) -> List[int]:
-    inv = [0] * len(perm)
-    for i, p in enumerate(perm):
-        inv[p] = i
-    return inv
+# copies of quantized leaves' grads made before the kernel path's launches
+# (a permute into JAX order, or a strided grad made contiguous), counted as
+# the kernels count their launches: the train step makes none
+GRAD_COPIES = {"count": 0}
 
 
 def _lion_core(g: torch.Tensor, mu: torch.Tensor, b1: float, b2: float):
@@ -113,7 +118,7 @@ def scale_by_lion_8bit(
 
     def from_jax(name: str, t: torch.Tensor) -> torch.Tensor:
         perm = orders.get(name)
-        return t.permute(*_inverse(perm)) if perm else t
+        return t.permute(*lion_kernel.inverse_permutation(perm)) if perm else t
 
     def init_fn(params):
         mask = excluded_layer_mask
@@ -145,32 +150,59 @@ def scale_by_lion_8bit(
         codes, scales = lion_kernel.block_quantize(mu_new, block_size)
         return from_jax(name, upd), QuantizedMomentum(codes, scales)
 
+    # the kernel path's leaf tables, built at the first update and kept
+    # while the state holds the same codes and scales tensors:
+    # {(leaf names, grad dtype): LeafTable}
+    tables: Dict[tuple, lion_kernel.LeafTable] = {}
+    takes: Dict[tuple, bool] = {}  # (name, shape): whether a leaf table takes the leaf
+
+    def table_takes(name, shape):
+        key = (name, shape)
+        if key not in takes:
+            takes[key] = lion_kernel.table_takes(shape, orders.get(name), block_size)
+        return takes[key]
+
+    def leaf_table(members, updates, state):
+        codes = [state.mu_quant[n].codes for n in members]
+        scales = [state.mu_quant[n].scales for n in members]
+        key = (tuple(members), updates[members[0]].dtype)
+        table = tables.get(key)
+        if table is None or not table.matches(codes, scales):
+            table = tables[key] = lion_kernel.LeafTable(
+                codes, scales, [updates[n].shape for n in members], [orders.get(n) for n in members]
+            )
+        return table
+
     def update_fn(updates, state, params=None):
         new_updates, new_mu = {}, {}
-        bucket = []
+        tabled = []
         for name, g in updates.items():
             m = state.mu_quant[name]
             if not isinstance(m, QuantizedMomentum):
                 new_updates[name], new_mu[name] = _lion_core(g, m, b1, b2)
             elif not kernel_path:
                 new_updates[name], new_mu[name] = plain_leaf(name, g, m)
-            elif bucket_max_nb and m.codes.shape[0] <= bucket_max_nb:
-                bucket.append(name)
-            else:
-                upd = lion_kernel.lion8bit_update_(
-                    to_jax(name, g), m.codes, m.scales, b1, b2, compander
-                )
+            elif table_takes(name, g.shape):
+                tabled.append(name)
+            else:  # bs does not divide its axis 0: permute, then one launch of its own
+                gj = to_jax(name, g)
+                GRAD_COPIES["count"] += gj is not g
+                upd = lion_kernel.lion8bit_update_(gj, m.codes, m.scales, b1, b2, compander)
                 new_updates[name], new_mu[name] = from_jax(name, upd), m
-        if bucket:
-            moms = [state.mu_quant[name] for name in bucket]
-            upds = lion_kernel.lion8bit_update_multi_(
-                [to_jax(name, updates[name]) for name in bucket],
-                [m.codes for m in moms],
-                [m.scales for m in moms],
-                b1, b2, compander,
+        by_dtype = {}  # one table, and one launch, per grad dtype
+        for name in tabled:
+            by_dtype.setdefault(updates[name].dtype, []).append(name)
+        for members in by_dtype.values():
+            # the kernel reads torch layout: only a strided grad is copied
+            grads = [updates[name] for name in members]
+            if not all(map(torch.Tensor.is_contiguous, grads)):
+                GRAD_COPIES["count"] += sum(not g.is_contiguous() for g in grads)
+                grads = [g.contiguous() for g in grads]
+            upds = lion_kernel.lion8bit_update_leaves_(
+                grads, leaf_table(members, updates, state), b1, b2, compander
             )
-            for name, m, upd in zip(bucket, moms, upds):
-                new_updates[name], new_mu[name] = from_jax(name, upd), m
+            for name, upd in zip(members, upds):
+                new_updates[name], new_mu[name] = upd, state.mu_quant[name]
         ordered = {name: new_updates[name] for name in updates}
         return ordered, ScaleByLion8bitState(
             count=state.count + 1,

@@ -73,8 +73,9 @@ class TrainingConfig:
     # quantized momentum through the fused kernel; None = on (the default),
     # False = the plain jnp-path math
     use_pallas_lion: Optional[bool] = None
-    # quantized leaves with at most this many blocks update together in one
-    # launch (the kernel's multi-leaf entry); 0 = one launch per leaf
+    # accepted for the JAX package's configs; changes nothing: every
+    # quantized leaf of a model updates in one launch of the leaf-table
+    # entry, and the result is bitwise the same for any value
     lion_bucket_max_nb: int = 65536
     # 8-bit Lion compander: "exact" (the reference's op order) or "fast"
     # (the same math reassociated; not bitwise against exact)

@@ -23,10 +23,13 @@ and 512 query and key counts that are no multiple of the kernels' tiles.
 The fused bf16 backward adds dQ across key blocks in an order that changes
 from run to run: dK and dV repeat bitwise, dQ within a bf16 ulp. The fused
 f32 backward sums its dQ partials in key-block order: all three repeat
-bitwise. 8-bit Lion (K4 single leaf, K5 many leaves, and the
-functional entry: K6 narrow, K7 wide) at block sizes 1 to 128 (128 on the
-cooperative variant): update signs and scales equal to the plain version's,
-codes at most one apart (CUDA's powf and torch's pow may differ by an ulp). Tolerances are those of
+bitwise. 8-bit Lion (the leaf table over grads in torch layout, K4 single
+leaf, K5 many leaves, and the functional entry: K6 narrow, K7 wide) at
+block sizes 1 to 128 (128 on the earlier kernel's cooperative variant):
+update signs and scales equal to the plain version's, codes at most one
+apart (CUDA's powf and torch's pow may differ by an ulp) and, between the
+leaf table and the single-leaf kernel, equal; a leaf the table cannot take
+goes the single-leaf route, counted there. Tolerances are those of
 ``chip_smoke.py``. The fault this slice repaired is covered too: grads flow
 through the flash route on CUDA tensors.
 """
@@ -321,3 +324,129 @@ def test_fused_entry_matches_plain_version(layout, bs, dtype):
     torch.testing.assert_close(upd, e_upd, atol=0, rtol=0)
     torch.testing.assert_close(new_scales[:, 0], e_scales, atol=0, rtol=0)
     assert int((new_codes.int() - e_codes.int()).abs().max()) <= 1
+
+
+# ragged leaf sets for the leaf-table entry: (torch shape, permutation to
+# the JAX layout); tiles that end inside a leaf (columns and output-channel
+# groups off the tile), one-tile leaves, Conv and Dense mixed, leaves whose
+# layouts agree (1-D, no permutation)
+def _table_leaves(bs):
+    return [
+        ((2 * bs, 48), (1, 0)),  # one tile: 2 blocks a column, 48 of 64 columns
+        ((5 * bs, 8, 3, 3), (2, 3, 1, 0)),  # a Conv: 72 columns, 5 blocks a column
+        ((3 * bs, 4096 + 24), (1, 0)),  # columns off the tile, several column tiles
+        ((bs * 300,), None),  # 1-D: contiguous blocks
+        ((7, 2 * bs), None),  # no permutation
+        ((16 * bs, 320, 1, 1), (2, 3, 1, 0)),  # a 1x1 Conv
+        ((bs, 5), (1, 0)),  # 5 columns: not a multiple of a 16-byte vector
+    ]
+
+
+def _table_inputs(leaves, bs, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    grads, codes, scales = [], [], []
+    for shape, _ in leaves:
+        grads.append((torch.randn(shape, generator=gen, device="cuda") * 1e-3).to(dtype))
+        c, s = lk.block_quantize(torch.randn(shape, generator=gen, device="cuda").reshape(-1) * 1e-4, bs)
+        codes.append(c)
+        scales.append(s)
+    return grads, codes, scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compander", ["exact", "fast"])
+@pytest.mark.parametrize("bs,dtype", [(16, torch.bfloat16), (16, torch.float32), (64, torch.bfloat16),
+                                      (64, torch.float32), (128, torch.bfloat16), (128, torch.float32),
+                                      (1, torch.bfloat16), (8, torch.float32), (32, torch.bfloat16)])
+def test_leaf_table_kernel_matches_plain_version(bs, dtype, compander):
+    """``lion8bit_update_leaves_`` on a ragged leaf set against
+    ``lion8bit_update_leaves_reference``: update signs (torch layout) and
+    scales equal, codes at most one apart and equal to the single-leaf
+    kernel's (both are powf's); one launch, counted there alone."""
+    _need_cuda()
+    leaves = _table_leaves(bs)
+    perms = [perm for _, perm in leaves]
+    grads, codes, scales = _table_inputs(leaves, bs, dtype, seed=bs + 3)
+    e_upd, e_codes, e_scales = lk.lion8bit_update_leaves_reference(grads, codes, scales, perms, compander=compander)
+    table_c, table_s = [c.clone() for c in codes], [s.clone() for s in scales]
+    table = lk.LeafTable(table_c, table_s, [shape for shape, _ in leaves], perms)
+    lk.reset_launch_counts()
+    upds = lk.lion8bit_update_leaves_(grads, table, compander=compander)
+    torch.cuda.synchronize()
+    n = sum(g.numel() for g in grads)
+    assert lk.lion8bit_update_leaves_.launches_by_shape == {
+        (len(leaves), n, bs, str(dtype).replace("torch.", "")): 1
+    }
+    assert lk.lion8bit_update_.launches == lk.lion8bit_update_multi_.launches == 0
+    single_c = [c.clone() for c in codes]
+    for g, c, s, perm in zip(grads, single_c, [s.clone() for s in scales], perms):
+        lk.lion8bit_update_((g.permute(*perm) if perm else g).contiguous(), c, s, compander=compander)
+    torch.cuda.synchronize()
+    for u, g, e, c, ec, sc, s, es in zip(upds, grads, e_upd, table_c, e_codes, single_c, table_s, e_scales):
+        assert u.dtype == dtype and u.shape == g.shape and u.is_contiguous()
+        torch.testing.assert_close(u, e, atol=0, rtol=0)
+        torch.testing.assert_close(s, es, atol=0, rtol=0)
+        assert int((c.int() - ec.int()).abs().max()) <= 1
+        assert torch.equal(c, sc)
+
+
+@pytest.mark.cuda
+def test_leaf_the_table_cannot_take_goes_the_old_route():
+    """A quantized Conv kernel whose axis 0 ``bs`` does not divide (``conv_out``
+    if a user quantizes it) is permuted and updated by the single-leaf entry,
+    counted there; the other leaves take one launch of the leaf table."""
+    _need_cuda()
+    from stable_diffusion_training_tpu_torch.optim import scale_by_lion_8bit
+    from stable_diffusion_training_tpu_torch.optim.lion8bit import GRAD_COPIES
+
+    shapes = {"conv_out": (4, 320, 3, 3), "proj": (64, 320), "conv": (32, 16, 3, 3)}
+    orders = {"conv_out": (2, 3, 1, 0), "proj": (1, 0), "conv": (2, 3, 1, 0)}
+    params = {k: torch.zeros(s, device="cuda", dtype=torch.bfloat16) for k, s in shapes.items()}
+    tx = scale_by_lion_8bit(block_size=16, excluded_layer_mask=True, leaf_orders=orders)
+    cpu_tx = scale_by_lion_8bit(block_size=16, excluded_layer_mask=True, leaf_orders=orders)
+    state, cpu_state = tx.init(params), cpu_tx.init({k: p.cpu() for k, p in params.items()})
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    lk.reset_launch_counts()
+    copies = 0
+    for _ in range(2):
+        grads = {k: (torch.randn(s, generator=gen, device="cuda") * 1e-3).bfloat16() for k, s in shapes.items()}
+        GRAD_COPIES["count"] = 0
+        upd, state = tx.update(grads, state)
+        copies += GRAD_COPIES["count"]
+        cpu_upd, cpu_state = cpu_tx.update({k: g.cpu() for k, g in grads.items()}, cpu_state)
+        torch.cuda.synchronize()
+        for k in shapes:
+            torch.testing.assert_close(upd[k].cpu(), cpu_upd[k], atol=0, rtol=0)
+            torch.testing.assert_close(state.mu_quant[k].scales.cpu(), cpu_state.mu_quant[k].scales, atol=0, rtol=0)
+    assert lk.lion8bit_update_.launches_by_shape == {(4 * 320 * 9 // 16, 16, "bfloat16"): 2}
+    assert lk.lion8bit_update_leaves_.launches_by_shape == {(2, 64 * 320 + 32 * 16 * 9, 16, "bfloat16"): 2}
+    assert lk.lion8bit_update_multi_.launches == 0
+    assert copies == 2  # the old route's permute copy, once a step
+
+
+@pytest.mark.cuda
+def test_leaf_table_momentum_is_the_single_leaf_kernels():
+    """The leaf-table kernel dequantizes through its 256-entry table and
+    requantizes through its approximation of powf; the single-leaf kernel
+    computes both outright. At bs 1 with b2 = 1 the new momentum is the
+    dequantized code over its scale and the new scale 1 / |momentum|: over
+    every code under 2^20 scales spread across 2^-20 ... 2^40 (and 1, the
+    zero guard's), the two kernels' scales, codes and signs are bitwise
+    equal, with both companders."""
+    _need_cuda()
+    n = 256 << 12
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    codes = (torch.arange(n, device="cuda") % 256 - 128).to(torch.int8).reshape(n, 1)
+    exponent = torch.randint(-20, 40, (n,), generator=gen, device="cuda").float()
+    scales = torch.exp2(exponent) * (1 + torch.rand(n, generator=gen, device="cuda"))
+    scales[::97] = 1.0
+    grad = (torch.randn(n, generator=gen, device="cuda") * 1e-3).bfloat16()
+    for compander in ("exact", "fast"):
+        table_c, table_s = codes.clone(), scales.clone()
+        table = lk.LeafTable([table_c], [table_s], [(n,)], [None])
+        upd = lk.lion8bit_update_leaves_([grad], table, b1=0.9, b2=1.0, compander=compander)[0]
+        single_c, single_s = codes.clone(), scales.clone()
+        single_upd = lk.lion8bit_update_(grad, single_c, single_s, b1=0.9, b2=1.0, compander=compander)
+        torch.cuda.synchronize()
+        assert torch.equal(table_s, single_s), compander
+        assert torch.equal(table_c, single_c) and torch.equal(upd, single_upd), compander

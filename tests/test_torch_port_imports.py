@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``stable_diffusion_training_tpu_torch``
-and neither of the root scripts ``chip_smoke.py`` and ``probe_flash_bwd.py``
-imports JAX, flax or the JAX package; the package
+and none of the root scripts ``chip_smoke.py``, ``probe_flash_bwd.py`` and
+``probe_lion.py`` imports JAX, flax or the JAX package; the package
 imports on a CPU-only torch with no nvcc and no triton, the train and
 trainer slices' modules included, and none of its modules imports tqdm,
 transformers, safetensors, orbax or tensorboard when it is imported (the
@@ -32,7 +32,7 @@ SLICE_MODULES = (
     "training.py",  # the trainer
 )
 KERNEL_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "lion8bit_update.cu")
-SCRIPTS = ("chip_smoke.py", "probe_flash_bwd.py")  # run from the root on the card
+SCRIPTS = ("chip_smoke.py", "probe_flash_bwd.py", "probe_lion.py")  # run from the root on the card
 
 
 def _port_files():
@@ -159,3 +159,23 @@ def test_probe_edits_match_the_fused_kernel_once():
         out = probe.variant_source(src, edits)
         assert (out == src) == (name == "base"), name
         assert probe.FUSED in out, name
+
+
+def test_lion_probe_edits_match_the_kernels_once():
+    """Each variant of ``probe_lion.py`` replaces statements that occur
+    exactly once in the Lion kernels' source: the earlier kernel's powf and
+    divides, the leaf-table kernel's requantization, divides, reads and
+    math."""
+    sys.path.insert(0, REPO)
+    try:
+        import probe_lion as probe
+    finally:
+        sys.path.remove(REPO)
+    with open(os.path.join(REPO, PACKAGE, "csrc", "lion8bit_update.cu")) as f:
+        src = f.read()
+    assert {"old_base", "old_no_powf", "old_no_divides", "new_base", "new_powf_always", "new_no_divides",
+            "new_contiguous_reads"} <= set(probe.VARIANTS)
+    for name, (entry, edits) in probe.VARIANTS.items():
+        assert entry in ("old", "new"), name
+        out = probe.variant_source(src, edits)
+        assert (out == src) == name.endswith("_base"), name
