@@ -58,7 +58,9 @@ Phases, one JSON line each:
    bucket limit (single-leaf entry, one launch each) and over the UNet's
    and CLIP's small-leaf buckets (multi-leaf entry), bs 16, bf16 grads,
    exact and fast companders, plus a bs-64 leaf set, each counted on its
-   own case; the functional entry ``fused_lion8bit_update``
+   own case; ``probe_lion.py``'s variants of both Lion kernels (what powf,
+   the divides, the transposed reads and the math cost), the base ones
+   held to the plain version's signs; the functional entry ``fused_lion8bit_update``
    over the largest SD1.5 UNet leaf: narrow (K6) at bs 16 and 128 (the
    cooperative variant) in bf16 and at bs 16 in f32, wide (K7) at bs 16 and
    4 in bf16. That entry is the path that runs K6 and K7 (the JAX package
@@ -537,9 +539,10 @@ def phase_kernels(state):
     state["lion_cases"] = lion_cases()
     state["lion_fused_cases"] = lion_fused_cases()
     state["lion_model_cases"] = lion_model_cases()
+    state["lion_probe_cases"] = lion_probe_cases()
     bad = [
         r for r in results + state["bwd_cases"] + state["lion_cases"] + state["lion_fused_cases"]
-        + state["lion_model_cases"] if not r["ok"]
+        + state["lion_model_cases"] + state["lion_probe_cases"] if not r["ok"]
     ]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
@@ -1016,6 +1019,18 @@ def lion_model_cases():
             summary["aim_device_within_2x_bound"] = acc["kernel_ms"] <= 2 * acc["bound_ms"]
             summary["aim_host_ms_per_model_call_le_0_5"] = max(acc["host_ms"]) <= 0.5
         emit("kernels_lion_model_both", **summary)
+    return rows
+
+
+def lion_probe_cases():
+    """``probe_lion.py``'s variants (both Lion kernels with powf, divides,
+    transposed reads or math edited out) over each model's leaves, bf16,
+    exact: what each part costs. A base variant must match the plain
+    version's signs."""
+    import probe_lion
+
+    rows, summary = probe_lion.measure(reps=5, report=lambda row: emit("kernels_lion_probe", **row))
+    emit("kernels_lion_probe_saved", **summary)
     return rows
 
 

@@ -17,7 +17,8 @@ shapes (``chip_smoke.sd15_quantized_leaves``), exact compander:
 - the leaf-table kernel (``lion_leaves_kernel``) over grads in torch layout,
   one launch per model: ``new_*`` variants, timed on the ``new`` entry.
 
-Per variant and model it prints one JSON line: device ms per call (CUDA
+``chip_smoke.py``'s kernels phase runs the same measurement
+(``measure``). Per variant and model it prints one JSON line: device ms per call (CUDA
 events around calls queued behind a spin kernel, as ``chip_smoke.py`` times
 them), the share of the update signs that still equal the plain version's
 (what the edit breaks), and the kernels' registers. The time a variant saves
@@ -122,19 +123,15 @@ def build_variants():
     return built
 
 
-def main(argv=None):
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--reps", type=int, default=10)
-    args = parser.parse_args(argv)
+def measure(reps=10, report=None):
+    """Build every variant and time it over both models' leaves; each row
+    goes to ``report`` as it is measured. Returns ``(rows, summary)``; a
+    row is ``ok`` unless it is a base variant whose signs differ from the
+    plain version's."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("probe_lion.py needs an NVIDIA GPU", file=sys.stderr)
-        return 1
     from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
 
-    record = os.path.join(chip_smoke.REPO, "chiprun_out", "probe_lion.jsonl")
-    os.makedirs(os.path.dirname(record), exist_ok=True)
     built = build_variants()
     load_library = lk.load_library
     rows = []
@@ -162,10 +159,11 @@ def main(argv=None):
                 equal = sum(int((u == e).sum()) for u, e in zip(upds, expected)) / n
                 del upds
                 row = dict(variant=name, model=model_name, entry=entry, edits=len(VARIANTS[name][1]),
-                           leaves=len(leaves), elements=n, ms=chip_smoke.cuda_ms(call, args.reps),
-                           update_signs_equal_share=equal, **facts)
+                           leaves=len(leaves), elements=n, ms=chip_smoke.cuda_ms(call, reps),
+                           update_signs_equal_share=equal, ok=bool(VARIANTS[name][1]) or equal == 1.0, **facts)
                 rows.append(row)
-                print(json.dumps(row), flush=True)
+                if report:
+                    report(row)
                 del work_c, work_s
             del grads, codes, scales, expected, jax_grads
             torch.cuda.empty_cache()
@@ -177,12 +175,26 @@ def main(argv=None):
                   for r in rows if not r["variant"].endswith("_base")},
         nvidia_smi=chip_smoke.nvidia_smi_line(),
     )
+    return rows, summary
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--reps", type=int, default=10)
+    args = parser.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("probe_lion.py needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    record = os.path.join(chip_smoke.REPO, "chiprun_out", "probe_lion.jsonl")
+    os.makedirs(os.path.dirname(record), exist_ok=True)
+    rows, summary = measure(args.reps, report=lambda row: print(json.dumps(row), flush=True))
     with open(record, "a") as f:
         for row in rows + [summary]:
             f.write(json.dumps(row) + "\n")
     print(json.dumps(summary))
-    ok = all(r["update_signs_equal_share"] == 1.0 for r in rows if r["variant"].endswith("_base"))
-    return 0 if ok else 1
+    return 0 if all(r["ok"] for r in rows) else 1
 
 
 if __name__ == "__main__":
