@@ -5,6 +5,7 @@ NVIDIA GPU and check it end to end.
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --phases gpu,build,kernels
     python3 chip_smoke.py --phases gpu,build,train_f32   # the f32 train step alone
+    python3 chip_smoke.py --phases gpu,build,sdxl_parity,sdxl,sdxl_refiner   # SDXL serving
 
 Phases, one JSON line each:
 
@@ -26,7 +27,8 @@ Phases, one JSON line each:
    and the card's least time for the same work:
    flash-attention forward (K1) at the serving path's shapes, (16, 4096, 40)
    and (1, 4096, 512), in bf16 and f32 (TF32 off), at the train step's,
-   (64, 4096, 40) and (8, 4096, 512) in bf16 and f32, plus ragged cases
+   (64, 4096, 40) and (8, 4096, 512) in bf16 and f32, at SDXL's, (20, 4096,
+   64) in bf16 and f32, (24, 4096, 64) and (1, 16384, 512) in bf16, plus ragged cases
    (D = 40 and 512 with query and key counts off the tiles, D = 64 and 36),
    each with its route (``forward_route``: bf16 narrow or wide tensor-core
    kernel, the f32 kernels, the older CUDA-core kernel), whose counter
@@ -79,7 +81,22 @@ Phases, one JSON line each:
    host clock (medians and every run), and one denoise step runs under
    torch.profiler (``profile`` line: kernel times by name, the device's
    idle share).
-6. ``train_parity``: one full-width SD1.5 UNet forward and backward at
+6. ``sdxl_parity``: one full-width SDXL base UNet call on 128x128 latents
+   at batch 2 in f32 (TF32 off), seeded weights, with ``text_embeds`` and
+   ``time_ids``: "auto" against "xla" (a model holding the same tensors)
+   within the ``parity`` bound; K1 exactly 10 times at (20, 4096, 64) on
+   the f32 route.
+7. ``sdxl``: SDXL text-to-image at full width in bf16 (both text towers,
+   the base UNet, the VAE), seeded weights, 1024x1024, CFG batch 2, 4 DDIM
+   steps, timed and checked as ``slice`` is: K1 exactly 10 times a step at
+   (20, 4096, 64) on the narrow kernel and once at (1, 16384, 512) on the
+   wide one; one denoise step profiled.
+8. ``sdxl_refiner``: the SDXL refiner (img2img, tower 2 alone, 5 time ids)
+   at full width in bf16 on ``sdxl``'s image, strength 0.3 of 10 DDIM steps
+   (3 run), timed and checked the same way, the image's VAE encode timed
+   apart: K1 exactly 20 times a step at (24, 4096, 64) and twice at
+   (1, 16384, 512) (the encode and the decode); one denoise step profiled.
+9. ``train_parity``: one full-width SD1.5 UNet forward and backward at
    512x512, batch 1, f32 (TF32 off), "auto" (K1 + K2 + K3) against "xla"
    (plain): the loss within 1e-5 relative, every grad within 1e-4 of its
    tensor's max |grad|, and exactly 5 forward launches and 5 of the fused
@@ -91,7 +108,7 @@ Phases, one JSON line each:
    times, the f32 one and the CUDA-core pair never): each route's bf16 grads against the
    f32 plain grads, the kernels' no further off than twice the plain
    route's, tensor by tensor.
-7. ``train``: the SD1.5 train step at full width through
+10. ``train``: the SD1.5 train step at full width through
    ``train.on_device_model_training_state`` and ``train.train_step``, with
    the example config's training settings (v-prediction, zero-SNR,
    BOS/EOS-stripped concat of 3 windows, both models' Lion state 8-bit at
@@ -104,14 +121,14 @@ Phases, one JSON line each:
    twice (one launch per model) and its single- and multi-leaf entries
    never, per step, and no grad copied before Lion). Then one step under
    torch.profiler (``profile`` line).
-8. ``train_f32``: the same step with ``mixed_precision: "float32"`` (TF32
+11. ``train_f32``: the same step with ``mixed_precision: "float32"`` (TF32
    off), the fidelity configuration: 2 warm-up steps, then 3 timed (K1 5 +
    1 on the f32 route, none on the older CUDA-core forward; the fused f32
    backward 5, the bf16 one and the CUDA-core pair
    none, Lion as above with f32 grads), step p50, images/s, peak memory, then
    one step under torch.profiler (``profile`` line: the backward's device
    time, the idle share). f32 dQ repeats bitwise; bf16 dQ does not.
-9. ``trainer``: the port's trainer through ``trainer.main``, the body of
+12. ``trainer``: the port's trainer through ``trainer.main``, the body of
    ``python -m stable_diffusion_training_tpu_torch.training``, with the same
    settings (SD1.5 ``sd15`` seeded weights, bf16, 512x512, batch 8) on
    ``InMemoryDataLoader.synthetic`` batches, in a run directory under
@@ -147,7 +164,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = "stable_diffusion_training_tpu_torch"
 CSRC = f"{PACKAGE}/csrc"
 JAX_OPS = "stable_diffusion_training_tpu/ops"
-ALL_PHASES = ("gpu", "build", "kernels", "parity", "slice", "train_parity", "train", "train_f32", "trainer")
+ALL_PHASES = (
+    "gpu", "build", "kernels", "parity", "slice", "sdxl_parity", "sdxl", "sdxl_refiner", "train_parity", "train",
+    "train_f32", "trainer",
+)
+# the phases whose runs give the kernels line its launches
+PATH_PHASES = {"kernels", "parity", "slice", "sdxl_parity", "sdxl", "sdxl_refiner", "train_parity", "train", "train_f32"}
 
 # H100 SXM peaks (NVIDIA data sheet, dense): 989 TFLOP/s bf16 tensor core,
 # 67 TFLOP/s f32 on the CUDA cores (TF32 would change the numerics), 3.35
@@ -469,6 +491,9 @@ def phase_kernels(state):
         # query and key counts that are no multiple of either Hopper kernel's tiles
         ("ragged_d40", 3, 4000, 3900, 40, both),
         ("ragged_d512", 2, 1000, 4100, 512, both),
+        ("sdxl_unet_l1", 20, 4096, 4096, 64, both),  # SDXL: 64x64 self-attention, CFG batch 2; f32 in sdxl_parity
+        ("sdxl_refiner_l1", 24, 4096, 4096, 64, ("bfloat16",)),  # the refiner's
+        ("sdxl_vae_mid", 1, 16384, 16384, 512, ("bfloat16",)),  # the VAE mid-block at 1024x1024
     ]
     results = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -1074,89 +1099,308 @@ def phase_parity(state):
         raise AssertionError("full-width UNet: kernel and plain attention disagree")
 
 
-def phase_slice(state, steps=4, seed=0, repeats=5):
-    import torch
-
+def serving_scheduler():
+    """SD1.5's and SDXL's own DDIM settings (epsilon, steps_offset 1)."""
     from stable_diffusion_training_tpu_torch.diffusion import DDIMScheduler
-    from stable_diffusion_training_tpu_torch.models import (
-        AutoencoderKL, CLIPTextModel, UNet2DConditionModel, configs, random_init_,
-    )
-    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
-    from stable_diffusion_training_tpu_torch.pipeline import StableDiffusionPipeline
 
-    set_tf32(False)
-    dtype = torch.bfloat16
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    unet = UNet2DConditionModel(**configs.SD15_UNET, device="cuda", dtype=dtype)
-    vae = AutoencoderKL(**configs.SD_VAE, device="cuda", dtype=dtype)
-    text_encoder = CLIPTextModel(**configs.CLIP_VIT_L, device="cuda", dtype=dtype)
-    for model in (unet, vae, text_encoder):
-        random_init_(model, gen)
-    # SD1.5's own scheduler settings (epsilon, steps_offset 1)
-    scheduler = DDIMScheduler(
+    return DDIMScheduler(
         beta_start=0.00085, beta_end=0.012, beta_schedule="scaled_linear",
         set_alpha_to_one=False, steps_offset=1, prediction_type="epsilon",
         device="cuda",
     )
-    pipe = StableDiffusionPipeline(text_encoder, vae, unet, scheduler)
-    ids_gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    vocab = configs.CLIP_VIT_L["vocab_size"]
-    prompt_ids = torch.randint(0, vocab, (1, 77), generator=ids_gen, device="cuda")
-    neg_ids = torch.randint(0, vocab, (1, 77), generator=ids_gen, device="cuda")
-    kw = dict(
-        num_inference_steps=steps, height=512, width=512, guidance_scale=7.5,
-        neg_prompt_ids=neg_ids,
-    )
+
+
+def seeded_models(seed, dtype, **models):
+    """``{name: (class, config)}`` built on the card in ``dtype`` with
+    weights from one generator seeded with ``seed``, in the given order."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.models import random_init_
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {name: random_init_(cls(**cfg, device="cuda", dtype=dtype), gen) for name, (cls, cfg) in models.items()}
+
+
+def prompt_ids(seed, vocab, n=2):
+    """``n`` seeded (1, 77) token id rows: the prompt, its negative, ..."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randint(0, vocab, (1, 77), generator=gen, device="cuda") for _ in range(n)]
+
+
+def time_serving(phase, call, stages, want_by_route, want_by_shape, size, repeats, **fields):
+    """The serving phases' run and checks. A warm-up ``call()``, then one
+    with the launch counts zeroed just before and read just after: its
+    images must be ``(1, size, size, 3)``, finite, in ``[0, 1]``, and K1's
+    launches by route (and by shape, where ``want_by_shape`` is given)
+    exactly as expected. Then ``repeats`` rounds on the host clock of the
+    whole call and of each of ``stages`` (``(field, fn, divisor)``, each
+    ``fn`` fed the one before's result). Emits the phase line (medians and
+    every run); returns the stages' last results and the launches by
+    shape."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+
     with torch.no_grad():
-        pipe(prompt_ids, generator=torch.Generator("cuda").manual_seed(seed), **kw)  # warm-up
+        call()  # warm-up
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launch_counts()
-        images = pipe(prompt_ids, generator=torch.Generator("cuda").manual_seed(seed), **kw)["images"]
+        images = call()
         torch.cuda.synchronize()
         launches = fa.flash_attention_fwd.launches
         by_route = dict(fa.flash_attention_fwd.launches_by_route)
         by_shape = dict(fa.flash_attention_fwd.launches_by_shape)
         peak = torch.cuda.max_memory_allocated()
         # host clock, repeated: the loop is eager and its host time varies
-        runs = {"total": [], "encode": [], "denoise_per_step": [], "decode": []}
-        noise = torch.randn(1, 4, 64, 64, generator=gen, device="cuda")
+        runs = {"total": [], **{field: [] for field, _, _ in stages}}
+        results = {}
         for _ in range(repeats):
-            ms, _ = host_ms(
-                lambda: pipe(prompt_ids, generator=torch.Generator("cuda").manual_seed(seed), **kw)
-            )
-            runs["total"].append(ms)
-            ms, context = host_ms(lambda: pipe.encode_prompt(prompt_ids, neg_ids))
-            runs["encode"].append(ms)
-            ms, latents = host_ms(lambda: pipe.denoise(noise, context, steps, 7.5))
-            runs["denoise_per_step"].append(ms / steps)
-            ms, _ = host_ms(lambda: pipe.decode_latents(latents))
-            runs["decode"].append(ms)
+            runs["total"].append(host_ms(call)[0])
+            out = None
+            for field, fn, divisor in stages:
+                ms, out = host_ms(lambda: fn(out))
+                runs[field].append(ms / divisor)
+                results[field] = out
     median = {name: statistics.median(v) for name, v in runs.items()}
-    shape_ok = tuple(images.shape) == (1, 512, 512, 3)
+    shape_ok = tuple(images.shape) == (1, size, size, 3)
     finite = bool(torch.isfinite(images).all())
     in_range = finite and float(images.min()) >= 0.0 and float(images.max()) <= 1.0
-    expected = 5 * steps + 1
     emit(
-        "slice", steps=steps, image_shape=list(images.shape), finite=finite,
-        in_range=in_range, image_mean=float(images.float().mean()),
-        image_std=float(images.float().std()), flash_launches=launches,
-        expected_launches=expected, flash_launches_by_route=by_route,
+        phase, image_shape=list(images.shape), finite=finite, in_range=in_range,
+        image_mean=float(images.float().mean()), image_std=float(images.float().std()),
+        flash_launches=launches, expected_launches=sum(want_by_route.values()),
+        flash_launches_by_route=by_route,
         launches_by_shape={"x".join(map(str, k)): n for k, n in by_shape.items()},
         total_ms=median["total"], images_per_s=1e3 / median["total"],
-        encode_ms=median["encode"], denoise_ms_per_step=median["denoise_per_step"],
-        decode_ms=median["decode"], runs_ms=runs, max_memory_allocated=peak,
+        **{field: median[field] for field, _, _ in stages}, runs_ms=runs,
+        max_memory_allocated=peak, **fields,
     )
-    state["slice_by_shape"] = by_shape
+    shapes_ok = want_by_shape is None or by_shape == want_by_shape
+    if not (shape_ok and in_range and by_route == want_by_route and shapes_ok):
+        raise AssertionError(f"{phase}: image or K1 launches failed their checks")
+    return images, results, by_shape
+
+
+def phase_slice(state, steps=4, seed=0, repeats=5):
+    import torch
+
+    from stable_diffusion_training_tpu_torch.models import (
+        AutoencoderKL, CLIPTextModel, UNet2DConditionModel, configs,
+    )
+    from stable_diffusion_training_tpu_torch.pipeline import StableDiffusionPipeline
+
+    set_tf32(False)
+    models = seeded_models(
+        seed, torch.bfloat16, unet=(UNet2DConditionModel, configs.SD15_UNET),
+        vae=(AutoencoderKL, configs.SD_VAE), text_encoder=(CLIPTextModel, configs.CLIP_VIT_L),
+    )
+    pipe = StableDiffusionPipeline(models["text_encoder"], models["vae"], models["unet"], serving_scheduler())
+    ids, neg_ids = prompt_ids(seed + 1, configs.CLIP_VIT_L["vocab_size"])
+    kw = dict(num_inference_steps=steps, height=512, width=512, guidance_scale=7.5, neg_prompt_ids=neg_ids)
+    noise = torch.randn(1, 4, 64, 64, generator=torch.Generator("cuda").manual_seed(seed + 2), device="cuda")
+    stages = [
+        ("encode_ms", lambda _: pipe.encode_prompt(ids, neg_ids), 1),
+        ("denoise_ms_per_step", lambda context: (pipe.denoise(noise, context, steps, 7.5), context), steps),
+        ("decode_ms", lambda out: pipe.decode_latents(out[0]), 1),
+    ]
     # the UNet's self-attention on the narrow tensor-core kernel, the VAE
     # decode's mid-block on the wide one
-    routes_ok = by_route == {"tma_narrow": 5 * steps, "tma_wide": 1}
-    if not (shape_ok and in_range and launches == expected and routes_ok):
-        raise AssertionError("text-to-image slice failed its checks")
+    _, results, by_shape = time_serving(
+        "slice",
+        lambda: pipe(ids, generator=torch.Generator("cuda").manual_seed(seed), **kw)["images"],
+        stages, {"tma_narrow": 5 * steps, "tma_wide": 1}, None, 512, repeats, steps=steps,
+    )
+    state["slice_by_shape"] = by_shape
+    latents, context = results["denoise_ms_per_step"]
     with torch.no_grad():
         profile_step(
             lambda: pipe.denoise(latents, context, 1, 7.5),
             "one CFG denoise step (UNet batch 2 + DDIM step)", {"flash_ms": ("flash_fwd",)}, top=15,
         )
+
+
+# SDXL at 1024x1024, CFG batch 2, bf16: K1's shapes (bh, sq, sk, d, dtype,
+# route) and launches. The base UNet's 64x64 level (640 channels, 10 heads of
+# 64, 2 transformer layers: 4 down, 6 up) and the refiner's (768 channels, 12
+# heads, 4 layers: 8 down, 12 up); the VAE mid-block at 128x128 latents, once
+# per decode and once per encode.
+SDXL_RES = 1024
+SDXL_UNET_KEY = (20, 4096, 4096, 64, "bfloat16", "tma_narrow")
+SDXL_REFINER_KEY = (24, 4096, 4096, 64, "bfloat16", "tma_narrow")
+SDXL_VAE_KEY = (1, 16384, 16384, 512, "bfloat16", "tma_wide")
+
+
+def phase_sdxl_parity(state):
+    """The full-width SDXL base UNet in f32 (TF32 off) on 128x128 latents at
+    batch 2 with ``text_embeds`` and ``time_ids``: "auto" (K1 on route f32,
+    D = 64) against "xla" (plain), within ``PARITY_REL_TOL``; K1 exactly 10
+    times at (20, 4096, 64)."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.models import UNet2DConditionModel, configs
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+
+    set_tf32(False)
+    unet = seeded_models(0, torch.float32, unet=(UNet2DConditionModel, configs.SDXL_UNET))["unet"]
+    # the plain-attention model holds the same tensors (no second 10 GB copy)
+    plain = UNet2DConditionModel(**configs.SDXL_UNET, attention_backend="xla", device="meta")
+    plain.load_state_dict(unet.state_dict(), strict=True, assign=True)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    sample = torch.randn(2, 4, 128, 128, generator=gen, device="cuda")
+    ctx = torch.randn(2, 77, 2048, generator=gen, device="cuda")
+    added = {"text_embeds": torch.randn(2, 1280, generator=gen, device="cuda"),
+             "time_ids": torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]] * 2, device="cuda")}
+    t = torch.tensor([421, 421], device="cuda")
+    with torch.no_grad():
+        fa.reset_launch_counts()
+        out_k = unet(sample, t, ctx, added)
+        torch.cuda.synchronize()
+        by_route = dict(fa.flash_attention_fwd.launches_by_route)
+        by_shape = dict(fa.flash_attention_fwd.launches_by_shape)
+        state["sdxl_parity_by_shape"] = by_shape
+        out_p = plain(sample, t, ctx, added)
+        plain_launches = fa.flash_attention_fwd.launches - sum(by_route.values())
+    diff = (out_k - out_p).abs().max().item()
+    ref_max = out_p.abs().max().item()
+    rel = diff / ref_max
+    want = {SDXL_UNET_KEY[:4] + ("float32", "f32"): 10}
+    ok = bool(torch.isfinite(out_k).all()) and rel <= PARITY_REL_TOL
+    emit(
+        "sdxl_parity", shape=list(out_k.shape), max_abs_diff=diff, max_abs_ref=ref_max,
+        max_rel_diff=rel, rel_tol=PARITY_REL_TOL, kernel_launches_by_route=by_route,
+        launches_by_shape={"x".join(map(str, k)): n for k, n in by_shape.items()},
+        plain_launches=plain_launches, ok=ok,
+    )
+    del unet, plain, out_k, out_p
+    torch.cuda.empty_cache()
+    if not ok or by_route != {"f32": 10} or by_shape != want or plain_launches != 0:
+        raise AssertionError("full-width SDXL UNet: kernel and plain attention disagree")
+
+
+def phase_sdxl(state, steps=4, seed=0, repeats=5):
+    """SDXL text-to-image at full width in bf16: both towers, the base
+    UNet, the VAE; 1024x1024, one prompt (CFG batch 2), ``steps`` DDIM
+    steps. K1 10 times a step at (20, 4096, 64) and once in the decode at
+    (1, 16384, 512)."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.models import (
+        AutoencoderKL, CLIPTextModel, CLIPTextModelWithProjection, UNet2DConditionModel, configs,
+    )
+    from stable_diffusion_training_tpu_torch.pipeline import StableDiffusionXLPipeline
+
+    set_tf32(False)
+    models = seeded_models(
+        seed, torch.bfloat16, unet=(UNet2DConditionModel, configs.SDXL_UNET),
+        vae=(AutoencoderKL, configs.SDXL_VAE), text_encoder=(CLIPTextModel, configs.CLIP_VIT_L),
+        # SDXL's text_encoder_2 config pools at the argmax of the ids
+        text_encoder_2=(CLIPTextModelWithProjection, dict(configs.OPEN_CLIP_VIT_BIGG, eos_token_id=2)),
+    )
+    pipe = StableDiffusionXLPipeline(
+        models["text_encoder"], models["text_encoder_2"], models["vae"], models["unet"], serving_scheduler()
+    )
+    ids, neg_ids = prompt_ids(seed + 1, configs.CLIP_VIT_L["vocab_size"])
+    kw = dict(num_inference_steps=steps, height=SDXL_RES, width=SDXL_RES, guidance_scale=5.0, neg_prompt_ids=neg_ids)
+    latent = SDXL_RES // 8
+    noise = torch.randn(1, 4, latent, latent, generator=torch.Generator("cuda").manual_seed(seed + 2), device="cuda")
+
+    def encode(_):
+        context, pooled = pipe.encode_prompt(ids, neg_ids)
+        return context, {"text_embeds": pooled, "time_ids": pipe._time_ids(1, SDXL_RES, SDXL_RES)}
+
+    stages = [
+        ("encode_ms", encode, 1),
+        ("denoise_ms_per_step", lambda cond: (pipe.denoise(noise, cond[0], steps, 5.0, cond[1]), cond), steps),
+        ("decode_ms", lambda out: pipe.decode_latents(out[0]), 1),
+    ]
+    images, results, by_shape = time_serving(
+        "sdxl",
+        lambda: pipe(ids, generator=torch.Generator("cuda").manual_seed(seed), **kw)["images"],
+        stages, {"tma_narrow": 10 * steps, "tma_wide": 1}, {SDXL_UNET_KEY: 10 * steps, SDXL_VAE_KEY: 1},
+        SDXL_RES, repeats, steps=steps,
+    )
+    state["sdxl_by_shape"] = by_shape
+    state["sdxl_image"] = images
+    latents, (context, added) = results["denoise_ms_per_step"]
+    with torch.no_grad():
+        profile_step(
+            lambda: pipe.denoise(latents, context, 1, 5.0, added),
+            "one SDXL CFG denoise step (UNet batch 2 at 128x128 latents + DDIM step)",
+            {"flash_ms": ("flash_fwd",)}, top=15,
+        )
+    del pipe, models, results
+    torch.cuda.empty_cache()
+
+
+def phase_sdxl_refiner(state, steps=10, strength=0.3, seed=3, repeats=5):
+    """The SDXL refiner (img2img) at full width in bf16 on the ``sdxl``
+    phase's image (a seeded one if that phase did not run): tower 2 alone,
+    the refiner UNet (5 time ids), the VAE; strength 0.3 of 10 DDIM steps
+    (3 run). K1 20 times a step at (24, 4096, 64) and twice at
+    (1, 16384, 512): the image's encode and the decode."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.models import (
+        AutoencoderKL, CLIPTextModelWithProjection, UNet2DConditionModel, configs,
+    )
+    from stable_diffusion_training_tpu_torch.pipeline import StableDiffusionXLImg2ImgPipeline
+    from stable_diffusion_training_tpu_torch.pipeline.sdxl_refiner import start_step_for
+
+    set_tf32(False)
+    models = seeded_models(
+        seed, torch.bfloat16, unet=(UNet2DConditionModel, configs.SDXL_REFINER_UNET),
+        vae=(AutoencoderKL, configs.SDXL_VAE),
+        text_encoder_2=(CLIPTextModelWithProjection, dict(configs.OPEN_CLIP_VIT_BIGG, eos_token_id=2)),
+    )
+    pipe = StableDiffusionXLImg2ImgPipeline(
+        None, models["text_encoder_2"], models["vae"], models["unet"], serving_scheduler(),
+    )
+    image = state.get("sdxl_image")
+    if image is None:
+        gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+        image = torch.rand(1, SDXL_RES, SDXL_RES, 3, generator=gen, device="cuda")
+    image = image.permute(0, 3, 1, 2) * 2 - 1  # NHWC [0, 1] -> NCHW [-1, 1], as prepare_image
+    ids, neg_ids = prompt_ids(seed + 1, configs.OPEN_CLIP_VIT_BIGG["vocab_size"])
+    start = start_step_for(strength, steps)
+    run = steps - start
+    kw = dict(strength=strength, num_inference_steps=steps, guidance_scale=5.0, neg_prompt_ids=neg_ids)
+
+    def encode(_):
+        context, pooled = pipe.encode_prompt(ids, neg_ids)
+        return context, {"text_embeds": pooled, "time_ids": pipe._time_ids(1, SDXL_RES, SDXL_RES)}
+
+    def image_encode(cond):
+        gen = torch.Generator("cuda").manual_seed(seed)
+        return pipe.prepare_image_latents(image, start, steps, gen), cond
+
+    def denoise(out):
+        latents, (context, added) = out
+        return pipe.denoise(latents, context, steps, 5.0, added, start), (context, added)
+
+    stages = [
+        ("encode_ms", encode, 1), ("image_encode_ms", image_encode, 1),
+        ("denoise_ms_per_step", denoise, run), ("decode_ms", lambda out: pipe.decode_latents(out[0]), 1),
+    ]
+    _, results, by_shape = time_serving(
+        "sdxl_refiner",
+        lambda: pipe(ids, image, generator=torch.Generator("cuda").manual_seed(seed), **kw)["images"],
+        stages, {"tma_narrow": 20 * run, "tma_wide": 2}, {SDXL_REFINER_KEY: 20 * run, SDXL_VAE_KEY: 2},
+        SDXL_RES, repeats, steps=steps, strength=strength, denoise_steps=run,
+        input_image="sdxl phase" if "sdxl_image" in state else "seeded",
+    )
+    state["sdxl_refiner_by_shape"] = by_shape
+    latents, (context, added) = results["denoise_ms_per_step"]
+    with torch.no_grad():
+        profile_step(
+            lambda: pipe.denoise(latents, context, 1, 5.0, added),
+            "one SDXL refiner CFG denoise step (UNet batch 2 at 128x128 latents + DDIM step)",
+            {"flash_ms": ("flash_fwd",)}, top=15,
+        )
+    del pipe, models, results
+    state.pop("sdxl_image", None)
+    torch.cuda.empty_cache()
 
 
 def profile_step(fn, what, groups, top):
@@ -1621,20 +1865,25 @@ def phase_trainer(state, seed=0):
 
 # forward cases whose f32 shape a path runs: the f32 UNet call of the parity
 # phase, the f32 train step
-F32_FWD_PATHS = {"unet_l0": "parity", "unet_train": "train_f32", "vae_encode": "train_f32"}
+F32_FWD_PATHS = {
+    "unet_l0": "parity", "unet_train": "train_f32", "vae_encode": "train_f32", "sdxl_unet_l1": "sdxl_parity",
+}
 SHORT = {"bfloat16": "bf16", "float32": "f32"}
 
 
 def kernels_line(state):
     """The per-kernel record: each kernel at each shape its main paths give
     it, with its launches at that shape in the run of its path (the serving
-    slice's, the timed train steps', the parity and train_parity calls) and
-    its numbers from the kernels phase."""
+    slice's, SDXL's and the refiner's, the timed train steps', the parity,
+    sdxl_parity and train_parity calls) and its numbers from the kernels
+    phase."""
     train = state.get("train_by_shape", {})
     train_f32 = state.get("train_f32_by_shape", {})
     paths = {
-        "bfloat16": [state.get("slice_by_shape", {}), train.get("flash_fwd", {})],
-        "float32": [state.get("parity_by_shape", {}), train_f32.get("flash_fwd", {})],
+        "bfloat16": [state.get(f"{p}_by_shape", {}) for p in ("slice", "sdxl", "sdxl_refiner")]
+        + [train.get("flash_fwd", {})],
+        "float32": [state.get(f"{p}_by_shape", {}) for p in ("parity", "sdxl_parity")]
+        + [train_f32.get("flash_fwd", {})],
     }
     entries = []
     for row in state.get("kernel_cases", []):
@@ -1775,6 +2024,12 @@ def main(argv=None):
         phase_parity(state)
     if "slice" in phases:
         phase_slice(state)
+    if "sdxl_parity" in phases:
+        phase_sdxl_parity(state)
+    if "sdxl" in phases:
+        phase_sdxl(state)
+    if "sdxl_refiner" in phases:
+        phase_sdxl_refiner(state)
     if "train_parity" in phases:
         phase_train_parity(state)
     if "train" in phases:
@@ -1785,7 +2040,7 @@ def main(argv=None):
         phase_trainer(state)
 
     line = kernels_line(state)
-    if {"kernels", "parity", "slice", "train_parity", "train", "train_f32"} <= set(phases):
+    if PATH_PHASES <= set(phases):
         idle = [e["name"] for e in line["kernels"] if not e["launches"]]
         if idle:
             raise AssertionError(f"checked at a shape its path never launched it at: {idle}")

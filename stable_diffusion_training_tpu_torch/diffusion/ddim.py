@@ -3,8 +3,9 @@
 Port of ``stable_diffusion_training_tpu/diffusion/ddim.py``: a state holding
 the schedule tables and ``final_alpha_cumprod``, ``set_timesteps`` with
 ``steps_offset``, and ``step`` implementing formulas (12)/(16) of arXiv
-2010.02502 for epsilon, sample and v prediction. As in the JAX package,
-``eta`` only shrinks the direction term; no noise is drawn.
+2010.02502 for epsilon, sample and v prediction, and ``add_noise`` (the
+img2img pipelines noise their start latents with it). As in the JAX
+package, ``eta`` only shrinks the direction term; no noise is drawn.
 """
 
 import dataclasses
@@ -14,6 +15,7 @@ from typing import Optional
 import torch
 
 from ..utils.configuration import ConfigurableMixin
+from . import common
 from .common import CommonSchedulerState
 
 
@@ -148,3 +150,13 @@ class DDIMScheduler(ConfigurableMixin):
         pred_sample_direction = (1 - alpha_prod_t_prev - std_dev_t**2) ** 0.5 * pred_epsilon
         prev_sample = alpha_prod_t_prev**0.5 * pred_original_sample + pred_sample_direction
         return DDIMSchedulerOutput(prev_sample=prev_sample, state=state)
+
+    def add_noise(
+        self,
+        state: DDIMSchedulerState,
+        original_samples: torch.Tensor,
+        noise: torch.Tensor,
+        timesteps: torch.Tensor,
+    ) -> torch.Tensor:
+        """Forward diffusion to ``timesteps`` (the img2img start)."""
+        return common.add_noise(state.common, original_samples, noise, timesteps)

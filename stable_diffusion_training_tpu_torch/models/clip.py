@@ -6,7 +6,9 @@ follow transformers' ``CLIPTextModel`` (``text_model.embeddings...``,
 ``text_model.encoder.layers.N...``), so ``state_dict()`` keys are its
 checkpoint keys. Its attention is its own f32-softmax matmul with the causal
 mask, not the dispatcher: 77 tokens never reach the flash kernel.
-``CLIPTextModelWithProjection`` (SDXL) comes with a later slice.
+``CLIPTextModelWithProjection`` is SDXL's second text encoder: the same
+tower, pooled at EOS and projected by ``text_projection`` (no bias), with
+transformers' ``CLIPTextModelWithProjection`` names.
 """
 
 from typing import Optional
@@ -188,3 +190,55 @@ class CLIPTextModel(ConfigurableMixin, nn.Module):
         last, all_hidden = self.text_model(input_ids, output_hidden_states)
         pooled = _pool_eos(last, input_ids, self.eos_token_id)
         return _TextOutput(last, pooled, all_hidden)
+
+
+class _ProjectedTextOutput:
+    """Output of the projection variant, as the JAX package's: ``[0]`` is
+    ``text_embeds`` (the pooled, projected vector SDXL conditions on), then
+    the last hidden state and, if asked for, every layer's."""
+
+    def __init__(self, text_embeds, last_hidden_state, hidden_states=None):
+        self.text_embeds = text_embeds
+        self.last_hidden_state = last_hidden_state
+        self.hidden_states = hidden_states
+
+    def __getitem__(self, idx):
+        return (self.text_embeds, self.last_hidden_state, self.hidden_states)[idx]
+
+
+class CLIPTextModelWithProjection(CLIPTextModel):
+    """SDXL's ``text_encoder_2``: the tower, the EOS-pooled hidden state
+    through ``text_projection`` (``projection_dim`` outputs, no bias).
+    ``model(ids, output_hidden_states=True).hidden_states[-2]`` is the
+    penultimate layer the SDXL pipelines condition on."""
+
+    def __init__(
+        self,
+        vocab_size: int = 49408,
+        hidden_size: int = 768,
+        intermediate_size: int = 3072,
+        num_hidden_layers: int = 12,
+        num_attention_heads: int = 12,
+        max_position_embeddings: int = 77,
+        hidden_act: str = "quick_gelu",
+        layer_norm_eps: float = 1e-5,
+        eos_token_id: int = 49407,
+        projection_dim: int = 512,
+        device=None,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__(
+            vocab_size, hidden_size, intermediate_size, num_hidden_layers, num_attention_heads,
+            max_position_embeddings, hidden_act, layer_norm_eps, eos_token_id, device, dtype,
+        )
+        self._register_config(dict(locals()))
+        with torch.device(resolve_device(device)):
+            self.text_projection = nn.Linear(hidden_size, projection_dim, bias=False)
+        self.to(dtype)
+
+    def forward(
+        self, input_ids: torch.Tensor, output_hidden_states: bool = False
+    ) -> _ProjectedTextOutput:
+        last, all_hidden = self.text_model(input_ids, output_hidden_states)
+        pooled = _pool_eos(last, input_ids, self.eos_token_id)
+        return _ProjectedTextOutput(self.text_projection(pooled), last, all_hidden)

@@ -2,9 +2,9 @@
 
 The port's own copy of ``stable_diffusion_training_tpu/models/configs.py``:
 the architecture families are explicit data, so models can be built without
-network access and checkpoints only carry weights. This slice runs the
-``sd15`` and ``tiny`` families; the others are kept for the slices that
-port SD2.1 and SDXL.
+network access and checkpoints only carry weights. The port runs the
+``sd15``, ``sdxl``, ``sdxl_refiner`` and ``tiny*`` families; ``sd21`` is
+kept for the slice that checks SD2.1.
 """
 
 from typing import Any, Dict

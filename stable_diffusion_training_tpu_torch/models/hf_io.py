@@ -8,7 +8,9 @@ The port's own copy of the name mapping in
   ``strict=True``: conv kernels ``(kh, kw, I, O)`` -> ``(O, I, kh, kw)``,
   dense kernels ``(in, out)`` -> ``(out, in)``, ``scale``/``embedding`` ->
   ``weight``, ``name_N`` -> ``name.N``, ``to_out`` -> ``to_out.0``, and the
-  CLIP tower into transformers' ``text_model.*`` layout.
+  CLIP tower into transformers' ``text_model.*`` layout (SDXL's second
+  encoder keeps its tower under ``text_model`` and ``text_projection`` at
+  the top).
 - ``jax_param_paths`` gives each torch parameter its path in the JAX
   package's param tree and the permutation from the torch layout to the JAX
   one: the optimizer matches its masks on those paths and keeps its
@@ -17,12 +19,17 @@ The port's own copy of the name mapping in
   Lion state across (any of its momentum layouts, numpy in), so a JAX train
   state (params, EMA params through ``jax_params_to_state_dict``, Lion
   momentum) continues in the port.
-- ``load_unet``/``load_vae``/``load_text_encoder`` build a model from a
-  diffusers checkpoint directory (``config.json`` + ``.safetensors``), read
-  by ``load_safetensors``, a small reader of the format's layout (u64 header
-  length, JSON header, raw little-endian tensors), so no ``safetensors``
-  package is needed; ``save_safetensors`` writes that layout, and
-  ``save_weights`` a model's params in f32 under their diffusers names.
+- ``load_unet``/``load_vae``/``load_text_encoder``/``load_text_encoder_2``
+  build a model from a diffusers checkpoint directory (``config.json`` +
+  ``.safetensors``), read by ``load_safetensors``, a small reader of the
+  format's layout (u64 header length, JSON header, raw little-endian
+  tensors), so no ``safetensors`` package is needed; ``save_safetensors``
+  writes that layout, ``save_weights`` a model's params in f32 under their
+  diffusers names and ``save_text_encoder`` a text encoder's folder
+  (transformers' ``config.json`` and ``model.safetensors``). The port's
+  text encoders carry transformers' own names, so neither direction
+  re-keys them (the JAX package folds ``embeddings.`` and
+  ``encoder.layers`` on load and unfolds them on save).
 """
 
 import json
@@ -35,7 +42,7 @@ import torch
 from torch import nn
 
 from ..utils.device import resolve_device
-from .clip import CLIPTextModel
+from .clip import CLIPTextModel, CLIPTextModelWithProjection
 from .unet import UNet2DConditionModel
 from .vae import AutoencoderKL
 
@@ -74,8 +81,10 @@ def _clip_key(key: str) -> str:
 def jax_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX package params (a nested dict of arrays) -> the port's state dict.
 
-    A tree with a top-level ``token_embedding`` is the CLIP text tower; every
-    other tree (UNet, VAE) maps to diffusers' names directly.
+    A tree with a top-level ``token_embedding`` is the CLIP text tower, one
+    with a top-level ``text_projection`` SDXL's second text encoder (the
+    tower under ``text_model``); every other tree (UNet, VAE) maps to
+    diffusers' names directly.
     """
     flat: Dict[str, torch.Tensor] = {}
 
@@ -97,6 +106,9 @@ def jax_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     walk(params, [])
     if "token_embedding" in params:
         flat = {_clip_key(k): v for k, v in flat.items()}
+    elif "text_projection" in params:
+        tower = "text_model."
+        flat = {_clip_key(k[len(tower):]) if k.startswith(tower) else k: v for k, v in flat.items()}
     return flat
 
 
@@ -135,8 +147,10 @@ def jax_param_paths(
     Conv weights, ``scale`` for norm weights, ``embedding`` for embedding
     tables, ``bias``. ``perm`` takes the torch tensor to the JAX layout
     (``tensor.permute(perm)``): ``(1, 0)`` for a Dense kernel, ``(2, 3, 1,
-    0)`` for a Conv kernel, None where the layouts agree."""
+    0)`` for a Conv kernel, None where the layouts agree. SDXL's second text
+    encoder nests its tower under ``text_model`` in the JAX tree too."""
     clip = isinstance(module, CLIPTextModel)
+    projected = isinstance(module, CLIPTextModelWithProjection)
     out = {}
     for name, param in module.named_parameters():
         module_name, _, leaf = name.rpartition(".")
@@ -151,7 +165,10 @@ def jax_param_paths(
         else:
             leaf = "kernel"
             perm = {2: (1, 0), 4: (2, 3, 1, 0)}.get(param.dim())
-        out[name] = (_jax_module_path(module_name, clip) + (leaf,), perm)
+        path = _jax_module_path(module_name, clip)
+        if projected and module_name.startswith("text_model."):
+            path = ("text_model",) + path
+        out[name] = (path + (leaf,), perm)
     return out
 
 
@@ -345,8 +362,46 @@ def load_vae(directory: str, device=None, dtype=torch.float32, attention_backend
     )
 
 
-def load_text_encoder(directory: str, device=None, dtype=torch.float32):
-    sd = {
+def _text_encoder_weights(directory: str) -> Dict[str, torch.Tensor]:
+    return {
         k: v for k, v in _load_weights(directory).items() if not k.endswith("position_ids")
     }
-    return _build(CLIPTextModel, directory, sd, device, dtype)
+
+
+def load_text_encoder(directory: str, device=None, dtype=torch.float32):
+    return _build(CLIPTextModel, directory, _text_encoder_weights(directory), device, dtype)
+
+
+def load_text_encoder_2(directory: str, device=None, dtype=torch.float32):
+    """SDXL's ``text_encoder_2/``: transformers' ``CLIPTextModelWithProjection``."""
+    return _build(
+        CLIPTextModelWithProjection, directory, _text_encoder_weights(directory), device, dtype
+    )
+
+
+def write_text_encoder_config(text_encoder, directory: str) -> None:
+    """transformers' ``config.json`` for a text encoder: its config, with the
+    architecture named after its class (``CLIPTextModel`` or
+    ``CLIPTextModelWithProjection``)."""
+    cfg = dict(text_encoder.config.to_dict())
+    cfg.update({
+        "architectures": [type(text_encoder).__name__], "model_type": "clip_text_model",
+        "torch_dtype": "float32",
+    })
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=2, sort_keys=True)
+
+
+def save_text_encoder(text_encoder, directory: str) -> None:
+    """A text encoder's folder as transformers writes it: ``config.json``
+    and its params in f32 in ``model.safetensors``."""
+    write_text_encoder_config(text_encoder, directory)
+    save_weights(text_encoder.state_dict(), directory, "model.safetensors")
+
+
+def save_model_folder(model, directory: str) -> None:
+    """A UNet's or VAE's folder as diffusers writes it: ``config.json`` and
+    its params in f32 in ``diffusion_pytorch_model.safetensors``."""
+    model.save_config(directory)
+    save_weights(model.state_dict(), directory, "diffusion_pytorch_model.safetensors")

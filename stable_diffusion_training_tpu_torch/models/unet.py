@@ -7,10 +7,13 @@ on the card). ``set_gradient_checkpointing`` is the JAX package's
 and ``ff_gradient_checkpointing`` (around each transformer feed-forward),
 with ``torch.utils.checkpoint``: the wrapped forward runs again in the
 backward, the flash kernel included, and its launch counter counts that
-run. The SDXL ``text_time`` add-embedding comes with a later slice.
+run. SDXL's ``addition_embed_type="text_time"`` micro-conditioning adds
+``add_embedding`` (the pooled text embedding and the sinusoidal embedding of
+each time id, through a ``TimestepEmbedding``) to the time embedding; the
+base's 6 ids and the refiner's 5 differ only in its input width.
 """
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -76,16 +79,16 @@ class UNet2DConditionModel(ConfigurableMixin, nn.Module):
         flip_sin_to_cos: bool = True,
         freq_shift: float = 0.0,
         addition_embed_type: Optional[str] = None,
+        addition_time_embed_dim: Optional[int] = None,
+        projection_class_embeddings_input_dim: Optional[int] = None,
         attention_backend: str = "auto",
         device=None,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self._register_config(dict(locals()))
-        if addition_embed_type is not None:
-            raise NotImplementedError(
-                f"addition_embed_type={addition_embed_type!r} (SDXL) is not ported yet"
-            )
+        if addition_embed_type not in (None, "text_time"):
+            raise ValueError(f"unsupported addition_embed_type {addition_embed_type!r}")
         n = len(block_out_channels)
         # SD1.5 configs store the head *count* in attention_head_dim
         # (diffusers' historical naming); num_attention_heads overrides
@@ -96,12 +99,18 @@ class UNet2DConditionModel(ConfigurableMixin, nn.Module):
         only_cross = _per_block(only_cross_attention, n)
         self.flip_sin_to_cos = flip_sin_to_cos
         self.freq_shift = freq_shift
+        self.addition_embed_type = addition_embed_type
+        self.addition_time_embed_dim = addition_time_embed_dim
         ch0 = block_out_channels[0]
         temb_ch = ch0 * 4
 
         with torch.device(resolve_device(device)):
             self.conv_in = nn.Conv2d(in_channels, ch0, 3, padding=1)
             self.time_embedding = TimestepEmbedding(ch0, temb_ch)
+            if addition_embed_type == "text_time":
+                self.add_embedding = TimestepEmbedding(
+                    projection_class_embeddings_input_dim, temb_ch
+                )
 
             skip_channels = [ch0]  # the skip stack, as forward fills it
             self.down_blocks = nn.ModuleList()
@@ -184,7 +193,10 @@ class UNet2DConditionModel(ConfigurableMixin, nn.Module):
         sample: torch.Tensor,
         timesteps: torch.Tensor,
         encoder_hidden_states: torch.Tensor,
+        added_cond_kwargs: Optional[Dict[str, torch.Tensor]] = None,
     ) -> torch.Tensor:
+        """``added_cond_kwargs`` (``text_time`` UNets only):
+        ``{"text_embeds": (B, P), "time_ids": (B, n_ids)}``."""
         timesteps = torch.as_tensor(timesteps, device=sample.device)
         if timesteps.dim() == 0:
             timesteps = timesteps[None].expand(sample.shape[0])
@@ -192,6 +204,19 @@ class UNet2DConditionModel(ConfigurableMixin, nn.Module):
             timesteps, self.conv_in.out_channels, self.flip_sin_to_cos, self.freq_shift
         ).to(self.dtype)
         t_emb = self.time_embedding(t_emb)
+
+        if self.addition_embed_type == "text_time":
+            if added_cond_kwargs is None:
+                raise ValueError(
+                    "SDXL UNet requires added_cond_kwargs={'text_embeds', 'time_ids'}"
+                )
+            text_embeds = added_cond_kwargs["text_embeds"]
+            time_embeds = get_sinusoidal_embeddings(
+                added_cond_kwargs["time_ids"].reshape(-1), self.addition_time_embed_dim,
+                self.flip_sin_to_cos, self.freq_shift,
+            ).reshape(text_embeds.shape[0], -1)
+            add_embeds = torch.cat([text_embeds.to(self.dtype), time_embeds.to(self.dtype)], dim=-1)
+            t_emb = t_emb + self.add_embedding(add_embeds)
 
         hidden_states = self.conv_in(sample)
         skips = [hidden_states]

@@ -46,16 +46,6 @@ _MODEL_INDEX = {
 }
 
 
-def _write_text_encoder_config(text_encoder, directory: str) -> None:
-    cfg = dict(text_encoder.config.to_dict())
-    cfg.update(
-        {"architectures": ["CLIPTextModel"], "model_type": "clip_text_model", "torch_dtype": "float32"}
-    )
-    os.makedirs(directory, exist_ok=True)
-    with open(os.path.join(directory, "config.json"), "w") as f:
-        json.dump(cfg, f, indent=2, sort_keys=True)
-
-
 def save_model(
     model_object_dict: dict,
     tokenizer_object: Any,
@@ -86,7 +76,7 @@ def save_model(
     hf_io.save_weights(vae_params, vae_dir, "diffusion_pytorch_model.safetensors")
 
     te_dir = os.path.join(output_dir, "text_encoder")
-    _write_text_encoder_config(model_object_dict["text_encoder"], te_dir)
+    hf_io.write_text_encoder_config(model_object_dict["text_encoder"], te_dir)
     hf_io.save_weights(text_encoder_params, te_dir, "model.safetensors")
 
     if tokenizer_object is not None:

@@ -19,7 +19,8 @@ kernels behind each entry point, tensor cores for bf16 with D % 8 == 0
 (fused) and above (the dQ and dK/dV pair), and the bf16 backward at D = 36
 and above D = 64 (the pair); and the edges: one query and one key, a single
 ragged key tile, a last key tile of one key, and at the main path's D = 40
-and 512 query and key counts that are no multiple of the kernels' tiles.
+and 512 query and key counts that are no multiple of the kernels' tiles;
+and the SDXL serving shapes, with one full-width SDXL UNet call counted.
 The fused bf16 backward adds dQ across key blocks in an order that changes
 from run to run: dK and dV repeat bitwise, dQ within a bf16 ulp. The fused
 f32 backward sums its dQ partials in key-block order: all three repeat
@@ -112,6 +113,50 @@ def test_f32_forward_repeats(bh, sq, sk, d):
     second = fa.flash_attention_fwd(q, k, v)
     torch.cuda.synchronize()
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,sk,d,route", [(20, 4096, 4096, 64, "tma_narrow"), (24, 4096, 4096, 64, "tma_narrow"),
+                                              (1, 16384, 16384, 512, "tma_wide")])
+def test_sdxl_shapes_match_plain_version(bh, sq, sk, d, route):
+    """K1 in bf16 at the SDXL serving shapes: the 64x64-latent
+    self-attention of the base (10 heads, CFG batch 2) and of the refiner
+    (12 heads), D = 64; the VAE mid-block at 1024x1024 (16,384 keys)."""
+    _need_cuda()
+    q, k, v, _ = _qkv(bh, sq, sk, d, "bfloat16", seed=14)
+    assert fa.forward_route(q, k, v) == route
+    fa.reset_launch_counts()
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches_by_route == {route: 1}
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, d**-0.5)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=TOL["bfloat16"]["o"], rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=TOL["bfloat16"]["lse"], rtol=0)
+
+
+@pytest.mark.cuda
+def test_sdxl_unet_call_launches_k1_at_its_shape():
+    """One full-width SDXL base UNet call in bf16 on 128x128 latents, CFG
+    batch 2: K1 runs 10 times (4 down and 6 up self-attentions of the 64x64
+    level) at (20, 4096, 64) on the narrow tensor-core kernel; the 32x32
+    level and the cross-attention take the plain path."""
+    _need_cuda()
+    from stable_diffusion_training_tpu_torch.models import UNet2DConditionModel, configs, random_init_
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    unet = random_init_(UNet2DConditionModel(**configs.SDXL_UNET, device="cuda", dtype=torch.bfloat16), gen)
+    bf16 = dict(device="cuda", dtype=torch.bfloat16)
+    sample = torch.randn(2, 4, 128, 128, generator=gen, **bf16)
+    ctx = torch.randn(2, 77, 2048, generator=gen, **bf16)
+    added = {"text_embeds": torch.randn(2, 1280, generator=gen, **bf16),
+             "time_ids": torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]] * 2, device="cuda")}
+    fa.reset_launch_counts()
+    with torch.no_grad():
+        out = unet(sample, torch.tensor([500, 500], device="cuda"), ctx, added_cond_kwargs=added)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches_by_route == {"tma_narrow": 10}
+    assert fa.flash_attention_fwd.launches_by_shape == {(20, 4096, 4096, 64, "bfloat16", "tma_narrow"): 10}
+    assert out.shape == (2, 4, 128, 128) and bool(torch.isfinite(out).all())
 
 
 @pytest.mark.cuda

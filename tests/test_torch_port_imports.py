@@ -30,6 +30,7 @@ SLICE_MODULES = (
     "utils/json_io.py", "data/buckets.py", "data/memory.py", "train/checkpoint.py",
     "train/aot.py", "utils/tb_events.py", "utils/metrics.py", "train/trainer.py",
     "training.py",  # the trainer
+    "pipeline/sdxl.py", "pipeline/sdxl_refiner.py",  # SDXL serving
 )
 KERNEL_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "lion8bit_update.cu")
 SCRIPTS = ("chip_smoke.py", "probe_flash_bwd.py", "probe_lion.py")  # run from the root on the card

@@ -272,3 +272,33 @@ def test_sd15_full_unet_forward_matches_jax():
     with torch.no_grad():
         got = unet(torch.tensor(sample), torch.tensor(t), torch.tensor(ctx)).numpy()
     np.testing.assert_allclose(got, expected, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.slow  # 2.6 B parameters: ~10 GB of f32 weights on each side
+def test_sdxl_full_unet_forward_matches_jax():
+    """SDXL's UNet at full width (2048-channel context, 10-layer
+    transformers, ``text_time`` with 6 ids) on a 16x16 latent. The port's
+    model takes the converted tensors as its parameters (built on the meta
+    device, ``assign=True``), so the weights are held twice, not three
+    times."""
+    rng = jax.random.PRNGKey(0)
+    jax_unet = JaxUNet(**jax_configs.SDXL_UNET)
+    params = jax_unet.init(rng, batch_size=1, height=16, width=16)
+    sample, ctx = _rand((1, 4, 16, 16), 12), _rand((1, 77, 2048), 13, scale=0.3)
+    added = {"text_embeds": _rand((1, 1280), 14, scale=0.3),
+             "time_ids": np.array([[1024, 1024, 0, 0, 1024, 1024]], dtype=np.float32)}
+    t = np.array([421], dtype=np.int32)
+    expected = np.asarray(jax_unet.apply(
+        params, jnp.asarray(sample), jnp.asarray(t), jnp.asarray(ctx),
+        added_cond_kwargs={k: jnp.asarray(v) for k, v in added.items()},
+    ))
+    state = jax_params_to_state_dict(params)
+    del params
+    gc.collect()
+    unet = UNet2DConditionModel(**configs.SDXL_UNET, device="meta")
+    unet.load_state_dict(state, strict=True, assign=True)
+    del state
+    with torch.no_grad():
+        got = unet.eval()(torch.tensor(sample), torch.tensor(t), torch.tensor(ctx),
+                          added_cond_kwargs={k: torch.tensor(v) for k, v in added.items()}).numpy()
+    np.testing.assert_allclose(got, expected, atol=1e-5, rtol=1e-4)

@@ -116,6 +116,23 @@ def test_from_pretrained_reads_a_jax_checkpoint(pipelines, tmp_path):
     np.testing.assert_allclose(got, _jax_images(jax_pipe, params, ids, neg, latents), atol=TOL, rtol=0)
 
 
+def test_jax_reads_the_ports_checkpoint(pipelines, tmp_path):
+    """The port's ``save_pretrained`` writes what the JAX package's
+    ``from_pretrained`` reads: the same weights, the scheduler as
+    configured, the same images."""
+    jax_pipe, params, pipe = pipelines
+    pipe.save_pretrained(str(tmp_path))
+    jax_loaded, jax_params = JaxPipeline.from_pretrained(str(tmp_path))
+    assert jax_loaded.scheduler.config.prediction_type == "v_prediction"
+    for name in ("unet", "vae", "text_encoder"):
+        for (path, a), (_, b) in zip(jax.tree_util.tree_flatten_with_path(jax_params[name])[0],
+                                     jax.tree_util.tree_flatten_with_path(params[name])[0]):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=f"{name} {path}")
+    ids, neg, latents = _inputs(seed=3)
+    np.testing.assert_allclose(_jax_images(jax_loaded, jax_params, ids, neg, latents),
+                               _port_images(pipe, ids, neg, latents), atol=TOL, rtol=0)
+
+
 def test_seeded_noise_is_reproducible(pipelines):
     _, _, pipe = pipelines
     ids, neg, _ = _inputs(batch=1, seed=2)
