@@ -6,6 +6,7 @@ NVIDIA GPU and check it end to end.
     python3 chip_smoke.py --phases gpu,build,kernels
     python3 chip_smoke.py --phases gpu,build,train_f32   # the f32 train step alone
     python3 chip_smoke.py --phases gpu,build,sdxl_parity,sdxl,sdxl_refiner   # SDXL serving
+    python3 chip_smoke.py --phases gpu,build,sdxl_train_parity,sdxl_train,sdxl_trainer   # SDXL training
 
 Phases, one JSON line each:
 
@@ -141,6 +142,34 @@ Phases, one JSON line each:
    every kernel of the train step launched. Prints the step p50 inside the
    trainer beside the ``train`` phase's, seconds per ``save_model`` and per
    ``save_train_state``, bytes written and peak disk use.
+13. ``sdxl_train_parity``: one SDXL train step's loss and grads (the step's
+   own loss function) at full width in f32 (TF32 off), batch 1, 128x128
+   cached moments, a 227-token 2048-wide context, pooled 1280 and 6 time
+   ids, the draws injected: "auto" against "xla" (a model holding the same
+   tensors) within ``train_parity``'s bounds, the add-embedding's grads
+   non-zero; K1 and the fused f32 backward exactly 10 times each at (10,
+   4096, 64).
+14. ``sdxl_train``: SDXL training (BASELINE config 5). The offline pass
+   first: ``precompute_latent_cache`` over three shards of 4 synthetic
+   images (1024x1024, 1152x896, 1024x1024) with seeded bf16 towers 1 and 2
+   and the SDXL VAE (ms per image; K1 once per image at the mid-block's
+   (1, 16384, 512) or (1, 16128, 512)). Then the bf16 step through
+   ``on_device_model_training_state`` and ``train.aot``'s bucketed steps
+   with the example settings, batch 4, gradient checkpointing and the
+   frozen towers' context: 2 warm-up and 5 timed steps at 1024x1024 and 2
+   at 1152x896, each window's launches checked by route and shape (K1 20 a
+   step, each of the 64x64 level's 10 again in the recompute; the fused
+   bf16 backward 10; Lion's leaf table once per 1,024 leaves; nothing
+   else) and its grad copies against the quantized leaves autograd hands
+   over strided; finite losses, codes and the add-embedding moving; one
+   step's Lion update against its plain version; the optimizer chain's
+   host ms; one step profiled.
+15. ``sdxl_trainer``: one ``trainer.main`` chunk over ``sdxl_train``'s
+   cache (3 steps) with its checkpoint: ``loss.csv``, the JSON, the probe,
+   the chunk's ``unet/`` and its EMA variant reloaded through ``hf_io``
+   equal to the saved state, that state restored, the step's kernels
+   launched; seconds per save, bytes, peak disk. The run directory and the
+   cache are deleted at the end.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Before the last line it prints the ``kernels`` record (every kernel and
@@ -155,6 +184,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -166,10 +196,13 @@ CSRC = f"{PACKAGE}/csrc"
 JAX_OPS = "stable_diffusion_training_tpu/ops"
 ALL_PHASES = (
     "gpu", "build", "kernels", "parity", "slice", "sdxl_parity", "sdxl", "sdxl_refiner", "train_parity", "train",
-    "train_f32", "trainer",
+    "train_f32", "trainer", "sdxl_train_parity", "sdxl_train", "sdxl_trainer",
 )
 # the phases whose runs give the kernels line its launches
-PATH_PHASES = {"kernels", "parity", "slice", "sdxl_parity", "sdxl", "sdxl_refiner", "train_parity", "train", "train_f32"}
+PATH_PHASES = {
+    "kernels", "parity", "slice", "sdxl_parity", "sdxl", "sdxl_refiner", "train_parity", "train", "train_f32",
+    "sdxl_train_parity", "sdxl_train",
+}
 
 # H100 SXM peaks (NVIDIA data sheet, dense): 989 TFLOP/s bf16 tensor core,
 # 67 TFLOP/s f32 on the CUDA cores (TF32 would change the numerics), 3.35
@@ -494,6 +527,13 @@ def phase_kernels(state):
         ("sdxl_unet_l1", 20, 4096, 4096, 64, both),  # SDXL: 64x64 self-attention, CFG batch 2; f32 in sdxl_parity
         ("sdxl_refiner_l1", 24, 4096, 4096, 64, ("bfloat16",)),  # the refiner's
         ("sdxl_vae_mid", 1, 16384, 16384, 512, ("bfloat16",)),  # the VAE mid-block at 1024x1024
+        # SDXL training: the 64x64 level at batch 4, the 1152x896 bucket's 72x56
+        # level, sdxl_train_parity's batch 1 in f32, the cache pass's encode of
+        # a 1152x896 image (144x112 latents)
+        ("sdxl_train_l1", 40, 4096, 4096, 64, ("bfloat16",)),
+        ("sdxl_train_bucket_l1", 40, 4032, 4032, 64, ("bfloat16",)),
+        ("sdxl_train_parity_l1", 10, 4096, 4096, 64, ("float32",)),
+        ("sdxl_vae_mid_bucket", 1, 16128, 16128, 512, ("bfloat16",)),
     ]
     results = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -613,6 +653,12 @@ def flash_backward_cases():
         ("unet_train_f32_b8", 64, 4096, 4096, 40, torch.float32),  # the train_f32 shape
         ("ragged_f32", 4, 3000, 2100, 64, torch.float32),  # SD2.1/SDXL's head dim, counts off the tiles
         ("ragged_d40_f32", 3, 4000, 3900, 40, torch.float32),
+        # SDXL training at D = 64: the 64x64 level at batch 4, the 1152x896
+        # bucket's 72x56 level (4,032 rows, no multiple of the tiles), and
+        # sdxl_train_parity's f32 batch 1
+        ("sdxl_train", 40, 4096, 4096, 64, torch.bfloat16),
+        ("sdxl_train_bucket", 40, 4032, 4032, 64, torch.bfloat16),
+        ("sdxl_train_parity_f32", 10, 4096, 4096, 64, torch.float32),
     ]
     rows = []
     for name, bh, sq, sk, d, dtype in cases:
@@ -899,21 +945,45 @@ def lion_fused_cases():
     return rows
 
 
-def sd15_quantized_leaves():
-    """{model: [(name, torch shape, permutation to the JAX layout)]} of the
-    SD1.5 leaves that the example config quantizes."""
-    from stable_diffusion_training_tpu_torch.models import CLIPTextModel, UNet2DConditionModel, configs, hf_io
+def quantized_leaves(model):
+    """[(name, torch shape, permutation to the JAX layout)] of the leaves of
+    ``model`` that the example config quantizes, in the optimizer's order."""
+    from stable_diffusion_training_tpu_torch.models import hf_io
     from stable_diffusion_training_tpu_torch.optim import create_mask
 
-    out = {}
-    for model_name, model in (
-        ("unet", UNet2DConditionModel(**configs.SD15_UNET, device="meta")),
-        ("text_encoder", CLIPTextModel(**configs.CLIP_VIT_L, device="meta")),
-    ):
-        mask = create_mask(model, EXAMPLE_EXCLUDED_FROM_QUANTIZATION)
-        paths = hf_io.jax_param_paths(model)
-        out[model_name] = [(n, tuple(p.shape), paths[n][1]) for n, p in model.named_parameters() if mask[n]]
-    return out
+    mask = create_mask(model, EXAMPLE_EXCLUDED_FROM_QUANTIZATION)
+    paths = hf_io.jax_param_paths(model)
+    return [(n, tuple(p.shape), paths[n][1]) for n, p in model.named_parameters() if mask[n]]
+
+
+def sd15_quantized_leaves():
+    """{model: quantized leaves} of SD1.5's UNet and text encoder."""
+    from stable_diffusion_training_tpu_torch.models import CLIPTextModel, UNet2DConditionModel, configs
+
+    return {
+        "unet": quantized_leaves(UNet2DConditionModel(**configs.SD15_UNET, device="meta")),
+        "text_encoder": quantized_leaves(CLIPTextModel(**configs.CLIP_VIT_L, device="meta")),
+    }
+
+
+def sdxl_quantized_leaves():
+    """The SDXL UNet's quantized leaves (its text towers are frozen)."""
+    from stable_diffusion_training_tpu_torch.models import UNet2DConditionModel, configs
+
+    return quantized_leaves(UNet2DConditionModel(**configs.SDXL_UNET, device="meta"))
+
+
+def lion_table_launches(leaves, dtype_name):
+    """``{(leaves, elements, bs, dtype): 1}`` of one leaf-table update over
+    ``leaves``: one launch per ``MAX_LEAVES_PER_LAUNCH`` leaves, as
+    ``LeafTable`` splits them."""
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+
+    step = lk.MAX_LEAVES_PER_LAUNCH
+    return {
+        (len(part), sum(math.prod(shape) for _, shape, _ in part), LION_BS, dtype_name): 1
+        for part in (leaves[i:i + step] for i in range(0, len(leaves), step))
+    }
 
 
 def lion_model_inputs(leaves, dtype, bs, seed):
@@ -954,7 +1024,9 @@ def permute_grads(leaves, grads):
 
 
 def lion_model_cases():
-    """The whole 8-bit Lion update of each SD1.5 model at its real leaf
+    """The whole 8-bit Lion update of each SD1.5 model (bf16 and f32 grads,
+    both companders) and of the SDXL UNet (bf16, exact: SDXL training's;
+    773 leaves, more than 2^31 elements) at its real leaf
     shapes and permutations, bs 16: the new route (``lion8bit_update_leaves_``,
     one launch, grads in torch layout) against its plain version
     (``lion8bit_update_leaves_reference``) and against the old route (permute
@@ -969,8 +1041,11 @@ def lion_model_cases():
     from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
 
     rows = []
-    for model_name, leaves in sd15_quantized_leaves().items():
-        for dtype, compander in ((torch.bfloat16, "exact"), (torch.bfloat16, "fast"), (torch.float32, "exact")):
+    variants = ((torch.bfloat16, "exact"), (torch.bfloat16, "fast"), (torch.float32, "exact"))
+    models = [(name, leaves, variants) for name, leaves in sd15_quantized_leaves().items()]
+    models.append(("sdxl_unet", sdxl_quantized_leaves(), variants[:1]))
+    for model_name, leaves, model_variants in models:
+        for dtype, compander in model_variants:
             name_dt = str(dtype).replace("torch.", "")
             grads, codes, scales = lion_model_inputs(leaves, dtype, LION_BS, seed=5)
             perms = [perm for _, _, perm in leaves]
@@ -983,7 +1058,7 @@ def lion_model_cases():
             lk.reset_launch_counts()
             upds = lk.lion8bit_update_leaves_(grads, table, compander=compander)
             torch.cuda.synchronize()
-            launches = lk.lion8bit_update_leaves_.launches
+            launches = dict(lk.lion8bit_update_leaves_.launches_by_shape)
             old_route = lambda: old_lion_route(leaves, grads, old_c, old_s, compander)
             old_route()
             torch.cuda.synchronize()
@@ -1009,12 +1084,13 @@ def lion_model_cases():
             # grad in, sign out (grad's dtype), int8 code in and out, f32 scale in and out per block
             nbytes = n * (2 * grads[0].element_size() + 2) + nb * 8
             bound_ms = nbytes / PEAK_BYTES * 1e3
-            ok = (updates_equal and contiguous and scales_equal and max_code_diff <= 1 and launches == 1
+            launch_shapes = lion_table_launches(leaves, name_dt)
+            ok = (updates_equal and contiguous and scales_equal and max_code_diff <= 1 and launches == launch_shapes
                   and codes_differ_from_old == 0 and scales_differ_from_old == 0)
             row = dict(
                 case=f"{model_name}_{name_dt}_{compander}", model=model_name, dtype=name_dt, compander=compander,
                 bs=LION_BS, leaves=len(leaves), transposed_leaves=sum(perm is not None for perm in perms),
-                elements=n, launches_per_call=launches, table_tiles=table.n_tiles,
+                elements=n, launches_per_call=sum(launches.values()), table_tiles=table.n_tiles,
                 updates_equal=updates_equal, updates_contiguous_torch_layout=contiguous, scales_equal=scales_equal,
                 max_code_diff=max_code_diff, codes_off_by_one=codes_off,
                 codes_differ_from_old_route=codes_differ_from_old,
@@ -1023,7 +1099,7 @@ def lion_model_cases():
                 old_route_ms=old_ms, old_route_host_ms_per_call=host_old[0], old_permute_copies_ms=copies_ms,
                 old_kernels_ms=old_kernels_ms, bound_ms=bound_ms, bound_by="bytes",
                 share_of_bound=bound_ms / new_ms, gbytes_per_s=nbytes / new_ms / 1e6,
-                launch_shape=[len(leaves), n, LION_BS, name_dt],
+                launch_shapes=[list(k) for k in launch_shapes],
             )
             rows.append(row)
             emit("kernels_lion_model", **row)
@@ -1031,6 +1107,8 @@ def lion_model_cases():
             torch.cuda.empty_cache()
     both = {}
     for r in rows:
+        if r["model"] == "sdxl_unet":
+            continue
         key = (r["dtype"], r["compander"])
         acc = both.setdefault(key, dict(kernel_ms=0.0, bound_ms=0.0, old_route_ms=0.0, old_permute_copies_ms=0.0,
                                         host_ms=[]))
@@ -1712,12 +1790,87 @@ def _tree_bytes(path):
     return total
 
 
+def trainer_run(name, training_config, seed, **fields):
+    """A fresh run directory ``.cache/<name>`` holding the trainer's JSON
+    config: ``training_config``'s fields and one chunk's run settings, a
+    checkpoint base ``ckpt/run@0``. Returns (run directory, checkpoint base,
+    config dict, config path, free disk bytes)."""
+    import shutil
+
+    run_dir = os.path.join(REPO, ".cache", name)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    base = os.path.join(run_dir, "ckpt", "run")
+    cfg = dict(
+        training_config.__dict__,
+        model_path=f"{base}@0", test_save_path=os.path.join(run_dir, "probe"),
+        loss_csv=os.path.join(run_dir, "loss.csv"), master_seed=seed, chunk_number=0,
+        chunk_limit=1, chunk_steps=0, keep_trained_model_buffer=1, loss_logging_interval=1,
+        DEBUG=False, numb_of_prefetched_batch=1, **fields,
+    )
+    config_path = os.path.join(run_dir, "model_properties.json")
+    with open(config_path, "w") as f:
+        json.dump(cfg, f)
+    return run_dir, base, cfg, config_path, shutil.disk_usage(run_dir).free
+
+
+class SaveWatch:
+    """Instrumentation of one trainer run, from construction to ``stop()``:
+    the seconds and bytes of each ``save_model`` and ``save_train_state``
+    (the trainer's own calls, wrapped), and the run directory's peak size
+    (sampled every 0.2 s)."""
+
+    def __init__(self, trainer, run_dir):
+        import threading
+
+        self.trainer, self.run_dir = trainer, run_dir
+        self.saved = (trainer.save_model, trainer.save_train_state)
+        self.timings = {"save_model": [], "save_train_state": []}
+        trainer.save_model = self._timed("save_model", trainer.save_model)
+        trainer.save_train_state = self._timed("save_train_state", trainer.save_train_state)
+        self.peak = 0
+        self._stop = threading.Event()
+        self._watcher = threading.Thread(target=self._watch, daemon=True)
+        self._watcher.start()
+
+    def _timed(self, name, fn):
+        def wrapper(*args, **kwargs):
+            import torch
+
+            out_dir = kwargs.get("output_dir") or args[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.timings[name].append(dict(s=time.perf_counter() - t0, bytes=_tree_bytes(out_dir)))
+            return out
+        return wrapper
+
+    def _watch(self):
+        while not self._stop.is_set():
+            self.peak = max(self.peak, _tree_bytes(self.run_dir))
+            self._stop.wait(0.2)
+
+    def stop(self):
+        self._stop.set()
+        self._watcher.join(timeout=10)
+        self.trainer.save_model, self.trainer.save_train_state = self.saved
+
+    def row(self):
+        return dict(
+            save_model_s=[t["s"] for t in self.timings["save_model"]],
+            save_train_state_s=[t["s"] for t in self.timings["save_train_state"]],
+            save_model_bytes=[t["bytes"] for t in self.timings["save_model"]],
+            save_train_state_bytes=[t["bytes"] for t in self.timings["save_train_state"]],
+            bytes_written=sum(t["bytes"] for ts in self.timings.values() for t in ts),
+            peak_disk_bytes=self.peak,
+        )
+
+
 def phase_trainer(state, seed=0):
     """The port's trainer at full width through ``trainer.main``: one chunk,
     then a resume from its ``train_state/``, with the artifacts checked."""
     import gc
     import shutil
-    import threading
 
     import numpy as np
     import torch
@@ -1732,36 +1885,10 @@ def phase_trainer(state, seed=0):
     gc.collect()
     torch.cuda.empty_cache()
     set_tf32(False)
-    run_dir = os.path.join(REPO, ".cache", "chip_smoke_trainer")
-    shutil.rmtree(run_dir, ignore_errors=True)
-    os.makedirs(run_dir)
-    free_before = shutil.disk_usage(run_dir).free
-    base = os.path.join(run_dir, "ckpt", "run")
-    cfg = dict(
-        train_config().__dict__,
-        model_path=f"{base}@0", test_save_path=os.path.join(run_dir, "probe"),
-        loss_csv=os.path.join(run_dir, "loss.csv"), master_seed=seed, chunk_number=0,
-        chunk_limit=1, chunk_steps=0, keep_trained_model_buffer=1, loss_logging_interval=1,
-        DEBUG=False, numb_of_prefetched_batch=1, device_prefetch_depth=2,
+    run_dir, base, cfg, config_path, free_before = trainer_run(
+        "chip_smoke_trainer", train_config(), seed, device_prefetch_depth=2,
     )
-    config_path = os.path.join(run_dir, "model_properties.json")
-    with open(config_path, "w") as f:
-        json.dump(cfg, f)
-
-    # instrumentation of this run only: the time and bytes of each save, and
-    # the restored momentum held against the files it came from
-    timings = {"save_model": [], "save_train_state": []}
-    restored_ok = []
-
-    def timed(name, fn):
-        def wrapper(*args, **kwargs):
-            out_dir = kwargs.get("output_dir") or args[0]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            timings[name].append(dict(s=time.perf_counter() - t0, bytes=_tree_bytes(out_dir)))
-            return out
-        return wrapper
+    restored_ok = []  # the restored momentum held against the files it came from
 
     def checked_restore(directory, template):
         restored = restore(directory, template)
@@ -1777,20 +1904,9 @@ def phase_trainer(state, seed=0):
             del saved
         return restored
 
-    save_model, save_state, restore = trainer.save_model, trainer.save_train_state, trainer.restore_train_state
-    trainer.save_model = timed("save_model", save_model)
-    trainer.save_train_state = timed("save_train_state", save_state)
+    restore = trainer.restore_train_state
     trainer.restore_train_state = checked_restore
-    peak = [0]
-    stop = threading.Event()
-
-    def watch_disk():
-        while not stop.is_set():
-            peak[0] = max(peak[0], _tree_bytes(run_dir))
-            stop.wait(0.2)
-
-    watcher = threading.Thread(target=watch_disk, daemon=True)
-    watcher.start()
+    watch = SaveWatch(trainer, run_dir)
     vocab = configs.MODEL_FAMILIES[cfg["model_family"]]["text_encoder"]["vocab_size"]
     try:
         fa.reset_launch_counts()
@@ -1806,9 +1922,8 @@ def phase_trainer(state, seed=0):
         wall_s = time.perf_counter() - t0
         launches = train_launches(fa, lk)
     finally:
-        stop.set()
-        watcher.join(timeout=10)
-        trainer.save_model, trainer.save_train_state, trainer.restore_train_state = save_model, save_state, restore
+        watch.stop()
+        trainer.restore_train_state = restore
 
     final = read_json_file(config_path)
     backup = read_json_file(os.path.join(run_dir, "backup_model_properties.json"))
@@ -1849,12 +1964,7 @@ def phase_trainer(state, seed=0):
         steps=2 * TRAINER_STEPS, chunks=2, batch=TRAIN_BATCH, resolution=TRAIN_RES, dtype="bfloat16",
         wall_s=wall_s, losses=losses, step_ms=[x * 1e3 for x in step_s], p50_ms=p50_ms,
         train_phase_p50_ms=train_p50, ratio_to_train_phase=p50_ms / train_p50 if train_p50 else None,
-        save_model_s=[t["s"] for t in timings["save_model"]],
-        save_train_state_s=[t["s"] for t in timings["save_train_state"]],
-        save_model_bytes=[t["bytes"] for t in timings["save_model"]],
-        save_train_state_bytes=[t["bytes"] for t in timings["save_train_state"]],
-        bytes_written=sum(t["bytes"] for ts in timings.values() for t in ts),
-        peak_disk_bytes=peak[0], disk_free_before=free_before, launches=launches,
+        **watch.row(), disk_free_before=free_before, launches=launches,
         restored_momentum_leaves=len(restored_ok), checks=checks, ok=all(checks.values()),
     )
     emit("trainer", **row)
@@ -1863,10 +1973,490 @@ def phase_trainer(state, seed=0):
         raise AssertionError(f"trainer failed its checks: {checks}")
 
 
+# SDXL training (BASELINE config 5): batch 4 from the offline latent cache,
+# at 1024x1024 and the 1152x896 bucket. K1's and the fused backward's keys
+# (bh, sq, sk, d, dtype): the 64x64 level (10 heads of 64, 2 layers: 4 down,
+# 6 up) at batch 4, and the bucket's 72x56 level; the cache pass's
+# per-sample VAE encode (its mid-block) at 128x128 and 144x112 latents; the
+# f32 parity step's batch 1.
+SDXL_TRAIN_BATCH, SDXL_BUCKET = 4, (1152, 896)
+SDXL_TRAIN_KEYS = {"1024": (40, 4096, 4096, 64, "bfloat16"), "bucket": (40, 4032, 4032, 64, "bfloat16")}
+SDXL_ENCODE_KEYS = {"1024": SDXL_VAE_KEY, "bucket": (1, 16128, 16128, 512, "bfloat16", "tma_wide")}
+SDXL_PARITY_KEY = (10, 4096, 4096, 64, "float32")
+SDXL_CACHE_DIR = os.path.join(REPO, ".cache", "chip_smoke_sdxl_cache")
+# the cache's shards: (resolution, seed offset); the trainer phase's chunk
+# is these three steps
+SDXL_SHARDS = (((SDXL_RES, SDXL_RES), 0), (SDXL_BUCKET, 1), ((SDXL_RES, SDXL_RES), 2))
+
+
+def sdxl_train_config(**overrides):
+    """``train_config``'s example settings for SDXL training: the seeded
+    ``sdxl`` family at batch 4, the 1024 tier (min side 512, so 1152x896 is
+    a bucket), the latent cache with the frozen towers' context, pooled
+    embeds and 6 time ids, gradient checkpointing; the frozen tower 1 keeps
+    no EMA."""
+    return train_config(**{
+        **dict(model_path="sdxl", model_family="sdxl", batch_size=SDXL_TRAIN_BATCH,
+               image_area_root=[SDXL_RES], minimum_axis_length=[512], use_latent_cache=True,
+               cached_text_context=True, sdxl_micro_conditioning=True, train_text_encoder=False,
+               gradient_checkpointing=True, accumulate_text_encoder_ema=False),
+        **overrides,
+    })
+
+
+def sdxl_context_widths():
+    """The SDXL UNet's context width (2048: both towers) and pooled width
+    (1280: tower 2's projection)."""
+    from stable_diffusion_training_tpu_torch.models import configs
+
+    unet = configs.SDXL_UNET
+    pooled = unet["projection_class_embeddings_input_dim"] - 6 * unet["addition_time_embed_dim"]
+    return unet["cross_attention_dim"], pooled
+
+
+def phase_sdxl_train_parity(state, seed=7):
+    """One SDXL train step's loss and grads at full width in f32 (TF32 off):
+    batch 1, 128x128 cached moments, a 227-token 2048-wide context, pooled
+    1280 and 6 time ids, the draws injected, through the step's own loss
+    (``train_step._loss``) and grads. "auto" (K1 on route f32 and the fused
+    f32 backward, each 10 times at (10, 4096, 64)) against "xla" (plain
+    attention, a model holding the same tensors): the loss within
+    ``TRAIN_LOSS_REL_TOL``, each grad within ``TRAIN_GRAD_REL_TOL`` of its
+    tensor's max |grad|, the add-embedding's grads non-zero."""
+    import gc
+    from types import SimpleNamespace
+
+    import torch
+
+    from stable_diffusion_training_tpu_torch.diffusion import DDPMScheduler
+    from stable_diffusion_training_tpu_torch.models import UNet2DConditionModel, configs
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+    from stable_diffusion_training_tpu_torch.train.states import FrozenModel
+    from stable_diffusion_training_tpu_torch.train.train_step import _grads, _loss, make_draws
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    set_tf32(False)
+    unet = seeded_models(seed, torch.float32, unet=(UNet2DConditionModel, configs.SDXL_UNET))["unet"]
+    plain = UNet2DConditionModel(**configs.SDXL_UNET, attention_backend="xla", device="meta")
+    plain.load_state_dict(unet.state_dict(), strict=True, assign=True)
+    sched = DDPMScheduler(beta_start=0.00085, beta_end=0.012, beta_schedule="zero_snr_scaled_linear",
+                          num_train_timesteps=1000, prediction_type="v_prediction", device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    latent = SDXL_RES // 8
+    mean = torch.randn(1, 4, latent, latent, generator=gen, device="cuda")
+    logvar = torch.randn(1, 4, latent, latent, generator=gen, device="cuda") * 0.1 - 6.0
+    context, pooled = sdxl_context_widths()
+    batch = {
+        "latent_moments": torch.cat([mean, logvar], dim=1),
+        "encoder_hidden_states": torch.randn(1, 227, context, generator=gen, device="cuda"),
+        "pooled_text_embeds": torch.randn(1, pooled, generator=gen, device="cuda"),
+        "time_ids": torch.tensor([[SDXL_RES, SDXL_RES, 0, 0, SDXL_RES, SDXL_RES]], device="cuda").float(),
+    }
+    draws = make_draws(gen, mean.shape, torch.float32, 1000, "cuda")
+    kw = dict(strip_bos_eos_token=True, offset_noise_magnitude=0.0, min_snr_gamma_magnitude=0.0,
+              perturbation_noise_magnitude=0.0, text_context_window=77, train_text_encoder=False,
+              vae_encode_chunk=0)
+    frozen = (FrozenModel(call=None, params=None), FrozenModel(call=sched, params=sched.create_state()))
+    names = [n for n, _ in unet.named_parameters()]
+
+    def loss_and_grads(model):
+        fa.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        loss = _loss(SimpleNamespace(model=model), None, *frozen, batch, None, draws, **kw)
+        grads = _grads(loss, dict(model.named_parameters()))
+        torch.cuda.synchronize()
+        launches = dict(fwd=fa.flash_attention_fwd.launches, fwd_routes=dict(fa.flash_attention_fwd.launches_by_route),
+                        **bwd_launches(fa))
+        by_shape = dict(flash_fwd=dict(fa.flash_attention_fwd.launches_by_shape),
+                        flash_bwd_f32=dict(fa.flash_attention_bwd_f32_fused.launches_by_shape))
+        return loss.item(), grads, launches, by_shape, torch.cuda.max_memory_allocated()
+
+    t0 = time.perf_counter()
+    loss_k, grads_k, launches_k, by_shape, peak_k = loss_and_grads(unet)
+    kernel_s = time.perf_counter() - t0
+    state["sdxl_train_parity_by_shape"] = by_shape
+    grads_k = [g.cpu() for g in grads_k]  # room on the card for the plain run's
+    t0 = time.perf_counter()
+    loss_p, grads_p, launches_p, _, peak_p = loss_and_grads(plain)
+    plain_s = time.perf_counter() - t0
+    worst, worst_name, add_embedding_max = 0.0, None, {}
+    for name, gk, gp in zip(names, grads_k, grads_p):
+        gk = gk.cuda()
+        ref = gp.abs().max().item()
+        rel = (gk - gp).abs().max().item() / max(ref, 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+        if name.startswith("add_embedding."):
+            add_embedding_max[name] = min(gk.abs().max().item(), ref)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    kernel_launches = dict(fwd=10, fwd_routes={"f32": 10}, bwd_fused=0, bwd_f32=10, bwd_dq=0, bwd_dkv=0)
+    plain_launches = dict(fwd=0, fwd_routes={}, bwd_fused=0, bwd_f32=0, bwd_dq=0, bwd_dkv=0)
+    want_shapes = dict(flash_fwd={SDXL_PARITY_KEY + ("f32",): 10}, flash_bwd_f32={SDXL_PARITY_KEY: 10})
+    ok = (
+        math.isfinite(loss_k) and loss_rel <= TRAIN_LOSS_REL_TOL and worst <= TRAIN_GRAD_REL_TOL
+        and launches_k == kernel_launches and launches_p == plain_launches and by_shape == want_shapes
+        and len(add_embedding_max) == 4 and all(v > 0 for v in add_embedding_max.values())
+    )
+    emit(
+        "sdxl_train_parity", dtype="float32", batch=1, resolution=SDXL_RES, loss_kernel=loss_k, loss_plain=loss_p,
+        loss_rel_diff=loss_rel, loss_rel_tol=TRAIN_LOSS_REL_TOL, worst_grad_rel_diff=worst, worst_grad=worst_name,
+        grad_rel_tol=TRAIN_GRAD_REL_TOL, n_grads=len(names), add_embedding_grad_max=add_embedding_max,
+        kernel_launches=launches_k, plain_launches=launches_p,
+        launches_by_shape={k: {"x".join(map(str, s)): n for s, n in v.items()} for k, v in by_shape.items()},
+        max_memory_allocated_kernel=peak_k, max_memory_allocated_plain=peak_p, kernel_s=kernel_s, plain_s=plain_s,
+        ok=ok,
+    )
+    del unet, plain, grads_k, grads_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("full-width SDXL training step: kernel and plain attention disagree")
+
+
+def sdxl_latent_cache(seed=0):
+    """SDXL training's offline pass: ``precompute_latent_cache`` over
+    ``SDXL_SHARDS`` (4 synthetic images each) with seeded bf16 towers 1 and
+    2 and the SDXL VAE, into ``SDXL_CACHE_DIR``: the moments (per-sample
+    encodes at >= 768 px), tower 2's pooled embeds, 6 time ids and both
+    towers' penultimate context over 3 windows. Returns the loader and the
+    ``sdxl_cache`` line; K1 must run once per image, at its resolution's
+    mid-block shape."""
+    import shutil
+
+    import torch
+
+    from stable_diffusion_training_tpu_torch.data import InMemoryDataLoader, precompute_latent_cache, synthetic_batch
+    from stable_diffusion_training_tpu_torch.models import (
+        AutoencoderKL, CLIPTextModel, CLIPTextModelWithProjection, configs,
+    )
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+
+    shutil.rmtree(SDXL_CACHE_DIR, ignore_errors=True)
+    models = seeded_models(
+        seed, torch.bfloat16, vae=(AutoencoderKL, configs.SDXL_VAE), text_encoder=(CLIPTextModel, configs.CLIP_VIT_L),
+        text_encoder_2=(CLIPTextModelWithProjection, dict(configs.OPEN_CLIP_VIT_BIGG, eos_token_id=2)),
+    )
+    pixels = InMemoryDataLoader([
+        synthetic_batch(SDXL_TRAIN_BATCH, res, concat_count=TRAIN_CONCAT, seed=seed + i) for res, i in SDXL_SHARDS
+    ])
+    images = SDXL_TRAIN_BATCH * len(SDXL_SHARDS)
+    fa.reset_launch_counts()
+    ms, loader = host_ms(lambda: precompute_latent_cache(
+        pixels, models["vae"], SDXL_CACHE_DIR, text_encoder_2=models["text_encoder_2"],
+        text_encoder=models["text_encoder"], concat_count=TRAIN_CONCAT, penultimate=True,
+    ))
+    by_shape = dict(fa.flash_attention_fwd.launches_by_shape)
+    want = {SDXL_ENCODE_KEYS["1024"]: 2 * SDXL_TRAIN_BATCH, SDXL_ENCODE_KEYS["bucket"]: SDXL_TRAIN_BATCH}
+    loader.dispatch_worker()
+    shard = loader.grab_next_batch()
+    shapes = {k: list(v.shape) for k, v in shard.items()}
+    dtypes = {k: str(v.dtype) for k, v in shard.items()}
+    row = dict(
+        images=images, shards=loader._bulk_batch_count, ms_per_image=ms / images, total_ms=ms,
+        launches_by_shape={"x".join(map(str, k)): n for k, n in by_shape.items()},
+        expected_launches_by_shape={"x".join(map(str, k)): n for k, n in want.items()},
+        shard_shapes=shapes, shard_dtypes=dtypes,
+        cache_bytes=_tree_bytes(SDXL_CACHE_DIR),
+    )
+    context, pooled = sdxl_context_widths()
+    ok = (by_shape == want and loader._bulk_batch_count == len(SDXL_SHARDS)
+          and shapes["latent_moments"] == [SDXL_TRAIN_BATCH, 8, SDXL_RES // 8, SDXL_RES // 8]
+          and shapes["encoder_hidden_states"] == [SDXL_TRAIN_BATCH, 227, context]
+          and shapes["pooled_text_embeds"] == [SDXL_TRAIN_BATCH, pooled] and shapes["time_ids"] == [SDXL_TRAIN_BATCH, 6])
+    del models
+    torch.cuda.empty_cache()
+    return loader, dict(row, ok=ok), by_shape
+
+
+def phase_sdxl_train(state, warmup=2, steps=5, bucket_steps=2, seed=0):
+    """SDXL training at full width: the offline cache pass, then the bf16
+    step through ``on_device_model_training_state`` and the bucketed step of
+    ``train.aot`` (example settings, batch 4, gradient checkpointing, the
+    frozen towers' context from the cache): 2 warm-up and 5 timed steps at
+    1024x1024, 2 at 1152x896, each window's launches counted; the Lion
+    update of one step's grads held to its plain version; the optimizer
+    chain's host time; one step profiled."""
+    import gc
+
+    import torch
+
+    from stable_diffusion_training_tpu_torch.models import hf_io
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+    from stable_diffusion_training_tpu_torch.optim import QuantizedMomentum
+    from stable_diffusion_training_tpu_torch.optim.lion8bit import GRAD_COPIES
+    from stable_diffusion_training_tpu_torch.train import (
+        batch_dispatch_key, bucket_train_steps, on_device_model_training_state,
+    )
+    from stable_diffusion_training_tpu_torch.train.train_step import _grads, _loss
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    set_tf32(False)
+    loader, cache_row, cache_by_shape = sdxl_latent_cache(seed)
+    emit("sdxl_cache", **cache_row)
+    state["sdxl_cache_by_shape"] = cache_by_shape
+    if not cache_row["ok"]:
+        raise AssertionError("SDXL latent cache pass failed its checks")
+
+    cfg = sdxl_train_config()
+    t0 = time.perf_counter()
+    states = on_device_model_training_state(cfg)
+    setup_s = time.perf_counter() - t0
+    unet_state, te_state, unet_ema, te_ema, frozen_vae, frozen_sched, _ = states
+    table = bucket_train_steps(cfg, frozen_vae)
+    batches = []
+    loader.dispatch_worker()
+    while not isinstance(b := loader.grab_next_batch(), str):
+        batches.append({k: torch.from_numpy(v).cuda() for k, v in b.items()})
+    square = [b for b in batches if b["latent_moments"].shape[-1] == SDXL_RES // 8]
+    bucket = [b for b in batches if b["latent_moments"].shape[-1] != SDXL_RES // 8]
+    train_rng = torch.Generator(device="cuda").manual_seed(seed + 1)
+
+    def step(batch):
+        out = table[batch_dispatch_key(batch)](
+            unet_state, te_state, unet_ema, te_ema, batch, train_rng, frozen_vae, frozen_sched,
+        )
+        return out[4]["loss"]
+
+    def window(batches, n):
+        """``n`` steps over ``batches`` with the counts zeroed just before and
+        read just after: (ms, losses, launches, by_shape, routes, copies)."""
+        fa.reset_launch_counts()
+        lk.reset_launch_counts()
+        GRAD_COPIES["count"] = 0
+        ms, losses = [], []
+        for i in range(n):
+            t, loss = host_ms(lambda: step(batches[i % len(batches)]))
+            ms.append(t)
+            losses.append(loss.item())
+        by_shape = dict(
+            flash_fwd=dict(fa.flash_attention_fwd.launches_by_shape),
+            flash_bwd_fused=dict(fa.flash_attention_bwd_fused.launches_by_shape),
+            lion_leaves=dict(lk.lion8bit_update_leaves_.launches_by_shape),
+        )
+        return (ms, losses, train_launches(fa, lk), by_shape, dict(fa.flash_attention_fwd.launches_by_route),
+                GRAD_COPIES["count"])
+
+    unet = unet_state.model
+    add_before = {n: p.detach().clone() for n, p in unet.named_parameters() if n.startswith("add_embedding.")}
+    torch.cuda.reset_peak_memory_stats()
+    ms, loss = host_ms(lambda: step(square[0]))  # step 1: momentum leaves its zero state
+    warmup_ms, losses = [ms], [loss.item()]
+    moms = [m for m in unet_state.opt_state[1][0].mu_quant.values() if isinstance(m, QuantizedMomentum)]
+    codes_changed = sum(int((m.codes != 3).sum()) for m in moms)
+    codes_total = sum(m.codes.numel() for m in moms)
+    for _ in range(warmup - 1):
+        ms, loss = host_ms(lambda: step(square[0]))
+        warmup_ms.append(ms)
+        losses.append(loss.item())
+    timed, timed_losses, launches, by_shape, routes, copies = window(square, steps)
+    peak = torch.cuda.max_memory_allocated()
+    b_ms, b_losses, b_launches, b_by_shape, b_routes, b_copies = window(bucket, bucket_steps)
+    add_moved = {n: (p.detach() != add_before[n]).any().item() for n, p in unet.named_parameters() if n in add_before}
+    del add_before
+
+    leaves = sdxl_quantized_leaves()
+    lion = lion_table_launches(leaves, "bfloat16")
+    per_step = sum(lion.values())
+    ok_launches = {}
+    for name, n, lc, shapes, rts, cp, key in (
+        ("1024", steps, launches, by_shape, routes, copies, SDXL_TRAIN_KEYS["1024"]),
+        ("bucket", bucket_steps, b_launches, b_by_shape, b_routes, b_copies, SDXL_TRAIN_KEYS["bucket"]),
+    ):
+        # K1 20 a step (each of the 10 again in the blocks' recompute), the
+        # fused bf16 backward 10, Lion's leaf table once per
+        # MAX_LEAVES_PER_LAUNCH leaves; nothing else
+        want = dict(flash_fwd=20 * n, flash_bwd_fused=10 * n, flash_bwd_f32=0, flash_bwd_dq=0, flash_bwd_dkv=0,
+                    lion_leaves=per_step * n, lion_single=0, lion_multi=0)
+        want_shapes = dict(flash_fwd={key + ("tma_narrow",): 20 * n}, flash_bwd_fused={key: 10 * n},
+                           lion_leaves={k: v * n for k, v in lion.items()})
+        ok_launches[name] = lc == want and shapes == want_shapes and rts == {"tma_narrow": 20 * n}
+    state["sdxl_train_by_shape"] = {  # both windows' launches
+        kernel: {k: by_shape[kernel].get(k, 0) + b_by_shape[kernel].get(k, 0)
+                 for k in {**by_shape[kernel], **b_by_shape[kernel]}}
+        for kernel in by_shape
+    }
+
+    # one step's Lion update against its plain version: this step's grads
+    # (the step's own loss) and the live momentum
+    names = [n for n, _, _ in leaves]
+    params = unet_state.params
+    loss = _loss(unet_state, te_state, frozen_vae, frozen_sched, square[0], train_rng, None,
+                 strip_bos_eos_token=True, offset_noise_magnitude=0.0, min_snr_gamma_magnitude=0.0,
+                 perturbation_noise_magnitude=0.0, text_context_window=77, train_text_encoder=False,
+                 vae_encode_chunk=0)
+    grads = dict(zip(params, _grads(loss, params)))
+    del loss
+    # quantized leaves whose grad autograd hands over strided: Lion copies
+    # each (GRAD_COPIES) before the leaf table reads it in torch layout
+    strided = sorted(n for n in names if not grads[n].is_contiguous())
+    mu = unet_state.opt_state[1][0].mu_quant
+    paths = hf_io.jax_param_paths(unet)
+    perms = [paths[n][1] for n in names]
+    shapes = [tuple(params[n].shape) for n in names]
+    codes = [mu[n].codes for n in names]
+    scales = [mu[n].scales for n in names]
+    leaf_grads = [grads[n].contiguous() for n in names]  # as the optimizer hands them over
+    e_upd, e_codes, e_scales = lk.lion8bit_update_leaves_reference(leaf_grads, codes, scales, perms)
+    lion_table = lk.LeafTable([c.clone() for c in codes], [s.clone() for s in scales], shapes, perms)
+    upds = lk.lion8bit_update_leaves_(leaf_grads, lion_table)
+    torch.cuda.synchronize()
+    lion_hold = dict(
+        leaves=len(names), elements=sum(math.prod(s) for s in shapes),
+        updates_equal=all(bool(torch.equal(u, e)) for u, e in zip(upds, e_upd)),
+        scales_equal=all(bool(torch.equal(s, e)) for s, e in zip(lion_table.scales, e_scales)),
+        max_code_diff=max(int((c.int() - e.int()).abs().max()) for c, e in zip(lion_table.codes, e_codes)),
+    )
+    lion_hold["ok"] = lion_hold["updates_equal"] and lion_hold["scales_equal"] and lion_hold["max_code_diff"] <= 1
+    del e_upd, e_codes, e_scales, lion_table, upds, leaf_grads
+    torch.cuda.empty_cache()
+
+    # the optimizer chain's host time (clip, Lion, lr, the update) on these grads
+    opt_ms = []
+    for _ in range(3):
+        opt_ms.append(host_ms(lambda: unet_state.apply_gradients(grads))[0])
+    del grads
+    torch.cuda.empty_cache()
+
+    p50 = statistics.median(timed)
+    finite = all(math.isfinite(x) for x in losses + timed_losses + b_losses)
+    row = dict(
+        batch=SDXL_TRAIN_BATCH, resolution=SDXL_RES, bucket=list(SDXL_BUCKET), dtype="bfloat16",
+        gradient_checkpointing=True, setup_s=setup_s, warmup_ms=warmup_ms, step_ms=timed, p50_ms=p50,
+        images_per_s=SDXL_TRAIN_BATCH / p50 * 1e3, bucket_step_ms=b_ms,
+        bucket_p50_ms=statistics.median(b_ms), losses=losses + timed_losses, bucket_losses=b_losses, finite=finite,
+        max_memory_allocated=peak, momentum_codes_changed_after_step_1=codes_changed, momentum_codes=codes_total,
+        add_embedding_moved=add_moved, launches=launches, bucket_launches=b_launches,
+        launches_by_shape={k: {"x".join(map(str, s)): c for s, c in v.items()} for k, v in by_shape.items()},
+        bucket_launches_by_shape={k: {"x".join(map(str, s)): c for s, c in v.items()} for k, v in b_by_shape.items()},
+        grad_copies_before_lion=copies + b_copies, strided_quantized_grads=strided, lion_leaves_per_step=per_step,
+        lion_hold=lion_hold,
+        launches_ok=ok_launches, optimizer_ms=opt_ms, optimizer_ms_median=statistics.median(opt_ms),
+        optimizer_share=statistics.median(opt_ms) / p50,
+    )
+    emit("sdxl_train", **row)
+    if not (finite and codes_changed > 0 and len(add_moved) == 4 and all(add_moved.values())
+            and all(ok_launches.values()) and lion_hold["ok"]
+            and copies + b_copies == len(strided) * (steps + bucket_steps)):
+        raise AssertionError("sdxl_train step failed its checks")
+    profile_step(
+        lambda: step(square[0]), "one SDXL train step (bf16, batch 4, 1024x1024, gradient checkpointing)",
+        {"flash_fwd_ms": ("flash_fwd",), "flash_bwd_ms": ("flash_bwd",), "lion_ms": ("lion_leaves",)}, top=20,
+    )
+
+
+def phase_sdxl_trainer(state, seed=0):
+    """SDXL training through ``trainer.main`` over the ``CachedLatentLoader``
+    of the ``sdxl_train`` phase (made here if that phase did not run): one
+    chunk of its 3 shards (1024x1024, 1152x896, 1024x1024) with the
+    checkpoint at its end. Checks: finite ``loss.csv`` rows, the JSON fields,
+    the probe deleted, the chunk's ``unet/`` (with its ``add_embedding``) and
+    its EMA variant reloaded through ``hf_io`` equal to the params and EMA
+    saved in its ``train_state/``, that state restored into a fresh one, and
+    the step's kernels launched (the f32 and CUDA-core backwards and Lion's
+    earlier entries not)."""
+    import gc
+    import shutil
+
+    import torch
+
+    from stable_diffusion_training_tpu_torch.data import CachedLatentLoader
+    from stable_diffusion_training_tpu_torch.models import hf_io
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+    from stable_diffusion_training_tpu_torch.train import on_device_model_training_state, trainer
+    from stable_diffusion_training_tpu_torch.train.checkpoint import restore_train_state
+    from stable_diffusion_training_tpu_torch.utils.json_io import read_json_file
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    set_tf32(False)
+    if not os.path.isdir(SDXL_CACHE_DIR):
+        sdxl_latent_cache(seed)
+    training_config = sdxl_train_config()
+    run_dir, base, cfg, config_path, free_before = trainer_run(
+        "chip_smoke_sdxl_trainer", training_config, seed, device_prefetch_depth=2,
+    )
+    watch = SaveWatch(trainer, run_dir)
+    try:
+        fa.reset_launch_counts()
+        lk.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.main(config_path, dataloader=CachedLatentLoader(SDXL_CACHE_DIR), tokenizer=None)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = train_launches(fa, lk)
+    finally:
+        watch.stop()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    final = read_json_file(config_path)
+    with open(cfg["loss_csv"]) as f:
+        lines = f.read().splitlines()
+    rows = [line.split(",") for line in lines[1:] if line]
+    losses = [float(r[2]) for r in rows]
+    ckpt = f"{base}@0"
+    state_dir = os.path.join(ckpt, trainer.TRAIN_STATE_SUBDIR)
+    t0 = time.perf_counter()
+    saved = hf_io.load_safetensors(os.path.join(state_dir, "unet_state.safetensors"))
+    saved_ema = hf_io.load_safetensors(os.path.join(state_dir, "unet_ema_params.safetensors"))
+    reload_equal = {}
+    for name, directory, tensors, prefix in (("unet", ckpt, saved, "unet_state/params"),
+                                              ("unet_ema", f"{base}-EMA@0", saved_ema, "unet_ema_params")):
+        model = hf_io.load_unet(os.path.join(directory, "unet"), device="cuda")
+        reload_equal[name] = model.addition_embed_type == "text_time" and all(
+            torch.equal(p, tensors[f"{prefix}/{k}"].cuda().float()) for k, p in model.named_parameters()
+        ) and any(k.startswith("add_embedding.") for k, _ in model.named_parameters())
+        del model
+    reload_s = time.perf_counter() - t0
+    # the saved full state into a fresh one, as a resume does
+    t0 = time.perf_counter()
+    template = on_device_model_training_state(training_config)
+    restored = restore_train_state(state_dir, {
+        "unet_state": template[0], "text_encoder_state": template[1], "unet_ema_params": template[2],
+        "text_encoder_ema_params": {}, "train_rng": torch.Generator(device="cuda"),
+    })
+    restore_s = time.perf_counter() - t0
+    restored_equal = all(
+        torch.equal(p.cpu(), saved[f"unet_state/params/{k}"]) for k, p in restored["unet_state"].params.items()
+    ) and all(
+        torch.equal(m.codes.cpu(), saved[f"unet_state/opt_state/1/0/mu_quant/{k}/codes"])
+        for k, m in restored["unet_state"].opt_state[1][0].mu_quant.items() if hasattr(m, "codes")
+    )
+    del saved, saved_ema, template, restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    off = ("flash_bwd_f32", "flash_bwd_dq", "flash_bwd_dkv", "lion_single", "lion_multi")
+    checks = dict(
+        json=(final["chunk_number"], final["chunk_steps"], final["master_seed"], final["model_path"])
+        == (1, 1, seed + 1, ckpt),
+        loss_csv=lines[0] == "steps, step_size, loss, time, chunk, seed" and len(rows) == len(SDXL_SHARDS)
+        and all(math.isfinite(x) for x in losses),
+        probe_deleted=not os.path.exists(cfg["test_save_path"]) and not os.path.exists(cfg["test_save_path"] + "-EMA"),
+        unet_reload_equal=reload_equal["unet"], ema_reload_equal=reload_equal["unet_ema"],
+        train_state_restores=restored_equal,
+        kernels_launched=all(launches[k] for k in ("flash_fwd", "flash_bwd_fused", "lion_leaves"))
+        and not any(launches[k] for k in off),
+    )
+    row = dict(
+        steps=len(rows), chunks=1, batch=SDXL_TRAIN_BATCH, dtype="bfloat16", wall_s=wall_s, losses=losses,
+        step_ms=[float(r[3]) * 1e3 for r in rows], **watch.row(), disk_free_before=free_before,
+        reload_s=reload_s, restore_s=restore_s, launches=launches, checks=checks, ok=all(checks.values()),
+    )
+    emit("sdxl_trainer", **row)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    if not row["ok"]:
+        raise AssertionError(f"sdxl_trainer failed its checks: {checks}")
+
+
 # forward cases whose f32 shape a path runs: the f32 UNet call of the parity
 # phase, the f32 train step
 F32_FWD_PATHS = {
     "unet_l0": "parity", "unet_train": "train_f32", "vae_encode": "train_f32", "sdxl_unet_l1": "sdxl_parity",
+    "sdxl_train_parity_l1": "sdxl_train_parity",
 }
 SHORT = {"bfloat16": "bf16", "float32": "f32"}
 
@@ -1874,16 +2464,18 @@ SHORT = {"bfloat16": "bf16", "float32": "f32"}
 def kernels_line(state):
     """The per-kernel record: each kernel at each shape its main paths give
     it, with its launches at that shape in the run of its path (the serving
-    slice's, SDXL's and the refiner's, the timed train steps', the parity,
-    sdxl_parity and train_parity calls) and its numbers from the kernels
-    phase."""
+    slice's, SDXL's and the refiner's, the timed train steps', SDXL's cache
+    pass, the parity, sdxl_parity, train_parity and sdxl_train_parity calls)
+    and its numbers from the kernels phase."""
     train = state.get("train_by_shape", {})
     train_f32 = state.get("train_f32_by_shape", {})
+    sdxl_train = state.get("sdxl_train_by_shape", {})
+    sdxl_train_parity = state.get("sdxl_train_parity_by_shape", {})
     paths = {
-        "bfloat16": [state.get(f"{p}_by_shape", {}) for p in ("slice", "sdxl", "sdxl_refiner")]
-        + [train.get("flash_fwd", {})],
+        "bfloat16": [state.get(f"{p}_by_shape", {}) for p in ("slice", "sdxl", "sdxl_refiner", "sdxl_cache")]
+        + [train.get("flash_fwd", {}), sdxl_train.get("flash_fwd", {})],
         "float32": [state.get(f"{p}_by_shape", {}) for p in ("parity", "sdxl_parity")]
-        + [train_f32.get("flash_fwd", {})],
+        + [train_f32.get("flash_fwd", {}), sdxl_train_parity.get("flash_fwd", {})],
     }
     entries = []
     for row in state.get("kernel_cases", []):
@@ -1905,6 +2497,12 @@ def kernels_line(state):
     f32_paths = {  # the fused f32 kernel's launches by shape, and the run they come from
         "unet_train_f32": (state.get("train_parity_f32_by_shape", {}), "train_parity f32"),
         "unet_train_f32_b8": (train_f32.get("flash_bwd_f32", {}), "train_f32"),
+        "sdxl_train_parity_f32": (sdxl_train_parity.get("flash_bwd_f32", {}), "sdxl_train_parity"),
+    }
+    bf16_paths = {  # the fused bf16 kernel's, likewise
+        "unet_train": (train.get("flash_bwd_fused", {}), "train"),
+        "sdxl_train": (sdxl_train.get("flash_bwd_fused", {}), "sdxl_train"),
+        "sdxl_train_bucket": (sdxl_train.get("flash_bwd_fused", {}), "sdxl_train 1152x896"),
     }
     for row in state.get("bwd_cases", []):
         bh, sq, d = row["shape_q"]
@@ -1914,11 +2512,13 @@ def kernels_line(state):
             route="cuda", source=f"{CSRC}/flash_attention_bwd.cu", plain_ms=row["plain_ms"],
             library_ms=row["library_ms"],
         )
-        if row["case"] == "unet_train":  # the train step runs the fused kernel at this shape
+        if row["case"] in bf16_paths:  # a train step runs the fused kernel at this shape
+            counts, path = bf16_paths[row["case"]]
             entries.append(dict(
-                common, name=f"flash_attention_bwd_fused[unet_train {dims} bf16; K2 and K3 in one kernel]",
+                common, name=f"flash_attention_bwd_fused[{row['case']} {dims} bf16; K2 and K3 in one kernel; "
+                f"path: {path}]",
                 replaces=f"{JAX_OPS}/flash_attention.py:105,147",
-                launches=train.get("flash_bwd_fused", {}).get(shape, 0),
+                launches=counts.get(shape, 0),
                 max_abs_err=max(row["max_abs_err"].values()), ms=row["call_ms"], bound_ms=row["bound_ms"],
                 bound_by=row["bound_by"],
             ))
@@ -1950,13 +2550,14 @@ def kernels_line(state):
     for row in state.get("lion_model_cases", []):
         if row["compander"] != "exact":
             continue  # the train step's setting
-        counts, path = train_paths[row["dtype"]]
+        counts, path = (sdxl_train, "sdxl_train") if row["model"] == "sdxl_unet" else train_paths[row["dtype"]]
         entries.append(dict(
             name=(f"lion8bit_update_leaves[{row['model']} {row['leaves']} leaves {row['elements']} elements "
-                  f"bs{row['bs']} {SHORT[row['dtype']]} exact, grads in torch layout, one launch; path: {path}]"),
+                  f"bs{row['bs']} {SHORT[row['dtype']]} exact, grads in torch layout, "
+                  f"{len(row['launch_shapes'])} launch(es) a call; path: {path}]"),
             route="cuda", source=f"{CSRC}/lion8bit_update.cu",
             replaces=f"{JAX_OPS}/lion_kernel.py:56,274",
-            launches=counts.get("lion_leaves", {}).get(tuple(row["launch_shape"]), 0),
+            launches=sum(counts.get("lion_leaves", {}).get(tuple(k), 0) for k in row["launch_shapes"]),
             max_abs_err=float(row["max_code_diff"]), ms=row["kernel_ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=None,
@@ -2038,6 +2639,13 @@ def main(argv=None):
         phase_train(state, warmup=2, steps=3, dtype="float32")
     if "trainer" in phases:
         phase_trainer(state)
+    if "sdxl_train_parity" in phases:
+        phase_sdxl_train_parity(state)
+    if "sdxl_train" in phases:
+        phase_sdxl_train(state)
+    if "sdxl_trainer" in phases:
+        phase_sdxl_trainer(state)
+    shutil.rmtree(SDXL_CACHE_DIR, ignore_errors=True)
 
     line = kernels_line(state)
     if PATH_PHASES <= set(phases):

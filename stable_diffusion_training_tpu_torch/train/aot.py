@@ -49,8 +49,9 @@ def bucket_train_steps(training_config: TrainingConfig, frozen_vae: Any) -> Dict
     """``{batch shape: step}`` for every bucket: ``train_step`` with the
     config's options bound, called as ``step(unet_state, text_encoder_state,
     unet_ema, text_encoder_ema, batch, train_rng, frozen_vae,
-    frozen_schedulers)``. The latent-cache keys use the VAE's latent
-    channels and downsampling factor."""
+    frozen_schedulers)``. The latent-cache keys (``use_latent_cache``) are
+    the moments' shapes: twice the VAE's latent channels, each bucket side
+    over its downsampling factor (SDXL's 1152x896 bucket: 144x112)."""
     step = functools.partial(
         train_step,
         strip_bos_eos_token=training_config.strip_bos_eos_token,

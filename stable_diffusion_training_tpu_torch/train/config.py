@@ -9,8 +9,8 @@ raw ``model_properties`` JSON dict. Fields that name JAX or TPU machinery
 their names so one JSON file configures both packages; the comments below
 say which of them the port ignores. A field that asks for what the port
 does not have yet (a mesh of more than one device, FSDP or TP sharding,
-the polyphase VAE downsample, SDXL micro-conditioning) raises
-``NotImplementedError`` naming its ROADMAP item.
+the polyphase VAE downsample) raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 import dataclasses
@@ -98,7 +98,7 @@ class TrainingConfig:
     # batches carry a precomputed encoder_hidden_states; pair with
     # train_text_encoder=False
     cached_text_context: bool = False
-    # batches carry pooled embeds + time_ids (SDXL; True raises, not ported)
+    # batches carry pooled embeds + time_ids (SDXL micro-conditioning)
     sdxl_micro_conditioning: bool = False
     # micro-conditioning time ids: 6 for the SDXL base model, 5 for the refiner
     sdxl_time_ids_count: int = 6
@@ -114,8 +114,6 @@ class TrainingConfig:
             raise not_ported("tensor_parallel_shard_params=True", 7)
         if self.vae_polyphase_downsample:
             raise not_ported("vae_polyphase_downsample=True (ops/conv.py)", 9)
-        if self.sdxl_micro_conditioning:
-            raise not_ported("sdxl_micro_conditioning=True (SDXL)", 6)
         if self.cached_text_context and self.train_text_encoder:
             # zero grads + Lion weight decay would silently decay the
             # "trainable" TE toward zero while conditioning comes from the

@@ -84,9 +84,12 @@ def _is_checkpoint_dir(path: str) -> bool:
 def load_models(training_config: TrainingConfig, device=None) -> dict:
     """UNet, VAE, text encoder and the training scheduler, in the JAX
     package's nested dict. ``model_path`` is a diffusers checkpoint directory
-    (unet/vae/text_encoder) or a family name (``sd15``, ``tiny``...), whose
-    models get seeded random weights (``seed_init``). The UNet recomputes its
-    blocks and feed-forwards in the backward as ``gradient_checkpointing`` and
+    (unet/vae/text_encoder) or a family name (``sd15``, ``sdxl``, ``tiny``...),
+    whose models get seeded random weights (``seed_init``). For SDXL that is
+    the ``text_time`` UNet, the SDXL VAE and tower 1: as in the JAX package,
+    tower 2 is not loaded (it runs only in the offline cache pass,
+    ``data/latent_cache.py``). The UNet recomputes its blocks and
+    feed-forwards in the backward as ``gradient_checkpointing`` and
     ``ff_gradient_checkpointing`` say."""
     device = resolve_device(device)
     dtype = _DTYPES[training_config.mixed_precision]
@@ -102,7 +105,9 @@ def load_models(training_config: TrainingConfig, device=None) -> dict:
         ]
         unet = UNet2DConditionModel(**family["unet"], attention_backend=backend, device=device, dtype=dtype)
         vae = AutoencoderKL(**family["vae"], attention_backend=backend, device=device, dtype=dtype)
-        text_encoder = CLIPTextModel(**family["text_encoder"], device=device, dtype=dtype)
+        # CLIPTextModel takes tower 1 (a family may give its slot a config
+        # with a projection, as the refiner's does; from_config drops it)
+        text_encoder = CLIPTextModel.from_config(family["text_encoder"], device=device, dtype=dtype)
         for model in (unet, vae, text_encoder):
             random_init_(model, torch.Generator(device).manual_seed(training_config.seed_init))
     vae.requires_grad_(False)

@@ -1,5 +1,5 @@
-"""The SD1.5 train step: VAE encode -> noise -> text encode -> UNet -> loss ->
-grads -> each model's optimizer chain -> EMA.
+"""The train step (SD1.5, SD2.1, SDXL): VAE encode -> noise -> text encode ->
+UNet -> loss -> grads -> each model's optimizer chain -> EMA.
 
 Port of ``stable_diffusion_training_tpu/train/train_step.py``, eager on the
 card where the JAX package traces one XLA program. Same signature groups
@@ -22,6 +22,13 @@ key per micro-batch, and the seam takes one dict of draws per micro-batch),
 ``train_text_encoder=False``, ``latent_moments`` batches (the latent cache),
 ``encoder_hidden_states`` batches (the cached context) and
 ``vae_encode_chunk``.
+
+SDXL's micro-conditioning: a batch with ``pooled_text_embeds`` ``(B,
+pooled)`` and ``time_ids`` ``(B, 6)`` (5 for the refiner) passes them to the
+UNet's ``text_time`` add-embedding as ``added_cond_kwargs``, as the batch
+holds them (``data/latent_cache.py`` writes both, f32). At SDXL's width the
+2048-wide context comes from the batch's ``encoder_hidden_states`` (both
+frozen towers, precomputed): the in-step encode carries tower 1 alone.
 """
 
 from typing import Any, Dict, Optional, Sequence, Union
@@ -131,7 +138,14 @@ def _loss(
         hidden = hidden.reshape(b, -1, text_context_window, hidden.shape[-1])
         context = concat_context_windows(hidden, strip_bos_eos_token)
 
-    model_pred = unet(noisy_latents.to(unet.dtype), timesteps, context.to(unet.dtype))
+    added_cond_kwargs = None
+    if "pooled_text_embeds" in batch:
+        # SDXL micro-conditioning: the frozen second tower's pooled embeds
+        # and the size/crop time ids, precomputed with the latent cache. As
+        # in the JAX step they go in as the batch holds them (f32): the
+        # UNet takes the ids' sinusoids in f32, then casts to its dtype
+        added_cond_kwargs = {"text_embeds": batch["pooled_text_embeds"], "time_ids": batch["time_ids"]}
+    model_pred = unet(noisy_latents.to(unet.dtype), timesteps, context.to(unet.dtype), added_cond_kwargs)
     prediction_type = scheduler.config.prediction_type
     if prediction_type == "epsilon":
         target = noise
@@ -186,7 +200,8 @@ def train_step(
     the states and EMA buffers are updated in place. ``batch`` holds NCHW
     ``pixel_values`` (or ``latent_moments``, NCHW with twice the latent
     channels), ``input_ids`` ``(B * concat, window)`` and optionally
-    ``encoder_hidden_states`` ``(B, tokens, cross_attention_dim)``.
+    ``encoder_hidden_states`` ``(B, tokens, cross_attention_dim)`` and
+    SDXL's ``pooled_text_embeds`` and ``time_ids``.
 
     ``grad_accumulation_steps = n > 1`` splits every batch entry into ``n``
     micro-batches along its leading axis, each with its own draws (``draws``
@@ -194,11 +209,6 @@ def train_step(
     f32, casts the grads back to the params' dtype and applies one update.
     ``train_text_encoder=False`` takes no text-encoder grads and applies no
     text-encoder update; its EMA, if any, still follows its params."""
-    if "pooled_text_embeds" in batch:
-        raise NotImplementedError(
-            "SDXL micro-conditioning (pooled_text_embeds, time_ids) is not ported yet "
-            "(ROADMAP Queue 1 item 6)"
-        )
     loss_kw = dict(
         strip_bos_eos_token=strip_bos_eos_token, offset_noise_magnitude=offset_noise_magnitude,
         min_snr_gamma_magnitude=min_snr_gamma_magnitude,

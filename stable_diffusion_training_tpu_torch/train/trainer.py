@@ -25,8 +25,13 @@ when present. Random draws come from a ``torch.Generator`` on the training
 device seeded with ``master_seed``. Batches reach the device from pinned
 host memory without blocking, ``device_prefetch_depth`` ahead of the step.
 
-The lines that the JAX trainer writes through ``tqdm`` are printed. Not
-ported yet, and raising ``NotImplementedError``: the streaming ``DataLoader``
+The loader is passed in: an ``InMemoryDataLoader``, or a
+``CachedLatentLoader`` over an offline latent cache (``data/latent_cache.py``:
+``latent_moments``, and for SDXL the pooled embeds, time ids and the frozen
+towers' context; each chunk checkpoint then holds the SDXL UNet with its
+``add_embedding`` under diffusers names, as the JAX trainer's does). The
+lines that the JAX trainer writes through ``tqdm`` are printed. Not ported
+yet, and raising ``NotImplementedError``: the streaming ``DataLoader``
 (``dataloader=None``; ROADMAP Queue 1 item 4), ``eval_sample_interval``
 (item 5) and ``profile_trace_dir`` (item 8). A tokenizer is used only when
 passed, or when ``model_path/tokenizer`` exists (``transformers`` is then
@@ -234,8 +239,8 @@ def main(
 ) -> None:
     """Run ``chunk_limit`` chunks of training from the JSON config at
     ``config_dict_path`` on ``device`` (cuda unless told otherwise), with
-    ``dataloader`` (an ``InMemoryDataLoader`` or anything with its
-    protocol)."""
+    ``dataloader`` (an ``InMemoryDataLoader``, a ``CachedLatentLoader`` or
+    anything with their protocol)."""
     config_dict, training_config = load_run_config(config_dict_path)
     if config_dict.get("eval_sample_interval"):
         raise not_ported("eval_sample_interval (train/eval_sampler.py)", 5)

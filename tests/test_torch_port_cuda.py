@@ -30,7 +30,10 @@ block sizes 1 to 128 (128 on the earlier kernel's cooperative variant):
 update signs and scales equal to the plain version's, codes at most one
 apart (CUDA's powf and torch's pow may differ by an ulp) and, between the
 leaf table and the single-leaf kernel, equal; a leaf the table cannot take
-goes the single-leaf route, counted there. Tolerances are those of
+goes the single-leaf route, counted there; a table of more leaves than one
+launch holds and more than 2^31 elements (SDXL's scale) takes two launches.
+The backward at SDXL training's shapes (D = 64 over 4,096 and 4,032 tokens)
+is held to its plain version on both fused routes. Tolerances are those of
 ``chip_smoke.py``. The fault this slice repaired is covered too: grads flow
 through the flash route on CUDA tensors.
 """
@@ -495,3 +498,85 @@ def test_leaf_table_momentum_is_the_single_leaf_kernels():
         torch.cuda.synchronize()
         assert torch.equal(table_s, single_s), compander
         assert torch.equal(table_c, single_c) and torch.equal(upd, single_upd), compander
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,d,dtype", [(40, 4096, 64, "bfloat16"), (40, 4032, 64, "bfloat16"),
+                                           (10, 4096, 64, "float32")])
+def test_sdxl_train_backward_shapes_match_plain_version(bh, sq, d, dtype):
+    """The backward at SDXL training's shapes: the 64x64 level at batch 4
+    (40 heads of 64 over 4,096 tokens), the 1152x896 bucket's 72x56 level
+    (4,032 tokens, no multiple of the 128-row tiles) on the fused bf16
+    kernel, and the f32 parity step's (batch 1) on the fused f32 kernel; one
+    launch of the route's kernel, each grad within the bounds above."""
+    _need_cuda()
+    q, k, v, do = _qkv(bh, sq, sq, d, dtype, seed=12)
+    scale = d**-0.5
+    o, lse = fa.flash_attention_fwd(q, k, v, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    fa.reset_launch_counts()
+    grads = fa.flash_attention_bwd(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    route = fa.backward_route(q, k, v, do)
+    assert route == ("fused" if dtype == "bfloat16" else "f32_fused")
+    assert _bwd_launches() == ROUTE_LAUNCHES[route]
+    expected = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, expected):
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        got, want = got.float(), want.float()
+        torch.testing.assert_close(got, want, atol=TOL[dtype]["grad"] * want.abs().max().item(), rtol=0, msg=name)
+        assert (got - want).norm().item() <= TOL[dtype]["grad_fro"] * want.norm().item(), name
+
+
+def _sdxl_scale_leaves():
+    """1,100 leaves, 2,219,680,000 elements: more than one launch holds
+    (``MAX_LEAVES_PER_LAUNCH``) and more than 2^31 elements, as the SDXL
+    UNet's 773 quantized leaves (2,546,196,480 elements) are. Dense kernels
+    (640, 3200), 3x3 Convs (320, 640) and 1-D leaves, interleaved, so that
+    both launches hold every kind; the update buffer's runs (one per shape,
+    the Dense run last) put the last Dense leaves' updates above element
+    2^31."""
+    leaves = []
+    for i in range(1100):
+        if i % 22 == 0:
+            leaves.append(((2_000_000,), None))
+        elif i % 22 < 4:
+            leaves.append(((320, 640, 3, 3), (2, 3, 1, 0)))
+        else:
+            leaves.append(((640, 3200), (1, 0)))
+    return leaves
+
+
+@pytest.mark.cuda
+def test_leaf_table_over_two_launches_and_2_to_31_elements():
+    """``lion8bit_update_leaves_`` on a table of more than
+    ``MAX_LEAVES_PER_LAUNCH`` leaves and 2^31 elements against its plain
+    version: two launches (1,024 leaves, then 76), counted by their own
+    leaves and elements; update signs and scales equal, codes at most one
+    apart, every leaf's update where its 64-bit offset says."""
+    _need_cuda()
+    leaves = _sdxl_scale_leaves()
+    perms = [perm for _, perm in leaves]
+    shapes = [shape for shape, _ in leaves]
+    sizes = [int(np.prod(s)) for s in shapes]
+    assert sum(sizes) > 2**31 and len(leaves) > lk.MAX_LEAVES_PER_LAUNCH
+    grads, codes, scales = _table_inputs(leaves, 16, torch.bfloat16, seed=31)
+    table_c, table_s = [c.clone() for c in codes], [s.clone() for s in scales]
+    table = lk.LeafTable(table_c, table_s, shapes, perms)
+    assert table.upd_numel > 2**31 and max(table.upd_off) > 2**31
+    lk.reset_launch_counts()
+    upds = lk.lion8bit_update_leaves_(grads, table)
+    torch.cuda.synchronize()
+    first = lk.MAX_LEAVES_PER_LAUNCH
+    assert lk.lion8bit_update_leaves_.launches_by_shape == {
+        (first, sum(sizes[:first]), 16, "bfloat16"): 1,
+        (len(leaves) - first, sum(sizes[first:]), 16, "bfloat16"): 1,
+    }
+    assert lk.lion8bit_update_.launches == lk.lion8bit_update_multi_.launches == 0
+    for i, (g, c, s, perm) in enumerate(zip(grads, codes, scales, perms)):
+        e_upd, e_codes, e_scales = lk.lion8bit_update_leaves_reference([g], [c], [s], [perm])
+        assert upds[i].shape == g.shape and upds[i].is_contiguous(), i
+        assert upds[i].data_ptr() == upds[0].data_ptr() - 2 * table.upd_off[0] + 2 * table.upd_off[i], i
+        torch.testing.assert_close(upds[i], e_upd[0], atol=0, rtol=0, msg=str(i))
+        torch.testing.assert_close(table_s[i], e_scales[0], atol=0, rtol=0, msg=str(i))
+        assert int((table_c[i].int() - e_codes[0].int()).abs().max()) <= 1, i

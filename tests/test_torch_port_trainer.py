@@ -270,17 +270,49 @@ def test_features_not_ported_yet_raise(tmp_path):
         (dict(fsdp_shard_params=True), "item 7"),
         (dict(tensor_parallel_shard_params=True), "item 7"),
         (dict(vae_polyphase_downsample=True), "item 9"),
-        (dict(sdxl_micro_conditioning=True), "item 6"),
     ],
-    ids=["mesh", "fsdp", "tensor-parallel", "polyphase", "sdxl-micro-conditioning"],
+    ids=["mesh", "fsdp", "tensor-parallel", "polyphase"],
 )
 def test_options_not_ported_raise(tmp_path, overrides, item):
-    """A config that asks the JAX package for a multi-device mesh, sharding,
-    the polyphase VAE downsample or SDXL micro-conditioning stops the port's
-    trainer with the ROADMAP item instead of training without it."""
+    """A config that asks the JAX package for a multi-device mesh, sharding
+    or the polyphase VAE downsample stops the port's trainer with the
+    ROADMAP item instead of training without it."""
     _, path = make_config_dict(tmp_path, "o", **overrides)
     with pytest.raises(NotImplementedError, match=item):
         trainer.main(path, dataloader=_loader(), device="cpu")
+
+
+def test_sdxl_micro_conditioning_trains_from_a_latent_cache(tmp_path):
+    """``sdxl_micro_conditioning=True`` (which raised before SDXL training
+    was ported) builds a config, and ``trainer.main`` trains ``tiny_sdxl``
+    over a ``CachedLatentLoader`` whose shards carry the moments, tower 2's
+    pooled embeds and the time ids, and the frozen towers' context: finite
+    rows, a chunk checkpoint whose UNet has the ``text_time`` add-embedding,
+    and its ``train_state/``."""
+    from stable_diffusion_training_tpu_torch.data import precompute_latent_cache
+    from stable_diffusion_training_tpu_torch.models import (
+        AutoencoderKL, CLIPTextModel, CLIPTextModelWithProjection, configs, random_init_,
+    )
+
+    cfg, path = make_config_dict(
+        tmp_path, "xl", model_family="tiny_sdxl", chunk_limit=1, use_latent_cache=True,
+        sdxl_micro_conditioning=True, cached_text_context=True, train_text_encoder=False,
+    )
+    assert training_config_from_dict(cfg).sdxl_micro_conditioning
+    gen = torch.Generator().manual_seed(0)
+    vae, te1, te2 = (random_init_(cls(**c, device="cpu"), gen) for cls, c in (
+        (AutoencoderKL, configs.TINY_VAE), (CLIPTextModel, configs.TINY_CLIP),
+        (CLIPTextModelWithProjection, configs.TINY_CLIP_PROJ)))
+    # tiny_sdxl's UNet is tower 1's width: a tower-1 context, tower 2's pooled embeds
+    loader = precompute_latent_cache(_loader(), vae, str(tmp_path / "cache"), text_encoder_2=te2,
+                                     text_encoder=te1, concat_count=3, context_use_tower_2=False)
+    trainer.main(path, dataloader=loader, device="cpu")
+    rows = _rows(cfg["loss_csv"])
+    assert len(rows) == STEPS and all(np.isfinite(float(r[2])) for r in rows)
+    ckpt = str(tmp_path / "xl" / "run") + "@0"
+    assert load_unet(f"{ckpt}/unet", device="cpu").addition_embed_type == "text_time"
+    assert "add_embedding.linear_1.weight" in _weights(f"{ckpt}/unet")
+    assert os.path.isdir(f"{ckpt}/{trainer.TRAIN_STATE_SUBDIR}")
 
 
 def test_example_config_and_one_device_mesh_are_accepted():
