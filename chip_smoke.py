@@ -7,6 +7,7 @@ NVIDIA GPU and check it end to end.
     python3 chip_smoke.py --phases gpu,build,train_f32   # the f32 train step alone
     python3 chip_smoke.py --phases gpu,build,sdxl_parity,sdxl,sdxl_refiner   # SDXL serving
     python3 chip_smoke.py --phases gpu,build,sdxl_train_parity,sdxl_train,sdxl_trainer   # SDXL training
+    python3 chip_smoke.py --phases gpu,build,sd21_parity,sd21,sd21_trainer   # SD2.1 at 768x768
 
 Phases, one JSON line each:
 
@@ -29,7 +30,11 @@ Phases, one JSON line each:
    flash-attention forward (K1) at the serving path's shapes, (16, 4096, 40)
    and (1, 4096, 512), in bf16 and f32 (TF32 off), at the train step's,
    (64, 4096, 40) and (8, 4096, 512) in bf16 and f32, at SDXL's, (20, 4096,
-   64) in bf16 and f32, (24, 4096, 64) and (1, 16384, 512) in bf16, plus ragged cases
+   64) in bf16 and f32, (24, 4096, 64) and (1, 16384, 512) in bf16, at SD2.1's
+   768x768 ones (the 9,216- and 2,304-key levels at train batch 8 and CFG
+   batch 2, the 896x640 bucket's 8,960 and 2,240, the VAE mid-block at
+   batch 8 and 1 in bf16, sd21_parity's in f32; the plain version over a
+   slice of the heads at a time where its f32 scores pass 8 GB), plus ragged cases
    (D = 40 and 512 with query and key counts off the tiles, D = 64 and 36),
    each with its route (``forward_route``: bf16 narrow or wide tensor-core
    kernel, the f32 kernels, the older CUDA-core kernel), whose counter
@@ -42,14 +47,16 @@ Phases, one JSON line each:
    (64, 4096, 40) and at ragged cases (D = 64, and D = 40 with both counts
    off the tiles); the fused f32 kernel (K2 and K3 in one, CUDA cores) at
    train_parity's (8, 4096, 40), train_f32's (64, 4096, 40) and the same
-   two ragged cases; the CUDA-core K2 and K3 at D = 36 bf16 (and, timed
+   two ragged cases (and SDXL's and SD2.1's training shapes at D = 64, bf16
+   and f32); the CUDA-core K2 and K3 at D = 36 bf16 (and, timed
    only, at (8, 4096, 40) f32 beside the fused f32 kernel): the whole
    call's time, each kernel's (torch.profiler), host ms per call, the fused
    kernels' dQ reduce-add or partial bytes, and two runs on the same inputs
    (dK and dV must be bitwise equal, and dQ too except on the bf16 route,
    whose dQ adds land in any order); the 8-bit Lion update of each SD1.5
    model (``lion_model``: every quantized leaf at its real torch shape and
-   permutation, bs 16, bf16 grads with both companders and f32 grads): the
+   permutation, bs 16, bf16 grads with both companders and f32 grads; the
+   SDXL UNet and SD2.1's UNet and ViT-H tower in bf16, exact): the
    leaf-table entry ``lion8bit_update_leaves_`` (one launch, grads and
    signs in torch layout) against its plain version (signs and scales
    bitwise, codes at most one apart) and against the old route on the same
@@ -170,6 +177,33 @@ Phases, one JSON line each:
    equal to the saved state, that state restored, the step's kernels
    launched; seconds per save, bytes, peak disk. The run directory and the
    cache are deleted at the end.
+16. ``sd21_parity``: SD2.1's UNet at full width (linear projections, heads
+   of 64 at every level, a 1024-wide context) in f32 (TF32 off), batch 1,
+   96x96 latents: the forward, then one train step's loss and grads (the
+   step's own loss: cached moments, a 227-token context, v-prediction,
+   zero-SNR, the draws injected), "auto" against "xla" within the
+   ``parity`` and ``train_parity`` bounds; K1 5 times at (5, 9216, 64) and 5
+   at (10, 2304, 64) a forward (the 48x48 level is the first second level
+   any path sends to flash), the fused f32 backward the same.
+17. ``sd21``: SD2.1 text-to-image at full width in bf16 (OpenCLIP ViT-H,
+   23 layers, exact-erf gelu), seeded weights, 768x768, CFG batch 2, 4
+   v-prediction DDIM steps, timed and checked as ``slice`` is: K1 5 times a
+   step at (10, 9216, 64), 5 at (20, 2304, 64), once at (1, 9216, 512).
+18. ``sd21_trainer``: ``trainer.main(path, dataloader=None, tokenizer=
+   StubTokenizer())``: the trainer builds the streaming ``DataLoader`` from
+   the config and reads a chunk of 64 seeded PNGs (32 at 768x768, 32 at the
+   896x640 bucket, whose 8,960- and 2,240-key levels are off the tiles)
+   and their CSV from the ramdisk; SD2.1 at full width, the example recipe,
+   bf16, batch 8, 8 steps, DDIM eval sampling every 2 steps at 768x768 (4
+   steps) and the profiler trace of the first 2 steps (gzipped into
+   ``chiprun_out/sd21_trace/``). Prints each step's ms and bucket, the p50
+   per bucket, the loader's wait, each eval's ms, the trace's size and top
+   device ops, the saves, peak memory. Checks: finite losses, ``loss.csv``,
+   the eval images and PNGs, the trace, the checkpoint and JSON; each
+   step's launches by shape (K1 5 + 5 + the VAE encode's 1, the fused bf16
+   backward 5 + 5, Lion's leaf table once per model, nothing else), each
+   eval's (K1 5 + 5 a DDIM step and the decode's 1), and no launch outside
+   the steps and evals (the loader's threads launch nothing).
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Before the last line it prints the ``kernels`` record (every kernel and
@@ -196,12 +230,13 @@ CSRC = f"{PACKAGE}/csrc"
 JAX_OPS = "stable_diffusion_training_tpu/ops"
 ALL_PHASES = (
     "gpu", "build", "kernels", "parity", "slice", "sdxl_parity", "sdxl", "sdxl_refiner", "train_parity", "train",
-    "train_f32", "trainer", "sdxl_train_parity", "sdxl_train", "sdxl_trainer",
+    "train_f32", "trainer", "sdxl_train_parity", "sdxl_train", "sdxl_trainer", "sd21_parity", "sd21",
+    "sd21_trainer",
 )
 # the phases whose runs give the kernels line its launches
 PATH_PHASES = {
     "kernels", "parity", "slice", "sdxl_parity", "sdxl", "sdxl_refiner", "train_parity", "train", "train_f32",
-    "sdxl_train_parity", "sdxl_train",
+    "sdxl_train_parity", "sdxl_train", "sd21_parity", "sd21", "sd21_trainer",
 }
 
 # H100 SXM peaks (NVIDIA data sheet, dense): 989 TFLOP/s bf16 tensor core,
@@ -471,6 +506,24 @@ def demangle_all(names):
     return out
 
 
+PLAIN_SCORE_BYTES = 8e9  # the plain attention's f32 scores above this run a slice of heads at a time
+
+
+def plain_by_heads(fn, *args):
+    """``fn`` (a plain attention version over ``(BH, S, ...)`` tensors and
+    a scale) on slices of the heads, its outputs joined: heads are
+    independent, and the f32 scores of SD2.1's 9,216-key level at train
+    batch 8 (40 heads, 13.6 GB) would otherwise be held three to four times."""
+    import torch
+
+    q, k = args[0], args[1]
+    per = max(1, int(PLAIN_SCORE_BYTES // (4 * q.shape[1] * k.shape[1])))
+    if per >= q.shape[0]:
+        return fn(*args)
+    parts = [fn(*(a[i:i + per] if torch.is_tensor(a) else a for a in args)) for i in range(0, q.shape[0], per)]
+    return tuple(torch.cat(outs) for outs in zip(*parts))
+
+
 def _bound(bh, sq, sk, d, dtype_name, products=2, exps=1, reads_q=2, reads_k=2, writes_q=0, writes_k=0, stats=1,
            f32_q=0):
     """Least time for attention work: ``products`` matmuls of 2*bh*sq*sk*d
@@ -534,6 +587,21 @@ def phase_kernels(state):
         ("sdxl_train_bucket_l1", 40, 4032, 4032, 64, ("bfloat16",)),
         ("sdxl_train_parity_l1", 10, 4096, 4096, 64, ("float32",)),
         ("sdxl_vae_mid_bucket", 1, 16128, 16128, 512, ("bfloat16",)),
+        # SD2.1 at 768x768 (96x96 latents): the 96x96 level (5 heads of 64)
+        # and the 48x48 level (10 heads) at train batch 8, the 896x640
+        # bucket's 112x80 and 56x40 levels, serving's and eval's CFG batch 2,
+        # the VAE mid-block (encode at batch 8, decode at 1), sd21_parity's f32
+        ("sd21_train_l1", 40, 9216, 9216, 64, ("bfloat16",)),
+        ("sd21_train_l2", 80, 2304, 2304, 64, ("bfloat16",)),
+        ("sd21_train_bucket_l1", 40, 8960, 8960, 64, ("bfloat16",)),
+        ("sd21_train_bucket_l2", 80, 2240, 2240, 64, ("bfloat16",)),
+        ("sd21_unet_l1", 10, 9216, 9216, 64, ("bfloat16",)),
+        ("sd21_unet_l2", 20, 2304, 2304, 64, ("bfloat16",)),
+        ("sd21_vae_encode", 8, 9216, 9216, 512, ("bfloat16",)),
+        ("sd21_vae_encode_bucket", 8, 8960, 8960, 512, ("bfloat16",)),
+        ("sd21_vae_mid", 1, 9216, 9216, 512, ("bfloat16",)),
+        ("sd21_parity_l1", 5, 9216, 9216, 64, ("float32",)),
+        ("sd21_parity_l2", 10, 2304, 2304, 64, ("float32",)),
     ]
     results = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -552,7 +620,7 @@ def phase_kernels(state):
             again = fa.flash_attention_fwd(q, k, v, scale)
             torch.cuda.synchronize()
             by_route = dict(fa.flash_attention_fwd.launches_by_route)
-            o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, scale)
+            o_ref, lse_ref = plain_by_heads(fa.flash_attention_fwd_reference, q, k, v, scale)
             err_o = (o.float() - o_ref.float()).abs().max().item()
             err_lse = (lse - lse_ref).abs().max().item()
             # the f32 kernels sum in fixed orders: a repeat is bitwise equal
@@ -565,7 +633,7 @@ def phase_kernels(state):
             reps = 20 if d <= 64 else 5
             host = []
             kernel_ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, scale), reps, host=host)
-            plain_ms = cuda_ms(lambda: fa.flash_attention_fwd_reference(q, k, v, scale), reps)
+            plain_ms = cuda_ms(lambda: plain_by_heads(fa.flash_attention_fwd_reference, q, k, v, scale), reps)
             cuda_cores = {}
             if name_dt == "float32" and not name.startswith("ragged"):
                 # the kernel the f32 route replaced, on the same inputs
@@ -659,6 +727,15 @@ def flash_backward_cases():
         ("sdxl_train", 40, 4096, 4096, 64, torch.bfloat16),
         ("sdxl_train_bucket", 40, 4032, 4032, 64, torch.bfloat16),
         ("sdxl_train_parity_f32", 10, 4096, 4096, 64, torch.float32),
+        # SD2.1 training at 768x768, batch 8: the 96x96 and 48x48 levels, the
+        # 896x640 bucket's (8,960 and 2,240 rows, no multiple of the tiles),
+        # and sd21_parity's f32 batch 1
+        ("sd21_train_l1", 40, 9216, 9216, 64, torch.bfloat16),
+        ("sd21_train_l2", 80, 2304, 2304, 64, torch.bfloat16),
+        ("sd21_train_bucket_l1", 40, 8960, 8960, 64, torch.bfloat16),
+        ("sd21_train_bucket_l2", 80, 2240, 2240, 64, torch.bfloat16),
+        ("sd21_parity_l1_f32", 5, 9216, 9216, 64, torch.float32),
+        ("sd21_parity_l2_f32", 10, 2304, 2304, 64, torch.float32),
     ]
     rows = []
     for name, bh, sq, sk, d, dtype in cases:
@@ -676,7 +753,7 @@ def flash_backward_cases():
         again = fa.flash_attention_bwd(*args)
         torch.cuda.synchronize()
         launches = bwd_launches(fa)
-        expected = fa.flash_attention_bwd_reference(*args)
+        expected = plain_by_heads(fa.flash_attention_bwd_reference, *args)
         errs, fro_errs, max_grads = {}, {}, {}
         ok = launches == {k: 2 * n for k, n in BWD_ROUTE_LAUNCHES[route].items()}
         for gname, got, want in zip(("dq", "dk", "dv"), grads, expected):
@@ -703,7 +780,7 @@ def flash_backward_cases():
         host = []
         call_ms = cuda_ms(lambda: fa.flash_attention_bwd(*args), reps, host=host)
         kernel_ms = profiled_kernel_ms(lambda: fa.flash_attention_bwd(*args), reps)
-        plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(*args), 2, warmup=1)
+        plain_ms = cuda_ms(lambda: plain_by_heads(fa.flash_attention_bwd_reference, *args), 2, warmup=1)
         library_ms = None
         try:  # SDPA's backward on (1, B*H, S, D), the yardstick only
             leaves = [t[None].detach().requires_grad_() for t in (q, k, v)]
@@ -973,6 +1050,17 @@ def sdxl_quantized_leaves():
     return quantized_leaves(UNet2DConditionModel(**configs.SDXL_UNET, device="meta"))
 
 
+def sd21_quantized_leaves():
+    """{model: quantized leaves} of SD2.1's UNet and text encoder (OpenCLIP
+    ViT-H), both trained in ``sd21_trainer``."""
+    from stable_diffusion_training_tpu_torch.models import CLIPTextModel, UNet2DConditionModel, configs
+
+    return {
+        "sd21_unet": quantized_leaves(UNet2DConditionModel(**configs.SD21_UNET, device="meta")),
+        "sd21_text_encoder": quantized_leaves(CLIPTextModel(**configs.OPEN_CLIP_VIT_H, device="meta")),
+    }
+
+
 def lion_table_launches(leaves, dtype_name):
     """``{(leaves, elements, bs, dtype): 1}`` of one leaf-table update over
     ``leaves``: one launch per ``MAX_LEAVES_PER_LAUNCH`` leaves, as
@@ -1044,6 +1132,7 @@ def lion_model_cases():
     variants = ((torch.bfloat16, "exact"), (torch.bfloat16, "fast"), (torch.float32, "exact"))
     models = [(name, leaves, variants) for name, leaves in sd15_quantized_leaves().items()]
     models.append(("sdxl_unet", sdxl_quantized_leaves(), variants[:1]))
+    models += [(name, leaves, variants[:1]) for name, leaves in sd21_quantized_leaves().items()]
     for model_name, leaves, model_variants in models:
         for dtype, compander in model_variants:
             name_dt = str(dtype).replace("torch.", "")
@@ -1107,7 +1196,7 @@ def lion_model_cases():
             torch.cuda.empty_cache()
     both = {}
     for r in rows:
-        if r["model"] == "sdxl_unet":
+        if r["model"] not in ("unet", "text_encoder"):  # the sum is SD1.5's
             continue
         key = (r["dtype"], r["compander"])
         acc = both.setdefault(key, dict(kernel_ms=0.0, bound_ms=0.0, old_route_ms=0.0, old_permute_copies_ms=0.0,
@@ -2452,11 +2541,512 @@ def phase_sdxl_trainer(state, seed=0):
         raise AssertionError(f"sdxl_trainer failed its checks: {checks}")
 
 
+# SD2.1 at 768x768 (BASELINE config 3's model and resolution; config 2's
+# in-loop DDIM eval): K1's and the fused backward's keys (bh, sq, sk, d,
+# dtype). The 96x96 level has 5 heads of 64 (2 layers down, 3 up), the 48x48
+# level 10 heads (2 down, 3 up; 2,304 keys, over FLASH_MIN_KEY); the 24x24
+# level (576 keys) and the cross-attention stay on the plain path, as in the
+# JAX package. The VAE mid-block runs one head of 512 at 96x96.
+SD21_RES, SD21_MIN_AXIS, SD21_BATCH = 768, 512, 8
+SD21_BUCKET = (896, 640)  # (w, h): 112x80 latents, 8,960 and 2,240 keys, both off the 128-row tiles
+SD21_BATCHES_PER_BUCKET = 4
+SD21_STEPS = 4  # DDIM steps of serving and of the in-loop eval
+
+
+def sd21_keys(batch, w, h, dtype="bfloat16"):
+    """K1's and the backward's keys at one batch and image size: the two
+    flash levels of the UNet (the self-attentions of a CFG or train batch)
+    and the VAE mid-block (one image's or the batch's encode)."""
+    l1, l2 = (w // 8) * (h // 8), (w // 16) * (h // 16)
+    return (5 * batch, l1, l1, 64, dtype), (10 * batch, l2, l2, 64, dtype), (batch, l1, l1, 512, dtype)
+
+
+def phase_sd21_parity(state, seed=11):
+    """SD2.1's UNet at full width in f32 (TF32 off), batch 1, 96x96
+    latents: the forward with "auto" (K1 on route f32 at both flash levels)
+    against "xla" (a model holding the same tensors) within
+    ``PARITY_REL_TOL``; then one train step's loss and grads through the
+    step's own loss (``train_step._loss``: cached moments, a 227-token
+    1024-wide context, v-prediction on the zero-SNR schedule, the draws
+    injected) within ``TRAIN_LOSS_REL_TOL`` and ``TRAIN_GRAD_REL_TOL``. K1 5
+    times at (5, 9216, 64) and 5 at (10, 2304, 64) a forward, the fused f32
+    backward the same."""
+    import gc
+    from types import SimpleNamespace
+
+    import torch
+
+    from stable_diffusion_training_tpu_torch.diffusion import DDPMScheduler
+    from stable_diffusion_training_tpu_torch.models import UNet2DConditionModel, configs
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+    from stable_diffusion_training_tpu_torch.train.states import FrozenModel
+    from stable_diffusion_training_tpu_torch.train.train_step import _grads, _loss, make_draws
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    set_tf32(False)
+    unet = seeded_models(seed, torch.float32, unet=(UNet2DConditionModel, configs.SD21_UNET))["unet"]
+    plain = UNet2DConditionModel(**configs.SD21_UNET, attention_backend="xla", device="meta")
+    plain.load_state_dict(unet.state_dict(), strict=True, assign=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    latent = SD21_RES // 8
+    ctx_dim = configs.SD21_UNET["cross_attention_dim"]
+    l1, l2, _ = sd21_keys(1, SD21_RES, SD21_RES, "float32")
+    want_fwd = {l1 + ("f32",): 5, l2 + ("f32",): 5}
+
+    sample = torch.randn(1, 4, latent, latent, generator=gen, device="cuda")
+    t = torch.tensor([421], device="cuda")
+    ctx = torch.randn(1, 77, ctx_dim, generator=gen, device="cuda")
+    with torch.no_grad():
+        fa.reset_launch_counts()
+        out_k = unet(sample, t, ctx)
+        torch.cuda.synchronize()
+        fwd_by_shape = dict(fa.flash_attention_fwd.launches_by_shape)
+        out_p = plain(sample, t, ctx)
+        plain_launches = fa.flash_attention_fwd.launches - sum(fwd_by_shape.values())
+    rel = (out_k - out_p).abs().max().item() / out_p.abs().max().item()
+    ok_fwd = bool(torch.isfinite(out_k).all()) and rel <= PARITY_REL_TOL and fwd_by_shape == want_fwd
+    ok_fwd = ok_fwd and plain_launches == 0
+    del out_k, out_p
+
+    sched = DDPMScheduler(beta_start=0.00085, beta_end=0.012, beta_schedule="zero_snr_scaled_linear",
+                          num_train_timesteps=1000, prediction_type="v_prediction", device="cuda")
+    mean = torch.randn(1, 4, latent, latent, generator=gen, device="cuda")
+    logvar = torch.randn(1, 4, latent, latent, generator=gen, device="cuda") * 0.1 - 6.0
+    batch = {"latent_moments": torch.cat([mean, logvar], dim=1),
+             "encoder_hidden_states": torch.randn(1, 227, ctx_dim, generator=gen, device="cuda")}
+    draws = make_draws(gen, mean.shape, torch.float32, 1000, "cuda")
+    kw = dict(strip_bos_eos_token=True, offset_noise_magnitude=0.0, min_snr_gamma_magnitude=0.0,
+              perturbation_noise_magnitude=0.0, text_context_window=77, train_text_encoder=False,
+              vae_encode_chunk=0)
+    frozen = (FrozenModel(call=None, params=None), FrozenModel(call=sched, params=sched.create_state()))
+    names = [n for n, _ in unet.named_parameters()]
+
+    def loss_and_grads(model):
+        fa.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        loss = _loss(SimpleNamespace(model=model), None, *frozen, batch, None, draws, **kw)
+        grads = _grads(loss, dict(model.named_parameters()))
+        torch.cuda.synchronize()
+        by_shape = dict(flash_fwd=dict(fa.flash_attention_fwd.launches_by_shape),
+                        flash_bwd_f32=dict(fa.flash_attention_bwd_f32_fused.launches_by_shape))
+        launches = dict(fwd=fa.flash_attention_fwd.launches, **bwd_launches(fa))
+        return loss.item(), grads, launches, by_shape, torch.cuda.max_memory_allocated()
+
+    loss_k, grads_k, launches_k, by_shape, peak_k = loss_and_grads(unet)
+    state["sd21_parity_by_shape"] = {"flash_fwd": {**fwd_by_shape}, "flash_bwd_f32": by_shape["flash_bwd_f32"]}
+    for key, n in by_shape["flash_fwd"].items():  # the forward call's and the step's forward launches
+        state["sd21_parity_by_shape"]["flash_fwd"][key] = state["sd21_parity_by_shape"]["flash_fwd"].get(key, 0) + n
+    grads_k = [g.cpu() for g in grads_k]  # room on the card for the plain run's
+    loss_p, grads_p, launches_p, _, peak_p = loss_and_grads(plain)
+    worst, worst_name = 0.0, None
+    for name, gk, gp in zip(names, grads_k, grads_p):
+        r = (gk.cuda() - gp).abs().max().item() / max(gp.abs().max().item(), 1e-30)
+        if r > worst:
+            worst, worst_name = r, name
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    want_bwd = {l1: 5, l2: 5}
+    ok_step = (
+        math.isfinite(loss_k) and loss_rel <= TRAIN_LOSS_REL_TOL and worst <= TRAIN_GRAD_REL_TOL
+        and launches_k == dict(fwd=10, bwd_fused=0, bwd_f32=10, bwd_dq=0, bwd_dkv=0)
+        and by_shape == dict(flash_fwd=want_fwd, flash_bwd_f32=want_bwd)
+        and launches_p == dict(fwd=0, bwd_fused=0, bwd_f32=0, bwd_dq=0, bwd_dkv=0)
+    )
+    emit(
+        "sd21_parity", dtype="float32", batch=1, resolution=SD21_RES, max_rel_diff=rel, rel_tol=PARITY_REL_TOL,
+        forward_launches_by_shape={"x".join(map(str, k)): n for k, n in fwd_by_shape.items()},
+        loss_kernel=loss_k, loss_plain=loss_p, loss_rel_diff=loss_rel, loss_rel_tol=TRAIN_LOSS_REL_TOL,
+        worst_grad_rel_diff=worst, worst_grad=worst_name, grad_rel_tol=TRAIN_GRAD_REL_TOL, n_grads=len(names),
+        step_launches=launches_k, plain_launches=launches_p,
+        step_launches_by_shape={k: {"x".join(map(str, s)): n for s, n in v.items()} for k, v in by_shape.items()},
+        max_memory_allocated_kernel=peak_k, max_memory_allocated_plain=peak_p, ok=ok_fwd and ok_step,
+    )
+    del unet, plain, grads_k, grads_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (ok_fwd and ok_step):
+        raise AssertionError("full-width SD2.1 UNet: kernel and plain attention disagree")
+
+
+def sd21_scheduler():
+    """SD2.1's own DDIM settings: v-prediction, scaled_linear, steps_offset 1."""
+    from stable_diffusion_training_tpu_torch.diffusion import DDIMScheduler
+
+    return DDIMScheduler(
+        beta_start=0.00085, beta_end=0.012, beta_schedule="scaled_linear",
+        set_alpha_to_one=False, steps_offset=1, prediction_type="v_prediction", device="cuda",
+    )
+
+
+def phase_sd21(state, steps=SD21_STEPS, seed=0, repeats=5):
+    """SD2.1 text-to-image at full width in bf16 (OpenCLIP ViT-H, the
+    SD2.1 UNet, the VAE), seeded weights, 768x768, CFG batch 2, ``steps``
+    v-prediction DDIM steps: K1 5 times a step at (10, 9216, 64) and 5 at
+    (20, 2304, 64), once in the decode at (1, 9216, 512)."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.models import (
+        AutoencoderKL, CLIPTextModel, UNet2DConditionModel, configs,
+    )
+    from stable_diffusion_training_tpu_torch.pipeline import StableDiffusionPipeline
+
+    set_tf32(False)
+    models = seeded_models(
+        seed, torch.bfloat16, unet=(UNet2DConditionModel, configs.SD21_UNET),
+        vae=(AutoencoderKL, configs.SD_VAE), text_encoder=(CLIPTextModel, configs.OPEN_CLIP_VIT_H),
+    )
+    pipe = StableDiffusionPipeline(models["text_encoder"], models["vae"], models["unet"], sd21_scheduler())
+    ids, neg_ids = prompt_ids(seed + 1, configs.OPEN_CLIP_VIT_H["vocab_size"])
+    kw = dict(num_inference_steps=steps, height=SD21_RES, width=SD21_RES, guidance_scale=7.5, neg_prompt_ids=neg_ids)
+    latent = SD21_RES // 8
+    noise = torch.randn(1, 4, latent, latent, generator=torch.Generator("cuda").manual_seed(seed + 2), device="cuda")
+    stages = [
+        ("encode_ms", lambda _: pipe.encode_prompt(ids, neg_ids), 1),
+        ("denoise_ms_per_step", lambda context: (pipe.denoise(noise, context, steps, 7.5), context), steps),
+        ("decode_ms", lambda out: pipe.decode_latents(out[0]), 1),
+    ]
+    l1, l2, vae = sd21_keys(2, SD21_RES, SD21_RES)
+    want = {l1 + ("tma_narrow",): 5 * steps, l2 + ("tma_narrow",): 5 * steps, (1,) + vae[1:] + ("tma_wide",): 1}
+    _, results, by_shape = time_serving(
+        "sd21",
+        lambda: pipe(ids, generator=torch.Generator("cuda").manual_seed(seed), **kw)["images"],
+        stages, {"tma_narrow": 10 * steps, "tma_wide": 1}, want, SD21_RES, repeats, steps=steps,
+        prediction_type="v_prediction",
+    )
+    state["sd21_by_shape"] = by_shape
+    latents, context = results["denoise_ms_per_step"]
+    with torch.no_grad():
+        profile_step(
+            lambda: pipe.denoise(latents, context, 1, 7.5),
+            "one SD2.1 CFG denoise step (UNet batch 2 at 96x96 latents + DDIM step)",
+            {"flash_ms": ("flash_fwd",)}, top=15,
+        )
+    del pipe, models, results
+    torch.cuda.empty_cache()
+
+
+class StubTokenizer:
+    """A tokenizer for runs without a vocabulary file: CLIP's BOS (49406),
+    EOS and pad (49407) ids, each whitespace word hashed (crc32) into the
+    49,406 ids below them. The calls the loader and the pipelines make:
+    ``tok(texts, add_special_tokens=False)["input_ids"]`` and ``tok(texts,
+    padding="max_length", max_length=77, return_tensors="pt").input_ids``."""
+
+    bos_token_id, eos_token_id, pad_token_id = 49406, 49407, 49407
+    model_max_length = 77
+
+    def _words(self, text):
+        import zlib
+
+        return [zlib.crc32(w.encode()) % 49406 for w in text.split()]
+
+    def __call__(self, texts, add_special_tokens=True, padding=None, max_length=None, truncation=False,
+                 return_tensors=None):
+        from types import SimpleNamespace
+
+        ids = [self._words(t) for t in texts]
+        if padding != "max_length":
+            return {"input_ids": ids}
+        n = max_length or self.model_max_length
+        rows = [([self.bos_token_id] + w[: n - 2] + [self.eos_token_id] + [self.pad_token_id] * n)[:n] for w in ids]
+        if return_tensors == "pt":
+            import torch
+
+            return SimpleNamespace(input_ids=torch.tensor(rows))
+        import numpy as np
+
+        return SimpleNamespace(input_ids=np.asarray(rows))
+
+    def save_pretrained(self, directory):
+        os.makedirs(directory, exist_ok=True)
+        with open(os.path.join(directory, "stub_tokenizer.json"), "w") as f:
+            json.dump({"bos": self.bos_token_id, "eos": self.eos_token_id, "pad": self.pad_token_id,
+                       "hash": "crc32 % 49406"}, f)
+
+
+def sd21_chunk(ramdisk, seed=0):
+    """The trainer's chunk 0 under ``ramdisk/chunk_0/repo_0`` (a repo entry
+    without ``name``): ``SD21_BATCHES_PER_BUCKET`` batches of seeded PNGs at
+    768x768 and at 896x640, each a smooth image (a seeded 24x20 one,
+    bicubically enlarged), and their CSV with comma-separated tag captions.
+    Returns (images, seconds)."""
+    import numpy as np
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    repo_dir = os.path.join(ramdisk, "chunk_0", "repo_0")
+    os.makedirs(repo_dir)
+    rng = np.random.default_rng(seed)
+    rows = ["filename,caption,image_width,image_height"]
+    n = SD21_BATCH * SD21_BATCHES_PER_BUCKET
+    for i, (w, h) in enumerate([(SD21_RES, SD21_RES)] * n + [SD21_BUCKET] * n):
+        small = rng.integers(0, 256, (20, 24, 3), dtype=np.uint8)
+        Image.fromarray(small).resize((w, h), Image.BICUBIC).save(os.path.join(repo_dir, f"{i:03d}.png"),
+                                                                   compress_level=1)
+        tags = ", ".join(f"tag{int(t)}" for t in rng.integers(0, 500, 6))
+        rows.append(f'{i:03d}.png,"a photo of thing {i}, {tags}",{w},{h}')
+    with open(os.path.join(repo_dir, "meta.csv"), "w") as f:
+        f.write("\n".join(rows))
+    return 2 * n, time.perf_counter() - t0
+
+
+def launch_snapshot(fa, lk):
+    """Every kernel wrapper's launches by shape, as it stands."""
+    return dict(
+        flash_fwd=dict(fa.flash_attention_fwd.launches_by_shape),
+        flash_bwd_fused=dict(fa.flash_attention_bwd_fused.launches_by_shape),
+        flash_bwd_f32=dict(fa.flash_attention_bwd_f32_fused.launches_by_shape),
+        flash_bwd_dq=dict(fa.flash_attention_bwd_dq.launches_by_shape),
+        flash_bwd_dkv=dict(fa.flash_attention_bwd_dkv.launches_by_shape),
+        lion_leaves=dict(lk.lion8bit_update_leaves_.launches_by_shape),
+        lion_single=dict(lk.lion8bit_update_.launches_by_shape),
+        lion_multi=dict(lk.lion8bit_update_multi_.launches_by_shape),
+    )
+
+
+def launch_diff(after, before):
+    """The launches between two snapshots, by kernel and shape (zeros left out)."""
+    out = {}
+    for kernel, shapes in after.items():
+        moved = {k: n - before[kernel].get(k, 0) for k, n in shapes.items() if n != before[kernel].get(k, 0)}
+        if moved:
+            out[kernel] = moved
+    return out
+
+
+def add_launches(total, part):
+    for kernel, shapes in part.items():
+        for k, n in shapes.items():
+            total.setdefault(kernel, {})[k] = total.setdefault(kernel, {}).get(k, 0) + n
+
+
+def trace_summary(trace_dir, top=12):
+    """The profiler trace the trainer wrote: its file, size, and the device
+    ops with the most time (Chrome trace events of category ``kernel``);
+    the trace is then gzipped in place."""
+    import gzip
+
+    files = sorted(f for f in os.listdir(trace_dir) if f.endswith(".json"))
+    if len(files) != 1:
+        return dict(trace_files=files)
+    path = os.path.join(trace_dir, files[0])
+    size = os.path.getsize(path)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    by_name, kernels = {}, 0
+    for e in events:
+        if e.get("cat") == "kernel" and "dur" in e:
+            kernels += 1
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+    with open(path, "rb") as src, gzip.open(path + ".gz", "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    os.remove(path)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return dict(
+        trace_file=os.path.relpath(path + ".gz", REPO), trace_bytes=size, trace_events=len(events),
+        device_kernels=kernels, device_ms=sum(by_name.values()),
+        top_device_ops=[dict(ms=ms, name=name[:120]) for name, ms in ranked[:top]],
+    )
+
+
+def phase_sd21_trainer(state, seed=0):
+    """SD2.1 training (BASELINE config 3's model at 768x768) through
+    ``trainer.main(path, dataloader=None, tokenizer=StubTokenizer())``: the
+    trainer builds the streaming ``DataLoader`` from the config and reads a
+    chunk of seeded PNGs (768x768 and the 896x640 bucket) from the
+    ramdisk; the example recipe (v-prediction, zero-SNR, 3-window concat,
+    8-bit Lion at bs 16, EMA), seeded ``sd21`` weights, bf16, batch 8, no
+    gradient checkpointing; DDIM eval sampling every 2 steps at 768x768 (4
+    steps, one prompt) and the profiler trace of the first steps into
+    ``chiprun_out/sd21_trace/``. Each train step and each eval call is
+    wrapped to time it and read its launches; the loader's
+    ``grab_next_batch`` is timed. Checks: finite losses and ``loss.csv``'s
+    rows, the eval PNGs (finite images in ``[0, 1]`` before rounding), the
+    trace, the checkpoint and the JSON; per step K1 5 + 5 at the bucket's
+    two flash levels and once at its VAE encode, the fused bf16 backward 5
+    + 5, Lion's leaf table once per model (per 1,024 leaves), nothing else;
+    per eval K1 5 + 5 a step and the decode's one; and nothing launched
+    outside the steps and the evals (the loader's threads launch nothing)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from stable_diffusion_training_tpu_torch.data import dataloader as dl
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+    from stable_diffusion_training_tpu_torch.train import eval_sampler, trainer
+    from stable_diffusion_training_tpu_torch.utils.json_io import read_json_file
+    from stable_diffusion_training_tpu_torch.utils.profiling import StepTimer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    set_tf32(False)
+    trace_dir = os.path.join(REPO, "chiprun_out", "sd21_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    run_dir = os.path.join(REPO, ".cache", "chip_smoke_sd21_trainer")
+    eval_dir = os.path.join(run_dir, "eval")
+    prompt = StubTokenizer()(["a photo of an astronaut riding a horse"], padding="max_length").input_ids
+    run_dir, base, cfg, config_path, free_before = trainer_run(
+        "chip_smoke_sd21_trainer",
+        train_config(model_path="sd21", model_family="sd21", batch_size=SD21_BATCH, image_area_root=[SD21_RES],
+                     minimum_axis_length=[SD21_MIN_AXIS]),
+        seed, device_prefetch_depth=2, ramdisk_path=os.path.join(run_dir, "ramdisk"),
+        repo={"repo_0": {"coma_separated_shuffle": True, "max_tag_count": 20, "drop_caption_ratio": 0.9}},
+        repeat_batch=2, numb_of_dataloader_worker_thread=4, queue_get_timeout=60, token=None,
+        eval_sample_interval=2, eval_sample_prompt_ids=prompt.tolist(), eval_num_inference_steps=SD21_STEPS,
+        eval_sample_resolution=SD21_RES, eval_sample_dir=eval_dir, profile_trace_dir=trace_dir,
+    )
+    images, chunk_s = sd21_chunk(cfg["ramdisk_path"], seed)
+
+    steps, evals, grabs, eval_images = [], [], [], []
+    timer = StepTimer(skip_first=0)
+    bucket_steps, maybe_sample, grab = trainer.bucket_train_steps, eval_sampler.EvalSampler.maybe_sample, \
+        dl.DataLoader.grab_next_batch
+    save_png_images = eval_sampler.save_png_images
+
+    def timed_steps(training_config, frozen_vae):
+        def wrap(key, step):
+            def run(*args):
+                before = launch_snapshot(fa, lk)
+                torch.cuda.synchronize()
+                with timer.step():
+                    out = step(*args)
+                    loss = out[4]["loss"].item()
+                steps.append(dict(key=key, ms=timer.times[-1] * 1e3, loss=loss,
+                                  launches=launch_diff(launch_snapshot(fa, lk), before)))
+                return out
+            return run
+        return {key: wrap(key, step) for key, step in bucket_steps(training_config, frozen_vae).items()}
+
+    def timed_sample(self, step, *args, **kwargs):
+        before = launch_snapshot(fa, lk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = maybe_sample(self, step, *args, **kwargs)
+        torch.cuda.synchronize()
+        if out is not None:
+            evals.append(dict(step=step, ms=(time.perf_counter() - t0) * 1e3, dir=out,
+                              launches=launch_diff(launch_snapshot(fa, lk), before)))
+        return out
+
+    def timed_grab(self):
+        t0 = time.perf_counter()
+        out = grab(self)
+        grabs.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def kept_images(images, directory):
+        eval_images.append(np.asarray(images))
+        return save_png_images(images, directory)
+
+    trainer.bucket_train_steps = timed_steps
+    eval_sampler.EvalSampler.maybe_sample = timed_sample
+    dl.DataLoader.grab_next_batch = timed_grab
+    eval_sampler.save_png_images = kept_images
+    watch = SaveWatch(trainer, run_dir)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        lk.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.main(config_path, dataloader=None, tokenizer=StubTokenizer())
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        total = launch_snapshot(fa, lk)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        watch.stop()
+        trainer.bucket_train_steps = bucket_steps
+        eval_sampler.EvalSampler.maybe_sample = maybe_sample
+        dl.DataLoader.grab_next_batch = grab
+        eval_sampler.save_png_images = save_png_images
+    gc.collect()
+    torch.cuda.empty_cache()
+    state["sd21_trainer_by_shape"] = total
+
+    # what each step and each eval must launch
+    leaves = sd21_quantized_leaves()
+    lion = {}
+    for model_leaves in leaves.values():
+        add_launches(lion, {"lion_leaves": lion_table_launches(model_leaves, "bfloat16")})
+    want_step, bucket_of = {}, {}
+    for w, h in ((SD21_RES, SD21_RES), SD21_BUCKET):
+        key = (SD21_BATCH, 3, h, w)  # the step table's key: the batch's NCHW shape
+        l1, l2, vae = sd21_keys(SD21_BATCH, w, h)
+        want_step[key] = dict(
+            flash_fwd={l1 + ("tma_narrow",): 5, l2 + ("tma_narrow",): 5, vae + ("tma_wide",): 1},
+            flash_bwd_fused={l1: 5, l2: 5}, **lion,
+        )
+        bucket_of[key] = f"{w}x{h}"
+    e1, e2, evae = sd21_keys(2, SD21_RES, SD21_RES)
+    want_eval = dict(flash_fwd={e1 + ("tma_narrow",): 5 * SD21_STEPS, e2 + ("tma_narrow",): 5 * SD21_STEPS,
+                                (1,) + evae[1:] + ("tma_wide",): 1})
+    accounted = {}
+    for part in [s["launches"] for s in steps] + [e["launches"] for e in evals]:
+        add_launches(accounted, part)
+    total_moved = {k: v for k, v in launch_diff(total, {k: {} for k in total}).items()}
+
+    final = read_json_file(config_path)
+    with open(cfg["loss_csv"]) as f:
+        lines = f.read().splitlines()
+    rows = [line.split(",") for line in lines[1:] if line]
+    pngs = sorted(os.path.join(e["dir"], n) for e in evals for n in os.listdir(e["dir"]))
+    png_arrays = [np.asarray(Image.open(p)) for p in pngs]
+    n_steps = 2 * SD21_BATCHES_PER_BUCKET
+    traced = min(4, cfg["loss_logging_interval"]) + 1  # the trainer's profiler window: its steps run slower
+    per_bucket = {}
+    for s in steps[traced:]:
+        per_bucket.setdefault(bucket_of.get(s["key"], str(s["key"])), []).append(s["ms"])
+    trace = trace_summary(trace_dir) if os.path.isdir(trace_dir) else {}
+    checks = dict(
+        steps=len(steps) == n_steps and {s["key"] for s in steps} == set(want_step),
+        losses_finite=all(math.isfinite(s["loss"]) for s in steps),
+        loss_csv=lines[0] == "steps, step_size, loss, time, chunk, seed" and len(rows) == n_steps
+        and all(math.isfinite(float(r[2])) for r in rows),
+        step_launches=all(s["launches"] == want_step.get(s["key"]) for s in steps),
+        evals=[e["step"] for e in evals] == list(range(2, n_steps + 1, 2)),
+        eval_launches=all(e["launches"] == want_eval for e in evals),
+        eval_images=len(eval_images) == len(evals) and all(
+            a.shape == (1, SD21_RES, SD21_RES, 3) and np.isfinite(a).all() and a.min() >= 0 and a.max() <= 1
+            for a in eval_images),
+        pngs=len(pngs) == len(evals) and all(a.shape == (SD21_RES, SD21_RES, 3) and a.dtype == np.uint8
+                                              for a in png_arrays),
+        nothing_outside_steps_and_evals=accounted == total_moved,
+        trace=trace.get("trace_bytes", 0) > 0 and trace.get("device_kernels", 0) > 0,
+        checkpoint=os.path.isdir(f"{base}@0/unet") and os.path.isdir(f"{base}-EMA@0/unet")
+        and os.path.isdir(os.path.join(f"{base}@0", trainer.TRAIN_STATE_SUBDIR)),
+        json=(final["chunk_number"], final["chunk_steps"], final["master_seed"]) == (1, 1, seed + 1),
+        chunk_flushed=not os.path.exists(os.path.join(cfg["ramdisk_path"], "chunk_0")),
+    )
+    row = dict(
+        batch=SD21_BATCH, resolution=SD21_RES, bucket=list(SD21_BUCKET), dtype="bfloat16",
+        gradient_checkpointing=False, images=images, chunk_write_s=chunk_s, wall_s=wall_s, steps=len(steps),
+        step_ms=[s["ms"] for s in steps], step_buckets=[bucket_of.get(s["key"]) for s in steps],
+        traced_steps=traced, step_p50_ms_by_bucket={b: statistics.median(v) for b, v in per_bucket.items()},
+        steps_by_bucket={b: len(v) for b, v in per_bucket.items()},
+        images_per_s_by_bucket={b: SD21_BATCH / statistics.median(v) * 1e3 for b, v in per_bucket.items()},
+        step_summary=timer.summary(), losses=[s["loss"] for s in steps],
+        loader_wait_ms=grabs, loader_wait_ms_per_step=sum(grabs) / max(len(steps), 1),
+        eval_ms=[e["ms"] for e in evals], eval_steps=[e["step"] for e in evals],
+        eval_image_mean=[float(a.mean()) for a in eval_images], **trace, **watch.row(),
+        disk_free_before=free_before, max_memory_allocated=peak,
+        launches_by_shape={k: {"x".join(map(str, s)): n for s, n in v.items()} for k, v in total_moved.items()},
+        checks=checks, ok=all(checks.values()),
+    )
+    emit("sd21_trainer", **row)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    if not row["ok"]:
+        bad = {s["key"]: s["launches"] for s in steps if s["launches"] != want_step.get(s["key"])}
+        raise AssertionError(f"sd21_trainer failed its checks: {checks}; steps off their launches: {bad}")
+
+
 # forward cases whose f32 shape a path runs: the f32 UNet call of the parity
 # phase, the f32 train step
 F32_FWD_PATHS = {
     "unet_l0": "parity", "unet_train": "train_f32", "vae_encode": "train_f32", "sdxl_unet_l1": "sdxl_parity",
-    "sdxl_train_parity_l1": "sdxl_train_parity",
+    "sdxl_train_parity_l1": "sdxl_train_parity", "sd21_parity_l1": "sd21_parity", "sd21_parity_l2": "sd21_parity",
 }
 SHORT = {"bfloat16": "bf16", "float32": "f32"}
 
@@ -2471,11 +3061,13 @@ def kernels_line(state):
     train_f32 = state.get("train_f32_by_shape", {})
     sdxl_train = state.get("sdxl_train_by_shape", {})
     sdxl_train_parity = state.get("sdxl_train_parity_by_shape", {})
+    sd21_trainer = state.get("sd21_trainer_by_shape", {})
+    sd21_parity = state.get("sd21_parity_by_shape", {})
     paths = {
-        "bfloat16": [state.get(f"{p}_by_shape", {}) for p in ("slice", "sdxl", "sdxl_refiner", "sdxl_cache")]
-        + [train.get("flash_fwd", {}), sdxl_train.get("flash_fwd", {})],
+        "bfloat16": [state.get(f"{p}_by_shape", {}) for p in ("slice", "sdxl", "sdxl_refiner", "sdxl_cache", "sd21")]
+        + [train.get("flash_fwd", {}), sdxl_train.get("flash_fwd", {}), sd21_trainer.get("flash_fwd", {})],
         "float32": [state.get(f"{p}_by_shape", {}) for p in ("parity", "sdxl_parity")]
-        + [train_f32.get("flash_fwd", {}), sdxl_train_parity.get("flash_fwd", {})],
+        + [train_f32.get("flash_fwd", {}), sdxl_train_parity.get("flash_fwd", {}), sd21_parity.get("flash_fwd", {})],
     }
     entries = []
     for row in state.get("kernel_cases", []):
@@ -2498,11 +3090,17 @@ def kernels_line(state):
         "unet_train_f32": (state.get("train_parity_f32_by_shape", {}), "train_parity f32"),
         "unet_train_f32_b8": (train_f32.get("flash_bwd_f32", {}), "train_f32"),
         "sdxl_train_parity_f32": (sdxl_train_parity.get("flash_bwd_f32", {}), "sdxl_train_parity"),
+        "sd21_parity_l1_f32": (sd21_parity.get("flash_bwd_f32", {}), "sd21_parity"),
+        "sd21_parity_l2_f32": (sd21_parity.get("flash_bwd_f32", {}), "sd21_parity"),
     }
     bf16_paths = {  # the fused bf16 kernel's, likewise
         "unet_train": (train.get("flash_bwd_fused", {}), "train"),
         "sdxl_train": (sdxl_train.get("flash_bwd_fused", {}), "sdxl_train"),
         "sdxl_train_bucket": (sdxl_train.get("flash_bwd_fused", {}), "sdxl_train 1152x896"),
+        "sd21_train_l1": (sd21_trainer.get("flash_bwd_fused", {}), "sd21_trainer"),
+        "sd21_train_l2": (sd21_trainer.get("flash_bwd_fused", {}), "sd21_trainer"),
+        "sd21_train_bucket_l1": (sd21_trainer.get("flash_bwd_fused", {}), "sd21_trainer 896x640"),
+        "sd21_train_bucket_l2": (sd21_trainer.get("flash_bwd_fused", {}), "sd21_trainer 896x640"),
     }
     for row in state.get("bwd_cases", []):
         bh, sq, d = row["shape_q"]
@@ -2550,7 +3148,12 @@ def kernels_line(state):
     for row in state.get("lion_model_cases", []):
         if row["compander"] != "exact":
             continue  # the train step's setting
-        counts, path = (sdxl_train, "sdxl_train") if row["model"] == "sdxl_unet" else train_paths[row["dtype"]]
+        if row["model"] == "sdxl_unet":
+            counts, path = sdxl_train, "sdxl_train"
+        elif row["model"].startswith("sd21_"):
+            counts, path = sd21_trainer, "sd21_trainer"
+        else:
+            counts, path = train_paths[row["dtype"]]
         entries.append(dict(
             name=(f"lion8bit_update_leaves[{row['model']} {row['leaves']} leaves {row['elements']} elements "
                   f"bs{row['bs']} {SHORT[row['dtype']]} exact, grads in torch layout, "
@@ -2617,35 +3220,23 @@ def main(argv=None):
 
     state = {}
     phase_gpu(state)  # always: every number below stands beside this card
-    if "build" in phases:
-        phase_build(state)
-    if "kernels" in phases:
-        phase_kernels(state)
-    if "parity" in phases:
-        phase_parity(state)
-    if "slice" in phases:
-        phase_slice(state)
-    if "sdxl_parity" in phases:
-        phase_sdxl_parity(state)
-    if "sdxl" in phases:
-        phase_sdxl(state)
-    if "sdxl_refiner" in phases:
-        phase_sdxl_refiner(state)
-    if "train_parity" in phases:
-        phase_train_parity(state)
-    if "train" in phases:
-        phase_train(state)
-    if "train_f32" in phases:
-        phase_train(state, warmup=2, steps=3, dtype="float32")
-    if "trainer" in phases:
-        phase_trainer(state)
-    if "sdxl_train_parity" in phases:
-        phase_sdxl_train_parity(state)
-    if "sdxl_train" in phases:
-        phase_sdxl_train(state)
-    if "sdxl_trainer" in phases:
-        phase_sdxl_trainer(state)
-    shutil.rmtree(SDXL_CACHE_DIR, ignore_errors=True)
+    runners = dict(
+        build=phase_build, kernels=phase_kernels, parity=phase_parity, slice=phase_slice,
+        sdxl_parity=phase_sdxl_parity, sdxl=phase_sdxl, sdxl_refiner=phase_sdxl_refiner,
+        train_parity=phase_train_parity, train=phase_train,
+        train_f32=lambda st: phase_train(st, warmup=2, steps=3, dtype="float32"), trainer=phase_trainer,
+        sdxl_train_parity=phase_sdxl_train_parity, sdxl_train=phase_sdxl_train, sdxl_trainer=phase_sdxl_trainer,
+        sd21_parity=phase_sd21_parity, sd21=phase_sd21, sd21_trainer=phase_sd21_trainer,
+    )
+    started, seconds = time.perf_counter(), {}
+    for name in ALL_PHASES[1:]:
+        if name in phases:
+            t0 = time.perf_counter()
+            runners[name](state)
+            seconds[name] = time.perf_counter() - t0
+        if name == "sdxl_trainer":
+            shutil.rmtree(SDXL_CACHE_DIR, ignore_errors=True)
+    emit("phase_seconds", seconds=seconds, total_s=time.perf_counter() - started)
 
     line = kernels_line(state)
     if PATH_PHASES <= set(phases):

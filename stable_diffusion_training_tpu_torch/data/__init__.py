@@ -1,10 +1,11 @@
 """Data for the port's trainer, ported from ``stable_diffusion_training_tpu/data``:
-aspect-ratio buckets, the in-memory loader with the streamer protocol, and
-the offline latent cache (VAE moments and SDXL's frozen-tower conditioning,
-read back by ``CachedLatentLoader``). The streaming ``DataLoader`` is not
-ported yet (ROADMAP Queue 1 item 4)."""
+aspect-ratio buckets, the streaming chunked ``DataLoader`` and the
+in-memory loader with the streamer protocol, and the offline latent cache
+(VAE moments and SDXL's frozen-tower conditioning, read back by
+``CachedLatentLoader``)."""
 
 from .buckets import all_bucket_resolutions, assign_bucket, calculate_resolution_array
+from .dataloader import DataLoader
 from .latent_cache import (
     CachedLatentLoader,
     cache_batches_to_dir,
@@ -18,6 +19,7 @@ from .memory import InMemoryDataLoader, synthetic_batch
 
 __all__ = [
     "CachedLatentLoader",
+    "DataLoader",
     "InMemoryDataLoader",
     "all_bucket_resolutions",
     "assign_bucket",

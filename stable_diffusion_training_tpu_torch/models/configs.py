@@ -2,9 +2,11 @@
 
 The port's own copy of ``stable_diffusion_training_tpu/models/configs.py``:
 the architecture families are explicit data, so models can be built without
-network access and checkpoints only carry weights. The port runs the
-``sd15``, ``sdxl``, ``sdxl_refiner`` and ``tiny*`` families; ``sd21`` is
-kept for the slice that checks SD2.1.
+network access and checkpoints only carry weights. The port runs every
+family: ``sd15``, ``sd21`` (linear projections, heads of 64 at every level,
+a 1024-wide context from the 23-layer OpenCLIP ViT-H with exact-erf
+``gelu``; v-prediction at 768x768), ``sdxl``, ``sdxl_refiner`` and the
+``tiny*`` ones.
 """
 
 from typing import Any, Dict

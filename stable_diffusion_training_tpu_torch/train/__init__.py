@@ -6,6 +6,7 @@ package's tests drive, and ``trainer.main``, the body of the command line."""
 from .aot import all_unique_resolutions, batch_dispatch_key, bucket_train_steps
 from .checkpoint import restore_train_state, save_model, save_train_state
 from .config import TrainingConfig, training_config_from_dict
+from .eval_sampler import EvalSampler
 from .states import (
     FrozenModel,
     TrainState,
@@ -24,6 +25,7 @@ __all__ = [
     "restore_train_state",
     "save_model",
     "save_train_state",
+    "EvalSampler",
     "FrozenModel",
     "TrainState",
     "TrainingConfig",

@@ -17,6 +17,7 @@ from typing import Any, Callable, Dict
 import numpy as np
 
 from ..data.buckets import calculate_resolution_array
+from ..utils.timing import TimingContextManager
 from .config import TrainingConfig
 from .train_step import train_step
 
@@ -68,10 +69,11 @@ def bucket_train_steps(training_config: TrainingConfig, frozen_vae: Any) -> Dict
     factor = 2 ** (len(vae_config.block_out_channels) - 1)
     b = training_config.batch_size
     steps = {}
-    for res0, res1 in all_unique_resolutions(training_config):
-        if training_config.use_latent_cache:
-            key = (b, 2 * vae_config.latent_channels, int(res0) // factor, int(res1) // factor)
-        else:
-            key = (b, 3, int(res0), int(res1))
-        steps[key] = step
+    with TimingContextManager("step table for all buckets"):
+        for res0, res1 in all_unique_resolutions(training_config):
+            if training_config.use_latent_cache:
+                key = (b, 2 * vae_config.latent_channels, int(res0) // factor, int(res1) // factor)
+            else:
+                key = (b, 3, int(res0), int(res1))
+            steps[key] = step
     return steps

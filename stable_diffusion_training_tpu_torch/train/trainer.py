@@ -25,19 +25,25 @@ when present. Random draws come from a ``torch.Generator`` on the training
 device seeded with ``master_seed``. Batches reach the device from pinned
 host memory without blocking, ``device_prefetch_depth`` ahead of the step.
 
-The loader is passed in: an ``InMemoryDataLoader``, or a
+With ``dataloader=None`` the trainer builds the streaming ``DataLoader``
+(``data/dataloader.py``) from the config, as the JAX trainer does: each
+chunk is fetched into ``ramdisk_path``, bucketed and decoded on worker
+threads. A loader can be passed instead: an ``InMemoryDataLoader``, or a
 ``CachedLatentLoader`` over an offline latent cache (``data/latent_cache.py``:
 ``latent_moments``, and for SDXL the pooled embeds, time ids and the frozen
 towers' context; each chunk checkpoint then holds the SDXL UNet with its
 ``add_embedding`` under diffusers names, as the JAX trainer's does). The
-lines that the JAX trainer writes through ``tqdm`` are printed. Not ported
-yet, and raising ``NotImplementedError``: the streaming ``DataLoader``
-(``dataloader=None``; ROADMAP Queue 1 item 4), ``eval_sample_interval``
-(item 5) and ``profile_trace_dir`` (item 8). A tokenizer is used only when
-passed, or when ``model_path/tokenizer`` exists (``transformers`` is then
-imported).
+lines that the JAX trainer writes through ``tqdm`` are printed.
+
+``eval_sample_interval`` samples with DDIM from the live weights every N
+steps (``train/eval_sampler.py``); ``profile_trace_dir`` records the first
+steps of the first chunk (``min(4, loss_logging_interval) + 1``, as the JAX
+trainer stops its trace) with ``torch.profiler`` and writes a Chrome trace
+there. A tokenizer is used only when passed, or when
+``model_path/tokenizer`` exists (``transformers`` is then imported).
 """
 
+import contextlib
 import os
 import sys
 import time
@@ -50,9 +56,11 @@ import torch
 from ..utils.device import resolve_device
 from ..utils.json_io import delete_file_or_folder, read_json_file, save_dict_to_json
 from ..utils.metrics import MetricsWriter
+from ..utils.profiling import profiler_trace
 from .aot import batch_dispatch_key, bucket_train_steps
 from .checkpoint import restore_train_state, save_model, save_train_state
-from .config import not_ported, training_config_from_dict
+from .config import training_config_from_dict
+from .eval_sampler import EvalSampler
 from .states import on_device_model_training_state
 
 # subfolder of each chunk checkpoint that holds the full training state
@@ -71,6 +79,26 @@ def load_run_config(config_dict_path: str):
             "match! check your config files!"
         )
     return config_dict, training_config_from_dict(config_dict)
+
+
+def _build_dataloader(config_dict, config_dict_path, tokenizer):
+    """The streaming loader of the config's repos, chunk and seed."""
+    from ..data import DataLoader
+
+    return DataLoader(
+        tokenizer_obj=tokenizer,
+        config=config_dict_path,
+        ramdisk_path=config_dict["ramdisk_path"],
+        training_batch_size=config_dict["batch_size"],
+        repeat_batch=config_dict["repeat_batch"],
+        maximum_resolution_areas=[x**2 for x in config_dict["image_area_root"]],
+        bucket_lower_bound_resolutions=config_dict["minimum_axis_length"],
+        numb_of_worker_thread=config_dict["numb_of_dataloader_worker_thread"],
+        queue_get_timeout=config_dict["queue_get_timeout"],
+        chunk_number=config_dict["chunk_number"],
+        seed=config_dict["master_seed"],
+        context_concatenation_multiplier=config_dict["context_window_concatenation_count"],
+    )
 
 
 def _to_device(batch: dict, device: torch.device) -> dict:
@@ -239,16 +267,10 @@ def main(
 ) -> None:
     """Run ``chunk_limit`` chunks of training from the JSON config at
     ``config_dict_path`` on ``device`` (cuda unless told otherwise), with
-    ``dataloader`` (an ``InMemoryDataLoader``, a ``CachedLatentLoader`` or
+    ``dataloader`` (None: the streaming ``DataLoader`` built from the
+    config; or an ``InMemoryDataLoader``, a ``CachedLatentLoader`` or
     anything with their protocol)."""
     config_dict, training_config = load_run_config(config_dict_path)
-    if config_dict.get("eval_sample_interval"):
-        raise not_ported("eval_sample_interval (train/eval_sampler.py)", 5)
-    if config_dict.get("profile_trace_dir"):
-        raise not_ported("profile_trace_dir (the profiler trace)", 8)
-    if dataloader is None:
-        raise not_ported("the streaming DataLoader (dataloader=None)", 4)
-    device = resolve_device(device)
 
     if tokenizer is None:
         tok_dir = os.path.join(config_dict["model_path"], "tokenizer")
@@ -256,6 +278,10 @@ def main(
             from transformers import CLIPTokenizer
 
             tokenizer = CLIPTokenizer.from_pretrained(config_dict["model_path"], subfolder="tokenizer")
+
+    if dataloader is None:
+        dataloader = _build_dataloader(config_dict, config_dict_path, tokenizer)
+    device = resolve_device(device)
 
     if not config_dict["DEBUG"]:
         dataloader._print_debug = False
@@ -279,11 +305,16 @@ def main(
         with open(config_dict["loss_csv"], "w") as loss_file:
             loss_file.write("steps, step_size, loss, time, chunk, seed\n")
 
+    # the first steps of the first chunk under torch.profiler (opt-in)
+    profile_trace_dir = config_dict.get("profile_trace_dir")
+
     metrics_writer = MetricsWriter(config_dict.get("tensorboard_dir"))
     global_step = 0  # steps this invocation (chunk and seed tagged alongside)
     interval = config_dict["loss_logging_interval"]
+    # in-loop DDIM eval sampling every N steps (opt-in)
+    eval_sampler = EvalSampler(config_dict, model_object_dict, tokenizer, metrics_writer, device=device)
 
-    for _ in range(config_dict["chunk_limit"]):
+    for chunk_index in range(config_dict["chunk_limit"]):
         dataloader.delete_prev_chunks(prev_chunk=config_dict["chunk_number"] - 1)
         if config_dict["chunk_number"] >= config_dict["chunk_limit"]:
             dataloader.delete_prev_chunks(prev_chunk=config_dict["chunk_number"])
@@ -302,53 +333,68 @@ def main(
         )
 
         start = time.time()
+        # the profiler window: open for the first steps, closed by the end
+        # of the chunk at the latest
+        trace = contextlib.ExitStack()
+        tracing = bool(profile_trace_dir) and chunk_index == 0
+        if tracing:
+            trace.enter_context(profiler_trace(profile_trace_dir, device=device))
         total_batches = int(dataloader._bulk_batch_count + dataloader._first_batch_count)
         batch_stream = _prefetch_to_device(
             dataloader, total_batches, config_dict["text_encoder_context_window"], device,
             depth=config_dict.get("device_prefetch_depth", 1),
         )
-        for count, current_batch in enumerate(batch_stream):
-            if isinstance(current_batch, str) and current_batch == "end_of_batch":
-                break
-            if current_batch is None:
-                continue
+        with trace:
+            for count, current_batch in enumerate(batch_stream):
+                if isinstance(current_batch, str) and current_batch == "end_of_batch":
+                    break
+                if current_batch is None:
+                    continue
 
-            # reference quirk kept: reset inside the loop, so the logged
-            # "avg loss" is the single current step's loss
-            train_metrics = []
-            (
-                unet_state, text_encoder_state, unet_ema_params, text_encoder_ema_params,
-                train_metric, train_rng,
-            ) = train_step_funcs[batch_dispatch_key(current_batch)](
-                unet_state, text_encoder_state, unet_ema_params, text_encoder_ema_params,
-                current_batch, train_rng, frozen_vae, frozen_schedulers,
-            )
-            train_metrics.append(train_metric["loss"])
-
-            global_step += 1
-            if count % interval == 0:
-                stop = time.time()
-                time_elapsed = round(stop - start, 4)
-                # an f32 value printed as a Python float, as the JAX
-                # trainer's f-string prints its f32 array
-                loss = float(sum(train_metrics) / len(train_metrics))
-                time_per_step = round(time_elapsed / interval, 4)
-                start = time.time()
-                if metrics_writer.active:
-                    metrics_writer.scalar("train/loss", float(loss), global_step)
-                    metrics_writer.scalar("train/step_time_s", time_per_step, global_step)
-                    metrics_writer.scalar("train/chunk", config_dict["chunk_steps"], global_step)
-                    # flush per logging interval: a killed run keeps its tail
-                    metrics_writer.flush()
-                print(
-                    f"at steps {count}, avg loss for {interval} steps: {loss},"
-                    f"took {time_elapsed} second(s) or {time_per_step} second(s) per step"
+                # reference quirk kept: reset inside the loop, so the logged
+                # "avg loss" is the single current step's loss
+                train_metrics = []
+                (
+                    unet_state, text_encoder_state, unet_ema_params, text_encoder_ema_params,
+                    train_metric, train_rng,
+                ) = train_step_funcs[batch_dispatch_key(current_batch)](
+                    unet_state, text_encoder_state, unet_ema_params, text_encoder_ema_params,
+                    current_batch, train_rng, frozen_vae, frozen_schedulers,
                 )
-                with open(config_dict["loss_csv"], "a") as loss_file:
-                    loss_file.write(
-                        f"\n{count},{interval},{loss},{time_elapsed},"
-                        f'{config_dict["chunk_steps"]},{config_dict["master_seed"]}'
+                train_metrics.append(train_metric["loss"])
+
+                if tracing and count >= min(4, interval):
+                    train_metric["loss"].item()  # the traced steps' work ends inside the trace
+                    trace.close()
+                    tracing = False
+
+                global_step += 1
+                sampled = eval_sampler.maybe_sample(global_step)
+                if sampled:
+                    print(f"eval samples at step {global_step} -> {sampled}")
+                if count % interval == 0:
+                    stop = time.time()
+                    time_elapsed = round(stop - start, 4)
+                    # an f32 value printed as a Python float, as the JAX
+                    # trainer's f-string prints its f32 array
+                    loss = float(sum(train_metrics) / len(train_metrics))
+                    time_per_step = round(time_elapsed / interval, 4)
+                    start = time.time()
+                    if metrics_writer.active:
+                        metrics_writer.scalar("train/loss", float(loss), global_step)
+                        metrics_writer.scalar("train/step_time_s", time_per_step, global_step)
+                        metrics_writer.scalar("train/chunk", config_dict["chunk_steps"], global_step)
+                        # flush per logging interval: a killed run keeps its tail
+                        metrics_writer.flush()
+                    print(
+                        f"at steps {count}, avg loss for {interval} steps: {loss},"
+                        f"took {time_elapsed} second(s) or {time_per_step} second(s) per step"
                     )
+                    with open(config_dict["loss_csv"], "a") as loss_file:
+                        loss_file.write(
+                            f"\n{count},{interval},{loss},{time_elapsed},"
+                            f'{config_dict["chunk_steps"]},{config_dict["master_seed"]}'
+                        )
 
         config_dict["model_path"] = _save_chunk_checkpoints(
             config_dict, model_object_dict, tokenizer, unet_state, text_encoder_state,

@@ -32,6 +32,8 @@ SLICE_MODULES = (
     "training.py",  # the trainer
     "pipeline/sdxl.py", "pipeline/sdxl_refiner.py",  # SDXL serving
     "data/latent_cache.py",  # SDXL training
+    "data/dataloader.py", "train/eval_sampler.py", "utils/timing.py",
+    "utils/profiling.py",  # the streaming loader, eval sampling, the profiler trace
 )
 KERNEL_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "lion8bit_update.cu")
 SCRIPTS = ("chip_smoke.py", "probe_flash_bwd.py", "probe_lion.py")  # run from the root on the card

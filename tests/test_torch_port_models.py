@@ -20,6 +20,7 @@ import torch
 from stable_diffusion_training_tpu.models import (
     AutoencoderKL as JaxVAE,
     CLIPTextModel as JaxCLIP,
+    CLIPTextModelWithProjection as JaxCLIPProj,
     UNet2DConditionModel as JaxUNet,
     configs as jax_configs,
 )
@@ -31,6 +32,7 @@ from stable_diffusion_training_tpu.models.vae import (
 from stable_diffusion_training_tpu_torch.models import (
     AutoencoderKL,
     CLIPTextModel,
+    CLIPTextModelWithProjection,
     DiagonalGaussianDistribution,
     UNet2DConditionModel,
     configs,
@@ -133,6 +135,32 @@ def test_tiny_clip_matches_jax(tiny_params):
     np.testing.assert_allclose(
         out.hidden_states[-1].numpy(), np.asarray(expected.hidden_states[-1]), atol=ATOL, rtol=0
     )
+
+
+@pytest.mark.parametrize("projection", [False, True], ids=["no-projection", "projection"])
+def test_tiny_gelu_clip_matches_jax(projection):
+    """The exact-erf ``gelu`` tower (SD2.1's OpenCLIP ViT-H, SDXL's tower 2)
+    at tiny width, with and without a projection, as the JAX package's
+    ``tests/test_models.py`` builds it: every hidden state, the pooled
+    output and the projected ``text_embeds``."""
+    cfg = dict(configs.TINY_CLIP, hidden_act="gelu", eos_token_id=999,
+               **({"projection_dim": 16} if projection else {}))
+    jax_cls, cls = (JaxCLIPProj, CLIPTextModelWithProjection) if projection else (JaxCLIP, CLIPTextModel)
+    jax_clip = jax_cls(**cfg)
+    params = jax_clip.init(jax.random.PRNGKey(4))
+    clip = _port(cls, cfg, params)
+    ids = np.random.default_rng(12).integers(0, 999, (2, 77))
+    ids[:, 40] = 999
+    expected = jax_clip(jnp.asarray(ids), params=params, output_hidden_states=True)
+    with torch.no_grad():
+        out = clip(torch.tensor(ids), output_hidden_states=True)
+    assert len(out.hidden_states) == len(expected.hidden_states)
+    for got, want in zip(out.hidden_states, expected.hidden_states):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(out[0].numpy(), np.asarray(expected[0]), atol=ATOL, rtol=0)
+    pooled = out.text_embeds if projection else out.pooler_output
+    want = expected.text_embeds if projection else jax_pool_eos(expected[0], jnp.asarray(ids), 999)
+    np.testing.assert_allclose(pooled.numpy(), np.asarray(want), atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("eos_token_id", [999, 2], ids=["eos-match", "legacy-argmax"])
@@ -301,4 +329,25 @@ def test_sdxl_full_unet_forward_matches_jax():
     with torch.no_grad():
         got = unet.eval()(torch.tensor(sample), torch.tensor(t), torch.tensor(ctx),
                           added_cond_kwargs={k: torch.tensor(v) for k, v in added.items()}).numpy()
+    np.testing.assert_allclose(got, expected, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.slow  # 865 M parameters: ~3.5 GB of f32 weights on each side
+def test_sd21_full_unet_forward_matches_jax():
+    """SD2.1's UNet at full width (linear projections, heads of 64 at every
+    level, a 1024-wide context) on a 24x24 latent."""
+    rng = jax.random.PRNGKey(0)
+    jax_unet = JaxUNet(**jax_configs.SD21_UNET)
+    params = jax_unet.init(rng, batch_size=1, height=24, width=24)
+    sample, ctx = _rand((1, 4, 24, 24), 15), _rand((1, 77, 1024), 16, scale=0.3)
+    t = np.array([421], dtype=np.int32)
+    expected = np.asarray(jax_unet.apply(params, jnp.asarray(sample), jnp.asarray(t), jnp.asarray(ctx)))
+    state = jax_params_to_state_dict(params)
+    del params
+    gc.collect()
+    unet = UNet2DConditionModel(**configs.SD21_UNET, device="meta")
+    unet.load_state_dict(state, strict=True, assign=True)
+    del state
+    with torch.no_grad():
+        got = unet.eval()(torch.tensor(sample), torch.tensor(t), torch.tensor(ctx)).numpy()
     np.testing.assert_allclose(got, expected, atol=1e-5, rtol=1e-4)

@@ -39,11 +39,13 @@ import numpy as np
 import pytest
 import torch
 
+from stable_diffusion_training_tpu.models import configs as jax_configs
 from stable_diffusion_training_tpu.train import (
     TrainingConfig as JaxTrainingConfig,
     on_device_model_training_state as jax_training_state,
     train_step as jax_train_step,
 )
+from stable_diffusion_training_tpu_torch.models import configs
 from stable_diffusion_training_tpu_torch.models.hf_io import (
     jax_param_paths,
     jax_params_to_state_dict,
@@ -78,8 +80,8 @@ STEP_OPTIONS = (
 )
 
 
-def _config(cls, case):
-    return cls(
+def _config(cls, case, **overrides):
+    return cls(**{**dict(
         model_path="tiny", batch_size=BATCH, learning_rate=1e-4, unet_learning_rate=1e-4,
         text_encoder_learning_rate=1e-4, lr_scheduler="constant",
         adam_to_lion_scale_factor=7.0, compilation_cache_path="/tmp/jax_cache_test",
@@ -91,7 +93,7 @@ def _config(cls, case):
         quant_block_size=16, quantize_unet_state=True, quantize_text_encoder_state=True,
         accumulate_unet_ema=True, accumulate_text_encoder_ema=True, ema_rate=0.999,
         mixed_precision="float32", model_family="tiny", **CASES[case],
-    )
+    ), **overrides})
 
 
 def _batch():
@@ -222,6 +224,54 @@ def test_train_step_matches_jax(case, jax_step):
     )
 
     assert_step_matches_jax(out, j_out, before)
+
+
+# SD2.1's shape at tiny width: linear projections in every transformer,
+# per-level head counts that keep the head dim fixed (16 here; SD2.1's 64),
+# three levels with attention on two, the exact-erf gelu text tower
+TINY_SD21 = dict(
+    unet=dict(
+        sample_size=32, in_channels=4, out_channels=4,
+        down_block_types=("CrossAttnDownBlock2D", "CrossAttnDownBlock2D", "DownBlock2D"),
+        up_block_types=("UpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D"),
+        block_out_channels=(32, 64, 64), layers_per_block=1, attention_head_dim=(2, 4, 4),
+        cross_attention_dim=32, use_linear_projection=True,
+    ),
+    vae=configs.TINY_VAE,
+    text_encoder=dict(configs.TINY_CLIP, hidden_act="gelu"),
+)
+
+
+def test_sd21_shaped_train_step_matches_jax(jax_step, monkeypatch):
+    """One v-prediction, zero-SNR step of an SD2.1-shaped family against
+    the JAX step, JAX's draws injected, to the module's bounds."""
+    for families in (configs.MODEL_FAMILIES, jax_configs.MODEL_FAMILIES):
+        monkeypatch.setitem(families, "tiny_sd21", TINY_SD21)
+    family = dict(model_path="tiny_sd21", model_family="tiny_sd21")
+    jax_states = jax_training_state(_config(JaxTrainingConfig, "v-zero-snr", **family))
+    port_states = on_device_model_training_state(_config(TrainingConfig, "v-zero-snr", **family), device="cpu")
+    assert port_states[0].model.config.use_linear_projection
+    _load_jax_state(port_states, jax_states)
+    before = {
+        "unet": {k: v.detach().clone() for k, v in port_states[0].params.items()},
+        "text_encoder": {k: v.detach().clone() for k, v in port_states[1].params.items()},
+    }
+    batch = _batch()
+    rng = jax.random.PRNGKey(11)
+    j_out = jax_step(
+        *jax_states[:4], {k: jnp.asarray(v) for k, v in batch.items()}, rng,
+        jax_states[4], jax_states[5], strip_bos_eos_token=True, ema_rate=0.999,
+        offset_noise_magnitude=0.0, min_snr_gamma_magnitude=0.0, perturbation_noise_magnitude=0.0,
+    )
+    out = train_step(
+        *port_states[:4], {k: torch.tensor(v) for k, v in batch.items()}, None,
+        port_states[4], port_states[5], strip_bos_eos_token=True, ema_rate=0.999,
+        draws=_jax_draws(rng, (RES // 2, RES // 2)),
+    )
+    # noise_code 15, as the SDXL step tests take it: two codes, one each in a
+    # 36,864- and a 73,728-code conv kernel, sit two apart at |code| 13, in
+    # blocks whose scales agree to 6e-6 (momentum at its rounding noise)
+    assert_step_matches_jax(out, j_out, before, noise_code=15)
 
 
 def test_draw_seam_and_generator_draws_agree_in_shape():

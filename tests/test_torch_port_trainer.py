@@ -253,14 +253,128 @@ def test_tensorboard_events_read_back_by_jax(runs):
     assert [np.float32(e["value"]) for e in losses] == [np.float32(r[2]) for r in rows]
 
 
-def test_features_not_ported_yet_raise(tmp_path):
-    for overrides, what in ((dict(eval_sample_interval=2), "item 5"), (dict(profile_trace_dir="x"), "item 8")):
-        _, path = make_config_dict(tmp_path, "n", **overrides)
-        with pytest.raises(NotImplementedError, match=what):
-            trainer.main(path, dataloader=_loader(), device="cpu")
-    _, path = make_config_dict(tmp_path, "n")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        trainer.main(path, dataloader=None, device="cpu")
+class _StubTokenizer:
+    """Whitespace words hashed (crc32) into the tiny CLIP's 1,000 ids."""
+
+    bos_token_id, eos_token_id, pad_token_id = 1, 2, 0
+    model_max_length = 77
+
+    def __call__(self, texts, add_special_tokens=False, **kw):
+        import zlib
+
+        return {"input_ids": [[3 + zlib.crc32(w.encode()) % 996 for w in t.split()] for t in texts]}
+
+    def save_pretrained(self, directory):  # what a checkpoint keeps of it
+        os.makedirs(directory, exist_ok=True)
+        with open(os.path.join(directory, "stub_tokenizer.json"), "w") as f:
+            json.dump({"vocab_size": 1000, "bos": 1, "eos": 2, "pad": 0}, f)
+
+
+def _local_chunk(ramdisk, n=4):
+    """``chunk_0/repo_0`` under ``ramdisk``: ``n`` seeded PNGs of several
+    aspects that the 64 tier buckets to 64x64, and their CSV."""
+    from PIL import Image
+
+    repo_dir = os.path.join(ramdisk, "chunk_0", "repo_0")
+    os.makedirs(repo_dir)
+    rows = ["filename,caption,image_width,image_height"]
+    for i in range(n):
+        w, h = ((90, 70), (70, 90), (64, 64), (120, 100))[i % 4]
+        arr = np.random.default_rng(i).integers(0, 256, (h, w, 3), dtype=np.uint8)
+        Image.fromarray(arr).save(os.path.join(repo_dir, f"{i}.png"))
+        rows.append(f'{i}.png,"photo {i}, tag a, tag b",{w},{h}')
+    with open(os.path.join(repo_dir, "meta.csv"), "w") as f:
+        f.write("\n".join(rows))
+
+
+def test_trainer_trains_from_a_chunk_directory(tmp_path, monkeypatch):
+    """``dataloader=None``: the trainer builds the streaming loader from the
+    config and trains a chunk read from ``ramdisk_path``. Finite
+    ``loss.csv`` rows and a checkpoint, and the batches it trained on equal,
+    bitwise, to the JAX package's loader on the same chunk and seed (one
+    worker, its rng's thread id patched in both packages)."""
+    import shutil
+    import threading
+    import types
+
+    from stable_diffusion_training_tpu.data import dataloader as jax_dl
+    from stable_diffusion_training_tpu_torch.data import dataloader as port_dl
+
+    for module in (jax_dl, port_dl):
+        fake = types.SimpleNamespace(**{k: getattr(threading, k) for k in ("Thread", "Lock", "Event")})
+        fake.get_ident = lambda: 4242
+        monkeypatch.setattr(module, "threading", fake)
+    repo = {"repo_0": {"coma_separated_shuffle": True, "drop_caption_ratio": 0.5}}
+    cfg, path = make_config_dict(tmp_path, "dl", chunk_limit=1, repo=repo, numb_of_dataloader_worker_thread=1)
+    _local_chunk(cfg["ramdisk_path"])
+    # the JAX loader first, on a copy: the trainer deletes its chunks at the end
+    jax_ramdisk = str(tmp_path / "jax_ramdisk")
+    shutil.copytree(cfg["ramdisk_path"], jax_ramdisk)
+    jax_loader = jax_dl.DataLoader(
+        _StubTokenizer(), path, jax_ramdisk, BATCH, cfg["repeat_batch"], [RES**2], [RES],
+        numb_of_worker_thread=1, queue_get_timeout=5, chunk_number=0, seed=cfg["master_seed"],
+        context_concatenation_multiplier=3,
+    )
+    jax_loader._print_debug = False
+    jax_loader.prepare_training_dataframe()
+    jax_loader.create_training_dataframe()
+    jax_loader.dispatch_worker()
+    want = []
+    while not isinstance(b := jax_loader.grab_next_batch(), str):
+        want.append(b)
+
+    seen = []
+    grab = port_dl.DataLoader.grab_next_batch
+
+    def recording_grab(self):
+        b = grab(self)
+        if isinstance(b, dict):
+            seen.append({k: v.copy() for k, v in b.items()})
+        return b
+
+    monkeypatch.setattr(port_dl.DataLoader, "grab_next_batch", recording_grab)
+    trainer.main(path, dataloader=None, tokenizer=_StubTokenizer(), device="cpu")
+    rows = _rows(cfg["loss_csv"])
+    assert len(rows) == 2 and all(np.isfinite(float(r[2])) for r in rows)
+    assert os.path.isdir(cfg["model_path"].split("@")[0] + "@0/unet")
+    assert len(seen) == len(want) == 2
+    for got, exp in zip(seen, want):
+        assert got.keys() == exp.keys()
+        for k in exp:
+            assert np.array_equal(got[k], exp[k]), k
+    assert not os.path.exists(os.path.join(cfg["ramdisk_path"], "chunk_0"))  # flushed at the end
+
+
+def test_eval_sample_interval_writes_pngs(tmp_path):
+    """``eval_sample_interval=2`` samples after the second step: PNGs of the
+    configured size under ``eval_sample_dir/step_00000002/``."""
+    from PIL import Image
+
+    eval_dir = tmp_path / "eval"
+    cfg, path = make_config_dict(
+        tmp_path, "ev", chunk_limit=1, eval_sample_interval=2, eval_sample_dir=str(eval_dir),
+        eval_sample_prompt_ids=[list(range(1, 78)), list(range(100, 177))], eval_num_inference_steps=2,
+        eval_sample_resolution=32,
+    )
+    _run(path)
+    assert sorted(os.listdir(eval_dir)) == ["step_00000002"]
+    pngs = sorted(os.listdir(eval_dir / "step_00000002"))
+    assert pngs == ["sample_0.png", "sample_1.png"]
+    with Image.open(eval_dir / "step_00000002" / "sample_0.png") as im:
+        assert im.size == (32, 32) and im.mode == "RGB"
+
+
+def test_profile_trace_dir_writes_a_trace(tmp_path):
+    """``profile_trace_dir``: a Chrome trace of the first steps, with the
+    train step's ops in it."""
+    trace_dir = tmp_path / "trace"
+    _, path = make_config_dict(tmp_path, "pr", chunk_limit=1, profile_trace_dir=str(trace_dir))
+    _run(path)
+    traces = sorted(trace_dir.glob("trace_*.json"))
+    assert len(traces) == 1
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("conv" in str(e.get("name", "")) for e in events)
 
 
 @pytest.mark.parametrize(
@@ -374,8 +488,9 @@ def test_run_config_checks_the_bucket_tiers(tmp_path):
 
 def test_command_line_runs_the_trainer(tmp_path):
     """``python -m stable_diffusion_training_tpu_torch.training cfg.json``
-    reads and backs up the config, then stops at the streaming loader, which
-    is not ported (a loader can only be injected through ``trainer.main``)."""
+    reads and backs up the config and builds the streaming loader from it
+    (its ramdisk appears), then stops at the device: the command line runs
+    on the card, with no CPU fallback."""
     import subprocess
     import sys
 
@@ -387,5 +502,6 @@ def test_command_line_runs_the_trainer(tmp_path):
         cwd=repo, env=env, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode != 0
-    assert "NotImplementedError" in proc.stderr and "ROADMAP Queue 1 item 4" in proc.stderr
+    assert "CUDA is not available" in proc.stderr and "resolve_device" in proc.stderr
     assert os.path.exists(tmp_path / "backup_props_cli.json")
+    assert os.path.isdir(tmp_path / "ramdisk")
