@@ -8,6 +8,7 @@ NVIDIA GPU and check it end to end.
     python3 chip_smoke.py --phases gpu,build,sdxl_parity,sdxl,sdxl_refiner   # SDXL serving
     python3 chip_smoke.py --phases gpu,build,sdxl_train_parity,sdxl_train,sdxl_trainer   # SDXL training
     python3 chip_smoke.py --phases gpu,build,sd21_parity,sd21,sd21_trainer   # SD2.1 at 768x768
+    python3 chip_smoke.py --phases gpu,build,ddp_parity,ddp_trainer   # data parallelism, two ranks
 
 Phases, one JSON line each:
 
@@ -34,7 +35,9 @@ Phases, one JSON line each:
    768x768 ones (the 9,216- and 2,304-key levels at train batch 8 and CFG
    batch 2, the 896x640 bucket's 8,960 and 2,240, the VAE mid-block at
    batch 8 and 1 in bf16, sd21_parity's in f32; the plain version over a
-   slice of the heads at a time where its f32 scores pass 8 GB), plus ragged cases
+   slice of the heads at a time where its f32 scores pass 8 GB), at data
+   parallelism's per-rank shapes, (32, 4096, 40) and (4, 4096, 512) in bf16
+   (ddp_trainer) and (8, 4096, 40) in f32 (ddp_parity), plus ragged cases
    (D = 40 and 512 with query and key counts off the tiles, D = 64 and 36),
    each with its route (``forward_route``: bf16 narrow or wide tensor-core
    kernel, the f32 kernels, the older CUDA-core kernel), whose counter
@@ -44,8 +47,9 @@ Phases, one JSON line each:
    route replaced, checked and timed on the same inputs;
    flash-attention backward on its three routes (``backward_route``): the
    fused tensor-core kernel (bf16, K2 and K3 in one) at the train step's
-   (64, 4096, 40) and at ragged cases (D = 64, and D = 40 with both counts
-   off the tiles); the fused f32 kernel (K2 and K3 in one, CUDA cores) at
+   (64, 4096, 40), ddp_trainer's per-rank (32, 4096, 40) and at ragged
+   cases (D = 64, and D = 40 with both counts off the tiles); the fused
+   f32 kernel (K2 and K3 in one, CUDA cores) at
    train_parity's (8, 4096, 40), train_f32's (64, 4096, 40) and the same
    two ragged cases (and SDXL's and SD2.1's training shapes at D = 64, bf16
    and f32); the CUDA-core K2 and K3 at D = 36 bf16 (and, timed
@@ -204,8 +208,47 @@ Phases, one JSON line each:
    backward 5 + 5, Lion's leaf table once per model, nothing else), each
    eval's (K1 5 + 5 a DDIM step and the decode's 1), and no launch outside
    the steps and evals (the loader's threads launch nothing).
+19. ``ddp_parity``: data parallelism's step against one process. Two
+   ranks, each a process of its own (``spawn``) on cuda:0, joined over
+   gloo by ``core.initialize_distributed`` (NCCL takes one rank per card);
+   SD1.5 at full width in f32 (TF32 off), the example recipe, a global
+   batch of 2 at 512x512 with fixed global draws. Rank 0 first takes the
+   step as one process over both rows; then each rank takes it on its row
+   (``train_step(..., mesh=...)``: the loss scaled by 1/2, the grads summed
+   in flat buckets). Checks: the ranks' params, EMA, codes and scales
+   bitwise equal (sha256 of every state tensor); the loss within 1e-5 of
+   the one-process step's, and params, update signs, codes and scales
+   within ``tests/test_torch_port_train_step.py``'s bounds, codes more
+   than one apart only at |code| <= 31 (1e-3 of a block's absmax: at full
+   width the one-process step, run twice, breaks that module's |code| 10
+   against itself; the second run is reported beside); each rank's
+   launches at its shapes (K1 5 at (8, 4096, 40) and once at (1, 4096,
+   512) on the f32 route, the fused f32 backward 5, Lion's leaf table once
+   per model, nothing else). Prints each rank's step ms, the all-reduce's
+   ms (host clock, the card synchronized around it) and peak memory.
+20. ``ddp_trainer``: ``trainer.main(path, dataloader=None, tokenizer=
+   StubTokenizer())`` on two ranks (gloo, cuda:0; BASELINE config 2's
+   data-parallel layout on one card): SD1.5 at full width in bf16, the
+   example recipe, global batch 8 (4 a rank), a chunk of 32 seeded 512x512
+   PNGs (4 steps), DDIM eval every 2 steps (4 steps), then a second
+   invocation that resumes from ``train_state/``; then 2 steps of
+   ``trainer.main`` in a one-rank NCCL world that the trainer starts from
+   torchrun's variables. Checks: one ``loss.csv`` (a header, rank 0's 8
+   rows), one checkpoint after rotation, rank 0 alone writing the JSON,
+   the probe, the checkpoints and the eval PNGs (rank 1 none), the ranks'
+   states bitwise equal at each chunk checkpoint, each rank's pixel rows
+   its half of a one-process loader's batch (sha256), each step's launches
+   at the rank's shapes (K1 5 at (32, 4096, 40) and once at (4, 4096, 512),
+   the fused bf16 backward 5, Lion's table once per model), rank 0's evals'
+   besides and nothing else; the NCCL leg's backend, rows and launches.
+   Prints per rank the step p50, global images/s, the all-reduce's ms a
+   step and peak memory: two ranks share one card and gloo moves the grads
+   through the host, so these describe the check, not scaling. Run
+   directory ``.cache/chip_smoke_ddp/``, deleted at the end.
 
-Any failed check raises, so the script exits non-zero and prints no result.
+Any failed check raises, so the script exits non-zero and prints no result;
+a rank that exits non-zero fails its phase. The ranks' launches are
+summed into the ``kernels`` record.
 Before the last line it prints the ``kernels`` record (every kernel and
 shape with its launches on the main path and its times) and the card's
 nvidia-smi line; the last line is ``{"ok": true, "device": {...}}``. The
@@ -231,12 +274,12 @@ JAX_OPS = "stable_diffusion_training_tpu/ops"
 ALL_PHASES = (
     "gpu", "build", "kernels", "parity", "slice", "sdxl_parity", "sdxl", "sdxl_refiner", "train_parity", "train",
     "train_f32", "trainer", "sdxl_train_parity", "sdxl_train", "sdxl_trainer", "sd21_parity", "sd21",
-    "sd21_trainer",
+    "sd21_trainer", "ddp_parity", "ddp_trainer",
 )
 # the phases whose runs give the kernels line its launches
 PATH_PHASES = {
     "kernels", "parity", "slice", "sdxl_parity", "sdxl", "sdxl_refiner", "train_parity", "train", "train_f32",
-    "sdxl_train_parity", "sdxl_train", "sd21_parity", "sd21", "sd21_trainer",
+    "sdxl_train_parity", "sdxl_train", "sd21_parity", "sd21", "sd21_trainer", "ddp_parity", "ddp_trainer",
 }
 
 # H100 SXM peaks (NVIDIA data sheet, dense): 989 TFLOP/s bf16 tensor core,
@@ -602,6 +645,12 @@ def phase_kernels(state):
         ("sd21_vae_mid", 1, 9216, 9216, 512, ("bfloat16",)),
         ("sd21_parity_l1", 5, 9216, 9216, 64, ("float32",)),
         ("sd21_parity_l2", 10, 2304, 2304, 64, ("float32",)),
+        # data parallelism, each rank's shapes: ddp_trainer's batch 4 a rank
+        # (the 64x64 level, the VAE encode's mid-block), ddp_parity's f32
+        # batch 1 a rank (its VAE encode is vae_mid's f32 shape)
+        ("ddp_unet_train", 32, 4096, 4096, 40, ("bfloat16",)),
+        ("ddp_vae_encode", 4, 4096, 4096, 512, ("bfloat16",)),
+        ("ddp_parity_unet", 8, 4096, 4096, 40, ("float32",)),
     ]
     results = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -736,6 +785,9 @@ def flash_backward_cases():
         ("sd21_train_bucket_l2", 80, 2240, 2240, 64, torch.bfloat16),
         ("sd21_parity_l1_f32", 5, 9216, 9216, 64, torch.float32),
         ("sd21_parity_l2_f32", 10, 2304, 2304, 64, torch.float32),
+        # ddp_trainer's 64x64 level at batch 4 a rank (ddp_parity's f32 batch
+        # 1 a rank is train_parity's shape, unet_train_f32)
+        ("ddp_unet_train", 32, 4096, 4096, 40, torch.bfloat16),
     ]
     rows = []
     for name, bh, sq, sk, d, dtype in cases:
@@ -2764,12 +2816,11 @@ class StubTokenizer:
                        "hash": "crc32 % 49406"}, f)
 
 
-def sd21_chunk(ramdisk, seed=0):
-    """The trainer's chunk 0 under ``ramdisk/chunk_0/repo_0`` (a repo entry
-    without ``name``): ``SD21_BATCHES_PER_BUCKET`` batches of seeded PNGs at
-    768x768 and at 896x640, each a smooth image (a seeded 24x20 one,
-    bicubically enlarged), and their CSV with comma-separated tag captions.
-    Returns (images, seconds)."""
+def png_chunk(ramdisk, sizes, seed=0):
+    """A trainer's chunk 0 under ``ramdisk/chunk_0/repo_0`` (a repo entry
+    without ``name``): a seeded PNG of each ``(w, h)`` of ``sizes``, each a
+    smooth image (a seeded 24x20 one, bicubically enlarged), and their CSV
+    with comma-separated tag captions. Returns (images, seconds)."""
     import numpy as np
     from PIL import Image
 
@@ -2778,8 +2829,7 @@ def sd21_chunk(ramdisk, seed=0):
     os.makedirs(repo_dir)
     rng = np.random.default_rng(seed)
     rows = ["filename,caption,image_width,image_height"]
-    n = SD21_BATCH * SD21_BATCHES_PER_BUCKET
-    for i, (w, h) in enumerate([(SD21_RES, SD21_RES)] * n + [SD21_BUCKET] * n):
+    for i, (w, h) in enumerate(sizes):
         small = rng.integers(0, 256, (20, 24, 3), dtype=np.uint8)
         Image.fromarray(small).resize((w, h), Image.BICUBIC).save(os.path.join(repo_dir, f"{i:03d}.png"),
                                                                    compress_level=1)
@@ -2787,7 +2837,14 @@ def sd21_chunk(ramdisk, seed=0):
         rows.append(f'{i:03d}.png,"a photo of thing {i}, {tags}",{w},{h}')
     with open(os.path.join(repo_dir, "meta.csv"), "w") as f:
         f.write("\n".join(rows))
-    return 2 * n, time.perf_counter() - t0
+    return len(sizes), time.perf_counter() - t0
+
+
+def sd21_chunk(ramdisk, seed=0):
+    """``sd21_trainer``'s chunk: ``SD21_BATCHES_PER_BUCKET`` batches of
+    seeded PNGs at 768x768 and at 896x640. Returns (images, seconds)."""
+    n = SD21_BATCH * SD21_BATCHES_PER_BUCKET
+    return png_chunk(ramdisk, [(SD21_RES, SD21_RES)] * n + [SD21_BUCKET] * n, seed)
 
 
 def launch_snapshot(fa, lk):
@@ -2906,7 +2963,7 @@ def phase_sd21_trainer(state, seed=0):
         dl.DataLoader.grab_next_batch
     save_png_images = eval_sampler.save_png_images
 
-    def timed_steps(training_config, frozen_vae):
+    def timed_steps(training_config, frozen_vae, mesh=None):
         def wrap(key, step):
             def run(*args):
                 before = launch_snapshot(fa, lk)
@@ -2918,7 +2975,7 @@ def phase_sd21_trainer(state, seed=0):
                                   launches=launch_diff(launch_snapshot(fa, lk), before)))
                 return out
             return run
-        return {key: wrap(key, step) for key, step in bucket_steps(training_config, frozen_vae).items()}
+        return {key: wrap(key, step) for key, step in bucket_steps(training_config, frozen_vae, mesh=mesh).items()}
 
     def timed_sample(self, step, *args, **kwargs):
         before = launch_snapshot(fa, lk)
@@ -3042,11 +3099,624 @@ def phase_sd21_trainer(state, seed=0):
         raise AssertionError(f"sd21_trainer failed its checks: {checks}; steps off their launches: {bad}")
 
 
+# Data parallelism (BASELINE config 2's layout, on one card): two ranks on
+# cuda:0, each a process of its own (spawn), over gloo (NCCL takes one rank
+# per card; gloo stages CUDA tensors through the host), and a one-rank NCCL
+# world started from torchrun's variables. Their times describe this check,
+# not data-parallel scaling: the ranks share one card and the grads'
+# all-reduce goes through the host.
+DDP_WORLD = 2
+DDP_PARITY_BATCH = 2  # global: one row a rank
+DDP_TRAINER_STEPS = 4  # a chunk at the global batch TRAIN_BATCH: 4 rows a rank
+DDP_NCCL_STEPS = 2
+DDP_EVAL_STEPS = 4
+DDP_TIMEOUT_S = 900
+# tests/test_torch_port_train_step.py's bounds: lr is the reference's
+# hard-coded 1e-6 / 7; one flipped update sign moves a param by 2 * lr; at
+# most 1e-3 of the signs flipped and 1e-4 of the codes more than one apart.
+# That module lets codes be more than one apart only at |code| <= 10, its
+# tiny models' rounding noise; at full width the one-process step breaks
+# that against itself (two runs on one card: cuDNN's f32 weight grads do
+# not repeat bitwise), so the noise level here is that module's own
+# agreement for cancelling grad sums, 1e-3 of a block's absmax:
+# |code| <= 127 * (1e-3) ** (1 / 5) = 31.9
+DDP_LR = 1e-6 / 7
+DDP_PARAM_ATOL = 2 * DDP_LR + 1e-6
+DDP_SIGNS_FLIPPED, DDP_CODES_FAR, DDP_CODE_NOISE = 1e-3, 1e-4, 31
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(target, args_of_rank, world):
+    """``target(*args_of_rank(r))`` in ``world`` processes (spawn: CUDA
+    cannot start again in a forked child); kills the rest once one fails or
+    ``DDP_TIMEOUT_S`` passes; raises unless every rank exits with 0."""
+    import multiprocessing
+
+    import torch
+
+    torch.cuda.empty_cache()  # the card's memory, for the ranks
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=args_of_rank(r)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DDP_TIMEOUT_S
+    while time.monotonic() < deadline and any(p.is_alive() for p in procs):
+        if any(p.exitcode not in (None, 0) for p in procs):
+            break
+        time.sleep(0.5)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join(30)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise AssertionError(f"{target.__name__}: the ranks exited with {codes}")
+
+
+def launches_json(snapshot):
+    return {kernel: [[list(k), n] for k, n in shapes.items()] for kernel, shapes in snapshot.items() if shapes}
+
+
+def launches_from_json(obj):
+    return {kernel: {tuple(k): n for k, n in pairs} for kernel, pairs in obj.items()}
+
+
+def nonzero(launches):
+    return {kernel: shapes for kernel, shapes in launches.items() if shapes}
+
+
+def timed_all_reduce(sink):
+    """Wraps the train step's grad all-reduce: host ms around it, the card
+    synchronized before and after, into ``sink`` (with the bytes summed)."""
+    import importlib
+
+    import torch
+
+    module = importlib.import_module("stable_diffusion_training_tpu_torch.train.train_step")
+    inner = module.all_reduce_grads_
+
+    def wrapper(grads, mesh, *args, **kwargs):
+        nbytes = sum(g.numel() * g.element_size() for g in grads.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(grads, mesh, *args, **kwargs)
+        torch.cuda.synchronize()
+        sink.append(dict(ms=(time.perf_counter() - t0) * 1e3, bytes=nbytes))
+        return out
+
+    module.all_reduce_grads_ = wrapper
+
+
+def timed_step_table(steps):
+    """Wraps the trainer's step table: each step's host ms (synchronized),
+    loss and launches by shape, into ``steps``."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+    from stable_diffusion_training_tpu_torch.train import trainer
+
+    table = trainer.bucket_train_steps
+
+    def timed(training_config, frozen_vae, mesh=None):
+        def wrap(step):
+            def run(*args):
+                before = launch_snapshot(fa, lk)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*args)
+                loss = out[4]["loss"].item()
+                steps.append(dict(ms=(time.perf_counter() - t0) * 1e3, loss=loss,
+                                  launches=launch_diff(launch_snapshot(fa, lk), before)))
+                return out
+            return run
+        return {key: wrap(step) for key, step in table(training_config, frozen_vae, mesh=mesh).items()}
+
+    trainer.bucket_train_steps = timed
+
+
+def ddp_rank(part, rank, world, port, workdir):
+    """One rank of a data-parallel phase, in a process of its own: joins the
+    gloo group on cuda:0 through ``core.initialize_distributed``, runs
+    ``part`` and writes its numbers to ``<part>_<rank>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from stable_diffusion_training_tpu_torch.core import initialize_distributed
+
+    torch.cuda.set_device(0)
+    initialize_distributed(
+        "gloo", device="cuda:0", rank=rank, world_size=world, init_method=f"tcp://127.0.0.1:{port}",
+        timeout=datetime.timedelta(seconds=DDP_TIMEOUT_S),
+    )
+    try:
+        result = {"ddp_parity": ddp_parity_rank, "ddp_trainer": ddp_trainer_rank}[part](rank, workdir)
+        result.update(rank=rank, max_memory_allocated=torch.cuda.max_memory_allocated())
+        with open(os.path.join(workdir, f"{part}_{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def compare_steps(got, want, before):
+    """Trained params and momentum (``got``: {model: (params, momentum)})
+    against the one-process step's (``want``), to the bounds above;
+    ``before``: the params before the step. Also gives the largest |code|
+    of the codes more than one apart, and the leaves of those above the
+    noise level."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.optim import QuantizedMomentum
+
+    out = {}
+    for key, (params, momentum) in got.items():
+        ref_params, ref_momentum = want[key]
+        max_diff, flipped, total = 0.0, 0, 0
+        for name, p in params.items():
+            q, b = ref_params[name], before[key][name]
+            max_diff = max(max_diff, (p - q).abs().max().item())
+            flipped += int((((p - b) - (q - b)).abs() > DDP_LR).sum())
+            total += p.numel()
+        codes = far = far_above_noise = scales_off = dense_off = max_far_code = 0
+        worst = []  # the leaves with codes far apart above the noise level
+        for name, m in momentum.items():
+            r = ref_momentum[name]
+            if isinstance(m, QuantizedMomentum):
+                c, rc = m.codes.int(), r.codes.int()
+                apart = (c - rc).abs() > 1
+                far += int(apart.sum())
+                if apart.any():
+                    max_far_code = max(max_far_code, int(torch.maximum(c.abs(), rc.abs())[apart].max()))
+                above = apart & (torch.maximum(c.abs(), rc.abs()) > DDP_CODE_NOISE)
+                if above.any():
+                    worst.append(dict(leaf=name, codes=int(above.sum()), of=c.numel(),
+                                      max_code=int(torch.maximum(c.abs(), rc.abs())[above].max()),
+                                      max_apart=int((c - rc).abs()[above].max())))
+                far_above_noise += int(above.sum())
+                codes += c.numel()
+                scales_off += int(((m.scales - r.scales).abs() > 1e-2 * r.scales.abs()).sum())
+            else:
+                dense_off += int(((m - r).abs() > 1e-6 + 1e-4 * r.abs()).sum())
+        ok = (max_diff <= DDP_PARAM_ATOL and flipped <= DDP_SIGNS_FLIPPED * total and far_above_noise == 0
+              and far <= DDP_CODES_FAR * codes and scales_off == 0 and dense_off == 0 and codes > 0)
+        out[key] = dict(max_param_diff=max_diff, param_atol=DDP_PARAM_ATOL, signs_flipped=flipped, params=total,
+                        codes_far=far, max_far_code=max_far_code, noise_code=DDP_CODE_NOISE,
+                        codes_far_above_noise=far_above_noise, codes=codes, scales_off=scales_off,
+                        dense_momentum_off=dense_off, ok=ok,
+                        worst_leaves=sorted(worst, key=lambda w: -w["codes"])[:8])
+    return out
+
+
+def ddp_parity_rank(rank, workdir):
+    """Rank 0 first takes the step as one process over the whole global
+    batch (the reference), and again from a fresh state (the step's own
+    run-to-run spread, held to the same bounds); then both ranks take it on
+    their row, and rank 0 holds its result against the reference."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.core import create_mesh, slice_batch_for_process
+    from stable_diffusion_training_tpu_torch.core.distributed import barrier
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+    from stable_diffusion_training_tpu_torch.parallel import state_digest
+    from stable_diffusion_training_tpu_torch.train import on_device_model_training_state, train_step
+    from stable_diffusion_training_tpu_torch.train.states import state_tensors
+
+    set_tf32(False)
+    device = torch.device("cuda", 0)
+    inputs = torch.load(os.path.join(workdir, "inputs.pt"))
+    batch = {k: v.to(device) for k, v in inputs["batch"].items()}
+    draws = {k: v.to(device) for k, v in inputs["draws"].items()}
+    cfg = train_config(mixed_precision="float32", batch_size=DDP_PARITY_BATCH)
+
+    def step(states, rows, mesh):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_step(*states[:4], rows, None, states[4], states[5], draws=draws, mesh=mesh,
+                         strip_bos_eos_token=True, ema_rate=cfg.ema_rate,
+                         text_context_window=cfg.text_encoder_context_window)
+        return out[4]["loss"].item(), (time.perf_counter() - t0) * 1e3
+
+    def trained(states):
+        return {key: (s.params, s.opt_state[1][0].mu_quant)
+                for key, s in (("unet", states[0]), ("text_encoder", states[1]))}
+
+    result, reference = {}, None
+    if rank == 0:
+        ref_states = on_device_model_training_state(cfg, device=device)
+        before = {key: {n: p.detach().clone() for n, p in params.items()}
+                  for key, (params, _) in trained(ref_states).items()}
+        result["reference_loss"], result["reference_step_ms"] = step(ref_states, batch, None)
+        reference = trained(ref_states)
+        del ref_states  # the EMA and the frozen models go; the trained params and momentum stay
+        torch.cuda.empty_cache()
+        again = on_device_model_training_state(cfg, device=device)
+        result["reference_again_loss"], _ = step(again, batch, None)
+        result["one_process_again"] = compare_steps(trained(again), reference, before)
+        del again
+        torch.cuda.empty_cache()
+    barrier()
+    mesh = create_mesh(device_type="cuda")
+    states = on_device_model_training_state(cfg, device=device, mesh=mesh)
+    allreduce = []
+    timed_all_reduce(allreduce)
+    fa.reset_launch_counts()
+    lk.reset_launch_counts()
+    result["loss"], result["step_ms"] = step(states, slice_batch_for_process(batch), mesh)
+    result["launches"] = launches_json(launch_snapshot(fa, lk))
+    result["allreduce"] = allreduce
+    result["digest"] = state_digest(state_tensors(*states[:4]))
+    if reference is not None:
+        result["vs_one_process"] = compare_steps(trained(states), reference, before)
+    return result
+
+
+def phase_ddp_parity(state, seed=3):
+    """The SD1.5 train step at full width in f32 (TF32 off) over a global
+    batch of 2 at 512x512 with fixed global draws: as one process (rank 0
+    first, twice: the step's own spread, reported), then on two ranks of
+    one row each (gloo, cuda:0). The ranks' params, EMA, codes and scales
+    bitwise equal; the two-rank step against the one-process step within
+    tests/test_torch_port_train_step.py's bounds (loss 1e-5 relative,
+    params 2 lr + 1e-6, 1e-3 of the update signs, 1e-4 of the codes more
+    than one apart, scales 1e-2) with the full-width noise level of the
+    codes (``DDP_CODE_NOISE``); each rank launches K1 5 + 1 (f32 route),
+    the fused f32 backward 5 and Lion's leaf table once per model, at its
+    shapes."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.train.train_step import make_draws
+
+    workdir = os.path.join(REPO, ".cache", "chip_smoke_ddp_parity")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    gen = torch.Generator().manual_seed(seed)
+    batch = {
+        "pixel_values": torch.rand(DDP_PARITY_BATCH, 3, TRAIN_RES, TRAIN_RES, generator=gen) * 2 - 1,
+        "input_ids": torch.randint(0, 49408, (DDP_PARITY_BATCH * TRAIN_CONCAT, 77), generator=gen),
+    }
+    latent = (DDP_PARITY_BATCH, 4, TRAIN_RES // 8, TRAIN_RES // 8)
+    torch.save({"batch": batch, "draws": make_draws(gen, latent, torch.float32, 1000, "cpu")},
+               os.path.join(workdir, "inputs.pt"))
+    port = free_port()
+    t0 = time.perf_counter()
+    run_ranks(ddp_rank, lambda r: ("ddp_parity", r, DDP_WORLD, port, workdir), DDP_WORLD)
+    wall_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(DDP_WORLD):
+        with open(os.path.join(workdir, f"ddp_parity_{r}.json")) as f:
+            ranks.append(json.load(f))
+    lion = {}
+    for leaves in sd15_quantized_leaves().values():
+        add_launches(lion, {"lion_leaves": lion_table_launches(leaves, "float32")})
+    want = dict(
+        flash_fwd={(8, 4096, 4096, 40, "float32", "f32"): 5, (1, 4096, 4096, 512, "float32", "f32"): 1},
+        flash_bwd_f32={(8, 4096, 4096, 40, "float32"): 5}, **lion,
+    )
+    launches = [nonzero(launches_from_json(r["launches"])) for r in ranks]
+    ref_loss = ranks[0]["reference_loss"]
+    checks = dict(
+        ranks_bitwise_equal=len({r["digest"] for r in ranks}) == 1 and len({r["loss"] for r in ranks}) == 1,
+        loss=abs(ranks[0]["loss"] - ref_loss) <= TRAIN_LOSS_REL_TOL * abs(ref_loss),
+        vs_one_process=all(v["ok"] for v in ranks[0]["vs_one_process"].values()),
+        launches=all(got == want for got in launches),
+    )
+    total = {}
+    for got in launches:
+        add_launches(total, got)
+    state["ddp_parity_by_shape"] = total
+    row = dict(
+        world=DDP_WORLD, backend="gloo", batch=DDP_PARITY_BATCH, rows_per_rank=DDP_PARITY_BATCH // DDP_WORLD,
+        resolution=TRAIN_RES, dtype="float32", wall_s=wall_s, loss=ranks[0]["loss"], reference_loss=ref_loss,
+        loss_rel_diff=abs(ranks[0]["loss"] - ref_loss) / abs(ref_loss), vs_one_process=ranks[0]["vs_one_process"],
+        reference_again_loss=ranks[0]["reference_again_loss"], one_process_again=ranks[0]["one_process_again"],
+        step_ms=[r["step_ms"] for r in ranks], reference_step_ms=ranks[0]["reference_step_ms"],
+        allreduce=[r["allreduce"] for r in ranks], digests=[r["digest"] for r in ranks],
+        max_memory_allocated=[r["max_memory_allocated"] for r in ranks],
+        launches_by_shape=[{k: {"x".join(map(str, s)): n for s, n in v.items()} for k, v in got.items()}
+                           for got in launches],
+        checks=checks, ok=all(checks.values()),
+    )
+    emit("ddp_parity", **row)
+    shutil.rmtree(workdir, ignore_errors=True)
+    if not row["ok"]:
+        raise AssertionError(f"ddp_parity failed its checks: {checks}")
+
+
+def ddp_trainer_rank(rank, workdir):
+    """``trainer.main(dataloader=None)`` twice on this rank (a chunk, then a
+    resume from its ``train_state/`` over the chunk written again), with the
+    step table, the all-reduce, the writers, the loader's batches and the
+    chunk checkpoints wrapped."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from stable_diffusion_training_tpu_torch.core.distributed import local_process_index, process_index, run_on
+    from stable_diffusion_training_tpu_torch.data import dataloader as dl
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+    from stable_diffusion_training_tpu_torch.parallel import state_digest
+    from stable_diffusion_training_tpu_torch.train import checkpoint, eval_sampler, trainer
+    from stable_diffusion_training_tpu_torch.train.states import state_tensors
+
+    with open(os.path.join(workdir, "spec.json")) as f:
+        spec = json.load(f)
+    set_tf32(False)
+    steps, allreduce, digests, pixels = [], [], [], []
+    calls = dict(write_model=0, write_train_state=0, json=0, png=0)
+    timed_step_table(steps)
+    timed_all_reduce(allreduce)
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    checkpoint._write_model = counted("write_model", checkpoint._write_model)
+    checkpoint._write_train_state = counted("write_train_state", checkpoint._write_train_state)
+    trainer.save_dict_to_json = counted("json", trainer.save_dict_to_json)
+    eval_sampler.save_png_images = counted("png", eval_sampler.save_png_images)
+    grab, save_chunk = dl.DataLoader.grab_next_batch, trainer._save_chunk_checkpoints
+
+    def recorded_grab(self):
+        b = grab(self)
+        if isinstance(b, dict):
+            pixels[-1].append(hashlib.sha256(np.ascontiguousarray(b["pixel_values"]).tobytes()).hexdigest())
+        return b
+
+    def digested_save(config_dict, model_object_dict, tokenizer, unet_state, text_encoder_state, unet_ema,
+                      text_encoder_ema, frozen_vae, train_rng=None):
+        digests.append(state_digest(state_tensors(unet_state, text_encoder_state, unet_ema, text_encoder_ema)))
+        return save_chunk(config_dict, model_object_dict, tokenizer, unet_state, text_encoder_state, unet_ema,
+                          text_encoder_ema, frozen_vae, train_rng=train_rng)
+
+    dl.DataLoader.grab_next_batch = recorded_grab
+    trainer._save_chunk_checkpoints = digested_save
+    fa.reset_launch_counts()
+    lk.reset_launch_counts()
+    wall = []
+    for invocation in range(2):
+        if invocation:
+            # the first invocation flushed the ramdisk and moved the JSON to
+            # chunk 1, which a chunk_limit of 1 would delete too: chunk 0
+            # again, written anew (the host's first rank), and the JSON
+            # pointed at it (rank 0); model_path stays the checkpoint
+            run_on(local_process_index() == 0, png_chunk, spec["ramdisk"], [tuple(s) for s in spec["sizes"]],
+                   spec["seed"])
+            run_on(process_index() == 0, rewind_chunk, spec["config_path"])
+        pixels.append([])
+        t0 = time.perf_counter()
+        trainer.main(spec["config_path"], dataloader=None, tokenizer=StubTokenizer(), device=torch.device("cuda", 0))
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    return dict(
+        steps=[dict(s, launches=launches_json(s["launches"])) for s in steps], allreduce=allreduce,
+        digests=digests, pixel_digests=pixels, calls=calls, wall_s=wall,
+        launches=launches_json(launch_snapshot(fa, lk)),
+    )
+
+
+def rewind_chunk(config_path):
+    """The trainer's JSON pointed at chunk 0 again."""
+    from stable_diffusion_training_tpu_torch.utils.json_io import read_json_file, save_dict_to_json
+
+    save_dict_to_json(dict(read_json_file(config_path), chunk_number=0), config_path)
+
+
+def ddp_nccl_rank(config_path, workdir):
+    """``trainer.main`` in a one-rank NCCL world that it starts itself from
+    torchrun's variables (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``MASTER_ADDR``, ``MASTER_PORT``), as ``torchrun --nproc_per_node=1``
+    would set them."""
+    import torch
+    import torch.distributed as dist
+
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+    from stable_diffusion_training_tpu_torch.train import trainer
+
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    set_tf32(False)
+    steps, allreduce = [], []
+    timed_step_table(steps)
+    timed_all_reduce(allreduce)
+    fa.reset_launch_counts()
+    lk.reset_launch_counts()
+    trainer.main(config_path, dataloader=None, tokenizer=StubTokenizer())
+    torch.cuda.synchronize()
+    result = dict(
+        backend=dist.get_backend(), world=dist.get_world_size(), device=str(torch.cuda.current_device()),
+        steps=[dict(s, launches=launches_json(s["launches"])) for s in steps], allreduce=allreduce,
+        launches=launches_json(launch_snapshot(fa, lk)), max_memory_allocated=torch.cuda.max_memory_allocated(),
+    )
+    dist.destroy_process_group()
+    with open(os.path.join(workdir, "nccl.json"), "w") as f:
+        json.dump(result, f)
+
+
+def step_launches(batch, lion):
+    """One SD1.5 bf16 step's launches at ``batch`` rows: K1 5 at the 64x64
+    level and 1 in the VAE encode, the fused backward 5, ``lion``."""
+    return dict(
+        flash_fwd={(8 * batch, 4096, 4096, 40, "bfloat16", "tma_narrow"): 5,
+                   (batch, 4096, 4096, 512, "bfloat16", "tma_wide"): 1},
+        flash_bwd_fused={(8 * batch, 4096, 4096, 40, "bfloat16"): 5}, **lion,
+    )
+
+
+def phase_ddp_trainer(state, seed=0):
+    """``trainer.main(path, dataloader=None, tokenizer=StubTokenizer())`` on
+    two ranks (gloo, cuda:0): SD1.5 at full width, bf16, 512x512, the
+    example recipe, global batch 8 (4 a rank), a chunk of 32 seeded PNGs
+    (4 steps), DDIM eval every 2 steps (4 steps), then a second invocation
+    that resumes from ``train_state/``; then 2 steps of ``trainer.main`` in
+    a one-rank NCCL world started from torchrun's variables. Checks: one
+    ``loss.csv`` (one header, rank 0's rows), one checkpoint, the JSON
+    written by rank 0 alone (its backup, once a chunk, once at the end), the
+    eval PNGs written once, the ranks' states bitwise equal at each chunk
+    checkpoint, each rank's pixel rows its half of a one-process loader's
+    batch, each step's launches at the rank's shapes (rank 0's evals
+    besides, nothing else), and the NCCL leg's backend and steps."""
+    import hashlib
+
+    import numpy as np
+
+    from stable_diffusion_training_tpu_torch.data import dataloader as dl
+    from stable_diffusion_training_tpu_torch.utils.json_io import read_json_file
+
+    prompt = StubTokenizer()(["a photo of an astronaut riding a horse"], padding="max_length").input_ids
+    root = os.path.join(REPO, ".cache", "chip_smoke_ddp")
+    shutil.rmtree(root, ignore_errors=True)
+    workdir = os.path.join(root, "ranks")
+    os.makedirs(workdir)
+    run_dir, base, cfg, config_path, _ = trainer_run(
+        "chip_smoke_ddp/trainer", train_config(), seed, device_prefetch_depth=2,
+        ramdisk_path=os.path.join(root, "ramdisk"), repo={"repo_0": {}}, repeat_batch=2,
+        numb_of_dataloader_worker_thread=4, queue_get_timeout=60, token=None, eval_sample_interval=2,
+        eval_sample_prompt_ids=prompt.tolist(), eval_num_inference_steps=DDP_EVAL_STEPS,
+        eval_sample_resolution=TRAIN_RES, eval_sample_dir=os.path.join(root, "eval"),
+    )
+    sizes = [(TRAIN_RES, TRAIN_RES)] * (TRAIN_BATCH * DDP_TRAINER_STEPS)
+    png_chunk(cfg["ramdisk_path"], sizes, seed)
+    # what one process's loader gives each step of each invocation (its seed)
+    plan = []
+    for master_seed in (seed, seed + 1):
+        shutil.copytree(cfg["ramdisk_path"], os.path.join(root, "plan"))
+        loader = dl.DataLoader(StubTokenizer(), config_path, os.path.join(root, "plan"), TRAIN_BATCH, 2,
+                               [TRAIN_RES**2], [TRAIN_RES], numb_of_worker_thread=1, queue_get_timeout=60,
+                               chunk_number=0, seed=master_seed, context_concatenation_multiplier=TRAIN_CONCAT)
+        loader._print_debug = False
+        loader.prepare_training_dataframe()
+        loader.create_training_dataframe()
+        loader.dispatch_worker()
+        batches = []
+        while not isinstance(b := loader.grab_next_batch(), str):
+            batches.append(b["pixel_values"])
+        plan.append(batches)
+        shutil.rmtree(os.path.join(root, "plan"))
+    with open(os.path.join(workdir, "spec.json"), "w") as f:
+        json.dump(dict(config_path=config_path, ramdisk=cfg["ramdisk_path"], sizes=sizes, seed=seed), f)
+    port = free_port()
+    t0 = time.perf_counter()
+    run_ranks(ddp_rank, lambda r: ("ddp_trainer", r, DDP_WORLD, port, workdir), DDP_WORLD)
+    wall_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(DDP_WORLD):
+        with open(os.path.join(workdir, f"ddp_trainer_{r}.json")) as f:
+            ranks.append(json.load(f))
+
+    # the one-rank NCCL world: its own run directory and a chunk of 2 steps
+    nccl_dir, nccl_base, nccl_cfg, nccl_config, _ = trainer_run(
+        "chip_smoke_ddp/nccl", train_config(), seed, device_prefetch_depth=2,
+        ramdisk_path=os.path.join(root, "ramdisk_nccl"), repo={"repo_0": {}}, repeat_batch=2,
+        numb_of_dataloader_worker_thread=4, queue_get_timeout=60, token=None,
+    )
+    png_chunk(nccl_cfg["ramdisk_path"], [(TRAIN_RES, TRAIN_RES)] * (TRAIN_BATCH * DDP_NCCL_STEPS), seed)
+    t0 = time.perf_counter()
+    run_ranks(ddp_nccl_rank, lambda r: (nccl_config, workdir), 1)
+    nccl_wall_s = time.perf_counter() - t0
+    with open(os.path.join(workdir, "nccl.json")) as f:
+        nccl = json.load(f)
+
+    lion = {}
+    for leaves in sd15_quantized_leaves().values():
+        add_launches(lion, {"lion_leaves": lion_table_launches(leaves, "bfloat16")})
+    per_rank = TRAIN_BATCH // DDP_WORLD
+    want_step, want_nccl_step = step_launches(per_rank, lion), step_launches(TRAIN_BATCH, lion)
+    want_eval = dict(flash_fwd={(16, 4096, 4096, 40, "bfloat16", "tma_narrow"): 5 * DDP_EVAL_STEPS,
+                                (1, 4096, 4096, 512, "bfloat16", "tma_wide"): 1})
+    n_steps, n_evals = 2 * DDP_TRAINER_STEPS, 2 * (DDP_TRAINER_STEPS // 2)
+    launches_ok, totals = [], {}
+    for r, got in enumerate(ranks):
+        steps = [launches_from_json(s["launches"]) for s in got["steps"]]
+        expected_total = {}
+        for _ in range(n_steps):
+            add_launches(expected_total, want_step)
+        for _ in range(n_evals if r == 0 else 0):
+            add_launches(expected_total, want_eval)
+        total = nonzero(launches_from_json(got["launches"]))
+        launches_ok.append(len(steps) == n_steps and all(s == want_step for s in steps) and total == expected_total)
+        add_launches(totals, total)
+    state["ddp_trainer_by_shape"] = totals
+    halves = [[[hashlib.sha256(np.ascontiguousarray(b[r * per_rank:(r + 1) * per_rank]).tobytes()).hexdigest()
+                for b in batches] for batches in plan] for r in range(DDP_WORLD)]
+    with open(cfg["loss_csv"]) as f:
+        lines = f.read().splitlines()
+    rows = [line.split(",") for line in lines[1:] if line]
+    final = read_json_file(config_path)
+    eval_dirs = sorted(os.listdir(cfg["eval_sample_dir"])) if os.path.isdir(cfg["eval_sample_dir"]) else []
+    nccl_steps = [launches_from_json(s["launches"]) for s in nccl["steps"]]
+    with open(nccl_cfg["loss_csv"]) as f:
+        nccl_rows = [line.split(",") for line in f.read().splitlines()[1:] if line]
+    writes = dict(write_model=2 * 4, write_train_state=2, json=2 * 3, png=n_evals)
+    checks = dict(
+        loss_csv=lines[0] == "steps, step_size, loss, time, chunk, seed" and len(rows) == n_steps
+        and all(math.isfinite(float(r[2])) for r in rows),
+        one_checkpoint=os.path.isdir(f"{base}@1/unet") and os.path.isdir(f"{base}-EMA@1/unet")
+        and os.path.isdir(os.path.join(f"{base}@1", "train_state")) and not os.path.exists(f"{base}@0"),
+        json=(final["chunk_number"], final["chunk_steps"], final["master_seed"]) == (1, 2, seed + 2),
+        rank0_writes=ranks[0]["calls"] == writes,
+        other_ranks_write_nothing=all(not any(r["calls"].values()) for r in ranks[1:]),
+        eval_pngs=eval_dirs == ["step_00000002", "step_00000004"] and all(
+            os.listdir(os.path.join(cfg["eval_sample_dir"], d)) == ["sample_0.png"] for d in eval_dirs),
+        ranks_bitwise_equal=len(ranks[0]["digests"]) == 2 and all(r["digests"] == ranks[0]["digests"] for r in ranks),
+        rows_are_the_ranks_halves=all(r["pixel_digests"] == halves[i] for i, r in enumerate(ranks)),
+        finite_losses=all(math.isfinite(s["loss"]) for r in ranks for s in r["steps"]),
+        launches=all(launches_ok),
+        nccl=nccl["backend"] == "nccl" and nccl["world"] == 1 and len(nccl_rows) == DDP_NCCL_STEPS
+        and all(math.isfinite(float(r[2])) for r in nccl_rows) and len(nccl_steps) == DDP_NCCL_STEPS
+        and all(s == want_nccl_step for s in nccl_steps) and len(nccl["allreduce"]) == DDP_NCCL_STEPS,
+    )
+    per_rank_rows = []
+    for r in ranks:
+        # each invocation's first step holds its set-up
+        timed = [s["ms"] for i, s in enumerate(r["steps"]) if i % DDP_TRAINER_STEPS]
+        p50 = statistics.median(timed)
+        per_rank_rows.append(dict(
+            rank=r["rank"], step_ms=[s["ms"] for s in r["steps"]], step_p50_ms=p50,
+            global_images_per_s=TRAIN_BATCH / p50 * 1e3,
+            allreduce_ms=[a["ms"] for a in r["allreduce"]],
+            allreduce_p50_ms=statistics.median(a["ms"] for a in r["allreduce"]),
+            allreduce_bytes=r["allreduce"][0]["bytes"] if r["allreduce"] else 0,
+            max_memory_allocated=r["max_memory_allocated"], wall_s=r["wall_s"], calls=r["calls"],
+            losses=[s["loss"] for s in r["steps"]],
+        ))
+    nccl_timed = [s["ms"] for s in nccl["steps"][1:]]
+    row = dict(
+        world=DDP_WORLD, backend="gloo", batch=TRAIN_BATCH, rows_per_rank=per_rank, resolution=TRAIN_RES,
+        dtype="bfloat16", steps=n_steps, evals=n_evals, wall_s=wall_s, ranks=per_rank_rows,
+        nccl=dict(world=nccl["world"], backend=nccl["backend"], wall_s=nccl_wall_s,
+                  step_ms=[s["ms"] for s in nccl["steps"]],
+                  step_p50_ms=statistics.median(nccl_timed) if nccl_timed else None,
+                  allreduce_ms=[a["ms"] for a in nccl["allreduce"]],
+                  max_memory_allocated=nccl["max_memory_allocated"]),
+        launches_by_shape={k: {"x".join(map(str, s)): n for s, n in v.items()} for k, v in totals.items()},
+        checks=checks, ok=all(checks.values()),
+    )
+    emit("ddp_trainer", **row)
+    shutil.rmtree(root, ignore_errors=True)
+    if not row["ok"]:
+        raise AssertionError(f"ddp_trainer failed its checks: {checks}")
+
+
 # forward cases whose f32 shape a path runs: the f32 UNet call of the parity
 # phase, the f32 train step
 F32_FWD_PATHS = {
     "unet_l0": "parity", "unet_train": "train_f32", "vae_encode": "train_f32", "sdxl_unet_l1": "sdxl_parity",
     "sdxl_train_parity_l1": "sdxl_train_parity", "sd21_parity_l1": "sd21_parity", "sd21_parity_l2": "sd21_parity",
+    "vae_mid": "ddp_parity ranks", "ddp_parity_unet": "ddp_parity ranks",
 }
 SHORT = {"bfloat16": "bf16", "float32": "f32"}
 
@@ -3063,11 +3733,16 @@ def kernels_line(state):
     sdxl_train_parity = state.get("sdxl_train_parity_by_shape", {})
     sd21_trainer = state.get("sd21_trainer_by_shape", {})
     sd21_parity = state.get("sd21_parity_by_shape", {})
+    # data parallelism: the launches of every rank's run, summed
+    ddp_parity = state.get("ddp_parity_by_shape", {})
+    ddp_trainer = state.get("ddp_trainer_by_shape", {})
     paths = {
         "bfloat16": [state.get(f"{p}_by_shape", {}) for p in ("slice", "sdxl", "sdxl_refiner", "sdxl_cache", "sd21")]
-        + [train.get("flash_fwd", {}), sdxl_train.get("flash_fwd", {}), sd21_trainer.get("flash_fwd", {})],
+        + [train.get("flash_fwd", {}), sdxl_train.get("flash_fwd", {}), sd21_trainer.get("flash_fwd", {}),
+           ddp_trainer.get("flash_fwd", {})],
         "float32": [state.get(f"{p}_by_shape", {}) for p in ("parity", "sdxl_parity")]
-        + [train_f32.get("flash_fwd", {}), sdxl_train_parity.get("flash_fwd", {}), sd21_parity.get("flash_fwd", {})],
+        + [train_f32.get("flash_fwd", {}), sdxl_train_parity.get("flash_fwd", {}), sd21_parity.get("flash_fwd", {}),
+           ddp_parity.get("flash_fwd", {})],
     }
     entries = []
     for row in state.get("kernel_cases", []):
@@ -3086,21 +3761,23 @@ def kernels_line(state):
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
         ))
-    f32_paths = {  # the fused f32 kernel's launches by shape, and the run they come from
-        "unet_train_f32": (state.get("train_parity_f32_by_shape", {}), "train_parity f32"),
-        "unet_train_f32_b8": (train_f32.get("flash_bwd_f32", {}), "train_f32"),
-        "sdxl_train_parity_f32": (sdxl_train_parity.get("flash_bwd_f32", {}), "sdxl_train_parity"),
-        "sd21_parity_l1_f32": (sd21_parity.get("flash_bwd_f32", {}), "sd21_parity"),
-        "sd21_parity_l2_f32": (sd21_parity.get("flash_bwd_f32", {}), "sd21_parity"),
+    f32_paths = {  # the fused f32 kernel's launches by shape, and the runs they come from
+        "unet_train_f32": [(state.get("train_parity_f32_by_shape", {}), "train_parity f32"),
+                           (ddp_parity.get("flash_bwd_f32", {}), "ddp_parity ranks")],
+        "unet_train_f32_b8": [(train_f32.get("flash_bwd_f32", {}), "train_f32")],
+        "sdxl_train_parity_f32": [(sdxl_train_parity.get("flash_bwd_f32", {}), "sdxl_train_parity")],
+        "sd21_parity_l1_f32": [(sd21_parity.get("flash_bwd_f32", {}), "sd21_parity")],
+        "sd21_parity_l2_f32": [(sd21_parity.get("flash_bwd_f32", {}), "sd21_parity")],
     }
     bf16_paths = {  # the fused bf16 kernel's, likewise
-        "unet_train": (train.get("flash_bwd_fused", {}), "train"),
-        "sdxl_train": (sdxl_train.get("flash_bwd_fused", {}), "sdxl_train"),
-        "sdxl_train_bucket": (sdxl_train.get("flash_bwd_fused", {}), "sdxl_train 1152x896"),
-        "sd21_train_l1": (sd21_trainer.get("flash_bwd_fused", {}), "sd21_trainer"),
-        "sd21_train_l2": (sd21_trainer.get("flash_bwd_fused", {}), "sd21_trainer"),
-        "sd21_train_bucket_l1": (sd21_trainer.get("flash_bwd_fused", {}), "sd21_trainer 896x640"),
-        "sd21_train_bucket_l2": (sd21_trainer.get("flash_bwd_fused", {}), "sd21_trainer 896x640"),
+        "unet_train": [(train.get("flash_bwd_fused", {}), "train")],
+        "sdxl_train": [(sdxl_train.get("flash_bwd_fused", {}), "sdxl_train")],
+        "sdxl_train_bucket": [(sdxl_train.get("flash_bwd_fused", {}), "sdxl_train 1152x896")],
+        "sd21_train_l1": [(sd21_trainer.get("flash_bwd_fused", {}), "sd21_trainer")],
+        "sd21_train_l2": [(sd21_trainer.get("flash_bwd_fused", {}), "sd21_trainer")],
+        "sd21_train_bucket_l1": [(sd21_trainer.get("flash_bwd_fused", {}), "sd21_trainer 896x640")],
+        "sd21_train_bucket_l2": [(sd21_trainer.get("flash_bwd_fused", {}), "sd21_trainer 896x640")],
+        "ddp_unet_train": [(ddp_trainer.get("flash_bwd_fused", {}), "ddp_trainer ranks")],
     }
     for row in state.get("bwd_cases", []):
         bh, sq, d = row["shape_q"]
@@ -3111,24 +3788,24 @@ def kernels_line(state):
             library_ms=row["library_ms"],
         )
         if row["case"] in bf16_paths:  # a train step runs the fused kernel at this shape
-            counts, path = bf16_paths[row["case"]]
-            entries.append(dict(
-                common, name=f"flash_attention_bwd_fused[{row['case']} {dims} bf16; K2 and K3 in one kernel; "
-                f"path: {path}]",
-                replaces=f"{JAX_OPS}/flash_attention.py:105,147",
-                launches=counts.get(shape, 0),
-                max_abs_err=max(row["max_abs_err"].values()), ms=row["call_ms"], bound_ms=row["bound_ms"],
-                bound_by=row["bound_by"],
-            ))
+            for counts, path in bf16_paths[row["case"]]:
+                entries.append(dict(
+                    common, name=f"flash_attention_bwd_fused[{row['case']} {dims} bf16; K2 and K3 in one kernel; "
+                    f"path: {path}]",
+                    replaces=f"{JAX_OPS}/flash_attention.py:105,147",
+                    launches=counts.get(shape, 0),
+                    max_abs_err=max(row["max_abs_err"].values()), ms=row["call_ms"], bound_ms=row["bound_ms"],
+                    bound_by=row["bound_by"],
+                ))
         elif row["case"] in f32_paths:
-            counts, path = f32_paths[row["case"]]
-            entries.append(dict(
-                common, name=f"flash_attention_bwd_f32_fused[{row['case']} {dims} f32; K2 and K3 in one kernel; "
-                f"path: {path}]",
-                replaces=f"{JAX_OPS}/flash_attention.py:105,147", launches=counts.get(shape, 0),
-                max_abs_err=max(row["max_abs_err"].values()), ms=row["call_ms"], bound_ms=row["bound_ms"],
-                bound_by=row["bound_by"],
-            ))
+            for counts, path in f32_paths[row["case"]]:
+                entries.append(dict(
+                    common, name=f"flash_attention_bwd_f32_fused[{row['case']} {dims} f32; K2 and K3 in one "
+                    f"kernel; path: {path}]",
+                    replaces=f"{JAX_OPS}/flash_attention.py:105,147", launches=counts.get(shape, 0),
+                    max_abs_err=max(row["max_abs_err"].values()), ms=row["call_ms"], bound_ms=row["bound_ms"],
+                    bound_by=row["bound_by"],
+                ))
         elif row["route"] == "cuda_cores":
             # the CUDA-core pair, each kernel with its own time and work; the
             # plain and library times are the whole backward's. No model
@@ -3144,27 +3821,29 @@ def kernels_line(state):
                     bound_ms=own["bound_ms"], bound_by=own["bound_by"],
                 ))
     # the leaf-table entry: the train step's Lion, one launch per model a step
-    train_paths = {"bfloat16": (train, "train"), "float32": (train_f32, "train_f32")}
+    train_paths = {"bfloat16": [(train, "train"), (ddp_trainer, "ddp_trainer ranks")],
+                   "float32": [(train_f32, "train_f32"), (ddp_parity, "ddp_parity ranks")]}
     for row in state.get("lion_model_cases", []):
         if row["compander"] != "exact":
             continue  # the train step's setting
         if row["model"] == "sdxl_unet":
-            counts, path = sdxl_train, "sdxl_train"
+            runs = [(sdxl_train, "sdxl_train")]
         elif row["model"].startswith("sd21_"):
-            counts, path = sd21_trainer, "sd21_trainer"
+            runs = [(sd21_trainer, "sd21_trainer")]
         else:
-            counts, path = train_paths[row["dtype"]]
-        entries.append(dict(
-            name=(f"lion8bit_update_leaves[{row['model']} {row['leaves']} leaves {row['elements']} elements "
-                  f"bs{row['bs']} {SHORT[row['dtype']]} exact, grads in torch layout, "
-                  f"{len(row['launch_shapes'])} launch(es) a call; path: {path}]"),
-            route="cuda", source=f"{CSRC}/lion8bit_update.cu",
-            replaces=f"{JAX_OPS}/lion_kernel.py:56,274",
-            launches=sum(counts.get("lion_leaves", {}).get(tuple(k), 0) for k in row["launch_shapes"]),
-            max_abs_err=float(row["max_code_diff"]), ms=row["kernel_ms"],
-            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=None,
-        ))
+            runs = train_paths[row["dtype"]]
+        for counts, path in runs:
+            entries.append(dict(
+                name=(f"lion8bit_update_leaves[{row['model']} {row['leaves']} leaves {row['elements']} elements "
+                      f"bs{row['bs']} {SHORT[row['dtype']]} exact, grads in torch layout, "
+                      f"{len(row['launch_shapes'])} launch(es) a call; path: {path}]"),
+                route="cuda", source=f"{CSRC}/lion8bit_update.cu",
+                replaces=f"{JAX_OPS}/lion_kernel.py:56,274",
+                launches=sum(counts.get("lion_leaves", {}).get(tuple(k), 0) for k in row["launch_shapes"]),
+                max_abs_err=float(row["max_code_diff"]), ms=row["kernel_ms"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                library_ms=None,
+            ))
     for row in state.get("lion_cases", []):
         if row["compander"] != "exact" or row["bs"] != LION_BS:
             continue  # the train step's setting
@@ -3227,6 +3906,7 @@ def main(argv=None):
         train_f32=lambda st: phase_train(st, warmup=2, steps=3, dtype="float32"), trainer=phase_trainer,
         sdxl_train_parity=phase_sdxl_train_parity, sdxl_train=phase_sdxl_train, sdxl_trainer=phase_sdxl_trainer,
         sd21_parity=phase_sd21_parity, sd21=phase_sd21, sd21_trainer=phase_sd21_trainer,
+        ddp_parity=phase_ddp_parity, ddp_trainer=phase_ddp_trainer,
     )
     started, seconds = time.perf_counter(), {}
     for name in ALL_PHASES[1:]:

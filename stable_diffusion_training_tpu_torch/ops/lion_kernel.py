@@ -544,7 +544,8 @@ def lion8bit_update_leaves_(
     """Update every leaf of ``table``: codes and scales in place; returns the
     update signs in the grads' dtype, in torch layout (views of one buffer),
     in the table's order. ``grads`` are contiguous, in torch layout, of one
-    dtype, shaped as the table's leaves. CUDA tensors launch
+    dtype, shaped as the table's leaves, each starting on a 16-byte
+    boundary (both paths raise otherwise). CUDA tensors launch
     ``lion_leaves_kernel`` once per ``MAX_LEAVES_PER_LAUNCH`` leaves (counted
     in ``lion8bit_update_leaves_.launches``, by leaves, elements, block size
     and dtype); CPU tensors take ``lion8bit_update_leaves_reference``."""
@@ -557,6 +558,11 @@ def lion8bit_update_leaves_(
         raise TypeError(f"grads must share one dtype of {list(_DTYPE_CODES)}")
     if list(map(_SHAPE, grads)) != table.shapes or not all(map(torch.Tensor.is_contiguous, grads)):
         raise ValueError("grads must be contiguous and shaped as the table's leaves (torch layout)")
+    # the kernel stages each grad with 16-byte cp.async: a view at another
+    # offset (a slice of a flat buffer) breaks its vector loads
+    misaligned = [i for i, g in enumerate(grads) if g.data_ptr() % 16]
+    if misaligned:
+        raise ValueError(f"grads must start on 16-byte boundaries; not so at leaves {misaligned[:8]}")
     if not _on_cuda(table.codes[0], table.bs):
         updates, new_codes, new_scales = lion8bit_update_leaves_reference(
             grads, table.codes, table.scales, table.perms, b1, b2, compander)

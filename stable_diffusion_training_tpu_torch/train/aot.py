@@ -8,7 +8,9 @@ shape no bucket has is a ``KeyError``. The port keeps the table and the
 dispatch, with an eager ``train_step`` bound to the config's options as each
 entry. The config's ``compilation_cache_path``, ``keep_compiled_fn_in_cache``
 and ``aot_compile`` set up XLA's compilation cache in the JAX package; the
-port accepts them and ignores them.
+port accepts them and ignores them. Under data parallelism (``mesh``) each
+rank's batches are its shard of the global batch: the keys hold the rank's
+rows, ``batch_size`` over the data axis, and each step sums over the axis.
 """
 
 import functools
@@ -16,6 +18,7 @@ from typing import Any, Callable, Dict
 
 import numpy as np
 
+from ..core.mesh import AXIS_DATA, axis_size
 from ..data.buckets import calculate_resolution_array
 from ..utils.timing import TimingContextManager
 from .config import TrainingConfig
@@ -46,13 +49,14 @@ def batch_dispatch_key(batch: Dict[str, Any]) -> tuple:
     return tuple(batch["latent_moments"].shape)
 
 
-def bucket_train_steps(training_config: TrainingConfig, frozen_vae: Any) -> Dict[tuple, Callable]:
+def bucket_train_steps(training_config: TrainingConfig, frozen_vae: Any, mesh=None) -> Dict[tuple, Callable]:
     """``{batch shape: step}`` for every bucket: ``train_step`` with the
     config's options bound, called as ``step(unet_state, text_encoder_state,
     unet_ema, text_encoder_ema, batch, train_rng, frozen_vae,
     frozen_schedulers)``. The latent-cache keys (``use_latent_cache``) are
     the moments' shapes: twice the VAE's latent channels, each bucket side
-    over its downsampling factor (SDXL's 1152x896 bucket: 144x112)."""
+    over its downsampling factor (SDXL's 1152x896 bucket: 144x112). With a
+    ``mesh`` the batch dim is the rank's rows and the steps take the mesh."""
     step = functools.partial(
         train_step,
         strip_bos_eos_token=training_config.strip_bos_eos_token,
@@ -64,10 +68,11 @@ def bucket_train_steps(training_config: TrainingConfig, frozen_vae: Any) -> Dict
         grad_accumulation_steps=training_config.grad_accumulation_steps,
         train_text_encoder=training_config.train_text_encoder,
         vae_encode_chunk=training_config.vae_encode_chunk,
+        mesh=mesh,
     )
     vae_config = frozen_vae.call.config
     factor = 2 ** (len(vae_config.block_out_channels) - 1)
-    b = training_config.batch_size
+    b = training_config.batch_size // axis_size(mesh, AXIS_DATA)
     steps = {}
     with TimingContextManager("step table for all buckets"):
         for res0, res1 in all_unique_resolutions(training_config):

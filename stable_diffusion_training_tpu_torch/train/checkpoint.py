@@ -20,6 +20,12 @@ numbers, flags and empty slots between them. The JAX package writes its
 full state with orbax, which only orbax reads; the port does not read those
 directories, and a JAX run resumes in the port from its diffusers export
 alone (params; the optimizer state starts anew).
+
+Under data parallelism every rank holds the same state: ``save_model`` and
+``save_train_state`` write from rank 0 alone while the others wait (the
+role of orbax's distributed save), and ``restore_train_state`` reads onto
+every rank's own device, then checks that the ranks hold the same bytes.
+The checkpoint directory must be one that every rank sees.
 """
 
 import json
@@ -28,10 +34,12 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..core.distributed import process_count, process_index, run_on
 from ..diffusion import DDIMScheduler
 from ..models import hf_io
 from ..optim.lion8bit import QuantizedMomentum
-from .states import TrainState
+from ..parallel import assert_replicated
+from .states import TrainState, state_tensors
 
 _MODEL_INDEX = {
     "_class_name": "FlaxStableDiffusionPipeline",
@@ -56,7 +64,15 @@ def save_model(
 ) -> None:
     """Write a trained pipeline in diffusers layout (the JAX package's and the
     reference trainer's signature); the params are ``{name: tensor}`` dicts
-    of the models in ``model_object_dict``, written as f32."""
+    of the models in ``model_object_dict``, written as f32. Every rank
+    calls it; rank 0 writes."""
+    run_on(
+        process_index() == 0, _write_model, model_object_dict, tokenizer_object, unet_params,
+        text_encoder_params, vae_params, output_dir,
+    )
+
+
+def _write_model(model_object_dict, tokenizer_object, unet_params, text_encoder_params, vae_params, output_dir):
     os.makedirs(output_dir, exist_ok=True)
     # the reference trainer always embeds DDIM scaled_linear/v_prediction
     DDIMScheduler(
@@ -176,7 +192,17 @@ def save_train_state(
     step_metadata: Optional[Dict[str, Any]] = None,
 ) -> None:
     """Full-state checkpoint: params, optimizer state (quantized momentum
-    included), EMA and the generator, restorable mid-run and bit for bit."""
+    included), EMA and the generator, restorable mid-run and bit for bit.
+    Every rank calls it; rank 0 writes."""
+    run_on(
+        process_index() == 0, _write_train_state, directory, unet_state, text_encoder_state,
+        unet_ema_params, text_encoder_ema_params, train_rng, step_metadata,
+    )
+
+
+def _write_train_state(
+    directory, unet_state, text_encoder_state, unet_ema_params, text_encoder_ema_params, train_rng, step_metadata,
+):
     os.makedirs(directory, exist_ok=True)
     payload = {
         "unet_state": unet_state,
@@ -202,7 +228,9 @@ def restore_train_state(directory: str, template: Dict[str, Any]) -> Dict[str, A
     built state with the same keys as ``save_train_state``'s arguments
     (``unet_state``, ``text_encoder_state``, ``unet_ema_params``,
     ``text_encoder_ema_params`` ({} for none), ``train_rng``). Tensors are
-    copied into the template's own, whose shapes and dtypes must match."""
+    copied into the template's own, whose shapes and dtypes must match.
+    With several ranks each restores onto its own template, then the ranks
+    are checked to hold the same state (``parallel.assert_replicated``)."""
     with open(os.path.join(directory, "structure.json")) as f:
         scalars = json.load(f)
     restored = {}
@@ -210,4 +238,8 @@ def restore_train_state(directory: str, template: Dict[str, Any]) -> Dict[str, A
         tensors = hf_io.load_safetensors(os.path.join(directory, f"{part}.safetensors"))
         restored[part] = _restore(template[part], part, tensors, scalars)
         del tensors
+    if process_count() > 1:
+        parts = [restored[part] for part in _PARTS[:-1]]
+        tensors = state_tensors(*parts) + [restored["train_rng"].get_state()]
+        assert_replicated(tensors, f"state restored from {directory}")
     return restored

@@ -7,16 +7,22 @@ reference trainer's 29 fields plus the JAX package's additions), and
 raw ``model_properties`` JSON dict. Fields that name JAX or TPU machinery
 (``compilation_cache_path``, ``mesh_shape``, ``use_pallas_lion`` ...) keep
 their names so one JSON file configures both packages; the comments below
-say which of them the port ignores. A field that asks for what the port
-does not have yet (a mesh of more than one device, FSDP or TP sharding,
-the polyphase VAE downsample) raises ``NotImplementedError`` naming its
-ROADMAP item.
+say which of them the port ignores. ``mesh_shape`` may lay the ranks out
+for data parallelism only: ``None`` (every rank on the data axis) or
+``[W, 1]`` with W the process group's size; a field that asks for what the port does not have yet (an
+``fsdp`` or ``model_parallel`` axis above 1, FSDP or TP sharding, the
+polyphase VAE downsample) raises ``NotImplementedError`` naming its ROADMAP
+item. ``batch_size`` is the global batch, as in the reference: the data
+axis must divide it, and each rank's rows must divide into
+``grad_accumulation_steps`` micro-batches.
 """
 
 import dataclasses
-import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
+
+from ..core.distributed import process_count
+from ..core.mesh import AXIS_DATA, AXIS_FSDP, AXIS_TENSOR
 
 
 def not_ported(what: str, item: int) -> NotImplementedError:
@@ -56,7 +62,8 @@ class TrainingConfig:
 
     # --- the JAX package's additions, defaulted so reference configs load ---
     model_family: str = "sd15"  # architecture family when building fresh models
-    # multi-device layout: one device only (more raises, not ported)
+    # rank layout: None = every rank on the data axis; [W, 1] the same
+    # (an fsdp or model_parallel axis above 1 raises, not ported)
     mesh_shape: Optional[List[int]] = None
     mesh_axis_names: Optional[List[str]] = None
     fsdp_shard_params: bool = False  # param sharding (True raises, not ported)
@@ -106,8 +113,20 @@ class TrainingConfig:
     bucket_rounding: int = 64  # aspect-ratio bucket grid step (loader)
 
     def __post_init__(self):
-        if self.mesh_shape is not None and math.prod(self.mesh_shape) > 1:
-            raise not_ported(f"mesh_shape={list(self.mesh_shape)} (more than one device)", 7)
+        for axis, size in self.mesh_axes().items():
+            if axis != AXIS_DATA and size > 1:
+                raise not_ported(f"mesh_shape={list(self.mesh_shape)} ({axis} axis of {size})", 7)
+        world = self.data_parallel_size()
+        if world != process_count():
+            raise ValueError(
+                f"mesh_shape={list(self.mesh_shape)} asks for {world} ranks on the data axis; the process "
+                f"group has {process_count()} (torchrun --nproc_per_node={world})"
+            )
+        if self.batch_size % world or (self.batch_size // world) % self.grad_accumulation_steps:
+            raise ValueError(
+                f"batch_size={self.batch_size} must split into {world} rank(s) of whole "
+                f"grad_accumulation_steps={self.grad_accumulation_steps} micro-batches"
+            )
         if self.fsdp_shard_params:
             raise not_ported("fsdp_shard_params=True", 7)
         if self.tensor_parallel_shard_params:
@@ -129,6 +148,24 @@ class TrainingConfig:
                 f"batch_size={self.batch_size} (the encode runs over whole "
                 "micro-batches)"
             )
+
+    def mesh_axes(self) -> Dict[str, int]:
+        """``{axis name: size}`` of ``mesh_shape`` (``mesh_axis_names``, else
+        data and model axes for two dims, data, fsdp and model for three);
+        {} when it is None."""
+        if self.mesh_shape is None:
+            return {}
+        shape = [int(s) for s in self.mesh_shape]
+        default = (AXIS_DATA, AXIS_TENSOR) if len(shape) <= 2 else (AXIS_DATA, AXIS_FSDP, AXIS_TENSOR)
+        names = list(self.mesh_axis_names or default[: len(shape)])
+        if len(names) != len(shape):
+            raise ValueError(f"mesh_shape={shape} and mesh_axis_names={names} differ in length")
+        return dict(zip(names, shape))
+
+    def data_parallel_size(self) -> int:
+        """Ranks on the data axis: ``mesh_shape``'s (which must be the
+        process group's size), else the process group's (1 without one)."""
+        return self.mesh_axes().get(AXIS_DATA, process_count())
 
     def replace(self, **kwargs) -> "TrainingConfig":
         return dataclasses.replace(self, **kwargs)

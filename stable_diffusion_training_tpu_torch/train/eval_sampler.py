@@ -30,8 +30,9 @@ place, not the EMA), under ``torch.no_grad`` with the models in eval mode
 Random draws come from a ``torch.Generator`` on the run's device seeded
 with the config's ``master_seed`` and the step; the initial latents (and
 img2img's two draws) can be passed in instead, as the tests pass the JAX
-package's. The port runs in one process, so the JAX module's gather of the
-images across hosts has no counterpart here.
+package's. Under data parallelism rank 0 samples and writes while the other
+ranks wait: their weights are the same, so their images would be too (the
+JAX package runs the program on every host and writes from process 0).
 """
 
 import os
@@ -40,6 +41,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..core.distributed import process_index, run_on
 from ..utils.device import resolve_device
 from .states import _DTYPES
 
@@ -266,9 +268,13 @@ class EvalSampler:
         """Sample and save when ``step`` hits the interval; returns the
         step's directory (None otherwise). ``latents`` are the initial
         noise of text-to-image; ``sample_eps`` and ``noise`` img2img's two
-        draws; each is drawn from ``generator(step)`` when not given."""
+        draws; each is drawn from ``generator(step)`` when not given. Every
+        rank calls it; rank 0 samples, and the others get None."""
         if not self.interval or step % self.interval:
             return None
+        return run_on(process_index() == 0, self._sample, step, latents, sample_eps, noise)
+
+    def _sample(self, step, latents, sample_eps, noise) -> str:
         generator = self.generator(step)
         modes = [m.training for m in self._models]
         try:

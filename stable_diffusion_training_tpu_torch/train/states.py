@@ -3,8 +3,11 @@ trained model's optimizer chain, keep the EMA buffers.
 
 Port of ``stable_diffusion_training_tpu/train/states.py`` (``load_models``,
 ``create_frozen_states``, ``build_lr_schedule``,
-``create_lion_optimizer_states``, ``on_device_model_training_state``) on one
-device with no mesh. It keeps the reference trainer's quirks as the JAX
+``create_lion_optimizer_states``, ``on_device_model_training_state``). Each
+rank builds the whole state on its own device; with a mesh, every tensor
+of it is then replicated from the data axis's first rank
+(``parallel.replicate_``), where the JAX package places it with a
+replicated sharding. It keeps the reference trainer's quirks as the JAX
 package does:
 
 - ``on_device_model_training_state`` hard-codes ``adam_to_lion_scale_factor``
@@ -21,7 +24,7 @@ package does: no optimizer state, and its params take no grad.
 
 import os
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -30,8 +33,9 @@ from ..diffusion import DDPMScheduler
 from ..models import AutoencoderKL, CLIPTextModel, UNet2DConditionModel, configs, random_init_
 from ..models import hf_io
 from ..optim import transforms
-from ..optim.lion8bit import lion, lion_8bit
+from ..optim.lion8bit import QuantizedMomentum, lion, lion_8bit
 from ..optim.masks import create_mask
+from ..parallel import replicate_
 from ..utils.device import resolve_device
 from .config import TrainingConfig
 
@@ -243,11 +247,44 @@ def create_lion_optimizer_states(
     return {"unet_state": unet_state, "text_encoder_state": text_encoder_state}
 
 
-def on_device_model_training_state(training_config: TrainingConfig, device=None):
+def state_tensors(*parts: Any) -> List[torch.Tensor]:
+    """Every tensor of ``parts`` (``TrainState``s: params and optimizer
+    state; ``FrozenModel``s: params; EMA dicts; None), depth first in dict
+    order, so the same on every rank: what ``replicate_`` and the
+    replication check cover. Step counts are Python ints, the same on every
+    rank by construction."""
+    out = []
+
+    def walk(node):
+        if isinstance(node, torch.Tensor):
+            out.append(node)
+        elif isinstance(node, TrainState):
+            walk(node.params)
+            walk(node.opt_state)
+        elif isinstance(node, FrozenModel):
+            walk(node.params)
+        elif isinstance(node, QuantizedMomentum):
+            out.extend((node.codes, node.scales))
+        elif isinstance(node, dict):
+            for value in node.values():
+                walk(value)
+        elif isinstance(node, (tuple, list)):
+            for value in node:
+                walk(value)
+
+    for part in parts:
+        walk(part)
+    return out
+
+
+def on_device_model_training_state(training_config: TrainingConfig, device=None, mesh=None):
     """Load, build the optimizer states and the EMA buffers on ``device``
-    (cuda unless told otherwise). Returns the JAX package's 7-tuple:
-    ``(unet_state, text_encoder_state, unet_ema_params,
-    text_encoder_ema_params, frozen_vae, frozen_schedulers, models)``."""
+    (cuda unless told otherwise). With a ``mesh`` (``core.create_mesh``)
+    every tensor is then replicated from the data axis's first rank, so
+    seeded weights and a ``model_path`` checkpoint give every rank the same
+    start. Returns the JAX package's 7-tuple: ``(unet_state,
+    text_encoder_state, unet_ema_params, text_encoder_ema_params,
+    frozen_vae, frozen_schedulers, models)``."""
     models = load_models(training_config, device)
     # the reference hard-codes scale 7 and drops the configured LRs;
     # honor_learning_rates opts out of that quirk
@@ -296,6 +333,12 @@ def on_device_model_training_state(training_config: TrainingConfig, device=None)
         ema_copy(models["text_encoder"]["text_encoder_params"])
         if training_config.accumulate_text_encoder_ema
         else None
+    )
+    replicate_(
+        state_tensors(
+            states["unet_state"], states["text_encoder_state"], unet_ema, text_encoder_ema, frozen["vae_state"]
+        ),
+        mesh,
     )
     model_objects = {
         "unet": models["unet"]["unet_model"],

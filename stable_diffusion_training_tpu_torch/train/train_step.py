@@ -29,16 +29,36 @@ UNet's ``text_time`` add-embedding as ``added_cond_kwargs``, as the batch
 holds them (``data/latent_cache.py`` writes both, f32). At SDXL's width the
 2048-wide context comes from the batch's ``encoder_hidden_states`` (both
 frozen towers, precomputed): the in-step encode carries tower 1 alone.
+
+Data parallelism (``mesh``, ``core.create_mesh``): each of the W ranks of
+the ``data_parallel`` axis steps on its own rows of the global batch. It
+scales its local loss by ``1 / W`` before the grads, so that their sum over
+the ranks (``parallel.all_reduce_grads_``, in the grads' dtype) is the
+gradient of the global batch's mean, in JAX's order of scaling (local
+partials of the global mean, then a sum); the returned loss is summed too,
+the global mean on every rank. The draws are made at the global batch's
+shape from the generator, which every rank seeds alike, and each rank keeps
+its rows, so one seed trains the same on any world size; ``draws`` then
+holds global draws. With ``grad_accumulation_steps = a`` each rank splits
+its own rows into ``a`` micro-batches (micro-batch ``j`` across the ranks
+is rank 0's ``j``-th slice, then rank 1's ...; the JAX step's ``j`` is a
+slice of the global batch: the sum over rows is the same). After the sum
+every rank runs the same clip, Lion, decay and EMA on the same grads, so
+their states stay bitwise equal.
 """
 
 from typing import Any, Dict, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
 
+from ..core.mesh import AXIS_DATA, axis_index, axis_size
 from ..diffusion import compute_snrs
 from ..models.vae import DiagonalGaussianDistribution
 from ..optim.transforms import weak
+from ..parallel import all_reduce_grads_
 from ..utils.context import concat_context_windows
+
 
 def make_draws(
     generator: torch.Generator,
@@ -63,6 +83,20 @@ def make_draws(
             0, num_train_timesteps, (b,), generator=generator, device=device
         ),
     }
+
+
+def rank_rows(draws: Dict[str, torch.Tensor], index: int, count: int) -> Dict[str, torch.Tensor]:
+    """Rank ``index`` of ``count``'s rows of each of ``draws`` (made at the
+    global batch's shape): the ``index``-th of ``count`` equal row blocks."""
+    if count == 1:
+        return draws
+    out = {}
+    for key, value in draws.items():
+        if value.shape[0] % count:
+            raise ValueError(f"draws[{key!r}] has {value.shape[0]} rows, not a multiple of {count} ranks")
+        per = value.shape[0] // count
+        out[key] = value[index * per : (index + 1) * per]
+    return out
 
 
 @torch.no_grad()
@@ -102,9 +136,11 @@ def _loss(
     unet_state, text_encoder_state, frozen_vae_state, frozen_noise_scheduler_state,
     batch, train_rng, draws, *, strip_bos_eos_token, offset_noise_magnitude,
     min_snr_gamma_magnitude, perturbation_noise_magnitude, text_context_window,
-    train_text_encoder, vae_encode_chunk,
+    train_text_encoder, vae_encode_chunk, shard=(0, 1),
 ) -> torch.Tensor:
-    """The JAX step's ``_compute_loss_with_rngs`` for one (micro-)batch."""
+    """The JAX step's ``_compute_loss_with_rngs`` for one (micro-)batch:
+    this rank's rows, ``shard = (rank, ranks)`` of the global batch, whose
+    draws are made (or given) at the global shape."""
     scheduler = frozen_noise_scheduler_state.call
     scheduler_state = frozen_noise_scheduler_state.params
     unet = unet_state.model
@@ -112,9 +148,11 @@ def _loss(
     latent_dist = _latent_dist(batch, frozen_vae_state.call, vae_encode_chunk)
     mean = latent_dist.mean
     if draws is None:
+        global_shape = (mean.shape[0] * shard[1],) + tuple(mean.shape[1:])
         draws = make_draws(
-            train_rng, mean.shape, mean.dtype, scheduler.config.num_train_timesteps, mean.device
+            train_rng, global_shape, mean.dtype, scheduler.config.num_train_timesteps, mean.device
         )
+    draws = rank_rows(draws, *shard)
     latents = mean + latent_dist.std * draws["latent_eps"].to(mean.dtype)
     latents = latents * weak(0.18215, latents)
     b = latents.shape[0]
@@ -194,6 +232,7 @@ def train_step(
     train_text_encoder: bool = True,
     vae_encode_chunk: int = 0,
     draws: Union[None, Dict[str, torch.Tensor], Sequence[Dict[str, torch.Tensor]]] = None,
+    mesh=None,
 ):
     """One optimization step. Returns ``(unet_state, text_encoder_state,
     unet_ema, text_ema, {"loss"}, train_rng)`` in the JAX package's order;
@@ -208,13 +247,18 @@ def train_step(
     is then a sequence of ``n`` dicts), sums ``grad / n`` and ``loss / n`` in
     f32, casts the grads back to the params' dtype and applies one update.
     ``train_text_encoder=False`` takes no text-encoder grads and applies no
-    text-encoder update; its EMA, if any, still follows its params."""
+    text-encoder update; its EMA, if any, still follows its params.
+
+    ``mesh``: ``batch`` is this rank's shard of the global batch, and the
+    grads and the loss are summed over the mesh's ``data_parallel`` axis
+    (module docstring); None is one process."""
+    ranks = axis_size(mesh, AXIS_DATA)
     loss_kw = dict(
         strip_bos_eos_token=strip_bos_eos_token, offset_noise_magnitude=offset_noise_magnitude,
         min_snr_gamma_magnitude=min_snr_gamma_magnitude,
         perturbation_noise_magnitude=perturbation_noise_magnitude,
         text_context_window=text_context_window, train_text_encoder=train_text_encoder,
-        vae_encode_chunk=vae_encode_chunk,
+        vae_encode_chunk=vae_encode_chunk, shard=(axis_index(mesh, AXIS_DATA), ranks),
     )
     states = (unet_state, text_encoder_state, frozen_vae_state, frozen_noise_scheduler_state)
     unet_params = unet_state.params
@@ -224,7 +268,7 @@ def train_step(
 
     if grad_accumulation_steps <= 1:
         loss = _loss(*states, batch, train_rng, draws, **loss_kw)
-        grads = dict(zip(diff_params, _grads(loss, diff_params)))
+        grads = dict(zip(diff_params, _grads(loss / ranks, diff_params)))
     else:
         accum = grad_accumulation_steps
         image_key = "pixel_values" if "pixel_values" in batch else "latent_moments"
@@ -242,7 +286,7 @@ def train_step(
         for i in range(accum):
             mb = {k: v[i] for k, v in micro.items()}
             micro_loss = _loss(*states, mb, train_rng, None if draws is None else draws[i], **loss_kw)
-            micro_grads = _grads(micro_loss, diff_params)
+            micro_grads = _grads(micro_loss / ranks, diff_params)
             with torch.no_grad():
                 for acc, g in zip(grads.values(), micro_grads):
                     acc.add_(g / weak(accum, g))  # JAX's a + b / n: b / n in b's dtype
@@ -250,6 +294,11 @@ def train_step(
             del micro_loss, micro_grads
         grads = {k: g.to(diff_params[k].dtype) for k, g in grads.items()}
 
+    if mesh is not None:
+        all_reduce_grads_(grads, mesh)
+        loss = (loss.detach() / ranks).reshape(1)
+        dist.all_reduce(loss, group=mesh.get_group(AXIS_DATA))
+        loss = loss[0]
     unet_state.apply_gradients({k: grads[k] for k in unet_params})
     if train_text_encoder:
         text_encoder_state.apply_gradients(

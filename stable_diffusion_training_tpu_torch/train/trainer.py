@@ -41,6 +41,20 @@ steps of the first chunk (``min(4, loss_logging_interval) + 1``, as the JAX
 trainer stops its trace) with ``torch.profiler`` and writes a Chrome trace
 there. A tokenizer is used only when passed, or when
 ``model_path/tokenizer`` exists (``transformers`` is then imported).
+
+Data parallelism: under ``torchrun --nproc_per_node=N`` (or in a process
+group the caller started) every rank runs ``main``: one process per card,
+the mesh's ``data_parallel`` axis over them all, ``batch_size`` the global
+batch. The streaming loader gives each rank its rows of each batch of one
+plan (``process_index`` / ``process_count``); an injected loader yields the
+rank's own rows (``core.slice_batch_for_process``). A host's first rank
+alone fetches and deletes the chunks of the ramdisk the host's ranks share,
+and rank 0 alone writes the JSON state, ``loss.csv``, the save probe, the
+checkpoints and their rotation, the eval images, TensorBoard events and the
+trace; the others wait, and a failure on one rank stops every rank. The
+ranks agree on every step before it runs: a rank whose queue timed out
+grabs again while the others hold their batch, so no rank steps or skips
+alone.
 """
 
 import contextlib
@@ -50,10 +64,19 @@ import time
 from collections import deque
 from typing import Any, Optional
 
-import numpy as np
 import torch
 
-from ..utils.device import resolve_device
+from ..core.distributed import (
+    agree_min,
+    initialize_distributed,
+    local_process_index,
+    process_count,
+    process_index,
+    put_local_batch,
+    rank_device,
+    run_on,
+)
+from ..core.mesh import AXIS_DATA, AXIS_TENSOR, create_mesh
 from ..utils.json_io import delete_file_or_folder, read_json_file, save_dict_to_json
 from ..utils.metrics import MetricsWriter
 from ..utils.profiling import profiler_trace
@@ -72,7 +95,7 @@ def load_run_config(config_dict_path: str):
     the typed subset."""
     config_dict = read_json_file(config_dict_path)
     directory, name = os.path.split(config_dict_path)
-    save_dict_to_json(config_dict, os.path.join(directory, f"backup_{name}"))
+    run_on(process_index() == 0, save_dict_to_json, config_dict, os.path.join(directory, f"backup_{name}"))
     if len(config_dict["image_area_root"]) != len(config_dict["minimum_axis_length"]):
         raise ValueError(
             "number of elements in image_area_root and minimum_axis_length is not "
@@ -82,7 +105,8 @@ def load_run_config(config_dict_path: str):
 
 
 def _build_dataloader(config_dict, config_dict_path, tokenizer):
-    """The streaming loader of the config's repos, chunk and seed."""
+    """The streaming loader of the config's repos, chunk and seed, giving
+    this process its rows of each batch."""
     from ..data import DataLoader
 
     return DataLoader(
@@ -98,19 +122,9 @@ def _build_dataloader(config_dict, config_dict_path, tokenizer):
         chunk_number=config_dict["chunk_number"],
         seed=config_dict["master_seed"],
         context_concatenation_multiplier=config_dict["context_window_concatenation_count"],
+        process_index=process_index(),
+        process_count=process_count(),
     )
-
-
-def _to_device(batch: dict, device: torch.device) -> dict:
-    """Numpy arrays to ``device``: from pinned host memory without blocking
-    on a card, as they are on the CPU."""
-    out = {}
-    for key, value in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(value)) if isinstance(value, np.ndarray) else value
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        out[key] = t
-    return out
 
 
 def _prefetch_to_device(dataloader, total: int, context_window: int, device, depth: int = 1):
@@ -131,7 +145,7 @@ def _prefetch_to_device(dataloader, total: int, context_window: int, device, dep
         b["input_ids"] = b["input_ids"].reshape(-1, context_window)
         if "attention_mask" in b:
             b["attention_mask"] = b["attention_mask"].reshape(-1, context_window)
-        return _to_device(b, device)
+        return put_local_batch(b, device)
 
     buf = deque()
     grabbed = 0
@@ -181,8 +195,12 @@ def _run_save_probe(
         sys.exit()
 
     print("save function works as expected deleting the test model")
-    delete_file_or_folder(probe_path)
-    delete_file_or_folder(f"{probe_path}-EMA")
+    run_on(process_index() == 0, _delete_all, probe_path, f"{probe_path}-EMA")
+
+
+def _delete_all(*paths) -> None:
+    for path in paths:
+        delete_file_or_folder(path)
 
 
 def _save_chunk_checkpoints(
@@ -203,7 +221,7 @@ def _save_chunk_checkpoints(
         unet_params=unet_state.params, text_encoder_params=text_encoder_state.params,
         vae_params=frozen_vae.params, output_dir=latest_model_path,
     )
-    delete_file_or_folder(f"{base}@{steps - keep}")
+    run_on(process_index() == 0, delete_file_or_folder, f"{base}@{steps - keep}")
 
     if config_dict["ema_rate"]:
         save_model(
@@ -214,7 +232,7 @@ def _save_chunk_checkpoints(
             ),
             vae_params=frozen_vae.params, output_dir=f"{base}-EMA@{steps}",
         )
-        delete_file_or_folder(f"{base}-EMA@{steps - keep}")
+        run_on(process_index() == 0, delete_file_or_folder, f"{base}-EMA@{steps - keep}")
 
     # inside the checkpoint directory, so rotation removes it with the chunk;
     # diffusers loaders ignore the extra subfolder
@@ -264,12 +282,17 @@ def main(
     dataloader: Optional[Any] = None,
     tokenizer: Optional[Any] = None,
     device=None,
+    mesh=None,
 ) -> None:
     """Run ``chunk_limit`` chunks of training from the JSON config at
-    ``config_dict_path`` on ``device`` (cuda unless told otherwise), with
-    ``dataloader`` (None: the streaming ``DataLoader`` built from the
-    config; or an ``InMemoryDataLoader``, a ``CachedLatentLoader`` or
-    anything with their protocol)."""
+    ``config_dict_path`` on ``device`` (the rank's card unless told
+    otherwise), with ``dataloader`` (None: the streaming ``DataLoader``
+    built from the config; or an ``InMemoryDataLoader``, a
+    ``CachedLatentLoader`` or anything with their protocol, yielding this
+    rank's rows). In a process group (torchrun's environment, or one the
+    caller started) the ranks train data-parallel over ``mesh``, by default
+    the config's ``mesh_shape`` or every rank on the data axis."""
+    group = initialize_distributed(device=device)  # None: one process, nothing to join
     config_dict, training_config = load_run_config(config_dict_path)
 
     if tokenizer is None:
@@ -281,27 +304,33 @@ def main(
 
     if dataloader is None:
         dataloader = _build_dataloader(config_dict, config_dict_path, tokenizer)
-    device = resolve_device(device)
+    device = rank_device(device)
+    if mesh is None and group is not None:
+        axes = training_config.mesh_axes() or {AXIS_DATA: process_count(), AXIS_TENSOR: 1}
+        mesh = create_mesh(tuple(axes.values()), tuple(axes), device_type=device.type)
+    leader = process_index() == 0  # writes the run's files
+    ramdisk_leader = local_process_index() == 0  # fetches and deletes the host's chunks
 
     if not config_dict["DEBUG"]:
         dataloader._print_debug = False
 
+    # the same seed on every rank: each keeps its rows of the global draws
     train_rng = torch.Generator(device=device).manual_seed(config_dict["master_seed"])
     (
         unet_state, text_encoder_state, unet_ema_params, text_encoder_ema_params,
         frozen_vae, frozen_schedulers, model_object_dict,
-    ) = on_device_model_training_state(training_config, device=device)
+    ) = on_device_model_training_state(training_config, device=device, mesh=mesh)
     unet_state, text_encoder_state, unet_ema_params, text_encoder_ema_params, train_rng = (
         _maybe_restore_full_state(
             config_dict, unet_state, text_encoder_state, unet_ema_params, text_encoder_ema_params, train_rng,
         )
     )
-    train_step_funcs = bucket_train_steps(training_config, frozen_vae)
+    train_step_funcs = bucket_train_steps(training_config, frozen_vae, mesh=mesh)
 
     if config_dict["DEBUG"]:
         # careful: this mutates the persisted json states, as in the reference
         config_dict["loss_logging_interval"] //= 10
-    if not os.path.isfile(config_dict["loss_csv"]):
+    if leader and not os.path.isfile(config_dict["loss_csv"]):
         with open(config_dict["loss_csv"], "w") as loss_file:
             loss_file.write("steps, step_size, loss, time, chunk, seed\n")
 
@@ -315,12 +344,15 @@ def main(
     eval_sampler = EvalSampler(config_dict, model_object_dict, tokenizer, metrics_writer, device=device)
 
     for chunk_index in range(config_dict["chunk_limit"]):
-        dataloader.delete_prev_chunks(prev_chunk=config_dict["chunk_number"] - 1)
+        run_on(ramdisk_leader, dataloader.delete_prev_chunks, prev_chunk=config_dict["chunk_number"] - 1)
         if config_dict["chunk_number"] >= config_dict["chunk_limit"]:
-            dataloader.delete_prev_chunks(prev_chunk=config_dict["chunk_number"])
+            run_on(ramdisk_leader, dataloader.delete_prev_chunks, prev_chunk=config_dict["chunk_number"])
             config_dict["chunk_number"] = 0
         dataloader.chunk_number = config_dict["chunk_number"]
-        dataloader.grab_and_prefetch_chunk(numb_of_prefetched_batch=config_dict["numb_of_prefetched_batch"])
+        run_on(
+            ramdisk_leader, dataloader.grab_and_prefetch_chunk,
+            numb_of_prefetched_batch=config_dict["numb_of_prefetched_batch"],
+        )
         dataloader.prepare_training_dataframe()
         dataloader.create_training_dataframe()
         if config_dict["DEBUG"]:
@@ -345,11 +377,20 @@ def main(
             depth=config_dict.get("device_prefetch_depth", 1),
         )
         with trace:
-            for count, current_batch in enumerate(batch_stream):
-                if isinstance(current_batch, str) and current_batch == "end_of_batch":
+            count, held = -1, None  # the stream's index of the held item
+            while True:
+                if held is None:
+                    held = next(batch_stream, "end_of_batch")
+                    count += 1
+                # every rank steps, or none: "end_of_batch" anywhere ends the
+                # chunk; a None (a queue timeout) has that rank grab again
+                # while the others hold their batch
+                agreed = agree_min(0 if isinstance(held, str) else 1 if held is None else 2)
+                if agreed == 0:
                     break
-                if current_batch is None:
+                if agreed == 1:
                     continue
+                current_batch, held = held, None
 
                 # reference quirk kept: reset inside the loop, so the logged
                 # "avg loss" is the single current step's loss
@@ -372,7 +413,7 @@ def main(
                 sampled = eval_sampler.maybe_sample(global_step)
                 if sampled:
                     print(f"eval samples at step {global_step} -> {sampled}")
-                if count % interval == 0:
+                if leader and count % interval == 0:
                     stop = time.time()
                     time_elapsed = round(stop - start, 4)
                     # an f32 value printed as a Python float, as the JAX
@@ -402,12 +443,12 @@ def main(
         )
         config_dict["chunk_number"] += 1
         config_dict["chunk_steps"] += 1
-        save_dict_to_json(config_dict, config_dict_path)
+        run_on(leader, save_dict_to_json, config_dict, config_dict_path)
 
     # flush temp storage
     for flushed_batch in range(config_dict["chunk_limit"] + config_dict["numb_of_prefetched_batch"] + 1):
-        dataloader.delete_prev_chunks(prev_chunk=flushed_batch)
+        run_on(ramdisk_leader, dataloader.delete_prev_chunks, prev_chunk=flushed_batch)
 
     config_dict["master_seed"] += 1
-    save_dict_to_json(config_dict, config_dict_path)
+    run_on(leader, save_dict_to_json, config_dict, config_dict_path)
     metrics_writer.close()

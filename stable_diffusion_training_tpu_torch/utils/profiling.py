@@ -4,7 +4,8 @@ Port of ``stable_diffusion_training_tpu/utils/profiling.py``. Where the JAX
 package writes an XLA profiler trace, ``profiler_trace`` records the host's
 and, on a CUDA device, the card's activity with ``torch.profiler`` and
 writes it as a Chrome trace (``chrome://tracing``, Perfetto) into the
-directory. ``StepTimer`` keeps per-step wall clock with p50/p90 summaries;
+directory, from rank 0 alone under data parallelism. ``StepTimer`` keeps
+per-step wall clock with p50/p90 summaries;
 ``estimate_unet_flops`` is the JAX package's rough FLOPs a step.
 """
 
@@ -17,13 +18,16 @@ import numpy as np
 import torch
 
 
+
 @contextlib.contextmanager
 def profiler_trace(logdir: str, enabled: bool = True, device="cuda"):
     """Record the enclosed block with ``torch.profiler`` (CPU activity, and
     CUDA activity when ``device`` is a CUDA device) and write the Chrome
     trace ``trace_<pid>_<ns>.json`` into ``logdir``. Yields the profiler
-    (None when disabled)."""
-    if not enabled:
+    (None when disabled, and on every rank but rank 0)."""
+    from ..core.distributed import process_index  # core imports utils
+
+    if not enabled or process_index() != 0:
         yield None
         return
     from torch.profiler import ProfilerActivity, profile

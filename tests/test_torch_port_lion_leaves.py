@@ -178,3 +178,28 @@ def test_bucket_max_nb_changes_nothing():
             assert torch.equal(ua[k], ub[k])
         for k in ma:
             assert torch.equal(ma[k][0], mb[k][0]) and torch.equal(ma[k][1], mb[k][1])
+
+
+@pytest.mark.parametrize("offset,ok", [(1, False), (2, False), (4, True)], ids=["4-bytes", "8-bytes", "16-bytes"])
+def test_grads_off_16_byte_boundaries_raise(offset, ok):
+    """A grad that is a view of a flat buffer (as the data-parallel
+    all-reduce hands them out) must start on a 16-byte boundary, the
+    kernel's ``cp.async`` width: the entry raises otherwise, on the CPU as
+    on the card, before it reads a grad. On a boundary the view updates as
+    a grad of its own would."""
+    shape = (32, 48)
+    g = torch.tensor(_rand(shape, 3, 1e-2))
+    flat = torch.zeros(g.numel() + 8)
+    view = flat[offset : offset + g.numel()].view(shape)
+    view.copy_(g)
+    codes, scales = torch.full((g.numel() // 16, 16), 3, dtype=torch.int8), torch.ones(g.numel() // 16)
+    table = lk.LeafTable([codes], [scales], [shape], [DENSE])
+    if not ok:
+        with pytest.raises(ValueError, match="16-byte"):
+            lk.lion8bit_update_leaves_([view], table)
+        assert torch.equal(codes, torch.full_like(codes, 3)) and torch.equal(scales, torch.ones_like(scales))
+        return
+    fresh = lk.LeafTable([codes.clone()], [scales.clone()], [shape], [DENSE])
+    (u_view,) = lk.lion8bit_update_leaves_([view], table)
+    (u_own,) = lk.lion8bit_update_leaves_([g], fresh)
+    assert torch.equal(u_view, u_own) and torch.equal(codes, fresh.codes[0]) and torch.equal(scales, fresh.scales[0])

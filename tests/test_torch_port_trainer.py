@@ -380,7 +380,7 @@ def test_profile_trace_dir_writes_a_trace(tmp_path):
 @pytest.mark.parametrize(
     "overrides,item",
     [
-        (dict(mesh_shape=[2, 1]), "item 7"),
+        (dict(mesh_shape=[1, 2]), "item 7"),  # a model_parallel axis; [W, 1] is data parallelism
         (dict(fsdp_shard_params=True), "item 7"),
         (dict(tensor_parallel_shard_params=True), "item 7"),
         (dict(vae_polyphase_downsample=True), "item 9"),
@@ -388,9 +388,9 @@ def test_profile_trace_dir_writes_a_trace(tmp_path):
     ids=["mesh", "fsdp", "tensor-parallel", "polyphase"],
 )
 def test_options_not_ported_raise(tmp_path, overrides, item):
-    """A config that asks the JAX package for a multi-device mesh, sharding
-    or the polyphase VAE downsample stops the port's trainer with the
-    ROADMAP item instead of training without it."""
+    """A config that asks the JAX package for a tensor-parallel mesh axis,
+    sharding or the polyphase VAE downsample stops the port's trainer with
+    the ROADMAP item instead of training without it."""
     _, path = make_config_dict(tmp_path, "o", **overrides)
     with pytest.raises(NotImplementedError, match=item):
         trainer.main(path, dataloader=_loader(), device="cpu")
