@@ -9,6 +9,7 @@ NVIDIA GPU and check it end to end.
     python3 chip_smoke.py --phases gpu,build,sdxl_train_parity,sdxl_train,sdxl_trainer   # SDXL training
     python3 chip_smoke.py --phases gpu,build,sd21_parity,sd21,sd21_trainer   # SD2.1 at 768x768
     python3 chip_smoke.py --phases gpu,build,ddp_parity,ddp_trainer   # data parallelism, two ranks
+    python3 chip_smoke.py --phases gpu,build,fsdp_parity,fsdp_trainer   # FSDP, two ranks
 
 Phases, one JSON line each:
 
@@ -229,11 +230,11 @@ Phases, one JSON line each:
 20. ``ddp_trainer``: ``trainer.main(path, dataloader=None, tokenizer=
    StubTokenizer())`` on two ranks (gloo, cuda:0; BASELINE config 2's
    data-parallel layout on one card): SD1.5 at full width in bf16, the
-   example recipe, global batch 8 (4 a rank), a chunk of 32 seeded 512x512
-   PNGs (4 steps), DDIM eval every 2 steps (4 steps), then a second
+   example recipe, global batch 8 (4 a rank), a chunk of 16 seeded 512x512
+   PNGs (2 steps), DDIM eval every 2 steps (2 steps), then a second
    invocation that resumes from ``train_state/``; then 2 steps of
    ``trainer.main`` in a one-rank NCCL world that the trainer starts from
-   torchrun's variables. Checks: one ``loss.csv`` (a header, rank 0's 8
+   torchrun's variables. Checks: one ``loss.csv`` (a header, rank 0's 4
    rows), one checkpoint after rotation, rank 0 alone writing the JSON,
    the probe, the checkpoints and the eval PNGs (rank 1 none), the ranks'
    states bitwise equal at each chunk checkpoint, each rank's pixel rows
@@ -242,9 +243,48 @@ Phases, one JSON line each:
    the fused bf16 backward 5, Lion's table once per model), rank 0's evals'
    besides and nothing else; the NCCL leg's backend, rows and launches.
    Prints per rank the step p50, global images/s, the all-reduce's ms a
-   step and peak memory: two ranks share one card and gloo moves the grads
-   through the host, so these describe the check, not scaling. Run
+   step and peak memory: two ranks share one card (their all-reduce is
+   copies between buffers they map, ``_CardExchange``), so these describe
+   the check, not scaling. Run
    directory ``.cache/chip_smoke_ddp/``, deleted at the end.
+21. ``fsdp_parity``: FSDP's step against one process. Two gloo ranks on
+   cuda:0 as in ``ddp_parity``, SD1.5 at full width in f32 (TF32 off), a
+   global batch of 2 with fixed global draws; rank 0 first takes the step
+   as one process, then both take it on their row with the UNet and the
+   text encoder sharded over a ``[1, 2, 1]`` mesh's fsdp axis
+   (``fsdp_shard_params``; FSDP2's all-gathers and reduce-scatters are
+   copies between the ranks' mapped buffers, gloo barriers around them).
+   Checks: the ranks' gathered params, EMA,
+   codes and scales bitwise equal; rank 0's against the one-process step
+   within ``ddp_parity``'s bounds and code-noise rule; each rank's local
+   codes and scales its slices of the gathered ones; the leaves kept whole
+   those of the co-sharding rule (none in the example config); no grad
+   copied before Lion; launches by shape (K1 5 + 1 f32, the fused f32
+   backward 5, Lion's leaf table once per model over the rank's local
+   leaves). Prints each rank's step ms, the ms in FSDP2's all-gathers and
+   reduce-scatters (host clock, the card synchronized around each) and
+   peak memory.
+22. ``fsdp_trainer``: ``trainer.main`` on the SDXL UNet at full width
+   (BASELINE config 4, config 5's recipe: bf16, gradient checkpointing,
+   frozen cached towers, the offline cache; ``sdxl_train``'s cache, made
+   here if that phase did not run) on two gloo ranks of cuda:0, a ``[1,
+   2, 1]`` mesh with ``fsdp_shard_params``, global batch 4 (2 a rank),
+   one chunk of 4 steps (1024x1024, 1152x896, 1024x1024, 1024x1024) with
+   its checkpoint; then a one-rank NCCL world (torchrun's variables, a
+   ``[1, 1, 1]`` mesh, FSDP2 on one rank) that resumes from that
+   checkpoint and trains 2 steps of the step table (no second SDXL
+   checkpoint beside the first). Checks: finite ``loss.csv`` rows, the
+   JSON, the checkpoint, rank 0 alone writing, the ranks' losses equal,
+   each step's launches at the rank's shapes (K1 20 a step at ``(20,
+   4096, 64)`` or ``(20, 4032, 64)``, the fused bf16 backward 10, Lion's
+   leaf table once over the rank's half of the UNet), no grad copied
+   before Lion, the checkpoint read back whole by the NCCL leg equal, in
+   each gloo rank's slices, to that rank's shards at the save
+   (fingerprints of every param, EMA, code and scale), the NCCL leg's
+   backend, rows and launches. Prints per rank the step p50, the ms a step
+   in FSDP2's all-gathers and reduce-scatters and peak memory; two ranks
+   share the card, so these describe the check, not sharded scaling. Run directory ``.cache/chip_smoke_fsdp/``,
+   deleted at the end.
 
 Any failed check raises, so the script exits non-zero and prints no result;
 a rank that exits non-zero fails its phase. The ranks' launches are
@@ -274,12 +314,13 @@ JAX_OPS = "stable_diffusion_training_tpu/ops"
 ALL_PHASES = (
     "gpu", "build", "kernels", "parity", "slice", "sdxl_parity", "sdxl", "sdxl_refiner", "train_parity", "train",
     "train_f32", "trainer", "sdxl_train_parity", "sdxl_train", "sdxl_trainer", "sd21_parity", "sd21",
-    "sd21_trainer", "ddp_parity", "ddp_trainer",
+    "sd21_trainer", "ddp_parity", "ddp_trainer", "fsdp_parity", "fsdp_trainer",
 )
 # the phases whose runs give the kernels line its launches
 PATH_PHASES = {
     "kernels", "parity", "slice", "sdxl_parity", "sdxl", "sdxl_refiner", "train_parity", "train", "train_f32",
     "sdxl_train_parity", "sdxl_train", "sd21_parity", "sd21", "sd21_trainer", "ddp_parity", "ddp_trainer",
+    "fsdp_parity", "fsdp_trainer",
 }
 
 # H100 SXM peaks (NVIDIA data sheet, dense): 989 TFLOP/s bf16 tensor core,
@@ -445,11 +486,21 @@ def phase_build(state):
     and the fused backward) its count of wgmma (``HGMMA``) and TMA load
     (``UTMALDG``) instructions. Those kernels must be built, use both and
     spill nothing; the f32 kernels (``F32_KERNELS``) must be built and
-    spill nothing."""
+    spill nothing. When the kernels phase runs, ``probe_lion.py``'s
+    variants build at the same time, for it."""
     from stable_diffusion_training_tpu_torch.ops import cuda_build, flash_attention, lion_kernel
 
     start = time.perf_counter()
-    paths = cuda_build.build_many({**flash_attention.LIBRARIES, **lion_kernel.LIBRARIES})
+    probe_builds = None
+    if "kernels" in state["phases"]:  # probe_lion's variants build beside them, for the kernels phase
+        import probe_lion
+
+        probe_builds = probe_lion.start_builds()
+    try:
+        paths = cuda_build.build_many({**flash_attention.LIBRARIES, **lion_kernel.LIBRARIES})
+    finally:
+        if probe_builds:
+            state["lion_probe_built"] = probe_lion.finish_builds(probe_builds)
     seconds = time.perf_counter() - start
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     ptxas, kernels, advisories = {}, {}, []
@@ -651,6 +702,11 @@ def phase_kernels(state):
         ("ddp_unet_train", 32, 4096, 4096, 40, ("bfloat16",)),
         ("ddp_vae_encode", 4, 4096, 4096, 512, ("bfloat16",)),
         ("ddp_parity_unet", 8, 4096, 4096, 40, ("float32",)),
+        # FSDP: fsdp_trainer's 2 SDXL rows a rank (the 64x64 level is
+        # sdxl_unet_l1's bf16 shape; the 1152x896 bucket's 72x56 level here;
+        # its one-rank NCCL leg runs sdxl_train's), fsdp_parity's f32 row a
+        # rank (ddp_parity_unet's and vae_mid's shapes)
+        ("fsdp_sdxl_train_bucket_l1", 20, 4032, 4032, 64, ("bfloat16",)),
     ]
     results = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -682,7 +738,8 @@ def phase_kernels(state):
             reps = 20 if d <= 64 else 5
             host = []
             kernel_ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, scale), reps, host=host)
-            plain_ms = cuda_ms(lambda: plain_by_heads(fa.flash_attention_fwd_reference, q, k, v, scale), reps)
+            # the plain version, 10-100x slower, needs fewer calls to time
+            plain_ms = cuda_ms(lambda: plain_by_heads(fa.flash_attention_fwd_reference, q, k, v, scale), 3, warmup=1)
             cuda_cores = {}
             if name_dt == "float32" and not name.startswith("ragged"):
                 # the kernel the f32 route replaced, on the same inputs
@@ -721,7 +778,7 @@ def phase_kernels(state):
     state["lion_cases"] = lion_cases()
     state["lion_fused_cases"] = lion_fused_cases()
     state["lion_model_cases"] = lion_model_cases()
-    state["lion_probe_cases"] = lion_probe_cases()
+    state["lion_probe_cases"] = lion_probe_cases(state.pop("lion_probe_built", None))
     bad = [
         r for r in results + state["bwd_cases"] + state["lion_cases"] + state["lion_fused_cases"]
         + state["lion_model_cases"] + state["lion_probe_cases"] if not r["ok"]
@@ -788,6 +845,10 @@ def flash_backward_cases():
         # ddp_trainer's 64x64 level at batch 4 a rank (ddp_parity's f32 batch
         # 1 a rank is train_parity's shape, unet_train_f32)
         ("ddp_unet_train", 32, 4096, 4096, 40, torch.bfloat16),
+        # fsdp_trainer's SDXL levels at 2 rows a rank (fsdp_parity's f32 row a
+        # rank is train_parity's shape, unet_train_f32)
+        ("fsdp_sdxl_train", 20, 4096, 4096, 64, torch.bfloat16),
+        ("fsdp_sdxl_train_bucket", 20, 4032, 4032, 64, torch.bfloat16),
     ]
     rows = []
     for name, bh, sq, sk, d, dtype in cases:
@@ -1184,6 +1245,12 @@ def lion_model_cases():
     variants = ((torch.bfloat16, "exact"), (torch.bfloat16, "fast"), (torch.float32, "exact"))
     models = [(name, leaves, variants) for name, leaves in sd15_quantized_leaves().items()]
     models.append(("sdxl_unet", sdxl_quantized_leaves(), variants[:1]))
+    # one rank's table under FSDP on two ranks: its local leaves (the
+    # co-sharding rule's; both ranks' tables are alike), fsdp_trainer's SDXL
+    # UNet in bf16 and fsdp_parity's SD1.5 models in f32
+    models.append(("sdxl_unet_fsdp_half", fsdp_rule(sdxl_quantized_leaves(), FSDP_WORLD, 0)[0], variants[:1]))
+    models += [(f"{name}_fsdp_half", fsdp_rule(leaves, FSDP_WORLD, 0)[0], variants[2:])
+               for name, leaves in sd15_quantized_leaves().items()]
     models += [(name, leaves, variants[:1]) for name, leaves in sd21_quantized_leaves().items()]
     for model_name, leaves, model_variants in models:
         for dtype, compander in model_variants:
@@ -1248,7 +1315,7 @@ def lion_model_cases():
             torch.cuda.empty_cache()
     both = {}
     for r in rows:
-        if r["model"] not in ("unet", "text_encoder"):  # the sum is SD1.5's
+        if r["model"] not in ("unet", "text_encoder"):  # the sum is SD1.5's (whole models)
             continue
         key = (r["dtype"], r["compander"])
         acc = both.setdefault(key, dict(kernel_ms=0.0, bound_ms=0.0, old_route_ms=0.0, old_permute_copies_ms=0.0,
@@ -1266,14 +1333,14 @@ def lion_model_cases():
     return rows
 
 
-def lion_probe_cases():
+def lion_probe_cases(built=None):
     """``probe_lion.py``'s variants (both Lion kernels with powf, divides,
     transposed reads or math edited out) over each model's leaves, bf16,
     exact: what each part costs. A base variant must match the plain
-    version's signs."""
+    version's signs. ``built``: the variants the build phase built."""
     import probe_lion
 
-    rows, summary = probe_lion.measure(reps=5, report=lambda row: emit("kernels_lion_probe", **row))
+    rows, summary = probe_lion.measure(reps=5, report=lambda row: emit("kernels_lion_probe", **row), built=built)
     emit("kernels_lion_probe_saved", **summary)
     return rows
 
@@ -3101,15 +3168,17 @@ def phase_sd21_trainer(state, seed=0):
 
 # Data parallelism (BASELINE config 2's layout, on one card): two ranks on
 # cuda:0, each a process of its own (spawn), over gloo (NCCL takes one rank
-# per card; gloo stages CUDA tensors through the host), and a one-rank NCCL
-# world started from torchrun's variables. Their times describe this check,
-# not data-parallel scaling: the ranks share one card and the grads'
-# all-reduce goes through the host.
+# per card; the grads' all-reduce is copies between buffers the ranks map,
+# parallel.sharding._CardExchange), and a one-rank NCCL world started from
+# torchrun's variables. Their times describe this check, not data-parallel
+# scaling: the ranks share one card.
 DDP_WORLD = 2
 DDP_PARITY_BATCH = 2  # global: one row a rank
-DDP_TRAINER_STEPS = 4  # a chunk at the global batch TRAIN_BATCH: 4 rows a rank
+# a chunk at the global batch TRAIN_BATCH, 4 rows a rank: 2 steps, which keep
+# the script inside its time beside FSDP's phases
+DDP_TRAINER_STEPS = 2
 DDP_NCCL_STEPS = 2
-DDP_EVAL_STEPS = 4
+DDP_EVAL_STEPS = 2  # DDIM steps of each eval
 DDP_TIMEOUT_S = 900
 # tests/test_torch_port_train_step.py's bounds: lr is the reference's
 # hard-coded 1e-6 / 7; one flipped update sign moves a param by 2 * lr; at
@@ -3223,7 +3292,7 @@ def timed_step_table(steps):
 
 
 def ddp_rank(part, rank, world, port, workdir):
-    """One rank of a data-parallel phase, in a process of its own: joins the
+    """One rank of a data-parallel or FSDP phase, in a process of its own: joins the
     gloo group on cuda:0 through ``core.initialize_distributed``, runs
     ``part`` and writes its numbers to ``<part>_<rank>.json``."""
     import datetime
@@ -3239,7 +3308,8 @@ def ddp_rank(part, rank, world, port, workdir):
         timeout=datetime.timedelta(seconds=DDP_TIMEOUT_S),
     )
     try:
-        result = {"ddp_parity": ddp_parity_rank, "ddp_trainer": ddp_trainer_rank}[part](rank, workdir)
+        result = {"ddp_parity": ddp_parity_rank, "ddp_trainer": ddp_trainer_rank, "fsdp_parity": fsdp_parity_rank,
+                  "fsdp_trainer": fsdp_trainer_rank}[part](rank, workdir)
         result.update(rank=rank, max_memory_allocated=torch.cuda.max_memory_allocated())
         with open(os.path.join(workdir, f"{part}_{rank}.json"), "w") as f:
             json.dump(result, f)
@@ -3559,8 +3629,8 @@ def step_launches(batch, lion):
 def phase_ddp_trainer(state, seed=0):
     """``trainer.main(path, dataloader=None, tokenizer=StubTokenizer())`` on
     two ranks (gloo, cuda:0): SD1.5 at full width, bf16, 512x512, the
-    example recipe, global batch 8 (4 a rank), a chunk of 32 seeded PNGs
-    (4 steps), DDIM eval every 2 steps (4 steps), then a second invocation
+    example recipe, global batch 8 (4 a rank), a chunk of 16 seeded PNGs
+    (2 steps), DDIM eval every 2 steps (2 steps), then a second invocation
     that resumes from ``train_state/``; then 2 steps of ``trainer.main`` in
     a one-rank NCCL world started from torchrun's variables. Checks: one
     ``loss.csv`` (one header, rank 0's rows), one checkpoint, the JSON
@@ -3669,7 +3739,7 @@ def phase_ddp_trainer(state, seed=0):
         json=(final["chunk_number"], final["chunk_steps"], final["master_seed"]) == (1, 2, seed + 2),
         rank0_writes=ranks[0]["calls"] == writes,
         other_ranks_write_nothing=all(not any(r["calls"].values()) for r in ranks[1:]),
-        eval_pngs=eval_dirs == ["step_00000002", "step_00000004"] and all(
+        eval_pngs=eval_dirs == [f"step_{s:08d}" for s in range(2, DDP_TRAINER_STEPS + 1, 2)] and all(
             os.listdir(os.path.join(cfg["eval_sample_dir"], d)) == ["sample_0.png"] for d in eval_dirs),
         ranks_bitwise_equal=len(ranks[0]["digests"]) == 2 and all(r["digests"] == ranks[0]["digests"] for r in ranks),
         rows_are_the_ranks_halves=all(r["pixel_digests"] == halves[i] for i, r in enumerate(ranks)),
@@ -3711,12 +3781,614 @@ def phase_ddp_trainer(state, seed=0):
         raise AssertionError(f"ddp_trainer failed its checks: {checks}")
 
 
+# FSDP (BASELINE config 4: ZeRO-3 sharding over the mesh's fsdp axis, on one
+# card): two ranks on cuda:0 over gloo, whose FSDP2 collectives and
+# checkpoint gathers are copies between buffers the ranks map from each other
+# (parallel.sharding._CardExchange), and a one-rank NCCL world. Their times
+# describe this check, not sharded scaling: the ranks share one card.
+FSDP_WORLD = 2
+FSDP_MESH = [1, FSDP_WORLD, 1]
+FSDP_PARITY_BATCH = 2  # global: one row a rank
+# the SDXL cache's shards each leg's chunk runs, one step each at the global
+# batch SDXL_TRAIN_BATCH: the gloo leg 4 steps (1024x1024, 1152x896,
+# 1024x1024, 1024x1024), the NCCL leg 2
+FSDP_TRAINER_SHARDS = (0, 1, 2, 0)
+FSDP_NCCL_SHARDS = (0, 1)
+FINGERPRINT_CHUNK = 1 << 26
+
+
+def fsdp_rule(leaves, world, index):
+    """The co-sharding rule over ``leaves`` (``quantized_leaves``) for rank
+    ``index`` of ``world``: (this rank's table leaves at their local
+    shapes, the leaves kept whole)."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.parallel.sharding import FsdpPlan, RowShard
+
+    rows = {}
+    for name, shape, _ in leaves:
+        chunk = -(-shape[0] // world)
+        rows[name] = RowShard(torch.Size(shape), tuple(min(i * chunk, shape[0]) for i in range(world + 1)), index,
+                              None)
+    plan = FsdpPlan(rows, {name: perm for name, _, perm in leaves})
+    local, whole = [], []
+    for name, shape, perm in leaves:
+        if plan.momentum(name, LION_BS) is None:
+            whole.append((name, shape, perm))
+        else:
+            r = rows[name]
+            local.append((name, (r.stop - r.start,) + tuple(shape[1:]), perm))
+    return local, whole, plan
+
+
+def fsdp_lion_launches(leaves, dtype_name, world=FSDP_WORLD, index=0):
+    """One rank's Lion launches of one update under the rule: the leaf
+    table over its local leaves, and the single-leaf entry once per leaf
+    kept whole."""
+    local, whole, _ = fsdp_rule(leaves, world, index)
+    launches = {"lion_leaves": lion_table_launches(local, dtype_name)}
+    if whole:
+        launches["lion_single"] = {}
+        for _, shape, _ in whole:
+            key = (math.prod(shape) // LION_BS, LION_BS, dtype_name)
+            launches["lion_single"][key] = launches["lion_single"].get(key, 0) + 1
+    return launches, [name for name, _, _ in whole]
+
+
+def fingerprint(t):
+    """Two exact integer sums of a tensor's bits (plain and weighted by
+    position mod 65521): equal tensors give equal pairs."""
+    import torch
+
+    flat = t.detach().reshape(-1)
+    bits = flat.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[flat.element_size()])
+    total = weighted = 0
+    for start in range(0, bits.numel(), FINGERPRINT_CHUNK):
+        x = bits[start:start + FINGERPRINT_CHUNK].to(torch.int64)
+        w = torch.arange(start, start + x.numel(), device=x.device, dtype=torch.int64) % 65521 + 1
+        total += int(x.sum())
+        weighted += int((x * w).sum())
+    return [total, weighted]
+
+
+def timed_fsdp_comms(sink):
+    """Wraps FSDP2's all-gathers and reduce-scatters (the process group's
+    functions it calls, and the card exchange of gloo ranks): host ms of
+    each, the card synchronized before and after, into ``sink``
+    ({"all_gather": [...], "reduce_scatter": [...]})."""
+    import torch
+    import torch.distributed as dist
+
+    from stable_diffusion_training_tpu_torch.parallel import sharding
+
+    def timed(kind, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if out is not None and hasattr(out, "wait"):
+                out.wait()
+            torch.cuda.synchronize()
+            sink[kind].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapper
+
+    for name, kind in (("all_gather_single", "all_gather"), ("all_gather_into_tensor", "all_gather"),
+                       ("reduce_scatter_single", "reduce_scatter"), ("reduce_scatter_tensor", "reduce_scatter")):
+        if hasattr(dist, name):
+            setattr(dist, name, timed(kind, getattr(dist, name)))
+    sharding._CardAllGather.__call__ = timed("all_gather", sharding._CardAllGather.__call__)
+    sharding._CardReduceScatter.__call__ = timed("reduce_scatter", sharding._CardReduceScatter.__call__)
+
+
+def fsdp_parity_rank(rank, workdir):
+    """Rank 0 first takes the step as one process over the whole global
+    batch (the reference); then both ranks take it on their row with the
+    models sharded over the fsdp axis, and gather the trained state whole:
+    rank 0 holds it against the reference, and each rank its local Lion
+    codes and scales against its slices of the gathered ones."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.core import create_mesh, slice_batch_for_process
+    from stable_diffusion_training_tpu_torch.core.distributed import barrier
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+    from stable_diffusion_training_tpu_torch.optim import QuantizedMomentum, lion8bit
+    from stable_diffusion_training_tpu_torch.parallel import state_digest
+    from stable_diffusion_training_tpu_torch.parallel.sharding import gather_rows_many
+    from stable_diffusion_training_tpu_torch.train import on_device_model_training_state, train_step
+
+    set_tf32(False)
+    device = torch.device("cuda", 0)
+    inputs = torch.load(os.path.join(workdir, "inputs.pt"))
+    batch = {k: v.to(device) for k, v in inputs["batch"].items()}
+    draws = {k: v.to(device) for k, v in inputs["draws"].items()}
+
+    def step(states, rows, mesh, ema_rate):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_step(*states[:4], rows, None, states[4], states[5], draws=draws, mesh=mesh,
+                         strip_bos_eos_token=True, ema_rate=ema_rate, text_context_window=77)
+        return out[4]["loss"].item(), (time.perf_counter() - t0) * 1e3
+
+    result, reference, before = {}, None, None
+    cfg = train_config(mixed_precision="float32", batch_size=FSDP_PARITY_BATCH)
+    if rank == 0:
+        ref_states = on_device_model_training_state(cfg, device=device)
+        before = {key: {n: p.detach().clone() for n, p in s.params.items()}
+                  for key, s in (("unet", ref_states[0]), ("text_encoder", ref_states[1]))}
+        result["reference_loss"], result["reference_step_ms"] = step(ref_states, batch, None, cfg.ema_rate)
+        reference = {key: (s.params, s.opt_state[1][0].mu_quant)
+                     for key, s in (("unet", ref_states[0]), ("text_encoder", ref_states[1]))}
+        del ref_states
+        torch.cuda.empty_cache()
+    barrier()
+    cfg = train_config(mixed_precision="float32", batch_size=FSDP_PARITY_BATCH, mesh_shape=FSDP_MESH,
+                       fsdp_shard_params=True)
+    mesh = create_mesh(tuple(FSDP_MESH), device_type="cuda")
+    states = on_device_model_training_state(cfg, device=device, mesh=mesh)
+    comms = {"all_gather": [], "reduce_scatter": []}
+    timed_fsdp_comms(comms)
+    lion8bit.GRAD_COPIES["count"] = 0
+    fa.reset_launch_counts()
+    lk.reset_launch_counts()
+    result["loss"], result["step_ms"] = step(states, slice_batch_for_process(batch, mesh), mesh, cfg.ema_rate)
+    result["launches"] = launches_json(launch_snapshot(fa, lk))
+    result["grad_copies"] = lion8bit.GRAD_COPIES["count"]
+    result["comms_ms"] = {k: sum(v) for k, v in comms.items()}
+    result["comms_calls"] = {k: len(v) for k, v in comms.items()}
+    # the trained state, whole, on every rank (many leaves to a collective)
+    trained, local_slices, whole, gathered = {}, {}, {}, []
+    for key, s in (("unet", states[0]), ("text_encoder", states[1])):
+        plan, ema = s.fsdp, states[2] if key == "unet" else states[3]
+        jobs, kept = [], []  # (kind, leaf, gathers)
+        for n, t in s.params.items():
+            jobs.append(("params", n, plan.rows[n].gathers(t)))
+        for n, t in ema.items():
+            jobs.append(("ema", n, plan.rows[n].gathers(t)))
+        mu = s.opt_state[1][0].mu_quant
+        for n, m in mu.items():
+            if not isinstance(m, QuantizedMomentum):
+                jobs.append(("dense", n, plan.rows[n].gathers(m)))
+            elif plan.momentum(n, m.codes.shape[1]) is None:
+                kept.append(n)
+            else:
+                jobs.append(("quantized", n, plan.momentum(n, m.codes.shape[1]).gathers(m.codes, m.scales)))
+        fulls = iter(gather_rows_many([g for _, _, gs in jobs for g in gs]))
+        params, ema_whole, momentum, ok = {}, {}, {n: mu[n] for n in kept}, True
+        for kind, n, gs in jobs:
+            parts = [next(fulls) for _ in gs]
+            if kind == "params":
+                params[n] = parts[0]
+            elif kind == "ema":
+                ema_whole[n] = parts[0]
+            elif kind == "dense":
+                momentum[n] = parts[0]
+            else:
+                mine = plan.momentum(n, mu[n].codes.shape[1]).take(*parts)
+                ok = ok and torch.equal(mine[0], mu[n].codes) and torch.equal(mine[1], mu[n].scales)
+                momentum[n] = QuantizedMomentum(*parts)
+        momentum = {n: momentum[n] for n in mu}
+        trained[key] = (params, momentum)
+        local_slices[key], whole[key] = ok, kept
+        gathered += list(params.values()) + list(ema_whole.values()) + [
+            t for m in momentum.values() for t in ((m.codes, m.scales) if isinstance(m, QuantizedMomentum) else (m,))
+        ]
+    result.update(local_slices=local_slices, whole_leaves=whole, digest=state_digest(gathered))
+    if reference is not None:
+        result["vs_one_process"] = compare_steps(trained, reference, before)
+    return result
+
+
+def phase_fsdp_parity(state, seed=3):
+    """The SD1.5 train step at full width in f32 (TF32 off) over a global
+    batch of 2 at 512x512 with fixed global draws: as one process (rank 0
+    first), then on two ranks of one row each (gloo, cuda:0) with the UNet
+    and the text encoder sharded over a ``[1, 2, 1]`` mesh's fsdp axis
+    (``fsdp_shard_params``). Each rank gathers the trained params, EMA,
+    codes and scales whole: the ranks' gathered states bitwise equal; rank
+    0's against the one-process step within ``ddp_parity``'s bounds and
+    code-noise rule; each rank's local codes and scales its slices of the
+    gathered ones. Launches by shape and route: K1 5 + 1 (f32), the fused
+    f32 backward 5, Lion's leaf table once per model over the rank's local
+    leaves, the single-leaf entry once per leaf the rule keeps whole."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.train.train_step import make_draws
+
+    workdir = os.path.join(REPO, ".cache", "chip_smoke_fsdp_parity")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    gen = torch.Generator().manual_seed(seed)
+    batch = {
+        "pixel_values": torch.rand(FSDP_PARITY_BATCH, 3, TRAIN_RES, TRAIN_RES, generator=gen) * 2 - 1,
+        "input_ids": torch.randint(0, 49408, (FSDP_PARITY_BATCH * TRAIN_CONCAT, 77), generator=gen),
+    }
+    latent = (FSDP_PARITY_BATCH, 4, TRAIN_RES // 8, TRAIN_RES // 8)
+    torch.save({"batch": batch, "draws": make_draws(gen, latent, torch.float32, 1000, "cpu")},
+               os.path.join(workdir, "inputs.pt"))
+    port = free_port()
+    t0 = time.perf_counter()
+    run_ranks(ddp_rank, lambda r: ("fsdp_parity", r, FSDP_WORLD, port, workdir), FSDP_WORLD)
+    wall_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(FSDP_WORLD):
+        with open(os.path.join(workdir, f"fsdp_parity_{r}.json")) as f:
+            ranks.append(json.load(f))
+    launches = [nonzero(launches_from_json(r["launches"])) for r in ranks]
+    launches_ok, whole_expected = [], {}
+    for r, got in enumerate(launches):
+        lion = {}
+        for key, leaves in sd15_quantized_leaves().items():
+            part, whole_expected[key] = fsdp_lion_launches(leaves, "float32", index=r)
+            add_launches(lion, part)
+        want = dict(
+            flash_fwd={(8, 4096, 4096, 40, "float32", "f32"): 5, (1, 4096, 4096, 512, "float32", "f32"): 1},
+            flash_bwd_f32={(8, 4096, 4096, 40, "float32"): 5}, **lion,
+        )
+        launches_ok.append(got == want)
+    ref_loss = ranks[0]["reference_loss"]
+    checks = dict(
+        ranks_gather_the_same_state=len({r["digest"] for r in ranks}) == 1 and len({r["loss"] for r in ranks}) == 1,
+        loss=abs(ranks[0]["loss"] - ref_loss) <= TRAIN_LOSS_REL_TOL * abs(ref_loss),
+        vs_one_process=all(v["ok"] for v in ranks[0]["vs_one_process"].values()),
+        local_momentum_is_its_slice=all(all(r["local_slices"].values()) for r in ranks),
+        whole_leaves_as_the_rule=all(r["whole_leaves"] == whole_expected for r in ranks),
+        no_grad_copies=all(r["grad_copies"] == 0 for r in ranks),
+        launches=all(launches_ok),
+    )
+    total = {}
+    for got in launches:
+        add_launches(total, got)
+    state["fsdp_parity_by_shape"] = total
+    row = dict(
+        world=FSDP_WORLD, backend="gloo", mesh=FSDP_MESH, batch=FSDP_PARITY_BATCH,
+        rows_per_rank=FSDP_PARITY_BATCH // FSDP_WORLD, resolution=TRAIN_RES, dtype="float32", wall_s=wall_s,
+        loss=ranks[0]["loss"], reference_loss=ref_loss, loss_rel_diff=abs(ranks[0]["loss"] - ref_loss) / abs(ref_loss),
+        vs_one_process=ranks[0]["vs_one_process"], whole_leaves=ranks[0]["whole_leaves"],
+        step_ms=[r["step_ms"] for r in ranks], reference_step_ms=ranks[0]["reference_step_ms"],
+        comms_ms=[r["comms_ms"] for r in ranks], comms_calls=[r["comms_calls"] for r in ranks],
+        max_memory_allocated=[r["max_memory_allocated"] for r in ranks],
+        launches_by_shape=[{k: {"x".join(map(str, s)): n for s, n in v.items()} for k, v in got.items()}
+                           for got in launches],
+        checks=checks, ok=all(checks.values()),
+    )
+    emit("fsdp_parity", **row)
+    shutil.rmtree(workdir, ignore_errors=True)
+    if not row["ok"]:
+        raise AssertionError(f"fsdp_parity failed its checks: {checks}")
+
+
+def fsdp_cache(root, name, shards):
+    """A cache directory under ``root`` whose files are links to the SDXL
+    cache's ``shards`` (by index, in order)."""
+    files = sorted(f for f in os.listdir(SDXL_CACHE_DIR) if f.endswith(".npz"))
+    directory = os.path.join(root, name)
+    os.makedirs(directory)
+    for i, shard in enumerate(shards):
+        os.symlink(os.path.join(SDXL_CACHE_DIR, files[shard]), os.path.join(directory, f"shard_{i:03d}.npz"))
+    return directory
+
+
+def fsdp_loader(cache_dir):
+    """The cache's loader, each batch cut to this rank's rows."""
+    from stable_diffusion_training_tpu_torch.core import slice_batch_for_process
+    from stable_diffusion_training_tpu_torch.data import CachedLatentLoader
+
+    class RankRows(CachedLatentLoader):
+        def grab_next_batch(self):
+            b = super().grab_next_batch()
+            return b if isinstance(b, str) else slice_batch_for_process(b)
+
+    return RankRows(cache_dir)
+
+
+def fsdp_state_fingerprints(state, ema):
+    """``{leaf: fingerprint}`` of this rank's local params, EMA, Lion codes
+    and scales of one model (the UNet)."""
+    out = {}
+    for n, t in state.params.items():
+        out[f"params/{n}"] = fingerprint(t)
+        out[f"ema/{n}"] = fingerprint(ema[n])
+    for n, m in state.opt_state[1][0].mu_quant.items():
+        if hasattr(m, "codes"):
+            out[f"codes/{n}"], out[f"scales/{n}"] = fingerprint(m.codes), fingerprint(m.scales)
+    return out
+
+
+def fsdp_trainer_rank(rank, workdir):
+    """``trainer.main`` once on this rank over the leg's cache, each batch
+    cut to the rank's rows, with the step table, FSDP2's comms and the
+    writers wrapped and, at the chunk checkpoint, the fingerprints of the
+    rank's shards of the UNet state."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+    from stable_diffusion_training_tpu_torch.optim import lion8bit
+    from stable_diffusion_training_tpu_torch.train import checkpoint, trainer
+
+    with open(os.path.join(workdir, "spec.json")) as f:
+        spec = json.load(f)
+    set_tf32(False)
+    steps, comms, fingerprints = [], {"all_gather": [], "reduce_scatter": []}, []
+    calls = dict(write_model=0, write_train_state=0, json=0)
+    timed_step_table(steps)
+    timed_fsdp_comms(comms)
+    per_step = []
+    step_table = trainer.bucket_train_steps
+
+    def comm_steps(training_config, frozen_vae, mesh=None):
+        def wrap(step):
+            def run(*args):
+                marks = {k: len(v) for k, v in comms.items()}
+                out = step(*args)
+                per_step.append({k: sum(v[marks[k]:]) for k, v in comms.items()})
+                return out
+            return run
+        return {key: wrap(s) for key, s in step_table(training_config, frozen_vae, mesh=mesh).items()}
+
+    trainer.bucket_train_steps = comm_steps
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    checkpoint._write_model = counted("write_model", checkpoint._write_model)
+    checkpoint._write_train_state = counted("write_train_state", checkpoint._write_train_state)
+    trainer.save_dict_to_json = counted("json", trainer.save_dict_to_json)
+    save_chunk = trainer._save_chunk_checkpoints
+
+    def fingerprinted_save(config_dict, model_object_dict, tokenizer, unet_state, text_encoder_state, unet_ema,
+                           text_encoder_ema, frozen_vae, train_rng=None):
+        fingerprints.append(fsdp_state_fingerprints(unet_state, unet_ema))
+        return save_chunk(config_dict, model_object_dict, tokenizer, unet_state, text_encoder_state, unet_ema,
+                          text_encoder_ema, frozen_vae, train_rng=train_rng)
+
+    trainer._save_chunk_checkpoints = fingerprinted_save
+    lion8bit.GRAD_COPIES["count"] = 0
+    fa.reset_launch_counts()
+    lk.reset_launch_counts()
+    watch = SaveWatch(trainer, spec["run_dir"])
+    t0 = time.perf_counter()
+    try:
+        trainer.main(spec["config_path"], dataloader=fsdp_loader(spec["cache"]), tokenizer=None,
+                     device=torch.device("cuda", 0))
+        torch.cuda.synchronize()
+    finally:
+        watch.stop()
+    return dict(
+        steps=[dict(s, launches=launches_json(s["launches"])) for s in steps], comms_per_step=per_step,
+        calls=calls, wall_s=time.perf_counter() - t0, fingerprints=fingerprints, saves=watch.row(),
+        grad_copies=lion8bit.GRAD_COPIES["count"], launches=launches_json(launch_snapshot(fa, lk)),
+    )
+
+
+def fsdp_nccl_rank(state_dir, workdir):
+    """A one-rank NCCL world from torchrun's variables with the SDXL models
+    sharded over a fsdp axis of one rank: the gloo leg's checkpoint read
+    back whole (``restore_train_state``, one process), each gloo rank's
+    slices of the restored UNet state fingerprinted for the gloo ranks' own,
+    then 2 steps of ``train.aot``'s step table over the leg's cache (no
+    checkpoint: with the gloo leg's still on disk, a second SDXL one would
+    need another 58 GB of writes)."""
+    import torch
+    import torch.distributed as dist
+
+    from stable_diffusion_training_tpu_torch.core import create_mesh, initialize_distributed
+    from stable_diffusion_training_tpu_torch.data import CachedLatentLoader
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+    from stable_diffusion_training_tpu_torch.train import bucket_train_steps, on_device_model_training_state, trainer
+    from stable_diffusion_training_tpu_torch.train.aot import batch_dispatch_key
+    from stable_diffusion_training_tpu_torch.train.checkpoint import restore_train_state
+
+    with open(os.path.join(workdir, "nccl_spec.json")) as f:
+        spec = json.load(f)
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    set_tf32(False)
+    initialize_distributed()
+    device = torch.device("cuda", 0)
+    mesh = create_mesh(tuple(spec["mesh"]), device_type="cuda")
+    config = sdxl_train_config(mesh_shape=spec["mesh"], fsdp_shard_params=True)
+    states = on_device_model_training_state(config, device=device, mesh=mesh)
+    t0 = time.perf_counter()
+    restored = restore_train_state(state_dir, {
+        "unet_state": states[0], "text_encoder_state": states[1], "unet_ema_params": states[2],
+        "text_encoder_ema_params": {}, "train_rng": torch.Generator(device=device),
+    })
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    unet_state, ema = restored["unet_state"], restored["unet_ema_params"]
+    leaves = [(n, tuple(p.shape), unet_state.fsdp.perms.get(n)) for n, p in unet_state.params.items()]
+    slices = []
+    for index in range(FSDP_WORLD):
+        _, _, plan = fsdp_rule(leaves, FSDP_WORLD, index)
+        got = {}
+        for n, t in unet_state.params.items():
+            got[f"params/{n}"] = fingerprint(plan.take(n, t))
+            got[f"ema/{n}"] = fingerprint(plan.take(n, ema[n]))
+        for n, m in unet_state.opt_state[1][0].mu_quant.items():
+            if hasattr(m, "codes"):
+                shard = plan.momentum(n, m.codes.shape[1])
+                codes, scales = shard.take(m.codes, m.scales) if shard is not None else (m.codes, m.scales)
+                got[f"codes/{n}"], got[f"scales/{n}"] = fingerprint(codes), fingerprint(scales)
+        slices.append(got)
+    fingerprint_s = time.perf_counter() - t0
+    comms = {"all_gather": [], "reduce_scatter": []}
+    timed_fsdp_comms(comms)
+    table = bucket_train_steps(config, states[4], mesh=mesh)
+    train_rng, steps = restored["train_rng"], []
+    state = [unet_state, restored["text_encoder_state"], ema, None]
+    fa.reset_launch_counts()
+    lk.reset_launch_counts()
+    loader = CachedLatentLoader(spec["cache"])
+    for batch in trainer._prefetch_to_device(loader, len(FSDP_NCCL_SHARDS), 77, device):
+        before, marks = launch_snapshot(fa, lk), {k: len(v) for k, v in comms.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = table[batch_dispatch_key(batch)](*state, batch, train_rng, states[4], states[5])
+        loss = out[4]["loss"].item()
+        steps.append(dict(ms=(time.perf_counter() - t0) * 1e3, loss=loss,
+                          launches=launches_json(launch_diff(launch_snapshot(fa, lk), before)),
+                          comms={k: sum(v[marks[k]:]) for k, v in comms.items()},
+                          comms_calls={k: len(v) - marks[k] for k, v in comms.items()}))
+        state, train_rng = list(out[:4]), out[5]
+    result = dict(
+        backend=dist.get_backend(), world=dist.get_world_size(), steps=steps, slices=slices,
+        restore_s=restore_s, fingerprint_s=fingerprint_s, launches=launches_json(launch_snapshot(fa, lk)),
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+    )
+    dist.destroy_process_group()
+    with open(os.path.join(workdir, "nccl.json"), "w") as f:
+        json.dump(result, f)
+
+
+def fsdp_step_launches(square, bucket, lion, rows):
+    """One rank's launches over ``square`` 1024x1024 and ``bucket``
+    1152x896 steps at ``rows`` rows a rank: K1 20 a step (the 10 transformer
+    layers of the 64x64 level, each again in the blocks' recompute; 10 heads
+    a row), the fused bf16 backward 10, ``lion`` a step."""
+    out = dict(flash_fwd={}, flash_bwd_fused={})
+    heads = 10 * rows
+    for key, n in (((heads, 4096, 4096, 64, "bfloat16"), square), ((heads, 4032, 4032, 64, "bfloat16"), bucket)):
+        if n:
+            out["flash_fwd"][key + ("tma_narrow",)] = 20 * n
+            out["flash_bwd_fused"][key] = 10 * n
+    for kernel, shapes in lion.items():
+        out[kernel] = {k: v * (square + bucket) for k, v in shapes.items()}
+    return out
+
+
+def phase_fsdp_trainer(state, seed=0):
+    """``trainer.main`` on the SDXL UNet at full width (BASELINE config 4:
+    sharded data parallelism with gradient checkpointing), config 5's recipe
+    (bf16, frozen cached towers, the offline latent cache): two gloo ranks
+    on cuda:0 on a ``[1, 2, 1]`` mesh with ``fsdp_shard_params``, global
+    batch 4 (2 a rank), a chunk of 4 steps over the SDXL cache's shards
+    (1024x1024, 1152x896, 1024x1024, 1024x1024) with its checkpoint; then a
+    one-rank NCCL world that resumes from that checkpoint (read whole, the
+    models sharded over a fsdp axis of one rank) and trains 2 steps of the
+    step table (not ``trainer.main``, whose probe and chunk checkpoints,
+    beside the gloo leg's, would need another 58 GB of disk writes).
+    Checks: finite ``loss.csv`` rows, one writer, the JSON, the checkpoint, each
+    step's launches at the rank's shapes, no grad copied before Lion, and
+    the checkpoint read back in one process equal to each gloo rank's
+    shards (fingerprints). Prints per rank the step p50, peak memory and the
+    ms a step spent in FSDP2's all-gathers and reduce-scatters (host clock,
+    the card synchronized around each)."""
+    from stable_diffusion_training_tpu_torch.utils.json_io import read_json_file
+
+    if not os.path.isdir(SDXL_CACHE_DIR):
+        sdxl_latent_cache(seed)
+    root = os.path.join(REPO, ".cache", "chip_smoke_fsdp")
+    shutil.rmtree(root, ignore_errors=True)
+    workdir = os.path.join(root, "ranks")
+    os.makedirs(workdir)
+    cache = fsdp_cache(root, "cache", FSDP_TRAINER_SHARDS)
+    # the mesh goes into the JSON only: this process has no group of two ranks
+    run_dir, base, cfg, config_path, _ = trainer_run(
+        "chip_smoke_fsdp/trainer", sdxl_train_config(), seed, mesh_shape=FSDP_MESH, fsdp_shard_params=True,
+    )
+    with open(os.path.join(workdir, "spec.json"), "w") as f:
+        json.dump(dict(config_path=config_path, cache=cache, run_dir=run_dir), f)
+    port = free_port()
+    t0 = time.perf_counter()
+    run_ranks(ddp_rank, lambda r: ("fsdp_trainer", r, FSDP_WORLD, port, workdir), FSDP_WORLD)
+    wall_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(FSDP_WORLD):
+        with open(os.path.join(workdir, f"fsdp_trainer_{r}.json")) as f:
+            ranks.append(json.load(f))
+    with open(cfg["loss_csv"]) as f:
+        lines = f.read().splitlines()
+    rows = [line.split(",") for line in lines[1:] if line]
+    final = read_json_file(config_path)
+    ckpt = f"{base}@0"  # rotated away by the NCCL leg's chunk
+    saved = all(os.path.isdir(os.path.join(ckpt, d)) for d in ("unet", "vae", "text_encoder", "train_state")) and (
+        os.path.isdir(f"{base}-EMA@0/unet"))
+
+    # the one-rank NCCL world reads the gloo leg's checkpoint back and trains on
+    nccl_cache = fsdp_cache(root, "nccl_cache", FSDP_NCCL_SHARDS)
+    with open(os.path.join(workdir, "nccl_spec.json"), "w") as f:
+        json.dump(dict(cache=nccl_cache, mesh=[1, 1, 1]), f)
+    t0 = time.perf_counter()
+    run_ranks(fsdp_nccl_rank, lambda r: (os.path.join(ckpt, "train_state"), workdir), 1)
+    nccl_wall_s = time.perf_counter() - t0
+    with open(os.path.join(workdir, "nccl.json")) as f:
+        nccl = json.load(f)
+
+    leaves = sdxl_quantized_leaves()
+    square = sum(1 for s in FSDP_TRAINER_SHARDS if SDXL_SHARDS[s][0] == (SDXL_RES, SDXL_RES))
+    launches_ok, totals, whole = [], {}, []
+    for r, got in enumerate(ranks):
+        lion, kept = fsdp_lion_launches(leaves, "bfloat16", index=r)
+        whole.append(kept)
+        want = fsdp_step_launches(square, len(FSDP_TRAINER_SHARDS) - square, lion, SDXL_TRAIN_BATCH // FSDP_WORLD)
+        total = nonzero(launches_from_json(got["launches"]))
+        launches_ok.append(len(got["steps"]) == len(FSDP_TRAINER_SHARDS) and total == nonzero(want))
+        add_launches(totals, total)
+    nccl_lion, _ = fsdp_lion_launches(leaves, "bfloat16", world=1)
+    nccl_square = sum(1 for s in FSDP_NCCL_SHARDS if SDXL_SHARDS[s][0] == (SDXL_RES, SDXL_RES))
+    nccl_want = fsdp_step_launches(nccl_square, len(FSDP_NCCL_SHARDS) - nccl_square, nccl_lion, SDXL_TRAIN_BATCH)
+    nccl_launches = nonzero(launches_from_json(nccl["launches"]))
+    add_launches(totals, nccl_launches)
+    state["fsdp_trainer_by_shape"] = totals
+    readback = [bool(nccl["slices"]) and nccl["slices"][r] == ranks[r]["fingerprints"][0]
+                for r in range(FSDP_WORLD)] if len(nccl["slices"]) == FSDP_WORLD else [False] * FSDP_WORLD
+    checks = dict(
+        loss_csv=lines[0] == "steps, step_size, loss, time, chunk, seed" and len(rows) == len(FSDP_TRAINER_SHARDS)
+        and all(math.isfinite(float(r[2])) for r in rows),
+        json=(final["chunk_number"], final["chunk_steps"], final["master_seed"], final["model_path"])
+        == (1, 1, seed + 1, ckpt),
+        checkpoint=saved,
+        rank0_writes=ranks[0]["calls"] == dict(write_model=4, write_train_state=1, json=3),
+        other_ranks_write_nothing=all(not any(r["calls"].values()) for r in ranks[1:]),
+        ranks_agree_on_losses=all([s["loss"] for s in r["steps"]] == [s["loss"] for s in ranks[0]["steps"]]
+                                  for r in ranks),
+        launches=all(launches_ok),
+        no_grad_copies=all(r["grad_copies"] == 0 for r in ranks),
+        checkpoint_read_back_equals_the_shards=all(readback),
+        nccl=nccl["backend"] == "nccl" and nccl["world"] == 1 and len(nccl["steps"]) == len(FSDP_NCCL_SHARDS)
+        and all(math.isfinite(s["loss"]) for s in nccl["steps"]) and nccl_launches == nonzero(nccl_want),
+    )
+    per_rank = []
+    for r in ranks:
+        timed = [s["ms"] for s in r["steps"][1:]]  # the first step holds the set-up
+        per_rank.append(dict(
+            rank=r["rank"], step_ms=[s["ms"] for s in r["steps"]], step_p50_ms=statistics.median(timed),
+            all_gather_ms_per_step=[c["all_gather"] for c in r["comms_per_step"]],
+            reduce_scatter_ms_per_step=[c["reduce_scatter"] for c in r["comms_per_step"]],
+            max_memory_allocated=r["max_memory_allocated"], wall_s=r["wall_s"],
+            losses=[s["loss"] for s in r["steps"]], **r["saves"],
+        ))
+    row = dict(
+        world=FSDP_WORLD, backend="gloo", mesh=FSDP_MESH, model="sdxl", batch=SDXL_TRAIN_BATCH,
+        rows_per_rank=SDXL_TRAIN_BATCH // FSDP_WORLD, dtype="bfloat16", gradient_checkpointing=True,
+        steps=len(rows), wall_s=wall_s, ranks=per_rank, whole_leaves=whole[0],
+        nccl=dict(world=nccl["world"], backend=nccl["backend"], wall_s=nccl_wall_s,
+                  step_ms=[s["ms"] for s in nccl["steps"]], comms_ms=[s["comms"] for s in nccl["steps"]],
+                  comms_calls=[s["comms_calls"] for s in nccl["steps"]], restore_s=nccl["restore_s"],
+                  fingerprint_s=nccl["fingerprint_s"], max_memory_allocated=nccl["max_memory_allocated"],
+                  losses=[s["loss"] for s in nccl["steps"]]),
+        checkpoint_read_back=readback,
+        launches_by_shape={k: {"x".join(map(str, s)): n for s, n in v.items()} for k, v in totals.items()},
+        checks=checks, ok=all(checks.values()),
+    )
+    emit("fsdp_trainer", **row)
+    shutil.rmtree(root, ignore_errors=True)
+    if not row["ok"]:
+        raise AssertionError(f"fsdp_trainer failed its checks: {checks}")
+
+
 # forward cases whose f32 shape a path runs: the f32 UNet call of the parity
 # phase, the f32 train step
 F32_FWD_PATHS = {
     "unet_l0": "parity", "unet_train": "train_f32", "vae_encode": "train_f32", "sdxl_unet_l1": "sdxl_parity",
     "sdxl_train_parity_l1": "sdxl_train_parity", "sd21_parity_l1": "sd21_parity", "sd21_parity_l2": "sd21_parity",
-    "vae_mid": "ddp_parity ranks", "ddp_parity_unet": "ddp_parity ranks",
+    "vae_mid": "ddp_parity and fsdp_parity ranks", "ddp_parity_unet": "ddp_parity and fsdp_parity ranks",
 }
 SHORT = {"bfloat16": "bf16", "float32": "f32"}
 
@@ -3736,13 +4408,16 @@ def kernels_line(state):
     # data parallelism: the launches of every rank's run, summed
     ddp_parity = state.get("ddp_parity_by_shape", {})
     ddp_trainer = state.get("ddp_trainer_by_shape", {})
+    # FSDP: every gloo rank's run summed, fsdp_trainer's NCCL leg with them
+    fsdp_parity = state.get("fsdp_parity_by_shape", {})
+    fsdp_trainer = state.get("fsdp_trainer_by_shape", {})
     paths = {
         "bfloat16": [state.get(f"{p}_by_shape", {}) for p in ("slice", "sdxl", "sdxl_refiner", "sdxl_cache", "sd21")]
         + [train.get("flash_fwd", {}), sdxl_train.get("flash_fwd", {}), sd21_trainer.get("flash_fwd", {}),
-           ddp_trainer.get("flash_fwd", {})],
+           ddp_trainer.get("flash_fwd", {}), fsdp_trainer.get("flash_fwd", {})],
         "float32": [state.get(f"{p}_by_shape", {}) for p in ("parity", "sdxl_parity")]
         + [train_f32.get("flash_fwd", {}), sdxl_train_parity.get("flash_fwd", {}), sd21_parity.get("flash_fwd", {}),
-           ddp_parity.get("flash_fwd", {})],
+           ddp_parity.get("flash_fwd", {}), fsdp_parity.get("flash_fwd", {})],
     }
     entries = []
     for row in state.get("kernel_cases", []):
@@ -3763,7 +4438,8 @@ def kernels_line(state):
         ))
     f32_paths = {  # the fused f32 kernel's launches by shape, and the runs they come from
         "unet_train_f32": [(state.get("train_parity_f32_by_shape", {}), "train_parity f32"),
-                           (ddp_parity.get("flash_bwd_f32", {}), "ddp_parity ranks")],
+                           (ddp_parity.get("flash_bwd_f32", {}), "ddp_parity ranks"),
+                           (fsdp_parity.get("flash_bwd_f32", {}), "fsdp_parity ranks")],
         "unet_train_f32_b8": [(train_f32.get("flash_bwd_f32", {}), "train_f32")],
         "sdxl_train_parity_f32": [(sdxl_train_parity.get("flash_bwd_f32", {}), "sdxl_train_parity")],
         "sd21_parity_l1_f32": [(sd21_parity.get("flash_bwd_f32", {}), "sd21_parity")],
@@ -3771,8 +4447,12 @@ def kernels_line(state):
     }
     bf16_paths = {  # the fused bf16 kernel's, likewise
         "unet_train": [(train.get("flash_bwd_fused", {}), "train")],
-        "sdxl_train": [(sdxl_train.get("flash_bwd_fused", {}), "sdxl_train")],
-        "sdxl_train_bucket": [(sdxl_train.get("flash_bwd_fused", {}), "sdxl_train 1152x896")],
+        "sdxl_train": [(sdxl_train.get("flash_bwd_fused", {}), "sdxl_train"),
+                       (fsdp_trainer.get("flash_bwd_fused", {}), "fsdp_trainer nccl")],
+        "sdxl_train_bucket": [(sdxl_train.get("flash_bwd_fused", {}), "sdxl_train 1152x896"),
+                              (fsdp_trainer.get("flash_bwd_fused", {}), "fsdp_trainer nccl 1152x896")],
+        "fsdp_sdxl_train": [(fsdp_trainer.get("flash_bwd_fused", {}), "fsdp_trainer ranks")],
+        "fsdp_sdxl_train_bucket": [(fsdp_trainer.get("flash_bwd_fused", {}), "fsdp_trainer ranks 1152x896")],
         "sd21_train_l1": [(sd21_trainer.get("flash_bwd_fused", {}), "sd21_trainer")],
         "sd21_train_l2": [(sd21_trainer.get("flash_bwd_fused", {}), "sd21_trainer")],
         "sd21_train_bucket_l1": [(sd21_trainer.get("flash_bwd_fused", {}), "sd21_trainer 896x640")],
@@ -3827,7 +4507,11 @@ def kernels_line(state):
         if row["compander"] != "exact":
             continue  # the train step's setting
         if row["model"] == "sdxl_unet":
-            runs = [(sdxl_train, "sdxl_train")]
+            runs = [(sdxl_train, "sdxl_train"), (fsdp_trainer, "fsdp_trainer nccl")]
+        elif row["model"] == "sdxl_unet_fsdp_half":
+            runs = [(fsdp_trainer, "fsdp_trainer ranks")]
+        elif row["model"].endswith("_fsdp_half"):
+            runs = [(fsdp_parity, "fsdp_parity ranks")]
         elif row["model"].startswith("sd21_"):
             runs = [(sd21_trainer, "sd21_trainer")]
         else:
@@ -3897,7 +4581,7 @@ def main(argv=None):
     os.makedirs(os.path.dirname(RECORD), exist_ok=True)
     open(RECORD, "w").close()
 
-    state = {}
+    state = {"phases": phases}
     phase_gpu(state)  # always: every number below stands beside this card
     runners = dict(
         build=phase_build, kernels=phase_kernels, parity=phase_parity, slice=phase_slice,
@@ -3906,7 +4590,8 @@ def main(argv=None):
         train_f32=lambda st: phase_train(st, warmup=2, steps=3, dtype="float32"), trainer=phase_trainer,
         sdxl_train_parity=phase_sdxl_train_parity, sdxl_train=phase_sdxl_train, sdxl_trainer=phase_sdxl_trainer,
         sd21_parity=phase_sd21_parity, sd21=phase_sd21, sd21_trainer=phase_sd21_trainer,
-        ddp_parity=phase_ddp_parity, ddp_trainer=phase_ddp_trainer,
+        ddp_parity=phase_ddp_parity, ddp_trainer=phase_ddp_trainer, fsdp_parity=phase_fsdp_parity,
+        fsdp_trainer=phase_fsdp_trainer,
     )
     started, seconds = time.perf_counter(), {}
     for name in ALL_PHASES[1:]:
@@ -3914,8 +4599,7 @@ def main(argv=None):
             t0 = time.perf_counter()
             runners[name](state)
             seconds[name] = time.perf_counter() - t0
-        if name == "sdxl_trainer":
-            shutil.rmtree(SDXL_CACHE_DIR, ignore_errors=True)
+    shutil.rmtree(SDXL_CACHE_DIR, ignore_errors=True)  # sdxl_train's, read again by fsdp_trainer
     emit("phase_seconds", seconds=seconds, total_s=time.perf_counter() - started)
 
     line = kernels_line(state)

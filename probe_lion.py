@@ -93,9 +93,9 @@ def variant_source(src, edits):
     return src
 
 
-def build_variants():
-    """Every variant's library path and the ptxas facts (registers, spill
-    bytes) of its bf16 bs-16 exact kernels."""
+def start_builds():
+    """One ``nvcc`` per variant, all started at once; ``finish_builds``
+    waits for them."""
     from stable_diffusion_training_tpu_torch.ops import cuda_build
 
     with open(os.path.join(cuda_build.CSRC_DIR, "lion8bit_update.cu")) as f:
@@ -109,6 +109,12 @@ def build_variants():
             f.write(variant_source(src, edits))
         cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-I", cuda_build.CSRC_DIR, "-o", lib, cu]
         running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    return running
+
+
+def finish_builds(running):
+    """Every variant's library path and the ptxas facts (registers, spill
+    bytes) of its bf16 bs-16 exact kernels, once its build has ended."""
     built = {}
     for name, (proc, lib) in running.items():
         log, _ = proc.communicate()
@@ -123,16 +129,20 @@ def build_variants():
     return built
 
 
-def measure(reps=10, report=None):
-    """Build every variant and time it over both models' leaves; each row
-    goes to ``report`` as it is measured. Returns ``(rows, summary)``; a
-    row is ``ok`` unless it is a base variant whose signs differ from the
-    plain version's."""
+def build_variants():
+    return finish_builds(start_builds())
+
+
+def measure(reps=10, report=None, built=None):
+    """Build every variant (unless ``built`` holds them) and time it over
+    both models' leaves; each row goes to ``report`` as it is measured.
+    Returns ``(rows, summary)``; a row is ``ok`` unless it is a base variant
+    whose signs differ from the plain version's."""
     import torch
 
     from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
 
-    built = build_variants()
+    built = build_variants() if built is None else built
     load_library = lk.load_library
     rows = []
     try:

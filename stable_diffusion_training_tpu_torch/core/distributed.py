@@ -5,9 +5,11 @@ package starts its runtime with ``jax.distributed.initialize`` and builds
 global arrays from each host's shard, the port runs one process per card
 (``torchrun --nproc_per_node=N``) and joins them in a ``torch.distributed``
 process group: NCCL between cards, gloo on the CPU. Torch has no global
-array, so each rank keeps its own shard of every batch on its own device
-(``put_local_batch``); the collectives the JAX package leaves to GSPMD are
-spelled out in ``parallel/sharding.py``.
+array, so each rank keeps its own rows of every batch on its own device
+(``put_local_batch``), the batch split over the mesh's data x fsdp ranks
+(``batch_shard``; the JAX package shards it on ``data_parallel`` and
+replicates it over ``fsdp``); the collectives the JAX package leaves to
+GSPMD are spelled out in ``parallel/sharding.py``.
 
 Small host-side agreements (``agree_min``, ``barrier``, the replication
 check's digests) go over a gloo group, so that they never wait on the card's
@@ -167,20 +169,32 @@ def all_gather_objects(obj: Any) -> list:
     return out
 
 
-def process_local_batch_slice(global_batch_size: int) -> slice:
+def batch_shard(mesh=None) -> Tuple[int, int]:
+    """``(index, count)`` of this rank's rows of a global batch: its block
+    over the mesh's data x fsdp axes (``core.mesh.row_index``), else the
+    process index and count."""
+    if mesh is not None:
+        from .mesh import row_index
+
+        return row_index(mesh)
+    return process_index(), process_count()
+
+
+def process_local_batch_slice(global_batch_size: int, mesh=None) -> slice:
     """The per-process slice of a global batch (each process loads and
-    feeds only its shard of the data axis)."""
-    per_host = global_batch_size // process_count()
-    start = process_index() * per_host
+    feeds only its rows: its block of the data x fsdp axes)."""
+    index, count = batch_shard(mesh)
+    per_host = global_batch_size // count
+    start = index * per_host
     return slice(start, start + per_host)
 
 
-def slice_batch_for_process(batch: Dict[str, Any]) -> Dict[str, Any]:
-    """Cut a global batch down to this process's shard. Every leaf's leading
-    dim is batch-derived (``pixel_values`` B; ids and mask B * concat), so
-    the proportional slice is right for every key; numpy or torch leaves,
-    nested dicts. A no-op for one process."""
-    n = process_count()
+def slice_batch_for_process(batch: Dict[str, Any], mesh=None) -> Dict[str, Any]:
+    """Cut a global batch down to this process's rows (``batch_shard``).
+    Every leaf's leading dim is batch-derived (``pixel_values`` B; ids and
+    mask B * concat), so the proportional slice is right for every key;
+    numpy or torch leaves, nested dicts. A no-op for one process."""
+    index, n = batch_shard(mesh)
     if n == 1:
         return batch
 
@@ -188,7 +202,7 @@ def slice_batch_for_process(batch: Dict[str, Any]) -> Dict[str, Any]:
         if isinstance(leaf, dict):
             return {k: _slice(v) for k, v in leaf.items()}
         per = leaf.shape[0] // n
-        start = process_index() * per
+        start = index * per
         return leaf[start : start + per]
 
     return _slice(batch)

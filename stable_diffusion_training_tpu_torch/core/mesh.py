@@ -3,13 +3,15 @@
 Port of ``stable_diffusion_training_tpu/core/mesh.py``. The reference pins a
 ``(device_count, 1)`` mesh with axes ``("data_parallel", "model_parallel")``
 (its ``training_utils.py:24-37``) and only ever uses data parallelism; the
-JAX package builds that mesh over devices, the port over the ranks of the
+JAX package builds that mesh, or the three-axis ``(data_parallel, fsdp,
+model_parallel)`` one, over devices, the port over the ranks of the
 ``torch.distributed`` process group, one per card, as a
 ``torch.distributed.device_mesh.DeviceMesh`` (``init_device_mesh`` with
 ``mesh_dim_names``). The JAX module's ``replicated`` and ``batch_sharding``
 have no torch meaning: a rank holds whole tensors, replicated by
-``parallel.sharding.replicate_``, and its own rows of each batch
-(``core.distributed.slice_batch_for_process``).
+``parallel.sharding.replicate_``, or its FSDP shards
+(``parallel.sharding.fully_shard_``), and its own rows of each batch
+(``row_index``: the rows split over ``data_parallel`` x ``fsdp``).
 """
 
 import math
@@ -32,20 +34,24 @@ def default_device_type() -> str:
 
 def create_mesh(
     shape: Optional[Tuple[int, ...]] = None,
-    axis_names: Sequence[str] = (AXIS_DATA, AXIS_TENSOR),
+    axis_names: Optional[Sequence[str]] = None,
     device_type: Optional[str] = None,
 ):
-    """A ``DeviceMesh`` over the process group's ranks. The default shape is
-    ``(world_size, 1)``: data parallelism over every rank, as the JAX
-    default is ``(device_count, 1)``. The product of ``shape`` must be the
-    world size. Needs a process group (``initialize_distributed``); every
-    rank calls it, since it forms the axes' groups."""
+    """A ``DeviceMesh`` over the process group's ranks, laid out row-major
+    (rank ``r`` at the mesh coordinate of ``r`` in ``shape``'s order). The
+    default shape is ``(world_size, 1)``: data parallelism over every rank,
+    as the JAX default is ``(device_count, 1)``; three axes name
+    ``(AXIS_DATA, AXIS_FSDP, AXIS_TENSOR)``. The product of ``shape`` must
+    be the world size. Needs a process group (``initialize_distributed``);
+    every rank calls it, since it forms the axes' groups."""
     if not dist.is_initialized():
         raise RuntimeError("create_mesh needs a process group: call core.distributed.initialize_distributed first")
     from torch.distributed.device_mesh import init_device_mesh
 
     world = dist.get_world_size()
     shape = (world, 1) if shape is None else tuple(int(s) for s in shape)
+    if axis_names is None:
+        axis_names = (AXIS_DATA, AXIS_FSDP, AXIS_TENSOR) if len(shape) == 3 else (AXIS_DATA, AXIS_TENSOR)
     names = tuple(axis_names)
     if len(names) != len(shape):
         raise ValueError(f"mesh shape {shape} and axis names {names} differ in length")
@@ -78,3 +84,11 @@ def axis_index(mesh, axis: str = AXIS_DATA) -> int:
     if mesh is None or axis not in (mesh.mesh_dim_names or ()):
         return 0
     return mesh.get_local_rank(axis)
+
+
+def row_index(mesh) -> Tuple[int, int]:
+    """``(index, count)``: this rank's block of rows of a global batch, the
+    batch split into ``count`` = data x fsdp equal blocks, indexed data-major
+    as the mesh lays the axes out (``(0, 1)`` for no mesh)."""
+    fsdp = axis_size(mesh, AXIS_FSDP)
+    return axis_index(mesh, AXIS_DATA) * fsdp + axis_index(mesh, AXIS_FSDP), axis_size(mesh, AXIS_DATA) * fsdp

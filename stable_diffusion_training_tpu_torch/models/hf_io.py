@@ -249,11 +249,18 @@ _ST_DTYPES = {
 
 
 def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
-    """Read a ``.safetensors`` file into CPU tensors."""
+    """Read a ``.safetensors`` file into CPU tensors (the data read once
+    into one buffer, each tensor copied out of it)."""
     with open(path, "rb") as f:
         (header_len,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(header_len))
-        data = bytearray(f.read())
+        data = np.empty(os.fstat(f.fileno()).st_size - 8 - header_len, dtype=np.uint8)
+        view, done = memoryview(data), 0
+        while done < len(data):
+            n = f.readinto(view[done:])
+            if not n:
+                raise ValueError(f"{path}: the file ends before its data does")
+            done += n
     out = {}
     for key, info in header.items():
         if key == "__metadata__":

@@ -321,7 +321,7 @@ MAX_LEAVES_PER_LAUNCH = 1024  # the kernel's by-value grad pointers (kMaxLeaves)
 _TRANSPOSED = {2: (1, 0), 4: (2, 3, 1, 0)}
 
 
-def _leaf_kind(shape: Sequence[int], perm: Optional[Sequence[int]], bs: int) -> Optional[int]:
+def leaf_kind(shape: Sequence[int], perm: Optional[Sequence[int]], bs: int) -> Optional[int]:
     """0: a transposed leaf the table takes, 1: a leaf whose torch and JAX
     orders agree, None: neither (the leaf keeps the single-leaf entry)."""
     if not perm or tuple(perm) == tuple(range(len(shape))):
@@ -335,7 +335,7 @@ def table_takes(shape: Sequence[int], perm: Optional[Sequence[int]], bs: int) ->
     """Whether ``LeafTable`` takes a leaf of torch ``shape`` whose JAX layout
     is ``permute(perm)``: an identity, or a Dense or Conv kernel whose
     output channels (torch axis 0) ``bs`` divides."""
-    return _leaf_kind(shape, perm, bs) is not None
+    return leaf_kind(shape, perm, bs) is not None
 
 
 def _leaf_geometry(shape, perm, bs):
@@ -343,7 +343,7 @@ def _leaf_geometry(shape, perm, bs):
     kernel walks it (``LeafRecord``)."""
     groups, cols_per_tile = LEAF_TILE[bs]
     numel = math.prod(shape)
-    kind = _leaf_kind(shape, perm, bs)
+    kind = leaf_kind(shape, perm, bs)
     if kind is None:
         raise ValueError(f"the leaf table does not take shape {tuple(shape)} with permutation {perm} at bs {bs}")
     if kind == 1:

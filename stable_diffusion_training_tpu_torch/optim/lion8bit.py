@@ -34,9 +34,18 @@ written in torch layout, no permute copy. Any other quantized leaf is
 permuted into JAX order (a copy) and takes ``lion8bit_update_`` (counted
 there), its update coming back through the inverse permutation as a view.
 ``bucket_max_nb`` is accepted and changes nothing: the result is bitwise
-the same for any value. ``use_pallas=False`` is the JAX package's jnp path, an
-explicit, non-default choice of the plain math: the grad keeps its dtype in
-``(1 - b1) g`` and the update is f32.
+the same for any value. ``use_pallas=False`` is the JAX package's jnp path,
+an explicit, non-default choice of the plain math: the grad keeps its dtype
+in ``(1 - b1) g`` and the update is f32.
+
+Under FSDP (``fsdp``, a ``parallel.sharding.FsdpPlan``) ``init_fn`` and
+``update_fn`` run on each rank's local shards. A leaf that the plan's
+co-sharding rule splits keeps the reference momentum of its local rows,
+which is exactly its blocks of the whole leaf's, and takes the same routes
+as a whole leaf: each rank's update is then bitwise the one-process update
+of its blocks. A quantized leaf the rule refuses keeps its whole momentum on
+every rank: its grad is gathered, it takes the single-leaf route, and the
+rank keeps its rows of the update.
 """
 
 from dataclasses import dataclass
@@ -65,8 +74,8 @@ class ScaleByLion8bitState(NamedTuple):
 
 
 # copies of quantized leaves' grads made before the kernel path's launches
-# (a permute into JAX order, or a strided grad made contiguous), counted as
-# the kernels count their launches: the train step makes none
+# (a permute into JAX order, or a strided or misaligned grad made contiguous
+# at an aligned address), counted as the kernels count their launches
 GRAD_COPIES = {"count": 0}
 
 
@@ -89,6 +98,7 @@ def scale_by_lion_8bit(
     compander: str = "exact",
     momentum_layout: str = "auto",
     leaf_orders: Optional[Dict[str, Optional[Sequence[int]]]] = None,
+    fsdp=None,
 ) -> GradientTransformation:
     """Lion update direction with int8 block-quantized momentum.
 
@@ -110,6 +120,10 @@ def scale_by_lion_8bit(
         use_pallas = False
     kernel_path = use_pallas is None or use_pallas
     orders = leaf_orders or {}
+    # quantized leaves whose momentum stays whole on every rank: {name: RowShard}
+    whole = {} if fsdp is None else {
+        name: rows for name, rows in fsdp.rows.items() if fsdp.momentum(name, block_size) is None
+    }
     zero_code = int(lion_kernel.quantize(torch.zeros((), dtype=torch.float32)))
 
     def to_jax(name: str, t: torch.Tensor) -> torch.Tensor:
@@ -129,13 +143,14 @@ def scale_by_lion_8bit(
             if not mask[name]:
                 mu[name] = torch.zeros_like(p, dtype=torch.float32)
                 continue
-            if p.numel() % block_size:
+            numel = p.numel() if fsdp is None or name not in fsdp.rows else fsdp.rows[name].shape.numel()
+            if numel % block_size:
                 # same loud failure as the reference's reshape(-1, block_size)
                 raise TypeError(
-                    f"parameter at {name} has {p.numel()} elements, not divisible by "
+                    f"parameter at {name} has {numel} elements, not divisible by "
                     f"block_size={block_size}; add it to the quantization exclusion list"
                 )
-            n_blocks = p.numel() // block_size
+            n_blocks = (numel if name in whole else p.numel()) // block_size
             mu[name] = QuantizedMomentum(
                 torch.full((n_blocks, block_size), zero_code, dtype=torch.int8, device=p.device),
                 torch.ones(n_blocks, dtype=torch.float32, device=p.device),
@@ -173,6 +188,14 @@ def scale_by_lion_8bit(
             )
         return table
 
+    def single_leaf(name, g, m):
+        """A leaf the table does not take: permuted into JAX order, then one
+        launch of its own."""
+        gj = to_jax(name, g)
+        GRAD_COPIES["count"] += gj is not g
+        upd = lion_kernel.lion8bit_update_(gj, m.codes, m.scales, b1, b2, compander)
+        return from_jax(name, upd), m
+
     def update_fn(updates, state, params=None):
         new_updates, new_mu = {}, {}
         tabled = []
@@ -180,24 +203,27 @@ def scale_by_lion_8bit(
             m = state.mu_quant[name]
             if not isinstance(m, QuantizedMomentum):
                 new_updates[name], new_mu[name] = _lion_core(g, m, b1, b2)
+            elif name in whole:  # every rank updates the whole leaf, keeps its rows
+                rows = whole[name]
+                upd, new_mu[name] = (single_leaf if kernel_path else plain_leaf)(name, rows.gather(g), m)
+                new_updates[name] = rows.take(upd)
             elif not kernel_path:
                 new_updates[name], new_mu[name] = plain_leaf(name, g, m)
             elif table_takes(name, g.shape):
                 tabled.append(name)
-            else:  # bs does not divide its axis 0: permute, then one launch of its own
-                gj = to_jax(name, g)
-                GRAD_COPIES["count"] += gj is not g
-                upd = lion_kernel.lion8bit_update_(gj, m.codes, m.scales, b1, b2, compander)
-                new_updates[name], new_mu[name] = from_jax(name, upd), m
+            else:  # bs does not divide its axis 0
+                new_updates[name], new_mu[name] = single_leaf(name, g, m)
         by_dtype = {}  # one table, and one launch, per grad dtype
         for name in tabled:
             by_dtype.setdefault(updates[name].dtype, []).append(name)
         for members in by_dtype.values():
-            # the kernel reads torch layout: only a strided grad is copied
+            # the kernel reads torch layout from 16-byte aligned starts: only a
+            # strided grad, or a view at another offset, is copied
             grads = [updates[name] for name in members]
-            if not all(map(torch.Tensor.is_contiguous, grads)):
-                GRAD_COPIES["count"] += sum(not g.is_contiguous() for g in grads)
-                grads = [g.contiguous() for g in grads]
+            copied = [not g.is_contiguous() or g.data_ptr() % 16 for g in grads]
+            if any(copied):
+                GRAD_COPIES["count"] += sum(map(bool, copied))
+                grads = [g.clone(memory_format=torch.contiguous_format) if c else g for g, c in zip(grads, copied)]
             upds = lion_kernel.lion8bit_update_leaves_(
                 grads, leaf_table(members, updates, state), b1, b2, compander
             )
@@ -226,6 +252,7 @@ def lion_8bit(
     compander: str = "exact",
     momentum_layout: str = "auto",
     leaf_orders: Optional[Dict[str, Optional[Sequence[int]]]] = None,
+    fsdp=None,
 ) -> GradientTransformation:
     """Lion with int8 momentum: quantized Lion -> decoupled weight decay
     (``mask`` selects the leaves) -> negated learning rate. The default
@@ -235,7 +262,7 @@ def lion_8bit(
         scale_by_lion_8bit(
             b1=b1, b2=b2, block_size=block_size, excluded_layer_mask=excluded_layer_mask,
             use_pallas=use_pallas, bucket_max_nb=bucket_max_nb, compander=compander,
-            momentum_layout=momentum_layout, leaf_orders=leaf_orders,
+            momentum_layout=momentum_layout, leaf_orders=leaf_orders, fsdp=fsdp,
         ),
         transforms.add_decayed_weights(weight_decay, mask),
         transforms.scale_by_learning_rate(learning_rate),

@@ -17,6 +17,7 @@ import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.distributed
 
 Tree = Dict[str, torch.Tensor]
 Schedule = Callable[[int], float]
@@ -49,18 +50,33 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
-def global_norm(updates: Tree) -> torch.Tensor:
+def global_norm(updates: Tree, group=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares, summed leaf by leaf
-    in the leaves' dtype as optax's Python ``sum`` does."""
-    return torch.sqrt(sum((x * x).sum() for x in updates.values()))
+    in the leaves' dtype as optax's Python ``sum`` does. With ``group`` the
+    leaves are the ranks' disjoint shards (FSDP): each leaf's local sum of
+    squares is summed over the group, the partials of a dtype stacked into
+    one ``all_reduce``, before the sum over leaves."""
+    squares = [(x * x).sum() for x in updates.values()]
+    if group is not None:
+        by_dtype: Dict[torch.dtype, list] = {}
+        for i, sq in enumerate(squares):
+            by_dtype.setdefault(sq.dtype, []).append(i)
+        for indices in by_dtype.values():
+            stacked = torch.stack([squares[i] for i in indices])
+            torch.distributed.all_reduce(stacked, group=group)
+            for i, sq in zip(indices, stacked.unbind()):
+                squares[i] = sq
+    return torch.sqrt(sum(squares))
 
 
-def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+def clip_by_global_norm(max_norm: float, group=None) -> GradientTransformation:
     """Leaves unchanged when the global norm is below ``max_norm``, else
-    ``(t / norm) * max_norm``. Decided on the device (no host sync)."""
+    ``(t / norm) * max_norm``. Decided on the device (no host sync).
+    ``group``: the FSDP group over which the leaves are shards
+    (``global_norm``)."""
 
     def update(updates, state, params=None):
-        g_norm = global_norm(updates)
+        g_norm = global_norm(updates, group)
         trigger = g_norm < max_norm
         return {
             name: torch.where(trigger, t, (t / g_norm.to(t.dtype)) * max_norm)

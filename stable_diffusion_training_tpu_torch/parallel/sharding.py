@@ -1,35 +1,68 @@
-"""Data parallelism over the mesh's ``data_parallel`` axis: replicated
-state, summed grads.
+"""Data parallelism and FSDP over the mesh: replicated state and summed
+grads, or state sharded over the ``fsdp`` axis.
 
-Port of the data-parallel half of
-``stable_diffusion_training_tpu/parallel/sharding.py``. In the JAX package
-a replicated ``NamedSharding`` makes every device hold the same state by
+Port of ``stable_diffusion_training_tpu/parallel/sharding.py``. In the JAX
+package a replicated ``NamedSharding`` makes every device hold the same state by
 construction and GSPMD inserts the grads' all-reduce on the data axis; here
 both are explicit collectives over the axis's process group:
 
-- ``replicate_``: every rank's tensors become the axis's first rank's
+- ``replicate_``: every rank's tensors become the first rank's
   (broadcast), for the params, EMA, Lion codes and scales and counters
   that ``replicated_tree`` / ``tree_device_put_replicated`` place;
-- ``all_reduce_grads_``: the grads summed over the axis, in their own
+- ``all_reduce_grads_``: the grads summed over the axes, in their own
   dtype, as XLA all-reduces bf16 grads.
 
 Both move flat buckets of up to ``BUCKET_BYTES`` of one dtype, not one
 collective per tensor, and every tensor's offset in a bucket is a multiple
 of 16 bytes, so the reduced grads, views of the buckets, stay 16-byte
 aligned for the fused Lion kernel's ``cp.async`` staging. ``assert_replicated``
-checks that the ranks hold the same bytes. The FSDP and tensor-parallel
-rules of the JAX module are not ported (ROADMAP Queue 1 item 7); the
-config refuses them.
+checks that the ranks hold the same bytes.
+
+The FSDP half (``params_fsdp_sharding``, ``_lion_fsdp_plan`` and
+``train_state_fsdp_sharding`` of the JAX module) is ZeRO-3 through PyTorch's
+FSDP2: ``fully_shard_`` shards each UNet down, mid and up block and each
+CLIP encoder layer, then the root, on torch axis 0 over the ``fsdp`` axis
+(HSDP, replicated over ``data_parallel``, when that axis is larger than 1).
+The reduce-scatter sums, as ``all_reduce_grads_`` does, so the step's
+``1 / W`` loss scale stays. ``fsdp_plan`` reads back each leaf's rows
+(``RowShard``) and applies the momentum co-sharding rule
+(``MomentumShard``): the port stores a quantized leaf's Lion momentum in the
+reference order of the JAX leaf, and a rank's rows of a Dense or Conv kernel
+(JAX's output channels) or of a leaf whose orders agree own whole blocks of
+it when every rank's row range is a multiple of the block; the rank then
+keeps exactly the reference momentum of its local leaf, which the Lion
+kernels take unchanged. A leaf the rule refuses keeps its whole momentum on
+every rank. JAX shards the largest divisible dim instead: another
+placement of the same numbers. ``gather_rows_many`` rebuilds whole tensors
+from their shards (``RowShard.gathers``, ``MomentumShard.gathers``), many to
+a collective, for the checkpoint writers.
+
+Two ranks on one card talk through gloo (NCCL takes one rank a card),
+whose CUDA all-gather and reduce-scatter are not usable and whose CUDA
+all-reduce and broadcast cross the host: there every collective here, and
+FSDP2's, is copies between buffers that the ranks map from each other
+through CUDA IPC (``_CardExchange``).
 """
 
 import hashlib
-from typing import Dict, Iterable, List, Sequence, Tuple
+import math
+import os
+import tempfile
+from dataclasses import dataclass
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+from torch import nn
 
 from ..core.distributed import all_gather_objects
-from ..core.mesh import AXIS_DATA
+from ..core.mesh import AXIS_DATA, AXIS_FSDP, axis_size
+from ..ops.lion_kernel import leaf_kind
+
+ROW_AXES = (AXIS_DATA, AXIS_FSDP)  # the axes that split a batch's rows
+# the single-tensor all-gather under its current name, and the older one on
+# a PyTorch that lacks it
+_ALL_GATHER = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 BUCKET_BYTES = 256 << 20
 ALIGN_BYTES = 16
@@ -62,14 +95,25 @@ def _buckets(tensors: Sequence[torch.Tensor], cap: int = BUCKET_BYTES) -> List[T
     return out
 
 
+def _groups(mesh, axes: Sequence[str]) -> list:
+    """The process groups of ``axes`` that the mesh has with more than one
+    rank."""
+    return [mesh.get_group(axis) for axis in axes if axis_size(mesh, axis) > 1]
+
+
 @torch.no_grad()
-def replicate_(tensors: Iterable[torch.Tensor], mesh, axis: str = AXIS_DATA) -> None:
+def replicate_(tensors: Iterable[torch.Tensor], mesh, axes: Sequence[str] = ROW_AXES) -> None:
     """Every rank's ``tensors`` (in the same order and shapes on every rank)
-    become, in place, those of rank 0 of ``axis``."""
+    become, in place, those of the mesh's first rank: broadcast from each
+    axis's first rank, one axis after the other."""
     tensors = list(tensors)
     if mesh is None or not tensors:
         return
-    group = mesh.get_group(axis)
+    for group in _groups(mesh, axes):
+        _broadcast_(tensors, group)
+
+
+def _broadcast_(tensors: List[torch.Tensor], group) -> None:
     src = dist.get_global_rank(group, 0)
     leader = dist.get_rank() == src
     for indices, offsets, numel in _buckets(tensors):
@@ -78,21 +122,25 @@ def replicate_(tensors: Iterable[torch.Tensor], mesh, axis: str = AXIS_DATA) -> 
         if leader:
             for t, off in zip(members, offsets):
                 flat[off : off + t.numel()].copy_(t.reshape(-1))
-        dist.broadcast(flat, src=src, group=group)
+        if _shares_card(group, flat.device):
+            _CardExchange.of(group, flat.device).broadcast(flat, 0)
+        else:
+            dist.broadcast(flat, src=src, group=group)
         if not leader:
             for t, off in zip(members, offsets):
                 t.copy_(flat[off : off + t.numel()].view(t.shape))
 
 
 @torch.no_grad()
-def all_reduce_grads_(grads: Dict[str, torch.Tensor], mesh, axis: str = AXIS_DATA) -> Dict[str, torch.Tensor]:
-    """Sum ``grads`` over ``axis`` (SUM in each grad's dtype) and put the
-    sums in its place: each value becomes a contiguous, 16-byte aligned view
-    of a bucket that holds the reduced grads. Each grad's own buffer is let
-    go once it is packed. Returns ``grads``."""
-    if mesh is None:
+def all_reduce_grads_(grads: Dict[str, torch.Tensor], mesh, axes: Sequence[str] = ROW_AXES) -> Dict[str, torch.Tensor]:
+    """Sum ``grads`` over ``axes`` (SUM in each grad's dtype; the ranks of
+    a replicated ``fsdp`` axis are data parallel too) and put the sums in
+    its place: each value becomes a contiguous, 16-byte aligned view of a
+    bucket that holds the reduced grads. Each grad's own buffer is let go
+    once it is packed. Returns ``grads``."""
+    groups = [] if mesh is None else _groups(mesh, axes)
+    if not groups:
         return grads
-    group = mesh.get_group(axis)
     names = list(grads)
     shapes = [grads[n].shape for n in names]
     buckets = _buckets([grads[n] for n in names])
@@ -104,7 +152,8 @@ def all_reduce_grads_(grads: Dict[str, torch.Tensor], mesh, axis: str = AXIS_DAT
             g = grads[names[i]]
             flat[off : off + g.numel()].copy_(g.reshape(-1))
             grads[names[i]] = None
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        for group in groups:
+            _sum_(flat, group)
         for i, off in zip(indices, offsets):
             grads[names[i]] = flat[off : off + shapes[i].numel()].view(shapes[i])
     return grads
@@ -130,3 +179,429 @@ def assert_replicated(tensors: Iterable[torch.Tensor], what: str = "state") -> s
     if len(set(digests)) != 1:
         raise RuntimeError(f"{what} differs across ranks: digests {digests}")
     return digest
+
+
+def all_reduce_(tensor: torch.Tensor, mesh, axes: Sequence[str] = ROW_AXES) -> torch.Tensor:
+    """``tensor`` summed in place over ``axes`` (nothing without a mesh)."""
+    for group in [] if mesh is None else _groups(mesh, axes):
+        _sum_(tensor, group)
+    return tensor
+
+
+def _sum_(tensor: torch.Tensor, group) -> None:
+    """All-reduce (SUM) of a contiguous tensor over ``group``: through
+    ``_CardExchange`` on gloo ranks of a card."""
+    if _shares_card(group, tensor.device):
+        _CardExchange.of(group, tensor.device).all_reduce(tensor)
+    else:
+        dist.all_reduce(tensor, op=dist.ReduceOp.SUM, group=group)
+
+
+# --- FSDP: state sharded on torch axis 0 over the fsdp axis --------------------
+
+
+def local_tensor(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a ``DTensor`` (a view of its storage, no
+    autograd history), else ``t`` itself."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        with torch.no_grad():
+            return t.to_local()
+    return t
+
+
+def _shares_card(group, device: torch.device) -> bool:
+    """Whether a collective of ``group`` on ``device`` goes through
+    ``_CardExchange``: gloo ranks on a card (NCCL takes one rank a card;
+    gloo's CUDA all-gather and reduce-scatter are not usable, and its CUDA
+    all-reduce and broadcast cross the host)."""
+    return device.type == "cuda" and dist.get_backend(group) == "gloo"
+
+
+_EXCHANGES: Dict[tuple, "_CardExchange"] = {}  # by (group ranks, device)
+
+
+class _CardExchange:
+    """One buffer per rank of a gloo group whose ranks share a card, each
+    rank mapping every other rank's (CUDA IPC; a shared file mapping for CPU
+    tensors). A collective is device copies between two barriers: each rank
+    writes its bytes into its own buffer, then reads what it needs from
+    every buffer, and no rank writes again before every rank has read."""
+
+    def __init__(self, group, device: torch.device):
+        self.group, self.device = group, device
+        self.world, self.rank = dist.get_world_size(group), dist.get_rank(group)
+        self.buffers: List[torch.Tensor] = []  # by group rank; this rank's own at self.rank
+        self.nbytes = 0
+        self._earlier: List[List[torch.Tensor]] = []  # kept alive: the other ranks may map them
+        card = str(torch.cuda.get_device_properties(device).uuid) if device.type == "cuda" else "cpu"
+        cards = [None] * self.world
+        dist.all_gather_object(cards, card, group=group)
+        if len(set(cards)) != 1:
+            raise RuntimeError(f"gloo ranks on different cards ({cards}): use NCCL between cards")
+
+    @classmethod
+    def of(cls, group, device: torch.device) -> "_CardExchange":
+        key = tuple(dist.get_process_group_ranks(group)), str(device)
+        if key not in _EXCHANGES:
+            _EXCHANGES[key] = cls(group, device)
+        return _EXCHANGES[key]
+
+    def _ensure(self, nbytes: int) -> None:
+        """Buffers of at least ``nbytes`` (every rank asks for the same)."""
+        if nbytes <= self.nbytes:
+            return
+        nbytes = max(nbytes, 2 * self.nbytes)
+        handles = [None] * self.world
+        if self.device.type == "cuda":
+            from torch.multiprocessing.reductions import reduce_tensor
+
+            own = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+            dist.all_gather_object(handles, reduce_tensor(own), group=self.group)
+            peers = [own if r == self.rank else fn(*args) for r, (fn, args) in enumerate(handles)]
+        else:  # a file each rank maps shared, unlinked once every rank has
+            fd, path = tempfile.mkstemp(prefix="card_exchange_")
+            os.close(fd)
+            os.truncate(path, nbytes)
+            own = torch.from_file(path, shared=True, size=nbytes, dtype=torch.uint8)
+            dist.all_gather_object(handles, path, group=self.group)
+            peers = [own if r == self.rank else torch.from_file(p, shared=True, size=nbytes, dtype=torch.uint8)
+                     for r, p in enumerate(handles)]
+            dist.barrier(group=self.group)
+            os.unlink(path)
+        self._earlier.append(self.buffers)
+        self.buffers, self.nbytes = peers, nbytes
+
+    def _fence(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dist.barrier(group=self.group)
+
+    def _publish(self, t: torch.Tensor) -> int:
+        nbytes = t.numel() * t.element_size()
+        self._ensure(nbytes)
+        self.buffers[self.rank][:nbytes].copy_(t.detach().contiguous().reshape(-1).view(torch.uint8))
+        self._fence()
+        return nbytes
+
+    def all_gather(self, out: torch.Tensor, local: torch.Tensor) -> None:
+        """``out`` (contiguous, ``world`` times ``local``'s bytes) becomes
+        every rank's ``local`` in rank order."""
+        nbytes = self._publish(local)
+        flat = out.view(-1).view(torch.uint8)
+        for r, buf in enumerate(self.buffers):
+            flat[r * nbytes : (r + 1) * nbytes].copy_(buf[:nbytes])
+        self._fence()
+
+    def all_reduce(self, t: torch.Tensor) -> None:
+        """``t`` (contiguous) becomes the sum of every rank's, added in rank
+        order in its dtype."""
+        nbytes = self._publish(t)
+        parts = [buf[:nbytes].view(t.dtype) for buf in self.buffers]
+        total = parts[0].clone()
+        for part in parts[1:]:
+            total.add_(part)
+        t.view(-1).copy_(total)
+        self._fence()
+
+    def broadcast(self, t: torch.Tensor, src: int) -> None:
+        """``t`` (contiguous) becomes group rank ``src``'s."""
+        nbytes = self._publish(t)
+        if self.rank != src:
+            t.view(-1).view(torch.uint8).copy_(self.buffers[src][:nbytes])
+        self._fence()
+
+    def reduce_scatter(self, out: torch.Tensor, full: torch.Tensor) -> None:
+        """``out`` becomes this rank's slice of the sum of every rank's
+        ``full``, added in rank order in ``full``'s dtype."""
+        nbytes = self._publish(full)
+        n = out.numel()
+        parts = [buf[:nbytes].view(full.dtype)[self.rank * n : (self.rank + 1) * n] for buf in self.buffers]
+        total = parts[0].clone()
+        for part in parts[1:]:
+            total.add_(part)
+        out.copy_(total.view(out.shape))
+        self._fence()
+
+
+class _CardAllGather:
+    """FSDP2's all-gather through the ranks' ``_CardExchange`` (its
+    ``AllGather`` protocol)."""
+
+    def allocate(self, size, *, dtype, device):
+        return torch.empty(*size, dtype=dtype, device=device)
+
+    def __call__(self, output_tensor, input_tensor, group, async_op=False):
+        _CardExchange.of(group, input_tensor.device).all_gather(output_tensor, input_tensor)
+        return None
+
+
+class _CardReduceScatter:
+    """FSDP2's reduce-scatter through the ranks' ``_CardExchange`` (its
+    ``ReduceScatter`` protocol; ``op`` is SUM, ``fully_shard_``)."""
+
+    def allocate(self, size, *, dtype, device):
+        return torch.empty(*size, dtype=dtype, device=device)
+
+    def __call__(self, output_tensor, input_tensor, group, op, async_op=False):
+        _CardExchange.of(group, input_tensor.device).reduce_scatter(output_tensor, input_tensor)
+        return None
+
+
+def fsdp_units(module: nn.Module) -> List[nn.Module]:
+    """The modules that ``fully_shard_`` shards one by one before the root:
+    a UNet's down, mid and up blocks, a CLIP tower's encoder layers."""
+    if hasattr(module, "down_blocks"):
+        return [*module.down_blocks, module.mid_block, *module.up_blocks]
+    return list(module.text_model.encoder.layers)
+
+
+def fsdp_mesh(mesh):
+    """The mesh FSDP2 shards over: the ``fsdp`` axis, or ``(data_parallel,
+    fsdp)`` (HSDP: replicated over the data axis) when the data axis has more
+    than one rank."""
+    if axis_size(mesh, AXIS_DATA) > 1:
+        return mesh[(AXIS_DATA, AXIS_FSDP)]
+    return mesh[AXIS_FSDP]
+
+
+def fully_shard_(module: nn.Module, mesh) -> nn.Module:
+    """Shard ``module`` with FSDP2 over the mesh's ``fsdp`` axis: each of
+    ``fsdp_units`` its own unit (all-gathered before its forward, freed after
+    it, gathered again for its backward), the rest with the root. The grads'
+    reduce-scatter sums (``set_gradient_divide_factor(1)`` with SUM comms);
+    on gloo ranks of a card both go through ``_CardExchange``."""
+    from torch.distributed.fsdp import fully_shard
+
+    sub = fsdp_mesh(mesh)
+    units = fsdp_units(module)
+    for unit in units:
+        fully_shard(unit, mesh=sub)
+    fully_shard(module, mesh=sub)
+    device = next(module.parameters()).device
+    for m in (*units, module):
+        m.set_gradient_divide_factor(1.0)
+        m.set_force_sum_reduction_for_comms(True)
+        if _shares_card(sub.get_group(sub.ndim - 1), device):
+            m.set_custom_all_gather(_CardAllGather())
+            m.set_custom_reduce_scatter(_CardReduceScatter())
+    return module
+
+
+@dataclass(frozen=True)
+class RowGather:
+    """One tensor to rebuild whole from the axis-0 rows that the ranks of
+    ``group`` hold (``counts[i]`` rows on rank ``i``, this rank's ``local``),
+    and ``post``, applied to the whole tensor (a transpose back to the
+    reference order), if any."""
+
+    local: torch.Tensor
+    counts: Tuple[int, ...]
+    group: Any
+    post: Optional[Any] = None
+
+
+@torch.no_grad()
+def gather_rows_many(gathers: Sequence[RowGather], host: bool = False, keep: bool = True) -> List[Optional[torch.Tensor]]:
+    """Each of ``gathers`` whole, in order (a collective: every rank of
+    their groups calls it with the same list). The tensors of one group go
+    in one all-gather per ``BUCKET_BYTES``, each rank's rows padded to the
+    largest count, through ``_CardExchange`` on gloo ranks of a card. The
+    results are in host memory with ``host``, else on the local tensors'
+    device; a rank with ``keep`` False takes part and gets Nones."""
+    out: List[Optional[torch.Tensor]] = [None] * len(gathers)
+    by_group: Dict[int, List[int]] = {}
+    for i, g in enumerate(gathers):
+        by_group.setdefault(id(g.group), []).append(i)
+    for members in by_group.values():
+        bucket, nbytes = [], 0
+        for i in members:
+            size = _slot_bytes(gathers[i])
+            if bucket and nbytes + size > BUCKET_BYTES:
+                _gather_bucket(gathers, bucket, out, host, keep)
+                bucket, nbytes = [], 0
+            bucket.append(i)
+            nbytes += size
+        if bucket:
+            _gather_bucket(gathers, bucket, out, host, keep)
+    return out
+
+
+def _row_bytes(t: torch.Tensor) -> int:
+    return t.element_size() * math.prod(t.shape[1:])
+
+
+def _slot_bytes(g: RowGather) -> int:
+    return -(-max(g.counts) * _row_bytes(g.local) // ALIGN_BYTES) * ALIGN_BYTES
+
+
+def _gather_bucket(gathers, bucket, out, host, keep) -> None:
+    first = gathers[bucket[0]]
+    group, device = first.group, first.local.device
+    offsets, total = [], 0
+    for i in bucket:
+        offsets.append(total)
+        total += _slot_bytes(gathers[i])
+    flat = torch.zeros(total, dtype=torch.uint8, device=device)
+    for i, off in zip(bucket, offsets):
+        local = gathers[i].local.detach().contiguous().reshape(-1).view(torch.uint8)
+        flat[off : off + local.numel()].copy_(local)
+    world = len(first.counts)
+    whole = torch.empty(world * total, dtype=torch.uint8, device=device)
+    if _shares_card(group, device):
+        _CardExchange.of(group, device).all_gather(whole, flat)
+    else:
+        _ALL_GATHER(whole, flat, group=group)
+    if not keep:
+        return
+    if host:
+        whole = whole.cpu()
+    for i, off in zip(bucket, offsets):
+        g, row = gathers[i], _row_bytes(gathers[i].local)
+        parts = [whole[r * total + off : r * total + off + n * row] for r, n in enumerate(g.counts)]
+        full = torch.cat(parts).view(g.local.dtype).view((sum(g.counts),) + tuple(g.local.shape[1:]))
+        out[i] = g.post(full) if g.post is not None else full
+
+
+def gather_rows(local: torch.Tensor, counts: Sequence[int], group, host: bool = False) -> torch.Tensor:
+    """The whole tensor whose axis-0 rows the ranks of ``group`` hold,
+    ``counts[i]`` rows on rank ``i``, in rank order (``gather_rows_many``
+    of one)."""
+    return gather_rows_many([RowGather(local, tuple(counts), group)], host)[0]
+
+
+@dataclass(frozen=True)
+class RowShard:
+    """One leaf that FSDP2 shards on torch axis 0: the whole leaf's
+    ``shape``, the row ``bounds`` of each rank of the ``fsdp`` axis
+    (``torch.chunk``'s split: rank ``i`` holds rows ``bounds[i]:bounds[i +
+    1]``, possibly none), this rank's ``index`` on the axis and its
+    ``group``."""
+
+    shape: torch.Size
+    bounds: Tuple[int, ...]
+    index: int
+    group: Any
+
+    @property
+    def start(self) -> int:
+        return self.bounds[self.index]
+
+    @property
+    def stop(self) -> int:
+        return self.bounds[self.index + 1]
+
+    @property
+    def counts(self) -> List[int]:
+        return [b - a for a, b in zip(self.bounds, self.bounds[1:])]
+
+    def take(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the whole tensor."""
+        return full[self.start : self.stop]
+
+    def gather(self, local: torch.Tensor, host: bool = False) -> torch.Tensor:
+        """The whole tensor from every rank's rows (a collective)."""
+        return gather_rows(local, self.counts, self.group, host)
+
+    def gathers(self, local: torch.Tensor) -> List[RowGather]:
+        """The whole tensor as a ``RowGather``, for ``gather_rows_many``."""
+        return [RowGather(local, tuple(self.counts), self.group)]
+
+
+@dataclass(frozen=True)
+class MomentumShard:
+    """The co-sharding rule's answer for one quantized leaf: this rank's
+    blocks of the whole leaf's reference-order codes ``(n_blocks, bs)`` and
+    scales ``(n_blocks,)``. ``transposed``: a Dense or Conv kernel, whose
+    JAX block is ``bs`` output channels (torch rows) at one of the
+    ``columns`` torch columns, so the whole codes are ``(columns, rows / bs,
+    bs)`` and the rank's are ``[:, start / bs : stop / bs]``; otherwise the
+    orders agree and the rank's blocks are the flat range of its rows."""
+
+    rows: RowShard
+    transposed: bool
+    columns: int
+    bs: int
+
+    def _block_counts(self) -> List[int]:
+        per_row = 1 if self.transposed else self.columns
+        return [n * per_row // self.bs for n in self.rows.counts]
+
+    def take(self, codes: torch.Tensor, scales: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This rank's codes and scales of the whole leaf's."""
+        lo, hi = (b * (1 if self.transposed else self.columns) // self.bs for b in (self.rows.start, self.rows.stop))
+        if not self.transposed:
+            return codes[lo:hi], scales[lo:hi]
+        groups = self.rows.shape[0] // self.bs
+        return (codes.view(self.columns, groups, self.bs)[:, lo:hi].reshape(-1, self.bs),
+                scales.view(self.columns, groups)[:, lo:hi].reshape(-1))
+
+    def gathers(self, codes: torch.Tensor, scales: torch.Tensor) -> List[RowGather]:
+        """The whole leaf's codes and scales from every rank's, as two
+        ``RowGather``s: the blocks of a transposed leaf gathered as rows of
+        ``(rows / bs, columns, ...)`` and put back in reference order."""
+        counts, group = tuple(self._block_counts()), self.rows.group
+        if not self.transposed:
+            return [RowGather(codes, counts, group), RowGather(scales, counts, group)]
+        c = codes.view(self.columns, -1, self.bs).transpose(0, 1).contiguous()
+        s = scales.view(self.columns, -1).t().contiguous()
+        return [RowGather(c, counts, group, lambda full: full.transpose(0, 1).reshape(-1, self.bs)),
+                RowGather(s, counts, group, lambda full: full.t().reshape(-1))]
+
+    def gather(self, codes: torch.Tensor, scales: torch.Tensor, host: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The whole leaf's codes and scales from every rank's (a
+        collective)."""
+        full_codes, full_scales = gather_rows_many(self.gathers(codes, scales), host)
+        return full_codes, full_scales
+
+
+class FsdpPlan:
+    """One sharded model's leaves: ``rows`` (``{name: RowShard}``) and the
+    torch-to-JAX permutation of each (``perms``), for the momentum rule."""
+
+    def __init__(self, rows: Dict[str, RowShard], perms: Dict[str, Optional[Sequence[int]]]):
+        self.rows = rows
+        self.perms = perms
+        self.group = next(iter(rows.values())).group
+
+    def momentum(self, name: str, bs: int) -> Optional[MomentumShard]:
+        """The co-sharding rule: the leaf's momentum is split as its rows
+        when it is a transposed leaf (Dense or Conv kernel) or one whose
+        orders agree, no rank is empty, and every rank's rows hold whole
+        blocks; None keeps the whole momentum on every rank."""
+        rows = self.rows[name]
+        columns = rows.shape.numel() // rows.shape[0]
+        kind = leaf_kind(rows.shape, self.perms.get(name), bs)
+        if kind is None or 0 in rows.counts:
+            return None
+        per_row = 1 if kind == 0 else columns
+        if any(b * per_row % bs for b in rows.bounds):
+            return None
+        return MomentumShard(rows, kind == 0, columns, bs)
+
+    def take(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        return self.rows[name].take(full)
+
+
+def fsdp_plan(module: nn.Module) -> Optional[FsdpPlan]:
+    """The ``FsdpPlan`` of a module that ``fully_shard_`` sharded (None for
+    one that holds whole tensors)."""
+    from torch.distributed.tensor import DTensor
+
+    from ..models.hf_io import jax_param_paths
+
+    rows = {}
+    for name, p in module.named_parameters():
+        if not isinstance(p, DTensor):
+            continue
+        dim = next(i for i, pl in enumerate(p.placements) if pl.is_shard())
+        mesh, n = p.device_mesh, p.shape[0]
+        chunk = -(-n // mesh.size(dim))
+        rows[name] = RowShard(
+            p.shape, tuple(min(i * chunk, n) for i in range(mesh.size(dim) + 1)),
+            mesh.get_local_rank(dim), mesh.get_group(dim),
+        )
+    if not rows:
+        return None
+    return FsdpPlan(rows, {name: perm for name, (_, perm) in jax_param_paths(module).items()})

@@ -10,7 +10,7 @@ entry. The config's ``compilation_cache_path``, ``keep_compiled_fn_in_cache``
 and ``aot_compile`` set up XLA's compilation cache in the JAX package; the
 port accepts them and ignores them. Under data parallelism (``mesh``) each
 rank's batches are its shard of the global batch: the keys hold the rank's
-rows, ``batch_size`` over the data axis, and each step sums over the axis.
+rows, ``batch_size`` over the data x fsdp ranks, and each step sums over them.
 """
 
 import functools
@@ -18,7 +18,7 @@ from typing import Any, Callable, Dict
 
 import numpy as np
 
-from ..core.mesh import AXIS_DATA, axis_size
+from ..core.mesh import row_index
 from ..data.buckets import calculate_resolution_array
 from ..utils.timing import TimingContextManager
 from .config import TrainingConfig
@@ -72,7 +72,7 @@ def bucket_train_steps(training_config: TrainingConfig, frozen_vae: Any, mesh=No
     )
     vae_config = frozen_vae.call.config
     factor = 2 ** (len(vae_config.block_out_channels) - 1)
-    b = training_config.batch_size // axis_size(mesh, AXIS_DATA)
+    b = training_config.batch_size // row_index(mesh)[1]
     steps = {}
     with TimingContextManager("step table for all buckets"):
         for res0, res1 in all_unique_resolutions(training_config):

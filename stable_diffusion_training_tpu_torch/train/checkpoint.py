@@ -25,7 +25,15 @@ Under data parallelism every rank holds the same state: ``save_model`` and
 ``save_train_state`` write from rank 0 alone while the others wait (the
 role of orbax's distributed save), and ``restore_train_state`` reads onto
 every rank's own device, then checks that the ranks hold the same bytes.
-The checkpoint directory must be one that every rank sees.
+Under FSDP every rank first takes part in rebuilding each whole tensor from
+the shards, many leaves to a collective (params and EMA from their rows,
+the Lion codes and scales into the reference order:
+``parallel.sharding.gather_rows_many``), rank 0 keeping them in host memory;
+then rank 0 writes. The files are those
+a one-process run writes for the same state, and a restore reads the whole
+files and keeps each rank's shard, so a checkpoint moves between one
+process, a data-parallel world and an FSDP world either way. The checkpoint
+directory must be one that every rank sees.
 """
 
 import json
@@ -39,6 +47,7 @@ from ..diffusion import DDIMScheduler
 from ..models import hf_io
 from ..optim.lion8bit import QuantizedMomentum
 from ..parallel import assert_replicated
+from ..parallel.sharding import FsdpPlan, fsdp_plan, gather_rows_many
 from .states import TrainState, state_tensors
 
 _MODEL_INDEX = {
@@ -64,12 +73,29 @@ def save_model(
 ) -> None:
     """Write a trained pipeline in diffusers layout (the JAX package's and the
     reference trainer's signature); the params are ``{name: tensor}`` dicts
-    of the models in ``model_object_dict``, written as f32. Every rank
-    calls it; rank 0 writes."""
+    of the models in ``model_object_dict`` (this rank's shards of an
+    FSDP-sharded model's), written as f32. Every rank calls it; rank 0
+    writes."""
+    unet_params = _whole(unet_params, fsdp_plan(model_object_dict["unet"]))
+    text_encoder_params = _whole(text_encoder_params, fsdp_plan(model_object_dict["text_encoder"]))
     run_on(
         process_index() == 0, _write_model, model_object_dict, tokenizer_object, unet_params,
         text_encoder_params, vae_params, output_dir,
     )
+
+
+def _whole(params: Dict[str, torch.Tensor], plan: Optional[FsdpPlan]) -> Dict[str, torch.Tensor]:
+    """``params`` with each shard of ``plan`` gathered into its whole leaf,
+    several leaves a collective (every rank calls it), rank 0 keeping them
+    in host memory and the others nothing; ``params`` itself without a
+    plan."""
+    if plan is None:
+        return params
+    keep = process_index() == 0
+    names = [n for n in params if n in plan.rows]
+    fulls = gather_rows_many([g for n in names for g in plan.rows[n].gathers(params[n])], host=True, keep=keep)
+    gathered = dict(zip(names, fulls))
+    return {n: gathered[n] if n in gathered else t.cpu() for n, t in params.items()} if keep else {}
 
 
 def _write_model(model_object_dict, tokenizer_object, unet_params, text_encoder_params, vae_params, output_dir):
@@ -112,26 +138,38 @@ def _keys(node) -> list:
     return list(node._fields) if hasattr(node, "_fields") else [str(i) for i in range(len(node))]
 
 
-def _flatten(node: Any, path: str, tensors: Dict[str, torch.Tensor], scalars: Dict[str, Any]) -> None:
+def _flatten(
+    node: Any, path: str, tensors: Dict[str, torch.Tensor], scalars: Dict[str, Any],
+    plan: Optional[FsdpPlan] = None, leaf: Optional[str] = None, pending: Optional[list] = None,
+) -> None:
     """Tensors of ``node`` into ``tensors`` and its other leaves (ints,
-    floats, bools, strings, None) into ``scalars``, keyed by their path."""
+    floats, bools, strings, None) into ``scalars``, keyed by their path.
+    Under a ``plan`` a sharded leaf (``leaf``: the param name of a params,
+    EMA or momentum dict entry) takes its place in ``tensors`` and its
+    gathers go to ``pending`` as ``(path, RowGather)``, for
+    ``_gather_pending``."""
     if isinstance(node, torch.Tensor):
         tensors[path] = node
+        if plan is not None and leaf in plan.rows:
+            pending.extend((path, g) for g in plan.rows[leaf].gathers(node))
     elif isinstance(node, torch.Generator):
         tensors[path] = node.get_state()
     elif isinstance(node, TrainState):
-        _flatten(node.params, f"{path}/params", tensors, scalars)
-        _flatten(node.opt_state, f"{path}/opt_state", tensors, scalars)
+        _flatten(node.params, f"{path}/params", tensors, scalars, node.fsdp, pending=pending)
+        _flatten(node.opt_state, f"{path}/opt_state", tensors, scalars, node.fsdp, pending=pending)
         scalars[f"{path}/step"] = node.step
     elif isinstance(node, QuantizedMomentum):
-        tensors[f"{path}/codes"] = node.codes
-        tensors[f"{path}/scales"] = node.scales
+        keys = (f"{path}/codes", f"{path}/scales")
+        tensors[keys[0]], tensors[keys[1]] = node.codes, node.scales
+        shard = plan.momentum(leaf, node.codes.shape[1]) if plan is not None and leaf in plan.rows else None
+        if shard is not None:
+            pending.extend(zip(keys, shard.gathers(node.codes, node.scales)))
     elif isinstance(node, dict):
         for key, value in node.items():
-            _flatten(value, f"{path}/{key}", tensors, scalars)
+            _flatten(value, f"{path}/{key}", tensors, scalars, plan, key, pending)
     elif isinstance(node, (tuple, list)):
         for key, value in zip(_keys(node), node):
-            _flatten(value, f"{path}/{key}", tensors, scalars)
+            _flatten(value, f"{path}/{key}", tensors, scalars, plan, pending=pending)
         scalars[f"{path}/#"] = len(node)
     elif node is None or isinstance(node, (bool, int, float, str)):
         scalars[path] = node
@@ -139,41 +177,68 @@ def _flatten(node: Any, path: str, tensors: Dict[str, torch.Tensor], scalars: Di
         raise TypeError(f"cannot checkpoint {type(node).__name__} at {path}")
 
 
+def _gather_pending(tensors: Dict[str, torch.Tensor], pending: list) -> Dict[str, torch.Tensor]:
+    """``tensors`` with each pending shard replaced by its whole tensor, in
+    place and in host memory, on rank 0; the gathers are collectives, so
+    every rank calls it, and the other ranks get nothing to write."""
+    if not pending:
+        return tensors
+    keep = process_index() == 0
+    fulls = gather_rows_many([g for _, g in pending], host=True, keep=keep)
+    if not keep:
+        return {}
+    for (path, _), full in zip(pending, fulls):
+        tensors[path] = full
+    return tensors
+
+
 @torch.no_grad()
-def _restore(like: Any, path: str, tensors: Dict[str, torch.Tensor], scalars: Dict[str, Any]) -> Any:
+def _restore(
+    like: Any, path: str, tensors: Dict[str, torch.Tensor], scalars: Dict[str, Any],
+    plan: Optional[FsdpPlan] = None, leaf: Optional[str] = None,
+) -> Any:
     """``like`` (a freshly built state) with the saved values: tensors copied
     into its own tensors in place (so module parameters stay the modules'),
-    everything else rebuilt."""
+    everything else rebuilt. Under a ``plan`` a sharded leaf takes this
+    rank's shard of the whole saved tensor."""
+    sharded = plan is not None and leaf in plan.rows
 
-    def tensor(key: str, into: torch.Tensor) -> torch.Tensor:
+    def saved(key: str) -> torch.Tensor:
         if key not in tensors:
             raise KeyError(f"the saved state has no tensor {key}")
-        saved = tensors[key]
-        if saved.shape != into.shape or saved.dtype != into.dtype:
+        return tensors[key]
+
+    def fill(key: str, into: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+        if value.shape != into.shape or value.dtype != into.dtype:
             raise ValueError(
-                f"{key}: saved {tuple(saved.shape)} {saved.dtype}, state has "
+                f"{key}: saved {tuple(value.shape)} {value.dtype}, state has "
                 f"{tuple(into.shape)} {into.dtype}"
             )
-        return into.copy_(saved)
+        return into.copy_(value)
 
     if isinstance(like, torch.Tensor):
-        return tensor(path, like)
+        return fill(path, like, plan.take(leaf, saved(path)) if sharded else saved(path))
     if isinstance(like, torch.Generator):
         like.set_state(tensors[path])
         return like
     if isinstance(like, TrainState):
-        _restore(like.params, f"{path}/params", tensors, scalars)
-        like.opt_state = _restore(like.opt_state, f"{path}/opt_state", tensors, scalars)
+        _restore(like.params, f"{path}/params", tensors, scalars, like.fsdp)
+        like.opt_state = _restore(like.opt_state, f"{path}/opt_state", tensors, scalars, like.fsdp)
         like.step = scalars[f"{path}/step"]
         return like
     if isinstance(like, QuantizedMomentum):
-        return QuantizedMomentum(tensor(f"{path}/codes", like.codes), tensor(f"{path}/scales", like.scales))
+        codes, scales = saved(f"{path}/codes"), saved(f"{path}/scales")
+        shard = plan.momentum(leaf, like.codes.shape[1]) if sharded else None
+        if shard is not None:
+            codes, scales = shard.take(codes, scales)
+        return QuantizedMomentum(fill(f"{path}/codes", like.codes, codes), fill(f"{path}/scales", like.scales, scales))
     if isinstance(like, dict):
-        return {key: _restore(value, f"{path}/{key}", tensors, scalars) for key, value in like.items()}
+        return {key: _restore(value, f"{path}/{key}", tensors, scalars, plan, key) for key, value in like.items()}
     if isinstance(like, (tuple, list)):
         if scalars.get(f"{path}/#") != len(like):
             raise ValueError(f"{path}: saved {scalars.get(f'{path}/#')} entries, state has {len(like)}")
-        values = [_restore(value, f"{path}/{key}", tensors, scalars) for key, value in zip(_keys(like), like)]
+        values = [_restore(value, f"{path}/{key}", tensors, scalars, plan)
+                  for key, value in zip(_keys(like), like)]
         if hasattr(like, "_fields"):  # a NamedTuple
             return type(like)(*values)
         return type(like)(values)
@@ -193,17 +258,7 @@ def save_train_state(
 ) -> None:
     """Full-state checkpoint: params, optimizer state (quantized momentum
     included), EMA and the generator, restorable mid-run and bit for bit.
-    Every rank calls it; rank 0 writes."""
-    run_on(
-        process_index() == 0, _write_train_state, directory, unet_state, text_encoder_state,
-        unet_ema_params, text_encoder_ema_params, train_rng, step_metadata,
-    )
-
-
-def _write_train_state(
-    directory, unet_state, text_encoder_state, unet_ema_params, text_encoder_ema_params, train_rng, step_metadata,
-):
-    os.makedirs(directory, exist_ok=True)
+    Every rank calls it (under FSDP every rank gathers); rank 0 writes."""
     payload = {
         "unet_state": unet_state,
         "text_encoder_state": text_encoder_state,
@@ -211,11 +266,21 @@ def _write_train_state(
         "text_encoder_ema_params": text_encoder_ema_params if text_encoder_ema_params is not None else {},
         "train_rng": train_rng,
     }
+    # the EMA buffers are sharded as their model's params
+    plans = {"unet_ema_params": unet_state.fsdp, "text_encoder_ema_params": text_encoder_state.fsdp}
     scalars: Dict[str, Any] = {}
+    parts = {}
     for part in _PARTS:
-        tensors: Dict[str, torch.Tensor] = {}
-        _flatten(payload[part], part, tensors, scalars)
-        hf_io.save_safetensors(tensors, os.path.join(directory, f"{part}.safetensors"))
+        tensors, pending = {}, []
+        _flatten(payload[part], part, tensors, scalars, plans.get(part), pending=pending)
+        parts[part] = _gather_pending(tensors, pending)
+    run_on(process_index() == 0, _write_train_state, directory, parts, scalars, step_metadata)
+
+
+def _write_train_state(directory, parts, scalars, step_metadata):
+    os.makedirs(directory, exist_ok=True)
+    for part in _PARTS:
+        hf_io.save_safetensors(parts[part], os.path.join(directory, f"{part}.safetensors"))
     with open(os.path.join(directory, "structure.json"), "w") as f:
         json.dump(scalars, f, indent=1, sort_keys=True)
     if step_metadata is not None:
@@ -228,17 +293,23 @@ def restore_train_state(directory: str, template: Dict[str, Any]) -> Dict[str, A
     built state with the same keys as ``save_train_state``'s arguments
     (``unet_state``, ``text_encoder_state``, ``unet_ema_params``,
     ``text_encoder_ema_params`` ({} for none), ``train_rng``). Tensors are
-    copied into the template's own, whose shapes and dtypes must match.
-    With several ranks each restores onto its own template, then the ranks
-    are checked to hold the same state (``parallel.assert_replicated``)."""
+    copied into the template's own, whose shapes and dtypes must match;
+    an FSDP-sharded template takes each rank's shard of the whole saved
+    tensors. With several ranks each restores onto its own template; ranks
+    that hold whole states are then checked to hold the same state
+    (``parallel.assert_replicated``)."""
     with open(os.path.join(directory, "structure.json")) as f:
         scalars = json.load(f)
+    plans = {
+        "unet_ema_params": template["unet_state"].fsdp,
+        "text_encoder_ema_params": template["text_encoder_state"].fsdp,
+    }
     restored = {}
     for part in _PARTS:
         tensors = hf_io.load_safetensors(os.path.join(directory, f"{part}.safetensors"))
-        restored[part] = _restore(template[part], part, tensors, scalars)
+        restored[part] = _restore(template[part], part, tensors, scalars, plans.get(part))
         del tensors
-    if process_count() > 1:
+    if process_count() > 1 and not any(plans.values()):
         parts = [restored[part] for part in _PARTS[:-1]]
         tensors = state_tensors(*parts) + [restored["train_rng"].get_state()]
         assert_replicated(tensors, f"state restored from {directory}")

@@ -7,17 +7,24 @@ reference trainer's 29 fields plus the JAX package's additions), and
 raw ``model_properties`` JSON dict. Fields that name JAX or TPU machinery
 (``compilation_cache_path``, ``mesh_shape``, ``use_pallas_lion`` ...) keep
 their names so one JSON file configures both packages; the comments below
-say which of them the port ignores. ``mesh_shape`` may lay the ranks out
-for data parallelism only: ``None`` (every rank on the data axis) or
-``[W, 1]`` with W the process group's size; a field that asks for what the port does not have yet (an
-``fsdp`` or ``model_parallel`` axis above 1, FSDP or TP sharding, the
-polyphase VAE downsample) raises ``NotImplementedError`` naming its ROADMAP
-item. ``batch_size`` is the global batch, as in the reference: the data
-axis must divide it, and each rank's rows must divide into
+say which of them the port ignores. ``mesh_shape`` lays the ranks out:
+``None`` (every rank on the data axis), ``[W, 1]`` (data parallelism) or
+``[D, F, 1]`` (``data_parallel``, ``fsdp``, ``model_parallel``), its
+product the process group's size. The rows of a batch split over data x
+fsdp ranks. ``fsdp_shard_params`` shards params, grads, EMA and the Lion
+momentum over the ``fsdp`` axis (FSDP2; HSDP with D > 1); with it off the
+fsdp ranks are data parallel, as in the JAX package, and on an fsdp axis
+of 1 it trains as the default does (FSDP2 runs in a process group, every
+shard the whole leaf). A field that asks for what the port does not have
+yet (a ``model_parallel`` axis above 1, TP sharding, the polyphase VAE
+downsample) raises ``NotImplementedError`` naming its ROADMAP item.
+``batch_size`` is the global batch, as in the reference: the data x fsdp
+ranks must divide it, and each rank's rows must divide into
 ``grad_accumulation_steps`` micro-batches.
 """
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
@@ -62,11 +69,11 @@ class TrainingConfig:
 
     # --- the JAX package's additions, defaulted so reference configs load ---
     model_family: str = "sd15"  # architecture family when building fresh models
-    # rank layout: None = every rank on the data axis; [W, 1] the same
-    # (an fsdp or model_parallel axis above 1 raises, not ported)
+    # rank layout: None = every rank on the data axis; [W, 1] the same;
+    # [D, F, 1] data x fsdp (a model_parallel axis above 1 raises, not ported)
     mesh_shape: Optional[List[int]] = None
     mesh_axis_names: Optional[List[str]] = None
-    fsdp_shard_params: bool = False  # param sharding (True raises, not ported)
+    fsdp_shard_params: bool = False  # ZeRO-3 over the fsdp axis (FSDP2)
     tensor_parallel_shard_params: bool = False  # tensor parallelism (True raises, not ported)
     gradient_checkpointing: bool = False  # recompute each UNet block in the backward
     ff_gradient_checkpointing: bool = False  # recompute each transformer feed-forward
@@ -113,22 +120,22 @@ class TrainingConfig:
     bucket_rounding: int = 64  # aspect-ratio bucket grid step (loader)
 
     def __post_init__(self):
-        for axis, size in self.mesh_axes().items():
-            if axis != AXIS_DATA and size > 1:
+        axes = self.mesh_axes()
+        for axis, size in axes.items():
+            if axis not in (AXIS_DATA, AXIS_FSDP) and size > 1:
                 raise not_ported(f"mesh_shape={list(self.mesh_shape)} ({axis} axis of {size})", 7)
-        world = self.data_parallel_size()
+        world = math.prod(axes.values()) if axes else process_count()
         if world != process_count():
             raise ValueError(
-                f"mesh_shape={list(self.mesh_shape)} asks for {world} ranks on the data axis; the process "
+                f"mesh_shape={list(self.mesh_shape)} holds {world} ranks; the process "
                 f"group has {process_count()} (torchrun --nproc_per_node={world})"
             )
-        if self.batch_size % world or (self.batch_size // world) % self.grad_accumulation_steps:
+        rows = self.batch_shards()
+        if self.batch_size % rows or (self.batch_size // rows) % self.grad_accumulation_steps:
             raise ValueError(
-                f"batch_size={self.batch_size} must split into {world} rank(s) of whole "
+                f"batch_size={self.batch_size} must split into {rows} rank(s) of whole "
                 f"grad_accumulation_steps={self.grad_accumulation_steps} micro-batches"
             )
-        if self.fsdp_shard_params:
-            raise not_ported("fsdp_shard_params=True", 7)
         if self.tensor_parallel_shard_params:
             raise not_ported("tensor_parallel_shard_params=True", 7)
         if self.vae_polyphase_downsample:
@@ -162,10 +169,20 @@ class TrainingConfig:
             raise ValueError(f"mesh_shape={shape} and mesh_axis_names={names} differ in length")
         return dict(zip(names, shape))
 
-    def data_parallel_size(self) -> int:
-        """Ranks on the data axis: ``mesh_shape``'s (which must be the
-        process group's size), else the process group's (1 without one)."""
-        return self.mesh_axes().get(AXIS_DATA, process_count())
+    def batch_shards(self) -> int:
+        """Ranks that split a batch's rows: data x fsdp of ``mesh_shape``,
+        else the process group's size (1 without one)."""
+        axes = self.mesh_axes()
+        if not axes:
+            return process_count()
+        return axes.get(AXIS_DATA, 1) * axes.get(AXIS_FSDP, 1)
+
+    def shards_params(self) -> bool:
+        """Whether params, grads, EMA and momentum are sharded over the
+        mesh's ``fsdp`` axis (``fsdp_shard_params`` and a ``mesh_shape``
+        with that axis). On an axis of one rank FSDP2 runs and every shard
+        is the whole leaf: the numbers are the default's."""
+        return self.fsdp_shard_params and AXIS_FSDP in self.mesh_axes()
 
     def replace(self, **kwargs) -> "TrainingConfig":
         return dataclasses.replace(self, **kwargs)

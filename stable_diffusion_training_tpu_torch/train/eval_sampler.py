@@ -33,6 +33,9 @@ img2img's two draws) can be passed in instead, as the tests pass the JAX
 package's. Under data parallelism rank 0 samples and writes while the other
 ranks wait: their weights are the same, so their images would be too (the
 JAX package runs the program on every host and writes from process 0).
+Under FSDP every rank samples, since each forward of a sharded model
+all-gathers from every rank, with the same draws and so the same images,
+and rank 0 writes.
 """
 
 import os
@@ -42,6 +45,7 @@ import numpy as np
 import torch
 
 from ..core.distributed import process_index, run_on
+from ..parallel.sharding import fsdp_plan
 from ..utils.device import resolve_device
 from .states import _DTYPES
 
@@ -104,6 +108,8 @@ class EvalSampler:
         unet = model_object_dict["unet"]
         self._models = [m for m in (unet, model_object_dict.get("vae"), model_object_dict.get("text_encoder"))
                         if m is not None]
+        # FSDP2-sharded models: every rank runs their forwards
+        self._sharded = [m for m in self._models if fsdp_plan(m) is not None]
         if getattr(unet, "addition_embed_type", None) == "text_time":
             refiner = int(config_dict.get("sdxl_time_ids_count", 6)) != 6
             images_cfg = config_dict.get("eval_sample_images")
@@ -269,12 +275,19 @@ class EvalSampler:
         step's directory (None otherwise). ``latents`` are the initial
         noise of text-to-image; ``sample_eps`` and ``noise`` img2img's two
         draws; each is drawn from ``generator(step)`` when not given. Every
-        rank calls it; rank 0 samples, and the others get None."""
+        rank calls it; rank 0 samples (every rank, under FSDP) and writes,
+        and the others get None."""
         if not self.interval or step % self.interval:
             return None
-        return run_on(process_index() == 0, self._sample, step, latents, sample_eps, noise)
+        if not self._sharded:
+            return run_on(process_index() == 0, self._sample, step, latents, sample_eps, noise)
+        images = run_on(True, self._images, step, latents, sample_eps, noise)
+        return run_on(process_index() == 0, self._write, step, images)
 
     def _sample(self, step, latents, sample_eps, noise) -> str:
+        return self._write(step, self._images(step, latents, sample_eps, noise))
+
+    def _images(self, step, latents, sample_eps, noise) -> np.ndarray:
         generator = self.generator(step)
         modes = [m.training for m in self._models]
         try:
@@ -298,6 +311,11 @@ class EvalSampler:
         finally:
             for m, mode in zip(self._models, modes):
                 m.train(mode)
+            for m in self._sharded:  # the root's gathered params are not kept past eval
+                m.reshard()
+        return arr
+
+    def _write(self, step, arr) -> str:
         step_dir = os.path.join(self.out_dir, f"step_{step:08d}")
         save_png_images(arr, step_dir)
         if self.metrics_writer is not None and self.metrics_writer.active:

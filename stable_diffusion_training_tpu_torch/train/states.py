@@ -4,11 +4,16 @@ trained model's optimizer chain, keep the EMA buffers.
 Port of ``stable_diffusion_training_tpu/train/states.py`` (``load_models``,
 ``create_frozen_states``, ``build_lr_schedule``,
 ``create_lion_optimizer_states``, ``on_device_model_training_state``). Each
-rank builds the whole state on its own device; with a mesh, every tensor
-of it is then replicated from the data axis's first rank
-(``parallel.replicate_``), where the JAX package places it with a
-replicated sharding. It keeps the reference trainer's quirks as the JAX
-package does:
+rank builds the whole models on its own device; with a mesh, their weights
+are then replicated from the mesh's first rank (``parallel.replicate_``),
+where the JAX package places them with a replicated sharding. Under
+``fsdp_shard_params`` with an ``fsdp`` mesh axis the UNet and the text
+encoder are then sharded with FSDP2 (``parallel.fully_shard_``), where the JAX
+package places them with its FSDP shardings, and the optimizer state and
+the EMA copies are built on each rank's local shards (the Lion momentum
+under the co-sharding rule of ``parallel.sharding``); the frozen VAE stays
+replicated. It keeps the reference trainer's quirks as the JAX package
+does:
 
 - ``on_device_model_training_state`` hard-codes ``adam_to_lion_scale_factor``
   = 7 and does not forward the configured learning rates unless
@@ -36,6 +41,7 @@ from ..optim import transforms
 from ..optim.lion8bit import QuantizedMomentum, lion, lion_8bit
 from ..optim.masks import create_mask
 from ..parallel import replicate_
+from ..parallel.sharding import fsdp_plan, fully_shard_, local_tensor
 from ..utils.device import resolve_device
 from .config import TrainingConfig
 
@@ -60,17 +66,26 @@ class FrozenModel:
 class TrainState:
     """A trained model with its optimizer chain and state, the counterpart of
     flax's ``TrainState``: ``params`` are the module's own parameters,
-    updated in place by ``apply_gradients``."""
+    updated in place by ``apply_gradients``; for a model sharded with FSDP2
+    (``fsdp``, its ``parallel.sharding.FsdpPlan``) they are this rank's
+    local shards, views of the sharded parameters' storage. FSDP2 keeps a
+    root's gathered params registered after a forward that no backward
+    follows (a frozen text encoder's): ``params`` reshards the root first,
+    so that the next forward gathers what the chain wrote."""
 
     def __init__(self, model: nn.Module, tx: transforms.GradientTransformation):
         self.model = model
         self.tx = tx
         self.step = 0
+        self.fsdp = fsdp_plan(model)
         self.opt_state = tx.init(self.params)
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
-        return dict(self.model.named_parameters())
+        if self.fsdp is None:
+            return dict(self.model.named_parameters())
+        self.model.reshard()
+        return {name: local_tensor(p) for name, p in self.model.named_parameters()}
 
     @torch.no_grad()
     def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> "TrainState":
@@ -204,6 +219,7 @@ def create_lion_optimizer_states(
     excluded_q = excluded_layer_from_quantization or []
 
     def build(model, learning_rate, quantize):
+        plan = fsdp_plan(model)  # None unless the model is FSDP-sharded
         schedule = build_lr_schedule(
             learning_rate / adam_to_lion_scale_factor,
             lr_scheduler=lr_scheduler,
@@ -227,13 +243,15 @@ def create_lion_optimizer_states(
                 leaf_orders={
                     name: perm for name, (_, perm) in hf_io.jax_param_paths(model).items()
                 },
+                fsdp=plan,
             )
         else:
             opt = lion(
                 learning_rate=schedule, b1=0.9, b2=0.99,
                 weight_decay=1e-2 * adam_to_lion_scale_factor, mask=decay_mask,
             )
-        return TrainState(model, transforms.chain(transforms.clip_by_global_norm(1), opt))
+        clip = transforms.clip_by_global_norm(1, None if plan is None else plan.group)
+        return TrainState(model, transforms.chain(clip, opt))
 
     unet_state = text_encoder_state = None
     if train_unet:
@@ -250,8 +268,8 @@ def create_lion_optimizer_states(
 def state_tensors(*parts: Any) -> List[torch.Tensor]:
     """Every tensor of ``parts`` (``TrainState``s: params and optimizer
     state; ``FrozenModel``s: params; EMA dicts; None), depth first in dict
-    order, so the same on every rank: what ``replicate_`` and the
-    replication check cover. Step counts are Python ints, the same on every
+    order, so the same on every rank: what the replication check and the
+    tests' digests cover. Step counts are Python ints, the same on every
     rank by construction."""
     out = []
 
@@ -280,12 +298,24 @@ def state_tensors(*parts: Any) -> List[torch.Tensor]:
 def on_device_model_training_state(training_config: TrainingConfig, device=None, mesh=None):
     """Load, build the optimizer states and the EMA buffers on ``device``
     (cuda unless told otherwise). With a ``mesh`` (``core.create_mesh``)
-    every tensor is then replicated from the data axis's first rank, so
+    the models' weights are first replicated from the mesh's first rank, so
     seeded weights and a ``model_path`` checkpoint give every rank the same
-    start. Returns the JAX package's 7-tuple: ``(unet_state,
-    text_encoder_state, unet_ema_params, text_encoder_ema_params,
-    frozen_vae, frozen_schedulers, models)``."""
+    start; then, when ``training_config.shards_params()``, the UNet and the
+    text encoder are sharded over the mesh's ``fsdp`` axis before the
+    optimizer state and the EMA copies are built on the local shards.
+    Returns the JAX package's 7-tuple: ``(unet_state, text_encoder_state,
+    unet_ema_params, text_encoder_ema_params, frozen_vae,
+    frozen_schedulers, models)``."""
     models = load_models(training_config, device)
+    trained = (models["unet"]["unet_model"], models["text_encoder"]["text_encoder_model"])
+    replicate_(
+        [p.detach() for m in (*trained, models["vae"]["vae_model"]) for p in m.parameters()], mesh
+    )
+    if mesh is not None and training_config.shards_params():
+        for model, key in zip(trained, ("unet", "text_encoder")):
+            fully_shard_(model, mesh)
+            # the whole tensors are gone: the dicts hold the local shards
+            models[key][f"{key}_params"] = {n: local_tensor(p) for n, p in model.named_parameters()}
     # the reference hard-codes scale 7 and drops the configured LRs;
     # honor_learning_rates opts out of that quirk
     lr_kwargs = dict(adam_to_lion_scale_factor=7)
@@ -323,7 +353,7 @@ def on_device_model_training_state(training_config: TrainingConfig, device=None,
         states["text_encoder_state"] = TrainState(text_encoder, transforms.set_to_zero())
     frozen = create_frozen_states(models)
 
-    def ema_copy(params):  # distinct buffers from the params
+    def ema_copy(params):  # distinct buffers from the params (local shards under FSDP)
         return {name: p.detach().clone() for name, p in params.items()}
 
     unet_ema = (
@@ -333,12 +363,6 @@ def on_device_model_training_state(training_config: TrainingConfig, device=None,
         ema_copy(models["text_encoder"]["text_encoder_params"])
         if training_config.accumulate_text_encoder_ema
         else None
-    )
-    replicate_(
-        state_tensors(
-            states["unet_state"], states["text_encoder_state"], unet_ema, text_encoder_ema, frozen["vae_state"]
-        ),
-        mesh,
     )
     model_objects = {
         "unet": models["unet"]["unet_model"],

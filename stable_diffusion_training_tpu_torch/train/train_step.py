@@ -30,33 +30,39 @@ holds them (``data/latent_cache.py`` writes both, f32). At SDXL's width the
 2048-wide context comes from the batch's ``encoder_hidden_states`` (both
 frozen towers, precomputed): the in-step encode carries tower 1 alone.
 
-Data parallelism (``mesh``, ``core.create_mesh``): each of the W ranks of
-the ``data_parallel`` axis steps on its own rows of the global batch. It
-scales its local loss by ``1 / W`` before the grads, so that their sum over
-the ranks (``parallel.all_reduce_grads_``, in the grads' dtype) is the
-gradient of the global batch's mean, in JAX's order of scaling (local
-partials of the global mean, then a sum); the returned loss is summed too,
-the global mean on every rank. The draws are made at the global batch's
-shape from the generator, which every rank seeds alike, and each rank keeps
-its rows, so one seed trains the same on any world size; ``draws`` then
-holds global draws. With ``grad_accumulation_steps = a`` each rank splits
-its own rows into ``a`` micro-batches (micro-batch ``j`` across the ranks
-is rank 0's ``j``-th slice, then rank 1's ...; the JAX step's ``j`` is a
-slice of the global batch: the sum over rows is the same). After the sum
-every rank runs the same clip, Lion, decay and EMA on the same grads, so
-their states stay bitwise equal.
+Data parallelism (``mesh``, ``core.create_mesh``): each of the W = data x
+fsdp ranks steps on its own rows of the global batch (``core.mesh.row_index``).
+It scales its local loss by ``1 / W`` before the grads, so that their sum
+over the ranks is the gradient of the global batch's mean, in JAX's order of
+scaling (local partials of the global mean, then a sum); the returned loss
+is summed too, the global mean on every rank. The draws are made at the
+global batch's shape from the generator, which every rank seeds alike, and
+each rank keeps its rows, so one seed trains the same on any world size;
+``draws`` then holds global draws. With ``grad_accumulation_steps = a`` each
+rank splits its own rows into ``a`` micro-batches (micro-batch ``j`` across
+the ranks is rank 0's ``j``-th slice, then rank 1's ...; the JAX step's
+``j`` is a slice of the global batch: the sum over rows is the same).
+
+With replicated state the grads are summed by ``parallel.all_reduce_grads_``
+(in the grads' dtype) and every rank runs the same clip, Lion, decay and EMA
+on the same grads, so their states stay bitwise equal. With FSDP-sharded
+models (``TrainState.fsdp``) the grads come from ``loss.backward()``:
+``torch.autograd.grad`` cannot reach the sharded parameters, since the
+forward runs on FSDP2's gathered ones. FSDP2's reduce-scatter sums them
+into each rank's shard (and all-reduces the shards over the data axis under
+HSDP), and the chain runs on the local shards (``optim.lion8bit``).
 """
 
 from typing import Any, Dict, Optional, Sequence, Union
 
 import torch
-import torch.distributed as dist
 
-from ..core.mesh import AXIS_DATA, axis_index, axis_size
+from ..core.mesh import row_index
 from ..diffusion import compute_snrs
 from ..models.vae import DiagonalGaussianDistribution
 from ..optim.transforms import weak
 from ..parallel import all_reduce_grads_
+from ..parallel.sharding import all_reduce_, local_tensor
 from ..utils.context import concat_context_windows
 
 
@@ -202,11 +208,20 @@ def _loss(
     return loss.mean()
 
 
-def _grads(loss: torch.Tensor, params: Dict[str, torch.Tensor]):
+def _grads(loss: torch.Tensor, params: Dict[str, torch.Tensor], sharded: bool = False):
     """d loss / d params; zeros for params the loss does not use (a trained
-    text encoder under a cached context), as JAX's grad gives them."""
-    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params.values())]
+    text encoder under a cached context), as JAX's grad gives them.
+    ``sharded``: the params are FSDP2's, and each grad is this rank's shard
+    of the reduce-scattered sum, read from ``.grad`` after
+    ``loss.backward()`` (and cleared)."""
+    if not sharded:
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params.values())]
+    loss.backward()
+    grads = [torch.zeros_like(local_tensor(p)) if p.grad is None else local_tensor(p.grad) for p in params.values()]
+    for p in params.values():
+        p.grad = None
+    return grads
 
 
 def train_step(
@@ -249,26 +264,27 @@ def train_step(
     ``train_text_encoder=False`` takes no text-encoder grads and applies no
     text-encoder update; its EMA, if any, still follows its params.
 
-    ``mesh``: ``batch`` is this rank's shard of the global batch, and the
-    grads and the loss are summed over the mesh's ``data_parallel`` axis
-    (module docstring); None is one process."""
-    ranks = axis_size(mesh, AXIS_DATA)
+    ``mesh``: ``batch`` is this rank's rows of the global batch, and the
+    grads and the loss are summed over the mesh's data x fsdp ranks (module
+    docstring); None is one process."""
+    index, ranks = row_index(mesh)
     loss_kw = dict(
         strip_bos_eos_token=strip_bos_eos_token, offset_noise_magnitude=offset_noise_magnitude,
         min_snr_gamma_magnitude=min_snr_gamma_magnitude,
         perturbation_noise_magnitude=perturbation_noise_magnitude,
         text_context_window=text_context_window, train_text_encoder=train_text_encoder,
-        vae_encode_chunk=vae_encode_chunk, shard=(axis_index(mesh, AXIS_DATA), ranks),
+        vae_encode_chunk=vae_encode_chunk, shard=(index, ranks),
     )
     states = (unet_state, text_encoder_state, frozen_vae_state, frozen_noise_scheduler_state)
-    unet_params = unet_state.params
-    diff_params = dict(unet_params)
+    sharded = unet_state.fsdp is not None
+    # the modules' parameters: the grads' targets (FSDP2's DTensors when sharded)
+    diff_params = dict(unet_state.model.named_parameters())
     if train_text_encoder:
-        diff_params.update({f"text_encoder/{k}": v for k, v in text_encoder_state.params.items()})
+        diff_params.update({f"text_encoder/{k}": v for k, v in text_encoder_state.model.named_parameters()})
 
     if grad_accumulation_steps <= 1:
         loss = _loss(*states, batch, train_rng, draws, **loss_kw)
-        grads = dict(zip(diff_params, _grads(loss / ranks, diff_params)))
+        grads = dict(zip(diff_params, _grads(loss / ranks, diff_params, sharded)))
     else:
         accum = grad_accumulation_steps
         image_key = "pixel_values" if "pixel_values" in batch else "latent_moments"
@@ -282,11 +298,11 @@ def train_step(
         # leading dims are batch-derived (pixel_values B; ids B * concat)
         micro = {k: v.chunk(accum) for k, v in batch.items()}
         loss = torch.zeros((), dtype=torch.float32, device=batch[image_key].device)
-        grads = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in diff_params.items()}
+        grads = {k: torch.zeros_like(local_tensor(p), dtype=torch.float32) for k, p in diff_params.items()}
         for i in range(accum):
             mb = {k: v[i] for k, v in micro.items()}
             micro_loss = _loss(*states, mb, train_rng, None if draws is None else draws[i], **loss_kw)
-            micro_grads = _grads(micro_loss / ranks, diff_params)
+            micro_grads = _grads(micro_loss / ranks, diff_params, sharded)
             with torch.no_grad():
                 for acc, g in zip(grads.values(), micro_grads):
                     acc.add_(g / weak(accum, g))  # JAX's a + b / n: b / n in b's dtype
@@ -295,11 +311,10 @@ def train_step(
         grads = {k: g.to(diff_params[k].dtype) for k, g in grads.items()}
 
     if mesh is not None:
-        all_reduce_grads_(grads, mesh)
-        loss = (loss.detach() / ranks).reshape(1)
-        dist.all_reduce(loss, group=mesh.get_group(AXIS_DATA))
-        loss = loss[0]
-    unet_state.apply_gradients({k: grads[k] for k in unet_params})
+        if not sharded:  # FSDP2 has summed the sharded grads in the backward
+            all_reduce_grads_(grads, mesh)
+        loss = all_reduce_((loss.detach() / ranks).reshape(1), mesh)[0]
+    unet_state.apply_gradients({k: grads[k] for k in unet_state.params})
     if train_text_encoder:
         text_encoder_state.apply_gradients(
             {k: grads[f"text_encoder/{k}"] for k in text_encoder_state.params}

@@ -42,19 +42,23 @@ trainer stops its trace) with ``torch.profiler`` and writes a Chrome trace
 there. A tokenizer is used only when passed, or when
 ``model_path/tokenizer`` exists (``transformers`` is then imported).
 
-Data parallelism: under ``torchrun --nproc_per_node=N`` (or in a process
-group the caller started) every rank runs ``main``: one process per card,
-the mesh's ``data_parallel`` axis over them all, ``batch_size`` the global
-batch. The streaming loader gives each rank its rows of each batch of one
-plan (``process_index`` / ``process_count``); an injected loader yields the
-rank's own rows (``core.slice_batch_for_process``). A host's first rank
-alone fetches and deletes the chunks of the ramdisk the host's ranks share,
-and rank 0 alone writes the JSON state, ``loss.csv``, the save probe, the
-checkpoints and their rotation, the eval images, TensorBoard events and the
-trace; the others wait, and a failure on one rank stops every rank. The
-ranks agree on every step before it runs: a rank whose queue timed out
-grabs again while the others hold their batch, so no rank steps or skips
-alone.
+Data parallelism and FSDP: under ``torchrun --nproc_per_node=N`` (or in a
+process group the caller started) every rank runs ``main``: one process per
+card, on the config's ``mesh_shape`` (``[D, F, 1]``: ``data_parallel``,
+``fsdp``, ``model_parallel``; by default every rank on the data axis),
+``batch_size`` the global batch, split over the data x fsdp ranks. With
+``fsdp_shard_params`` the UNet and the text encoder are sharded over the
+``fsdp`` axis (FSDP2, ``train/states.py``). The streaming loader gives each
+rank its rows of each batch of one plan (``core.distributed.batch_shard``);
+an injected loader yields the rank's own rows
+(``core.slice_batch_for_process``). A host's first rank alone fetches and
+deletes the chunks of the ramdisk the host's ranks share, and rank 0 alone
+writes the JSON state, ``loss.csv``, the save probe, the checkpoints and
+their rotation, the eval images, TensorBoard events and the trace; every
+rank calls the saves (under FSDP each first gathers its shards), the others
+wait, and a failure on one rank stops every rank. The ranks agree on every
+step before it runs: a rank whose queue timed out grabs again while the
+others hold their batch, so no rank steps or skips alone.
 """
 
 import contextlib
@@ -68,6 +72,7 @@ import torch
 
 from ..core.distributed import (
     agree_min,
+    batch_shard,
     initialize_distributed,
     local_process_index,
     process_count,
@@ -104,11 +109,13 @@ def load_run_config(config_dict_path: str):
     return config_dict, training_config_from_dict(config_dict)
 
 
-def _build_dataloader(config_dict, config_dict_path, tokenizer):
+def _build_dataloader(config_dict, config_dict_path, tokenizer, mesh=None):
     """The streaming loader of the config's repos, chunk and seed, giving
-    this process its rows of each batch."""
+    this process its rows of each batch (its block of the data x fsdp
+    ranks)."""
     from ..data import DataLoader
 
+    index, count = batch_shard(mesh)
     return DataLoader(
         tokenizer_obj=tokenizer,
         config=config_dict_path,
@@ -122,8 +129,8 @@ def _build_dataloader(config_dict, config_dict_path, tokenizer):
         chunk_number=config_dict["chunk_number"],
         seed=config_dict["master_seed"],
         context_concatenation_multiplier=config_dict["context_window_concatenation_count"],
-        process_index=process_index(),
-        process_count=process_count(),
+        process_index=index,
+        process_count=count,
     )
 
 
@@ -290,8 +297,9 @@ def main(
     built from the config; or an ``InMemoryDataLoader``, a
     ``CachedLatentLoader`` or anything with their protocol, yielding this
     rank's rows). In a process group (torchrun's environment, or one the
-    caller started) the ranks train data-parallel over ``mesh``, by default
-    the config's ``mesh_shape`` or every rank on the data axis."""
+    caller started) the ranks train over ``mesh``, by default the config's
+    ``mesh_shape`` or every rank on the data axis: data-parallel, or with
+    the models sharded over its ``fsdp`` axis (``fsdp_shard_params``)."""
     group = initialize_distributed(device=device)  # None: one process, nothing to join
     config_dict, training_config = load_run_config(config_dict_path)
 
@@ -303,7 +311,8 @@ def main(
             tokenizer = CLIPTokenizer.from_pretrained(config_dict["model_path"], subfolder="tokenizer")
 
     if dataloader is None:
-        dataloader = _build_dataloader(config_dict, config_dict_path, tokenizer)
+        # a caller's mesh, or the row-major one made below: rank r's rows are block r
+        dataloader = _build_dataloader(config_dict, config_dict_path, tokenizer, mesh)
     device = rank_device(device)
     if mesh is None and group is not None:
         axes = training_config.mesh_axes() or {AXIS_DATA: process_count(), AXIS_TENSOR: 1}

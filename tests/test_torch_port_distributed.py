@@ -81,9 +81,8 @@ CONFIG_CASES = {
     "data-axis": (dict(mesh_shape=[2, 1]), "ok"),
     "data-axis-named": (dict(mesh_shape=[2, 1, 1], mesh_axis_names=["data_parallel", "fsdp", "model_parallel"]), "ok"),
     "tensor-axis": (dict(mesh_shape=[1, 2]), "NotImplementedError"),
-    "fsdp-axis": (dict(mesh_shape=[1, 2, 1], mesh_axis_names=["data_parallel", "fsdp", "model_parallel"]),
-                  "NotImplementedError"),
-    "fsdp-params": (dict(fsdp_shard_params=True), "NotImplementedError"),
+    "fsdp-axis": (dict(mesh_shape=[1, 2, 1], mesh_axis_names=["data_parallel", "fsdp", "model_parallel"]), "ok"),
+    "fsdp-params": (dict(fsdp_shard_params=True), "ok"),
     "tensor-parallel-params": (dict(tensor_parallel_shard_params=True), "NotImplementedError"),
     "mesh-not-the-world": (dict(mesh_shape=[4, 1]), "ValueError"),
     "batch-not-split": (dict(batch_size=3), "ValueError"),
@@ -305,11 +304,12 @@ def test_batch_slicing_matches_jax(world, rank, monkeypatch):
 
 @pytest.mark.parametrize("name", list(CONFIG_CASES))
 def test_config_takes_data_parallel_meshes_only(world, name):
-    """In a world of two: ``mesh_shape`` None or ``[2, 1]`` builds a config;
-    an fsdp or model_parallel axis above 1, FSDP or TP param sharding raise
-    ``NotImplementedError`` naming ROADMAP item 7; a data axis that is not
-    the world, or a global batch that does not split into the ranks' whole
-    micro-batches, raises ``ValueError``."""
+    """In a world of two: ``mesh_shape`` None, ``[2, 1]`` or an fsdp axis of
+    2 builds a config, and so does ``fsdp_shard_params``; a model_parallel
+    axis above 1 or TP param sharding raise ``NotImplementedError`` naming
+    ROADMAP item 7; a mesh that is not the world, or a global batch that
+    does not split into the ranks' whole micro-batches, raises
+    ``ValueError``."""
     outcome = CONFIG_CASES[name][1]
     for rank in range(WORLD):
         got = _result(world, "layout", rank)["configs"][name]

@@ -381,7 +381,7 @@ def test_profile_trace_dir_writes_a_trace(tmp_path):
     "overrides,item",
     [
         (dict(mesh_shape=[1, 2]), "item 7"),  # a model_parallel axis; [W, 1] is data parallelism
-        (dict(fsdp_shard_params=True), "item 7"),
+        (dict(fsdp_shard_params=True), None),  # ported: one process trains as the default does
         (dict(tensor_parallel_shard_params=True), "item 7"),
         (dict(vae_polyphase_downsample=True), "item 9"),
     ],
@@ -389,11 +389,24 @@ def test_profile_trace_dir_writes_a_trace(tmp_path):
 )
 def test_options_not_ported_raise(tmp_path, overrides, item):
     """A config that asks the JAX package for a tensor-parallel mesh axis,
-    sharding or the polyphase VAE downsample stops the port's trainer with
-    the ROADMAP item instead of training without it."""
-    _, path = make_config_dict(tmp_path, "o", **overrides)
-    with pytest.raises(NotImplementedError, match=item):
-        trainer.main(path, dataloader=_loader(), device="cpu")
+    tensor-parallel sharding or the polyphase VAE downsample stops the
+    port's trainer with the ROADMAP item instead of training without it.
+    ``fsdp_shard_params``, ported, in one process (no fsdp axis to shard
+    over) trains bitwise as the default does: the same loss rows and the
+    same checkpoint."""
+    cfg, path = make_config_dict(tmp_path, "o", chunk_limit=1, **overrides)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            trainer.main(path, dataloader=_loader(), device="cpu")
+        return
+    base_cfg, base_path = make_config_dict(tmp_path, "default", chunk_limit=1)
+    for p in (path, base_path):
+        trainer.main(p, dataloader=_loader(), device="cpu")
+    assert [r[2] for r in _rows(cfg["loss_csv"])] == [r[2] for r in _rows(base_cfg["loss_csv"])]
+    for model in ("unet", "text_encoder"):
+        got = _weights(os.path.join(cfg["model_path"].split("@")[0] + "@0", model))
+        want = _weights(os.path.join(base_cfg["model_path"].split("@")[0] + "@0", model))
+        assert got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want), model
 
 
 def test_sdxl_micro_conditioning_trains_from_a_latent_cache(tmp_path):

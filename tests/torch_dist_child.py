@@ -1,11 +1,14 @@
-"""One rank of ``tests/test_torch_port_distributed.py``'s two-rank world.
+"""One rank of the two-rank worlds of ``tests/test_torch_port_distributed.py``
+and ``tests/test_torch_port_fsdp*.py``.
 
 Started with the ``spawn`` method; imports torch and the port only (no JAX,
 no conftest). ``run_rank`` joins the gloo group through
 ``core.initialize_distributed`` (a file store in the work directory), runs
-each case of ``payload.pt`` in order and writes ``<case>_<rank>.pt`` (or
+each case of ``payload.pt`` in order on the case's mesh (``mesh``: a shape,
+by default ``(world, 1)``) and writes ``<case>_<rank>.pt`` (or
 ``<case>_<rank>.err`` with the traceback: the other rank then fails at the
-next collective instead of hanging, the group having a timeout).
+next collective instead of hanging, the group having a timeout). Under FSDP
+a step's dump holds whole tensors, gathered from the shards.
 """
 
 import datetime
@@ -18,20 +21,44 @@ import numpy as np
 import torch
 
 
+def whole_params(state, tensors: dict) -> dict:
+    """``{name: tensor}`` of ``state``'s model, each shard of an FSDP plan
+    gathered into its whole leaf (every rank calls it)."""
+    plan = state.fsdp
+    return {k: (plan.rows[k].gather(v) if plan is not None and k in plan.rows else v).detach().clone()
+            for k, v in tensors.items()}
+
+
 def step_dump(out, before) -> dict:
     """What the tests compare of a step's output: the loss, each model's
     params (and ``before``, its params before the step) and EMA, and its
-    Lion momentum (codes and scales, or the dense tensor)."""
-    dump = {"loss": float(out[4]["loss"]), "params": {}, "ema": {}, "mu": {}, "before": before}
+    Lion momentum (codes and scales, or the dense tensor), whole. Under
+    FSDP also, per model, the quantized leaves whose momentum stays whole
+    (``whole``) and whether every rank's local codes and scales are its
+    slice of the gathered ones (``local_slices``)."""
+    dump = {"loss": float(out[4]["loss"]), "params": {}, "ema": {}, "mu": {}, "before": before,
+            "whole": {}, "local_slices": {}}
     for key, idx in (("unet", 0), ("text_encoder", 1)):
         state = out[idx]
-        dump["params"][key] = {k: v.detach().clone() for k, v in state.params.items()}
-        dump["ema"][key] = {k: v.clone() for k, v in (out[idx + 2] or {}).items()}
-        mu = {}
+        plan = state.fsdp
+        dump["params"][key] = whole_params(state, state.params)
+        dump["ema"][key] = whole_params(state, out[idx + 2] or {})
+        mu, whole, slices = {}, [], {}
         if state.opt_state:
             for name, m in state.opt_state[1][0].mu_quant.items():
-                mu[name] = (m.codes.clone(), m.scales.clone()) if hasattr(m, "codes") else m.clone()
-        dump["mu"][key] = mu
+                if not hasattr(m, "codes"):
+                    mu[name] = whole_params(state, {name: m})[name]
+                    continue
+                shard = plan.momentum(name, m.codes.shape[1]) if plan is not None else None
+                if shard is None:
+                    mu[name] = (m.codes.clone(), m.scales.clone())
+                    whole += [name] if plan is not None else []
+                    continue
+                codes, scales = shard.gather(m.codes, m.scales)
+                local = shard.take(codes, scales)
+                slices[name] = torch.equal(local[0], m.codes) and torch.equal(local[1], m.scales)
+                mu[name] = (codes, scales)
+        dump["mu"][key], dump["whole"][key], dump["local_slices"][key] = mu, whole, slices
     return dump
 
 
@@ -57,13 +84,27 @@ def step_config(overrides: dict):
 def run_step(case: dict, mesh=None, draws_key: str = "draws") -> dict:
     """One train step of ``case`` (config overrides, the global batch and
     its draws ``case[draws_key]``, optionally a saved starting state): this
-    rank's rows with ``mesh``, the whole batch without."""
+    rank's rows with ``mesh``, the whole batch without. ``card_exchange``:
+    FSDP2's collectives and the gathers take the route of gloo ranks on one
+    card (``parallel.sharding._CardExchange``, here over shared memory)."""
+    from stable_diffusion_training_tpu_torch.parallel import sharding
+
+    shares_card = sharding._shares_card
+    if case.get("card_exchange"):  # the comms of gloo ranks on one card, here on CPU tensors
+        sharding._shares_card = lambda group, device: True
+    try:
+        return _run_step(case, mesh, draws_key, cfg=step_config(case["config"]))
+    finally:
+        sharding._shares_card = shares_card
+
+
+def _run_step(case, mesh, draws_key, cfg):
     from stable_diffusion_training_tpu_torch.core import slice_batch_for_process
     from stable_diffusion_training_tpu_torch.train import on_device_model_training_state, restore_train_state
-    from stable_diffusion_training_tpu_torch.train import train_step
+    from stable_diffusion_training_tpu_torch.train import save_train_state, train_step
 
-    cfg = step_config(case["config"])
     states = on_device_model_training_state(cfg, device="cpu", mesh=mesh)
+    gathers = _count_all_gathers()
     if case.get("state_dir"):
         template = {
             "unet_state": states[0], "text_encoder_state": states[1], "unet_ema_params": states[2],
@@ -71,11 +112,13 @@ def run_step(case: dict, mesh=None, draws_key: str = "draws") -> dict:
         }
         restore_train_state(case["state_dir"], template)
         states[4].call.load_state_dict(torch.load(os.path.join(case["state_dir"], "vae.pt")), strict=True)
-    before = {key: {k: v.detach().clone() for k, v in state.params.items()}
-              for key, state in (("unet", states[0]), ("text_encoder", states[1]))}
+        if case.get("resave_dir"):  # the restored state written again, before the step
+            save_train_state(case["resave_dir"], *states[:4], torch.Generator())
+    before = {key: whole_params(state, state.params) for key, state in (("unet", states[0]), ("text_encoder", states[1]))}
     batch = {k: torch.as_tensor(v) for k, v in case["batch"].items()}
     if mesh is not None:
-        batch = slice_batch_for_process(batch)
+        batch = slice_batch_for_process(batch, mesh)
+    gathers.clear()
     out = train_step(
         *states[:4], batch, None, states[4], states[5], draws=case[draws_key], mesh=mesh,
         strip_bos_eos_token=True, ema_rate=cfg.ema_rate, offset_noise_magnitude=cfg.offset_noise_magnitude,
@@ -83,7 +126,32 @@ def run_step(case: dict, mesh=None, draws_key: str = "draws") -> dict:
         perturbation_noise_magnitude=cfg.perturbation_noise_magnitude,
         grad_accumulation_steps=cfg.grad_accumulation_steps, train_text_encoder=cfg.train_text_encoder,
     )
-    return step_dump(out, before)
+    dump = step_dump(out, before)
+    dump["all_gathers"] = len(gathers)  # FSDP2's, in the step
+    _count_all_gathers(stop=True)
+    return dump
+
+
+def _count_all_gathers(stop: bool = False) -> list:
+    """Counts the calls of the process group's single-tensor all-gather
+    (FSDP2's unshard) into the returned list until ``stop``."""
+    import torch.distributed as dist
+
+    name = "all_gather_single" if hasattr(dist, "all_gather_single") else "all_gather_into_tensor"
+    inner = getattr(dist, name)
+    inner = getattr(inner, "counted", inner)
+    if stop:
+        setattr(dist, name, inner)
+        return []
+    calls = []
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return inner(*args, **kwargs)
+
+    counted.counted = inner
+    setattr(dist, name, counted)
+    return calls
 
 
 def _digest(a) -> str:
@@ -93,8 +161,10 @@ def _digest(a) -> str:
 def run_trainer(case: dict) -> dict:
     """``trainer.main`` on this rank, from an in-memory loader of the
     rank's rows or (``loader=None``) the streaming loader, with every
-    one-writer call counted and the state's digest taken at each chunk
-    checkpoint."""
+    one-writer call counted, the eval images kept, the state's digest
+    taken at each chunk checkpoint (of the rank's shards under FSDP), and
+    each full-state restore checked against its files (the restored state,
+    gathered whole, equal to the saved params and codes)."""
     from stable_diffusion_training_tpu_torch.core import slice_batch_for_process
     from stable_diffusion_training_tpu_torch.data import InMemoryDataLoader
     from stable_diffusion_training_tpu_torch.data import dataloader as dl
@@ -103,7 +173,7 @@ def run_trainer(case: dict) -> dict:
     from stable_diffusion_training_tpu_torch.train.states import state_tensors
 
     calls = {"write_model": 0, "write_train_state": 0, "json": 0, "png": 0, "fetch": 0, "delete": 0}
-    digests, pixel_digests = [], []
+    digests, pixel_digests, images, restored = [], [], [], []
 
     def counted(name, fn):
         def wrapper(*args, **kwargs):
@@ -123,12 +193,23 @@ def run_trainer(case: dict) -> dict:
             pixel_digests.append(_digest(b["pixel_values"]))
         return b
 
+    def save_png(arr, directory):
+        images.append(np.asarray(arr).copy())
+        return save_png_orig(arr, directory)
+
+    def restore(directory, template):
+        out = restore_orig(directory, template)
+        restored.append(restored_as_saved(directory, out))
+        return out
+
     save_chunk_orig, grab_orig = trainer._save_chunk_checkpoints, dl.DataLoader.grab_next_batch
+    save_png_orig, restore_orig = eval_sampler.save_png_images, trainer.restore_train_state
     patches = [
         (checkpoint, "_write_model", counted("write_model", checkpoint._write_model)),
         (checkpoint, "_write_train_state", counted("write_train_state", checkpoint._write_train_state)),
         (trainer, "save_dict_to_json", counted("json", trainer.save_dict_to_json)),
-        (eval_sampler, "save_png_images", counted("png", eval_sampler.save_png_images)),
+        (eval_sampler, "save_png_images", counted("png", save_png)),
+        (trainer, "restore_train_state", restore),
         (dl.DataLoader, "_fetch_one_chunk", counted("fetch", dl.DataLoader._fetch_one_chunk)),
         (dl.DataLoader, "delete_prev_chunks", counted("delete", dl.DataLoader.delete_prev_chunks)),
         (dl.DataLoader, "grab_next_batch", grab),
@@ -147,7 +228,26 @@ def run_trainer(case: dict) -> dict:
     finally:
         for owner, name, fn in originals:
             setattr(owner, name, fn)
-    return {"calls": calls, "digests": digests, "pixel_digests": pixel_digests}
+    return {"calls": calls, "digests": digests, "pixel_digests": pixel_digests, "images": images,
+            "restored": restored}
+
+
+def restored_as_saved(directory: str, restored: dict) -> bool:
+    """Whether the restored UNet state, gathered whole, holds the saved
+    params and momentum codes bit for bit (every rank calls it)."""
+    from stable_diffusion_training_tpu_torch.models.hf_io import load_safetensors
+
+    saved = load_safetensors(os.path.join(directory, "unet_state.safetensors"))
+    state = restored["unet_state"]
+    params = whole_params(state, state.params)
+    ok = bool(params) and all(torch.equal(v, saved[f"unet_state/params/{k}"]) for k, v in params.items())
+    plan = state.fsdp
+    for name, m in state.opt_state[1][0].mu_quant.items():
+        if hasattr(m, "codes"):
+            shard = plan.momentum(name, m.codes.shape[1]) if plan is not None else None
+            codes = shard.gather(m.codes, m.scales)[0] if shard is not None else m.codes
+            ok = ok and torch.equal(codes, saved[f"unet_state/opt_state/1/0/mu_quant/{name}/codes"])
+    return ok
 
 
 class StubTokenizer:
@@ -205,6 +305,97 @@ def run_layout(case: dict) -> dict:
     return out
 
 
+class RuleModel(torch.nn.Module):
+    """One leaf of each kind for the momentum co-sharding rule at block 16
+    on two ranks: a Dense and a Conv kernel (transposed leaves: 32 and 16
+    output channels a rank), leaves whose orders agree (the biases; an
+    embedding table of 77 rows, split 39 and 38), and leaves kept whole (a
+    Conv kernel of 4 output channels; a 48-wide norm, 24 elements a rank,
+    not whole blocks)."""
+
+    def __init__(self):
+        super().__init__()
+        self.dense = torch.nn.Linear(24, 64)
+        self.conv = torch.nn.Conv2d(8, 32, 3)
+        self.table = torch.nn.Embedding(77, 16)
+        self.out = torch.nn.Conv2d(8, 4, 3)
+        self.norm = torch.nn.LayerNorm(48)
+
+
+RULE_EXCLUDED = ("out.bias",)  # 4 elements: dense momentum
+
+
+def rule_inputs(seed: int = 0):
+    """The rule model's params and two steps of grads, whole, from a seed."""
+    torch.manual_seed(seed)
+    model = RuleModel()
+    g = torch.Generator().manual_seed(seed + 1)
+    grads = [{n: torch.randn(p.shape, generator=g) for n, p in model.named_parameters()} for _ in range(2)]
+    return model, grads
+
+
+def rule_optimizer(model, use_pallas, fsdp=None, group=None):
+    """Global-norm clipping and 8-bit Lion at block 16 over the rule model."""
+    from stable_diffusion_training_tpu_torch.models.hf_io import jax_param_paths
+    from stable_diffusion_training_tpu_torch.optim import transforms
+    from stable_diffusion_training_tpu_torch.optim.lion8bit import scale_by_lion_8bit
+
+    mask = {n: n not in RULE_EXCLUDED for n, _ in model.named_parameters()}
+    orders = {n: perm for n, (_, perm) in jax_param_paths(model).items()}
+    lion = scale_by_lion_8bit(block_size=16, excluded_layer_mask=mask, use_pallas=use_pallas,
+                              leaf_orders=orders, fsdp=fsdp)
+    return transforms.chain(transforms.clip_by_global_norm(0.5, group), lion)
+
+
+def rule_state(state) -> dict:
+    mu = state.mu_quant
+    return {n: (m.codes.clone(), m.scales.clone()) if hasattr(m, "codes") else m.clone() for n, m in mu.items()}
+
+
+def run_rule(case: dict, mesh) -> dict:
+    """The rule model sharded with FSDP2 over the mesh's fsdp axis; the
+    clip and 8-bit Lion chain on this rank's shards (``use_pallas`` as the
+    case says) for two updates of the whole grads' local rows: the local
+    momentum after init and after each update, the local updates, each
+    leaf's rows, and ``global_norm``'s value and collectives on the
+    shards."""
+    import torch.distributed as dist
+    from torch.distributed.fsdp import fully_shard
+
+    from stable_diffusion_training_tpu_torch.optim import transforms
+    from stable_diffusion_training_tpu_torch.parallel.sharding import fsdp_mesh, fsdp_plan, local_tensor
+
+    model, grads = rule_inputs()
+    fully_shard(model, mesh=fsdp_mesh(mesh))
+    plan = fsdp_plan(model)
+    params = {n: local_tensor(p) for n, p in model.named_parameters()}
+    tx = rule_optimizer(model, case["use_pallas"], plan, plan.group)
+    state = tx.init(params)
+    out = {"rows": {n: (r.start, r.stop) for n, r in plan.rows.items()},
+           "whole": sorted(n for n in plan.rows if n not in RULE_EXCLUDED and plan.momentum(n, 16) is None),
+           "init": rule_state(state[1]), "updates": [], "states": []}
+    for step in grads:
+        local = {n: plan.take(n, g) for n, g in step.items()}
+        updates, state = tx.update(local, state, params)
+        out["updates"].append({n: u.clone() for n, u in updates.items()})
+        out["states"].append(rule_state(state[1]))
+    local = {n: plan.take(n, g) for n, g in grads[0].items()}
+    calls = []
+    inner = dist.all_reduce
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return inner(*args, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        out["global_norm"] = float(transforms.global_norm(local, plan.group))
+    finally:
+        dist.all_reduce = inner
+    out["norm_collectives"] = len(calls)
+    return out
+
+
 def run_rank(rank: int, world: int, workdir: str) -> None:
     torch.set_num_threads(1)
     from stable_diffusion_training_tpu_torch.core import create_mesh, initialize_distributed
@@ -214,13 +405,19 @@ def run_rank(rank: int, world: int, workdir: str) -> None:
         device="cpu", rank=rank, world_size=world, init_method=f"file://{os.path.join(workdir, 'store')}",
         timeout=datetime.timedelta(seconds=120),
     )
-    mesh = create_mesh(device_type="cpu")
+    meshes = {}
     for name, case in payload["cases"].items():
+        shape = tuple(case.get("mesh", (world, 1)))
+        if shape not in meshes:
+            meshes[shape] = create_mesh(shape, device_type="cpu")
+        mesh = meshes[shape]
         try:
             if case["kind"] == "step":
                 result = run_step(case, mesh)
             elif case["kind"] == "trainer":
                 result = run_trainer(case)
+            elif case["kind"] == "rule":
+                result = run_rule(case, mesh)
             else:
                 result = run_layout(case)
         except Exception:  # written for the test to show, then the rank stops
@@ -228,3 +425,50 @@ def run_rank(rank: int, world: int, workdir: str) -> None:
                 f.write(traceback.format_exc())
             raise
         torch.save(result, os.path.join(workdir, f"{name}_{rank}.pt"))
+
+
+# --- the parent's side: start a world, collect its results --------------------
+
+
+def start_world(workdir: str, cases: dict, world: int = 2) -> list:
+    """Write ``cases`` to ``workdir/payload.pt`` and start ``world`` ranks
+    (``spawn``) that run them."""
+    import multiprocessing
+
+    torch.save({"cases": cases}, os.path.join(workdir, "payload.pt"))
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=run_rank, args=(r, world, workdir), daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def wait_world(procs: list, deadline: float) -> list:
+    """Join the ranks; a rank that exits non-zero, or the deadline
+    (``time.monotonic()``), ends the world (the rest are killed). Returns
+    the exit codes."""
+    import time
+
+    while time.monotonic() < deadline and any(p.is_alive() for p in procs):
+        if any(p.exitcode not in (None, 0) for p in procs):
+            break
+        time.sleep(0.2)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join(10)
+    return [p.exitcode for p in procs]
+
+
+def world_results(workdir: str, cases: dict, world: int = 2) -> dict:
+    """``{(case, rank): result}``, a rank's traceback (str) where it failed."""
+    results = {}
+    for name in cases:
+        for r in range(world):
+            pt, err = os.path.join(workdir, f"{name}_{r}.pt"), os.path.join(workdir, f"{name}_{r}.err")
+            if os.path.exists(pt):
+                results[(name, r)] = torch.load(pt, weights_only=False)
+            elif os.path.exists(err):
+                with open(err) as f:
+                    results[(name, r)] = f.read()
+    return results
