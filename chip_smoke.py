@@ -73,9 +73,7 @@ Phases, one JSON line each:
    bucket limit (single-leaf entry, one launch each) and over the UNet's
    and CLIP's small-leaf buckets (multi-leaf entry), bs 16, bf16 grads,
    exact and fast companders, plus a bs-64 leaf set, each counted on its
-   own case; ``probe_lion.py``'s variants of both Lion kernels (what powf,
-   the divides, the transposed reads and the math cost), the base ones
-   held to the plain version's signs; the functional entry ``fused_lion8bit_update``
+   own case; the functional entry ``fused_lion8bit_update``
    over the largest SD1.5 UNet leaf: narrow (K6) at bs 16 and 128 (the
    cooperative variant) in bf16 and at bs 16 in f32, wide (K7) at bs 16 and
    4 in bf16. That entry is the path that runs K6 and K7 (the JAX package
@@ -222,7 +220,7 @@ Phases, one JSON line each:
    within ``tests/test_torch_port_train_step.py``'s bounds, codes more
    than one apart only at |code| <= 31 (1e-3 of a block's absmax: at full
    width the one-process step, run twice, breaks that module's |code| 10
-   against itself; the second run is reported beside); each rank's
+   against itself on the card); each rank's
    launches at its shapes (K1 5 at (8, 4096, 40) and once at (1, 4096,
    512) on the f32 route, the fused f32 backward 5, Lion's leaf table once
    per model, nothing else). Prints each rank's step ms, the all-reduce's
@@ -269,10 +267,10 @@ Phases, one JSON line each:
    frozen cached towers, the offline cache; ``sdxl_train``'s cache, made
    here if that phase did not run) on two gloo ranks of cuda:0, a ``[1,
    2, 1]`` mesh with ``fsdp_shard_params``, global batch 4 (2 a rank),
-   one chunk of 4 steps (1024x1024, 1152x896, 1024x1024, 1024x1024) with
-   its checkpoint; then a one-rank NCCL world (torchrun's variables, a
-   ``[1, 1, 1]`` mesh, FSDP2 on one rank) that resumes from that
-   checkpoint and trains 2 steps of the step table (no second SDXL
+   one chunk of 2 steps (1024x1024, 1152x896) with its
+   checkpoint; then a one-rank NCCL world (torchrun's variables, a ``[1, 1,
+   1]`` mesh, FSDP2 on one rank) that resumes from that checkpoint and
+   trains 2 steps of the step table (no second SDXL
    checkpoint beside the first). Checks: finite ``loss.csv`` rows, the
    JSON, the checkpoint, rank 0 alone writing, the ranks' losses equal,
    each step's launches at the rank's shapes (K1 20 a step at ``(20,
@@ -285,6 +283,25 @@ Phases, one JSON line each:
    in FSDP2's all-gathers and reduce-scatters and peak memory; two ranks
    share the card, so these describe the check, not sharded scaling. Run directory ``.cache/chip_smoke_fsdp/``,
    deleted at the end.
+23. ``tp_parity``: the SD1.5 train step at full width in f32 (TF32 off)
+   on one row, as one process (rank 0 first), then on two gloo ranks of
+   cuda:0 on a ``[1, 1, 2]`` mesh with ``tensor_parallel_shard_params``
+   (the attention and CLIP projections split over the two ranks, each
+   running 4 of the 8 heads). Checks: rank 0's step against the one
+   process within ``ddp_parity``'s bounds, every rank's local codes and
+   scales its slice of the gathered ones, the step's sums over the axis
+   (``sd15_tp_sums``), each rank's launches at its shapes, and K1 f32 and
+   the fused f32 backward held against their plain versions at the rank's
+   ``(4, 4096, 40)``.
+24. ``tp_trainer``: ``trainer.main`` on SD1.5 at full width, bf16, global
+   batch 8 on the same two ranks and mesh: one chunk of 2 steps, its
+   checkpoint and one eval on every rank (rank 0 writing); then a one-rank
+   NCCL world on ``[1, 1, 1]`` that reads the checkpoint back whole and
+   steps once. Checks: the writers, the JSON, the rows, each step's sums
+   and launches, the two ranks' whole leaves alike and the checkpoint equal
+   to each rank's UNet and text encoder slices (fingerprints), the NCCL
+   leg's loss, launches and sums (none). Run directory
+   ``.cache/chip_smoke_tp/``, deleted at the end.
 
 Any failed check raises, so the script exits non-zero and prints no result;
 a rank that exits non-zero fails its phase. The ranks' launches are
@@ -314,13 +331,13 @@ JAX_OPS = "stable_diffusion_training_tpu/ops"
 ALL_PHASES = (
     "gpu", "build", "kernels", "parity", "slice", "sdxl_parity", "sdxl", "sdxl_refiner", "train_parity", "train",
     "train_f32", "trainer", "sdxl_train_parity", "sdxl_train", "sdxl_trainer", "sd21_parity", "sd21",
-    "sd21_trainer", "ddp_parity", "ddp_trainer", "fsdp_parity", "fsdp_trainer",
+    "sd21_trainer", "ddp_parity", "ddp_trainer", "fsdp_parity", "fsdp_trainer", "tp_parity", "tp_trainer",
 )
 # the phases whose runs give the kernels line its launches
 PATH_PHASES = {
     "kernels", "parity", "slice", "sdxl_parity", "sdxl", "sdxl_refiner", "train_parity", "train", "train_f32",
     "sdxl_train_parity", "sdxl_train", "sd21_parity", "sd21", "sd21_trainer", "ddp_parity", "ddp_trainer",
-    "fsdp_parity", "fsdp_trainer",
+    "fsdp_parity", "fsdp_trainer", "tp_parity", "tp_trainer",
 }
 
 # H100 SXM peaks (NVIDIA data sheet, dense): 989 TFLOP/s bf16 tensor core,
@@ -383,11 +400,16 @@ HOPPER_KERNELS = ("flash_fwd_tma_kernel", "flash_bwd_fused_kernel")
 F32_KERNELS = ("flash_bwd_f32_fused_kernel", "flash_fwd_f32_narrow_kernel", "flash_fwd_f32_wide_kernel")
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase, **fields):
+    """A phase line on stdout and, with ``at_s`` (the script's seconds so
+    far, so that the record shows where the time went), in ``RECORD``."""
     line = json.dumps({"phase": phase, **fields})
     print(line, flush=True)
     with open(RECORD, "a") as f:
-        f.write(line + "\n")
+        f.write(json.dumps({"phase": phase, **fields, "at_s": time.perf_counter() - _T0}) + "\n")
 
 
 def nvidia_smi_line():
@@ -486,21 +508,11 @@ def phase_build(state):
     and the fused backward) its count of wgmma (``HGMMA``) and TMA load
     (``UTMALDG``) instructions. Those kernels must be built, use both and
     spill nothing; the f32 kernels (``F32_KERNELS``) must be built and
-    spill nothing. When the kernels phase runs, ``probe_lion.py``'s
-    variants build at the same time, for it."""
+    spill nothing."""
     from stable_diffusion_training_tpu_torch.ops import cuda_build, flash_attention, lion_kernel
 
     start = time.perf_counter()
-    probe_builds = None
-    if "kernels" in state["phases"]:  # probe_lion's variants build beside them, for the kernels phase
-        import probe_lion
-
-        probe_builds = probe_lion.start_builds()
-    try:
-        paths = cuda_build.build_many({**flash_attention.LIBRARIES, **lion_kernel.LIBRARIES})
-    finally:
-        if probe_builds:
-            state["lion_probe_built"] = probe_lion.finish_builds(probe_builds)
+    paths = cuda_build.build_many({**flash_attention.LIBRARIES, **lion_kernel.LIBRARIES})
     seconds = time.perf_counter() - start
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     ptxas, kernels, advisories = {}, {}, []
@@ -707,6 +719,12 @@ def phase_kernels(state):
         # its one-rank NCCL leg runs sdxl_train's), fsdp_parity's f32 row a
         # rank (ddp_parity_unet's and vae_mid's shapes)
         ("fsdp_sdxl_train_bucket_l1", 20, 4032, 4032, 64, ("bfloat16",)),
+        # tensor parallelism, each rank's 4 of the 8 heads: tp_parity's f32
+        # row (its VAE encode is vae_mid's f32 shape) and tp_trainer's eval
+        # at CFG batch 2 (its 8 rows are ddp_unet_train's and vae_encode's
+        # bf16 shapes, the eval's decode vae_mid's)
+        ("tp_parity_unet", 4, 4096, 4096, 40, ("float32",)),
+        ("tp_eval_unet", 8, 4096, 4096, 40, ("bfloat16",)),
     ]
     results = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -778,10 +796,9 @@ def phase_kernels(state):
     state["lion_cases"] = lion_cases()
     state["lion_fused_cases"] = lion_fused_cases()
     state["lion_model_cases"] = lion_model_cases()
-    state["lion_probe_cases"] = lion_probe_cases(state.pop("lion_probe_built", None))
     bad = [
         r for r in results + state["bwd_cases"] + state["lion_cases"] + state["lion_fused_cases"]
-        + state["lion_model_cases"] + state["lion_probe_cases"] if not r["ok"]
+        + state["lion_model_cases"] if not r["ok"]
     ]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
@@ -849,6 +866,9 @@ def flash_backward_cases():
         # rank is train_parity's shape, unet_train_f32)
         ("fsdp_sdxl_train", 20, 4096, 4096, 64, torch.bfloat16),
         ("fsdp_sdxl_train_bucket", 20, 4032, 4032, 64, torch.bfloat16),
+        # tp_parity's f32 row, 4 of the 8 heads a rank (tp_trainer's 8 rows
+        # are ddp_unet_train's shape)
+        ("tp_parity_unet_f32", 4, 4096, 4096, 40, torch.float32),
     ]
     rows = []
     for name, bh, sq, sk, d, dtype in cases:
@@ -1224,6 +1244,12 @@ def permute_grads(leaves, grads):
     return [g.permute(*perm).contiguous() if perm else g for (_, _, perm), g in zip(leaves, grads)]
 
 
+# the models whose Lion case also runs the route before the leaf table (the
+# permute copies and the per-leaf entries) on the same inputs; the ranks'
+# tables and SD2.1's hold the leaf table against its plain version only
+OLD_ROUTE_MODELS = ("unet", "text_encoder", "sdxl_unet")
+
+
 def lion_model_cases():
     """The whole 8-bit Lion update of each SD1.5 model (bf16 and f32 grads,
     both companders) and of the SDXL UNet (bf16, exact: SDXL training's;
@@ -1232,9 +1258,10 @@ def lion_model_cases():
     one launch, grads in torch layout) against its plain version
     (``lion8bit_update_leaves_reference``) and against the old route (permute
     copies, the single-leaf entry per leaf over the bucket limit, the
-    multi-leaf entry over the rest) on the same inputs: update signs and
-    scales bitwise equal to the plain version, codes at most one apart
-    (counted), codes bitwise equal to the old route's (both are powf's).
+    multi-leaf entry over the rest) on the same inputs, for the whole
+    models of ``OLD_ROUTE_MODELS``: update signs and scales bitwise equal to
+    the plain version, codes at most one apart (counted), codes bitwise
+    equal to the old route's (both are powf's).
     Times: each route's device ms and host ms a call, the old route's copies
     and kernels apart, the bound (bytes of the fused update) and GB/s."""
     import torch
@@ -1252,6 +1279,10 @@ def lion_model_cases():
     models += [(f"{name}_fsdp_half", fsdp_rule(leaves, FSDP_WORLD, 0)[0], variants[2:])
                for name, leaves in sd15_quantized_leaves().items()]
     models += [(name, leaves, variants[:1]) for name, leaves in sd21_quantized_leaves().items()]
+    # one rank's table under TP on two ranks: the split leaves' halves and
+    # the whole rest (both ranks' tables are alike), tp_trainer's bf16 and
+    # tp_parity's f32
+    models += [(f"{name}_tp_half", local, variants[::2]) for name, (local, _, _) in sd15_tp_rules().items()]
     for model_name, leaves, model_variants in models:
         for dtype, compander in model_variants:
             name_dt = str(dtype).replace("torch.", "")
@@ -1267,26 +1298,31 @@ def lion_model_cases():
             upds = lk.lion8bit_update_leaves_(grads, table, compander=compander)
             torch.cuda.synchronize()
             launches = dict(lk.lion8bit_update_leaves_.launches_by_shape)
+            old = model_name in OLD_ROUTE_MODELS
             old_route = lambda: old_lion_route(leaves, grads, old_c, old_s, compander)
-            old_route()
-            torch.cuda.synchronize()
+            if old:
+                old_route()
+                torch.cuda.synchronize()
             updates_equal = all(bool(torch.equal(u, e)) for u, e in zip(upds, e_upd))
             contiguous = all(u.is_contiguous() and u.shape == g.shape for u, g in zip(upds, grads))
             scales_equal = all(bool(torch.equal(s, e)) for s, e in zip(new_s, e_scales))
             max_code_diff = max(int((c.int() - e.int()).abs().max()) for c, e in zip(new_c, e_codes))
             codes_off = sum(int((c != e).sum()) for c, e in zip(new_c, e_codes))
-            codes_differ_from_old = sum(int((c != o).sum()) for c, o in zip(new_c, old_c))
-            scales_differ_from_old = sum(int((s != o).sum()) for s, o in zip(new_s, old_s))
+            codes_differ_from_old = sum(int((c != o).sum()) for c, o in zip(new_c, old_c)) if old else None
+            scales_differ_from_old = sum(int((s != o).sum()) for s, o in zip(new_s, old_s)) if old else None
             del e_upd, e_codes, e_scales, upds
             n = sum(g.numel() for g in grads)
             nb = n // LION_BS
-            host_new, host_old = [], []
+            host_new, host_old = [], [None]
             new_ms = cuda_ms(lambda: lk.lion8bit_update_leaves_(grads, table, compander=compander), 10, host=host_new)
-            old_ms = cuda_ms(old_route, 5, host=host_old)
-            copies_ms = cuda_ms(lambda: permute_grads(leaves, grads), 5)
-            jax_grads = permute_grads(leaves, grads)
-            old_kernels_ms = cuda_ms(lambda: old_lion_route(leaves, grads, old_c, old_s, compander, jax_grads), 5)
-            del jax_grads
+            old_ms = copies_ms = old_kernels_ms = None
+            if old:
+                host_old = []
+                old_ms = cuda_ms(old_route, 5, host=host_old)
+                copies_ms = cuda_ms(lambda: permute_grads(leaves, grads), 5)
+                jax_grads = permute_grads(leaves, grads)
+                old_kernels_ms = cuda_ms(lambda: old_lion_route(leaves, grads, old_c, old_s, compander, jax_grads), 5)
+                del jax_grads
             plain_ms = cuda_ms(lambda: lk.lion8bit_update_leaves_reference(grads, codes, scales, perms,
                                                                            compander=compander), 1, warmup=1)
             # grad in, sign out (grad's dtype), int8 code in and out, f32 scale in and out per block
@@ -1294,7 +1330,7 @@ def lion_model_cases():
             bound_ms = nbytes / PEAK_BYTES * 1e3
             launch_shapes = lion_table_launches(leaves, name_dt)
             ok = (updates_equal and contiguous and scales_equal and max_code_diff <= 1 and launches == launch_shapes
-                  and codes_differ_from_old == 0 and scales_differ_from_old == 0)
+                  and (not old or (codes_differ_from_old == 0 and scales_differ_from_old == 0)))
             row = dict(
                 case=f"{model_name}_{name_dt}_{compander}", model=model_name, dtype=name_dt, compander=compander,
                 bs=LION_BS, leaves=len(leaves), transposed_leaves=sum(perm is not None for perm in perms),
@@ -1330,18 +1366,6 @@ def lion_model_cases():
             summary["aim_device_within_2x_bound"] = acc["kernel_ms"] <= 2 * acc["bound_ms"]
             summary["aim_host_ms_per_model_call_le_0_5"] = max(acc["host_ms"]) <= 0.5
         emit("kernels_lion_model_both", **summary)
-    return rows
-
-
-def lion_probe_cases(built=None):
-    """``probe_lion.py``'s variants (both Lion kernels with powf, divides,
-    transposed reads or math edited out) over each model's leaves, bf16,
-    exact: what each part costs. A base variant must match the plain
-    version's signs. ``built``: the variants the build phase built."""
-    import probe_lion
-
-    rows, summary = probe_lion.measure(reps=5, report=lambda row: emit("kernels_lion_probe", **row), built=built)
-    emit("kernels_lion_probe_saved", **summary)
     return rows
 
 
@@ -3292,7 +3316,7 @@ def timed_step_table(steps):
 
 
 def ddp_rank(part, rank, world, port, workdir):
-    """One rank of a data-parallel or FSDP phase, in a process of its own: joins the
+    """One rank of a data-parallel, FSDP or TP phase, in a process of its own: joins the
     gloo group on cuda:0 through ``core.initialize_distributed``, runs
     ``part`` and writes its numbers to ``<part>_<rank>.json``."""
     import datetime
@@ -3309,7 +3333,8 @@ def ddp_rank(part, rank, world, port, workdir):
     )
     try:
         result = {"ddp_parity": ddp_parity_rank, "ddp_trainer": ddp_trainer_rank, "fsdp_parity": fsdp_parity_rank,
-                  "fsdp_trainer": fsdp_trainer_rank}[part](rank, workdir)
+                  "fsdp_trainer": fsdp_trainer_rank, "tp_parity": tp_parity_rank,
+                  "tp_trainer": tp_trainer_rank}[part](rank, workdir)
         result.update(rank=rank, max_memory_allocated=torch.cuda.max_memory_allocated())
         with open(os.path.join(workdir, f"{part}_{rank}.json"), "w") as f:
             json.dump(result, f)
@@ -3368,9 +3393,8 @@ def compare_steps(got, want, before):
 
 def ddp_parity_rank(rank, workdir):
     """Rank 0 first takes the step as one process over the whole global
-    batch (the reference), and again from a fresh state (the step's own
-    run-to-run spread, held to the same bounds); then both ranks take it on
-    their row, and rank 0 holds its result against the reference."""
+    batch (the reference); then both ranks take it on their row, and rank 0
+    holds its result against the reference."""
     import torch
 
     from stable_diffusion_training_tpu_torch.core import create_mesh, slice_batch_for_process
@@ -3409,11 +3433,6 @@ def ddp_parity_rank(rank, workdir):
         reference = trained(ref_states)
         del ref_states  # the EMA and the frozen models go; the trained params and momentum stay
         torch.cuda.empty_cache()
-        again = on_device_model_training_state(cfg, device=device)
-        result["reference_again_loss"], _ = step(again, batch, None)
-        result["one_process_again"] = compare_steps(trained(again), reference, before)
-        del again
-        torch.cuda.empty_cache()
     barrier()
     mesh = create_mesh(device_type="cuda")
     states = on_device_model_training_state(cfg, device=device, mesh=mesh)
@@ -3433,8 +3452,7 @@ def ddp_parity_rank(rank, workdir):
 def phase_ddp_parity(state, seed=3):
     """The SD1.5 train step at full width in f32 (TF32 off) over a global
     batch of 2 at 512x512 with fixed global draws: as one process (rank 0
-    first, twice: the step's own spread, reported), then on two ranks of
-    one row each (gloo, cuda:0). The ranks' params, EMA, codes and scales
+    first), then on two ranks of one row each (gloo, cuda:0). The ranks' params, EMA, codes and scales
     bitwise equal; the two-rank step against the one-process step within
     tests/test_torch_port_train_step.py's bounds (loss 1e-5 relative,
     params 2 lr + 1e-6, 1e-3 of the update signs, 1e-4 of the codes more
@@ -3488,7 +3506,6 @@ def phase_ddp_parity(state, seed=3):
         world=DDP_WORLD, backend="gloo", batch=DDP_PARITY_BATCH, rows_per_rank=DDP_PARITY_BATCH // DDP_WORLD,
         resolution=TRAIN_RES, dtype="float32", wall_s=wall_s, loss=ranks[0]["loss"], reference_loss=ref_loss,
         loss_rel_diff=abs(ranks[0]["loss"] - ref_loss) / abs(ref_loss), vs_one_process=ranks[0]["vs_one_process"],
-        reference_again_loss=ranks[0]["reference_again_loss"], one_process_again=ranks[0]["one_process_again"],
         step_ms=[r["step_ms"] for r in ranks], reference_step_ms=ranks[0]["reference_step_ms"],
         allreduce=[r["allreduce"] for r in ranks], digests=[r["digest"] for r in ranks],
         max_memory_allocated=[r["max_memory_allocated"] for r in ranks],
@@ -3790,9 +3807,8 @@ FSDP_WORLD = 2
 FSDP_MESH = [1, FSDP_WORLD, 1]
 FSDP_PARITY_BATCH = 2  # global: one row a rank
 # the SDXL cache's shards each leg's chunk runs, one step each at the global
-# batch SDXL_TRAIN_BATCH: the gloo leg 4 steps (1024x1024, 1152x896,
-# 1024x1024, 1024x1024), the NCCL leg 2
-FSDP_TRAINER_SHARDS = (0, 1, 2, 0)
+# batch SDXL_TRAIN_BATCH: 2 steps a leg (1024x1024, 1152x896)
+FSDP_TRAINER_SHARDS = (0, 1)
 FSDP_NCCL_SHARDS = (0, 1)
 FINGERPRINT_CHUNK = 1 << 26
 
@@ -3803,14 +3819,14 @@ def fsdp_rule(leaves, world, index):
     shapes, the leaves kept whole)."""
     import torch
 
-    from stable_diffusion_training_tpu_torch.parallel.sharding import FsdpPlan, RowShard
+    from stable_diffusion_training_tpu_torch.parallel.sharding import RowShard, ShardPlan
 
     rows = {}
     for name, shape, _ in leaves:
         chunk = -(-shape[0] // world)
         rows[name] = RowShard(torch.Size(shape), tuple(min(i * chunk, shape[0]) for i in range(world + 1)), index,
                               None)
-    plan = FsdpPlan(rows, {name: perm for name, _, perm in leaves})
+    plan = ShardPlan(rows, {name: perm for name, _, perm in leaves})
     local, whole = [], []
     for name, shape, perm in leaves:
         if plan.momentum(name, LION_BS) is None:
@@ -3893,9 +3909,7 @@ def fsdp_parity_rank(rank, workdir):
     from stable_diffusion_training_tpu_torch.core.distributed import barrier
     from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
     from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
-    from stable_diffusion_training_tpu_torch.optim import QuantizedMomentum, lion8bit
-    from stable_diffusion_training_tpu_torch.parallel import state_digest
-    from stable_diffusion_training_tpu_torch.parallel.sharding import gather_rows_many
+    from stable_diffusion_training_tpu_torch.optim import lion8bit
     from stable_diffusion_training_tpu_torch.train import on_device_model_training_state, train_step
 
     set_tf32(False)
@@ -3938,43 +3952,8 @@ def fsdp_parity_rank(rank, workdir):
     result["comms_ms"] = {k: sum(v) for k, v in comms.items()}
     result["comms_calls"] = {k: len(v) for k, v in comms.items()}
     # the trained state, whole, on every rank (many leaves to a collective)
-    trained, local_slices, whole, gathered = {}, {}, {}, []
-    for key, s in (("unet", states[0]), ("text_encoder", states[1])):
-        plan, ema = s.fsdp, states[2] if key == "unet" else states[3]
-        jobs, kept = [], []  # (kind, leaf, gathers)
-        for n, t in s.params.items():
-            jobs.append(("params", n, plan.rows[n].gathers(t)))
-        for n, t in ema.items():
-            jobs.append(("ema", n, plan.rows[n].gathers(t)))
-        mu = s.opt_state[1][0].mu_quant
-        for n, m in mu.items():
-            if not isinstance(m, QuantizedMomentum):
-                jobs.append(("dense", n, plan.rows[n].gathers(m)))
-            elif plan.momentum(n, m.codes.shape[1]) is None:
-                kept.append(n)
-            else:
-                jobs.append(("quantized", n, plan.momentum(n, m.codes.shape[1]).gathers(m.codes, m.scales)))
-        fulls = iter(gather_rows_many([g for _, _, gs in jobs for g in gs]))
-        params, ema_whole, momentum, ok = {}, {}, {n: mu[n] for n in kept}, True
-        for kind, n, gs in jobs:
-            parts = [next(fulls) for _ in gs]
-            if kind == "params":
-                params[n] = parts[0]
-            elif kind == "ema":
-                ema_whole[n] = parts[0]
-            elif kind == "dense":
-                momentum[n] = parts[0]
-            else:
-                mine = plan.momentum(n, mu[n].codes.shape[1]).take(*parts)
-                ok = ok and torch.equal(mine[0], mu[n].codes) and torch.equal(mine[1], mu[n].scales)
-                momentum[n] = QuantizedMomentum(*parts)
-        momentum = {n: momentum[n] for n in mu}
-        trained[key] = (params, momentum)
-        local_slices[key], whole[key] = ok, kept
-        gathered += list(params.values()) + list(ema_whole.values()) + [
-            t for m in momentum.values() for t in ((m.codes, m.scales) if isinstance(m, QuantizedMomentum) else (m,))
-        ]
-    result.update(local_slices=local_slices, whole_leaves=whole, digest=state_digest(gathered))
+    trained, local_slices, whole, digest = whole_trained_state(states)
+    result.update(local_slices=local_slices, whole_leaves=whole, digest=digest)
     if reference is not None:
         result["vs_one_process"] = compare_steps(trained, reference, before)
     return result
@@ -4096,6 +4075,14 @@ def fsdp_state_fingerprints(state, ema):
     return out
 
 
+def tp_state_fingerprints(*models):
+    """``fsdp_state_fingerprints`` of each ``(state, ema)`` in ``models``
+    (the UNet's, the text encoder's), keyed ``unet/...`` and
+    ``text_encoder/...``."""
+    return {f"{key}/{k}": v for key, (state, ema) in zip(("unet", "text_encoder"), models)
+            for k, v in fsdp_state_fingerprints(state, ema).items()}
+
+
 def fsdp_trainer_rank(rank, workdir):
     """``trainer.main`` once on this rank over the leg's cache, each batch
     cut to the rank's rows, with the step table, FSDP2's comms and the
@@ -4202,7 +4189,7 @@ def fsdp_nccl_rank(state_dir, workdir):
     restore_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     unet_state, ema = restored["unet_state"], restored["unet_ema_params"]
-    leaves = [(n, tuple(p.shape), unet_state.fsdp.perms.get(n)) for n, p in unet_state.params.items()]
+    leaves = [(n, tuple(p.shape), unet_state.plan.perms.get(n)) for n, p in unet_state.params.items()]
     slices = []
     for index in range(FSDP_WORLD):
         _, _, plan = fsdp_rule(leaves, FSDP_WORLD, index)
@@ -4267,11 +4254,11 @@ def phase_fsdp_trainer(state, seed=0):
     sharded data parallelism with gradient checkpointing), config 5's recipe
     (bf16, frozen cached towers, the offline latent cache): two gloo ranks
     on cuda:0 on a ``[1, 2, 1]`` mesh with ``fsdp_shard_params``, global
-    batch 4 (2 a rank), a chunk of 4 steps over the SDXL cache's shards
-    (1024x1024, 1152x896, 1024x1024, 1024x1024) with its checkpoint; then a
-    one-rank NCCL world that resumes from that checkpoint (read whole, the
-    models sharded over a fsdp axis of one rank) and trains 2 steps of the
-    step table (not ``trainer.main``, whose probe and chunk checkpoints,
+    batch 4 (2 a rank), a chunk of 2 steps over the SDXL cache's shards
+    (1024x1024, 1152x896) with its checkpoint; then a one-rank
+    NCCL world that resumes from that checkpoint (read whole, the models
+    sharded over a fsdp axis of one rank) and trains 2 steps of the step
+    table (not ``trainer.main``, whose probe and chunk checkpoints,
     beside the gloo leg's, would need another 58 GB of disk writes).
     Checks: finite ``loss.csv`` rows, one writer, the JSON, the checkpoint, each
     step's launches at the rank's shapes, no grad copied before Lion, and
@@ -4383,12 +4370,713 @@ def phase_fsdp_trainer(state, seed=0):
         raise AssertionError(f"fsdp_trainer failed its checks: {checks}")
 
 
+# Tensor parallelism (the JAX package's tensor_parallel_shard_params, fsdp 1):
+# two ranks on cuda:0 over gloo, each holding its half of every attention's
+# heads (and of CLIP's MLP), their sums over the model_parallel axis copies
+# between buffers the ranks map from each other (parallel.sharding's
+# _CardExchange), and a one-rank NCCL world. Their times describe this
+# check, not scaling: the ranks share one card.
+TP_WORLD = 2
+TP_MESH = [1, 1, TP_WORLD]
+TP_PARITY_BATCH = 1  # global: both ranks take the row
+TP_TRAINER_STEPS = 2  # one chunk: the first holds the set-up, eval after the second
+TP_EVAL_STEPS = 2  # DDIM steps of the eval
+
+
+class TpStandInMesh:
+    """The mesh surface ``parallel.sharding.tp_plan`` reads, for the rule's
+    arithmetic outside a process group: rank ``index`` of a model_parallel
+    axis of ``world``."""
+
+    mesh_dim_names = ("data_parallel", "fsdp", "model_parallel")
+
+    def __init__(self, world, index):
+        self.world, self.index = world, index
+
+    def size(self, dim):
+        return (1, 1, self.world)[dim]
+
+    def get_local_rank(self, axis):
+        return self.index if axis == "model_parallel" else 0
+
+    def get_group(self, axis):
+        return None
+
+
+def sd15_tp_sums():
+    """The SD1.5 step's sums over the model_parallel axis: per UNet
+    transformer block (16) 2 forward (attn1's and attn2's to_out) and 3
+    backward (attn1's input, attn2's hidden states and its context); per
+    CLIP layer (12) 2 and 2."""
+    from stable_diffusion_training_tpu_torch.models import UNet2DConditionModel, configs
+    from stable_diffusion_training_tpu_torch.models.attention import BasicTransformerBlock
+
+    unet = UNet2DConditionModel(**configs.SD15_UNET, device="meta")
+    blocks = sum(isinstance(m, BasicTransformerBlock) for m in unet.modules())
+    layers = configs.CLIP_VIT_L["num_hidden_layers"]
+    return {"forward": 2 * blocks + 2 * layers, "backward": 3 * blocks + 2 * layers}
+
+
+def sd15_heads():
+    from stable_diffusion_training_tpu_torch.models import configs
+
+    return configs.SD15_UNET["attention_head_dim"]
+
+
+def tp_rule(model, world=TP_WORLD, index=0):
+    """The TP rule over ``model``'s quantized leaves (``quantized_leaves``)
+    for rank ``index`` of ``world``: (this rank's table leaves, each split
+    one at its local shape, the rest whole; the split leaves whose momentum
+    stays whole; the plan)."""
+    from stable_diffusion_training_tpu_torch.parallel.sharding import tp_plan
+
+    plan = tp_plan(model, TpStandInMesh(world, index))
+    local, whole = [], []
+    for name, shape, perm in quantized_leaves(model):
+        rows = plan.rows.get(name)
+        if rows is None:
+            local.append((name, shape, perm))
+        elif plan.momentum(name, LION_BS) is None:
+            whole.append((name, shape, perm))
+        else:
+            split = list(shape)
+            split[rows.dim] = rows.stop - rows.start
+            local.append((name, tuple(split), perm))
+    return local, whole, plan
+
+
+def sd15_tp_rules(index=0):
+    """{model: tp_rule} of SD1.5's UNet and text encoder."""
+    from stable_diffusion_training_tpu_torch.models import CLIPTextModel, UNet2DConditionModel, configs
+
+    return {
+        "unet": tp_rule(UNet2DConditionModel(**configs.SD15_UNET, device="meta"), index=index),
+        "text_encoder": tp_rule(CLIPTextModel(**configs.CLIP_VIT_L, device="meta"), index=index),
+    }
+
+
+def tp_lion_launches(dtype_name, index=0):
+    """One rank's Lion launches of one SD1.5 update under the TP rule: the
+    leaf table over its leaves, once per model, and the single-leaf entry
+    once per split leaf kept whole; and those leaves' names."""
+    launches, whole = {}, {}
+    for key, (local, kept, _) in sd15_tp_rules(index).items():
+        add_launches(launches, {"lion_leaves": lion_table_launches(local, dtype_name)})
+        for _, shape, _ in kept:
+            add_launches(launches, {"lion_single": {(math.prod(shape) // LION_BS, LION_BS, dtype_name): 1}})
+        whole[key] = [name for name, _, _ in kept]
+    return launches, whole
+
+
+def timed_tp_sums(sink):
+    """Wraps the TP sums (``parallel.sharding._tp_all_reduce``, which the
+    split layers' autograd functions call): host ms of each, the card
+    synchronized before and after, into ``sink`` by direction."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.parallel import sharding
+
+    inner = sharding._tp_all_reduce
+
+    def timed(t, axis, direction):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(t, axis, direction)
+        torch.cuda.synchronize()
+        sink[direction].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    sharding._tp_all_reduce = timed
+
+
+def whole_trained_state(states):
+    """Each trained model's params and Lion momentum whole on every rank
+    (the split or sharded leaves gathered from every rank's, many leaves to
+    a collective; the others as they are), whether every rank's local codes
+    and scales are its slices of the gathered ones, the split quantized
+    leaves whose momentum stays whole, and a digest of the whole state with
+    the EMA."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.optim import QuantizedMomentum
+    from stable_diffusion_training_tpu_torch.parallel import state_digest
+    from stable_diffusion_training_tpu_torch.parallel.sharding import gather_rows_many
+
+    trained, local_slices, whole, gathered = {}, {}, {}, []
+    for key, s in (("unet", states[0]), ("text_encoder", states[1])):
+        plan, ema = s.plan, states[2] if key == "unet" else states[3]
+        split = {} if plan is None else plan.rows
+        mu = s.opt_state[1][0].mu_quant
+        out = {"params": {}, "ema": {}, "momentum": {}}
+        jobs, kept = [], []  # (kind, leaf, gathers)
+        for kind, tensors in (("params", s.params), ("ema", ema)):
+            for n, t in tensors.items():
+                if n in split:
+                    jobs.append((kind, n, split[n].gathers(t)))
+                else:
+                    out[kind][n] = t
+        for n, m in mu.items():
+            if not isinstance(m, QuantizedMomentum):
+                if n in split:
+                    jobs.append(("dense", n, split[n].gathers(m)))
+                else:
+                    out["momentum"][n] = m
+            elif n not in split:
+                out["momentum"][n] = m
+            elif plan.momentum(n, m.codes.shape[1]) is None:
+                kept.append(n)
+                out["momentum"][n] = m
+            else:
+                jobs.append(("quantized", n, plan.momentum(n, m.codes.shape[1]).gathers(m.codes, m.scales)))
+        fulls = iter(gather_rows_many([g for _, _, gs in jobs for g in gs]))
+        ok = True
+        for kind, n, gs in jobs:
+            parts = [next(fulls) for _ in gs]
+            if kind in ("params", "ema"):
+                out[kind][n] = parts[0]
+            elif kind == "dense":
+                out["momentum"][n] = parts[0]
+            else:
+                mine = plan.momentum(n, mu[n].codes.shape[1]).take(*parts)
+                ok = ok and torch.equal(mine[0], mu[n].codes) and torch.equal(mine[1], mu[n].scales)
+                out["momentum"][n] = QuantizedMomentum(*parts)
+        params = {n: out["params"][n] for n in s.params}
+        momentum = {n: out["momentum"][n] for n in mu}
+        trained[key] = (params, momentum)
+        local_slices[key], whole[key] = ok, kept
+        gathered += list(params.values()) + [out["ema"][n] for n in ema] + [
+            t for m in momentum.values() for t in ((m.codes, m.scales) if isinstance(m, QuantizedMomentum) else (m,))
+        ]
+    return trained, local_slices, whole, state_digest(gathered)
+
+
+def tp_parity_rank(rank, workdir):
+    """Rank 0 first takes the step as one process (the reference); then
+    both ranks take it on the same row with the UNet's and the text
+    encoder's projections split over the model_parallel axis, counting and
+    timing the sums over it, and gather the trained state whole: rank 0
+    holds it against the reference, and each rank its local Lion codes and
+    scales against its slices of the gathered ones."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.core import create_mesh, slice_batch_for_process
+    from stable_diffusion_training_tpu_torch.core.distributed import barrier
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+    from stable_diffusion_training_tpu_torch.optim import lion8bit
+    from stable_diffusion_training_tpu_torch.parallel import sharding
+    from stable_diffusion_training_tpu_torch.train import on_device_model_training_state, train_step
+
+    set_tf32(False)
+    device = torch.device("cuda", 0)
+    inputs = torch.load(os.path.join(workdir, "inputs.pt"))
+    batch = {k: v.to(device) for k, v in inputs["batch"].items()}
+    draws = {k: v.to(device) for k, v in inputs["draws"].items()}
+
+    def step(states, rows, mesh, ema_rate):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_step(*states[:4], rows, None, states[4], states[5], draws=draws, mesh=mesh,
+                         strip_bos_eos_token=True, ema_rate=ema_rate, text_context_window=77)
+        return out[4]["loss"].item(), (time.perf_counter() - t0) * 1e3
+
+    result, reference, before = {}, None, None
+    # the mesh's rows (one block: the model_parallel ranks share the row), no split, no mesh: one process
+    cfg = train_config(mixed_precision="float32", batch_size=TP_PARITY_BATCH, mesh_shape=TP_MESH)
+    if rank == 0:
+        ref_states = on_device_model_training_state(cfg, device=device)
+        before = {key: {n: p.detach().clone() for n, p in s.params.items()}
+                  for key, s in (("unet", ref_states[0]), ("text_encoder", ref_states[1]))}
+        result["reference_loss"], result["reference_step_ms"] = step(ref_states, batch, None, cfg.ema_rate)
+        reference = {key: (s.params, s.opt_state[1][0].mu_quant)
+                     for key, s in (("unet", ref_states[0]), ("text_encoder", ref_states[1]))}
+        del ref_states
+        torch.cuda.empty_cache()
+    barrier()
+    cfg = train_config(mixed_precision="float32", batch_size=TP_PARITY_BATCH, mesh_shape=TP_MESH,
+                       tensor_parallel_shard_params=True)
+    mesh = create_mesh(tuple(TP_MESH), device_type="cuda")
+    states = on_device_model_training_state(cfg, device=device, mesh=mesh)
+    sums = {"forward": [], "backward": []}
+    timed_tp_sums(sums)
+    lion8bit.GRAD_COPIES["count"] = 0
+    fa.reset_launch_counts()
+    lk.reset_launch_counts()
+    counted = dict(sharding.TP_ALL_REDUCES)
+    result["loss"], result["step_ms"] = step(states, slice_batch_for_process(batch, mesh), mesh, cfg.ema_rate)
+    result["launches"] = launches_json(launch_snapshot(fa, lk))
+    result["tp_sums"] = {k: v - counted[k] for k, v in sharding.TP_ALL_REDUCES.items()}
+    result["tp_sums_ms"] = {k: sum(v) for k, v in sums.items()}
+    result["grad_copies"] = lion8bit.GRAD_COPIES["count"]
+    result["heads"] = sorted({m.heads for m in states[0].model.modules() if hasattr(m, "to_q")})
+    trained, local_slices, whole, digest = whole_trained_state(states)
+    result.update(local_slices=local_slices, whole_leaves=whole, digest=digest)
+    if reference is not None:
+        result["vs_one_process"] = compare_steps(trained, reference, before)
+    return result
+
+
+def hold_flash_f32(bh, s, d, seed=9):
+    """K1 f32 and the fused f32 backward against their plain versions at
+    ``(bh, s, d)``: the largest error of each output over its bound (the
+    kernels phase's tolerances), and the routes taken."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(bh, s, d, generator=gen, device="cuda") for _ in range(4))
+    scale = d**-0.5
+    o, lse = fa.flash_attention_fwd(q, k, v, scale)
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, scale)
+    delta = (do * o).sum(-1)
+    args = (q, k, v, do, lse, delta, scale)
+    grads, expected = fa.flash_attention_bwd(*args), fa.flash_attention_bwd_reference(*args)
+    out = dict(forward_route=fa.forward_route(q, k, v), backward_route=fa.backward_route(q, k, v, do),
+               o=(o - o_ref).abs().max().item() / TOLERANCE["float32"]["o"],
+               lse=(lse - lse_ref).abs().max().item() / TOLERANCE["float32"]["lse"])
+    for name, got, want in zip(("dq", "dk", "dv"), grads, expected):
+        out[name] = (got - want).abs().max().item() / (BWD_TOLERANCE["float32"] * want.abs().max().item())
+    out["ok"] = (out["forward_route"], out["backward_route"]) == ("f32", "f32_fused") and all(
+        out[n] <= 1 for n in ("o", "lse", "dq", "dk", "dv"))
+    return out
+
+
+def phase_tp_parity(state, seed=3):
+    """The SD1.5 train step at full width in f32 (TF32 off) on one 512x512
+    row with fixed draws: as one process (rank 0 first), then on two ranks
+    (gloo, cuda:0) of a ``[1, 1, 2]`` mesh with
+    ``tensor_parallel_shard_params``, both taking the row, each running
+    attention on 4 of the 8 heads. Each rank gathers the trained params,
+    EMA, codes and scales whole: the ranks' gathered states bitwise equal;
+    rank 0's against the one-process step within ``ddp_parity``'s bounds
+    and code-noise rule; each rank's local codes and scales its slices of
+    the gathered ones; the step's sums over the axis as the module count
+    says (``sd15_tp_sums``). Launches by shape and route: K1 5 at (4, 4096,
+    40) and 1 at (1, 4096, 512) (f32), the fused f32 backward 5 at (4, 4096,
+    40), Lion's leaf table once per model over the rank's leaves. K1 f32 and
+    the fused f32 backward are also held against their plain versions at
+    the rank's (4, 4096, 40)."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.train.train_step import make_draws
+
+    workdir = os.path.join(REPO, ".cache", "chip_smoke_tp_parity")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    gen = torch.Generator().manual_seed(seed)
+    batch = {
+        "pixel_values": torch.rand(TP_PARITY_BATCH, 3, TRAIN_RES, TRAIN_RES, generator=gen) * 2 - 1,
+        "input_ids": torch.randint(0, 49408, (TP_PARITY_BATCH * TRAIN_CONCAT, 77), generator=gen),
+    }
+    latent = (TP_PARITY_BATCH, 4, TRAIN_RES // 8, TRAIN_RES // 8)
+    torch.save({"batch": batch, "draws": make_draws(gen, latent, torch.float32, 1000, "cpu")},
+               os.path.join(workdir, "inputs.pt"))
+    heads = sd15_heads() * TP_PARITY_BATCH // TP_WORLD
+    held = hold_flash_f32(heads, (TRAIN_RES // 8) ** 2, 40)
+    port = free_port()
+    t0 = time.perf_counter()
+    run_ranks(ddp_rank, lambda r: ("tp_parity", r, TP_WORLD, port, workdir), TP_WORLD)
+    wall_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(TP_WORLD):
+        with open(os.path.join(workdir, f"tp_parity_{r}.json")) as f:
+            ranks.append(json.load(f))
+    launches = [nonzero(launches_from_json(r["launches"])) for r in ranks]
+    launches_ok, whole_expected = [], None
+    for r, got in enumerate(launches):
+        lion, whole_expected = tp_lion_launches("float32", index=r)
+        want = dict(
+            flash_fwd={(heads, 4096, 4096, 40, "float32", "f32"): 5,
+                       (TP_PARITY_BATCH, 4096, 4096, 512, "float32", "f32"): 1},
+            flash_bwd_f32={(heads, 4096, 4096, 40, "float32"): 5}, **lion,
+        )
+        launches_ok.append(got == nonzero(want))
+    ref_loss = ranks[0]["reference_loss"]
+    checks = dict(
+        ranks_gather_the_same_state=len({r["digest"] for r in ranks}) == 1 and len({r["loss"] for r in ranks}) == 1,
+        loss=abs(ranks[0]["loss"] - ref_loss) <= TRAIN_LOSS_REL_TOL * abs(ref_loss),
+        vs_one_process=all(v["ok"] for v in ranks[0]["vs_one_process"].values()),
+        local_momentum_is_its_slice=all(all(r["local_slices"].values()) for r in ranks),
+        whole_leaves_as_the_rule=all(r["whole_leaves"] == whole_expected for r in ranks),
+        tp_sums=all(r["tp_sums"] == sd15_tp_sums() for r in ranks),
+        each_rank_runs_half_the_heads=all(r["heads"] == [sd15_heads() // TP_WORLD] for r in ranks),
+        no_grad_copies=all(r["grad_copies"] == 0 for r in ranks),
+        launches=all(launches_ok),
+        kernels_held_at_the_rank_shape=held["ok"],
+    )
+    total = {}
+    for got in launches:
+        add_launches(total, got)
+    state["tp_parity_by_shape"] = total
+    row = dict(
+        world=TP_WORLD, backend="gloo", mesh=TP_MESH, batch=TP_PARITY_BATCH, resolution=TRAIN_RES,
+        dtype="float32", wall_s=wall_s, loss=ranks[0]["loss"], reference_loss=ref_loss,
+        loss_rel_diff=abs(ranks[0]["loss"] - ref_loss) / abs(ref_loss), vs_one_process=ranks[0]["vs_one_process"],
+        whole_leaves=ranks[0]["whole_leaves"], step_ms=[r["step_ms"] for r in ranks],
+        reference_step_ms=ranks[0]["reference_step_ms"], tp_sums=[r["tp_sums"] for r in ranks],
+        tp_sums_expected=sd15_tp_sums(), tp_sums_ms=[r["tp_sums_ms"] for r in ranks],
+        max_memory_allocated=[r["max_memory_allocated"] for r in ranks], kernels_held=held,
+        launches_by_shape=[{k: {"x".join(map(str, s)): n for s, n in v.items()} for k, v in got.items()}
+                           for got in launches],
+        checks=checks, ok=all(checks.values()),
+    )
+    emit("tp_parity", **row)
+    shutil.rmtree(workdir, ignore_errors=True)
+    if not row["ok"]:
+        raise AssertionError(f"tp_parity failed its checks: {checks}")
+
+
+def tp_trainer_rank(rank, workdir):
+    """``trainer.main`` once on this rank over the in-memory batches (every
+    rank the whole batch: the model_parallel ranks take the same rows),
+    with the step table, the TP sums, the writers and the saves wrapped
+    and, at the chunk checkpoint, the fingerprints of the rank's UNet and
+    text encoder states."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.data import InMemoryDataLoader
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+    from stable_diffusion_training_tpu_torch.optim import lion8bit
+    from stable_diffusion_training_tpu_torch.train import checkpoint, eval_sampler, trainer
+
+    with open(os.path.join(workdir, "spec.json")) as f:
+        spec = json.load(f)
+    set_tf32(False)
+    steps, sums, fingerprints, per_step, evals = [], {"forward": [], "backward": []}, [], [], []
+    calls = dict(write_model=0, write_train_state=0, json=0, png=0)
+    timed_step_table(steps)
+    timed_tp_sums(sums)
+    step_table = trainer.bucket_train_steps
+
+    def summed_steps(training_config, frozen_vae, mesh=None):
+        def wrap(step):
+            def run(*args):
+                marks = {k: len(v) for k, v in sums.items()}
+                out = step(*args)
+                per_step.append({k: (len(v) - marks[k], sum(v[marks[k]:])) for k, v in sums.items()})
+                return out
+            return run
+        return {key: wrap(s) for key, s in step_table(training_config, frozen_vae, mesh=mesh).items()}
+
+    trainer.bucket_train_steps = summed_steps
+    sample = eval_sampler.EvalSampler.maybe_sample
+
+    def timed_sample(self, step, *args, **kwargs):
+        before = launch_snapshot(fa, lk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sample(self, step, *args, **kwargs)
+        torch.cuda.synchronize()
+        launched = launch_diff(launch_snapshot(fa, lk), before)
+        if any(launched.values()):
+            evals.append(dict(step=step, ms=(time.perf_counter() - t0) * 1e3, launches=launches_json(launched)))
+        return out
+
+    eval_sampler.EvalSampler.maybe_sample = timed_sample
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    checkpoint._write_model = counted("write_model", checkpoint._write_model)
+    checkpoint._write_train_state = counted("write_train_state", checkpoint._write_train_state)
+    trainer.save_dict_to_json = counted("json", trainer.save_dict_to_json)
+    eval_sampler.save_png_images = counted("png", eval_sampler.save_png_images)
+    save_chunk = trainer._save_chunk_checkpoints
+
+    def fingerprinted_save(config_dict, model_object_dict, tokenizer, unet_state, text_encoder_state, unet_ema,
+                           text_encoder_ema, frozen_vae, train_rng=None):
+        fingerprints.append(tp_state_fingerprints((unet_state, unet_ema), (text_encoder_state, text_encoder_ema)))
+        return save_chunk(config_dict, model_object_dict, tokenizer, unet_state, text_encoder_state, unet_ema,
+                          text_encoder_ema, frozen_vae, train_rng=train_rng)
+
+    trainer._save_chunk_checkpoints = fingerprinted_save
+    broadcasts, checks = timed_replicas(trainer)
+    lion8bit.GRAD_COPIES["count"] = 0
+    fa.reset_launch_counts()
+    lk.reset_launch_counts()
+    loader = InMemoryDataLoader.synthetic(TP_TRAINER_STEPS, TRAIN_BATCH, [(TRAIN_RES, TRAIN_RES)],
+                                          concat_count=TRAIN_CONCAT, seed=spec["seed"])
+    watch = SaveWatch(trainer, spec["run_dir"])
+    t0 = time.perf_counter()
+    try:
+        trainer.main(spec["config_path"], dataloader=loader, tokenizer=None, device=torch.device("cuda", 0))
+        torch.cuda.synchronize()
+    finally:
+        watch.stop()
+    return dict(
+        steps=[dict(s, launches=launches_json(s["launches"])) for s in steps], sums_per_step=per_step,
+        evals=evals, calls=calls, wall_s=time.perf_counter() - t0, fingerprints=fingerprints, saves=watch.row(),
+        whole_grads_broadcast_ms=broadcasts, replica_check_s=checks,
+        grad_copies=lion8bit.GRAD_COPIES["count"], launches=launches_json(launch_snapshot(fa, lk)),
+    )
+
+
+def timed_replicas(trainer):
+    """Wraps the train step's broadcast of the whole leaves' grads from the
+    model_parallel axis's first rank (host ms of each, the card
+    synchronized before and after) and the trainer's replica check before
+    the chunk checkpoint (host s); returns the two lists they fill."""
+    import importlib
+
+    import torch
+
+    step_module = importlib.import_module("stable_diffusion_training_tpu_torch.train.train_step")
+    broadcast, check = step_module.replicate_, trainer._assert_replicas_alike
+    broadcasts, checks = [], []
+
+    def timed_broadcast(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        broadcast(*args, **kwargs)
+        torch.cuda.synchronize()
+        broadcasts.append((time.perf_counter() - t0) * 1e3)
+
+    def timed_check(*args):
+        t0 = time.perf_counter()
+        check(*args)
+        checks.append(time.perf_counter() - t0)
+
+    step_module.replicate_, trainer._assert_replicas_alike = timed_broadcast, timed_check
+    return broadcasts, checks
+
+
+def tp_nccl_rank(state_dir, workdir):
+    """A one-rank NCCL world from torchrun's variables on a ``[1, 1, 1]``
+    mesh with ``tensor_parallel_shard_params`` (an axis of one rank: nothing
+    is split): the gloo leg's checkpoint read back whole
+    (``restore_train_state``), each gloo rank's slices of the restored UNet
+    and text encoder states fingerprinted for the gloo ranks' own, then one
+    step of the step table on a synthetic batch of 8, its TP sums
+    counted."""
+    import torch
+    import torch.distributed as dist
+
+    from stable_diffusion_training_tpu_torch.core import create_mesh, initialize_distributed
+    from stable_diffusion_training_tpu_torch.data import InMemoryDataLoader
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+    from stable_diffusion_training_tpu_torch.parallel import sharding
+    from stable_diffusion_training_tpu_torch.train import bucket_train_steps, on_device_model_training_state, trainer
+    from stable_diffusion_training_tpu_torch.train.aot import batch_dispatch_key
+    from stable_diffusion_training_tpu_torch.train.checkpoint import restore_train_state
+
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    set_tf32(False)
+    initialize_distributed()
+    device = torch.device("cuda", 0)
+    mesh = create_mesh((1, 1, 1), device_type="cuda")
+    config = train_config(mesh_shape=[1, 1, 1], tensor_parallel_shard_params=True)
+    states = on_device_model_training_state(config, device=device, mesh=mesh)
+    t0 = time.perf_counter()
+    restored = restore_train_state(state_dir, {
+        "unet_state": states[0], "text_encoder_state": states[1], "unet_ema_params": states[2],
+        "text_encoder_ema_params": states[3], "train_rng": torch.Generator(device=device),
+    })
+    restore_s = time.perf_counter() - t0
+    unet_state, ema = restored["unet_state"], restored["unet_ema_params"]
+    models = {"unet": (unet_state, ema),
+              "text_encoder": (restored["text_encoder_state"], restored["text_encoder_ema_params"])}
+    slices = []
+    for index in range(TP_WORLD):
+        got = {}
+        for key, (s, e) in models.items():
+            plan = sharding.tp_plan(s.model, TpStandInMesh(TP_WORLD, index))
+            for n, t in s.params.items():
+                take = plan.rows[n].take if n in plan.rows else (lambda x: x)
+                got[f"{key}/params/{n}"], got[f"{key}/ema/{n}"] = fingerprint(take(t)), fingerprint(take(e[n]))
+            for n, m in s.opt_state[1][0].mu_quant.items():
+                if hasattr(m, "codes"):
+                    shard = plan.momentum(n, m.codes.shape[1]) if n in plan.rows else None
+                    codes, scales = shard.take(m.codes, m.scales) if shard is not None else (m.codes, m.scales)
+                    got[f"{key}/codes/{n}"], got[f"{key}/scales/{n}"] = fingerprint(codes), fingerprint(scales)
+        slices.append(got)
+    # the leaves whole on both gloo ranks
+    whole = [f"{key}/{kind}/{n}" for key, (s, _) in models.items()
+             for n in s.params if n not in sharding.tp_plan(s.model, TpStandInMesh(TP_WORLD, 0)).rows
+             for kind in ("params", "ema")]
+    table = bucket_train_steps(config, states[4], mesh=mesh)
+    state = [unet_state, restored["text_encoder_state"], ema, restored["text_encoder_ema_params"]]
+    loader = InMemoryDataLoader.synthetic(1, TRAIN_BATCH, [(TRAIN_RES, TRAIN_RES)], concat_count=TRAIN_CONCAT,
+                                          seed=7)
+    fa.reset_launch_counts()
+    lk.reset_launch_counts()
+    counted = dict(sharding.TP_ALL_REDUCES)
+    steps = []
+    for batch in trainer._prefetch_to_device(loader, 1, 77, device):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = table[batch_dispatch_key(batch)](*state, batch, restored["train_rng"], states[4], states[5])
+        steps.append(dict(ms=(time.perf_counter() - t0) * 1e3, loss=out[4]["loss"].item()))
+    result = dict(
+        backend=dist.get_backend(), world=dist.get_world_size(), steps=steps, slices=slices, whole=whole,
+        restore_s=restore_s,
+        tp_sums={k: v - counted[k] for k, v in sharding.TP_ALL_REDUCES.items()},
+        split=sharding.shard_plan(unet_state.model) is not None,
+        launches=launches_json(launch_snapshot(fa, lk)), max_memory_allocated=torch.cuda.max_memory_allocated(),
+    )
+    dist.destroy_process_group()
+    with open(os.path.join(workdir, "nccl.json"), "w") as f:
+        json.dump(result, f)
+
+
+def phase_tp_trainer(state, seed=0):
+    """``trainer.main`` on SD1.5 at full width, bf16, 512x512, the example
+    recipe, global batch 8 on two gloo ranks of cuda:0 on a ``[1, 1, 2]``
+    mesh with ``tensor_parallel_shard_params`` (both ranks take the 8 rows;
+    each runs attention on 4 of the 8 heads): one chunk of 2 steps from
+    in-memory batches with its checkpoint and one DDIM eval (2 steps, on
+    every rank, rank 0 writing); then a one-rank NCCL world on ``[1, 1, 1]``
+    that reads the checkpoint back whole and takes one step. Checks: finite
+    ``loss.csv`` rows, one writer, the JSON, the checkpoint, the ranks'
+    losses equal, each step's sums over the axis (``sd15_tp_sums``) and
+    launches at the rank's shapes (K1 5 at (32, 4096, 40) and 1 at (8,
+    4096, 512), the fused bf16 backward 5 at (32, 4096, 40), Lion's table
+    once per model over the rank's leaves), the eval's (K1 5 a DDIM step at
+    (8, 4096, 40) and the decode's 1 at (1, 4096, 512)), no grad copied
+    before Lion, the checkpoint read back by the NCCL leg equal, in each
+    gloo rank's slices, to that rank's UNet and text encoder states at the
+    save (fingerprints), the two ranks' params and EMA of the whole leaves
+    alike,
+    the NCCL leg's backend, loss, launches and sums (none: an axis of one
+    rank splits nothing), the whole leaves' grads broadcast from rank 0 in
+    each step and the trainer's replica check run once. Prints per rank the
+    step p50, the TP sums' ms a step and the broadcast's (host clock, the
+    card synchronized around each), the replica check's s and peak memory;
+    the ranks share the card, so these describe the check, not scaling."""
+    from stable_diffusion_training_tpu_torch.utils.json_io import read_json_file
+
+    prompt = StubTokenizer()(["a photo of an astronaut riding a horse"], padding="max_length").input_ids
+    root = os.path.join(REPO, ".cache", "chip_smoke_tp")
+    shutil.rmtree(root, ignore_errors=True)
+    workdir = os.path.join(root, "ranks")
+    os.makedirs(workdir)
+    # the mesh goes into the JSON only: this process has no group of two ranks
+    run_dir, base, cfg, config_path, _ = trainer_run(
+        "chip_smoke_tp/trainer", train_config(), seed, mesh_shape=TP_MESH, tensor_parallel_shard_params=True,
+        eval_sample_interval=TP_TRAINER_STEPS, eval_sample_prompt_ids=prompt.tolist(),
+        eval_num_inference_steps=TP_EVAL_STEPS, eval_sample_resolution=TRAIN_RES,
+        eval_sample_dir=os.path.join(root, "eval"),
+    )
+    with open(os.path.join(workdir, "spec.json"), "w") as f:
+        json.dump(dict(config_path=config_path, run_dir=run_dir, seed=seed), f)
+    port = free_port()
+    t0 = time.perf_counter()
+    run_ranks(ddp_rank, lambda r: ("tp_trainer", r, TP_WORLD, port, workdir), TP_WORLD)
+    wall_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(TP_WORLD):
+        with open(os.path.join(workdir, f"tp_trainer_{r}.json")) as f:
+            ranks.append(json.load(f))
+    with open(cfg["loss_csv"]) as f:
+        lines = f.read().splitlines()
+    rows = [line.split(",") for line in lines[1:] if line]
+    final = read_json_file(config_path)
+    ckpt = f"{base}@0"  # the chunk's
+    saved = all(os.path.isdir(os.path.join(ckpt, d)) for d in ("unet", "vae", "text_encoder", "train_state")) and (
+        os.path.isdir(f"{base}-EMA@0/unet"))
+    eval_dirs = sorted(os.listdir(cfg["eval_sample_dir"])) if os.path.isdir(cfg["eval_sample_dir"]) else []
+
+    t0 = time.perf_counter()
+    run_ranks(tp_nccl_rank, lambda r: (os.path.join(ckpt, "train_state"), workdir), 1)
+    nccl_wall_s = time.perf_counter() - t0
+    with open(os.path.join(workdir, "nccl.json")) as f:
+        nccl = json.load(f)
+
+    heads = sd15_heads() * TRAIN_BATCH // TP_WORLD
+    want_eval = dict(flash_fwd={(2 * sd15_heads() // TP_WORLD, 4096, 4096, 40, "bfloat16", "tma_narrow"): 5 * TP_EVAL_STEPS,
+                                (1, 4096, 4096, 512, "bfloat16", "tma_wide"): 1})
+    launches_ok, totals = [], {}
+    for r, got in enumerate(ranks):
+        lion, _ = tp_lion_launches("bfloat16", index=r)
+        want_step = dict(
+            flash_fwd={(heads, 4096, 4096, 40, "bfloat16", "tma_narrow"): 5,
+                       (TRAIN_BATCH, 4096, 4096, 512, "bfloat16", "tma_wide"): 1},
+            flash_bwd_fused={(heads, 4096, 4096, 40, "bfloat16"): 5}, **lion,
+        )
+        steps = [launches_from_json(s["launches"]) for s in got["steps"]]
+        expected_total = {}
+        for _ in range(TP_TRAINER_STEPS):
+            add_launches(expected_total, want_step)
+        add_launches(expected_total, want_eval)
+        total = nonzero(launches_from_json(got["launches"]))
+        launches_ok.append(len(steps) == TP_TRAINER_STEPS and all(nonzero(s) == nonzero(want_step) for s in steps)
+                           and [nonzero(launches_from_json(e["launches"])) for e in got["evals"]]
+                           == [nonzero(want_eval)] and total == nonzero(expected_total))
+        add_launches(totals, total)
+    state["tp_trainer_by_shape"] = totals
+    nccl_lion = {}
+    for leaves in sd15_quantized_leaves().values():
+        add_launches(nccl_lion, {"lion_leaves": lion_table_launches(leaves, "bfloat16")})
+    nccl_launches = nonzero(launches_from_json(nccl["launches"]))
+    state["tp_nccl_by_shape"] = nccl_launches
+    readback = [nccl["slices"][r] == ranks[r]["fingerprints"][0] if ranks[r]["fingerprints"] else False
+                for r in range(TP_WORLD)]
+    whole_alike = bool(nccl["whole"]) and all(r["fingerprints"] for r in ranks) and all(
+        r["fingerprints"][0][k] == ranks[0]["fingerprints"][0][k] for r in ranks for k in nccl["whole"])
+    checks = dict(
+        loss_csv=lines[0] == "steps, step_size, loss, time, chunk, seed" and len(rows) == TP_TRAINER_STEPS
+        and all(math.isfinite(float(r[2])) for r in rows),
+        json=(final["chunk_number"], final["chunk_steps"], final["master_seed"], final["model_path"])
+        == (1, 1, seed + 1, ckpt),
+        checkpoint=saved,
+        rank0_writes=ranks[0]["calls"] == dict(write_model=4, write_train_state=1, json=3, png=1),
+        other_ranks_write_nothing=all(not any(r["calls"].values()) for r in ranks[1:]),
+        eval_png=eval_dirs == [f"step_{TP_TRAINER_STEPS:08d}"],
+        ranks_agree_on_losses=all([s["loss"] for s in r["steps"]] == [s["loss"] for s in ranks[0]["steps"]]
+                                  for r in ranks),
+        tp_sums=all(len(r["sums_per_step"]) == TP_TRAINER_STEPS and all(
+            {k: n for k, (n, _) in s.items()} == sd15_tp_sums() for s in r["sums_per_step"]) for r in ranks),
+        launches=all(launches_ok),
+        no_grad_copies=all(r["grad_copies"] == 0 for r in ranks),
+        checkpoint_read_back_equals_the_slices=all(readback),
+        ranks_whole_leaves_alike=whole_alike,
+        whole_grads_broadcast_each_step=all(len(r["whole_grads_broadcast_ms"]) == TP_TRAINER_STEPS for r in ranks),
+        replicas_checked_before_the_checkpoint=all(len(r["replica_check_s"]) == 1 for r in ranks),
+        nccl=nccl["backend"] == "nccl" and nccl["world"] == 1 and len(nccl["steps"]) == 1
+        and math.isfinite(nccl["steps"][0]["loss"]) and not nccl["split"]
+        and nccl["tp_sums"] == {"forward": 0, "backward": 0}
+        and nccl_launches == nonzero(step_launches(TRAIN_BATCH, nccl_lion)),
+    )
+    per_rank = []
+    for r in ranks:
+        timed = [s["ms"] for s in r["steps"][1:]]  # the first step holds the set-up
+        per_rank.append(dict(
+            rank=r["rank"], step_ms=[s["ms"] for s in r["steps"]], step_p50_ms=statistics.median(timed),
+            tp_sums_ms_per_step=[{k: ms for k, (_, ms) in s.items()} for s in r["sums_per_step"]],
+            tp_sums_ms_p50=statistics.median(sum(ms for _, ms in s.values()) for s in r["sums_per_step"][1:]),
+            whole_grads_broadcast_ms=r["whole_grads_broadcast_ms"], replica_check_s=r["replica_check_s"],
+            eval_ms=[e["ms"] for e in r["evals"]], max_memory_allocated=r["max_memory_allocated"],
+            wall_s=r["wall_s"], losses=[s["loss"] for s in r["steps"]], **r["saves"],
+        ))
+    row = dict(
+        world=TP_WORLD, backend="gloo", mesh=TP_MESH, model="sd15", batch=TRAIN_BATCH, rows_per_rank=TRAIN_BATCH,
+        heads_per_rank=sd15_heads() // TP_WORLD, resolution=TRAIN_RES, dtype="bfloat16", steps=len(rows),
+        wall_s=wall_s, ranks=per_rank, tp_sums_per_step=sd15_tp_sums(),
+        nccl=dict(world=nccl["world"], backend=nccl["backend"], wall_s=nccl_wall_s, step_ms=[s["ms"] for s in nccl["steps"]],
+                  loss=nccl["steps"][0]["loss"] if nccl["steps"] else None, restore_s=nccl["restore_s"],
+                  tp_sums=nccl["tp_sums"], max_memory_allocated=nccl["max_memory_allocated"]),
+        checkpoint_read_back=readback,
+        launches_by_shape={k: {"x".join(map(str, s)): n for s, n in v.items()} for k, v in totals.items()},
+        checks=checks, ok=all(checks.values()),
+    )
+    emit("tp_trainer", **row)
+    shutil.rmtree(root, ignore_errors=True)
+    if not row["ok"]:
+        raise AssertionError(f"tp_trainer failed its checks: {checks}")
+
+
 # forward cases whose f32 shape a path runs: the f32 UNet call of the parity
 # phase, the f32 train step
 F32_FWD_PATHS = {
     "unet_l0": "parity", "unet_train": "train_f32", "vae_encode": "train_f32", "sdxl_unet_l1": "sdxl_parity",
     "sdxl_train_parity_l1": "sdxl_train_parity", "sd21_parity_l1": "sd21_parity", "sd21_parity_l2": "sd21_parity",
-    "vae_mid": "ddp_parity and fsdp_parity ranks", "ddp_parity_unet": "ddp_parity and fsdp_parity ranks",
+    "vae_mid": "ddp_parity, fsdp_parity and tp_parity ranks", "ddp_parity_unet": "ddp_parity and fsdp_parity ranks",
+    "tp_parity_unet": "tp_parity ranks",
 }
 SHORT = {"bfloat16": "bf16", "float32": "f32"}
 
@@ -4411,13 +5099,18 @@ def kernels_line(state):
     # FSDP: every gloo rank's run summed, fsdp_trainer's NCCL leg with them
     fsdp_parity = state.get("fsdp_parity_by_shape", {})
     fsdp_trainer = state.get("fsdp_trainer_by_shape", {})
+    # TP: every gloo rank's run summed; tp_trainer's NCCL leg (one rank, whole models) apart
+    tp_parity = state.get("tp_parity_by_shape", {})
+    tp_trainer = state.get("tp_trainer_by_shape", {})
+    tp_nccl = state.get("tp_nccl_by_shape", {})
     paths = {
         "bfloat16": [state.get(f"{p}_by_shape", {}) for p in ("slice", "sdxl", "sdxl_refiner", "sdxl_cache", "sd21")]
         + [train.get("flash_fwd", {}), sdxl_train.get("flash_fwd", {}), sd21_trainer.get("flash_fwd", {}),
-           ddp_trainer.get("flash_fwd", {}), fsdp_trainer.get("flash_fwd", {})],
+           ddp_trainer.get("flash_fwd", {}), fsdp_trainer.get("flash_fwd", {}), tp_trainer.get("flash_fwd", {}),
+           tp_nccl.get("flash_fwd", {})],
         "float32": [state.get(f"{p}_by_shape", {}) for p in ("parity", "sdxl_parity")]
         + [train_f32.get("flash_fwd", {}), sdxl_train_parity.get("flash_fwd", {}), sd21_parity.get("flash_fwd", {}),
-           ddp_parity.get("flash_fwd", {}), fsdp_parity.get("flash_fwd", {})],
+           ddp_parity.get("flash_fwd", {}), fsdp_parity.get("flash_fwd", {}), tp_parity.get("flash_fwd", {})],
     }
     entries = []
     for row in state.get("kernel_cases", []):
@@ -4444,9 +5137,11 @@ def kernels_line(state):
         "sdxl_train_parity_f32": [(sdxl_train_parity.get("flash_bwd_f32", {}), "sdxl_train_parity")],
         "sd21_parity_l1_f32": [(sd21_parity.get("flash_bwd_f32", {}), "sd21_parity")],
         "sd21_parity_l2_f32": [(sd21_parity.get("flash_bwd_f32", {}), "sd21_parity")],
+        "tp_parity_unet_f32": [(tp_parity.get("flash_bwd_f32", {}), "tp_parity ranks")],
     }
     bf16_paths = {  # the fused bf16 kernel's, likewise
-        "unet_train": [(train.get("flash_bwd_fused", {}), "train")],
+        "unet_train": [(train.get("flash_bwd_fused", {}), "train"),
+                       (tp_nccl.get("flash_bwd_fused", {}), "tp_trainer nccl")],
         "sdxl_train": [(sdxl_train.get("flash_bwd_fused", {}), "sdxl_train"),
                        (fsdp_trainer.get("flash_bwd_fused", {}), "fsdp_trainer nccl")],
         "sdxl_train_bucket": [(sdxl_train.get("flash_bwd_fused", {}), "sdxl_train 1152x896"),
@@ -4457,7 +5152,8 @@ def kernels_line(state):
         "sd21_train_l2": [(sd21_trainer.get("flash_bwd_fused", {}), "sd21_trainer")],
         "sd21_train_bucket_l1": [(sd21_trainer.get("flash_bwd_fused", {}), "sd21_trainer 896x640")],
         "sd21_train_bucket_l2": [(sd21_trainer.get("flash_bwd_fused", {}), "sd21_trainer 896x640")],
-        "ddp_unet_train": [(ddp_trainer.get("flash_bwd_fused", {}), "ddp_trainer ranks")],
+        "ddp_unet_train": [(ddp_trainer.get("flash_bwd_fused", {}), "ddp_trainer ranks"),
+                           (tp_trainer.get("flash_bwd_fused", {}), "tp_trainer ranks")],
     }
     for row in state.get("bwd_cases", []):
         bh, sq, d = row["shape_q"]
@@ -4501,7 +5197,7 @@ def kernels_line(state):
                     bound_ms=own["bound_ms"], bound_by=own["bound_by"],
                 ))
     # the leaf-table entry: the train step's Lion, one launch per model a step
-    train_paths = {"bfloat16": [(train, "train"), (ddp_trainer, "ddp_trainer ranks")],
+    train_paths = {"bfloat16": [(train, "train"), (ddp_trainer, "ddp_trainer ranks"), (tp_nccl, "tp_trainer nccl")],
                    "float32": [(train_f32, "train_f32"), (ddp_parity, "ddp_parity ranks")]}
     for row in state.get("lion_model_cases", []):
         if row["compander"] != "exact":
@@ -4512,6 +5208,8 @@ def kernels_line(state):
             runs = [(fsdp_trainer, "fsdp_trainer ranks")]
         elif row["model"].endswith("_fsdp_half"):
             runs = [(fsdp_parity, "fsdp_parity ranks")]
+        elif row["model"].endswith("_tp_half"):
+            runs = [(tp_parity, "tp_parity ranks")] if row["dtype"] == "float32" else [(tp_trainer, "tp_trainer ranks")]
         elif row["model"].startswith("sd21_"):
             runs = [(sd21_trainer, "sd21_trainer")]
         else:
@@ -4591,7 +5289,7 @@ def main(argv=None):
         sdxl_train_parity=phase_sdxl_train_parity, sdxl_train=phase_sdxl_train, sdxl_trainer=phase_sdxl_trainer,
         sd21_parity=phase_sd21_parity, sd21=phase_sd21, sd21_trainer=phase_sd21_trainer,
         ddp_parity=phase_ddp_parity, ddp_trainer=phase_ddp_trainer, fsdp_parity=phase_fsdp_parity,
-        fsdp_trainer=phase_fsdp_trainer,
+        fsdp_trainer=phase_fsdp_trainer, tp_parity=phase_tp_parity, tp_trainer=phase_tp_trainer,
     )
     started, seconds = time.perf_counter(), {}
     for name in ALL_PHASES[1:]:

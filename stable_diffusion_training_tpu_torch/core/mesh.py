@@ -9,9 +9,13 @@ model_parallel)`` one, over devices, the port over the ranks of the
 ``torch.distributed.device_mesh.DeviceMesh`` (``init_device_mesh`` with
 ``mesh_dim_names``). The JAX module's ``replicated`` and ``batch_sharding``
 have no torch meaning: a rank holds whole tensors, replicated by
-``parallel.sharding.replicate_``, or its FSDP shards
-(``parallel.sharding.fully_shard_``), and its own rows of each batch
-(``row_index``: the rows split over ``data_parallel`` x ``fsdp``).
+``parallel.sharding.replicate_``, its FSDP shards
+(``parallel.sharding.fully_shard_``) or its slices of the tensor-parallel
+leaves (``parallel.sharding.tensor_parallel_``, over ``model_parallel``,
+the rank's place on it ``axis_index(mesh, AXIS_TENSOR)``), and its own
+rows of each batch (``row_index``: the rows split over ``data_parallel`` x
+``fsdp``, so the ``model_parallel`` ranks of a row block see the same rows
+and, seeded alike, the same draws).
 """
 
 import math
@@ -23,6 +27,7 @@ import torch.distributed as dist
 AXIS_DATA = "data_parallel"
 AXIS_FSDP = "fsdp"
 AXIS_TENSOR = "model_parallel"
+MESH_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_TENSOR)
 
 _DEFAULT = {"mesh": None}
 
@@ -51,7 +56,7 @@ def create_mesh(
     world = dist.get_world_size()
     shape = (world, 1) if shape is None else tuple(int(s) for s in shape)
     if axis_names is None:
-        axis_names = (AXIS_DATA, AXIS_FSDP, AXIS_TENSOR) if len(shape) == 3 else (AXIS_DATA, AXIS_TENSOR)
+        axis_names = MESH_AXES if len(shape) == 3 else (AXIS_DATA, AXIS_TENSOR)
     names = tuple(axis_names)
     if len(names) != len(shape):
         raise ValueError(f"mesh shape {shape} and axis names {names} differ in length")

@@ -9,6 +9,10 @@ self-attention on CUDA tensors to the flash kernel. Spatial tensors are NCHW.
 A transformer block recomputes its feed-forward in the backward when
 ``ff_gradient_checkpointing`` is set (the JAX package's
 ``ff_gradient_checkpointing``, ``nn.remat`` around ``FeedForward``).
+Under tensor parallelism (``parallel.sharding.tensor_parallel_``, then
+``Attention.split_``) an attention holds its rank's heads: q, k and v read one ``tp_copy`` of their
+input (a cross-attention's k and v one of the context) and ``to_out.0``'s
+partial products are summed over the axis before its bias.
 """
 
 from typing import Optional
@@ -19,11 +23,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
+from ..parallel.sharding import tp_copy, tp_row_linear
 
 
 class Attention(nn.Module):
     """Multi-head (self or cross) attention; context defaults to the hidden
-    states (self-attention)."""
+    states (self-attention). ``tp``: the ``model_parallel`` axis its
+    projections are split over (``heads`` is then this rank's), or None."""
 
     def __init__(
         self,
@@ -43,16 +49,33 @@ class Attention(nn.Module):
         self.to_k = nn.Linear(context_dim, inner_dim, bias=False)
         self.to_v = nn.Linear(context_dim, inner_dim, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner_dim, query_dim), nn.Dropout(0.0)])
+        self.tp = None
+
+    def can_split(self, ranks: int) -> bool:
+        """Whether ``ranks`` tensor-parallel ranks can each run a share of
+        the heads."""
+        return self.heads % ranks == 0
+
+    def split_(self, axis) -> None:
+        """Run on this rank's heads: ``parallel.tensor_parallel_`` has left
+        its slices of the projections, split over ``axis``
+        (``parallel.sharding.TpAxis``)."""
+        self.tp, self.heads = axis, self.heads // axis.size
 
     def forward(self, hidden_states: torch.Tensor, context: Optional[torch.Tensor] = None):
+        if self.tp is not None:
+            context = None if context is None else tp_copy(context, self.tp)
+            hidden_states = tp_copy(hidden_states, self.tp)
         context = hidden_states if context is None else context
         b, sq, _ = hidden_states.shape
         sk = context.shape[1]
         q = self.to_q(hidden_states).reshape(b, sq, self.heads, self.dim_head)
         k = self.to_k(context).reshape(b, sk, self.heads, self.dim_head)
         v = self.to_v(context).reshape(b, sk, self.heads, self.dim_head)
-        out = attention(q, k, v, backend=self.attention_backend)
-        return self.to_out[0](out.reshape(b, sq, self.heads * self.dim_head))
+        out = attention(q, k, v, backend=self.attention_backend).reshape(b, sq, self.heads * self.dim_head)
+        if self.tp is not None:
+            return tp_row_linear(out, self.to_out[0], self.tp)
+        return self.to_out[0](out)
 
 
 class GEGLU(nn.Module):

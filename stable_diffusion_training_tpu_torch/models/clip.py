@@ -6,6 +6,10 @@ follow transformers' ``CLIPTextModel`` (``text_model.embeddings...``,
 ``text_model.encoder.layers.N...``), so ``state_dict()`` keys are its
 checkpoint keys. Its attention is its own f32-softmax matmul with the causal
 mask, not the dispatcher: 77 tokens never reach the flash kernel.
+Under tensor parallelism (``parallel.sharding.tensor_parallel_``, then
+each module's ``split_``) an attention holds its rank's heads and an MLP its share of ``fc1``'s outputs:
+each reads one ``tp_copy`` of its input, and ``out_proj``'s or ``fc2``'s
+partial products are summed over the axis before the bias.
 ``CLIPTextModelWithProjection`` is SDXL's second text encoder: the same
 tower, pooled at EOS and projected by ``text_projection`` (no bias), with
 transformers' ``CLIPTextModelWithProjection`` names.
@@ -17,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.sharding import tp_copy, tp_row_linear
 from ..utils.configuration import ConfigurableMixin
 from ..utils.device import resolve_device
 
@@ -40,9 +45,21 @@ class CLIPAttention(nn.Module):
         self.k_proj = nn.Linear(hidden_size, hidden_size)
         self.v_proj = nn.Linear(hidden_size, hidden_size)
         self.out_proj = nn.Linear(hidden_size, hidden_size)
+        self.tp = None  # the model_parallel axis (num_heads then this rank's), or None
+
+    def can_split(self, ranks: int) -> bool:
+        """Whether ``ranks`` tensor-parallel ranks can each run a share of
+        the heads."""
+        return self.num_heads % ranks == 0
+
+    def split_(self, axis) -> None:
+        """Run on this rank's heads of the projections split over ``axis``."""
+        self.tp, self.num_heads = axis, self.num_heads // axis.size
 
     def forward(self, hidden_states: torch.Tensor, causal_mask: torch.Tensor) -> torch.Tensor:
-        b, s, c = hidden_states.shape
+        if self.tp is not None:
+            hidden_states = tp_copy(hidden_states, self.tp)
+        b, s, _ = hidden_states.shape
         shape = (b, s, self.num_heads, self.head_dim)
         # transformers pre-scales q before the matmul; f32 logits and softmax
         q = (self.q_proj(hidden_states) * self.head_dim**-0.5).reshape(shape).transpose(1, 2)
@@ -50,7 +67,9 @@ class CLIPAttention(nn.Module):
         v = self.v_proj(hidden_states).reshape(shape).transpose(1, 2)
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) + causal_mask
         weights = torch.softmax(logits, dim=-1).to(hidden_states.dtype)
-        out = torch.matmul(weights, v).transpose(1, 2).reshape(b, s, c)
+        out = torch.matmul(weights, v).transpose(1, 2).reshape(b, s, self.num_heads * self.head_dim)
+        if self.tp is not None:
+            return tp_row_linear(out, self.out_proj, self.tp)
         return self.out_proj(out)
 
 
@@ -60,9 +79,17 @@ class CLIPMLP(nn.Module):
         self.act = _act(hidden_act)
         self.fc1 = nn.Linear(hidden_size, intermediate_size)
         self.fc2 = nn.Linear(intermediate_size, hidden_size)
+        self.tp = None  # the model_parallel axis fc1 and fc2 are split over, or None
+
+    def split_(self, axis) -> None:
+        """Run on this rank's share of the hidden channels (``fc1``'s
+        outputs, ``fc2``'s inputs) split over ``axis``."""
+        self.tp = axis
 
     def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.act(self.fc1(hidden_states)))
+        if self.tp is None:
+            return self.fc2(self.act(self.fc1(hidden_states)))
+        return tp_row_linear(self.act(self.fc1(tp_copy(hidden_states, self.tp))), self.fc2, self.tp)
 
 
 class CLIPEncoderLayer(nn.Module):

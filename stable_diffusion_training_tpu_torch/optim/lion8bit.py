@@ -38,14 +38,17 @@ the same for any value. ``use_pallas=False`` is the JAX package's jnp path,
 an explicit, non-default choice of the plain math: the grad keeps its dtype
 in ``(1 - b1) g`` and the update is f32.
 
-Under FSDP (``fsdp``, a ``parallel.sharding.FsdpPlan``) ``init_fn`` and
-``update_fn`` run on each rank's local shards. A leaf that the plan's
-co-sharding rule splits keeps the reference momentum of its local rows,
+Under FSDP or TP (``plan``, a ``parallel.sharding.ShardPlan``) ``init_fn``
+and ``update_fn`` run on each rank's local leaves. A leaf that the plan's
+co-sharding rule splits keeps the reference momentum of its local range,
 which is exactly its blocks of the whole leaf's, and takes the same routes
 as a whole leaf: each rank's update is then bitwise the one-process update
-of its blocks. A quantized leaf the rule refuses keeps its whole momentum on
-every rank: its grad is gathered, it takes the single-leaf route, and the
-rank keeps its rows of the update.
+of its blocks. A split quantized leaf the rule refuses keeps its whole
+momentum on every rank: its grad is gathered, it takes the single-leaf
+route, and the rank keeps its range of the update. A leaf the plan does not
+split (under TP) is whole on every rank, and so is its momentum. The JAX
+package keeps every momentum whole under TP (``set_lion_tp_mesh``): the same
+numbers, placed otherwise.
 """
 
 from dataclasses import dataclass
@@ -98,7 +101,7 @@ def scale_by_lion_8bit(
     compander: str = "exact",
     momentum_layout: str = "auto",
     leaf_orders: Optional[Dict[str, Optional[Sequence[int]]]] = None,
-    fsdp=None,
+    plan=None,
 ) -> GradientTransformation:
     """Lion update direction with int8 block-quantized momentum.
 
@@ -120,9 +123,9 @@ def scale_by_lion_8bit(
         use_pallas = False
     kernel_path = use_pallas is None or use_pallas
     orders = leaf_orders or {}
-    # quantized leaves whose momentum stays whole on every rank: {name: RowShard}
-    whole = {} if fsdp is None else {
-        name: rows for name, rows in fsdp.rows.items() if fsdp.momentum(name, block_size) is None
+    # split quantized leaves whose momentum stays whole on every rank: {name: RowShard}
+    whole = {} if plan is None else {
+        name: rows for name, rows in plan.rows.items() if plan.momentum(name, block_size) is None
     }
     zero_code = int(lion_kernel.quantize(torch.zeros((), dtype=torch.float32)))
 
@@ -143,7 +146,7 @@ def scale_by_lion_8bit(
             if not mask[name]:
                 mu[name] = torch.zeros_like(p, dtype=torch.float32)
                 continue
-            numel = p.numel() if fsdp is None or name not in fsdp.rows else fsdp.rows[name].shape.numel()
+            numel = p.numel() if plan is None or name not in plan.rows else plan.rows[name].shape.numel()
             if numel % block_size:
                 # same loud failure as the reference's reshape(-1, block_size)
                 raise TypeError(
@@ -203,7 +206,7 @@ def scale_by_lion_8bit(
             m = state.mu_quant[name]
             if not isinstance(m, QuantizedMomentum):
                 new_updates[name], new_mu[name] = _lion_core(g, m, b1, b2)
-            elif name in whole:  # every rank updates the whole leaf, keeps its rows
+            elif name in whole:  # every rank updates the whole leaf, keeps its range
                 rows = whole[name]
                 upd, new_mu[name] = (single_leaf if kernel_path else plain_leaf)(name, rows.gather(g), m)
                 new_updates[name] = rows.take(upd)
@@ -252,7 +255,7 @@ def lion_8bit(
     compander: str = "exact",
     momentum_layout: str = "auto",
     leaf_orders: Optional[Dict[str, Optional[Sequence[int]]]] = None,
-    fsdp=None,
+    plan=None,
 ) -> GradientTransformation:
     """Lion with int8 momentum: quantized Lion -> decoupled weight decay
     (``mask`` selects the leaves) -> negated learning rate. The default
@@ -262,7 +265,7 @@ def lion_8bit(
         scale_by_lion_8bit(
             b1=b1, b2=b2, block_size=block_size, excluded_layer_mask=excluded_layer_mask,
             use_pallas=use_pallas, bucket_max_nb=bucket_max_nb, compander=compander,
-            momentum_layout=momentum_layout, leaf_orders=leaf_orders, fsdp=fsdp,
+            momentum_layout=momentum_layout, leaf_orders=leaf_orders, plan=plan,
         ),
         transforms.add_decayed_weights(weight_decay, mask),
         transforms.scale_by_learning_rate(learning_rate),

@@ -50,33 +50,35 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
-def global_norm(updates: Tree, group=None) -> torch.Tensor:
+def global_norm(updates: Tree, plan=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares, summed leaf by leaf
-    in the leaves' dtype as optax's Python ``sum`` does. With ``group`` the
-    leaves are the ranks' disjoint shards (FSDP): each leaf's local sum of
-    squares is summed over the group, the partials of a dtype stacked into
-    one ``all_reduce``, before the sum over leaves."""
+    in the leaves' dtype as optax's Python ``sum`` does. With ``plan`` (a
+    ``parallel.sharding.ShardPlan``) the leaves it splits (``plan.rows``:
+    every leaf under FSDP) are the ranks' disjoint slices: each one's local
+    sum of squares is summed over ``plan.group``, the partials of a dtype
+    stacked into one ``all_reduce``, before the sum over leaves; the other
+    leaves (whole on every rank, as under TP) count once."""
     squares = [(x * x).sum() for x in updates.values()]
-    if group is not None:
+    if plan is not None:
         by_dtype: Dict[torch.dtype, list] = {}
-        for i, sq in enumerate(squares):
-            by_dtype.setdefault(sq.dtype, []).append(i)
+        for i, (name, sq) in enumerate(zip(updates, squares)):
+            if name in plan.rows:
+                by_dtype.setdefault(sq.dtype, []).append(i)
         for indices in by_dtype.values():
             stacked = torch.stack([squares[i] for i in indices])
-            torch.distributed.all_reduce(stacked, group=group)
+            torch.distributed.all_reduce(stacked, group=plan.group)
             for i, sq in zip(indices, stacked.unbind()):
                 squares[i] = sq
     return torch.sqrt(sum(squares))
 
 
-def clip_by_global_norm(max_norm: float, group=None) -> GradientTransformation:
+def clip_by_global_norm(max_norm: float, plan=None) -> GradientTransformation:
     """Leaves unchanged when the global norm is below ``max_norm``, else
     ``(t / norm) * max_norm``. Decided on the device (no host sync).
-    ``group``: the FSDP group over which the leaves are shards
-    (``global_norm``)."""
+    ``plan``: the ``ShardPlan`` of the leaves' slices (``global_norm``)."""
 
     def update(updates, state, params=None):
-        g_norm = global_norm(updates, group)
+        g_norm = global_norm(updates, plan)
         trigger = g_norm < max_norm
         return {
             name: torch.where(trigger, t, (t / g_norm.to(t.dtype)) * max_norm)

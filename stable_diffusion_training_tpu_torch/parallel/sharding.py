@@ -1,5 +1,6 @@
-"""Data parallelism and FSDP over the mesh: replicated state and summed
-grads, or state sharded over the ``fsdp`` axis.
+"""Data parallelism, FSDP and tensor parallelism over the mesh: replicated
+state and summed grads, state sharded over the ``fsdp`` axis, or the
+attention and CLIP projections split over the ``model_parallel`` axis.
 
 Port of ``stable_diffusion_training_tpu/parallel/sharding.py``. In the JAX
 package a replicated ``NamedSharding`` makes every device hold the same state by
@@ -37,11 +38,41 @@ placement of the same numbers. ``gather_rows_many`` rebuilds whole tensors
 from their shards (``RowShard.gathers``, ``MomentumShard.gathers``), many to
 a collective, for the checkpoint writers.
 
+The TP half (``params_tp_sharding`` and ``train_state_tp_sharding`` of the
+JAX module, ``fsdp_rest=False``) splits the leaves that the JAX rule splits,
+Megatron-style, with explicit operators instead of GSPMD: ``tp_plan`` names
+them by their JAX paths (``models.hf_io.jax_param_paths``): the output
+channels (torch axis 0) of ``to_q``, ``to_k``, ``to_v``, ``q_proj``,
+``k_proj``, ``v_proj`` and CLIP's ``fc1``, the input channels (torch axis 1)
+of ``to_out.0``, ``out_proj`` and ``fc2``, where the axis divides them. The
+biases of the column-split layers are split with their outputs (JAX keeps
+them replicated: the same numbers, placed otherwise); every other leaf,
+the UNet's GEGLU and ``net.2`` included, stays whole on every rank, and so do
+the four projections of an attention whose heads the axis does not divide
+(JAX splits those and runs the attention unpartitioned). The models own
+their split: an attention says whether an axis can split it (``can_split``)
+and, once ``tensor_parallel_`` has kept each rank's slices, takes the axis
+through its ``split_`` hook, as CLIP's MLP does; this module knows no model
+class. In their forwards a column-split layer reads its input through
+``tp_copy`` (identity forward, the input grad summed over the axis
+backward: one sum for q, k and v of a self-attention, one more for a
+cross-attention's context), and ``tp_row_linear`` sums a row-split layer's
+partial products (summed forward, identity backward), then adds its bias
+once. Each rank runs attention on its own heads. The ranks of the axis
+compute the whole leaves' grads each: the train step takes its first
+rank's (``replicate_`` over ``model_parallel``), so those replicas stay
+bitwise alike whatever the kernels' rounding. The plan (``ShardPlan`` with each split leaf's ``RowShard`` on
+its axis) serves the optimizer, the global norm and the checkpoints as
+FSDP's does: a Dense kernel split on its input channels holds a contiguous
+range of the JAX ``(I, O)`` leaf, so its reference momentum is a flat range
+of blocks; one split on its output channels holds whole blocks when every
+rank's count is a multiple of the block.
+
 Two ranks on one card talk through gloo (NCCL takes one rank a card),
 whose CUDA all-gather and reduce-scatter are not usable and whose CUDA
 all-reduce and broadcast cross the host: there every collective here, and
 FSDP2's, is copies between buffers that the ranks map from each other
-through CUDA IPC (``_CardExchange``).
+through CUDA IPC (``_CardExchange``); so do the TP sums.
 """
 
 import hashlib
@@ -56,7 +87,7 @@ import torch.distributed as dist
 from torch import nn
 
 from ..core.distributed import all_gather_objects
-from ..core.mesh import AXIS_DATA, AXIS_FSDP, axis_size
+from ..core.mesh import AXIS_DATA, AXIS_FSDP, AXIS_TENSOR, axis_index, axis_size
 from ..ops.lion_kernel import leaf_kind
 
 ROW_AXES = (AXIS_DATA, AXIS_FSDP)  # the axes that split a batch's rows
@@ -170,14 +201,20 @@ def state_digest(tensors: Iterable[torch.Tensor]) -> str:
     return h.hexdigest()
 
 
-def assert_replicated(tensors: Iterable[torch.Tensor], what: str = "state") -> str:
+def assert_replicated(tensors: Iterable[torch.Tensor], what: str = "state", mesh=None, axis: Optional[str] = None) -> str:
     """Raise unless every rank holds the same bytes in ``tensors`` (by
-    ``state_digest``, gathered over the host-side group). Returns the
-    digest."""
+    ``state_digest``, gathered over the host-side group); with ``mesh`` and
+    ``axis``, every rank of each of that axis's groups (the ranks that share
+    their place on the other axes). Returns the digest."""
     digest = state_digest(tensors)
-    digests = all_gather_objects(digest)
-    if len(set(digests)) != 1:
-        raise RuntimeError(f"{what} differs across ranks: digests {digests}")
+    place = () if axis is None else tuple(
+        axis_index(mesh, name) for name in mesh.mesh_dim_names if name != axis
+    )
+    groups: Dict[tuple, List[str]] = {}
+    for other, d in all_gather_objects((place, digest)):
+        groups.setdefault(tuple(other), []).append(d)
+    if any(len(set(ds)) != 1 for ds in groups.values()):
+        raise RuntimeError(f"{what} differs across ranks: digests {groups}")
     return digest
 
 
@@ -464,25 +501,20 @@ def _gather_bucket(gathers, bucket, out, host, keep) -> None:
         out[i] = g.post(full) if g.post is not None else full
 
 
-def gather_rows(local: torch.Tensor, counts: Sequence[int], group, host: bool = False) -> torch.Tensor:
-    """The whole tensor whose axis-0 rows the ranks of ``group`` hold,
-    ``counts[i]`` rows on rank ``i``, in rank order (``gather_rows_many``
-    of one)."""
-    return gather_rows_many([RowGather(local, tuple(counts), group)], host)[0]
-
-
 @dataclass(frozen=True)
 class RowShard:
-    """One leaf that FSDP2 shards on torch axis 0: the whole leaf's
-    ``shape``, the row ``bounds`` of each rank of the ``fsdp`` axis
-    (``torch.chunk``'s split: rank ``i`` holds rows ``bounds[i]:bounds[i +
-    1]``, possibly none), this rank's ``index`` on the axis and its
-    ``group``."""
+    """One leaf split over an axis's ranks on torch axis ``dim``: the whole
+    leaf's ``shape``, the ``bounds`` of each rank's range of that axis
+    (rank ``i`` holds ``bounds[i]:bounds[i + 1]``, possibly none), this
+    rank's ``index`` on the mesh axis and its ``group``. FSDP2 splits axis 0
+    as ``torch.chunk`` does; TP splits axis 0 (a column-split layer) or 1 (a
+    row-split one) evenly."""
 
     shape: torch.Size
     bounds: Tuple[int, ...]
     index: int
     group: Any
+    dim: int = 0
 
     @property
     def start(self) -> int:
@@ -497,27 +529,39 @@ class RowShard:
         return [b - a for a, b in zip(self.bounds, self.bounds[1:])]
 
     def take(self, full: torch.Tensor) -> torch.Tensor:
-        """This rank's rows of the whole tensor."""
-        return full[self.start : self.stop]
+        """This rank's range of the whole tensor (a view)."""
+        return full.narrow(self.dim, self.start, self.stop - self.start)
 
     def gather(self, local: torch.Tensor, host: bool = False) -> torch.Tensor:
-        """The whole tensor from every rank's rows (a collective)."""
-        return gather_rows(local, self.counts, self.group, host)
+        """The whole tensor from every rank's range (a collective)."""
+        return gather_rows_many(self.gathers(local), host)[0]
 
     def gathers(self, local: torch.Tensor) -> List[RowGather]:
-        """The whole tensor as a ``RowGather``, for ``gather_rows_many``."""
-        return [RowGather(local, tuple(self.counts), self.group)]
+        """The whole tensor as a ``RowGather``, for ``gather_rows_many``: a
+        split on axis 1 gathered as the rows of the transpose."""
+        if self.dim == 0:
+            return [RowGather(local, tuple(self.counts), self.group)]
+        return [RowGather(local.detach().transpose(0, self.dim).contiguous(), tuple(self.counts), self.group,
+                          _transposer(self.dim))]
+
+
+def _transposer(dim: int):
+    return lambda full: full.transpose(0, dim).contiguous()
 
 
 @dataclass(frozen=True)
 class MomentumShard:
     """The co-sharding rule's answer for one quantized leaf: this rank's
     blocks of the whole leaf's reference-order codes ``(n_blocks, bs)`` and
-    scales ``(n_blocks,)``. ``transposed``: a Dense or Conv kernel, whose
-    JAX block is ``bs`` output channels (torch rows) at one of the
-    ``columns`` torch columns, so the whole codes are ``(columns, rows / bs,
-    bs)`` and the rank's are ``[:, start / bs : stop / bs]``; otherwise the
-    orders agree and the rank's blocks are the flat range of its rows."""
+    scales ``(n_blocks,)``. ``transposed``: a Dense or Conv kernel split on
+    its output channels, whose JAX block is ``bs`` output channels (torch
+    rows) at one of the ``columns`` torch columns, so the whole codes are
+    ``(columns, rows / bs, bs)`` and the rank's are ``[:, start / bs : stop
+    / bs]``; otherwise the rank's blocks are a flat range, ``columns``
+    elements of the reference order for each index of its range: the rows
+    of a leaf whose orders agree, or the input channels of a Dense kernel
+    split on torch axis 1 (the rows of the JAX ``(I, O)`` leaf,
+    ``columns`` = O)."""
 
     rows: RowShard
     transposed: bool
@@ -556,36 +600,47 @@ class MomentumShard:
         return full_codes, full_scales
 
 
-class FsdpPlan:
-    """One sharded model's leaves: ``rows`` (``{name: RowShard}``) and the
-    torch-to-JAX permutation of each (``perms``), for the momentum rule."""
+class ShardPlan:
+    """One sharded model's split leaves: ``rows`` (``{name: RowShard}``;
+    under FSDP every leaf, under TP the split ones), the torch-to-JAX
+    permutation of each leaf (``perms``), for the momentum rule, and
+    ``fsdp``: whether FSDP2 holds the leaves (its parameters are DTensors)
+    or ``tensor_parallel_`` does (plain parameters, the split leaves' slices
+    and the rest whole)."""
 
-    def __init__(self, rows: Dict[str, RowShard], perms: Dict[str, Optional[Sequence[int]]]):
+    def __init__(self, rows: Dict[str, RowShard], perms: Dict[str, Optional[Sequence[int]]], fsdp: bool = False):
         self.rows = rows
         self.perms = perms
+        self.fsdp = fsdp
         self.group = next(iter(rows.values())).group
 
     def momentum(self, name: str, bs: int) -> Optional[MomentumShard]:
-        """The co-sharding rule: the leaf's momentum is split as its rows
+        """The co-sharding rule: the leaf's momentum is split as the leaf
         when it is a transposed leaf (Dense or Conv kernel) or one whose
-        orders agree, no rank is empty, and every rank's rows hold whole
+        orders agree, no rank is empty, and every rank's range holds whole
         blocks; None keeps the whole momentum on every rank."""
         rows = self.rows[name]
-        columns = rows.shape.numel() // rows.shape[0]
         kind = leaf_kind(rows.shape, self.perms.get(name), bs)
         if kind is None or 0 in rows.counts:
             return None
-        per_row = 1 if kind == 0 else columns
-        if any(b * per_row % bs for b in rows.bounds):
+        if rows.dim == 0:
+            columns = rows.shape.numel() // rows.shape[0]
+            transposed = kind == 0
+        elif kind == 0 and len(rows.shape) == 2:  # a Dense kernel's input channels
+            columns, transposed = rows.shape[0], False
+        else:
             return None
-        return MomentumShard(rows, kind == 0, columns, bs)
+        per_index = 1 if transposed else columns
+        if any(b * per_index % bs for b in rows.bounds):
+            return None
+        return MomentumShard(rows, transposed, columns, bs)
 
     def take(self, name: str, full: torch.Tensor) -> torch.Tensor:
         return self.rows[name].take(full)
 
 
-def fsdp_plan(module: nn.Module) -> Optional[FsdpPlan]:
-    """The ``FsdpPlan`` of a module that ``fully_shard_`` sharded (None for
+def fsdp_plan(module: nn.Module) -> Optional[ShardPlan]:
+    """The ``ShardPlan`` of a module that ``fully_shard_`` sharded (None for
     one that holds whole tensors)."""
     from torch.distributed.tensor import DTensor
 
@@ -604,4 +659,154 @@ def fsdp_plan(module: nn.Module) -> Optional[FsdpPlan]:
         )
     if not rows:
         return None
-    return FsdpPlan(rows, {name: perm for name, (_, perm) in jax_param_paths(module).items()})
+    return ShardPlan(rows, {name: perm for name, (_, perm) in jax_param_paths(module).items()}, fsdp=True)
+
+
+# --- tensor parallelism: Megatron's column and row splits over model_parallel --
+
+# the JAX rule's parents of the split kernels (JAX parallel/sharding.py
+# _TP_COLUMN, _TP_ROW); its _TP_GEGLU ("net_0") matches no kernel's parent
+TP_COLUMN = ("to_q", "to_k", "to_v", "q_proj", "k_proj", "v_proj", "mlp_fc1")
+TP_ROW = ("to_out", "out_proj", "mlp_fc2")
+TP_PLAN_ATTR = "tensor_parallel_plan"  # where tensor_parallel_ keeps a module's plan
+
+# the TP sums issued, by direction: the row-split layers' forward sums and
+# the column-split layers' input-grad sums
+TP_ALL_REDUCES = {"forward": 0, "backward": 0}
+
+
+@dataclass(frozen=True)
+class TpAxis:
+    """The ``model_parallel`` axis a split module sums over: its process
+    group and its size."""
+
+    group: Any
+    size: int
+
+
+def _tp_all_reduce(t: torch.Tensor, axis: TpAxis, direction: str) -> torch.Tensor:
+    """A new tensor holding ``t`` summed over the axis (``_sum_``: through
+    ``_CardExchange`` on gloo ranks of a card), counted in
+    ``TP_ALL_REDUCES``."""
+    out = t.detach().clone(memory_format=torch.contiguous_format)
+    _sum_(out, axis.group)
+    TP_ALL_REDUCES[direction] += 1
+    return out
+
+
+class _CopyToTp(torch.autograd.Function):
+    """Identity forward; the input's grad summed over the axis backward
+    (the input of column-split layers)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _tp_all_reduce(grad, ctx.axis, "backward"), None
+
+
+class _SumOverTp(torch.autograd.Function):
+    """Summed over the axis forward; identity backward (the partial
+    products of a row-split layer)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _tp_all_reduce(x, axis, "forward")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def tp_copy(x: torch.Tensor, axis: TpAxis) -> torch.Tensor:
+    """``x`` as the input of column-split layers: every layer that reads
+    the returned tensor adds its grad to one sum over the axis."""
+    return _CopyToTp.apply(x, axis)
+
+
+def tp_row_linear(x: torch.Tensor, linear: nn.Linear, axis: TpAxis) -> torch.Tensor:
+    """A row-split ``linear`` on this rank's input channels ``x``: the
+    partial products summed over the axis, then the bias added once."""
+    out = _SumOverTp.apply(torch.nn.functional.linear(x, linear.weight), axis)
+    return out if linear.bias is None else out + linear.bias
+
+
+def _qualified(prefix: str, name: str) -> str:
+    return f"{prefix}.{name}" if prefix else name
+
+
+def tp_plan(module: nn.Module, mesh) -> Optional[ShardPlan]:
+    """The JAX ``params_tp_sharding`` rule over ``module``'s whole leaves,
+    by their JAX paths, as a ``ShardPlan`` of the split leaves: a kernel
+    whose parent is in ``TP_COLUMN`` split on torch axis 0 (JAX axis 1),
+    one in ``TP_ROW`` on torch axis 1 (JAX axis 0), each where the axis
+    divides it, and a column-split kernel's bias with it; the projections of
+    an attention that cannot run on a share of its heads (its
+    ``can_split(n)`` is false: the axis does not divide them) stay whole.
+    None without a ``model_parallel`` axis above 1."""
+    n = axis_size(mesh, AXIS_TENSOR)
+    if n <= 1:
+        return None
+    from ..models.hf_io import jax_param_paths
+
+    whole = set()  # the params of the attentions kept whole
+    for prefix, m in module.named_modules():
+        if hasattr(m, "can_split") and not m.can_split(n):
+            whole.update(_qualified(prefix, name) for name, _ in m.named_parameters())
+    paths = jax_param_paths(module)
+    group, index = mesh.get_group(AXIS_TENSOR), axis_index(mesh, AXIS_TENSOR)
+    rows = {}
+    for name, p in module.named_parameters():
+        path, _ = paths[name]
+        parent = path[-2] if len(path) >= 2 else ""
+        if name in whole or not (p.dim() == 2 and path[-1] == "kernel" or path[-1] == "bias"):
+            continue
+        if parent in TP_COLUMN:
+            dim = 0
+        elif parent in TP_ROW and path[-1] == "kernel":
+            dim = 1
+        else:
+            continue
+        if p.shape[dim] % n:
+            continue
+        step = p.shape[dim] // n
+        rows[name] = RowShard(p.shape, tuple(i * step for i in range(n + 1)), index, group, dim)
+    return ShardPlan(rows, {name: perm for name, (_, perm) in paths.items()}) if rows else None
+
+
+@torch.no_grad()
+def tensor_parallel_(module: nn.Module, mesh) -> Optional[ShardPlan]:
+    """Split ``module`` over the mesh's ``model_parallel`` axis as
+    ``tp_plan`` says: each split leaf becomes a parameter holding this
+    rank's slice, and each submodule with a ``split_`` hook (the UNet's and
+    CLIP's attentions, CLIP's MLP) whose own leaves were split is told the
+    axis (a ``TpAxis``), on which it runs its share of the heads or of the
+    hidden channels. Keeps the plan on the module (``shard_plan``) and
+    returns it; None (and nothing changed) when there is nothing to split."""
+    plan = tp_plan(module, mesh)
+    if plan is None:
+        return None
+    for name, shard in plan.rows.items():
+        owner_name, _, leaf = name.rpartition(".")
+        owner = module.get_submodule(owner_name)
+        old = getattr(owner, leaf)
+        local = shard.take(old.detach()).clone(memory_format=torch.contiguous_format)
+        setattr(owner, leaf, nn.Parameter(local, requires_grad=old.requires_grad))
+        if leaf == "weight" and isinstance(owner, nn.Linear):
+            owner.out_features, owner.in_features = local.shape
+    axis = TpAxis(plan.group, axis_size(mesh, AXIS_TENSOR))
+    for prefix, m in module.named_modules():
+        if hasattr(m, "split_") and any(_qualified(prefix, n) in plan.rows for n, _ in m.named_parameters()):
+            m.split_(axis)
+    setattr(module, TP_PLAN_ATTR, plan)
+    return plan
+
+
+def shard_plan(module: nn.Module) -> Optional[ShardPlan]:
+    """The plan of a module's split leaves: FSDP2's (``fsdp_plan``), else
+    the one ``tensor_parallel_`` kept, else None (whole tensors). Its
+    ``fsdp`` says which."""
+    return fsdp_plan(module) or getattr(module, TP_PLAN_ATTR, None)

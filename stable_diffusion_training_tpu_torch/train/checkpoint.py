@@ -29,10 +29,12 @@ Under FSDP every rank first takes part in rebuilding each whole tensor from
 the shards, many leaves to a collective (params and EMA from their rows,
 the Lion codes and scales into the reference order:
 ``parallel.sharding.gather_rows_many``), rank 0 keeping them in host memory;
-then rank 0 writes. The files are those
+then rank 0 writes. Under tensor parallelism the split leaves are
+rebuilt the same way, each on its own axis (a row-split kernel's input
+channels on torch axis 1). The files are those
 a one-process run writes for the same state, and a restore reads the whole
-files and keeps each rank's shard, so a checkpoint moves between one
-process, a data-parallel world and an FSDP world either way. The checkpoint
+files and keeps each rank's shard or slice, so a checkpoint moves between
+one process, a data-parallel world and an FSDP or TP world either way. The checkpoint
 directory must be one that every rank sees.
 """
 
@@ -47,7 +49,7 @@ from ..diffusion import DDIMScheduler
 from ..models import hf_io
 from ..optim.lion8bit import QuantizedMomentum
 from ..parallel import assert_replicated
-from ..parallel.sharding import FsdpPlan, fsdp_plan, gather_rows_many
+from ..parallel.sharding import ShardPlan, gather_rows_many, shard_plan
 from .states import TrainState, state_tensors
 
 _MODEL_INDEX = {
@@ -74,17 +76,17 @@ def save_model(
     """Write a trained pipeline in diffusers layout (the JAX package's and the
     reference trainer's signature); the params are ``{name: tensor}`` dicts
     of the models in ``model_object_dict`` (this rank's shards of an
-    FSDP-sharded model's), written as f32. Every rank calls it; rank 0
-    writes."""
-    unet_params = _whole(unet_params, fsdp_plan(model_object_dict["unet"]))
-    text_encoder_params = _whole(text_encoder_params, fsdp_plan(model_object_dict["text_encoder"]))
+    FSDP-sharded model's, its slices of a split one's), written as f32.
+    Every rank calls it; rank 0 writes."""
+    unet_params = _whole(unet_params, shard_plan(model_object_dict["unet"]))
+    text_encoder_params = _whole(text_encoder_params, shard_plan(model_object_dict["text_encoder"]))
     run_on(
         process_index() == 0, _write_model, model_object_dict, tokenizer_object, unet_params,
         text_encoder_params, vae_params, output_dir,
     )
 
 
-def _whole(params: Dict[str, torch.Tensor], plan: Optional[FsdpPlan]) -> Dict[str, torch.Tensor]:
+def _whole(params: Dict[str, torch.Tensor], plan: Optional[ShardPlan]) -> Dict[str, torch.Tensor]:
     """``params`` with each shard of ``plan`` gathered into its whole leaf,
     several leaves a collective (every rank calls it), rank 0 keeping them
     in host memory and the others nothing; ``params`` itself without a
@@ -140,7 +142,7 @@ def _keys(node) -> list:
 
 def _flatten(
     node: Any, path: str, tensors: Dict[str, torch.Tensor], scalars: Dict[str, Any],
-    plan: Optional[FsdpPlan] = None, leaf: Optional[str] = None, pending: Optional[list] = None,
+    plan: Optional[ShardPlan] = None, leaf: Optional[str] = None, pending: Optional[list] = None,
 ) -> None:
     """Tensors of ``node`` into ``tensors`` and its other leaves (ints,
     floats, bools, strings, None) into ``scalars``, keyed by their path.
@@ -155,8 +157,8 @@ def _flatten(
     elif isinstance(node, torch.Generator):
         tensors[path] = node.get_state()
     elif isinstance(node, TrainState):
-        _flatten(node.params, f"{path}/params", tensors, scalars, node.fsdp, pending=pending)
-        _flatten(node.opt_state, f"{path}/opt_state", tensors, scalars, node.fsdp, pending=pending)
+        _flatten(node.params, f"{path}/params", tensors, scalars, node.plan, pending=pending)
+        _flatten(node.opt_state, f"{path}/opt_state", tensors, scalars, node.plan, pending=pending)
         scalars[f"{path}/step"] = node.step
     elif isinstance(node, QuantizedMomentum):
         keys = (f"{path}/codes", f"{path}/scales")
@@ -195,7 +197,7 @@ def _gather_pending(tensors: Dict[str, torch.Tensor], pending: list) -> Dict[str
 @torch.no_grad()
 def _restore(
     like: Any, path: str, tensors: Dict[str, torch.Tensor], scalars: Dict[str, Any],
-    plan: Optional[FsdpPlan] = None, leaf: Optional[str] = None,
+    plan: Optional[ShardPlan] = None, leaf: Optional[str] = None,
 ) -> Any:
     """``like`` (a freshly built state) with the saved values: tensors copied
     into its own tensors in place (so module parameters stay the modules'),
@@ -222,8 +224,8 @@ def _restore(
         like.set_state(tensors[path])
         return like
     if isinstance(like, TrainState):
-        _restore(like.params, f"{path}/params", tensors, scalars, like.fsdp)
-        like.opt_state = _restore(like.opt_state, f"{path}/opt_state", tensors, scalars, like.fsdp)
+        _restore(like.params, f"{path}/params", tensors, scalars, like.plan)
+        like.opt_state = _restore(like.opt_state, f"{path}/opt_state", tensors, scalars, like.plan)
         like.step = scalars[f"{path}/step"]
         return like
     if isinstance(like, QuantizedMomentum):
@@ -267,7 +269,7 @@ def save_train_state(
         "train_rng": train_rng,
     }
     # the EMA buffers are sharded as their model's params
-    plans = {"unet_ema_params": unet_state.fsdp, "text_encoder_ema_params": text_encoder_state.fsdp}
+    plans = {"unet_ema_params": unet_state.plan, "text_encoder_ema_params": text_encoder_state.plan}
     scalars: Dict[str, Any] = {}
     parts = {}
     for part in _PARTS:
@@ -294,15 +296,15 @@ def restore_train_state(directory: str, template: Dict[str, Any]) -> Dict[str, A
     (``unet_state``, ``text_encoder_state``, ``unet_ema_params``,
     ``text_encoder_ema_params`` ({} for none), ``train_rng``). Tensors are
     copied into the template's own, whose shapes and dtypes must match;
-    an FSDP-sharded template takes each rank's shard of the whole saved
-    tensors. With several ranks each restores onto its own template; ranks
+    an FSDP-sharded or split template takes each rank's shard or slice of
+    the whole saved tensors. With several ranks each restores onto its own template; ranks
     that hold whole states are then checked to hold the same state
     (``parallel.assert_replicated``)."""
     with open(os.path.join(directory, "structure.json")) as f:
         scalars = json.load(f)
     plans = {
-        "unet_ema_params": template["unet_state"].fsdp,
-        "text_encoder_ema_params": template["text_encoder_state"].fsdp,
+        "unet_ema_params": template["unet_state"].plan,
+        "text_encoder_ema_params": template["text_encoder_state"].plan,
     }
     restored = {}
     for part in _PARTS:

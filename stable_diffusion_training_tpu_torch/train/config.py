@@ -8,16 +8,22 @@ raw ``model_properties`` JSON dict. Fields that name JAX or TPU machinery
 (``compilation_cache_path``, ``mesh_shape``, ``use_pallas_lion`` ...) keep
 their names so one JSON file configures both packages; the comments below
 say which of them the port ignores. ``mesh_shape`` lays the ranks out:
-``None`` (every rank on the data axis), ``[W, 1]`` (data parallelism) or
-``[D, F, 1]`` (``data_parallel``, ``fsdp``, ``model_parallel``), its
-product the process group's size. The rows of a batch split over data x
-fsdp ranks. ``fsdp_shard_params`` shards params, grads, EMA and the Lion
-momentum over the ``fsdp`` axis (FSDP2; HSDP with D > 1); with it off the
-fsdp ranks are data parallel, as in the JAX package, and on an fsdp axis
-of 1 it trains as the default does (FSDP2 runs in a process group, every
-shard the whole leaf). A field that asks for what the port does not have
-yet (a ``model_parallel`` axis above 1, TP sharding, the polyphase VAE
-downsample) raises ``NotImplementedError`` naming its ROADMAP item.
+``None`` (every rank on the data axis), ``[W, 1]`` (data parallelism),
+``[D, T]`` or ``[D, F, T]`` (``data_parallel``, ``fsdp``,
+``model_parallel``), its product the process group's size. The rows of a
+batch split over data x fsdp ranks; the ``model_parallel`` ranks of a row
+block see the same rows. ``fsdp_shard_params`` shards params, grads, EMA
+and the Lion momentum over the ``fsdp`` axis (FSDP2; HSDP with D > 1); with
+it off the fsdp ranks are data parallel, as in the JAX package, and on an
+fsdp axis of 1 it trains as the default does (FSDP2 runs in a process
+group, every shard the whole leaf). ``tensor_parallel_shard_params`` splits
+the attention and CLIP projections over the ``model_parallel`` axis
+(Megatron's column and row splits, ``parallel.tensor_parallel_``); without
+it that axis holds replicas that all compute the same step, as in the JAX
+package, and on an axis of 1 it changes nothing. A field that asks for
+what the port does not have yet (fsdp and model_parallel axes above 1
+together, the polyphase VAE downsample) raises ``NotImplementedError``
+naming its ROADMAP item.
 ``batch_size`` is the global batch, as in the reference: the data x fsdp
 ranks must divide it, and each rank's rows must divide into
 ``grad_accumulation_steps`` micro-batches.
@@ -29,7 +35,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
 from ..core.distributed import process_count
-from ..core.mesh import AXIS_DATA, AXIS_FSDP, AXIS_TENSOR
+from ..core.mesh import AXIS_DATA, AXIS_FSDP, AXIS_TENSOR, MESH_AXES
 
 
 def not_ported(what: str, item: int) -> NotImplementedError:
@@ -70,11 +76,11 @@ class TrainingConfig:
     # --- the JAX package's additions, defaulted so reference configs load ---
     model_family: str = "sd15"  # architecture family when building fresh models
     # rank layout: None = every rank on the data axis; [W, 1] the same;
-    # [D, F, 1] data x fsdp (a model_parallel axis above 1 raises, not ported)
+    # [D, F, T] data x fsdp x model (F and T above 1 together raise, not ported)
     mesh_shape: Optional[List[int]] = None
     mesh_axis_names: Optional[List[str]] = None
     fsdp_shard_params: bool = False  # ZeRO-3 over the fsdp axis (FSDP2)
-    tensor_parallel_shard_params: bool = False  # tensor parallelism (True raises, not ported)
+    tensor_parallel_shard_params: bool = False  # Megatron splits over the model_parallel axis
     gradient_checkpointing: bool = False  # recompute each UNet block in the backward
     ff_gradient_checkpointing: bool = False  # recompute each transformer feed-forward
     train_unet: bool = True
@@ -122,8 +128,10 @@ class TrainingConfig:
     def __post_init__(self):
         axes = self.mesh_axes()
         for axis, size in axes.items():
-            if axis not in (AXIS_DATA, AXIS_FSDP) and size > 1:
+            if axis not in MESH_AXES and size > 1:
                 raise not_ported(f"mesh_shape={list(self.mesh_shape)} ({axis} axis of {size})", 7)
+        if axes.get(AXIS_FSDP, 1) > 1 and axes.get(AXIS_TENSOR, 1) > 1:
+            raise not_ported(f"mesh_shape={list(self.mesh_shape)} (fsdp and model_parallel axes together)", 7)
         world = math.prod(axes.values()) if axes else process_count()
         if world != process_count():
             raise ValueError(
@@ -136,8 +144,6 @@ class TrainingConfig:
                 f"batch_size={self.batch_size} must split into {rows} rank(s) of whole "
                 f"grad_accumulation_steps={self.grad_accumulation_steps} micro-batches"
             )
-        if self.tensor_parallel_shard_params:
-            raise not_ported("tensor_parallel_shard_params=True", 7)
         if self.vae_polyphase_downsample:
             raise not_ported("vae_polyphase_downsample=True (ops/conv.py)", 9)
         if self.cached_text_context and self.train_text_encoder:
@@ -183,6 +189,12 @@ class TrainingConfig:
         with that axis). On an axis of one rank FSDP2 runs and every shard
         is the whole leaf: the numbers are the default's."""
         return self.fsdp_shard_params and AXIS_FSDP in self.mesh_axes()
+
+    def splits_tensors(self) -> bool:
+        """Whether the UNet's and the text encoder's attention (and CLIP's
+        MLP) projections are split over the mesh's ``model_parallel`` axis
+        (``tensor_parallel_shard_params`` and that axis above one rank)."""
+        return self.tensor_parallel_shard_params and self.mesh_axes().get(AXIS_TENSOR, 1) > 1
 
     def replace(self, **kwargs) -> "TrainingConfig":
         return dataclasses.replace(self, **kwargs)

@@ -33,9 +33,9 @@ img2img's two draws) can be passed in instead, as the tests pass the JAX
 package's. Under data parallelism rank 0 samples and writes while the other
 ranks wait: their weights are the same, so their images would be too (the
 JAX package runs the program on every host and writes from process 0).
-Under FSDP every rank samples, since each forward of a sharded model
-all-gathers from every rank, with the same draws and so the same images,
-and rank 0 writes.
+Under FSDP or TP every rank samples, since each forward of a sharded or
+split model takes part in collectives of every rank, with the same draws
+and so the same images, and rank 0 writes.
 """
 
 import os
@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from ..core.distributed import process_index, run_on
-from ..parallel.sharding import fsdp_plan
+from ..parallel.sharding import shard_plan
 from ..utils.device import resolve_device
 from .states import _DTYPES
 
@@ -108,8 +108,8 @@ class EvalSampler:
         unet = model_object_dict["unet"]
         self._models = [m for m in (unet, model_object_dict.get("vae"), model_object_dict.get("text_encoder"))
                         if m is not None]
-        # FSDP2-sharded models: every rank runs their forwards
-        self._sharded = [m for m in self._models if fsdp_plan(m) is not None]
+        # FSDP2-sharded or split models and their plans: every rank runs their forwards
+        self._sharded = [(m, plan) for m in self._models if (plan := shard_plan(m)) is not None]
         if getattr(unet, "addition_embed_type", None) == "text_time":
             refiner = int(config_dict.get("sdxl_time_ids_count", 6)) != 6
             images_cfg = config_dict.get("eval_sample_images")
@@ -275,7 +275,7 @@ class EvalSampler:
         step's directory (None otherwise). ``latents`` are the initial
         noise of text-to-image; ``sample_eps`` and ``noise`` img2img's two
         draws; each is drawn from ``generator(step)`` when not given. Every
-        rank calls it; rank 0 samples (every rank, under FSDP) and writes,
+        rank calls it; rank 0 samples (every rank, under FSDP or TP) and writes,
         and the others get None."""
         if not self.interval or step % self.interval:
             return None
@@ -311,8 +311,9 @@ class EvalSampler:
         finally:
             for m, mode in zip(self._models, modes):
                 m.train(mode)
-            for m in self._sharded:  # the root's gathered params are not kept past eval
-                m.reshard()
+            for m, plan in self._sharded:  # FSDP2 keeps no root's gathered params past eval
+                if plan.fsdp:
+                    m.reshard()
         return arr
 
     def _write(self, step, arr) -> str:

@@ -12,7 +12,13 @@ encoder are then sharded with FSDP2 (``parallel.fully_shard_``), where the JAX
 package places them with its FSDP shardings, and the optimizer state and
 the EMA copies are built on each rank's local shards (the Lion momentum
 under the co-sharding rule of ``parallel.sharding``); the frozen VAE stays
-replicated. It keeps the reference trainer's quirks as the JAX package
+replicated. Under ``tensor_parallel_shard_params`` with a ``model_parallel``
+axis above 1 the weights are replicated over every axis, then the UNet's
+and the text encoder's attention (and CLIP's MLP) projections are split
+over that axis (``parallel.tensor_parallel_``, the JAX package's
+``train_state_tp_sharding``) before the optimizer state and the EMA copies
+are built on each rank's leaves: its slices of the split ones, the rest
+whole. It keeps the reference trainer's quirks as the JAX package
 does:
 
 - ``on_device_model_training_state`` hard-codes ``adam_to_lion_scale_factor``
@@ -40,8 +46,9 @@ from ..models import hf_io
 from ..optim import transforms
 from ..optim.lion8bit import QuantizedMomentum, lion, lion_8bit
 from ..optim.masks import create_mask
+from ..core.mesh import MESH_AXES
 from ..parallel import replicate_
-from ..parallel.sharding import fsdp_plan, fully_shard_, local_tensor
+from ..parallel.sharding import fully_shard_, local_tensor, shard_plan, tensor_parallel_
 from ..utils.device import resolve_device
 from .config import TrainingConfig
 
@@ -66,23 +73,25 @@ class FrozenModel:
 class TrainState:
     """A trained model with its optimizer chain and state, the counterpart of
     flax's ``TrainState``: ``params`` are the module's own parameters,
-    updated in place by ``apply_gradients``; for a model sharded with FSDP2
-    (``fsdp``, its ``parallel.sharding.FsdpPlan``) they are this rank's
-    local shards, views of the sharded parameters' storage. FSDP2 keeps a
-    root's gathered params registered after a forward that no backward
-    follows (a frozen text encoder's): ``params`` reshards the root first,
-    so that the next forward gathers what the chain wrote."""
+    updated in place by ``apply_gradients``. ``plan``: the
+    ``parallel.sharding.ShardPlan`` of a sharded or split model, or None.
+    For a model sharded with FSDP2 (``plan.fsdp``) the params are this
+    rank's local shards, views of the sharded parameters' storage. FSDP2
+    keeps a root's gathered params registered after a forward that no
+    backward follows (a frozen text encoder's): ``params`` reshards the root
+    first, so that the next forward gathers what the chain wrote. A split
+    model's params are plain parameters, its slices of the split leaves."""
 
     def __init__(self, model: nn.Module, tx: transforms.GradientTransformation):
         self.model = model
         self.tx = tx
         self.step = 0
-        self.fsdp = fsdp_plan(model)
+        self.plan = shard_plan(model)
         self.opt_state = tx.init(self.params)
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
-        if self.fsdp is None:
+        if self.plan is None or not self.plan.fsdp:
             return dict(self.model.named_parameters())
         self.model.reshard()
         return {name: local_tensor(p) for name, p in self.model.named_parameters()}
@@ -219,7 +228,7 @@ def create_lion_optimizer_states(
     excluded_q = excluded_layer_from_quantization or []
 
     def build(model, learning_rate, quantize):
-        plan = fsdp_plan(model)  # None unless the model is FSDP-sharded
+        plan = shard_plan(model)  # None unless the model is FSDP-sharded or split
         schedule = build_lr_schedule(
             learning_rate / adam_to_lion_scale_factor,
             lr_scheduler=lr_scheduler,
@@ -243,14 +252,14 @@ def create_lion_optimizer_states(
                 leaf_orders={
                     name: perm for name, (_, perm) in hf_io.jax_param_paths(model).items()
                 },
-                fsdp=plan,
+                plan=plan,
             )
         else:
             opt = lion(
                 learning_rate=schedule, b1=0.9, b2=0.99,
                 weight_decay=1e-2 * adam_to_lion_scale_factor, mask=decay_mask,
             )
-        clip = transforms.clip_by_global_norm(1, None if plan is None else plan.group)
+        clip = transforms.clip_by_global_norm(1, plan)
         return TrainState(model, transforms.chain(clip, opt))
 
     unet_state = text_encoder_state = None
@@ -301,21 +310,27 @@ def on_device_model_training_state(training_config: TrainingConfig, device=None,
     the models' weights are first replicated from the mesh's first rank, so
     seeded weights and a ``model_path`` checkpoint give every rank the same
     start; then, when ``training_config.shards_params()``, the UNet and the
-    text encoder are sharded over the mesh's ``fsdp`` axis before the
-    optimizer state and the EMA copies are built on the local shards.
+    text encoder are sharded over the mesh's ``fsdp`` axis, or, when
+    ``training_config.splits_tensors()``, split over its ``model_parallel``
+    axis, before the optimizer state and the EMA copies are built on the
+    local leaves.
     Returns the JAX package's 7-tuple: ``(unet_state, text_encoder_state,
     unet_ema_params, text_encoder_ema_params, frozen_vae,
     frozen_schedulers, models)``."""
     models = load_models(training_config, device)
     trained = (models["unet"]["unet_model"], models["text_encoder"]["text_encoder_model"])
     replicate_(
-        [p.detach() for m in (*trained, models["vae"]["vae_model"]) for p in m.parameters()], mesh
+        [p.detach() for m in (*trained, models["vae"]["vae_model"]) for p in m.parameters()], mesh, MESH_AXES
     )
     if mesh is not None and training_config.shards_params():
         for model, key in zip(trained, ("unet", "text_encoder")):
             fully_shard_(model, mesh)
             # the whole tensors are gone: the dicts hold the local shards
             models[key][f"{key}_params"] = {n: local_tensor(p) for n, p in model.named_parameters()}
+    elif mesh is not None and training_config.splits_tensors():
+        for model, key in zip(trained, ("unet", "text_encoder")):
+            tensor_parallel_(model, mesh)
+            models[key][f"{key}_params"] = dict(model.named_parameters())  # the split leaves' slices
     # the reference hard-codes scale 7 and drops the configured LRs;
     # honor_learning_rates opts out of that quirk
     lr_kwargs = dict(adam_to_lion_scale_factor=7)
@@ -353,7 +368,7 @@ def on_device_model_training_state(training_config: TrainingConfig, device=None,
         states["text_encoder_state"] = TrainState(text_encoder, transforms.set_to_zero())
     frozen = create_frozen_states(models)
 
-    def ema_copy(params):  # distinct buffers from the params (local shards under FSDP)
+    def ema_copy(params):  # distinct buffers from the params (local shards under FSDP, slices under TP)
         return {name: p.detach().clone() for name, p in params.items()}
 
     unet_ema = (

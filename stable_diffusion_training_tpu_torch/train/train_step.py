@@ -46,22 +46,37 @@ the ranks is rank 0's ``j``-th slice, then rank 1's ...; the JAX step's
 With replicated state the grads are summed by ``parallel.all_reduce_grads_``
 (in the grads' dtype) and every rank runs the same clip, Lion, decay and EMA
 on the same grads, so their states stay bitwise equal. With FSDP-sharded
-models (``TrainState.fsdp``) the grads come from ``loss.backward()``:
+models (``TrainState.plan.fsdp``) the grads come from ``loss.backward()``:
 ``torch.autograd.grad`` cannot reach the sharded parameters, since the
 forward runs on FSDP2's gathered ones. FSDP2's reduce-scatter sums them
 into each rank's shard (and all-reduces the shards over the data axis under
 HSDP), and the chain runs on the local shards (``optim.lion8bit``).
+
+Under tensor parallelism (``TrainState.plan`` from
+``parallel.tensor_parallel_``) the ``model_parallel`` ranks of a row block
+take the same rows and draws; their split layers' sums over the axis run
+inside the autograd graph (``parallel.sharding.tp_copy`` and
+``tp_row_linear``; gradient checkpointing repeats the forward's sums in
+its recompute), so ``torch.autograd.grad`` gives each rank the grads of its
+slices and its own copy of every whole leaf's. Grads and loss are then
+summed over the data x fsdp ranks only, and every whole leaf's grad becomes
+the ``model_parallel`` axis's first rank's (``parallel.replicate_`` over
+that axis): the copies differ only by the kernels' run-to-run rounding
+(cuDNN's weight-grad sums, the flash backward's dQ sum), and the whole
+leaves' replicas stay bitwise alike, as XLA's do. A ``model_parallel`` axis
+without ``tensor_parallel_shard_params`` holds replicas of every leaf, which
+take the first rank's grads the same way.
 """
 
 from typing import Any, Dict, Optional, Sequence, Union
 
 import torch
 
-from ..core.mesh import row_index
+from ..core.mesh import AXIS_TENSOR, row_index
 from ..diffusion import compute_snrs
 from ..models.vae import DiagonalGaussianDistribution
 from ..optim.transforms import weak
-from ..parallel import all_reduce_grads_
+from ..parallel import all_reduce_grads_, replicate_
 from ..parallel.sharding import all_reduce_, local_tensor
 from ..utils.context import concat_context_windows
 
@@ -224,6 +239,12 @@ def _grads(loss: torch.Tensor, params: Dict[str, torch.Tensor], sharded: bool = 
     return grads
 
 
+def _split_names(state, prefix: str) -> set:
+    """The grads' names of the leaves that ``state``'s plan splits."""
+    plan = None if state is None else state.plan
+    return set() if plan is None else {prefix + name for name in plan.rows}
+
+
 def train_step(
     # states updated in place and returned
     unet_state: Any,
@@ -276,7 +297,7 @@ def train_step(
         vae_encode_chunk=vae_encode_chunk, shard=(index, ranks),
     )
     states = (unet_state, text_encoder_state, frozen_vae_state, frozen_noise_scheduler_state)
-    sharded = unet_state.fsdp is not None
+    sharded = unet_state.plan is not None and unet_state.plan.fsdp
     # the modules' parameters: the grads' targets (FSDP2's DTensors when sharded)
     diff_params = dict(unet_state.model.named_parameters())
     if train_text_encoder:
@@ -313,6 +334,8 @@ def train_step(
     if mesh is not None:
         if not sharded:  # FSDP2 has summed the sharded grads in the backward
             all_reduce_grads_(grads, mesh)
+            split = _split_names(unet_state, "") | _split_names(text_encoder_state, "text_encoder/")
+            replicate_([g for k, g in grads.items() if k not in split], mesh, (AXIS_TENSOR,))
         loss = all_reduce_((loss.detach() / ranks).reshape(1), mesh)[0]
     unet_state.apply_gradients({k: grads[k] for k in unet_state.params})
     if train_text_encoder:

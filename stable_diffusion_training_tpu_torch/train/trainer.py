@@ -42,20 +42,27 @@ trainer stops its trace) with ``torch.profiler`` and writes a Chrome trace
 there. A tokenizer is used only when passed, or when
 ``model_path/tokenizer`` exists (``transformers`` is then imported).
 
-Data parallelism and FSDP: under ``torchrun --nproc_per_node=N`` (or in a
-process group the caller started) every rank runs ``main``: one process per
-card, on the config's ``mesh_shape`` (``[D, F, 1]``: ``data_parallel``,
-``fsdp``, ``model_parallel``; by default every rank on the data axis),
-``batch_size`` the global batch, split over the data x fsdp ranks. With
+Data parallelism, FSDP and tensor parallelism: under ``torchrun
+--nproc_per_node=N`` (or in a process group the caller started) every rank
+runs ``main``: one process per card, on the config's ``mesh_shape`` (``[D,
+F, T]``: ``data_parallel``, ``fsdp``, ``model_parallel``; by default every
+rank on the data axis), ``batch_size`` the global batch, split over the
+data x fsdp ranks (the T ranks of a row block take the same rows). With
 ``fsdp_shard_params`` the UNet and the text encoder are sharded over the
-``fsdp`` axis (FSDP2, ``train/states.py``). The streaming loader gives each
+``fsdp`` axis (FSDP2, ``train/states.py``); with
+``tensor_parallel_shard_params`` their attention and CLIP projections are
+split over the ``model_parallel`` axis, and every rank samples the evals.
+Before each chunk's checkpoint the ranks of a ``model_parallel`` axis above
+1 are checked to hold the same params of every leaf that is not split
+(``parallel.assert_replicated``; the train step gives them one rank's
+grads). The streaming loader gives each
 rank its rows of each batch of one plan (``core.distributed.batch_shard``);
 an injected loader yields the rank's own rows
 (``core.slice_batch_for_process``). A host's first rank alone fetches and
 deletes the chunks of the ramdisk the host's ranks share, and rank 0 alone
 writes the JSON state, ``loss.csv``, the save probe, the checkpoints and
 their rotation, the eval images, TensorBoard events and the trace; every
-rank calls the saves (under FSDP each first gathers its shards), the others
+rank calls the saves (under FSDP or TP each first gathers its shards), the others
 wait, and a failure on one rank stops every rank. The ranks agree on every
 step before it runs: a rank whose queue timed out grabs again while the
 others hold their batch, so no rank steps or skips alone.
@@ -81,7 +88,8 @@ from ..core.distributed import (
     rank_device,
     run_on,
 )
-from ..core.mesh import AXIS_DATA, AXIS_TENSOR, create_mesh
+from ..core.mesh import AXIS_DATA, AXIS_TENSOR, axis_size, create_mesh
+from ..parallel import assert_replicated
 from ..utils.json_io import delete_file_or_folder, read_json_file, save_dict_to_json
 from ..utils.metrics import MetricsWriter
 from ..utils.profiling import profiler_trace
@@ -210,6 +218,16 @@ def _delete_all(*paths) -> None:
         delete_file_or_folder(path)
 
 
+def _assert_replicas_alike(mesh, *states) -> None:
+    """Raise unless the ``model_parallel`` ranks of each row block hold the
+    same params of every leaf that no plan splits (the train step gives
+    them one rank's grads); nothing without such an axis."""
+    if axis_size(mesh, AXIS_TENSOR) <= 1:
+        return
+    whole = [p for s in states for name, p in s.params.items() if s.plan is None or name not in s.plan.rows]
+    assert_replicated(whole, "the model_parallel ranks' whole leaves", mesh, AXIS_TENSOR)
+
+
 def _save_chunk_checkpoints(
     config_dict, model_object_dict, tokenizer,
     unet_state, text_encoder_state, unet_ema_params, text_encoder_ema_params, frozen_vae,
@@ -298,8 +316,10 @@ def main(
     ``CachedLatentLoader`` or anything with their protocol, yielding this
     rank's rows). In a process group (torchrun's environment, or one the
     caller started) the ranks train over ``mesh``, by default the config's
-    ``mesh_shape`` or every rank on the data axis: data-parallel, or with
-    the models sharded over its ``fsdp`` axis (``fsdp_shard_params``)."""
+    ``mesh_shape`` or every rank on the data axis: data-parallel, with the
+    models sharded over its ``fsdp`` axis (``fsdp_shard_params``), or with
+    their projections split over its ``model_parallel`` axis
+    (``tensor_parallel_shard_params``)."""
     group = initialize_distributed(device=device)  # None: one process, nothing to join
     config_dict, training_config = load_run_config(config_dict_path)
 
@@ -310,13 +330,14 @@ def main(
 
             tokenizer = CLIPTokenizer.from_pretrained(config_dict["model_path"], subfolder="tokenizer")
 
-    if dataloader is None:
-        # a caller's mesh, or the row-major one made below: rank r's rows are block r
-        dataloader = _build_dataloader(config_dict, config_dict_path, tokenizer, mesh)
-    device = rank_device(device)
     if mesh is None and group is not None:
+        device = rank_device(device)
         axes = training_config.mesh_axes() or {AXIS_DATA: process_count(), AXIS_TENSOR: 1}
         mesh = create_mesh(tuple(axes.values()), tuple(axes), device_type=device.type)
+    if dataloader is None:
+        # this rank's row block of the mesh (the model_parallel ranks of a block read the same rows)
+        dataloader = _build_dataloader(config_dict, config_dict_path, tokenizer, mesh)
+    device = rank_device(device)
     leader = process_index() == 0  # writes the run's files
     ramdisk_leader = local_process_index() == 0  # fetches and deletes the host's chunks
 
@@ -446,6 +467,7 @@ def main(
                             f'{config_dict["chunk_steps"]},{config_dict["master_seed"]}'
                         )
 
+        _assert_replicas_alike(mesh, unet_state, text_encoder_state)
         config_dict["model_path"] = _save_chunk_checkpoints(
             config_dict, model_object_dict, tokenizer, unet_state, text_encoder_state,
             unet_ema_params, text_encoder_ema_params, frozen_vae, train_rng=train_rng,

@@ -62,7 +62,7 @@ def _resume_config(tmp, src_tag, tag, **overrides):
     cfg = {**src, "model_path": str(tmp / tag / "run") + "@0", "test_save_path": str(tmp / tag / "probe"),
            "loss_csv": str(tmp / f"loss_{tag}.csv"), "ramdisk_path": str(tmp / f"ramdisk_{tag}"),
            "eval_sample_interval": 0, **overrides}
-    for key in ("mesh_shape", "fsdp_shard_params"):
+    for key in ("mesh_shape", "fsdp_shard_params", "tensor_parallel_shard_params"):
         if key not in overrides:
             cfg.pop(key, None)
     path = str(tmp / f"props_{tag}.json")

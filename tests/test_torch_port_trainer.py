@@ -378,25 +378,27 @@ def test_profile_trace_dir_writes_a_trace(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "overrides,item",
+    "overrides,error",
     [
-        (dict(mesh_shape=[1, 2]), "item 7"),  # a model_parallel axis; [W, 1] is data parallelism
+        (dict(mesh_shape=[1, 2]), (ValueError, "the process group has 1")),  # a model_parallel axis of 2 ranks
         (dict(fsdp_shard_params=True), None),  # ported: one process trains as the default does
-        (dict(tensor_parallel_shard_params=True), "item 7"),
-        (dict(vae_polyphase_downsample=True), "item 9"),
+        (dict(tensor_parallel_shard_params=True), None),  # ported: likewise
+        (dict(mesh_shape=[1, 2, 2], tensor_parallel_shard_params=True), (NotImplementedError, "item 7")),
+        (dict(vae_polyphase_downsample=True), (NotImplementedError, "item 9")),
     ],
-    ids=["mesh", "fsdp", "tensor-parallel", "polyphase"],
+    ids=["mesh", "fsdp", "tensor-parallel", "tensor-parallel-with-fsdp", "polyphase"],
 )
-def test_options_not_ported_raise(tmp_path, overrides, item):
-    """A config that asks the JAX package for a tensor-parallel mesh axis,
-    tensor-parallel sharding or the polyphase VAE downsample stops the
-    port's trainer with the ROADMAP item instead of training without it.
-    ``fsdp_shard_params``, ported, in one process (no fsdp axis to shard
-    over) trains bitwise as the default does: the same loss rows and the
-    same checkpoint."""
+def test_options_not_ported_raise(tmp_path, overrides, error):
+    """A config that asks the JAX package for fsdp and model_parallel axes
+    together (TP with FSDP) or the polyphase VAE downsample stops the port's
+    trainer with the ROADMAP item instead of training without it, and a
+    mesh of more ranks than the process group stops it with its size.
+    ``fsdp_shard_params`` and ``tensor_parallel_shard_params``, ported, in
+    one process (no axis to shard over) train bitwise as the default does:
+    the same loss rows and the same checkpoint."""
     cfg, path = make_config_dict(tmp_path, "o", chunk_limit=1, **overrides)
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
+    if error is not None:
+        with pytest.raises(error[0], match=error[1]):
             trainer.main(path, dataloader=_loader(), device="cpu")
         return
     base_cfg, base_path = make_config_dict(tmp_path, "default", chunk_limit=1)

@@ -1,5 +1,5 @@
-"""One rank of the two-rank worlds of ``tests/test_torch_port_distributed.py``
-and ``tests/test_torch_port_fsdp*.py``.
+"""One rank of the worlds of ``tests/test_torch_port_distributed.py``,
+``tests/test_torch_port_fsdp*.py`` and ``tests/test_torch_port_tp*.py``.
 
 Started with the ``spawn`` method; imports torch and the port only (no JAX,
 no conftest). ``run_rank`` joins the gloo group through
@@ -8,7 +8,7 @@ each case of ``payload.pt`` in order on the case's mesh (``mesh``: a shape,
 by default ``(world, 1)``) and writes ``<case>_<rank>.pt`` (or
 ``<case>_<rank>.err`` with the traceback: the other rank then fails at the
 next collective instead of hanging, the group having a timeout). Under FSDP
-a step's dump holds whole tensors, gathered from the shards.
+or TP a step's dump holds whole tensors, gathered from the shards or slices.
 """
 
 import datetime
@@ -22,9 +22,9 @@ import torch
 
 
 def whole_params(state, tensors: dict) -> dict:
-    """``{name: tensor}`` of ``state``'s model, each shard of an FSDP plan
-    gathered into its whole leaf (every rank calls it)."""
-    plan = state.fsdp
+    """``{name: tensor}`` of ``state``'s model, each shard of an FSDP or TP
+    plan gathered into its whole leaf (every rank calls it)."""
+    plan = state.plan
     return {k: (plan.rows[k].gather(v) if plan is not None and k in plan.rows else v).detach().clone()
             for k, v in tensors.items()}
 
@@ -33,14 +33,14 @@ def step_dump(out, before) -> dict:
     """What the tests compare of a step's output: the loss, each model's
     params (and ``before``, its params before the step) and EMA, and its
     Lion momentum (codes and scales, or the dense tensor), whole. Under
-    FSDP also, per model, the quantized leaves whose momentum stays whole
-    (``whole``) and whether every rank's local codes and scales are its
-    slice of the gathered ones (``local_slices``)."""
+    FSDP or TP also, per model, the split quantized leaves whose momentum
+    stays whole (``whole``) and whether every rank's local codes and scales
+    are its slice of the gathered ones (``local_slices``)."""
     dump = {"loss": float(out[4]["loss"]), "params": {}, "ema": {}, "mu": {}, "before": before,
             "whole": {}, "local_slices": {}}
     for key, idx in (("unet", 0), ("text_encoder", 1)):
         state = out[idx]
-        plan = state.fsdp
+        plan = state.plan
         dump["params"][key] = whole_params(state, state.params)
         dump["ema"][key] = whole_params(state, out[idx + 2] or {})
         mu, whole, slices = {}, [], {}
@@ -49,10 +49,11 @@ def step_dump(out, before) -> dict:
                 if not hasattr(m, "codes"):
                     mu[name] = whole_params(state, {name: m})[name]
                     continue
-                shard = plan.momentum(name, m.codes.shape[1]) if plan is not None else None
+                split = plan is not None and name in plan.rows
+                shard = plan.momentum(name, m.codes.shape[1]) if split else None
                 if shard is None:
                     mu[name] = (m.codes.clone(), m.scales.clone())
-                    whole += [name] if plan is not None else []
+                    whole += [name] if split else []
                     continue
                 codes, scales = shard.gather(m.codes, m.scales)
                 local = shard.take(codes, scales)
@@ -100,6 +101,7 @@ def run_step(case: dict, mesh=None, draws_key: str = "draws") -> dict:
 
 def _run_step(case, mesh, draws_key, cfg):
     from stable_diffusion_training_tpu_torch.core import slice_batch_for_process
+    from stable_diffusion_training_tpu_torch.parallel import sharding
     from stable_diffusion_training_tpu_torch.train import on_device_model_training_state, restore_train_state
     from stable_diffusion_training_tpu_torch.train import save_train_state, train_step
 
@@ -119,6 +121,9 @@ def _run_step(case, mesh, draws_key, cfg):
     if mesh is not None:
         batch = slice_batch_for_process(batch, mesh)
     gathers.clear()
+    tp_before = dict(sharding.TP_ALL_REDUCES)
+    if case.get("rounding_rank") == (None if mesh is None else mesh.get_rank()):
+        _round_whole_grads(states)
     out = train_step(
         *states[:4], batch, None, states[4], states[5], draws=case[draws_key], mesh=mesh,
         strip_bos_eos_token=True, ema_rate=cfg.ema_rate, offset_noise_magnitude=cfg.offset_noise_magnitude,
@@ -126,10 +131,33 @@ def _run_step(case, mesh, draws_key, cfg):
         perturbation_noise_magnitude=cfg.perturbation_noise_magnitude,
         grad_accumulation_steps=cfg.grad_accumulation_steps, train_text_encoder=cfg.train_text_encoder,
     )
+    _round_whole_grads(None)
     dump = step_dump(out, before)
     dump["all_gathers"] = len(gathers)  # FSDP2's, in the step
+    dump["tp_all_reduces"] = {k: v - tp_before[k] for k, v in sharding.TP_ALL_REDUCES.items()}
     _count_all_gathers(stop=True)
     return dump
+
+
+def _round_whole_grads(states) -> None:
+    """This rank's grads of the leaves no plan splits, off by a rounding
+    step (as cuDNN's weight-grad sums or the flash backward's dQ sum may
+    leave them on a card), for the train steps until called with None."""
+    import importlib
+
+    ts = importlib.import_module("stable_diffusion_training_tpu_torch.train.train_step")
+    inner = getattr(ts._grads, "unrounded", ts._grads)
+    if states is None:
+        ts._grads = inner
+        return
+    split = ts._split_names(states[0], "") | ts._split_names(states[1], "text_encoder/")
+
+    def rounded(loss, params, sharded=False):
+        grads = inner(loss, params, sharded)
+        return [g if name in split else g * (1 + 2.0**-12) for name, g in zip(params, grads)]
+
+    rounded.unrounded = inner
+    ts._grads = rounded
 
 
 def _count_all_gathers(stop: bool = False) -> list:
@@ -158,9 +186,10 @@ def _digest(a) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
-def run_trainer(case: dict) -> dict:
+def run_trainer(case: dict, mesh=None) -> dict:
     """``trainer.main`` on this rank, from an in-memory loader of the
-    rank's rows or (``loader=None``) the streaming loader, with every
+    rank's rows (its row block of ``mesh``: the model_parallel ranks of a
+    block take the same rows) or (``loader=None``) the streaming loader, with every
     one-writer call counted, the eval images kept, the state's digest
     taken at each chunk checkpoint (of the rank's shards under FSDP), and
     each full-state restore checked against its files (the restored state,
@@ -218,7 +247,7 @@ def run_trainer(case: dict) -> dict:
     originals = [(owner, name, getattr(owner, name)) for owner, name, _ in patches]
     loader, tokenizer = None, None
     if case["loader"] == "memory":
-        loader = InMemoryDataLoader([slice_batch_for_process(b) for b in case["batches"]])
+        loader = InMemoryDataLoader([slice_batch_for_process(b, mesh) for b in case["batches"]])
     else:
         tokenizer = StubTokenizer()
     try:
@@ -241,10 +270,10 @@ def restored_as_saved(directory: str, restored: dict) -> bool:
     state = restored["unet_state"]
     params = whole_params(state, state.params)
     ok = bool(params) and all(torch.equal(v, saved[f"unet_state/params/{k}"]) for k, v in params.items())
-    plan = state.fsdp
+    plan = state.plan
     for name, m in state.opt_state[1][0].mu_quant.items():
         if hasattr(m, "codes"):
-            shard = plan.momentum(name, m.codes.shape[1]) if plan is not None else None
+            shard = plan.momentum(name, m.codes.shape[1]) if plan is not None and name in plan.rows else None
             codes = shard.gather(m.codes, m.scales)[0] if shard is not None else m.codes
             ok = ok and torch.equal(codes, saved[f"unet_state/opt_state/1/0/mu_quant/{name}/codes"])
     return ok
@@ -334,8 +363,9 @@ def rule_inputs(seed: int = 0):
     return model, grads
 
 
-def rule_optimizer(model, use_pallas, fsdp=None, group=None):
-    """Global-norm clipping and 8-bit Lion at block 16 over the rule model."""
+def rule_optimizer(model, use_pallas, plan=None):
+    """Global-norm clipping and 8-bit Lion at block 16 over the rule model
+    (``plan``: its FSDP plan, or None for one process)."""
     from stable_diffusion_training_tpu_torch.models.hf_io import jax_param_paths
     from stable_diffusion_training_tpu_torch.optim import transforms
     from stable_diffusion_training_tpu_torch.optim.lion8bit import scale_by_lion_8bit
@@ -343,8 +373,8 @@ def rule_optimizer(model, use_pallas, fsdp=None, group=None):
     mask = {n: n not in RULE_EXCLUDED for n, _ in model.named_parameters()}
     orders = {n: perm for n, (_, perm) in jax_param_paths(model).items()}
     lion = scale_by_lion_8bit(block_size=16, excluded_layer_mask=mask, use_pallas=use_pallas,
-                              leaf_orders=orders, fsdp=fsdp)
-    return transforms.chain(transforms.clip_by_global_norm(0.5, group), lion)
+                              leaf_orders=orders, plan=plan)
+    return transforms.chain(transforms.clip_by_global_norm(0.5, plan), lion)
 
 
 def rule_state(state) -> dict:
@@ -369,7 +399,7 @@ def run_rule(case: dict, mesh) -> dict:
     fully_shard(model, mesh=fsdp_mesh(mesh))
     plan = fsdp_plan(model)
     params = {n: local_tensor(p) for n, p in model.named_parameters()}
-    tx = rule_optimizer(model, case["use_pallas"], plan, plan.group)
+    tx = rule_optimizer(model, case["use_pallas"], plan)
     state = tx.init(params)
     out = {"rows": {n: (r.start, r.stop) for n, r in plan.rows.items()},
            "whole": sorted(n for n in plan.rows if n not in RULE_EXCLUDED and plan.momentum(n, 16) is None),
@@ -389,7 +419,7 @@ def run_rule(case: dict, mesh) -> dict:
 
     dist.all_reduce = counted
     try:
-        out["global_norm"] = float(transforms.global_norm(local, plan.group))
+        out["global_norm"] = float(transforms.global_norm(local, plan))
     finally:
         dist.all_reduce = inner
     out["norm_collectives"] = len(calls)
@@ -415,7 +445,7 @@ def run_rank(rank: int, world: int, workdir: str) -> None:
             if case["kind"] == "step":
                 result = run_step(case, mesh)
             elif case["kind"] == "trainer":
-                result = run_trainer(case)
+                result = run_trainer(case, mesh)
             elif case["kind"] == "rule":
                 result = run_rule(case, mesh)
             else:
