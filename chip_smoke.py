@@ -10,6 +10,8 @@ NVIDIA GPU and check it end to end.
     python3 chip_smoke.py --phases gpu,build,sd21_parity,sd21,sd21_trainer   # SD2.1 at 768x768
     python3 chip_smoke.py --phases gpu,build,ddp_parity,ddp_trainer   # data parallelism, two ranks
     python3 chip_smoke.py --phases gpu,build,fsdp_parity,fsdp_trainer   # FSDP, two ranks
+    python3 chip_smoke.py --phases gpu,build,tp_parity,tp_trainer   # tensor parallelism, two ranks
+    python3 chip_smoke.py --phases gpu,build,tp_fsdp_parity,tp_fsdp_trainer,vae_polyphase   # TP with FSDP
 
 Phases, one JSON line each:
 
@@ -229,13 +231,12 @@ Phases, one JSON line each:
    StubTokenizer())`` on two ranks (gloo, cuda:0; BASELINE config 2's
    data-parallel layout on one card): SD1.5 at full width in bf16, the
    example recipe, global batch 8 (4 a rank), a chunk of 16 seeded 512x512
-   PNGs (2 steps), DDIM eval every 2 steps (2 steps), then a second
-   invocation that resumes from ``train_state/``; then 2 steps of
-   ``trainer.main`` in a one-rank NCCL world that the trainer starts from
-   torchrun's variables. Checks: one ``loss.csv`` (a header, rank 0's 4
-   rows), one checkpoint after rotation, rank 0 alone writing the JSON,
+   PNGs (2 steps), DDIM eval every 2 steps (2 steps); beside them, 2 steps
+   of ``trainer.main`` in a one-rank NCCL world that the trainer starts
+   from torchrun's variables. Checks: one ``loss.csv`` (a header, rank 0's 2
+   rows), one checkpoint, rank 0 alone writing the JSON,
    the probe, the checkpoints and the eval PNGs (rank 1 none), the ranks'
-   states bitwise equal at each chunk checkpoint, each rank's pixel rows
+   states bitwise equal at the chunk checkpoint, each rank's pixel rows
    its half of a one-process loader's batch (sha256), each step's launches
    at the rank's shapes (K1 5 at (32, 4096, 40) and once at (4, 4096, 512),
    the fused bf16 backward 5, Lion's table once per model), rank 0's evals'
@@ -302,6 +303,32 @@ Phases, one JSON line each:
    to each rank's UNet and text encoder slices (fingerprints), the NCCL
    leg's loss, launches and sums (none). Run directory
    ``.cache/chip_smoke_tp/``, deleted at the end.
+25. ``tp_fsdp_parity``: the SD1.5 train step at full width in f32 (TF32
+   off) over a global batch of 2, as one process (rank 0 first; the
+   reference kept in host memory), then on four gloo ranks of cuda:0 on a
+   ``[1, 2, 2]`` mesh with ``tensor_parallel_shard_params`` and
+   ``fsdp_shard_params``: each fsdp rank one row, each model_parallel rank
+   4 of the 8 heads, every leaf sharded over the fsdp pair. Checks:
+   ``tp_parity``'s, the four gathered states bitwise equal, the leaves kept
+   whole those of the composed rule, FSDP2's collectives run; K1 f32 and
+   the fused f32 backward held against their plain versions at the rank's
+   ``(4, 4096, 40)``.
+26. ``tp_fsdp_trainer``: ``trainer.main`` on SD1.5 at full width, bf16,
+   global batch 8 on the same four ranks and mesh (4 rows an fsdp rank):
+   one chunk of 2 steps, its checkpoint and one eval on every rank; then a
+   one-rank NCCL world on ``[1, 1, 1]`` with both flags that reads the
+   checkpoint back whole and steps once. Checks: ``tp_trainer``'s, each
+   step's FSDP2 collectives, each model_parallel pair's shards of the whole
+   leaves alike, the checkpoint equal to every rank's parts. Prints per
+   rank the step p50, the TP sums' and FSDP2's collectives' ms a step and
+   peak memory. Run directory ``.cache/chip_smoke_tp_fsdp/``, deleted at the
+   end.
+27. ``vae_polyphase``: the SD1.5 VAE encode at 512x512, batch 8, in bf16
+   and f32 (TF32 off), the encoder with ``polyphase_downsample`` against the
+   stride-2 form holding the same weights: the moments' max error (f32
+   within 1e-4 of the largest |mean|; bf16 no further off the f32 stride-2
+   encode than twice the bf16 stride-2 form), each form's device ms, K1
+   once per polyphase encode at ``(8, 4096, 512)``.
 
 Any failed check raises, so the script exits non-zero and prints no result;
 a rank that exits non-zero fails its phase. The ranks' launches are
@@ -332,12 +359,13 @@ ALL_PHASES = (
     "gpu", "build", "kernels", "parity", "slice", "sdxl_parity", "sdxl", "sdxl_refiner", "train_parity", "train",
     "train_f32", "trainer", "sdxl_train_parity", "sdxl_train", "sdxl_trainer", "sd21_parity", "sd21",
     "sd21_trainer", "ddp_parity", "ddp_trainer", "fsdp_parity", "fsdp_trainer", "tp_parity", "tp_trainer",
+    "tp_fsdp_parity", "tp_fsdp_trainer", "vae_polyphase",
 )
 # the phases whose runs give the kernels line its launches
 PATH_PHASES = {
     "kernels", "parity", "slice", "sdxl_parity", "sdxl", "sdxl_refiner", "train_parity", "train", "train_f32",
     "sdxl_train_parity", "sdxl_train", "sd21_parity", "sd21", "sd21_trainer", "ddp_parity", "ddp_trainer",
-    "fsdp_parity", "fsdp_trainer", "tp_parity", "tp_trainer",
+    "fsdp_parity", "fsdp_trainer", "tp_parity", "tp_trainer", "tp_fsdp_parity", "tp_fsdp_trainer", "vae_polyphase",
 }
 
 # H100 SXM peaks (NVIDIA data sheet, dense): 989 TFLOP/s bf16 tensor core,
@@ -866,6 +894,9 @@ def flash_backward_cases():
         # rank is train_parity's shape, unet_train_f32)
         ("fsdp_sdxl_train", 20, 4096, 4096, 64, torch.bfloat16),
         ("fsdp_sdxl_train_bucket", 20, 4032, 4032, 64, torch.bfloat16),
+        # tp_fsdp_trainer's 4 rows an fsdp rank, 4 of the 8 heads a
+        # model_parallel rank (tp_fsdp_parity's f32 row is tp_parity's shape)
+        ("tp_fsdp_unet_train", 16, 4096, 4096, 40, torch.bfloat16),
         # tp_parity's f32 row, 4 of the 8 heads a rank (tp_trainer's 8 rows
         # are ddp_unet_train's shape)
         ("tp_parity_unet_f32", 4, 4096, 4096, 40, torch.float32),
@@ -1283,6 +1314,11 @@ def lion_model_cases():
     # the whole rest (both ranks' tables are alike), tp_trainer's bf16 and
     # tp_parity's f32
     models += [(f"{name}_tp_half", local, variants[::2]) for name, (local, _, _) in sd15_tp_rules().items()]
+    # one rank's table under TP with FSDP on [1, 2, 2]: its fsdp rows of its
+    # TP slices and of the whole leaves (the four ranks' tables are alike),
+    # tp_fsdp_trainer's bf16 and tp_fsdp_parity's f32
+    models += [(f"{name}_tp_fsdp_quarter", local, variants[::2])
+               for name, (local, _, _) in sd15_tp_fsdp_rules().items()]
     for model_name, leaves, model_variants in models:
         for dtype, compander in model_variants:
             name_dt = str(dtype).replace("torch.", "")
@@ -1323,8 +1359,9 @@ def lion_model_cases():
                 jax_grads = permute_grads(leaves, grads)
                 old_kernels_ms = cuda_ms(lambda: old_lion_route(leaves, grads, old_c, old_s, compander, jax_grads), 5)
                 del jax_grads
+            # no warm-up call: the expected values above came from it
             plain_ms = cuda_ms(lambda: lk.lion8bit_update_leaves_reference(grads, codes, scales, perms,
-                                                                           compander=compander), 1, warmup=1)
+                                                                           compander=compander), 1, warmup=0)
             # grad in, sign out (grad's dtype), int8 code in and out, f32 scale in and out per block
             nbytes = n * (2 * grads[0].element_size() + 2) + nb * 8
             bound_ms = nbytes / PEAK_BYTES * 1e3
@@ -1717,11 +1754,12 @@ def profile_step(fn, what, groups, top):
     """Where one step's device time goes: torch.profiler's kernel table for
     one call of ``fn``, the device's busy share of its wall time (one
     stream, so the kernels' sum is the busy time), and the device ms of
-    each of ``groups`` ({field: kernel-name substrings})."""
-    import torch
+    each of ``groups`` ({field: kernel-name substrings}). Only the device
+    is traced: recording every host op as well slowed the step's host side
+    (and so raised its idle share) and took tens of seconds to tabulate."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         wall_ms, _ = host_ms(fn)
     kernels = sorted(device_kernels(prof), reverse=True)
     busy_ms = sum(ms for ms, _, _ in kernels)
@@ -3253,6 +3291,46 @@ def run_ranks(target, args_of_rank, world):
         raise AssertionError(f"{target.__name__}: the ranks exited with {codes}")
 
 
+def start_rank(target, args):
+    """``target(*args)`` in a process of its own (spawn), started now: a
+    one-rank leg that starts up beside a phase's gloo ranks. Returns the
+    handle ``finish_rank`` and ``stop_rank`` take."""
+    import multiprocessing
+
+    proc = multiprocessing.get_context("spawn").Process(target=target, args=args)
+    proc.start()
+    return proc, time.perf_counter()
+
+
+def finish_rank(leg):
+    """Waits for a ``start_rank`` leg (``DDP_TIMEOUT_S`` at most, then kills
+    it); raises unless it exits with 0. Returns its seconds from its start."""
+    proc, t0 = leg
+    proc.join(DDP_TIMEOUT_S)
+    stop_rank(leg)
+    if proc.exitcode != 0:
+        raise AssertionError(f"{proc.name}: the leg exited with {proc.exitcode}")
+    return time.perf_counter() - t0
+
+
+def stop_rank(leg):
+    """Kills a ``start_rank`` leg that still runs (its phase failed first)."""
+    proc, _ = leg
+    if proc.is_alive():
+        proc.kill()
+        proc.join(30)
+
+
+def wait_for(path):
+    """Blocks until ``path`` exists: a leg's phase writes it once the gloo
+    ranks have written the checkpoint that the leg reads back."""
+    deadline = time.monotonic() + DDP_TIMEOUT_S
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} did not appear in {DDP_TIMEOUT_S} s")
+        time.sleep(0.2)
+
+
 def launches_json(snapshot):
     return {kernel: [[list(k), n] for k, n in shapes.items()] for kernel, shapes in snapshot.items() if shapes}
 
@@ -3323,6 +3401,10 @@ def ddp_rank(part, rank, world, port, workdir):
 
     import torch
     import torch.distributed as dist
+    # FSDP2's and DTensor's imports are the set-up's slowest: made while the
+    # ranks still start (or wait for rank 0's reference step)
+    import torch.distributed.fsdp  # noqa: F401
+    import torch.distributed.tensor  # noqa: F401
 
     from stable_diffusion_training_tpu_torch.core import initialize_distributed
 
@@ -3334,7 +3416,8 @@ def ddp_rank(part, rank, world, port, workdir):
     try:
         result = {"ddp_parity": ddp_parity_rank, "ddp_trainer": ddp_trainer_rank, "fsdp_parity": fsdp_parity_rank,
                   "fsdp_trainer": fsdp_trainer_rank, "tp_parity": tp_parity_rank,
-                  "tp_trainer": tp_trainer_rank}[part](rank, workdir)
+                  "tp_trainer": tp_trainer_rank, "tp_fsdp_parity": tp_fsdp_parity_rank,
+                  "tp_fsdp_trainer": tp_fsdp_trainer_rank}[part](rank, workdir)
         result.update(rank=rank, max_memory_allocated=torch.cuda.max_memory_allocated())
         with open(os.path.join(workdir, f"{part}_{rank}.json"), "w") as f:
             json.dump(result, f)
@@ -3344,8 +3427,9 @@ def ddp_rank(part, rank, world, port, workdir):
 
 def compare_steps(got, want, before):
     """Trained params and momentum (``got``: {model: (params, momentum)})
-    against the one-process step's (``want``), to the bounds above;
-    ``before``: the params before the step. Also gives the largest |code|
+    against the one-process step's (``want``, on the card or in host
+    memory), to the bounds above; ``before``: the params before the step.
+    Also gives the largest |code|
     of the codes more than one apart, and the leaves of those above the
     noise level."""
     import torch
@@ -3357,7 +3441,7 @@ def compare_steps(got, want, before):
         ref_params, ref_momentum = want[key]
         max_diff, flipped, total = 0.0, 0, 0
         for name, p in params.items():
-            q, b = ref_params[name], before[key][name]
+            q, b = ref_params[name].to(p.device), before[key][name].to(p.device)
             max_diff = max(max_diff, (p - q).abs().max().item())
             flipped += int((((p - b) - (q - b)).abs() > DDP_LR).sum())
             total += p.numel()
@@ -3365,6 +3449,8 @@ def compare_steps(got, want, before):
         worst = []  # the leaves with codes far apart above the noise level
         for name, m in momentum.items():
             r = ref_momentum[name]
+            r = (QuantizedMomentum(r.codes.to(m.codes.device), r.scales.to(m.codes.device))
+                 if isinstance(r, QuantizedMomentum) else r.to(m.device))
             if isinstance(m, QuantizedMomentum):
                 c, rc = m.codes.int(), r.codes.int()
                 apart = (c - rc).abs() > 1
@@ -3520,16 +3606,14 @@ def phase_ddp_parity(state, seed=3):
 
 
 def ddp_trainer_rank(rank, workdir):
-    """``trainer.main(dataloader=None)`` twice on this rank (a chunk, then a
-    resume from its ``train_state/`` over the chunk written again), with the
+    """``trainer.main(dataloader=None)`` on this rank (one chunk), with the
     step table, the all-reduce, the writers, the loader's batches and the
-    chunk checkpoints wrapped."""
+    chunk checkpoint wrapped."""
     import hashlib
 
     import numpy as np
     import torch
 
-    from stable_diffusion_training_tpu_torch.core.distributed import local_process_index, process_index, run_on
     from stable_diffusion_training_tpu_torch.data import dataloader as dl
     from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
     from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
@@ -3573,21 +3657,11 @@ def ddp_trainer_rank(rank, workdir):
     trainer._save_chunk_checkpoints = digested_save
     fa.reset_launch_counts()
     lk.reset_launch_counts()
-    wall = []
-    for invocation in range(2):
-        if invocation:
-            # the first invocation flushed the ramdisk and moved the JSON to
-            # chunk 1, which a chunk_limit of 1 would delete too: chunk 0
-            # again, written anew (the host's first rank), and the JSON
-            # pointed at it (rank 0); model_path stays the checkpoint
-            run_on(local_process_index() == 0, png_chunk, spec["ramdisk"], [tuple(s) for s in spec["sizes"]],
-                   spec["seed"])
-            run_on(process_index() == 0, rewind_chunk, spec["config_path"])
-        pixels.append([])
-        t0 = time.perf_counter()
-        trainer.main(spec["config_path"], dataloader=None, tokenizer=StubTokenizer(), device=torch.device("cuda", 0))
-        torch.cuda.synchronize()
-        wall.append(time.perf_counter() - t0)
+    pixels.append([])
+    t0 = time.perf_counter()
+    trainer.main(spec["config_path"], dataloader=None, tokenizer=StubTokenizer(), device=torch.device("cuda", 0))
+    torch.cuda.synchronize()
+    wall = [time.perf_counter() - t0]
     return dict(
         steps=[dict(s, launches=launches_json(s["launches"])) for s in steps], allreduce=allreduce,
         digests=digests, pixel_digests=pixels, calls=calls, wall_s=wall,
@@ -3595,18 +3669,11 @@ def ddp_trainer_rank(rank, workdir):
     )
 
 
-def rewind_chunk(config_path):
-    """The trainer's JSON pointed at chunk 0 again."""
-    from stable_diffusion_training_tpu_torch.utils.json_io import read_json_file, save_dict_to_json
-
-    save_dict_to_json(dict(read_json_file(config_path), chunk_number=0), config_path)
-
-
 def ddp_nccl_rank(config_path, workdir):
     """``trainer.main`` in a one-rank NCCL world that it starts itself from
     torchrun's variables (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
     ``MASTER_ADDR``, ``MASTER_PORT``), as ``torchrun --nproc_per_node=1``
-    would set them."""
+    would set them; it runs beside the gloo ranks."""
     import torch
     import torch.distributed as dist
 
@@ -3647,13 +3714,15 @@ def phase_ddp_trainer(state, seed=0):
     """``trainer.main(path, dataloader=None, tokenizer=StubTokenizer())`` on
     two ranks (gloo, cuda:0): SD1.5 at full width, bf16, 512x512, the
     example recipe, global batch 8 (4 a rank), a chunk of 16 seeded PNGs
-    (2 steps), DDIM eval every 2 steps (2 steps), then a second invocation
-    that resumes from ``train_state/``; then 2 steps of ``trainer.main`` in
-    a one-rank NCCL world started from torchrun's variables. Checks: one
-    ``loss.csv`` (one header, rank 0's rows), one checkpoint, the JSON
-    written by rank 0 alone (its backup, once a chunk, once at the end), the
-    eval PNGs written once, the ranks' states bitwise equal at each chunk
-    checkpoint, each rank's pixel rows its half of a one-process loader's
+    (2 steps), DDIM eval every 2 steps (2 steps); beside them, 2 steps of
+    ``trainer.main`` in a one-rank NCCL world started from torchrun's
+    variables (its own run directory; the card holds the three). (A resume from ``train_state/`` is the trainer phase's second
+    invocation, and the fsdp, tp and tp_fsdp trainers' NCCL legs read their
+    ranks' checkpoints back.) Checks: one ``loss.csv`` (one header, rank 0's
+    rows), one checkpoint, the JSON written by rank 0 alone (its backup,
+    once a chunk, once at the end), the eval PNGs written once, the ranks'
+    states bitwise equal at the chunk checkpoint, each rank's pixel rows its
+    half of a one-process loader's
     batch, each step's launches at the rank's shapes (rank 0's evals
     besides, nothing else), and the NCCL leg's backend and steps."""
     import hashlib
@@ -3677,9 +3746,9 @@ def phase_ddp_trainer(state, seed=0):
     )
     sizes = [(TRAIN_RES, TRAIN_RES)] * (TRAIN_BATCH * DDP_TRAINER_STEPS)
     png_chunk(cfg["ramdisk_path"], sizes, seed)
-    # what one process's loader gives each step of each invocation (its seed)
+    # what one process's loader gives each step
     plan = []
-    for master_seed in (seed, seed + 1):
+    for master_seed in (seed,):
         shutil.copytree(cfg["ramdisk_path"], os.path.join(root, "plan"))
         loader = dl.DataLoader(StubTokenizer(), config_path, os.path.join(root, "plan"), TRAIN_BATCH, 2,
                                [TRAIN_RES**2], [TRAIN_RES], numb_of_worker_thread=1, queue_get_timeout=60,
@@ -3695,25 +3764,27 @@ def phase_ddp_trainer(state, seed=0):
         shutil.rmtree(os.path.join(root, "plan"))
     with open(os.path.join(workdir, "spec.json"), "w") as f:
         json.dump(dict(config_path=config_path, ramdisk=cfg["ramdisk_path"], sizes=sizes, seed=seed), f)
-    port = free_port()
-    t0 = time.perf_counter()
-    run_ranks(ddp_rank, lambda r: ("ddp_trainer", r, DDP_WORLD, port, workdir), DDP_WORLD)
-    wall_s = time.perf_counter() - t0
-    ranks = []
-    for r in range(DDP_WORLD):
-        with open(os.path.join(workdir, f"ddp_trainer_{r}.json")) as f:
-            ranks.append(json.load(f))
-
-    # the one-rank NCCL world: its own run directory and a chunk of 2 steps
+    # the one-rank NCCL world: its own run directory and a chunk of 2 steps,
+    # run beside the gloo ranks (it reads nothing of theirs)
     nccl_dir, nccl_base, nccl_cfg, nccl_config, _ = trainer_run(
         "chip_smoke_ddp/nccl", train_config(), seed, device_prefetch_depth=2,
         ramdisk_path=os.path.join(root, "ramdisk_nccl"), repo={"repo_0": {}}, repeat_batch=2,
         numb_of_dataloader_worker_thread=4, queue_get_timeout=60, token=None,
     )
     png_chunk(nccl_cfg["ramdisk_path"], [(TRAIN_RES, TRAIN_RES)] * (TRAIN_BATCH * DDP_NCCL_STEPS), seed)
-    t0 = time.perf_counter()
-    run_ranks(ddp_nccl_rank, lambda r: (nccl_config, workdir), 1)
-    nccl_wall_s = time.perf_counter() - t0
+    port = free_port()
+    leg = start_rank(ddp_nccl_rank, (nccl_config, workdir))
+    try:
+        t0 = time.perf_counter()
+        run_ranks(ddp_rank, lambda r: ("ddp_trainer", r, DDP_WORLD, port, workdir), DDP_WORLD)
+        wall_s = time.perf_counter() - t0
+        nccl_wall_s = finish_rank(leg)
+    finally:
+        stop_rank(leg)
+    ranks = []
+    for r in range(DDP_WORLD):
+        with open(os.path.join(workdir, f"ddp_trainer_{r}.json")) as f:
+            ranks.append(json.load(f))
     with open(os.path.join(workdir, "nccl.json")) as f:
         nccl = json.load(f)
 
@@ -3724,7 +3795,7 @@ def phase_ddp_trainer(state, seed=0):
     want_step, want_nccl_step = step_launches(per_rank, lion), step_launches(TRAIN_BATCH, lion)
     want_eval = dict(flash_fwd={(16, 4096, 4096, 40, "bfloat16", "tma_narrow"): 5 * DDP_EVAL_STEPS,
                                 (1, 4096, 4096, 512, "bfloat16", "tma_wide"): 1})
-    n_steps, n_evals = 2 * DDP_TRAINER_STEPS, 2 * (DDP_TRAINER_STEPS // 2)
+    n_steps, n_evals = DDP_TRAINER_STEPS, DDP_TRAINER_STEPS // 2
     launches_ok, totals = [], {}
     for r, got in enumerate(ranks):
         steps = [launches_from_json(s["launches"]) for s in got["steps"]]
@@ -3747,18 +3818,18 @@ def phase_ddp_trainer(state, seed=0):
     nccl_steps = [launches_from_json(s["launches"]) for s in nccl["steps"]]
     with open(nccl_cfg["loss_csv"]) as f:
         nccl_rows = [line.split(",") for line in f.read().splitlines()[1:] if line]
-    writes = dict(write_model=2 * 4, write_train_state=2, json=2 * 3, png=n_evals)
+    writes = dict(write_model=4, write_train_state=1, json=3, png=n_evals)
     checks = dict(
         loss_csv=lines[0] == "steps, step_size, loss, time, chunk, seed" and len(rows) == n_steps
         and all(math.isfinite(float(r[2])) for r in rows),
-        one_checkpoint=os.path.isdir(f"{base}@1/unet") and os.path.isdir(f"{base}-EMA@1/unet")
-        and os.path.isdir(os.path.join(f"{base}@1", "train_state")) and not os.path.exists(f"{base}@0"),
-        json=(final["chunk_number"], final["chunk_steps"], final["master_seed"]) == (1, 2, seed + 2),
+        one_checkpoint=os.path.isdir(f"{base}@0/unet") and os.path.isdir(f"{base}-EMA@0/unet")
+        and os.path.isdir(os.path.join(f"{base}@0", "train_state")),
+        json=(final["chunk_number"], final["chunk_steps"], final["master_seed"]) == (1, 1, seed + 1),
         rank0_writes=ranks[0]["calls"] == writes,
         other_ranks_write_nothing=all(not any(r["calls"].values()) for r in ranks[1:]),
         eval_pngs=eval_dirs == [f"step_{s:08d}" for s in range(2, DDP_TRAINER_STEPS + 1, 2)] and all(
             os.listdir(os.path.join(cfg["eval_sample_dir"], d)) == ["sample_0.png"] for d in eval_dirs),
-        ranks_bitwise_equal=len(ranks[0]["digests"]) == 2 and all(r["digests"] == ranks[0]["digests"] for r in ranks),
+        ranks_bitwise_equal=len(ranks[0]["digests"]) == 1 and all(r["digests"] == ranks[0]["digests"] for r in ranks),
         rows_are_the_ranks_halves=all(r["pixel_digests"] == halves[i] for i, r in enumerate(ranks)),
         finite_losses=all(math.isfinite(s["loss"]) for r in ranks for s in r["steps"]),
         launches=all(launches_ok),
@@ -3768,8 +3839,8 @@ def phase_ddp_trainer(state, seed=0):
     )
     per_rank_rows = []
     for r in ranks:
-        # each invocation's first step holds its set-up
-        timed = [s["ms"] for i, s in enumerate(r["steps"]) if i % DDP_TRAINER_STEPS]
+        # the first step holds the set-up
+        timed = [s["ms"] for s in r["steps"][1:]]
         p50 = statistics.median(timed)
         per_rank_rows.append(dict(
             rank=r["rank"], step_ms=[s["ms"] for s in r["steps"]], step_p50_ms=p50,
@@ -4155,8 +4226,9 @@ def fsdp_trainer_rank(rank, workdir):
 
 def fsdp_nccl_rank(state_dir, workdir):
     """A one-rank NCCL world from torchrun's variables with the SDXL models
-    sharded over a fsdp axis of one rank: the gloo leg's checkpoint read
-    back whole (``restore_train_state``, one process), each gloo rank's
+    sharded over a fsdp axis of one rank, started while the gloo ranks
+    train and built once the phase marks their checkpoint written: that
+    checkpoint read back whole (``restore_train_state``, one process), each gloo rank's
     slices of the restored UNet state fingerprinted for the gloo ranks' own,
     then 2 steps of ``train.aot``'s step table over the leg's cache (no
     checkpoint: with the gloo leg's still on disk, a second SDXL one would
@@ -4180,6 +4252,7 @@ def fsdp_nccl_rank(state_dir, workdir):
     device = torch.device("cuda", 0)
     mesh = create_mesh(tuple(spec["mesh"]), device_type="cuda")
     config = sdxl_train_config(mesh_shape=spec["mesh"], fsdp_shard_params=True)
+    wait_for(os.path.join(workdir, "checkpoint_ready"))
     states = on_device_model_training_state(config, device=device, mesh=mesh)
     t0 = time.perf_counter()
     restored = restore_train_state(state_dir, {
@@ -4281,10 +4354,23 @@ def phase_fsdp_trainer(state, seed=0):
     )
     with open(os.path.join(workdir, "spec.json"), "w") as f:
         json.dump(dict(config_path=config_path, cache=cache, run_dir=run_dir), f)
+    ckpt = f"{base}@0"  # the chunk's
+    # the one-rank NCCL world reads the gloo leg's checkpoint back and trains
+    # on; it starts up beside the gloo ranks and builds its SDXL state once
+    # they are done (the card holds the three states one after the other)
+    nccl_cache = fsdp_cache(root, "nccl_cache", FSDP_NCCL_SHARDS)
+    with open(os.path.join(workdir, "nccl_spec.json"), "w") as f:
+        json.dump(dict(cache=nccl_cache, mesh=[1, 1, 1]), f)
     port = free_port()
-    t0 = time.perf_counter()
-    run_ranks(ddp_rank, lambda r: ("fsdp_trainer", r, FSDP_WORLD, port, workdir), FSDP_WORLD)
-    wall_s = time.perf_counter() - t0
+    leg = start_rank(fsdp_nccl_rank, (os.path.join(ckpt, "train_state"), workdir))
+    try:
+        t0 = time.perf_counter()
+        run_ranks(ddp_rank, lambda r: ("fsdp_trainer", r, FSDP_WORLD, port, workdir), FSDP_WORLD)
+        wall_s = time.perf_counter() - t0
+        open(os.path.join(workdir, "checkpoint_ready"), "w").close()
+        nccl_wall_s = finish_rank(leg)
+    finally:
+        stop_rank(leg)
     ranks = []
     for r in range(FSDP_WORLD):
         with open(os.path.join(workdir, f"fsdp_trainer_{r}.json")) as f:
@@ -4293,17 +4379,9 @@ def phase_fsdp_trainer(state, seed=0):
         lines = f.read().splitlines()
     rows = [line.split(",") for line in lines[1:] if line]
     final = read_json_file(config_path)
-    ckpt = f"{base}@0"  # rotated away by the NCCL leg's chunk
     saved = all(os.path.isdir(os.path.join(ckpt, d)) for d in ("unet", "vae", "text_encoder", "train_state")) and (
         os.path.isdir(f"{base}-EMA@0/unet"))
 
-    # the one-rank NCCL world reads the gloo leg's checkpoint back and trains on
-    nccl_cache = fsdp_cache(root, "nccl_cache", FSDP_NCCL_SHARDS)
-    with open(os.path.join(workdir, "nccl_spec.json"), "w") as f:
-        json.dump(dict(cache=nccl_cache, mesh=[1, 1, 1]), f)
-    t0 = time.perf_counter()
-    run_ranks(fsdp_nccl_rank, lambda r: (os.path.join(ckpt, "train_state"), workdir), 1)
-    nccl_wall_s = time.perf_counter() - t0
     with open(os.path.join(workdir, "nccl.json")) as f:
         nccl = json.load(f)
 
@@ -4492,10 +4570,10 @@ def timed_tp_sums(sink):
 def whole_trained_state(states):
     """Each trained model's params and Lion momentum whole on every rank
     (the split or sharded leaves gathered from every rank's, many leaves to
-    a collective; the others as they are), whether every rank's local codes
-    and scales are its slices of the gathered ones, the split quantized
-    leaves whose momentum stays whole, and a digest of the whole state with
-    the EMA."""
+    a collective, in two rounds where TP and FSDP both split them; the
+    others as they are), whether every rank's local codes and scales are
+    its parts of the gathered ones, the split quantized leaves whose
+    momentum stays whole, and a digest of the whole state with the EMA."""
     import torch
 
     from stable_diffusion_training_tpu_torch.optim import QuantizedMomentum
@@ -4848,7 +4926,8 @@ def timed_replicas(trainer):
 def tp_nccl_rank(state_dir, workdir):
     """A one-rank NCCL world from torchrun's variables on a ``[1, 1, 1]``
     mesh with ``tensor_parallel_shard_params`` (an axis of one rank: nothing
-    is split): the gloo leg's checkpoint read back whole
+    is split), its state built while the gloo ranks train: the gloo leg's
+    checkpoint, once the phase marks it written, read back whole
     (``restore_train_state``), each gloo rank's slices of the restored UNet
     and text encoder states fingerprinted for the gloo ranks' own, then one
     step of the step table on a synthetic batch of 8, its TP sums
@@ -4872,6 +4951,7 @@ def tp_nccl_rank(state_dir, workdir):
     mesh = create_mesh((1, 1, 1), device_type="cuda")
     config = train_config(mesh_shape=[1, 1, 1], tensor_parallel_shard_params=True)
     states = on_device_model_training_state(config, device=device, mesh=mesh)
+    wait_for(os.path.join(workdir, "checkpoint_ready"))
     t0 = time.perf_counter()
     restored = restore_train_state(state_dir, {
         "unet_state": states[0], "text_encoder_state": states[1], "unet_ema_params": states[2],
@@ -4964,10 +5044,18 @@ def phase_tp_trainer(state, seed=0):
     )
     with open(os.path.join(workdir, "spec.json"), "w") as f:
         json.dump(dict(config_path=config_path, run_dir=run_dir, seed=seed), f)
+    ckpt = f"{base}@0"  # the chunk's
     port = free_port()
-    t0 = time.perf_counter()
-    run_ranks(ddp_rank, lambda r: ("tp_trainer", r, TP_WORLD, port, workdir), TP_WORLD)
-    wall_s = time.perf_counter() - t0
+    # the NCCL leg builds its state beside the gloo ranks, then reads their checkpoint
+    leg = start_rank(tp_nccl_rank, (os.path.join(ckpt, "train_state"), workdir))
+    try:
+        t0 = time.perf_counter()
+        run_ranks(ddp_rank, lambda r: ("tp_trainer", r, TP_WORLD, port, workdir), TP_WORLD)
+        wall_s = time.perf_counter() - t0
+        open(os.path.join(workdir, "checkpoint_ready"), "w").close()
+        nccl_wall_s = finish_rank(leg)
+    finally:
+        stop_rank(leg)
     ranks = []
     for r in range(TP_WORLD):
         with open(os.path.join(workdir, f"tp_trainer_{r}.json")) as f:
@@ -4976,14 +5064,10 @@ def phase_tp_trainer(state, seed=0):
         lines = f.read().splitlines()
     rows = [line.split(",") for line in lines[1:] if line]
     final = read_json_file(config_path)
-    ckpt = f"{base}@0"  # the chunk's
     saved = all(os.path.isdir(os.path.join(ckpt, d)) for d in ("unet", "vae", "text_encoder", "train_state")) and (
         os.path.isdir(f"{base}-EMA@0/unet"))
     eval_dirs = sorted(os.listdir(cfg["eval_sample_dir"])) if os.path.isdir(cfg["eval_sample_dir"]) else []
 
-    t0 = time.perf_counter()
-    run_ranks(tp_nccl_rank, lambda r: (os.path.join(ckpt, "train_state"), workdir), 1)
-    nccl_wall_s = time.perf_counter() - t0
     with open(os.path.join(workdir, "nccl.json")) as f:
         nccl = json.load(f)
 
@@ -5070,13 +5154,693 @@ def phase_tp_trainer(state, seed=0):
         raise AssertionError(f"tp_trainer failed its checks: {checks}")
 
 
+TP_FSDP_MESH = [1, FSDP_WORLD, TP_WORLD]
+TP_FSDP_WORLD = FSDP_WORLD * TP_WORLD
+TP_FSDP_PARITY_BATCH = 2  # global: one row an fsdp rank, taken by both of its model_parallel ranks
+TP_FSDP_TRAINER_STEPS = 2  # one chunk: the first holds the set-up, eval after the second
+
+
+def tp_fsdp_place(rank):
+    """``(fsdp index, model_parallel index)`` of ``rank`` on the ``[1, 2,
+    2]`` mesh (row-major)."""
+    return divmod(rank, TP_WORLD)
+
+
+def tp_fsdp_rule(model, rank):
+    """The composed rule over ``model``'s quantized leaves for ``rank`` of
+    the ``[1, 2, 2]`` mesh, outside a process group: TP's plan
+    (``TpStandInMesh``), then FSDP2's ``torch.chunk`` rows of each local
+    leaf. Returns (this rank's table leaves at their local shapes, the
+    leaves whose momentum stays whole, the plan)."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.parallel.sharding import NestedShard, RowShard, ShardPlan, tp_plan
+
+    fsdp_index, tp_index = tp_fsdp_place(rank)
+    tp = tp_plan(model, TpStandInMesh(TP_WORLD, tp_index))
+    rows = {}
+    for name, p in model.named_parameters():
+        shape, outer = list(p.shape), tp.rows.get(name)
+        if outer is not None:
+            shape[outer.dim] = outer.stop - outer.start
+        chunk = -(-shape[0] // FSDP_WORLD)
+        inner = RowShard(torch.Size(shape), tuple(min(i * chunk, shape[0]) for i in range(FSDP_WORLD + 1)),
+                         fsdp_index, None)
+        rows[name] = inner if outer is None else NestedShard(outer, inner)
+    plan = ShardPlan(rows, tp.perms, fsdp=True)
+    local, whole = [], []
+    for name, shape, perm in quantized_leaves(model):
+        if plan.momentum(name, LION_BS) is None:
+            whole.append((name, shape, perm))
+        else:
+            inner = rows[name].inner if isinstance(rows[name], NestedShard) else rows[name]
+            local.append((name, (inner.stop - inner.start,) + tuple(inner.shape[1:]), perm))
+    return local, whole, plan
+
+
+def sd15_tp_fsdp_rules(rank=0):
+    """{model: tp_fsdp_rule} of SD1.5's UNet and text encoder."""
+    from stable_diffusion_training_tpu_torch.models import CLIPTextModel, UNet2DConditionModel, configs
+
+    return {
+        "unet": tp_fsdp_rule(UNet2DConditionModel(**configs.SD15_UNET, device="meta"), rank),
+        "text_encoder": tp_fsdp_rule(CLIPTextModel(**configs.CLIP_VIT_L, device="meta"), rank),
+    }
+
+
+def tp_fsdp_lion_launches(dtype_name, rank):
+    """One rank's Lion launches of one SD1.5 update under the composed
+    rule (the leaf table once per model over its local leaves, the
+    single-leaf entry once per leaf kept whole), and those leaves' names."""
+    launches, whole = {}, {}
+    for key, (local, kept, _) in sd15_tp_fsdp_rules(rank).items():
+        add_launches(launches, {"lion_leaves": lion_table_launches(local, dtype_name)})
+        for _, shape, _ in kept:
+            add_launches(launches, {"lion_single": {(math.prod(shape) // LION_BS, LION_BS, dtype_name): 1}})
+        whole[key] = [name for name, _, _ in kept]
+    return launches, whole
+
+
+def rank_rows(batch, rank):
+    """The rows of a global batch that ``rank``'s fsdp index takes (its
+    model_parallel partner takes the same)."""
+    index, _ = tp_fsdp_place(rank)
+    return {k: v[index * (v.shape[0] // FSDP_WORLD):(index + 1) * (v.shape[0] // FSDP_WORLD)]
+            for k, v in batch.items()}
+
+
+def to_host(tree):
+    """``tree`` (dicts of tensors and ``QuantizedMomentum``) in host memory."""
+    from stable_diffusion_training_tpu_torch.optim import QuantizedMomentum
+
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    if isinstance(tree, QuantizedMomentum):
+        return QuantizedMomentum(tree.codes.cpu(), tree.scales.cpu())
+    if isinstance(tree, tuple):
+        return tuple(to_host(v) for v in tree)
+    return tree.detach().cpu()
+
+
+def tp_fsdp_parity_rank(rank, workdir):
+    """Rank 0 first takes the step as one process over the global batch
+    (the reference, kept in host memory with the params before it); then
+    the four ranks take it with the UNet's and the text encoder's
+    projections split over the model_parallel axis and every leaf sharded
+    over the fsdp axis, each fsdp rank on its row, counting and timing the
+    TP sums and FSDP2's collectives, and gather the trained state whole
+    into host memory: rank 0 holds it against the reference, and each rank
+    its local Lion codes and scales against its parts of the gathered
+    ones."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.core import create_mesh, slice_batch_for_process
+    from stable_diffusion_training_tpu_torch.core.distributed import barrier
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+    from stable_diffusion_training_tpu_torch.optim import lion8bit
+    from stable_diffusion_training_tpu_torch.parallel import sharding
+    from stable_diffusion_training_tpu_torch.train import on_device_model_training_state, train_step
+
+    set_tf32(False)
+    marks = [("start", time.perf_counter())]  # where the rank's seconds go
+    device = torch.device("cuda", 0)
+    inputs = torch.load(os.path.join(workdir, "inputs.pt"))
+    batch = {k: v.to(device) for k, v in inputs["batch"].items()}
+    draws = {k: v.to(device) for k, v in inputs["draws"].items()}
+
+    def step(states, rows, mesh, ema_rate):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_step(*states[:4], rows, None, states[4], states[5], draws=draws, mesh=mesh,
+                         strip_bos_eos_token=True, ema_rate=ema_rate, text_context_window=77)
+        return out[4]["loss"].item(), (time.perf_counter() - t0) * 1e3
+
+    result, reference, before = {}, None, None
+    # the mesh's rows (two blocks: the fsdp ranks split them), no split, no mesh: one process
+    cfg = train_config(mixed_precision="float32", batch_size=TP_FSDP_PARITY_BATCH, mesh_shape=TP_FSDP_MESH)
+    if rank == 0:
+        ref_states = on_device_model_training_state(cfg, device=device)
+        before = {key: to_host(dict(s.params)) for key, s in (("unet", ref_states[0]), ("text_encoder", ref_states[1]))}
+        result["reference_loss"], result["reference_step_ms"] = step(ref_states, batch, None, cfg.ema_rate)
+        reference = {key: (to_host(dict(s.params)), to_host(dict(s.opt_state[1][0].mu_quant)))
+                     for key, s in (("unet", ref_states[0]), ("text_encoder", ref_states[1]))}
+        del ref_states
+        torch.cuda.empty_cache()
+        result["reference_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    barrier()
+    marks.append(("reference", time.perf_counter()))
+    cfg = train_config(mixed_precision="float32", batch_size=TP_FSDP_PARITY_BATCH, mesh_shape=TP_FSDP_MESH,
+                       fsdp_shard_params=True, tensor_parallel_shard_params=True)
+    mesh = create_mesh(tuple(TP_FSDP_MESH), device_type="cuda")
+    states = on_device_model_training_state(cfg, device=device, mesh=mesh)
+    marks.append(("set_up", time.perf_counter()))
+    sums, comms = {"forward": [], "backward": []}, {"all_gather": [], "reduce_scatter": []}
+    timed_tp_sums(sums)
+    timed_fsdp_comms(comms)
+    lion8bit.GRAD_COPIES["count"] = 0
+    fa.reset_launch_counts()
+    lk.reset_launch_counts()
+    counted = dict(sharding.TP_ALL_REDUCES)
+    result["loss"], result["step_ms"] = step(states, slice_batch_for_process(batch, mesh), mesh, cfg.ema_rate)
+    result["launches"] = launches_json(launch_snapshot(fa, lk))
+    result["tp_sums"] = {k: v - counted[k] for k, v in sharding.TP_ALL_REDUCES.items()}
+    result["tp_sums_ms"] = {k: sum(v) for k, v in sums.items()}
+    result["comms_ms"] = {k: sum(v) for k, v in comms.items()}
+    result["comms_calls"] = {k: len(v) for k, v in comms.items()}
+    result["grad_copies"] = lion8bit.GRAD_COPIES["count"]
+    result["heads"] = sorted({m.heads for m in states[0].model.modules() if hasattr(m, "to_q")})
+    result["step_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    marks.append(("step", time.perf_counter()))
+    torch.cuda.empty_cache()  # the step's cached blocks, for the whole state the four ranks gather
+    trained, local_slices, whole, digest = whole_trained_state(states)
+    result.update(local_slices=local_slices, whole_leaves=whole, digest=digest)
+    marks.append(("gather_and_digest", time.perf_counter()))
+    if reference is not None:
+        result["vs_one_process"] = compare_steps(trained, reference, before)
+    marks.append(("compare", time.perf_counter()))
+    result["seconds"] = {label: t - marks[i][1] for i, (label, t) in enumerate(marks[1:])}
+    return result
+
+
+def phase_tp_fsdp_parity(state, seed=3):
+    """The SD1.5 train step at full width in f32 (TF32 off) over a global
+    batch of 2 at 512x512 with fixed global draws: as one process (rank 0
+    first), then on four ranks (gloo, cuda:0) of a ``[1, 2, 2]`` mesh with
+    ``tensor_parallel_shard_params`` and ``fsdp_shard_params``: each fsdp
+    rank takes one row, its two model_parallel ranks 4 of the 8 heads each,
+    every leaf (the TP slices and the whole ones) sharded over the fsdp
+    pair. Each rank gathers the trained params, EMA, codes and scales
+    whole: the ranks' gathered states bitwise equal; rank 0's against the
+    one-process step within ``ddp_parity``'s bounds and code-noise rule;
+    each rank's local codes and scales its parts of the gathered ones; the
+    leaves kept whole those of the composed rule; the sums over the
+    model_parallel axis as the module count says (``sd15_tp_sums``) and
+    FSDP2's collectives run. Launches by shape and route: K1 5 at (4, 4096,
+    40) and 1 at (1, 4096, 512) (f32), the fused f32 backward 5 at (4, 4096,
+    40), Lion's leaf table once per model over the rank's local leaves. K1
+    f32 and the fused f32 backward are also held against their plain
+    versions at the rank's (4, 4096, 40)."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.train.train_step import make_draws
+
+    workdir = os.path.join(REPO, ".cache", "chip_smoke_tp_fsdp_parity")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    gen = torch.Generator().manual_seed(seed)
+    batch = {
+        "pixel_values": torch.rand(TP_FSDP_PARITY_BATCH, 3, TRAIN_RES, TRAIN_RES, generator=gen) * 2 - 1,
+        "input_ids": torch.randint(0, 49408, (TP_FSDP_PARITY_BATCH * TRAIN_CONCAT, 77), generator=gen),
+    }
+    latent = (TP_FSDP_PARITY_BATCH, 4, TRAIN_RES // 8, TRAIN_RES // 8)
+    torch.save({"batch": batch, "draws": make_draws(gen, latent, torch.float32, 1000, "cpu")},
+               os.path.join(workdir, "inputs.pt"))
+    rows = TP_FSDP_PARITY_BATCH // FSDP_WORLD
+    heads = sd15_heads() * rows // TP_WORLD
+    held = hold_flash_f32(heads, (TRAIN_RES // 8) ** 2, 40)
+    port = free_port()
+    t0 = time.perf_counter()
+    run_ranks(ddp_rank, lambda r: ("tp_fsdp_parity", r, TP_FSDP_WORLD, port, workdir), TP_FSDP_WORLD)
+    wall_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(TP_FSDP_WORLD):
+        with open(os.path.join(workdir, f"tp_fsdp_parity_{r}.json")) as f:
+            ranks.append(json.load(f))
+    launches = [nonzero(launches_from_json(r["launches"])) for r in ranks]
+    launches_ok, whole_ok = [], []
+    for r, got in enumerate(launches):
+        lion, whole_expected = tp_fsdp_lion_launches("float32", r)
+        want = dict(
+            flash_fwd={(heads, 4096, 4096, 40, "float32", "f32"): 5, (rows, 4096, 4096, 512, "float32", "f32"): 1},
+            flash_bwd_f32={(heads, 4096, 4096, 40, "float32"): 5}, **lion,
+        )
+        launches_ok.append(got == nonzero(want))
+        whole_ok.append(ranks[r]["whole_leaves"] == whole_expected)
+    ref_loss = ranks[0]["reference_loss"]
+    checks = dict(
+        ranks_gather_the_same_state=len({r["digest"] for r in ranks}) == 1 and len({r["loss"] for r in ranks}) == 1,
+        loss=abs(ranks[0]["loss"] - ref_loss) <= TRAIN_LOSS_REL_TOL * abs(ref_loss),
+        vs_one_process=all(v["ok"] for v in ranks[0]["vs_one_process"].values()),
+        local_momentum_is_its_part=all(all(r["local_slices"].values()) for r in ranks),
+        whole_leaves_as_the_rule=all(whole_ok),
+        tp_sums=all(r["tp_sums"] == sd15_tp_sums() for r in ranks),
+        fsdp_collectives=all(r["comms_calls"]["all_gather"] > 0 and r["comms_calls"]["reduce_scatter"] > 0
+                             for r in ranks),
+        each_rank_runs_half_the_heads=all(r["heads"] == [sd15_heads() // TP_WORLD] for r in ranks),
+        no_grad_copies=all(r["grad_copies"] == 0 for r in ranks),
+        launches=all(launches_ok),
+        kernels_held_at_the_rank_shape=held["ok"],
+    )
+    total = {}
+    for got in launches:
+        add_launches(total, got)
+    state["tp_fsdp_parity_by_shape"] = total
+    row = dict(
+        world=TP_FSDP_WORLD, backend="gloo", mesh=TP_FSDP_MESH, batch=TP_FSDP_PARITY_BATCH, rows_per_rank=rows,
+        heads_per_rank=sd15_heads() // TP_WORLD, resolution=TRAIN_RES, dtype="float32", wall_s=wall_s,
+        loss=ranks[0]["loss"], reference_loss=ref_loss, loss_rel_diff=abs(ranks[0]["loss"] - ref_loss) / abs(ref_loss),
+        vs_one_process=ranks[0]["vs_one_process"], whole_leaves=ranks[0]["whole_leaves"],
+        step_ms=[r["step_ms"] for r in ranks], reference_step_ms=ranks[0]["reference_step_ms"],
+        tp_sums=[r["tp_sums"] for r in ranks], tp_sums_expected=sd15_tp_sums(),
+        tp_sums_ms=[r["tp_sums_ms"] for r in ranks], comms_ms=[r["comms_ms"] for r in ranks],
+        comms_calls=[r["comms_calls"] for r in ranks], seconds=[r["seconds"] for r in ranks],
+        reference_max_memory_allocated=ranks[0]["reference_max_memory_allocated"],
+        step_max_memory_allocated=[r["step_max_memory_allocated"] for r in ranks],
+        max_memory_allocated=[r["max_memory_allocated"] for r in ranks], kernels_held=held,
+        launches_by_shape=[{k: {"x".join(map(str, s)): n for s, n in v.items()} for k, v in got.items()}
+                           for got in launches],
+        checks=checks, ok=all(checks.values()),
+    )
+    emit("tp_fsdp_parity", **row)
+    shutil.rmtree(workdir, ignore_errors=True)
+    if not row["ok"]:
+        raise AssertionError(f"tp_fsdp_parity failed its checks: {checks}")
+
+
+def tp_fsdp_trainer_rank(rank, workdir):
+    """``trainer.main`` once on this rank over the in-memory batches cut to
+    its fsdp index's rows, with the step table, the TP sums, FSDP2's
+    comms, the writers and the saves wrapped and, at the chunk checkpoint,
+    the fingerprints of the rank's UNet and text encoder states."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.data import InMemoryDataLoader, synthetic_batch
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+    from stable_diffusion_training_tpu_torch.optim import lion8bit
+    from stable_diffusion_training_tpu_torch.train import checkpoint, eval_sampler, trainer
+
+    with open(os.path.join(workdir, "spec.json")) as f:
+        spec = json.load(f)
+    set_tf32(False)
+    steps, fingerprints, per_step, evals = [], [], [], []
+    sums, comms = {"forward": [], "backward": []}, {"all_gather": [], "reduce_scatter": []}
+    calls = dict(write_model=0, write_train_state=0, json=0, png=0)
+    timed_step_table(steps)
+    timed_tp_sums(sums)
+    timed_fsdp_comms(comms)
+    step_table = trainer.bucket_train_steps
+
+    def measured_steps(training_config, frozen_vae, mesh=None):
+        def wrap(step):
+            def run(*args):
+                marks = {k: len(v) for k, v in (*sums.items(), *comms.items())}
+                out = step(*args)
+                per_step.append({k: (len(v) - marks[k], sum(v[marks[k]:])) for k, v in (*sums.items(), *comms.items())})
+                return out
+            return run
+        return {key: wrap(s) for key, s in step_table(training_config, frozen_vae, mesh=mesh).items()}
+
+    trainer.bucket_train_steps = measured_steps
+    sample = eval_sampler.EvalSampler.maybe_sample
+
+    def timed_sample(self, step, *args, **kwargs):
+        before = launch_snapshot(fa, lk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sample(self, step, *args, **kwargs)
+        torch.cuda.synchronize()
+        launched = launch_diff(launch_snapshot(fa, lk), before)
+        if any(launched.values()):
+            evals.append(dict(step=step, ms=(time.perf_counter() - t0) * 1e3, launches=launches_json(launched)))
+        return out
+
+    eval_sampler.EvalSampler.maybe_sample = timed_sample
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    checkpoint._write_model = counted("write_model", checkpoint._write_model)
+    checkpoint._write_train_state = counted("write_train_state", checkpoint._write_train_state)
+    trainer.save_dict_to_json = counted("json", trainer.save_dict_to_json)
+    eval_sampler.save_png_images = counted("png", eval_sampler.save_png_images)
+    save_chunk = trainer._save_chunk_checkpoints
+
+    def fingerprinted_save(config_dict, model_object_dict, tokenizer, unet_state, text_encoder_state, unet_ema,
+                           text_encoder_ema, frozen_vae, train_rng=None):
+        fingerprints.append(tp_state_fingerprints((unet_state, unet_ema), (text_encoder_state, text_encoder_ema)))
+        return save_chunk(config_dict, model_object_dict, tokenizer, unet_state, text_encoder_state, unet_ema,
+                          text_encoder_ema, frozen_vae, train_rng=train_rng)
+
+    trainer._save_chunk_checkpoints = fingerprinted_save
+    broadcasts, checks = timed_replicas(trainer)
+    lion8bit.GRAD_COPIES["count"] = 0
+    fa.reset_launch_counts()
+    lk.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    # InMemoryDataLoader.synthetic's global batches, each cut to the rank's rows
+    loader = InMemoryDataLoader([
+        rank_rows(synthetic_batch(TRAIN_BATCH, (TRAIN_RES, TRAIN_RES), concat_count=TRAIN_CONCAT, seed=spec["seed"] + i),
+                  rank)
+        for i in range(TP_FSDP_TRAINER_STEPS)
+    ])
+    watch = SaveWatch(trainer, spec["run_dir"])
+    t0 = time.perf_counter()
+    try:
+        trainer.main(spec["config_path"], dataloader=loader, tokenizer=None, device=torch.device("cuda", 0))
+        torch.cuda.synchronize()
+    finally:
+        watch.stop()
+    return dict(
+        steps=[dict(s, launches=launches_json(s["launches"])) for s in steps], per_step=per_step,
+        evals=evals, calls=calls, wall_s=time.perf_counter() - t0, fingerprints=fingerprints, saves=watch.row(),
+        whole_grads_broadcast_ms=broadcasts, replica_check_s=checks,
+        grad_copies=lion8bit.GRAD_COPIES["count"], launches=launches_json(launch_snapshot(fa, lk)),
+    )
+
+
+def tp_fsdp_nccl_rank(state_dir, workdir):
+    """A one-rank NCCL world from torchrun's variables on a ``[1, 1, 1]``
+    mesh with both flags (FSDP2 on one rank, an axis of one rank for TP:
+    nothing split, no collective), its state built while the gloo ranks
+    train: the gloo leg's checkpoint, once the phase marks it written, read
+    back whole (``restore_train_state``), each gloo rank's parts of the restored
+    UNet and text encoder states fingerprinted for the gloo ranks' own
+    (``tp_fsdp_rule``'s plan), then one step of the step table on a
+    synthetic batch of 8, its TP sums counted."""
+    import torch
+    import torch.distributed as dist
+
+    from stable_diffusion_training_tpu_torch.core import create_mesh, initialize_distributed
+    from stable_diffusion_training_tpu_torch.data import InMemoryDataLoader
+    from stable_diffusion_training_tpu_torch.models import CLIPTextModel, UNet2DConditionModel, configs
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+    from stable_diffusion_training_tpu_torch.parallel import sharding
+    from stable_diffusion_training_tpu_torch.train import bucket_train_steps, on_device_model_training_state, trainer
+    from stable_diffusion_training_tpu_torch.train.aot import batch_dispatch_key
+    from stable_diffusion_training_tpu_torch.train.checkpoint import restore_train_state
+
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    set_tf32(False)
+    initialize_distributed()
+    device = torch.device("cuda", 0)
+    mesh = create_mesh((1, 1, 1), device_type="cuda")
+    config = train_config(mesh_shape=[1, 1, 1], fsdp_shard_params=True, tensor_parallel_shard_params=True)
+    t0 = time.perf_counter()
+    states = on_device_model_training_state(config, device=device, mesh=mesh)
+    set_up_s = time.perf_counter() - t0
+    wait_for(os.path.join(workdir, "checkpoint_ready"))
+    t0 = time.perf_counter()
+    restored = restore_train_state(state_dir, {
+        "unet_state": states[0], "text_encoder_state": states[1], "unet_ema_params": states[2],
+        "text_encoder_ema_params": states[3], "train_rng": torch.Generator(device=device),
+    })
+    restore_s = time.perf_counter() - t0
+    unet_state, ema = restored["unet_state"], restored["unet_ema_params"]
+    models = {"unet": (unet_state, ema, UNet2DConditionModel(**configs.SD15_UNET, device="meta")),
+              "text_encoder": (restored["text_encoder_state"], restored["text_encoder_ema_params"],
+                               CLIPTextModel(**configs.CLIP_VIT_L, device="meta"))}
+    slices, whole = [], []
+    t0 = time.perf_counter()
+    for rank in range(TP_FSDP_WORLD):
+        got = {}
+        for key, (s, e, meta) in models.items():
+            plan = tp_fsdp_rule(meta, rank)[2]
+            if rank == 0:  # the leaves whole on both model_parallel ranks of an fsdp index
+                whole += [f"{key}/{kind}/{n}" for n in s.params if n not in plan.tp_names for kind in ("params", "ema")]
+            for n, t in s.params.items():
+                got[f"{key}/params/{n}"], got[f"{key}/ema/{n}"] = fingerprint(plan.take(n, t)), fingerprint(plan.take(n, e[n]))
+            for n, m in s.opt_state[1][0].mu_quant.items():
+                if hasattr(m, "codes"):
+                    shard = plan.momentum(n, m.codes.shape[1])
+                    codes, scales = shard.take(m.codes, m.scales) if shard is not None else (m.codes, m.scales)
+                    got[f"{key}/codes/{n}"], got[f"{key}/scales/{n}"] = fingerprint(codes), fingerprint(scales)
+        slices.append(got)
+    fingerprint_s = time.perf_counter() - t0
+    table = bucket_train_steps(config, states[4], mesh=mesh)
+    state = [unet_state, restored["text_encoder_state"], ema, restored["text_encoder_ema_params"]]
+    loader = InMemoryDataLoader.synthetic(1, TRAIN_BATCH, [(TRAIN_RES, TRAIN_RES)], concat_count=TRAIN_CONCAT,
+                                          seed=7)
+    fa.reset_launch_counts()
+    lk.reset_launch_counts()
+    counted = dict(sharding.TP_ALL_REDUCES)
+    steps = []
+    for batch in trainer._prefetch_to_device(loader, 1, 77, device):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = table[batch_dispatch_key(batch)](*state, batch, restored["train_rng"], states[4], states[5])
+        steps.append(dict(ms=(time.perf_counter() - t0) * 1e3, loss=out[4]["loss"].item()))
+    plan = unet_state.plan
+    result = dict(
+        backend=dist.get_backend(), world=dist.get_world_size(), steps=steps, slices=slices, whole=whole,
+        set_up_s=set_up_s, restore_s=restore_s, fingerprint_s=fingerprint_s,
+        tp_sums={k: v - counted[k] for k, v in sharding.TP_ALL_REDUCES.items()},
+        tp_split=bool(plan is not None and plan.tp_names), fsdp=bool(plan is not None and plan.fsdp),
+        launches=launches_json(launch_snapshot(fa, lk)), max_memory_allocated=torch.cuda.max_memory_allocated(),
+    )
+    dist.destroy_process_group()
+    with open(os.path.join(workdir, "nccl.json"), "w") as f:
+        json.dump(result, f)
+
+
+def phase_tp_fsdp_trainer(state, seed=0):
+    """``trainer.main`` on SD1.5 at full width, bf16, 512x512, the example
+    recipe, global batch 8 on four gloo ranks of cuda:0 on a ``[1, 2, 2]``
+    mesh with ``tensor_parallel_shard_params`` and ``fsdp_shard_params``:
+    each fsdp rank takes 4 rows, each model_parallel rank 4 of the 8 heads,
+    every leaf sharded over the fsdp pair. One chunk of 2 steps from
+    in-memory batches with its checkpoint and one DDIM eval (2 steps, on
+    every rank, rank 0 writing); then a one-rank NCCL world on ``[1, 1,
+    1]`` that reads the checkpoint back whole and takes one step. Checks:
+    finite ``loss.csv`` rows, one writer, the JSON, the checkpoint, the
+    ranks' losses equal, each step's TP sums (``sd15_tp_sums``), FSDP2's
+    collectives and launches at the rank's shapes (K1 5 at (16, 4096, 40)
+    and 1 at (4, 4096, 512), the fused bf16 backward 5 at (16, 4096, 40),
+    Lion's table once per model over the rank's local leaves), the eval's
+    (K1 5 a DDIM step at (8, 4096, 40) and the decode's 1 at (1, 4096,
+    512)), no grad copied before Lion, the checkpoint read back by the NCCL
+    leg equal, in each gloo rank's parts, to that rank's states at the save
+    (fingerprints), each model_parallel pair's shards of the whole leaves
+    alike, the whole leaves' grads broadcast in each step and the replica
+    check run once, the NCCL leg's backend, loss, launches and sums (none).
+    Prints per rank the step p50, the TP sums' and FSDP2's collectives' ms
+    a step (host clock, the card synchronized around each), the
+    broadcast's, the replica check's s and peak memory; the four ranks
+    share the card, so these describe the check, not scaling."""
+    from stable_diffusion_training_tpu_torch.utils.json_io import read_json_file
+
+    prompt = StubTokenizer()(["a photo of an astronaut riding a horse"], padding="max_length").input_ids
+    root = os.path.join(REPO, ".cache", "chip_smoke_tp_fsdp")
+    shutil.rmtree(root, ignore_errors=True)
+    workdir = os.path.join(root, "ranks")
+    os.makedirs(workdir)
+    # the mesh goes into the JSON only: this process has no group of four ranks
+    run_dir, base, cfg, config_path, _ = trainer_run(
+        "chip_smoke_tp_fsdp/trainer", train_config(), seed, mesh_shape=TP_FSDP_MESH, fsdp_shard_params=True,
+        tensor_parallel_shard_params=True, eval_sample_interval=TP_FSDP_TRAINER_STEPS,
+        eval_sample_prompt_ids=prompt.tolist(), eval_num_inference_steps=TP_EVAL_STEPS,
+        eval_sample_resolution=TRAIN_RES, eval_sample_dir=os.path.join(root, "eval"),
+    )
+    with open(os.path.join(workdir, "spec.json"), "w") as f:
+        json.dump(dict(config_path=config_path, run_dir=run_dir, seed=seed), f)
+    ckpt = f"{base}@0"  # the chunk's
+    port = free_port()
+    # the NCCL leg builds its state beside the gloo ranks, then reads their checkpoint
+    leg = start_rank(tp_fsdp_nccl_rank, (os.path.join(ckpt, "train_state"), workdir))
+    try:
+        t0 = time.perf_counter()
+        run_ranks(ddp_rank, lambda r: ("tp_fsdp_trainer", r, TP_FSDP_WORLD, port, workdir), TP_FSDP_WORLD)
+        wall_s = time.perf_counter() - t0
+        open(os.path.join(workdir, "checkpoint_ready"), "w").close()
+        nccl_wall_s = finish_rank(leg)
+    finally:
+        stop_rank(leg)
+    ranks = []
+    for r in range(TP_FSDP_WORLD):
+        with open(os.path.join(workdir, f"tp_fsdp_trainer_{r}.json")) as f:
+            ranks.append(json.load(f))
+    with open(cfg["loss_csv"]) as f:
+        lines = f.read().splitlines()
+    rows = [line.split(",") for line in lines[1:] if line]
+    final = read_json_file(config_path)
+    saved = all(os.path.isdir(os.path.join(ckpt, d)) for d in ("unet", "vae", "text_encoder", "train_state")) and (
+        os.path.isdir(f"{base}-EMA@0/unet"))
+    eval_dirs = sorted(os.listdir(cfg["eval_sample_dir"])) if os.path.isdir(cfg["eval_sample_dir"]) else []
+
+    with open(os.path.join(workdir, "nccl.json")) as f:
+        nccl = json.load(f)
+
+    rows_per_rank = TRAIN_BATCH // FSDP_WORLD
+    heads = sd15_heads() * rows_per_rank // TP_WORLD
+    want_eval = dict(flash_fwd={(2 * sd15_heads() // TP_WORLD, 4096, 4096, 40, "bfloat16", "tma_narrow"):
+                                5 * TP_EVAL_STEPS, (1, 4096, 4096, 512, "bfloat16", "tma_wide"): 1})
+    launches_ok, totals = [], {}
+    for r, got in enumerate(ranks):
+        lion, _ = tp_fsdp_lion_launches("bfloat16", r)
+        want_step = dict(
+            flash_fwd={(heads, 4096, 4096, 40, "bfloat16", "tma_narrow"): 5,
+                       (rows_per_rank, 4096, 4096, 512, "bfloat16", "tma_wide"): 1},
+            flash_bwd_fused={(heads, 4096, 4096, 40, "bfloat16"): 5}, **lion,
+        )
+        steps = [launches_from_json(s["launches"]) for s in got["steps"]]
+        expected_total = {}
+        for _ in range(TP_FSDP_TRAINER_STEPS):
+            add_launches(expected_total, want_step)
+        add_launches(expected_total, want_eval)
+        total = nonzero(launches_from_json(got["launches"]))
+        launches_ok.append(len(steps) == TP_FSDP_TRAINER_STEPS and all(nonzero(s) == nonzero(want_step) for s in steps)
+                           and [nonzero(launches_from_json(e["launches"])) for e in got["evals"]]
+                           == [nonzero(want_eval)] and total == nonzero(expected_total))
+        add_launches(totals, total)
+    state["tp_fsdp_trainer_by_shape"] = totals
+    nccl_lion = {}
+    for leaves in sd15_quantized_leaves().values():
+        add_launches(nccl_lion, {"lion_leaves": lion_table_launches(leaves, "bfloat16")})
+    nccl_launches = nonzero(launches_from_json(nccl["launches"]))
+    state["tp_fsdp_nccl_by_shape"] = nccl_launches
+    readback = [nccl["slices"][r] == ranks[r]["fingerprints"][0] if ranks[r]["fingerprints"] else False
+                for r in range(TP_FSDP_WORLD)]
+    # each model_parallel pair (ranks 2f and 2f + 1) holds the same shards of the whole leaves
+    whole_alike = bool(nccl["whole"]) and all(r["fingerprints"] for r in ranks) and all(
+        ranks[2 * f + 1]["fingerprints"][0][k] == ranks[2 * f]["fingerprints"][0][k]
+        for f in range(FSDP_WORLD) for k in nccl["whole"])
+    checks = dict(
+        loss_csv=lines[0] == "steps, step_size, loss, time, chunk, seed" and len(rows) == TP_FSDP_TRAINER_STEPS
+        and all(math.isfinite(float(r[2])) for r in rows),
+        json=(final["chunk_number"], final["chunk_steps"], final["master_seed"], final["model_path"])
+        == (1, 1, seed + 1, ckpt),
+        checkpoint=saved,
+        rank0_writes=ranks[0]["calls"] == dict(write_model=4, write_train_state=1, json=3, png=1),
+        other_ranks_write_nothing=all(not any(r["calls"].values()) for r in ranks[1:]),
+        eval_png=eval_dirs == [f"step_{TP_FSDP_TRAINER_STEPS:08d}"],
+        ranks_agree_on_losses=all([s["loss"] for s in r["steps"]] == [s["loss"] for s in ranks[0]["steps"]]
+                                  for r in ranks),
+        tp_sums=all(len(r["per_step"]) == TP_FSDP_TRAINER_STEPS and all(
+            {k: s[k][0] for k in ("forward", "backward")} == sd15_tp_sums() for s in r["per_step"]) for r in ranks),
+        fsdp_collectives=all(all(s["all_gather"][0] > 0 and s["reduce_scatter"][0] > 0 for s in r["per_step"])
+                             for r in ranks),
+        launches=all(launches_ok),
+        no_grad_copies=all(r["grad_copies"] == 0 for r in ranks),
+        checkpoint_read_back_equals_the_parts=all(readback),
+        pairs_whole_leaves_alike=whole_alike,
+        whole_grads_broadcast_each_step=all(len(r["whole_grads_broadcast_ms"]) == TP_FSDP_TRAINER_STEPS
+                                            for r in ranks),
+        replicas_checked_before_the_checkpoint=all(len(r["replica_check_s"]) == 1 for r in ranks),
+        nccl=nccl["backend"] == "nccl" and nccl["world"] == 1 and len(nccl["steps"]) == 1
+        and math.isfinite(nccl["steps"][0]["loss"]) and nccl["fsdp"] and not nccl["tp_split"]
+        and nccl["tp_sums"] == {"forward": 0, "backward": 0}
+        and nccl_launches == nonzero(step_launches(TRAIN_BATCH, nccl_lion)),
+    )
+    per_rank = []
+    for r in ranks:
+        timed = [s["ms"] for s in r["steps"][1:]]  # the first step holds the set-up
+        later = r["per_step"][1:]
+        per_rank.append(dict(
+            rank=r["rank"], place=tp_fsdp_place(r["rank"]), step_ms=[s["ms"] for s in r["steps"]],
+            step_p50_ms=statistics.median(timed),
+            tp_sums_ms_p50=statistics.median(s["forward"][1] + s["backward"][1] for s in later),
+            fsdp_comms_ms_p50=statistics.median(s["all_gather"][1] + s["reduce_scatter"][1] for s in later),
+            per_step=r["per_step"], whole_grads_broadcast_ms=r["whole_grads_broadcast_ms"],
+            replica_check_s=r["replica_check_s"], eval_ms=[e["ms"] for e in r["evals"]],
+            max_memory_allocated=r["max_memory_allocated"], wall_s=r["wall_s"],
+            losses=[s["loss"] for s in r["steps"]], **r["saves"],
+        ))
+    row = dict(
+        world=TP_FSDP_WORLD, backend="gloo", mesh=TP_FSDP_MESH, model="sd15", batch=TRAIN_BATCH,
+        rows_per_rank=rows_per_rank, heads_per_rank=sd15_heads() // TP_WORLD, resolution=TRAIN_RES,
+        dtype="bfloat16", steps=len(rows), wall_s=wall_s, ranks=per_rank, tp_sums_per_step=sd15_tp_sums(),
+        nccl=dict(world=nccl["world"], backend=nccl["backend"], wall_s=nccl_wall_s,
+                  step_ms=[s["ms"] for s in nccl["steps"]], loss=nccl["steps"][0]["loss"] if nccl["steps"] else None,
+                  set_up_s=nccl["set_up_s"], restore_s=nccl["restore_s"], fingerprint_s=nccl["fingerprint_s"],
+                  tp_sums=nccl["tp_sums"], max_memory_allocated=nccl["max_memory_allocated"]),
+        checkpoint_read_back=readback,
+        launches_by_shape={k: {"x".join(map(str, s)): n for s, n in v.items()} for k, v in totals.items()},
+        checks=checks, ok=all(checks.values()),
+    )
+    emit("tp_fsdp_trainer", **row)
+    shutil.rmtree(root, ignore_errors=True)
+    if not row["ok"]:
+        raise AssertionError(f"tp_fsdp_trainer failed its checks: {checks}")
+
+
+VAE_POLY_BATCH = 8  # train's VAE encode: global batch 8 at 512x512
+
+
+def phase_vae_polyphase(state, seed=5, repeats=5):
+    """The SD1.5 VAE encode at full width, 512x512, batch 8, in bf16 and f32
+    (TF32 off): the encoder with ``polyphase_downsample`` (``ops.conv``: each
+    of its three stride-2 convs as four stride-1 convs, f32 partials)
+    against the stride-2 form holding the same seeded weights. In f32 the
+    moments agree within 1e-4 of the largest |mean|; in bf16 each form is
+    held against the f32 stride-2 encode of the same bf16 weights and
+    pixels, and the polyphase form is no further off than twice the
+    stride-2 form. Also: finite moments of the expected shape, and K1 once
+    per encode at (8, 4096, 512) on the wide tensor-core route (bf16) or the
+    f32 route, counted in the polyphase run. Prints each form's device ms
+    (CUDA events) and their ratio; the JAX package measured the polyphase
+    form slower on its TPU and kept it off by default."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.models import AutoencoderKL, configs
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+
+    set_tf32(False)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand(VAE_POLY_BATCH, 3, TRAIN_RES, TRAIN_RES, generator=gen, device="cuda") * 2 - 1
+    total, out = {}, {}
+
+    def moments(dist):
+        return torch.cat([dist.mean, dist.logvar], dim=1).float()
+
+    for dtype, route in ((torch.bfloat16, "tma_wide"), (torch.float32, "f32")):
+        name_dt = str(dtype).replace("torch.", "")
+        plain = seeded_models(seed, dtype, vae=(AutoencoderKL, configs.SD_VAE))["vae"]
+        poly = AutoencoderKL(**configs.SD_VAE, device="cuda", dtype=dtype, polyphase_downsample=True)
+        poly.load_state_dict(plain.state_dict())
+        pixels = x.to(dtype)
+        with torch.no_grad():
+            fa.reset_launch_counts()
+            got = moments(poly.encode(pixels).latent_dist)
+            torch.cuda.synchronize()
+            launches = dict(fa.flash_attention_fwd.launches_by_shape)
+            want = moments(plain.encode(pixels).latent_dist)
+            err = (got - want).abs().max().item()
+            scale = want[:, :4].abs().max().item()
+            if dtype == torch.float32:
+                truth_err = None
+                close = err <= 1e-4 * scale
+            else:  # each bf16 form against the f32 stride-2 encode of the same bf16 weights and pixels
+                ref = AutoencoderKL(**configs.SD_VAE, device="cuda", dtype=torch.float32)
+                ref.load_state_dict(plain.state_dict())
+                truth = moments(ref.encode(pixels.float()).latent_dist)
+                del ref
+                truth_err = dict(polyphase=(got - truth).abs().max().item(), stride2=(want - truth).abs().max().item())
+                close = truth_err["polyphase"] <= 2 * truth_err["stride2"]
+            finite = bool(torch.isfinite(got).all())
+            shape = tuple(got.shape)
+            poly_ms = cuda_ms(lambda: poly.encode(pixels), repeats)
+            plain_ms = cuda_ms(lambda: plain.encode(pixels), repeats)
+        key = (VAE_POLY_BATCH, 4096, 4096, 512, name_dt, route)
+        add_launches(total, {"flash_fwd": launches})
+        checks = dict(moments=close, finite=finite, shape=shape == (VAE_POLY_BATCH, 8, TRAIN_RES // 8, TRAIN_RES // 8),
+                      launches=launches == {key: 1})
+        out[name_dt] = dict(max_abs_err=err, largest_mean=scale, vs_f32_stride2=truth_err, polyphase_ms=poly_ms,
+                            stride2_ms=plain_ms, ratio=poly_ms / plain_ms,
+                            launches={"x".join(map(str, k)): n for k, n in launches.items()},
+                            checks=checks, ok=all(checks.values()))
+        del plain, poly, got, want
+        torch.cuda.empty_cache()
+    state["vae_polyphase_by_shape"] = total
+    row = dict(model="sd15 vae", batch=VAE_POLY_BATCH, resolution=TRAIN_RES, by_dtype=out,
+               ok=all(v["ok"] for v in out.values()))
+    emit("vae_polyphase", **row)
+    if not row["ok"]:
+        raise AssertionError(f"vae_polyphase failed its checks: {out}")
+
+
 # forward cases whose f32 shape a path runs: the f32 UNet call of the parity
 # phase, the f32 train step
 F32_FWD_PATHS = {
-    "unet_l0": "parity", "unet_train": "train_f32", "vae_encode": "train_f32", "sdxl_unet_l1": "sdxl_parity",
+    "unet_l0": "parity", "unet_train": "train_f32", "vae_encode": "train_f32 and vae_polyphase", "sdxl_unet_l1": "sdxl_parity",
     "sdxl_train_parity_l1": "sdxl_train_parity", "sd21_parity_l1": "sd21_parity", "sd21_parity_l2": "sd21_parity",
-    "vae_mid": "ddp_parity, fsdp_parity and tp_parity ranks", "ddp_parity_unet": "ddp_parity and fsdp_parity ranks",
-    "tp_parity_unet": "tp_parity ranks",
+    "vae_mid": "ddp_parity, fsdp_parity, tp_parity and tp_fsdp_parity ranks",
+    "ddp_parity_unet": "ddp_parity and fsdp_parity ranks", "tp_parity_unet": "tp_parity and tp_fsdp_parity ranks",
 }
 SHORT = {"bfloat16": "bf16", "float32": "f32"}
 
@@ -5103,14 +5867,21 @@ def kernels_line(state):
     tp_parity = state.get("tp_parity_by_shape", {})
     tp_trainer = state.get("tp_trainer_by_shape", {})
     tp_nccl = state.get("tp_nccl_by_shape", {})
+    # TP with FSDP: every gloo rank's run summed; the NCCL leg (one rank) apart
+    tp_fsdp_parity = state.get("tp_fsdp_parity_by_shape", {})
+    tp_fsdp_trainer = state.get("tp_fsdp_trainer_by_shape", {})
+    tp_fsdp_nccl = state.get("tp_fsdp_nccl_by_shape", {})
+    vae_polyphase = state.get("vae_polyphase_by_shape", {})
     paths = {
         "bfloat16": [state.get(f"{p}_by_shape", {}) for p in ("slice", "sdxl", "sdxl_refiner", "sdxl_cache", "sd21")]
         + [train.get("flash_fwd", {}), sdxl_train.get("flash_fwd", {}), sd21_trainer.get("flash_fwd", {}),
            ddp_trainer.get("flash_fwd", {}), fsdp_trainer.get("flash_fwd", {}), tp_trainer.get("flash_fwd", {}),
-           tp_nccl.get("flash_fwd", {})],
+           tp_nccl.get("flash_fwd", {}), tp_fsdp_trainer.get("flash_fwd", {}), tp_fsdp_nccl.get("flash_fwd", {}),
+           vae_polyphase.get("flash_fwd", {})],
         "float32": [state.get(f"{p}_by_shape", {}) for p in ("parity", "sdxl_parity")]
         + [train_f32.get("flash_fwd", {}), sdxl_train_parity.get("flash_fwd", {}), sd21_parity.get("flash_fwd", {}),
-           ddp_parity.get("flash_fwd", {}), fsdp_parity.get("flash_fwd", {}), tp_parity.get("flash_fwd", {})],
+           ddp_parity.get("flash_fwd", {}), fsdp_parity.get("flash_fwd", {}), tp_parity.get("flash_fwd", {}),
+           tp_fsdp_parity.get("flash_fwd", {}), vae_polyphase.get("flash_fwd", {})],
     }
     entries = []
     for row in state.get("kernel_cases", []):
@@ -5137,11 +5908,14 @@ def kernels_line(state):
         "sdxl_train_parity_f32": [(sdxl_train_parity.get("flash_bwd_f32", {}), "sdxl_train_parity")],
         "sd21_parity_l1_f32": [(sd21_parity.get("flash_bwd_f32", {}), "sd21_parity")],
         "sd21_parity_l2_f32": [(sd21_parity.get("flash_bwd_f32", {}), "sd21_parity")],
-        "tp_parity_unet_f32": [(tp_parity.get("flash_bwd_f32", {}), "tp_parity ranks")],
+        "tp_parity_unet_f32": [(tp_parity.get("flash_bwd_f32", {}), "tp_parity ranks"),
+                               (tp_fsdp_parity.get("flash_bwd_f32", {}), "tp_fsdp_parity ranks")],
     }
     bf16_paths = {  # the fused bf16 kernel's, likewise
         "unet_train": [(train.get("flash_bwd_fused", {}), "train"),
-                       (tp_nccl.get("flash_bwd_fused", {}), "tp_trainer nccl")],
+                       (tp_nccl.get("flash_bwd_fused", {}), "tp_trainer nccl"),
+                       (tp_fsdp_nccl.get("flash_bwd_fused", {}), "tp_fsdp_trainer nccl")],
+        "tp_fsdp_unet_train": [(tp_fsdp_trainer.get("flash_bwd_fused", {}), "tp_fsdp_trainer ranks")],
         "sdxl_train": [(sdxl_train.get("flash_bwd_fused", {}), "sdxl_train"),
                        (fsdp_trainer.get("flash_bwd_fused", {}), "fsdp_trainer nccl")],
         "sdxl_train_bucket": [(sdxl_train.get("flash_bwd_fused", {}), "sdxl_train 1152x896"),
@@ -5197,7 +5971,8 @@ def kernels_line(state):
                     bound_ms=own["bound_ms"], bound_by=own["bound_by"],
                 ))
     # the leaf-table entry: the train step's Lion, one launch per model a step
-    train_paths = {"bfloat16": [(train, "train"), (ddp_trainer, "ddp_trainer ranks"), (tp_nccl, "tp_trainer nccl")],
+    train_paths = {"bfloat16": [(train, "train"), (ddp_trainer, "ddp_trainer ranks"), (tp_nccl, "tp_trainer nccl"),
+                                (tp_fsdp_nccl, "tp_fsdp_trainer nccl")],
                    "float32": [(train_f32, "train_f32"), (ddp_parity, "ddp_parity ranks")]}
     for row in state.get("lion_model_cases", []):
         if row["compander"] != "exact":
@@ -5208,6 +5983,9 @@ def kernels_line(state):
             runs = [(fsdp_trainer, "fsdp_trainer ranks")]
         elif row["model"].endswith("_fsdp_half"):
             runs = [(fsdp_parity, "fsdp_parity ranks")]
+        elif row["model"].endswith("_tp_fsdp_quarter"):
+            runs = ([(tp_fsdp_parity, "tp_fsdp_parity ranks")] if row["dtype"] == "float32"
+                    else [(tp_fsdp_trainer, "tp_fsdp_trainer ranks")])
         elif row["model"].endswith("_tp_half"):
             runs = [(tp_parity, "tp_parity ranks")] if row["dtype"] == "float32" else [(tp_trainer, "tp_trainer ranks")]
         elif row["model"].startswith("sd21_"):
@@ -5290,6 +6068,7 @@ def main(argv=None):
         sd21_parity=phase_sd21_parity, sd21=phase_sd21, sd21_trainer=phase_sd21_trainer,
         ddp_parity=phase_ddp_parity, ddp_trainer=phase_ddp_trainer, fsdp_parity=phase_fsdp_parity,
         fsdp_trainer=phase_fsdp_trainer, tp_parity=phase_tp_parity, tp_trainer=phase_tp_trainer,
+        tp_fsdp_parity=phase_tp_fsdp_parity, tp_fsdp_trainer=phase_tp_fsdp_trainer, vae_polyphase=phase_vae_polyphase,
     )
     started, seconds = time.perf_counter(), {}
     for name in ALL_PHASES[1:]:

@@ -15,7 +15,11 @@ leaves (``parallel.sharding.tensor_parallel_``, over ``model_parallel``,
 the rank's place on it ``axis_index(mesh, AXIS_TENSOR)``), and its own
 rows of each batch (``row_index``: the rows split over ``data_parallel`` x
 ``fsdp``, so the ``model_parallel`` ranks of a row block see the same rows
-and, seeded alike, the same draws).
+and, seeded alike, the same draws). On a ``[D, F, T]`` mesh a rank's
+groups are its fsdp ranks (``mesh[AXIS_FSDP]``, the sub-mesh of the ranks
+that share its data and model_parallel places: FSDP2 shards over it), its
+model_parallel ranks (``mesh.get_group(AXIS_TENSOR)``: the TP sums and the
+whole leaves' broadcast) and the world.
 """
 
 import math

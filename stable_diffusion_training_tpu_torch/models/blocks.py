@@ -4,8 +4,8 @@ the composite down/mid/up blocks.
 Port of ``stable_diffusion_training_tpu/models/blocks.py`` in NCHW, with
 diffusers' attribute names. Norm epsilons follow the JAX package: GroupNorm
 1e-5 in every ``ResnetBlock2D`` (the VAE's too), 1e-6 in the spatial
-transformer's norm. The polyphase stride-2 downsample (off by default in the
-JAX package) is not ported yet.
+transformer's norm. ``Downsample2D(polyphase=True)`` is the JAX package's
+polyphase stride-2 downsample (off by default there too).
 """
 
 import math
@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.conv import polyphase_stride2_conv
 from .attention import Transformer2DModel
 
 
@@ -84,16 +85,23 @@ class ResnetBlock2D(nn.Module):
 
 class Downsample2D(nn.Module):
     """Stride-2 3x3 conv downsample. The VAE encoder pads (0, 1) on each
-    spatial axis; the UNet pads 1 on both sides."""
+    spatial axis; the UNet pads 1 on both sides. ``polyphase`` computes the
+    same nine taps as four stride-1 convs (``ops.conv.polyphase_stride2_conv``,
+    f32 partials); the parameters are the same ``conv``'s, so checkpoints
+    move between the two forms."""
 
-    def __init__(self, channels: int, asymmetric_padding: bool = False):
+    def __init__(self, channels: int, asymmetric_padding: bool = False, polyphase: bool = False):
         super().__init__()
         self.asymmetric_padding = asymmetric_padding
+        self.polyphase = polyphase
         self.conv = nn.Conv2d(
             channels, channels, 3, stride=2, padding=0 if asymmetric_padding else 1
         )
 
     def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
+        if self.polyphase:
+            out = polyphase_stride2_conv(hidden_states, self.conv.weight, self.asymmetric_padding)
+            return out + self.conv.bias[:, None, None]
         if self.asymmetric_padding:
             hidden_states = F.pad(hidden_states, (0, 1, 0, 1))
         return self.conv(hidden_states)

@@ -42,6 +42,7 @@ import torch
 from torch import nn
 
 from ..utils.device import resolve_device
+from ..utils.staging import stream_bytes
 from .clip import CLIPTextModel, CLIPTextModelWithProjection
 from .unet import UNet2DConditionModel
 from .vae import AutoencoderKL
@@ -249,34 +250,34 @@ _ST_DTYPES = {
 
 
 def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
-    """Read a ``.safetensors`` file into CPU tensors (the data read once
-    into one buffer, each tensor copied out of it)."""
+    """Read a ``.safetensors`` file into CPU tensors, each tensor's bytes
+    read straight into its own storage."""
+    out = {}
     with open(path, "rb") as f:
         (header_len,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(header_len))
-        data = np.empty(os.fstat(f.fileno()).st_size - 8 - header_len, dtype=np.uint8)
-        view, done = memoryview(data), 0
-        while done < len(data):
-            n = f.readinto(view[done:])
-            if not n:
-                raise ValueError(f"{path}: the file ends before its data does")
-            done += n
-    out = {}
-    for key, info in header.items():
-        if key == "__metadata__":
-            continue
-        dtype = _ST_DTYPES.get(info["dtype"])
-        if dtype is None:
-            raise ValueError(f"{path}: tensor {key} has unsupported dtype {info['dtype']}")
-        start, end = info["data_offsets"]
-        if not 0 <= start <= end <= len(data):
-            raise ValueError(f"{path}: tensor {key} lies outside the file")
-        if end > start:
-            count = (end - start) // dtype.itemsize
-            tensor = torch.frombuffer(data, dtype=dtype, offset=start, count=count).clone()
-        else:
-            tensor = torch.empty(0, dtype=dtype)
-        out[key] = tensor.reshape(info["shape"])
+        size = os.fstat(f.fileno()).st_size - 8 - header_len
+        for key, info in header.items():
+            if key == "__metadata__":
+                continue
+            dtype = _ST_DTYPES.get(info["dtype"])
+            if dtype is None:
+                raise ValueError(f"{path}: tensor {key} has unsupported dtype {info['dtype']}")
+            start, end = info["data_offsets"]
+            if not 0 <= start <= end <= size:
+                raise ValueError(f"{path}: tensor {key} lies outside the file")
+            tensor = torch.empty(info["shape"], dtype=dtype)
+            if end - start != tensor.numel() * dtype.itemsize:
+                raise ValueError(f"{path}: tensor {key} holds {end - start} bytes, not {tuple(tensor.shape)}'s")
+            if tensor.numel():
+                f.seek(8 + header_len + start)
+                view, done = memoryview(tensor.reshape(-1).view(torch.uint8).numpy()), 0
+                while done < len(view):
+                    n = f.readinto(view[done:])
+                    if not n:
+                        raise ValueError(f"{path}: the file ends before its data does")
+                    done += n
+            out[key] = tensor
     return out
 
 
@@ -291,8 +292,9 @@ def save_safetensors(
 ) -> None:
     """Write ``tensors`` as a ``.safetensors`` file: u64 header length, the
     JSON header (padded with spaces to 8 bytes), then each tensor's raw
-    little-endian bytes, in the given order, with no gaps. Tensors move to
-    the host one at a time, each cast to ``dtype`` on the way if given."""
+    little-endian bytes, in the given order, with no gaps. Each tensor is
+    cast to ``dtype`` where it lies, if given, and reaches the file through
+    ``stream_bytes``."""
     header: Dict[str, Any] = {"__metadata__": dict(metadata)} if metadata else {}
     offset = 0
     for key, t in tensors.items():
@@ -309,10 +311,7 @@ def save_safetensors(
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(blob)))
         f.write(blob)
-        for t in tensors.values():
-            if t.numel():
-                host = t.detach().to(dtype or t.dtype).contiguous().cpu().reshape(-1)
-                f.write(host.view(torch.uint8).numpy().data)
+        stream_bytes((t.detach().to(dtype or t.dtype) for t in tensors.values()), f.write)
 
 
 def save_weights(params: Dict[str, torch.Tensor], directory: str, filename: str) -> None:
@@ -351,9 +350,11 @@ def load_unet(directory: str, device=None, dtype=torch.float32, attention_backen
     )
 
 
-def load_vae(directory: str, device=None, dtype=torch.float32, attention_backend="auto"):
+def load_vae(directory: str, device=None, dtype=torch.float32, attention_backend="auto", polyphase_downsample=False):
     """Newer diffusers names the VAE mid-block attention ``to_q/to_k/to_v/
-    to_out.0``; map them to the 0.21-era ``query/key/value/proj_attn``."""
+    to_out.0``; map them to the 0.21-era ``query/key/value/proj_attn``.
+    ``polyphase_downsample``: the encoder's polyphase downsamples (the same
+    parameters)."""
     renames = {".to_q.": ".query.", ".to_k.": ".key.", ".to_v.": ".value.",
                ".to_out.0.": ".proj_attn."}
 
@@ -365,7 +366,8 @@ def load_vae(directory: str, device=None, dtype=torch.float32, attention_backend
 
     sd = {rekey(k): v for k, v in _load_weights(directory).items()}
     return _build(
-        AutoencoderKL, directory, sd, device, dtype, attention_backend=attention_backend
+        AutoencoderKL, directory, sd, device, dtype, attention_backend=attention_backend,
+        polyphase_downsample=polyphase_downsample,
     )
 
 

@@ -80,7 +80,10 @@ class VaeAttentionBlock(nn.Module):
 
 
 class DownEncoderBlock2D(nn.Module):
-    def __init__(self, in_channels: int, out_channels: int, num_layers: int, add_downsample: bool):
+    def __init__(
+        self, in_channels: int, out_channels: int, num_layers: int, add_downsample: bool,
+        polyphase_downsample: bool = False,
+    ):
         super().__init__()
         self.resnets = nn.ModuleList(
             [
@@ -89,7 +92,9 @@ class DownEncoderBlock2D(nn.Module):
             ]
         )
         if add_downsample:
-            self.downsamplers = nn.ModuleList([Downsample2D(out_channels, asymmetric_padding=True)])
+            self.downsamplers = nn.ModuleList(
+                [Downsample2D(out_channels, asymmetric_padding=True, polyphase=polyphase_downsample)]
+            )
 
     def forward(self, sample: torch.Tensor) -> torch.Tensor:
         for resnet in self.resnets:
@@ -134,7 +139,7 @@ class VaeMidBlock(nn.Module):
 class Encoder(nn.Module):
     def __init__(
         self, in_channels: int, block_out_channels: Sequence[int], layers_per_block: int,
-        latent_channels: int, attention_backend: str = "auto",
+        latent_channels: int, attention_backend: str = "auto", polyphase_downsample: bool = False,
     ):
         super().__init__()
         self.conv_in = nn.Conv2d(in_channels, block_out_channels[0], 3, padding=1)
@@ -142,7 +147,9 @@ class Encoder(nn.Module):
         ch = block_out_channels[0]
         for i, out_ch in enumerate(block_out_channels):
             self.down_blocks.append(
-                DownEncoderBlock2D(ch, out_ch, layers_per_block, i < len(block_out_channels) - 1)
+                DownEncoderBlock2D(
+                    ch, out_ch, layers_per_block, i < len(block_out_channels) - 1, polyphase_downsample
+                )
             )
             ch = out_ch
         self.mid_block = VaeMidBlock(ch, attention_backend)
@@ -188,9 +195,11 @@ class Decoder(nn.Module):
 class AutoencoderKL(ConfigurableMixin, nn.Module):
     """``encode(x).latent_dist`` and ``decode(z).sample``, NCHW, as diffusers
     exposes them. Built on ``device`` (cuda unless told otherwise) in
-    ``dtype``."""
+    ``dtype``. ``polyphase_downsample``: the encoder's stride-2 convs as four
+    stride-1 convs each (``ops.conv``), a run-time choice that the saved
+    config leaves out, as the JAX package's does."""
 
-    ignore_for_config = ("dtype", "device", "attention_backend")
+    ignore_for_config = ("dtype", "device", "attention_backend", "polyphase_downsample")
 
     def __init__(
         self,
@@ -204,13 +213,14 @@ class AutoencoderKL(ConfigurableMixin, nn.Module):
         attention_backend: str = "auto",
         device=None,
         dtype: torch.dtype = torch.float32,
+        polyphase_downsample: bool = False,
     ):
         super().__init__()
         self._register_config(dict(locals()))
         with torch.device(resolve_device(device)):
             self.encoder = Encoder(
                 in_channels, block_out_channels, layers_per_block, latent_channels,
-                attention_backend,
+                attention_backend, polyphase_downsample,
             )
             self.decoder = Decoder(
                 out_channels, block_out_channels, layers_per_block, latent_channels,

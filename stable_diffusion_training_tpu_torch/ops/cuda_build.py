@@ -30,6 +30,10 @@ NVCC_FLAGS = (
     "-Xcompiler",
     "-fPIC",
     "-Xptxas=-v",
+    # every core for the optimizer and ptxas, a kernel each at a time (the
+    # same code; the Lion library's 96 kernels build in about half the time)
+    "-split-compile=0",
+    "-Xptxas=--split-compile=0",
 )
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -46,7 +46,11 @@ as a whole leaf: each rank's update is then bitwise the one-process update
 of its blocks. A split quantized leaf the rule refuses keeps its whole
 momentum on every rank: its grad is gathered, it takes the single-leaf
 route, and the rank keeps its range of the update. A leaf the plan does not
-split (under TP) is whole on every rank, and so is its momentum. The JAX
+split (under TP) is whole on every rank, and so is its momentum. Under TP
+with FSDP a leaf split over both axes keeps the blocks of its local leaf
+(``parallel.sharding.NestedMomentumShard``: for a row-split kernel a
+strided set of block ranges of the whole leaf's), which the leaf table
+takes as it takes any local leaf. The JAX
 package keeps every momentum whole under TP (``set_lion_tp_mesh``): the same
 numbers, placed otherwise.
 """

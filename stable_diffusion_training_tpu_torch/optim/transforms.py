@@ -54,19 +54,22 @@ def global_norm(updates: Tree, plan=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares, summed leaf by leaf
     in the leaves' dtype as optax's Python ``sum`` does. With ``plan`` (a
     ``parallel.sharding.ShardPlan``) the leaves it splits (``plan.rows``:
-    every leaf under FSDP) are the ranks' disjoint slices: each one's local
-    sum of squares is summed over ``plan.group``, the partials of a dtype
-    stacked into one ``all_reduce``, before the sum over leaves; the other
-    leaves (whole on every rank, as under TP) count once."""
+    every leaf under FSDP) are the ranks' disjoint parts: each one's local
+    sum of squares is summed over each group of its shard (``groups``: the
+    fsdp axis's, then, for a leaf TP splits too, the model_parallel
+    axis's), the partials of a dtype and group stacked into one
+    ``all_reduce``, before the sum over leaves; the other leaves (whole on
+    every rank, as under TP) count once."""
     squares = [(x * x).sum() for x in updates.values()]
     if plan is not None:
-        by_dtype: Dict[torch.dtype, list] = {}
+        by_group: Dict[tuple, list] = {}  # (dtype, group) -> leaves, in the order the groups come
         for i, (name, sq) in enumerate(zip(updates, squares)):
-            if name in plan.rows:
-                by_dtype.setdefault(sq.dtype, []).append(i)
-        for indices in by_dtype.values():
+            shard = plan.rows.get(name)
+            for group in () if shard is None else shard.groups:
+                by_group.setdefault((sq.dtype, group), []).append(i)
+        for (_, group), indices in by_group.items():
             stacked = torch.stack([squares[i] for i in indices])
-            torch.distributed.all_reduce(stacked, group=plan.group)
+            torch.distributed.all_reduce(stacked, group=group)
             for i, sq in zip(indices, stacked.unbind()):
                 squares[i] = sq
     return torch.sqrt(sum(squares))

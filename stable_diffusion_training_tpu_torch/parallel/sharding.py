@@ -1,6 +1,7 @@
 """Data parallelism, FSDP and tensor parallelism over the mesh: replicated
-state and summed grads, state sharded over the ``fsdp`` axis, or the
-attention and CLIP projections split over the ``model_parallel`` axis.
+state and summed grads, state sharded over the ``fsdp`` axis, the
+attention and CLIP projections split over the ``model_parallel`` axis, or
+both of the last two.
 
 Port of ``stable_diffusion_training_tpu/parallel/sharding.py``. In the JAX
 package a replicated ``NamedSharding`` makes every device hold the same state by
@@ -68,6 +69,26 @@ range of the JAX ``(I, O)`` leaf, so its reference momentum is a flat range
 of blocks; one split on its output channels holds whole blocks when every
 rank's count is a multiple of the block.
 
+TP with FSDP (``train_state_tp_sharding(fsdp_rest=True)`` of the JAX
+module): ``tensor_parallel_`` splits first and keeps each rank's slices,
+then ``fully_shard_`` shards every local leaf, slice or whole, on its torch
+axis 0 over the fsdp sub-mesh (``mesh[AXIS_FSDP]`` leaves
+``model_parallel`` out). ``shard_plan`` composes the two plans: a TP-split
+leaf is a ``NestedShard`` (TP's ``RowShard`` of the whole leaf, FSDP2's of
+the slice), every other leaf FSDP2's ``RowShard``. Its momentum
+(``NestedMomentumShard``) is TP's blocks of the reference momentum, then
+FSDP's blocks of those, each level by its own rule: a column-split kernel
+keeps a contiguous range of output channels, and a row-split kernel (a
+range of the JAX ``(I, O)`` leaf's rows) sharded on its output channels
+keeps ``I / T`` runs of ``O / F`` elements, a strided set of block ranges
+that is exactly the reference momentum of its local ``(I / T, O / F)``
+leaf. That placement, not the refusal (the TP slice's momentum whole on
+every fsdp rank, its grad gathered), keeps every split leaf of SD1.5 and
+SDXL in the Lion leaf table with no collective; a leaf whose ranges do not
+hold whole blocks at either level keeps its whole momentum, as under FSDP.
+Whole tensors are gathered in two rounds (``RowGather.then``): the fsdp
+rows first, then the TP slices.
+
 Two ranks on one card talk through gloo (NCCL takes one rank a card),
 whose CUDA all-gather and reduce-scatter are not usable and whose CUDA
 all-reduce and broadcast cross the host: there every collective here, and
@@ -79,8 +100,8 @@ import hashlib
 import math
 import os
 import tempfile
-from dataclasses import dataclass
-from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
+from dataclasses import dataclass, replace
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -89,6 +110,7 @@ from torch import nn
 from ..core.distributed import all_gather_objects
 from ..core.mesh import AXIS_DATA, AXIS_FSDP, AXIS_TENSOR, axis_index, axis_size
 from ..ops.lion_kernel import leaf_kind
+from ..utils.staging import stream_bytes
 
 ROW_AXES = (AXIS_DATA, AXIS_FSDP)  # the axes that split a batch's rows
 # the single-tensor all-gather under its current name, and the older one on
@@ -191,13 +213,13 @@ def all_reduce_grads_(grads: Dict[str, torch.Tensor], mesh, axes: Sequence[str] 
 
 
 def state_digest(tensors: Iterable[torch.Tensor]) -> str:
-    """sha256 of the tensors' bytes, in order, with their shapes and
-    dtypes."""
+    """sha256 of the tensors' shapes and dtypes, in order, then of their
+    bytes, in order (``stream_bytes``)."""
+    tensors = list(tensors)
     h = hashlib.sha256()
     for t in tensors:
-        t = t.detach()
         h.update(f"{tuple(t.shape)}{t.dtype};".encode())
-        h.update(t.contiguous().reshape(-1).view(torch.uint8).cpu().numpy().data)
+    stream_bytes(tensors, h.update)
     return h.hexdigest()
 
 
@@ -431,12 +453,15 @@ class RowGather:
     """One tensor to rebuild whole from the axis-0 rows that the ranks of
     ``group`` hold (``counts[i]`` rows on rank ``i``, this rank's ``local``),
     and ``post``, applied to the whole tensor (a transpose back to the
-    reference order), if any."""
+    reference order), if any. ``then``: a second level (a leaf split over
+    two axes), the ``RowGather`` whose local part is the tensor this one
+    rebuilds."""
 
     local: torch.Tensor
     counts: Tuple[int, ...]
     group: Any
     post: Optional[Any] = None
+    then: Optional[Callable[[torch.Tensor], "RowGather"]] = None
 
 
 @torch.no_grad()
@@ -446,7 +471,25 @@ def gather_rows_many(gathers: Sequence[RowGather], host: bool = False, keep: boo
     in one all-gather per ``BUCKET_BYTES``, each rank's rows padded to the
     largest count, through ``_CardExchange`` on gloo ranks of a card. The
     results are in host memory with ``host``, else on the local tensors'
-    device; a rank with ``keep`` False takes part and gets Nones."""
+    device; a rank with ``keep`` False takes part and gets Nones. The
+    gathers with a ``then`` take two rounds: every rank keeps the first
+    round's tensors on the device, the local parts of the second's."""
+    out: List[Optional[torch.Tensor]] = [None] * len(gathers)
+    direct = [i for i, g in enumerate(gathers) if g.then is None]
+    staged = [i for i, g in enumerate(gathers) if g.then is not None]
+    for i, full in zip(direct, _gather_round([gathers[i] for i in direct], host, keep)):
+        out[i] = full
+    if staged:
+        firsts = _gather_round([gathers[i] for i in staged], False, True)
+        seconds = gather_rows_many([gathers[i].then(f) for i, f in zip(staged, firsts)], host, keep)
+        for i, full in zip(staged, seconds):
+            out[i] = full
+    return out
+
+
+def _gather_round(gathers: Sequence[RowGather], host: bool, keep: bool) -> List[Optional[torch.Tensor]]:
+    """One level of ``gather_rows_many``: each of ``gathers`` whole from
+    its group's rows."""
     out: List[Optional[torch.Tensor]] = [None] * len(gathers)
     by_group: Dict[int, List[int]] = {}
     for i, g in enumerate(gathers):
@@ -492,13 +535,15 @@ def _gather_bucket(gathers, bucket, out, host, keep) -> None:
         _ALL_GATHER(whole, flat, group=group)
     if not keep:
         return
-    if host:
-        whole = whole.cpu()
     for i, off in zip(bucket, offsets):
         g, row = gathers[i], _row_bytes(gathers[i].local)
         parts = [whole[r * total + off : r * total + off + n * row] for r, n in enumerate(g.counts)]
+        # rebuilt (and transposed back) where the bucket lies; only the
+        # finished tensor crosses to the host
         full = torch.cat(parts).view(g.local.dtype).view((sum(g.counts),) + tuple(g.local.shape[1:]))
-        out[i] = g.post(full) if g.post is not None else full
+        if g.post is not None:
+            full = g.post(full)
+        out[i] = full.contiguous().cpu() if host else full
 
 
 @dataclass(frozen=True)
@@ -515,6 +560,11 @@ class RowShard:
     index: int
     group: Any
     dim: int = 0
+
+    @property
+    def groups(self) -> tuple:
+        """The groups whose ranks hold disjoint parts of the leaf."""
+        return (self.group,)
 
     @property
     def start(self) -> int:
@@ -547,6 +597,35 @@ class RowShard:
 
 def _transposer(dim: int):
     return lambda full: full.transpose(0, dim).contiguous()
+
+
+@dataclass(frozen=True)
+class NestedShard:
+    """A leaf split over two axes: ``outer`` splits the whole leaf (TP's
+    ``RowShard``, on torch axis 0 or 1), ``inner`` the outer slice (FSDP2's,
+    on its axis 0). The rank holds ``inner.take(outer.take(whole))``; the
+    whole leaf is rebuilt in two rounds, the fsdp rows first, then the TP
+    slices. Answers as a ``RowShard`` does."""
+
+    outer: RowShard
+    inner: RowShard
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.outer.shape
+
+    @property
+    def groups(self) -> tuple:
+        return self.inner.groups + self.outer.groups
+
+    def take(self, full: torch.Tensor) -> torch.Tensor:
+        return self.inner.take(self.outer.take(full))
+
+    def gathers(self, local: torch.Tensor) -> List[RowGather]:
+        return [replace(g, then=lambda t: self.outer.gathers(t)[0]) for g in self.inner.gathers(local)]
+
+    def gather(self, local: torch.Tensor, host: bool = False) -> torch.Tensor:
+        return gather_rows_many(self.gathers(local), host)[0]
 
 
 @dataclass(frozen=True)
@@ -585,13 +664,17 @@ class MomentumShard:
         """The whole leaf's codes and scales from every rank's, as two
         ``RowGather``s: the blocks of a transposed leaf gathered as rows of
         ``(rows / bs, columns, ...)`` and put back in reference order."""
+        return [self.part_gather(codes), self.part_gather(scales)]
+
+    def part_gather(self, t: torch.Tensor) -> RowGather:
+        """The ``RowGather`` of this rank's codes ``(n, bs)`` or scales
+        ``(n,)``."""
         counts, group = tuple(self._block_counts()), self.rows.group
         if not self.transposed:
-            return [RowGather(codes, counts, group), RowGather(scales, counts, group)]
-        c = codes.view(self.columns, -1, self.bs).transpose(0, 1).contiguous()
-        s = scales.view(self.columns, -1).t().contiguous()
-        return [RowGather(c, counts, group, lambda full: full.transpose(0, 1).reshape(-1, self.bs)),
-                RowGather(s, counts, group, lambda full: full.t().reshape(-1))]
+            return RowGather(t, counts, group)
+        tail = tuple(t.shape[1:])  # (bs,) for the codes, () for the scales
+        blocks = t.view(self.columns, -1, *tail).transpose(0, 1).contiguous()
+        return RowGather(blocks, counts, group, lambda full: full.transpose(0, 1).reshape(-1, *tail))
 
     def gather(self, codes: torch.Tensor, scales: torch.Tensor, host: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """The whole leaf's codes and scales from every rank's (a
@@ -600,26 +683,63 @@ class MomentumShard:
         return full_codes, full_scales
 
 
+@dataclass(frozen=True)
+class NestedMomentumShard:
+    """The momentum of a ``NestedShard`` leaf: ``outer``'s blocks of the
+    whole leaf's reference-order codes (TP's ``MomentumShard``), then
+    ``inner``'s of those (FSDP2's, over the outer slice as its leaf). For a
+    row-split kernel (a range of the JAX ``(I, O)`` leaf's rows) sharded on
+    its output channels that is a strided set of block ranges: ``I / T``
+    runs of ``O / F`` elements, each of whole blocks."""
+
+    outer: MomentumShard
+    inner: MomentumShard
+
+    def take(self, codes: torch.Tensor, scales: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.inner.take(*self.outer.take(codes, scales))
+
+    def gathers(self, codes: torch.Tensor, scales: torch.Tensor) -> List[RowGather]:
+        return [replace(g, then=self.outer.part_gather) for g in self.inner.gathers(codes, scales)]
+
+    def gather(self, codes: torch.Tensor, scales: torch.Tensor, host: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        full_codes, full_scales = gather_rows_many(self.gathers(codes, scales), host)
+        return full_codes, full_scales
+
+
 class ShardPlan:
     """One sharded model's split leaves: ``rows`` (``{name: RowShard}``;
-    under FSDP every leaf, under TP the split ones), the torch-to-JAX
-    permutation of each leaf (``perms``), for the momentum rule, and
-    ``fsdp``: whether FSDP2 holds the leaves (its parameters are DTensors)
-    or ``tensor_parallel_`` does (plain parameters, the split leaves' slices
-    and the rest whole)."""
+    under FSDP every leaf, under TP the split ones; with both, each TP-split
+    leaf a ``NestedShard``), the torch-to-JAX permutation of each leaf
+    (``perms``), for the momentum rule, and ``fsdp``: whether FSDP2 holds
+    the leaves (its parameters are DTensors) or ``tensor_parallel_`` alone
+    does (plain parameters, the split leaves' slices and the rest whole)."""
 
-    def __init__(self, rows: Dict[str, RowShard], perms: Dict[str, Optional[Sequence[int]]], fsdp: bool = False):
+    def __init__(self, rows: Dict[str, Any], perms: Dict[str, Optional[Sequence[int]]], fsdp: bool = False):
         self.rows = rows
         self.perms = perms
         self.fsdp = fsdp
-        self.group = next(iter(rows.values())).group
 
-    def momentum(self, name: str, bs: int) -> Optional[MomentumShard]:
+    @property
+    def tp_names(self) -> set:
+        """The leaves split over the ``model_parallel`` axis: each of its
+        ranks holds its own slice, where the other leaves are alike on
+        them."""
+        return {n for n, r in self.rows.items() if isinstance(r, NestedShard) or not self.fsdp}
+
+    def momentum(self, name: str, bs: int):
         """The co-sharding rule: the leaf's momentum is split as the leaf
         when it is a transposed leaf (Dense or Conv kernel) or one whose
         orders agree, no rank is empty, and every rank's range holds whole
-        blocks; None keeps the whole momentum on every rank."""
+        blocks; None keeps the whole momentum on every rank. A
+        ``NestedShard`` leaf's is split when the rule takes both levels (a
+        ``NestedMomentumShard``), else kept whole."""
         rows = self.rows[name]
+        if isinstance(rows, NestedShard):
+            outer, inner = (self._momentum(r, name, bs) for r in (rows.outer, rows.inner))
+            return None if outer is None or inner is None else NestedMomentumShard(outer, inner)
+        return self._momentum(rows, name, bs)
+
+    def _momentum(self, rows: RowShard, name: str, bs: int) -> Optional[MomentumShard]:
         kind = leaf_kind(rows.shape, self.perms.get(name), bs)
         if kind is None or 0 in rows.counts:
             return None
@@ -797,7 +917,7 @@ def tensor_parallel_(module: nn.Module, mesh) -> Optional[ShardPlan]:
         setattr(owner, leaf, nn.Parameter(local, requires_grad=old.requires_grad))
         if leaf == "weight" and isinstance(owner, nn.Linear):
             owner.out_features, owner.in_features = local.shape
-    axis = TpAxis(plan.group, axis_size(mesh, AXIS_TENSOR))
+    axis = TpAxis(mesh.get_group(AXIS_TENSOR), axis_size(mesh, AXIS_TENSOR))
     for prefix, m in module.named_modules():
         if hasattr(m, "split_") and any(_qualified(prefix, n) in plan.rows for n, _ in m.named_parameters()):
             m.split_(axis)
@@ -806,7 +926,12 @@ def tensor_parallel_(module: nn.Module, mesh) -> Optional[ShardPlan]:
 
 
 def shard_plan(module: nn.Module) -> Optional[ShardPlan]:
-    """The plan of a module's split leaves: FSDP2's (``fsdp_plan``), else
-    the one ``tensor_parallel_`` kept, else None (whole tensors). Its
-    ``fsdp`` says which."""
-    return fsdp_plan(module) or getattr(module, TP_PLAN_ATTR, None)
+    """The plan of a module's split leaves: FSDP2's (``fsdp_plan``), the one
+    ``tensor_parallel_`` kept, both composed when FSDP2 sharded a split
+    module (each TP-split leaf a ``NestedShard``), else None (whole
+    tensors). Its ``fsdp`` says whether FSDP2 holds the leaves."""
+    fsdp, tp = fsdp_plan(module), getattr(module, TP_PLAN_ATTR, None)
+    if fsdp is None or tp is None:
+        return fsdp or tp
+    rows = {n: NestedShard(tp.rows[n], r) if n in tp.rows else r for n, r in fsdp.rows.items()}
+    return ShardPlan(rows, fsdp.perms, fsdp=True)

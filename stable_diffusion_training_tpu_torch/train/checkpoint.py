@@ -31,7 +31,8 @@ the Lion codes and scales into the reference order:
 ``parallel.sharding.gather_rows_many``), rank 0 keeping them in host memory;
 then rank 0 writes. Under tensor parallelism the split leaves are
 rebuilt the same way, each on its own axis (a row-split kernel's input
-channels on torch axis 1). The files are those
+channels on torch axis 1); under TP with FSDP in two rounds, the fsdp rows
+of each TP slice first, then the slices. The files are those
 a one-process run writes for the same state, and a restore reads the whole
 files and keeps each rank's shard or slice, so a checkpoint moves between
 one process, a data-parallel world and an FSDP or TP world either way. The checkpoint
@@ -89,7 +90,8 @@ def save_model(
 def _whole(params: Dict[str, torch.Tensor], plan: Optional[ShardPlan]) -> Dict[str, torch.Tensor]:
     """``params`` with each shard of ``plan`` gathered into its whole leaf,
     several leaves a collective (every rank calls it), rank 0 keeping them
-    in host memory and the others nothing; ``params`` itself without a
+    in host memory (the leaves no rank splits stay where they are, for the
+    writer to stream) and the others nothing; ``params`` itself without a
     plan."""
     if plan is None:
         return params
@@ -97,7 +99,7 @@ def _whole(params: Dict[str, torch.Tensor], plan: Optional[ShardPlan]) -> Dict[s
     names = [n for n in params if n in plan.rows]
     fulls = gather_rows_many([g for n in names for g in plan.rows[n].gathers(params[n])], host=True, keep=keep)
     gathered = dict(zip(names, fulls))
-    return {n: gathered[n] if n in gathered else t.cpu() for n, t in params.items()} if keep else {}
+    return {n: gathered.get(n, t) for n, t in params.items()} if keep else {}
 
 
 def _write_model(model_object_dict, tokenizer_object, unet_params, text_encoder_params, vae_params, output_dir):

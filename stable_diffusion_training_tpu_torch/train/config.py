@@ -14,16 +14,18 @@ say which of them the port ignores. ``mesh_shape`` lays the ranks out:
 batch split over data x fsdp ranks; the ``model_parallel`` ranks of a row
 block see the same rows. ``fsdp_shard_params`` shards params, grads, EMA
 and the Lion momentum over the ``fsdp`` axis (FSDP2; HSDP with D > 1); with
-it off the fsdp ranks are data parallel, as in the JAX package, and on an
-fsdp axis of 1 it trains as the default does (FSDP2 runs in a process
-group, every shard the whole leaf). ``tensor_parallel_shard_params`` splits
-the attention and CLIP projections over the ``model_parallel`` axis
-(Megatron's column and row splits, ``parallel.tensor_parallel_``); without
-it that axis holds replicas that all compute the same step, as in the JAX
-package, and on an axis of 1 it changes nothing. A field that asks for
-what the port does not have yet (fsdp and model_parallel axes above 1
-together, the polyphase VAE downsample) raises ``NotImplementedError``
-naming its ROADMAP item.
+it off the fsdp ranks are data parallel, as in the JAX package (``[D, F,
+T]`` then trains as ``[D * F, 1, T]``), and on an fsdp axis of 1 it trains
+as the default does (FSDP2 runs in a process group, every shard the whole
+leaf). ``tensor_parallel_shard_params`` splits the attention and CLIP
+projections over the ``model_parallel`` axis (Megatron's column and row
+splits, ``parallel.tensor_parallel_``); without it that axis holds replicas
+that all compute the same step, as in the JAX package, and on an axis of 1
+it changes nothing. With both, FSDP2 shards the split models' local leaves
+over the fsdp axis (``shards_params()`` and ``splits_tensors()`` both
+true). ``vae_polyphase_downsample`` builds the frozen VAE's encoder with
+the polyphase stride-2 convs (``ops.conv``). A mesh axis the port does not
+know raises ``NotImplementedError`` naming its ROADMAP item.
 ``batch_size`` is the global batch, as in the reference: the data x fsdp
 ranks must divide it, and each rank's rows must divide into
 ``grad_accumulation_steps`` micro-batches.
@@ -76,7 +78,7 @@ class TrainingConfig:
     # --- the JAX package's additions, defaulted so reference configs load ---
     model_family: str = "sd15"  # architecture family when building fresh models
     # rank layout: None = every rank on the data axis; [W, 1] the same;
-    # [D, F, T] data x fsdp x model (F and T above 1 together raise, not ported)
+    # [D, F, T] data x fsdp x model
     mesh_shape: Optional[List[int]] = None
     mesh_axis_names: Optional[List[str]] = None
     fsdp_shard_params: bool = False  # ZeRO-3 over the fsdp axis (FSDP2)
@@ -88,7 +90,7 @@ class TrainingConfig:
     mixed_precision: str = "bfloat16"  # computation and param dtype of the models
     attention_backend: str = "auto"  # "auto" | "flash" | "xla" | "xla_remat"
     # the VAE encoder's stride-2 convs as four stride-1 polyphase convs
-    # (True raises, not ported; off by default in the JAX package)
+    # (ops.conv; off by default, as in the JAX package)
     vae_polyphase_downsample: bool = False
     # quantized momentum through the fused kernel; None = on (the default),
     # False = the plain jnp-path math
@@ -130,8 +132,6 @@ class TrainingConfig:
         for axis, size in axes.items():
             if axis not in MESH_AXES and size > 1:
                 raise not_ported(f"mesh_shape={list(self.mesh_shape)} ({axis} axis of {size})", 7)
-        if axes.get(AXIS_FSDP, 1) > 1 and axes.get(AXIS_TENSOR, 1) > 1:
-            raise not_ported(f"mesh_shape={list(self.mesh_shape)} (fsdp and model_parallel axes together)", 7)
         world = math.prod(axes.values()) if axes else process_count()
         if world != process_count():
             raise ValueError(
@@ -144,8 +144,6 @@ class TrainingConfig:
                 f"batch_size={self.batch_size} must split into {rows} rank(s) of whole "
                 f"grad_accumulation_steps={self.grad_accumulation_steps} micro-batches"
             )
-        if self.vae_polyphase_downsample:
-            raise not_ported("vae_polyphase_downsample=True (ops/conv.py)", 9)
         if self.cached_text_context and self.train_text_encoder:
             # zero grads + Lion weight decay would silently decay the
             # "trainable" TE toward zero while conditioning comes from the

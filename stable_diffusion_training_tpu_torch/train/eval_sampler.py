@@ -108,7 +108,7 @@ class EvalSampler:
         unet = model_object_dict["unet"]
         self._models = [m for m in (unet, model_object_dict.get("vae"), model_object_dict.get("text_encoder"))
                         if m is not None]
-        # FSDP2-sharded or split models and their plans: every rank runs their forwards
+        # FSDP2-sharded or split models (or both) and their plans: every rank runs their forwards
         self._sharded = [(m, plan) for m in self._models if (plan := shard_plan(m)) is not None]
         if getattr(unet, "addition_embed_type", None) == "text_time":
             refiner = int(config_dict.get("sdxl_time_ids_count", 6)) != 6

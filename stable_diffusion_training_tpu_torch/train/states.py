@@ -18,8 +18,13 @@ and the text encoder's attention (and CLIP's MLP) projections are split
 over that axis (``parallel.tensor_parallel_``, the JAX package's
 ``train_state_tp_sharding``) before the optimizer state and the EMA copies
 are built on each rank's leaves: its slices of the split ones, the rest
-whole. It keeps the reference trainer's quirks as the JAX package
-does:
+whole. With both, the split models are then sharded (the JAX package's
+``train_state_tp_sharding(fsdp_rest=True)``): FSDP2 shards each rank's
+leaves, its slices and the whole ones, over the fsdp axis, and the state
+is built on those shards under the composed plan (``shard_plan``). The
+frozen VAE's encoder takes the polyphase downsample when
+``vae_polyphase_downsample`` says so. It keeps the reference trainer's
+quirks as the JAX package does:
 
 - ``on_device_model_training_state`` hard-codes ``adam_to_lion_scale_factor``
   = 7 and does not forward the configured learning rates unless
@@ -80,7 +85,9 @@ class TrainState:
     keeps a root's gathered params registered after a forward that no
     backward follows (a frozen text encoder's): ``params`` reshards the root
     first, so that the next forward gathers what the chain wrote. A split
-    model's params are plain parameters, its slices of the split leaves."""
+    model's params are plain parameters, its slices of the split leaves;
+    one split and then sharded holds its shards of its slices (the composed
+    plan, still ``plan.fsdp``)."""
 
     def __init__(self, model: nn.Module, tx: transforms.GradientTransformation):
         self.model = model
@@ -118,21 +125,25 @@ def load_models(training_config: TrainingConfig, device=None) -> dict:
     tower 2 is not loaded (it runs only in the offline cache pass,
     ``data/latent_cache.py``). The UNet recomputes its blocks and
     feed-forwards in the backward as ``gradient_checkpointing`` and
-    ``ff_gradient_checkpointing`` say."""
+    ``ff_gradient_checkpointing`` say; the VAE's encoder downsamples through
+    the polyphase convs as ``vae_polyphase_downsample`` says."""
     device = resolve_device(device)
     dtype = _DTYPES[training_config.mixed_precision]
     backend = training_config.attention_backend
+    polyphase = training_config.vae_polyphase_downsample
     model_dir = training_config.model_path
     if _is_checkpoint_dir(model_dir):
         unet = hf_io.load_unet(os.path.join(model_dir, "unet"), device, dtype, backend)
-        vae = hf_io.load_vae(os.path.join(model_dir, "vae"), device, dtype, backend)
+        vae = hf_io.load_vae(os.path.join(model_dir, "vae"), device, dtype, backend, polyphase)
         text_encoder = hf_io.load_text_encoder(os.path.join(model_dir, "text_encoder"), device, dtype)
     else:
         family = configs.MODEL_FAMILIES[
             model_dir if model_dir in configs.MODEL_FAMILIES else training_config.model_family
         ]
         unet = UNet2DConditionModel(**family["unet"], attention_backend=backend, device=device, dtype=dtype)
-        vae = AutoencoderKL(**family["vae"], attention_backend=backend, device=device, dtype=dtype)
+        vae = AutoencoderKL(
+            **family["vae"], attention_backend=backend, device=device, dtype=dtype, polyphase_downsample=polyphase
+        )
         # CLIPTextModel takes tower 1 (a family may give its slot a config
         # with a projection, as the refiner's does; from_config drops it)
         text_encoder = CLIPTextModel.from_config(family["text_encoder"], device=device, dtype=dtype)
@@ -309,11 +320,11 @@ def on_device_model_training_state(training_config: TrainingConfig, device=None,
     (cuda unless told otherwise). With a ``mesh`` (``core.create_mesh``)
     the models' weights are first replicated from the mesh's first rank, so
     seeded weights and a ``model_path`` checkpoint give every rank the same
-    start; then, when ``training_config.shards_params()``, the UNet and the
-    text encoder are sharded over the mesh's ``fsdp`` axis, or, when
-    ``training_config.splits_tensors()``, split over its ``model_parallel``
-    axis, before the optimizer state and the EMA copies are built on the
-    local leaves.
+    start; then, when ``training_config.splits_tensors()``, the UNet and the
+    text encoder are split over the mesh's ``model_parallel`` axis, and,
+    when ``training_config.shards_params()``, (the split or whole models)
+    sharded over its ``fsdp`` axis, before the optimizer state and the EMA
+    copies are built on the local leaves.
     Returns the JAX package's 7-tuple: ``(unet_state, text_encoder_state,
     unet_ema_params, text_encoder_ema_params, frozen_vae,
     frozen_schedulers, models)``."""
@@ -322,15 +333,14 @@ def on_device_model_training_state(training_config: TrainingConfig, device=None,
     replicate_(
         [p.detach() for m in (*trained, models["vae"]["vae_model"]) for p in m.parameters()], mesh, MESH_AXES
     )
-    if mesh is not None and training_config.shards_params():
+    if mesh is not None:
         for model, key in zip(trained, ("unet", "text_encoder")):
-            fully_shard_(model, mesh)
-            # the whole tensors are gone: the dicts hold the local shards
+            if training_config.splits_tensors():
+                tensor_parallel_(model, mesh)  # each rank keeps its slices of the split leaves
+            if training_config.shards_params():
+                fully_shard_(model, mesh)  # then its shards of every leaf it holds
+            # the dicts hold the rank's own leaves: slices, shards or both
             models[key][f"{key}_params"] = {n: local_tensor(p) for n, p in model.named_parameters()}
-    elif mesh is not None and training_config.splits_tensors():
-        for model, key in zip(trained, ("unet", "text_encoder")):
-            tensor_parallel_(model, mesh)
-            models[key][f"{key}_params"] = dict(model.named_parameters())  # the split leaves' slices
     # the reference hard-codes scale 7 and drops the configured LRs;
     # honor_learning_rates opts out of that quirk
     lr_kwargs = dict(adam_to_lion_scale_factor=7)

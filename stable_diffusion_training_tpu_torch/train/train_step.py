@@ -65,7 +65,10 @@ that axis): the copies differ only by the kernels' run-to-run rounding
 (cuDNN's weight-grad sums, the flash backward's dQ sum), and the whole
 leaves' replicas stay bitwise alike, as XLA's do. A ``model_parallel`` axis
 without ``tensor_parallel_shard_params`` holds replicas of every leaf, which
-take the first rank's grads the same way.
+take the first rank's grads the same way. With FSDP too, each rank's
+grads are FSDP2's shards of its own leaves (``loss.backward()``, the
+reduce-scatter over fsdp), and the model_parallel ranks then take the
+first rank's shards of the leaves that TP leaves whole.
 """
 
 from typing import Any, Dict, Optional, Sequence, Union
@@ -240,9 +243,10 @@ def _grads(loss: torch.Tensor, params: Dict[str, torch.Tensor], sharded: bool = 
 
 
 def _split_names(state, prefix: str) -> set:
-    """The grads' names of the leaves that ``state``'s plan splits."""
+    """The grads' names of the leaves that ``state``'s plan splits over the
+    ``model_parallel`` axis."""
     plan = None if state is None else state.plan
-    return set() if plan is None else {prefix + name for name in plan.rows}
+    return set() if plan is None else {prefix + name for name in plan.tp_names}
 
 
 def train_step(
@@ -334,8 +338,9 @@ def train_step(
     if mesh is not None:
         if not sharded:  # FSDP2 has summed the sharded grads in the backward
             all_reduce_grads_(grads, mesh)
-            split = _split_names(unet_state, "") | _split_names(text_encoder_state, "text_encoder/")
-            replicate_([g for k, g in grads.items() if k not in split], mesh, (AXIS_TENSOR,))
+        # the leaves alike on the model_parallel ranks (their local shards under FSDP)
+        split = _split_names(unet_state, "") | _split_names(text_encoder_state, "text_encoder/")
+        replicate_([g for k, g in grads.items() if k not in split], mesh, (AXIS_TENSOR,))
         loss = all_reduce_((loss.detach() / ranks).reshape(1), mesh)[0]
     unet_state.apply_gradients({k: grads[k] for k in unet_state.params})
     if train_text_encoder:

@@ -220,11 +220,12 @@ def _delete_all(*paths) -> None:
 
 def _assert_replicas_alike(mesh, *states) -> None:
     """Raise unless the ``model_parallel`` ranks of each row block hold the
-    same params of every leaf that no plan splits (the train step gives
-    them one rank's grads); nothing without such an axis."""
+    same params of every leaf that no plan splits over that axis (the train
+    step gives them one rank's grads; under FSDP their local shards);
+    nothing without such an axis."""
     if axis_size(mesh, AXIS_TENSOR) <= 1:
         return
-    whole = [p for s in states for name, p in s.params.items() if s.plan is None or name not in s.plan.rows]
+    whole = [p for s in states for name, p in s.params.items() if s.plan is None or name not in s.plan.tp_names]
     assert_replicated(whole, "the model_parallel ranks' whole leaves", mesh, AXIS_TENSOR)
 
 

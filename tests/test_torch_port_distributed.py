@@ -84,7 +84,7 @@ CONFIG_CASES = {
     "fsdp-axis": (dict(mesh_shape=[1, 2, 1], mesh_axis_names=["data_parallel", "fsdp", "model_parallel"]), "ok"),
     "fsdp-params": (dict(fsdp_shard_params=True), "ok"),
     "tensor-parallel-params": (dict(tensor_parallel_shard_params=True), "ok"),
-    "tensor-parallel-with-fsdp": (dict(mesh_shape=[1, 2, 2], tensor_parallel_shard_params=True), "NotImplementedError"),
+    "tensor-parallel-with-fsdp": (dict(mesh_shape=[1, 2, 2], tensor_parallel_shard_params=True), "ValueError"),
     "mesh-not-the-world": (dict(mesh_shape=[4, 1]), "ValueError"),
     "batch-not-split": (dict(batch_size=3), "ValueError"),
     "micro-batch-not-split": (dict(batch_size=2, grad_accumulation_steps=2), "ValueError"),
@@ -307,11 +307,11 @@ def test_batch_slicing_matches_jax(world, rank, monkeypatch):
 def test_config_takes_data_parallel_meshes_only(world, name):
     """In a world of two: ``mesh_shape`` None, ``[2, 1]``, an fsdp axis of
     2 or a model_parallel axis of 2 builds a config, and so do
-    ``fsdp_shard_params`` and ``tensor_parallel_shard_params``; fsdp and
-    model_parallel axes above 1 together (checked before the world's size)
-    raise ``NotImplementedError`` naming ROADMAP item 7; a mesh that is not
-    the world, or a global batch that does not split into the ranks' whole
-    micro-batches, raises ``ValueError``."""
+    ``fsdp_shard_params`` and ``tensor_parallel_shard_params``; a mesh that
+    is not the world (fsdp and model_parallel axes of 2 together hold four
+    ranks), or a global batch that does not split into the ranks' whole
+    micro-batches, raises ``ValueError``; ``NotImplementedError`` names a
+    ROADMAP item."""
     outcome = CONFIG_CASES[name][1]
     for rank in range(WORLD):
         got = _result(world, "layout", rank)["configs"][name]

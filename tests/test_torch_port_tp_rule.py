@@ -25,8 +25,8 @@ are patched where a test needs them).
   leaf counts once), a row-split layer adds its bias once after the sum,
   and a self-attention sums its input's grad once for q, k and v.
 - ``TrainingConfig`` takes ``[D, 1, T]`` meshes with
-  ``tensor_parallel_shard_params`` and still raises ROADMAP item 7 for fsdp
-  and model_parallel axes above 1 together.
+  ``tensor_parallel_shard_params``, and ``[D, F, T]`` ones with fsdp and
+  model_parallel axes above 1 together.
 """
 
 import jax
@@ -359,7 +359,14 @@ def test_config_takes_tensor_parallel_meshes(monkeypatch):
 
 
 def test_config_still_raises_for_tp_with_fsdp(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _config(monkeypatch, 4, mesh_shape=[1, 2, 2], tensor_parallel_shard_params=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _config(monkeypatch, 4, mesh_shape=[1, 2, 2], fsdp_shard_params=True)
+    """TP with FSDP is ported: ``[1, 2, 2]`` with both flags both shards
+    and splits, its rows split over the fsdp axis; it still raises, as any
+    mesh does, where the process group does not hold its four ranks."""
+    cfg = _config(monkeypatch, 4, mesh_shape=[1, 2, 2], tensor_parallel_shard_params=True, fsdp_shard_params=True)
+    assert cfg.splits_tensors() and cfg.shards_params() and cfg.batch_shards() == 2
+    cfg = _config(monkeypatch, 4, mesh_shape=[1, 2, 2], tensor_parallel_shard_params=True)
+    assert cfg.splits_tensors() and not cfg.shards_params() and cfg.batch_shards() == 2
+    with pytest.raises(ValueError, match="the process group has 2"):
+        _config(monkeypatch, 2, mesh_shape=[1, 2, 2], tensor_parallel_shard_params=True)
+    with pytest.raises(ValueError, match="the process group has 2"):
+        _config(monkeypatch, 2, mesh_shape=[1, 2, 2], fsdp_shard_params=True)

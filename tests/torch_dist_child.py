@@ -1,5 +1,6 @@
 """One rank of the worlds of ``tests/test_torch_port_distributed.py``,
-``tests/test_torch_port_fsdp*.py`` and ``tests/test_torch_port_tp*.py``.
+``tests/test_torch_port_fsdp*.py``, ``tests/test_torch_port_tp*.py`` and
+``tests/test_torch_port_tp_fsdp*.py``.
 
 Started with the ``spawn`` method; imports torch and the port only (no JAX,
 no conftest). ``run_rank`` joins the gloo group through
@@ -354,18 +355,43 @@ class RuleModel(torch.nn.Module):
 RULE_EXCLUDED = ("out.bias",)  # 4 elements: dense momentum
 
 
-def rule_inputs(seed: int = 0):
+class TpRuleModel(torch.nn.Module):
+    """One leaf of each kind for the rule over a ``(1, 2, 2)`` mesh at block
+    16 (TP first, then FSDP2 on each TP slice): the ``wide`` attention's
+    q, k, v (column-split, 16 output channels a rank) and ``to_out``
+    (row-split, then sharded on its outputs: 32 input rows a rank, in runs
+    of 32 of its 64 output channels), ``mlp_fc1`` (column-split with its
+    bias) and ``mlp_fc2`` (row-split; its bias whole under TP), all whole
+    blocks at both levels; the ``narrow`` attention's q, k, v (12 output
+    channels a rank) and ``to_out`` (24 rows, or bias elements, a rank under
+    FSDP), which keep their whole momentum; a Conv kernel and a 48-wide norm that TP leaves
+    whole and FSDP splits (the norm into 24 elements a rank, not whole
+    blocks)."""
+
+    def __init__(self):
+        super().__init__()
+        from stable_diffusion_training_tpu_torch.models.attention import Attention
+
+        self.wide = Attention(64, heads=2, dim_head=32)
+        self.narrow = Attention(48, heads=2, dim_head=24)
+        self.mlp_fc1 = torch.nn.Linear(64, 128)
+        self.mlp_fc2 = torch.nn.Linear(128, 64)
+        self.conv = torch.nn.Conv2d(8, 32, 3)
+        self.norm = torch.nn.LayerNorm(48)
+
+
+def rule_inputs(seed: int = 0, model_class=None):
     """The rule model's params and two steps of grads, whole, from a seed."""
     torch.manual_seed(seed)
-    model = RuleModel()
+    model = (model_class or RuleModel)()
     g = torch.Generator().manual_seed(seed + 1)
     grads = [{n: torch.randn(p.shape, generator=g) for n, p in model.named_parameters()} for _ in range(2)]
     return model, grads
 
 
-def rule_optimizer(model, use_pallas, plan=None):
-    """Global-norm clipping and 8-bit Lion at block 16 over the rule model
-    (``plan``: its FSDP plan, or None for one process)."""
+def rule_optimizer(model, use_pallas, plan=None, max_norm=0.5):
+    """Global-norm clipping at ``max_norm`` and 8-bit Lion at block 16 over
+    the rule model (``plan``: its FSDP plan, or None for one process)."""
     from stable_diffusion_training_tpu_torch.models.hf_io import jax_param_paths
     from stable_diffusion_training_tpu_torch.optim import transforms
     from stable_diffusion_training_tpu_torch.optim.lion8bit import scale_by_lion_8bit
@@ -374,7 +400,7 @@ def rule_optimizer(model, use_pallas, plan=None):
     orders = {n: perm for n, (_, perm) in jax_param_paths(model).items()}
     lion = scale_by_lion_8bit(block_size=16, excluded_layer_mask=mask, use_pallas=use_pallas,
                               leaf_orders=orders, plan=plan)
-    return transforms.chain(transforms.clip_by_global_norm(0.5, plan), lion)
+    return transforms.chain(transforms.clip_by_global_norm(max_norm, plan), lion)
 
 
 def rule_state(state) -> dict:
@@ -382,26 +408,40 @@ def rule_state(state) -> dict:
     return {n: (m.codes.clone(), m.scales.clone()) if hasattr(m, "codes") else m.clone() for n, m in mu.items()}
 
 
+def shard_layout(shard) -> tuple:
+    """A plan's shard of one leaf as plain values: ``("rows", dim, bounds,
+    index)``, or ``("nested", outer, inner)`` of two such."""
+    if hasattr(shard, "outer"):
+        return ("nested", shard_layout(shard.outer), shard_layout(shard.inner))
+    return ("rows", shard.dim, tuple(shard.bounds), shard.index)
+
+
 def run_rule(case: dict, mesh) -> dict:
-    """The rule model sharded with FSDP2 over the mesh's fsdp axis; the
+    """The rule model sharded with FSDP2 over the mesh's fsdp axis (with
+    ``tp``: ``TpRuleModel``, first split over the model_parallel axis); the
     clip and 8-bit Lion chain on this rank's shards (``use_pallas`` as the
-    case says) for two updates of the whole grads' local rows: the local
+    case says) for two updates of the whole grads' local parts: the local
     momentum after init and after each update, the local updates, each
-    leaf's rows, and ``global_norm``'s value and collectives on the
-    shards."""
+    leaf's rows (its layout under TP), and ``global_norm``'s value and
+    collectives on the shards."""
     import torch.distributed as dist
     from torch.distributed.fsdp import fully_shard
 
     from stable_diffusion_training_tpu_torch.optim import transforms
-    from stable_diffusion_training_tpu_torch.parallel.sharding import fsdp_mesh, fsdp_plan, local_tensor
+    from stable_diffusion_training_tpu_torch.parallel.sharding import (
+        fsdp_mesh, local_tensor, shard_plan, tensor_parallel_,
+    )
 
-    model, grads = rule_inputs()
+    model, grads = rule_inputs(model_class=TpRuleModel if case.get("tp") else None)
+    if case.get("tp"):
+        tensor_parallel_(model, mesh)
     fully_shard(model, mesh=fsdp_mesh(mesh))
-    plan = fsdp_plan(model)
+    plan = shard_plan(model)
     params = {n: local_tensor(p) for n, p in model.named_parameters()}
-    tx = rule_optimizer(model, case["use_pallas"], plan)
+    tx = rule_optimizer(model, case["use_pallas"], plan, case.get("max_norm", 0.5))
     state = tx.init(params)
-    out = {"rows": {n: (r.start, r.stop) for n, r in plan.rows.items()},
+    rows = {n: shard_layout(r) if case.get("tp") else (r.start, r.stop) for n, r in plan.rows.items()}
+    out = {"rows": rows,
            "whole": sorted(n for n in plan.rows if n not in RULE_EXCLUDED and plan.momentum(n, 16) is None),
            "init": rule_state(state[1]), "updates": [], "states": []}
     for step in grads:
@@ -426,6 +466,23 @@ def run_rule(case: dict, mesh) -> dict:
     return out
 
 
+def run_plan(case: dict, mesh) -> dict:
+    """The trained models' plans on this rank after
+    ``on_device_model_training_state`` with the case's config: ``{model:
+    {name: shard_layout}}``, and the leaves whose momentum the rule keeps
+    whole."""
+    from stable_diffusion_training_tpu_torch.train import on_device_model_training_state
+
+    states = on_device_model_training_state(step_config(case["config"]), device="cpu", mesh=mesh)
+    out = {"layout": {}, "whole": {}}
+    for key, state in (("unet", states[0]), ("text_encoder", states[1])):
+        plan = state.plan
+        out["layout"][key] = {n: shard_layout(r) for n, r in plan.rows.items()}
+        mu = state.opt_state[1][0].mu_quant
+        out["whole"][key] = sorted(n for n, m in mu.items() if hasattr(m, "codes") and plan.momentum(n, 16) is None)
+    return out
+
+
 def run_rank(rank: int, world: int, workdir: str) -> None:
     torch.set_num_threads(1)
     from stable_diffusion_training_tpu_torch.core import create_mesh, initialize_distributed
@@ -444,6 +501,8 @@ def run_rank(rank: int, world: int, workdir: str) -> None:
         try:
             if case["kind"] == "step":
                 result = run_step(case, mesh)
+            elif case["kind"] == "plan":
+                result = run_plan(case, mesh)
             elif case["kind"] == "trainer":
                 result = run_trainer(case, mesh)
             elif case["kind"] == "rule":
