@@ -5,6 +5,7 @@ NVIDIA GPU and check it end to end.
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --phases gpu,build,kernels
     python3 chip_smoke.py --phases gpu,build,train_f32   # the f32 train step alone
+    python3 chip_smoke.py --phases gpu,build,train,trace_audit   # the bf16 step, then its audited trace
     python3 chip_smoke.py --phases gpu,build,sdxl_parity,sdxl,sdxl_refiner   # SDXL serving
     python3 chip_smoke.py --phases gpu,build,sdxl_train_parity,sdxl_train,sdxl_trainer   # SDXL training
     python3 chip_smoke.py --phases gpu,build,sd21_parity,sd21,sd21_trainer   # SD2.1 at 768x768
@@ -25,7 +26,11 @@ Phases, one JSON line each:
    (``HGMMA``) and TMA load (``UTMALDG``) instructions in ``cuobjdump
    -sass`` of the built library; fails if one is missing, spills or lacks
    either, or if an f32 kernel (the fused backward, the forward's narrow
-   and wide kernels) is missing or spills.
+   and wide kernels) is missing or spills. Prints the parts of the
+   toolchain's key (``utils.hostcache``: ``nvcc --version``, the host
+   compiler, the flags); before building it plants a stale
+   ``_build/flash_attention_fwd-0000000000000000/`` and fails unless the
+   build purged it and kept every library's own directory.
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
    with max errors against the stated tolerances, kernel / plain / library
    device times (CUDA events; the calls queued behind a spin kernel so the
@@ -133,15 +138,31 @@ Phases, one JSON line each:
    f32 one and the CUDA-core K2 and K3 none, Lion's leaf-table entry
    twice (one launch per model) and its single- and multi-leaf entries
    never, per step, and no grad copied before Lion). Then one step under
-   torch.profiler (``profile`` line).
-11. ``train_f32``: the same step with ``mixed_precision: "float32"`` (TF32
+   torch.profiler (``profile`` line, with device ms by
+   ``utils.kernel_trace`` category).
+11. ``trace_audit``: the same bf16 step once more under torch.profiler with
+   the host's ops and their shapes (``record_shapes``), its Chrome trace
+   read with the package (``utils.kernel_trace``, ``utils.roofline``): the
+   category report and the 12 ops with the most device time, each with its
+   roofline share, on lines before the phase's own; the idle share beside
+   that of ``train``'s device-only profile of the same step (the gap is
+   what tracing the host costs). Fails unless (a) the trace's named
+   launches, each around the flash or Lion kernels it started, are the
+   launches the wrappers counted in that step, and no such kernel lies
+   outside one, (b) the reader's device ms by kernel name are
+   ``key_averages()``'s within 1% on a small profile recorded the same way,
+   (c) no op's and no category's roofline share is above 1, (d) the trace's
+   flash and Lion bounds are the launches times the ``kernels`` phase's
+   bounds at those shapes. Needs ``train`` before it; the trace is gzipped
+   into ``chiprun_out/``.
+12. ``train_f32``: the same step with ``mixed_precision: "float32"`` (TF32
    off), the fidelity configuration: 2 warm-up steps, then 3 timed (K1 5 +
    1 on the f32 route, none on the older CUDA-core forward; the fused f32
    backward 5, the bf16 one and the CUDA-core pair
    none, Lion as above with f32 grads), step p50, images/s, peak memory, then
    one step under torch.profiler (``profile`` line: the backward's device
    time, the idle share). f32 dQ repeats bitwise; bf16 dQ does not.
-12. ``trainer``: the port's trainer through ``trainer.main``, the body of
+13. ``trainer``: the port's trainer through ``trainer.main``, the body of
    ``python -m stable_diffusion_training_tpu_torch.training``, with the same
    settings (SD1.5 ``sd15`` seeded weights, bf16, 512x512, batch 8) on
    ``InMemoryDataLoader.synthetic`` batches, in a run directory under
@@ -154,14 +175,14 @@ Phases, one JSON line each:
    every kernel of the train step launched. Prints the step p50 inside the
    trainer beside the ``train`` phase's, seconds per ``save_model`` and per
    ``save_train_state``, bytes written and peak disk use.
-13. ``sdxl_train_parity``: one SDXL train step's loss and grads (the step's
+14. ``sdxl_train_parity``: one SDXL train step's loss and grads (the step's
    own loss function) at full width in f32 (TF32 off), batch 1, 128x128
    cached moments, a 227-token 2048-wide context, pooled 1280 and 6 time
    ids, the draws injected: "auto" against "xla" (a model holding the same
    tensors) within ``train_parity``'s bounds, the add-embedding's grads
    non-zero; K1 and the fused f32 backward exactly 10 times each at (10,
    4096, 64).
-14. ``sdxl_train``: SDXL training (BASELINE config 5). The offline pass
+15. ``sdxl_train``: SDXL training (BASELINE config 5). The offline pass
    first: ``precompute_latent_cache`` over three shards of 4 synthetic
    images (1024x1024, 1152x896, 1024x1024) with seeded bf16 towers 1 and 2
    and the SDXL VAE (ms per image; K1 once per image at the mid-block's
@@ -176,13 +197,13 @@ Phases, one JSON line each:
    over strided; finite losses, codes and the add-embedding moving; one
    step's Lion update against its plain version; the optimizer chain's
    host ms; one step profiled.
-15. ``sdxl_trainer``: one ``trainer.main`` chunk over ``sdxl_train``'s
+16. ``sdxl_trainer``: one ``trainer.main`` chunk over ``sdxl_train``'s
    cache (3 steps) with its checkpoint: ``loss.csv``, the JSON, the probe,
    the chunk's ``unet/`` and its EMA variant reloaded through ``hf_io``
    equal to the saved state, that state restored, the step's kernels
    launched; seconds per save, bytes, peak disk. The run directory and the
    cache are deleted at the end.
-16. ``sd21_parity``: SD2.1's UNet at full width (linear projections, heads
+17. ``sd21_parity``: SD2.1's UNet at full width (linear projections, heads
    of 64 at every level, a 1024-wide context) in f32 (TF32 off), batch 1,
    96x96 latents: the forward, then one train step's loss and grads (the
    step's own loss: cached moments, a 227-token context, v-prediction,
@@ -190,11 +211,11 @@ Phases, one JSON line each:
    ``parity`` and ``train_parity`` bounds; K1 5 times at (5, 9216, 64) and 5
    at (10, 2304, 64) a forward (the 48x48 level is the first second level
    any path sends to flash), the fused f32 backward the same.
-17. ``sd21``: SD2.1 text-to-image at full width in bf16 (OpenCLIP ViT-H,
+18. ``sd21``: SD2.1 text-to-image at full width in bf16 (OpenCLIP ViT-H,
    23 layers, exact-erf gelu), seeded weights, 768x768, CFG batch 2, 4
    v-prediction DDIM steps, timed and checked as ``slice`` is: K1 5 times a
    step at (10, 9216, 64), 5 at (20, 2304, 64), once at (1, 9216, 512).
-18. ``sd21_trainer``: ``trainer.main(path, dataloader=None, tokenizer=
+19. ``sd21_trainer``: ``trainer.main(path, dataloader=None, tokenizer=
    StubTokenizer())``: the trainer builds the streaming ``DataLoader`` from
    the config and reads a chunk of 64 seeded PNGs (32 at 768x768, 32 at the
    896x640 bucket, whose 8,960- and 2,240-key levels are off the tiles)
@@ -202,14 +223,15 @@ Phases, one JSON line each:
    bf16, batch 8, 8 steps, DDIM eval sampling every 2 steps at 768x768 (4
    steps) and the profiler trace of the first 2 steps (gzipped into
    ``chiprun_out/sd21_trace/``). Prints each step's ms and bucket, the p50
-   per bucket, the loader's wait, each eval's ms, the trace's size and top
-   device ops, the saves, peak memory. Checks: finite losses, ``loss.csv``,
+   per bucket, the loader's wait, each eval's ms, the trace's size, top
+   device ops, device ms by category and idle share (``utils.kernel_trace``),
+   the saves, peak memory. Checks: finite losses, ``loss.csv``,
    the eval images and PNGs, the trace, the checkpoint and JSON; each
    step's launches by shape (K1 5 + 5 + the VAE encode's 1, the fused bf16
    backward 5 + 5, Lion's leaf table once per model, nothing else), each
    eval's (K1 5 + 5 a DDIM step and the decode's 1), and no launch outside
    the steps and evals (the loader's threads launch nothing).
-19. ``ddp_parity``: data parallelism's step against one process. Two
+20. ``ddp_parity``: data parallelism's step against one process. Two
    ranks, each a process of its own (``spawn``) on cuda:0, joined over
    gloo by ``core.initialize_distributed`` (NCCL takes one rank per card);
    SD1.5 at full width in f32 (TF32 off), the example recipe, a global
@@ -227,7 +249,7 @@ Phases, one JSON line each:
    512) on the f32 route, the fused f32 backward 5, Lion's leaf table once
    per model, nothing else). Prints each rank's step ms, the all-reduce's
    ms (host clock, the card synchronized around it) and peak memory.
-20. ``ddp_trainer``: ``trainer.main(path, dataloader=None, tokenizer=
+21. ``ddp_trainer``: ``trainer.main(path, dataloader=None, tokenizer=
    StubTokenizer())`` on two ranks (gloo, cuda:0; BASELINE config 2's
    data-parallel layout on one card): SD1.5 at full width in bf16, the
    example recipe, global batch 8 (4 a rank), a chunk of 16 seeded 512x512
@@ -246,7 +268,7 @@ Phases, one JSON line each:
    copies between buffers they map, ``_CardExchange``), so these describe
    the check, not scaling. Run
    directory ``.cache/chip_smoke_ddp/``, deleted at the end.
-21. ``fsdp_parity``: FSDP's step against one process. Two gloo ranks on
+22. ``fsdp_parity``: FSDP's step against one process. Two gloo ranks on
    cuda:0 as in ``ddp_parity``, SD1.5 at full width in f32 (TF32 off), a
    global batch of 2 with fixed global draws; rank 0 first takes the step
    as one process, then both take it on their row with the UNet and the
@@ -263,7 +285,7 @@ Phases, one JSON line each:
    leaves). Prints each rank's step ms, the ms in FSDP2's all-gathers and
    reduce-scatters (host clock, the card synchronized around each) and
    peak memory.
-22. ``fsdp_trainer``: ``trainer.main`` on the SDXL UNet at full width
+23. ``fsdp_trainer``: ``trainer.main`` on the SDXL UNet at full width
    (BASELINE config 4, config 5's recipe: bf16, gradient checkpointing,
    frozen cached towers, the offline cache; ``sdxl_train``'s cache, made
    here if that phase did not run) on two gloo ranks of cuda:0, a ``[1,
@@ -284,7 +306,7 @@ Phases, one JSON line each:
    in FSDP2's all-gathers and reduce-scatters and peak memory; two ranks
    share the card, so these describe the check, not sharded scaling. Run directory ``.cache/chip_smoke_fsdp/``,
    deleted at the end.
-23. ``tp_parity``: the SD1.5 train step at full width in f32 (TF32 off)
+24. ``tp_parity``: the SD1.5 train step at full width in f32 (TF32 off)
    on one row, as one process (rank 0 first), then on two gloo ranks of
    cuda:0 on a ``[1, 1, 2]`` mesh with ``tensor_parallel_shard_params``
    (the attention and CLIP projections split over the two ranks, each
@@ -294,7 +316,7 @@ Phases, one JSON line each:
    (``sd15_tp_sums``), each rank's launches at its shapes, and K1 f32 and
    the fused f32 backward held against their plain versions at the rank's
    ``(4, 4096, 40)``.
-24. ``tp_trainer``: ``trainer.main`` on SD1.5 at full width, bf16, global
+25. ``tp_trainer``: ``trainer.main`` on SD1.5 at full width, bf16, global
    batch 8 on the same two ranks and mesh: one chunk of 2 steps, its
    checkpoint and one eval on every rank (rank 0 writing); then a one-rank
    NCCL world on ``[1, 1, 1]`` that reads the checkpoint back whole and
@@ -303,7 +325,7 @@ Phases, one JSON line each:
    to each rank's UNet and text encoder slices (fingerprints), the NCCL
    leg's loss, launches and sums (none). Run directory
    ``.cache/chip_smoke_tp/``, deleted at the end.
-25. ``tp_fsdp_parity``: the SD1.5 train step at full width in f32 (TF32
+26. ``tp_fsdp_parity``: the SD1.5 train step at full width in f32 (TF32
    off) over a global batch of 2, as one process (rank 0 first; the
    reference kept in host memory), then on four gloo ranks of cuda:0 on a
    ``[1, 2, 2]`` mesh with ``tensor_parallel_shard_params`` and
@@ -313,7 +335,7 @@ Phases, one JSON line each:
    whole those of the composed rule, FSDP2's collectives run; K1 f32 and
    the fused f32 backward held against their plain versions at the rank's
    ``(4, 4096, 40)``.
-26. ``tp_fsdp_trainer``: ``trainer.main`` on SD1.5 at full width, bf16,
+27. ``tp_fsdp_trainer``: ``trainer.main`` on SD1.5 at full width, bf16,
    global batch 8 on the same four ranks and mesh (4 rows an fsdp rank):
    one chunk of 2 steps, its checkpoint and one eval on every rank; then a
    one-rank NCCL world on ``[1, 1, 1]`` with both flags that reads the
@@ -323,7 +345,7 @@ Phases, one JSON line each:
    rank the step p50, the TP sums' and FSDP2's collectives' ms a step and
    peak memory. Run directory ``.cache/chip_smoke_tp_fsdp/``, deleted at the
    end.
-27. ``vae_polyphase``: the SD1.5 VAE encode at 512x512, batch 8, in bf16
+28. ``vae_polyphase``: the SD1.5 VAE encode at 512x512, batch 8, in bf16
    and f32 (TF32 off), the encoder with ``polyphase_downsample`` against the
    stride-2 form holding the same weights: the moments' max error (f32
    within 1e-4 of the largest |mean|; bf16 no further off the f32 stride-2
@@ -357,24 +379,19 @@ CSRC = f"{PACKAGE}/csrc"
 JAX_OPS = "stable_diffusion_training_tpu/ops"
 ALL_PHASES = (
     "gpu", "build", "kernels", "parity", "slice", "sdxl_parity", "sdxl", "sdxl_refiner", "train_parity", "train",
-    "train_f32", "trainer", "sdxl_train_parity", "sdxl_train", "sdxl_trainer", "sd21_parity", "sd21",
+    "trace_audit", "train_f32", "trainer", "sdxl_train_parity", "sdxl_train", "sdxl_trainer", "sd21_parity", "sd21",
     "sd21_trainer", "ddp_parity", "ddp_trainer", "fsdp_parity", "fsdp_trainer", "tp_parity", "tp_trainer",
     "tp_fsdp_parity", "tp_fsdp_trainer", "vae_polyphase",
 )
+# the phases that start ranks or one-rank legs
+RANK_PHASES = ("ddp_parity", "ddp_trainer", "fsdp_parity", "fsdp_trainer", "tp_parity", "tp_trainer",
+               "tp_fsdp_parity", "tp_fsdp_trainer")
 # the phases whose runs give the kernels line its launches
 PATH_PHASES = {
     "kernels", "parity", "slice", "sdxl_parity", "sdxl", "sdxl_refiner", "train_parity", "train", "train_f32",
     "sdxl_train_parity", "sdxl_train", "sd21_parity", "sd21", "sd21_trainer", "ddp_parity", "ddp_trainer",
     "fsdp_parity", "fsdp_trainer", "tp_parity", "tp_trainer", "tp_fsdp_parity", "tp_fsdp_trainer", "vae_polyphase",
 }
-
-# H100 SXM peaks (NVIDIA data sheet, dense): 989 TFLOP/s bf16 tensor core,
-# 67 TFLOP/s f32 on the CUDA cores (TF32 would change the numerics), 3.35
-# TB/s HBM3. exp runs on the SFUs: 16 results per clock per SM (CUDA
-# programming guide, compute capability 9.0) x 132 SMs x 1.98 GHz boost.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-PEAK_EXPS = 16 * 132 * 1.98e9
-PEAK_BYTES = 3.35e12
 
 # Kernel vs plain version, max abs error. f32: both sum exact f32 products
 # in different orders and use different exp implementations (~1e-6 seen on
@@ -530,7 +547,9 @@ def phase_gpu(state):
 
 
 def phase_build(state):
-    """Builds every kernel library; reads back, from the ptxas report and
+    """Builds every kernel library (after planting a stale directory of
+    the forward's library, which the build must purge, keeping every
+    library's own); prints the toolchain key's parts; reads back, from the ptxas report and
     the built code, what each kernel became: registers and spill bytes of
     every kernel, and for each flash-attention Hopper kernel (the forward's
     and the fused backward) its count of wgmma (``HGMMA``) and TMA load
@@ -538,10 +557,26 @@ def phase_build(state):
     spill nothing; the f32 kernels (``F32_KERNELS``) must be built and
     spill nothing."""
     from stable_diffusion_training_tpu_torch.ops import cuda_build, flash_attention, lion_kernel
+    from stable_diffusion_training_tpu_torch.utils import hostcache
 
+    libraries = {**flash_attention.LIBRARIES, **lion_kernel.LIBRARIES}
+    toolchain = dict(key=cuda_build.toolchain_key(),
+                     **hostcache.toolchain_parts(cuda_build.nvcc_path(), cuda_build.NVCC_FLAGS))
+    # a stale build of the forward's library (another key): building it purges that
+    fwd = "flash_attention_fwd"
+    stale = os.path.join(cuda_build.BUILD_DIR, f"{fwd}-{'0' * hostcache.KEY_DIGITS}")
+    planted = not os.path.exists(cuda_build.library_path(fwd, libraries[fwd]))
+    if planted:
+        os.makedirs(stale, exist_ok=True)
+        open(os.path.join(stale, f"lib{fwd}.so"), "w").close()
     start = time.perf_counter()
-    paths = cuda_build.build_many({**flash_attention.LIBRARIES, **lion_kernel.LIBRARIES})
+    paths = cuda_build.build_many(libraries)
     seconds = time.perf_counter() - start
+    purge = dict(
+        planted=os.path.relpath(stale, REPO) if planted else None, stale_removed=not os.path.exists(stale),
+        libraries_kept=all(os.path.isfile(p) for p in paths.values()),
+        build_dirs=sorted(os.listdir(cuda_build.BUILD_DIR)),
+    )
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     ptxas, kernels, advisories = {}, {}, []
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke_build.log"), "w") as f:
@@ -563,8 +598,10 @@ def phase_build(state):
     emit(
         "build", seconds=round(seconds, 3),
         libraries={n: os.path.relpath(p, REPO) for n, p in paths.items()}, ptxas=ptxas,
-        kernels=kernels, ptxas_advisories=advisories,
+        kernels=kernels, ptxas_advisories=advisories, toolchain=toolchain, stale_purge=purge,
     )
+    if not (purge["stale_removed"] and purge["libraries_kept"]):
+        raise AssertionError(f"the build cache's purge failed: {purge}")
     spills = lambda k: k.get("spill_stores", 1) or k.get("spill_loads", 1)
     bad = {n: k for n, k in hopper.items() if spills(k) or not k.get("HGMMA") or not k.get("UTMALDG")}
     bad.update({n: k for n, k in f32.items() if spills(k)})
@@ -658,28 +695,6 @@ def plain_by_heads(fn, *args):
     return tuple(torch.cat(outs) for outs in zip(*parts))
 
 
-def _bound(bh, sq, sk, d, dtype_name, products=2, exps=1, reads_q=2, reads_k=2, writes_q=0, writes_k=0, stats=1,
-           f32_q=0):
-    """Least time for attention work: ``products`` matmuls of 2*bh*sq*sk*d
-    flops and ``exps`` exps per logit against HBM traffic of ``reads_q`` +
-    ``writes_q`` (bh, sq, d) and ``reads_k`` + ``writes_k`` (bh, sk, d)
-    tensors, ``stats`` f32 (bh, sq) rows and ``f32_q`` passes over an f32
-    (bh, sq, d) tensor."""
-    import torch
-
-    itemsize = torch.finfo(getattr(torch, dtype_name)).bits // 8
-    flops = 2.0 * products * bh * sq * sk * d
-    n_exps = float(exps) * bh * sq * sk
-    nbytes = itemsize * bh * d * ((reads_q + writes_q) * sq + (reads_k + writes_k) * sk)
-    nbytes += 4 * stats * bh * sq + 4 * f32_q * bh * sq * d
-    times = {
-        "operations": max(flops / PEAK_FLOPS[dtype_name], n_exps / PEAK_EXPS),
-        "bytes": nbytes / PEAK_BYTES,
-    }
-    by = max(times, key=times.get)
-    return times[by] * 1e3, by, flops
-
-
 def fwd_l2_bytes(bh, sq, sk, d, dtype_name, route):
     """Bytes that K1 moves from L2 into the SMs in one call: every block
     streams its head's whole K and V, so query blocks x K+V bytes of a head.
@@ -697,6 +712,7 @@ def phase_kernels(state):
     import torch.nn.functional as F
 
     from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+    from stable_diffusion_training_tpu_torch.utils import roofline
 
     set_tf32(False)
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -805,7 +821,7 @@ def phase_kernels(state):
                 )
             except RuntimeError:  # no SDPA backend takes this shape/dtype
                 library_ms = None
-            bound_ms, bound_by, flops = _bound(bh, sq, sk, d, name_dt, reads_q=1, writes_q=1)
+            bound_ms, bound_by, flops = roofline.attention_bound(bh, sq, sk, d, name_dt, reads_q=1, writes_q=1)
             row = dict(
                 case=name, shape_q=[bh, sq, d], shape_k=[bh, sk, d], dtype=name_dt, route=route,
                 launches_by_route=by_route, repeats_bitwise=repeats,
@@ -860,6 +876,7 @@ def flash_backward_cases():
     import torch.nn.functional as F
 
     from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+    from stable_diffusion_training_tpu_torch.utils import roofline
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
     cases = [
@@ -970,14 +987,15 @@ def flash_backward_cases():
         # and dV.
         n_parts = -(-sk // fa.F32_BWD_KEYS)
         f32_q = {"fused": 2, "f32_fused": 2 * n_parts, "cuda_cores": 0}[route]
-        bound = _bound(bh, sq, sk, d, name_dt, products=5, writes_q=1, writes_k=2, stats=2, f32_q=f32_q)
+        bound = roofline.attention_bound(bh, sq, sk, d, name_dt, products=5, writes_q=1, writes_k=2, stats=2,
+                                         f32_q=f32_q)
         per_kernel = {}
         if route == "f32_fused":
             for kernel in ("flash_bwd_f32_fused_kernel", "flash_bwd_f32_dq_sum_kernel"):
                 per_kernel[kernel] = dict(ms=sum(ms for n, ms in kernel_ms.items() if kernel in n))
         if route == "cuda_cores":
             for kernel, products, writes in (("dq", 3, dict(writes_q=1)), ("dkv", 4, dict(writes_k=2))):
-                own = _bound(bh, sq, sk, d, name_dt, products=products, stats=2, **writes)
+                own = roofline.attention_bound(bh, sq, sk, d, name_dt, products=products, stats=2, **writes)
                 per_kernel[kernel] = dict(
                     ms=sum(ms for n, ms in kernel_ms.items() if f"bwd_{kernel}_kernel" in n),
                     bound_ms=own[0], bound_by=own[1], flops=own[2],
@@ -1055,6 +1073,7 @@ def lion_cases():
     import torch
 
     from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+    from stable_diffusion_training_tpu_torch.utils import roofline
 
     leaves = sd15_lion_leaves()
     emit("lion_leaves", **{
@@ -1104,8 +1123,7 @@ def lion_cases():
             lambda: [lk.lion8bit_update_reference(g, c, s, compander=compander)
                      for g, (c, s) in zip(grads, moms)], 2, warmup=1,
         )
-        # bf16 grad in, bf16 sign out, int8 codes in and out, f32 scale in and out per block
-        nbytes = n * (2 + 2 + 1 + 1) + (n // bs) * 8
+        nbytes = roofline.lion_bytes(n, n // bs, 2)  # bf16 grads
         row = dict(
             case=name, entry=entry, compander=compander, bs=bs, leaves=len(sizes), elements=n,
             path_launches=path_launches,
@@ -1114,7 +1132,7 @@ def lion_cases():
             updates_equal=updates_equal, scales_equal=scales_equal, max_code_diff=max_code_diff,
             codes_off_by_one=codes_off, ok=updates_equal and scales_equal and max_code_diff <= 1,
             kernel_ms=kernel_ms, host_ms_per_call=host[0], plain_ms=plain_ms,
-            bound_ms=nbytes / PEAK_BYTES * 1e3,
+            bound_ms=nbytes / roofline.PEAK_BYTES * 1e3,
             bound_by="bytes", gbytes_per_s=nbytes / kernel_ms / 1e6,
         )
         rows.append(row)
@@ -1136,6 +1154,7 @@ def lion_fused_cases():
     import torch
 
     from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+    from stable_diffusion_training_tpu_torch.utils import roofline
 
     n = max(sd15_lion_leaves()["unet"]["single_sizes"])
     cases = [  # (layout, bs, grad dtype)
@@ -1168,8 +1187,7 @@ def lion_fused_cases():
         kernel_ms = cuda_ms(lambda: lk._launch_single(grad, work_codes, work_scales, 0.9, 0.99, False), 20)
         entry_ms = cuda_ms(lambda: lk.fused_lion8bit_update(grad, codes, scales, layout=layout), 20)
         plain_ms = cuda_ms(lambda: lk.lion8bit_update_reference(grad, codes, scales[:, 0]), 2, warmup=1)
-        # grad in, sign out (grad's dtype), int8 codes in and out, f32 scale in and out per block
-        nbytes = n * (2 * grad.element_size() + 2) + nb * 8
+        nbytes = roofline.lion_bytes(n, nb, grad.element_size())
         row = dict(
             case=f"largest_unet_leaf_{layout}_bs{bs}_{name_dt}", layout=layout, bs=bs, dtype=name_dt,
             elements=n, blocks=nb, cooperative=bs > 64, path_launches=launches,
@@ -1177,7 +1195,7 @@ def lion_fused_cases():
             codes_off_by_one=codes_off,
             ok=updates_equal and scales_equal and max_code_diff <= 1 and launches == 3,
             kernel_ms=kernel_ms, entry_ms=entry_ms, plain_ms=plain_ms,
-            bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes", gbytes_per_s=nbytes / kernel_ms / 1e6,
+            bound_ms=nbytes / roofline.PEAK_BYTES * 1e3, bound_by="bytes", gbytes_per_s=nbytes / kernel_ms / 1e6,
         )
         rows.append(row)
         emit("kernels_lion_fused", **row)
@@ -1298,6 +1316,7 @@ def lion_model_cases():
     import torch
 
     from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+    from stable_diffusion_training_tpu_torch.utils import roofline
 
     rows = []
     variants = ((torch.bfloat16, "exact"), (torch.bfloat16, "fast"), (torch.float32, "exact"))
@@ -1362,9 +1381,8 @@ def lion_model_cases():
             # no warm-up call: the expected values above came from it
             plain_ms = cuda_ms(lambda: lk.lion8bit_update_leaves_reference(grads, codes, scales, perms,
                                                                            compander=compander), 1, warmup=0)
-            # grad in, sign out (grad's dtype), int8 code in and out, f32 scale in and out per block
-            nbytes = n * (2 * grads[0].element_size() + 2) + nb * 8
-            bound_ms = nbytes / PEAK_BYTES * 1e3
+            nbytes = roofline.lion_bytes(n, nb, grads[0].element_size())
+            bound_ms = nbytes / roofline.PEAK_BYTES * 1e3
             launch_shapes = lion_table_launches(leaves, name_dt)
             ok = (updates_equal and contiguous and scales_equal and max_code_diff <= 1 and launches == launch_shapes
                   and (not old or (codes_differ_from_old == 0 and scales_differ_from_old == 0)))
@@ -1564,7 +1582,7 @@ def phase_slice(state, steps=4, seed=0, repeats=5):
     with torch.no_grad():
         profile_step(
             lambda: pipe.denoise(latents, context, 1, 7.5),
-            "one CFG denoise step (UNet batch 2 + DDIM step)", {"flash_ms": ("flash_fwd",)}, top=15,
+            "one CFG denoise step (UNet batch 2 + DDIM step)", top=15,
         )
 
 
@@ -1674,8 +1692,7 @@ def phase_sdxl(state, steps=4, seed=0, repeats=5):
     with torch.no_grad():
         profile_step(
             lambda: pipe.denoise(latents, context, 1, 5.0, added),
-            "one SDXL CFG denoise step (UNet batch 2 at 128x128 latents + DDIM step)",
-            {"flash_ms": ("flash_fwd",)}, top=15,
+            "one SDXL CFG denoise step (UNet batch 2 at 128x128 latents + DDIM step)", top=15,
         )
     del pipe, models, results
     torch.cuda.empty_cache()
@@ -1742,36 +1759,55 @@ def phase_sdxl_refiner(state, steps=10, strength=0.3, seed=3, repeats=5):
     with torch.no_grad():
         profile_step(
             lambda: pipe.denoise(latents, context, 1, 5.0, added),
-            "one SDXL refiner CFG denoise step (UNet batch 2 at 128x128 latents + DDIM step)",
-            {"flash_ms": ("flash_fwd",)}, top=15,
+            "one SDXL refiner CFG denoise step (UNet batch 2 at 128x128 latents + DDIM step)", top=15,
         )
     del pipe, models, results
     state.pop("sdxl_image", None)
     torch.cuda.empty_cache()
 
 
-def profile_step(fn, what, groups, top):
-    """Where one step's device time goes: torch.profiler's kernel table for
-    one call of ``fn``, the device's busy share of its wall time (one
-    stream, so the kernels' sum is the busy time), and the device ms of
-    each of ``groups`` ({field: kernel-name substrings}). Only the device
-    is traced: recording every host op as well slowed the step's host side
+def profile_step(fn, what, top):
+    """Where one step's device time goes: the kernel table of one call of
+    ``fn``, read from torch.profiler's Chrome trace with
+    ``utils.kernel_trace`` (``trace_audit`` holds that reader against
+    ``key_averages()``, whose tabulation took seconds a profile), the
+    device's busy share of its wall time (one stream, so the kernels' sum
+    is the busy time), and the device ms and launches of each category
+    (``kernel_trace.categorize``; ``flash_ms`` and ``lion_ms`` those of the
+    port's kernels). Only the device is
+    traced: recording every host op as well slowed the step's host side
     (and so raised its idle share) and took tens of seconds to tabulate."""
     from torch.profiler import ProfilerActivity, profile
 
+    from stable_diffusion_training_tpu_torch.utils import kernel_trace
+
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         wall_ms, _ = host_ms(fn)
-    kernels = sorted(device_kernels(prof), reverse=True)
+    path = os.path.join(REPO, "chiprun_out", f"profile_step_{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    try:
+        durations = kernel_trace.op_durations(path)
+    finally:
+        os.remove(path)
+    kernels = sorted(((us / 1e3, n, name) for name, (us, n) in durations.items()), reverse=True)
     busy_ms = sum(ms for ms, _, _ in kernels)
-    emit(
-        "profile", what=what, wall_ms=wall_ms, device_busy_ms=busy_ms,
+    by_category = {}
+    for ms, n, name in kernels:
+        cat = by_category.setdefault(kernel_trace.categorize(name), dict(ms=0.0, launches=0))
+        cat["ms"] += ms
+        cat["launches"] += n
+    row = dict(
+        what=what, wall_ms=wall_ms, device_busy_ms=busy_ms,
         idle_share=1 - busy_ms / wall_ms,
-        **{field: sum(ms for ms, _, name in kernels if any(n in name for n in names))
-           for field, names in groups.items()},
+        flash_ms=by_category.get("flash kernel", {}).get("ms", 0.0),
+        lion_ms=by_category.get("lion kernel", {}).get("ms", 0.0),
+        by_category=dict(sorted(by_category.items(), key=lambda kv: -kv[1]["ms"])),
         h2d_copies=sum(n for _, n, name in kernels if "Memcpy HtoD" in name),
         n_kernel_names=len(kernels), n_launches=sum(n for _, n, _ in kernels),
         top=[dict(ms=ms, count=n, name=name[:120]) for ms, n, name in kernels[:top]],
     )
+    emit("profile", **row)
+    return row
 
 
 def phase_train_parity(state):
@@ -2025,22 +2061,245 @@ def phase_train(state, warmup=2, steps=5, seed=0, dtype="bfloat16"):
     if not (finite and codes_changed > 0 and launches == expected and fwd_routes == expected_routes
             and grad_copies == 0):
         raise AssertionError(f"{phase} step failed its checks")
-    profile_step(
-        step, f"one SD1.5 train step ({dtype}, batch 8, 512x512)",
-        {"flash_fwd_ms": ("flash_fwd",), "flash_bwd_ms": ("flash_bwd", "bwd_dq_kernel", "bwd_dkv_kernel"),
-         "lion_ms": ("lion_leaves", "lion_single", "lion_multi")}, top=20,
-    )
+    profile = profile_step(step, f"one SD1.5 train step ({dtype}, batch 8, 512x512)", top=20)
+    if phase == "train" and "trace_audit" in state["phases"]:
+        state["train_step"], state["train_profile"] = step, profile  # trace_audit's, which frees the step
 
 
 def train_launches(fa, lk):
     """The launch counts of the train step's kernels, by wrapper."""
-    return dict(
-        flash_fwd=fa.flash_attention_fwd.launches, flash_bwd_fused=fa.flash_attention_bwd_fused.launches,
-        flash_bwd_f32=fa.flash_attention_bwd_f32_fused.launches,
-        flash_bwd_dq=fa.flash_attention_bwd_dq.launches, flash_bwd_dkv=fa.flash_attention_bwd_dkv.launches,
-        lion_leaves=lk.lion8bit_update_leaves_.launches, lion_single=lk.lion8bit_update_.launches,
-        lion_multi=lk.lion8bit_update_multi_.launches,
+    return {kernel: wrapper.launches for kernel, wrapper in launch_wrappers(fa, lk).items()}
+
+
+AUDIT_TOP = 12
+PORT_CATEGORIES = ("flash kernel", "lion kernel")
+
+
+def expected_bounds(moved, state, fa, lk):
+    """The flash and Lion bounds of a run's launches (``launch_diff``):
+    each shape's launches times the ``kernels`` phase's bound at that shape
+    (the wrapper's own ``launch_work`` where that phase did not run it), by
+    category; and the shapes whose bound came from the ``kernels`` phase."""
+    rows = {}
+    for r in state.get("kernel_cases", []):
+        rows[("flash_fwd", *r["shape_q"], r["shape_k"][1], r["dtype"])] = r["bound_ms"]
+    for r in state.get("bwd_cases", []):
+        wrapper = {"fused": "flash_bwd_fused", "f32_fused": "flash_bwd_f32"}.get(r["route"])
+        if wrapper:
+            rows[(wrapper, *r["shape_q"], r["shape_k"][1], r["dtype"])] = r["bound_ms"]
+    for r in state.get("lion_model_cases", []):
+        rows[("lion_leaves", r["elements"], r["dtype"])] = r["bound_ms"]
+    wrappers = launch_wrappers(fa, lk)
+    total = dict.fromkeys(PORT_CATEGORIES, 0.0)
+    from_kernels_phase = []
+    for kernel, shapes in moved.items():
+        wrapper = wrappers[kernel]
+        flash = wrapper.__module__ == fa.__name__
+        for key, n in shapes.items():
+            if flash:  # bh, sq, sk, d, dtype[, route]
+                row_key = (kernel, key[0], key[1], key[3], key[2], key[4])
+            else:  # the leaf table's: leaves, elements, bs, dtype
+                row_key = (kernel, key[1], key[3]) if kernel == "lion_leaves" else None
+            if row_key in rows:
+                bound = rows[row_key]
+                from_kernels_phase.append(list(map(str, row_key)))
+            else:
+                bound = (fa if flash else lk).launch_work(wrapper.__name__, key).bound()[0]
+            total["flash kernel" if flash else "lion kernel"] += n * bound
+    return total, from_kernels_phase
+
+
+def reader_against_key_averages():
+    """Check (b) on a small profile recorded as the audited step's is (host
+    ops and shapes; ``key_averages()`` over the step's ~180k events took
+    ~17 s): a matmul inside an annotation, a convolution, a memset, copies
+    both ways, a reduction and a cast. Returns the reader's device ms by
+    name, ``device_kernels``' of the same profile, and the names whose ms
+    differ by more than 1%."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from stable_diffusion_training_tpu_torch.utils import kernel_trace
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn(2048, 2048, device=dev, dtype=torch.bfloat16, generator=gen)
+    x = torch.randn(8, 320, 64, 64, device=dev, dtype=torch.bfloat16, generator=gen)
+    w = torch.randn(320, 320, 3, 3, device=dev, dtype=torch.bfloat16, generator=gen)
+    host = torch.randn(1 << 22)
+
+    def run():
+        with torch.profiler.record_function("reader_check"):
+            b = a @ a
+        y = F.conv2d(x, w, padding=1)
+        z = torch.zeros(1 << 22, device=dev)
+        z.copy_(host)
+        return (y.float().sum() + b.float().sum() + z.sum()).cpu()
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+    path = os.path.join(REPO, "chiprun_out", f"reader_check_{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    try:
+        trace = kernel_trace.load_trace(path)
+    finally:
+        os.remove(path)
+    reader = {n: us / 1e3 for n, (us, _) in kernel_trace.op_durations(trace).items()}
+    annotations = {e["name"] for e in trace["traceEvents"] if e.get("cat") == "user_annotation"}
+    averages = {}
+    for ms, _, name in device_kernels(prof):
+        if name not in annotations:
+            averages[name] = averages.get(name, 0.0) + ms
+    off = {n: (reader.get(n, 0.0), averages.get(n, 0.0)) for n in set(reader) | set(averages)
+           if abs(reader.get(n, 0.0) - averages.get(n, 0.0)) > 0.01 * max(reader.get(n, 0.0), averages.get(n, 0.0))}
+    return reader, averages, off
+
+
+def audit_trace(trace, moved, state, wall_ms, fa, lk):
+    """Read one profiled step's Chrome trace with the package and check it:
+    ``moved``, the wrappers' launches in the step (``launch_diff``). Prints
+    the category report and the top ops; returns the table, the top ops,
+    the checks (a), (c) and (d), and what they read."""
+    from stable_diffusion_training_tpu_torch.utils import kernel_trace, roofline
+
+    linked = kernel_trace.kernel_ops(trace)
+    index = roofline.parse_ops(trace, linked)
+    table = dict(kernel_trace.category_table(trace, steps=1), roofline=kernel_trace.category_roofline(index, 1))
+    print(kernel_trace.category_report(trace, steps=1, wall_ms=wall_ms, index=index), flush=True)
+    # the ops with the most device time, those of one name and shapes together
+    groups = {}
+    for op_id in index.kernels:
+        op = index.ops[op_id]
+        dims = op.get("args", {}).get("Input Dims")
+        launch = roofline.parse_launch(op["name"])  # a launch shows its label, not its work
+        g = groups.setdefault((op["name"], json.dumps(dims)), dict(
+            op=(launch[0] if launch else op["name"])[:100], input_dims=dims, calls=0, kernels=0, device_ms=0.0,
+            bound_ms=None, bound_by=index.bound_by(op_id)))
+        g["calls"] += 1
+        g["kernels"] += len(index.kernels[op_id])
+        g["device_ms"] += index.device_ms(op_id)
+        if index.bound_ms(op_id) is not None:
+            g["bound_ms"] = (g["bound_ms"] or 0.0) + index.bound_ms(op_id)
+    top = sorted(groups.values(), key=lambda g: -g["device_ms"])[:AUDIT_TOP]
+    for g in top:
+        g["share"] = g["bound_ms"] / g["device_ms"] if g["bound_ms"] is not None and g["device_ms"] > 0 else None
+    print(f"top {AUDIT_TOP} ops by device time, calls of one op and shapes together (roofline share = bound / "
+          f"device ms; {state['smi']}):")
+    for g in top:
+        share = "  n/a" if g["share"] is None else f"{g['share']:.3f}"
+        print(f"  {g['device_ms']:8.3f} ms  share {share}  x{g['calls']:<4d} {g['op']}  {g['input_dims']}")
+    # (a) the launches in the trace (each a named launch around the flash or
+    # Lion kernels it started) against the wrappers' counts
+    launch_ops, families, stray = {}, {}, 0
+    for e, op in linked:
+        cat = kernel_trace.categorize(e["name"])
+        if cat not in PORT_CATEGORIES:
+            continue
+        fam = kernel_trace.family_of(e["name"])
+        families[fam] = families.get(fam, 0) + 1
+        parsed = op and roofline.parse_launch(op["name"])
+        if parsed:
+            launch_ops[op.get("args", {}).get("External id", id(op))] = (parsed[0], cat)
+        else:
+            stray += 1
+    traced = {}
+    for label, _ in launch_ops.values():
+        traced[label] = traced.get(label, 0) + 1
+    wrappers = launch_wrappers(fa, lk)
+    counted = {roofline.launch_label(wrappers[kernel].__name__, key): n
+               for kernel, shapes in moved.items() for key, n in shapes.items()}
+    # (c) roofline shares: above 1 is a miscount
+    op_shares = [s for s in map(index.share, index.work) if s is not None]
+    over = [dict(op=index.ops[i]["name"][:100], share=index.share(i), device_ms=index.device_ms(i),
+                 bytes=index.kernel_bytes(i), input_dims=index.ops[i].get("args", {}).get("Input Dims"))
+            for i in index.work if (index.share(i) or 0) > 1.0]
+    cat_over = {c: r["share"] for c, r in table["roofline"].items() if (r["share"] or 0) > 1.0}
+    # (d) the step's flash and Lion bounds, from the trace's named launches
+    # and from the wrappers' counts
+    traced_bounds = dict.fromkeys(PORT_CATEGORIES, 0.0)
+    for op_id, (_, cat) in launch_ops.items():
+        traced_bounds[cat] += index.bound_ms(op_id)
+    want_bounds, from_kernels_phase = expected_bounds(moved, state, fa, lk)
+    checks = dict(
+        launches=traced == counted and stray == 0 and bool(counted),
+        roofline_shares_at_most_1=not over and not cat_over and bool(op_shares),
+        bounds=all(math.isclose(traced_bounds[c], want_bounds[c], rel_tol=1e-9) and want_bounds[c] > 0
+                   for c in want_bounds),
     )
+    return table, top, checks, dict(
+        launches=counted, traced_launches=traced, traced_families=families, kernels_outside_launches=stray,
+        ops_with_work=len(index.work), max_op_share=max(op_shares) if op_shares else None,
+        ops_share_over_0_9=sum(x > 0.9 for x in op_shares), shares_over_1=over[:10],
+        categories_over_1=cat_over, bounds_from_trace=traced_bounds, bounds_from_launches=want_bounds,
+        bound_shapes_from_kernels_phase=from_kernels_phase,
+    )
+
+
+def phase_trace_audit(state):
+    """The ``train`` phase's bf16 step under torch.profiler with the host's
+    ops and shapes recorded, read with ``utils.kernel_trace`` and
+    ``utils.roofline``: the category report and top ops printed, then the
+    four checks (launches, the reader's device ms against ``key_averages``
+    on a small profile recorded the same way, no roofline share above 1,
+    the flash and Lion bounds); the idle share beside that of ``train``'s
+    device-only ``profile_step`` of the same step."""
+    import gc
+    import gzip
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+    from stable_diffusion_training_tpu_torch.utils import kernel_trace
+
+    step = state.pop("train_step", None)
+    if step is None:
+        raise AssertionError("trace_audit profiles the train phase's bf16 step: run train before it")
+    device_only = state.pop("train_profile")  # profile_step of the same step, the device alone traced
+    out_dir = os.path.join(REPO, "chiprun_out")
+    started = time.perf_counter()
+    before = launch_snapshot(fa, lk)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        wall_ms, _ = host_ms(step)
+    moved = launch_diff(launch_snapshot(fa, lk), before)
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks = dict(profiled_s=time.perf_counter() - started)
+    path = os.path.join(out_dir, "trace_audit.json")
+    prof.export_chrome_trace(path)
+    del prof
+    marks["exported_s"] = time.perf_counter() - started
+    trace = kernel_trace.load_trace(path)
+    with open(path, "rb") as src, gzip.open(path + ".gz", "wb", compresslevel=1) as dst:
+        shutil.copyfileobj(src, dst)
+    os.remove(path)
+    marks["loaded_s"] = time.perf_counter() - started
+    table, top, checks, read = audit_trace(trace, moved, state, wall_ms, fa, lk)
+    marks["audited_s"] = time.perf_counter() - started
+    reader, averages, off = reader_against_key_averages()
+    checks["device_ms_match_key_averages"] = not off and bool(reader)
+    busy_ms = table["busy_ms"]
+    row = dict(
+        what="one SD1.5 train step (bfloat16, batch 8, 512x512)", nvidia_smi=state["smi"],
+        wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=table["idle_share"],
+        idle_share_of_wall=1 - busy_ms / wall_ms, device_only={
+            k: device_only[k] for k in ("wall_ms", "device_busy_ms", "idle_share")},
+        serialized=table["serialized"], collective_streams=table["collective_streams"],
+        roofline=table["roofline"], top_ops=top, **read, reader_check_ms=reader,
+        device_ms_off_key_averages=off, trace_events=len(trace["traceEvents"]),
+        trace_file=os.path.relpath(path + ".gz", REPO), trace_gz_bytes=os.path.getsize(path + ".gz"),
+        **marks, seconds=time.perf_counter() - started, checks=checks, ok=all(checks.values()),
+    )
+    emit("trace_audit", **row)
+    if not row["ok"]:
+        raise AssertionError(f"trace_audit failed its checks: {checks}")
 
 
 TRAINER_STEPS = 3  # steps per chunk (the example config's chunks run to the loader's end)
@@ -2612,8 +2871,7 @@ def phase_sdxl_train(state, warmup=2, steps=5, bucket_steps=2, seed=0):
             and copies + b_copies == len(strided) * (steps + bucket_steps)):
         raise AssertionError("sdxl_train step failed its checks")
     profile_step(
-        lambda: step(square[0]), "one SDXL train step (bf16, batch 4, 1024x1024, gradient checkpointing)",
-        {"flash_fwd_ms": ("flash_fwd",), "flash_bwd_ms": ("flash_bwd",), "lion_ms": ("lion_leaves",)}, top=20,
+        lambda: step(square[0]), "one SDXL train step (bf16, batch 4, 1024x1024, gradient checkpointing)", top=20
     )
 
 
@@ -2899,8 +3157,7 @@ def phase_sd21(state, steps=SD21_STEPS, seed=0, repeats=5):
     with torch.no_grad():
         profile_step(
             lambda: pipe.denoise(latents, context, 1, 7.5),
-            "one SD2.1 CFG denoise step (UNet batch 2 at 96x96 latents + DDIM step)",
-            {"flash_ms": ("flash_fwd",)}, top=15,
+            "one SD2.1 CFG denoise step (UNet batch 2 at 96x96 latents + DDIM step)", top=15,
         )
     del pipe, models, results
     torch.cuda.empty_cache()
@@ -2976,18 +3233,20 @@ def sd21_chunk(ramdisk, seed=0):
     return png_chunk(ramdisk, [(SD21_RES, SD21_RES)] * n + [SD21_BUCKET] * n, seed)
 
 
+def launch_wrappers(fa, lk):
+    """Every kernel wrapper on the port's paths, by the name the launch
+    records give it."""
+    return dict(
+        flash_fwd=fa.flash_attention_fwd, flash_bwd_fused=fa.flash_attention_bwd_fused,
+        flash_bwd_f32=fa.flash_attention_bwd_f32_fused, flash_bwd_dq=fa.flash_attention_bwd_dq,
+        flash_bwd_dkv=fa.flash_attention_bwd_dkv, lion_leaves=lk.lion8bit_update_leaves_,
+        lion_single=lk.lion8bit_update_, lion_multi=lk.lion8bit_update_multi_,
+    )
+
+
 def launch_snapshot(fa, lk):
     """Every kernel wrapper's launches by shape, as it stands."""
-    return dict(
-        flash_fwd=dict(fa.flash_attention_fwd.launches_by_shape),
-        flash_bwd_fused=dict(fa.flash_attention_bwd_fused.launches_by_shape),
-        flash_bwd_f32=dict(fa.flash_attention_bwd_f32_fused.launches_by_shape),
-        flash_bwd_dq=dict(fa.flash_attention_bwd_dq.launches_by_shape),
-        flash_bwd_dkv=dict(fa.flash_attention_bwd_dkv.launches_by_shape),
-        lion_leaves=dict(lk.lion8bit_update_leaves_.launches_by_shape),
-        lion_single=dict(lk.lion8bit_update_.launches_by_shape),
-        lion_multi=dict(lk.lion8bit_update_multi_.launches_by_shape),
-    )
+    return {kernel: dict(wrapper.launches_by_shape) for kernel, wrapper in launch_wrappers(fa, lk).items()}
 
 
 def launch_diff(after, before):
@@ -3006,32 +3265,34 @@ def add_launches(total, part):
             total.setdefault(kernel, {})[k] = total.setdefault(kernel, {}).get(k, 0) + n
 
 
-def trace_summary(trace_dir, top=12):
-    """The profiler trace the trainer wrote: its file, size, and the device
-    ops with the most time (Chrome trace events of category ``kernel``);
-    the trace is then gzipped in place."""
+def trace_summary(trace_dir, steps, top=12):
+    """The profiler trace the trainer wrote, read with
+    ``utils.kernel_trace``: its file, size, kernels and their device ms,
+    the device ops with the most time, device ms and launches a step by
+    category over its ``steps`` steps, and the idle share; the trace is
+    then gzipped in place."""
     import gzip
+
+    from stable_diffusion_training_tpu_torch.utils import kernel_trace
 
     files = sorted(f for f in os.listdir(trace_dir) if f.endswith(".json"))
     if len(files) != 1:
         return dict(trace_files=files)
     path = os.path.join(trace_dir, files[0])
     size = os.path.getsize(path)
-    with open(path) as f:
-        events = json.load(f).get("traceEvents", [])
-    by_name, kernels = {}, 0
-    for e in events:
-        if e.get("cat") == "kernel" and "dur" in e:
-            kernels += 1
-            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
-    with open(path, "rb") as src, gzip.open(path + ".gz", "wb") as dst:
+    trace = kernel_trace.load_trace(path)
+    kernels = [e for e in kernel_trace.device_events(trace) if e["cat"] == "kernel"]
+    table = kernel_trace.category_table(trace, steps)
+    with open(path, "rb") as src, gzip.open(path + ".gz", "wb", compresslevel=1) as dst:
         shutil.copyfileobj(src, dst)
     os.remove(path)
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     return dict(
-        trace_file=os.path.relpath(path + ".gz", REPO), trace_bytes=size, trace_events=len(events),
-        device_kernels=kernels, device_ms=sum(by_name.values()),
-        top_device_ops=[dict(ms=ms, name=name[:120]) for name, ms in ranked[:top]],
+        trace_file=os.path.relpath(path + ".gz", REPO), trace_bytes=size, trace_events=len(trace["traceEvents"]),
+        device_kernels=len(kernels), device_ms=sum(e["dur"] for e in kernels) / 1e3,
+        top_device_ops=[dict(ms=ms, name=name[:120]) for name, ms, _ in kernel_trace.top_ops(trace, top)],
+        by_category={c: dict(ms=r["ms"], launches=r["launches"])
+                     for c, r in table["serialized"]["categories"].items()},
+        idle_share=table["idle_share"],
     )
 
 
@@ -3185,7 +3446,7 @@ def phase_sd21_trainer(state, seed=0):
     per_bucket = {}
     for s in steps[traced:]:
         per_bucket.setdefault(bucket_of.get(s["key"], str(s["key"])), []).append(s["ms"])
-    trace = trace_summary(trace_dir) if os.path.isdir(trace_dir) else {}
+    trace = trace_summary(trace_dir, traced) if os.path.isdir(trace_dir) else {}
     checks = dict(
         steps=len(steps) == n_steps and {s["key"] for s in steps} == set(want_step),
         losses_finite=all(math.isfinite(s["loss"]) for s in steps),
@@ -3264,16 +3525,35 @@ def free_port():
         return sock.getsockname()[1]
 
 
-def run_ranks(target, args_of_rank, world):
-    """``target(*args_of_rank(r))`` in ``world`` processes (spawn: CUDA
-    cannot start again in a forked child); kills the rest once one fails or
-    ``DDP_TIMEOUT_S`` passes; raises unless every rank exits with 0."""
+# what every rank and leg imports before its work: a fork server imports it
+# once, and each rank forks from it
+RANK_PRELOAD = ("__main__", "torch", "torch.distributed", "torch.distributed.fsdp", "torch.distributed.tensor",
+                f"{PACKAGE}.core", f"{PACKAGE}.ops", f"{PACKAGE}.parallel", f"{PACKAGE}.train",
+                f"{PACKAGE}.train.trainer")
+
+
+def rank_context():
+    """The ranks' and legs' start method: the fork server, started once
+    with ``RANK_PRELOAD`` imported and CUDA never started in it (a process
+    forked after CUDA started cannot use it), so a rank starts in well under
+    a second where a spawned one imports torch, FSDP2, DTensor and the
+    package anew (4-6 s for four ranks started at once with the CPU build
+    of torch)."""
     import multiprocessing
 
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(list(RANK_PRELOAD))
+    return ctx
+
+
+def run_ranks(target, args_of_rank, world):
+    """``target(*args_of_rank(r))`` in ``world`` processes (``rank_context``);
+    kills the rest once one fails or ``DDP_TIMEOUT_S`` passes; raises unless
+    every rank exits with 0."""
     import torch
 
     torch.cuda.empty_cache()  # the card's memory, for the ranks
-    ctx = multiprocessing.get_context("spawn")
+    ctx = rank_context()
     procs = [ctx.Process(target=target, args=args_of_rank(r)) for r in range(world)]
     for p in procs:
         p.start()
@@ -3292,12 +3572,10 @@ def run_ranks(target, args_of_rank, world):
 
 
 def start_rank(target, args):
-    """``target(*args)`` in a process of its own (spawn), started now: a
-    one-rank leg that starts up beside a phase's gloo ranks. Returns the
-    handle ``finish_rank`` and ``stop_rank`` take."""
-    import multiprocessing
-
-    proc = multiprocessing.get_context("spawn").Process(target=target, args=args)
+    """``target(*args)`` in a process of its own (``rank_context``), started
+    now: a one-rank leg that starts up beside a phase's gloo ranks. Returns
+    the handle ``finish_rank`` and ``stop_rank`` take."""
+    proc = rank_context().Process(target=target, args=args)
     proc.start()
     return proc, time.perf_counter()
 
@@ -6054,6 +6332,11 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if any(p in phases for p in RANK_PHASES):
+        import multiprocessing.forkserver
+
+        rank_context()
+        multiprocessing.forkserver.ensure_running()  # its imports overlap the phases before the ranks
     os.makedirs(os.path.dirname(RECORD), exist_ok=True)
     open(RECORD, "w").close()
 
@@ -6062,7 +6345,7 @@ def main(argv=None):
     runners = dict(
         build=phase_build, kernels=phase_kernels, parity=phase_parity, slice=phase_slice,
         sdxl_parity=phase_sdxl_parity, sdxl=phase_sdxl, sdxl_refiner=phase_sdxl_refiner,
-        train_parity=phase_train_parity, train=phase_train,
+        train_parity=phase_train_parity, train=phase_train, trace_audit=phase_trace_audit,
         train_f32=lambda st: phase_train(st, warmup=2, steps=3, dtype="float32"), trainer=phase_trainer,
         sdxl_train_parity=phase_sdxl_train_parity, sdxl_train=phase_sdxl_train, sdxl_trainer=phase_sdxl_trainer,
         sd21_parity=phase_sd21_parity, sd21=phase_sd21, sd21_trainer=phase_sd21_trainer,

@@ -1,12 +1,14 @@
 """Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
 
 Each library is compiled from ``csrc/`` at first use into ``_build/`` (listed
-in ``.gitignore``), under a directory named by a hash of its sources and
-flags, so an edited source is rebuilt and an unchanged one is loaded as it
-is. The libraries export plain C functions (no PyTorch headers), which keeps
-a build to seconds. Nothing here runs at import time: a machine without
-``nvcc`` imports the package and uses the kernels' plain versions on CPU
-tensors.
+in ``.gitignore``), under a directory named by a hash of its sources, every
+header, the flags and the toolchain (``utils.hostcache``: ``nvcc`` and the
+host compiler), so an edited source or another toolkit is rebuilt and an
+unchanged one is loaded as it is. After a build the library's stale
+directories (other keys of the same name) are removed. The libraries export
+plain C functions (no PyTorch headers), which keeps a build to seconds.
+Nothing here runs at import time: a machine without ``nvcc`` imports the
+package and uses the kernels' plain versions on CPU tensors.
 """
 
 import ctypes
@@ -16,6 +18,8 @@ import shutil
 import subprocess
 import time
 from typing import Dict, Sequence, Tuple
+
+from ..utils import hostcache
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -51,8 +55,16 @@ def nvcc_path() -> str:
     return path
 
 
+def toolchain_key() -> str:
+    """``utils.hostcache.toolchain_fingerprint`` of this ``nvcc`` and
+    ``NVCC_FLAGS`` (runs ``nvcc --version`` once a process)."""
+    return hostcache.toolchain_fingerprint(nvcc_path(), NVCC_FLAGS)
+
+
 def library_path(name: str, sources: Sequence[str]) -> str:
-    digest = hashlib.sha256()
+    """``_build/<name>-<key>/lib<name>.so``, the key a hash of the toolchain,
+    the flags, ``sources`` and every header."""
+    digest = hashlib.sha256(toolchain_key().encode())
     for flag in NVCC_FLAGS:
         digest.update(flag.encode())
     headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
@@ -70,7 +82,9 @@ def build(name: str, sources: Sequence[str]) -> str:
 
 def build_many(libraries: Dict[str, Sequence[str]]) -> Dict[str, str]:
     """Build several libraries at once: one ``nvcc`` per library that is not
-    built yet, all started together, then waited for. Returns each path."""
+    built yet, all started together, then waited for. Returns each path.
+    Each library built here then has its stale directories purged
+    (``hostcache.prepare_cache_dir``); one whose build failed keeps them."""
     paths = {name: library_path(name, srcs) for name, srcs in libraries.items()}
     running = {}
     for name, srcs in libraries.items():
@@ -94,6 +108,8 @@ def build_many(libraries: Dict[str, Sequence[str]]) -> Dict[str, str]:
             continue
         os.replace(tmp, paths[name])  # atomic: a concurrent loader sees all or nothing
         BUILD_LOG[name] = (seconds, out)
+        key = os.path.basename(os.path.dirname(paths[name]))[len(name) + 1:]
+        hostcache.prepare_cache_dir(BUILD_DIR, name, key)
     if failed:
         raise RuntimeError("\n".join(failed))
     return paths

@@ -40,10 +40,12 @@ CPU tensors take the plain versions; CUDA tensors take the kernels or raise.
 """
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..utils.profiling import annotate_launch
+from ..utils.roofline import Work, attention_work
 from .cuda_build import load_library
 
 MAX_HEAD_DIM = 512
@@ -254,17 +256,41 @@ def _function(name: str):
     return fn
 
 
+def launch_work(name: str, shape: Sequence) -> Work:
+    """The work of one launch of wrapper ``name`` at its shape key (bh, sq,
+    sk, d, dtype[, route]), as ``utils.roofline.attention_work`` counts it:
+    the forward reads Q, K, V and writes O and the lse; the fused backwards
+    do 5 products (S, dO V^T, P^T dO, dS^T Q, dS K) and the exps once,
+    reading Q, K, V, dO, lse and delta and writing dQ, dK and dV, the bf16
+    one also writing and reading its f32 dQ buffer, the f32 one its dQ
+    partials (one f32 (bh, sq, d) tensor per block of ``F32_BWD_KEYS``
+    keys); the CUDA-core pair K2 (3 products, dQ) and K3 (4, dK and dV)."""
+    bh, sq, sk, d, dtype = shape[:5]
+    args = {
+        "flash_attention_fwd": dict(reads_q=1, writes_q=1),
+        "flash_attention_fwd_cuda_cores": dict(reads_q=1, writes_q=1),
+        "flash_attention_bwd_fused": dict(products=5, writes_q=1, writes_k=2, stats=2, f32_q=2),
+        "flash_attention_bwd_f32_fused": dict(products=5, writes_q=1, writes_k=2, stats=2,
+                                              f32_q=2 * -(-sk // F32_BWD_KEYS)),
+        "flash_attention_bwd_dq": dict(products=3, stats=2, writes_q=1),
+        "flash_attention_bwd_dkv": dict(products=4, stats=2, writes_k=2),
+    }[name]
+    return attention_work(bh, sq, sk, d, dtype, **args)
+
+
 def _launch(name: str, q3: torch.Tensor, k3: torch.Tensor, *args, route: Optional[str] = None) -> None:
-    """Call kernel entry ``name`` on the current stream of q's device and
-    count the launch (total and by shape) on its wrapper. ``route``: the
+    """Call kernel entry ``name`` on the current stream of q's device (under
+    a profiler, inside ``annotate_launch`` with its shape and work) and count the
+    launch (total and by shape) on its wrapper. ``route``: the
     forward's, which its entry reports back (an argument before the stream)
     and which must be the one it took; then the launch is counted by route
     too, and the route ends the shape key."""
     bh, sq, d = q3.shape
     sk = k3.shape[1]
+    shape = (bh, sq, sk, d, str(q3.dtype).replace("torch.", "")) + (() if route is None else (route,))
     taken = ctypes.c_int(-1)
     reported = () if route is None else (ctypes.byref(taken),)
-    with torch.cuda.device(q3.device):
+    with torch.cuda.device(q3.device), annotate_launch(name, shape, lambda: launch_work(name, shape)):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _function(name)(*args, *reported, stream)
     if rc != 0:
@@ -276,7 +302,6 @@ def _launch(name: str, q3: torch.Tensor, k3: torch.Tensor, *args, route: Optiona
         raise RuntimeError(f"{name} took route {FWD_ROUTES[taken.value]}, forward_route gives {route}")
     wrapper = _WRAPPERS[name]
     wrapper.launches += 1
-    shape = (bh, sq, sk, d, str(q3.dtype).replace("torch.", "")) + (() if route is None else (route,))
     wrapper.launches_by_shape[shape] = wrapper.launches_by_shape.get(shape, 0) + 1
     if route is not None:
         wrapper.launches_by_route[route] = wrapper.launches_by_route.get(route, 0) + 1

@@ -37,6 +37,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils.profiling import annotate_launch
+from ..utils.roofline import Work, lion_bytes
 from .cuda_build import load_library
 
 LIBRARIES = {"lion8bit_update": ("lion8bit_update.cu",)}
@@ -193,7 +195,8 @@ def lion8bit_update_(
         codes.copy_(new_codes)
         scales.copy_(new_scales)
         return upd
-    upd = _launch_single(grad, codes, scales, b1, b2, fast)
+    with _annotate("lion8bit_update_", (nb, bs, grad.dtype)):
+        upd = _launch_single(grad, codes, scales, b1, b2, fast)
     _count(lion8bit_update_, (nb, bs, grad.dtype))
     return upd
 
@@ -236,11 +239,12 @@ def lion8bit_update_multi_(
         dtype=torch.int64,
     ).pin_memory()
     table = host.to(device, non_blocking=True)
+    key = (len(grads), offsets[-1], bs, grads[0].dtype)
     fn = _function(
         "lion8bit_update_multi",
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong] + _COMMON_ARGS,
     )
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), _annotate("lion8bit_update_multi_", key):
         rc = fn(
             table.data_ptr(), table[4 * len(grads):].data_ptr(), len(grads), offsets[-1], bs,
             *_coefs(b1, b2), int(fast), _DTYPE_CODES[grads[0].dtype],
@@ -248,7 +252,7 @@ def lion8bit_update_multi_(
         )
     if rc != 0:
         raise RuntimeError(f"lion8bit_update_multi launch failed: cudaError {rc} ({len(grads)} leaves)")
-    _count(lion8bit_update_multi_, (len(grads), offsets[-1], bs, grads[0].dtype))
+    _count(lion8bit_update_multi_, key)
     return updates
 
 
@@ -301,7 +305,8 @@ def fused_lion8bit_update(
         flat = flat.clone()
     _check_leaf(flat, new_codes, new_scales)
     if _on_cuda(flat, bs):
-        upd = _launch_single(flat, new_codes, new_scales, b1, b2, fast)
+        with _annotate("fused_lion8bit_update", (layout, nb, bs, grad.dtype)):
+            upd = _launch_single(flat, new_codes, new_scales, b1, b2, fast)
         _count(fused_lion8bit_update, (layout, nb, bs, grad.dtype))
     else:
         upd, new_codes, new_scales = lion8bit_update_reference(flat, codes, new_scales, b1, b2, compander)
@@ -581,13 +586,37 @@ def lion8bit_update_leaves_(
         stream = torch.cuda.current_stream().cuda_stream
         for launch in launches:
             ptrs = array.array("q", map(torch.Tensor.data_ptr, launch.grads(grads)))
-            rc = fn(launch.records.data_ptr(), launch.tile_leaf.data_ptr(), ptrs.buffer_info()[0],
-                    len(launch.leaves), launch.n_tiles, buffer.data_ptr(), table.bs, *coefs, int(fast),
-                    _DTYPE_CODES[dtype], stream)
+            key = (len(launch.leaves), launch.elements, table.bs, dtype)
+            with _annotate("lion8bit_update_leaves_", key):
+                rc = fn(launch.records.data_ptr(), launch.tile_leaf.data_ptr(), ptrs.buffer_info()[0],
+                        len(launch.leaves), launch.n_tiles, buffer.data_ptr(), table.bs, *coefs, int(fast),
+                        _DTYPE_CODES[dtype], stream)
             if rc != 0:
                 raise RuntimeError(f"lion8bit_update_leaves launch failed: cudaError {rc} ({len(launch.leaves)} leaves)")
-            _count(lion8bit_update_leaves_, (len(launch.leaves), launch.elements, table.bs, dtype))
+            _count(lion8bit_update_leaves_, key)
     return table.views(buffer)
+
+
+_GRAD_ITEMSIZE = {"bfloat16": 2, "float16": 2, "float32": 4}
+
+
+def launch_work(entry: str, key: Sequence) -> Work:
+    """The work of one launch of wrapper ``entry`` at its shape key
+    (``_count``'s): ``utils.roofline.lion_bytes`` of its elements and
+    blocks; no tensor-core flops."""
+    dtype = str(key[-1]).replace("torch.", "")
+    if entry == "lion8bit_update_leaves_":  # leaves, elements, bs, dtype
+        elements = int(key[1])
+        blocks = elements // int(key[2])
+    else:  # [leaves or layout,] blocks, bs, dtype
+        blocks = int(key[-3])
+        elements = blocks * int(key[-2])
+    return Work(0.0, 0.0, lion_bytes(elements, blocks, _GRAD_ITEMSIZE[dtype]), dtype)
+
+
+def _annotate(entry: str, key: Sequence):
+    """``annotate_launch`` of one launch of wrapper ``entry``."""
+    return annotate_launch(entry, key, lambda: launch_work(entry, key))
 
 
 def _count(wrapper, shape) -> None:

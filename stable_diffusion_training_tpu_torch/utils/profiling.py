@@ -7,16 +7,30 @@ writes it as a Chrome trace (``chrome://tracing``, Perfetto) into the
 directory, from rank 0 alone under data parallelism. ``StepTimer`` keeps
 per-step wall clock with p50/p90 summaries;
 ``estimate_unet_flops`` is the JAX package's rough FLOPs a step.
+``annotate_launch`` names each launch of the port's kernels in a trace with
+its wrapper, shape and work (``utils.roofline`` reads it).
 """
 
 import contextlib
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Callable, ContextManager, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .roofline import Work, launch_name
+
+
+def annotate_launch(entry: str, key: Sequence, work: Callable[[], Work]) -> ContextManager:
+    """While a profiler records: a ``record_function`` around a kernel
+    launch, named by ``utils.roofline.launch_name`` with the wrapper's name,
+    its shape key and ``work()`` (the wrapper's own count of the launch's
+    work), which the trace shows as the op that launched the kernel;
+    otherwise nothing but the check of a flag."""
+    if not torch.autograd._profiler_enabled():
+        return contextlib.nullcontext()
+    return torch.profiler.record_function(launch_name(entry, key, work()))
 
 
 @contextlib.contextmanager

@@ -35,6 +35,7 @@ SLICE_MODULES = (
     "data/dataloader.py", "train/eval_sampler.py", "utils/timing.py",
     "utils/profiling.py",  # the streaming loader, eval sampling, the profiler trace
     "core/mesh.py", "core/distributed.py", "parallel/sharding.py",  # data parallelism
+    "utils/hostcache.py", "utils/kernel_trace.py", "utils/roofline.py",  # the profiling tools
 )
 KERNEL_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "lion8bit_update.cu")
 SCRIPTS = ("chip_smoke.py", "probe_flash_bwd.py", "probe_lion.py")  # run from the root on the card
@@ -73,6 +74,16 @@ def test_port_imports_no_jax_and_not_the_jax_package():
         if module.split(".")[0] in FORBIDDEN
     ]
     assert offenders == []
+
+
+@pytest.mark.parametrize("module", ["utils/hostcache.py", "utils/kernel_trace.py", "utils/roofline.py"])
+def test_profiling_tools_keep_their_own_copy(module):
+    """The profiling tools port JAX modules that import no JAX themselves
+    (``utils/hostcache.py``, ``xplane.py``, ``hloaudit.py``); the port's
+    keep their own code and import neither JAX nor the JAX package, not
+    even inside a function."""
+    imported = list(_imported_modules(os.path.join(REPO, PACKAGE, module)))
+    assert imported and not [m for m in imported if m.split(".")[0] in FORBIDDEN]
 
 
 def _module_level_imports(path):
