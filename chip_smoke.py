@@ -38,8 +38,10 @@ Phases, one JSON line each:
    and the card's least time for the same work:
    flash-attention forward (K1) at the serving path's shapes, (16, 4096, 40)
    and (1, 4096, 512), in bf16 and f32 (TF32 off), at the train step's,
-   (64, 4096, 40) and (8, 4096, 512) in bf16 and f32, at SDXL's, (20, 4096,
-   64) in bf16 and f32, (24, 4096, 64) and (1, 16384, 512) in bf16, at SD2.1's
+   (64, 4096, 40) and (8, 4096, 512) in bf16 and f32, at the bucket steps'
+   640-channel level, (64, 2704, 80) and (64, 4624, 80) in bf16, at
+   SDXL's, (20, 4096, 64) in bf16 and f32, (24, 4096, 64) and (1, 16384,
+   512) in bf16, at SD2.1's
    768x768 ones (the 9,216- and 2,304-key levels at train batch 8 and CFG
    batch 2, the 896x640 bucket's 8,960 and 2,240, the VAE mid-block at
    batch 8 and 1 in bf16, sd21_parity's in f32; the plain version over a
@@ -53,10 +55,14 @@ Phases, one JSON line each:
    route), the host's ms per call and the bytes the kernel streams from
    L2; at the four f32 shapes the older CUDA-core kernel, which the f32
    route replaced, checked and timed on the same inputs;
-   flash-attention backward on its three routes (``backward_route``): the
+   flash-attention backward on its four routes (``backward_route``): the
    fused tensor-core kernel (bf16, K2 and K3 in one) at the train step's
    (64, 4096, 40), ddp_trainer's per-rank (32, 4096, 40) and at ragged
-   cases (D = 64, and D = 40 with both counts off the tiles); the fused
+   cases (D = 64, and D = 40 with both counts off the tiles); its wide-head
+   counterpart (bf16, 64 < D <= 128) at SD1.5's 640-channel level in
+   train's 832x832 and 1088x1088 bucket steps, (64, 2704, 80) and (64,
+   4624, 80), with the CUDA-core pair it replaced timed on the same inputs,
+   and at D = 96 and 128 with counts off its tiles; the fused
    f32 kernel (K2 and K3 in one, CUDA cores) at
    train_parity's (8, 4096, 40), train_f32's (64, 4096, 40) and the same
    two ragged cases (and SDXL's and SD2.1's training shapes at D = 64, bf16
@@ -139,7 +145,15 @@ Phases, one JSON line each:
    twice (one launch per model) and its single- and multi-leaf entries
    never, per step, and no grad copied before Lion). Then one step under
    torch.profiler (``profile`` line, with device ms by
-   ``utils.kernel_trace`` category).
+   ``utils.kernel_trace`` category). Then, on the same state, the step at
+   the example config's 832x832 and 1088x1088 buckets (``train_bucket``
+   lines: 2 warm-up and 3 timed steps each, p50, images/s, peak memory,
+   launches by route and shape): per step K1 5 on the narrow kernel at
+   level 0 (heads of 40), 5 on the wide one at level 1 (heads of 80) and
+   once in the VAE encode, the fused backward 5 at level 0 and the
+   wide-head fused backward 5 at level 1, the CUDA-core pair and the f32
+   backward never; without gradient checkpointing, as the example config
+   trains.
 11. ``trace_audit``: the same bf16 step once more under torch.profiler with
    the host's ops and their shapes (``record_shapes``), its Chrome trace
    read with the package (``utils.kernel_trace``, ``utils.roofline``): the
@@ -439,7 +453,7 @@ LION_BS, BUCKET_MAX_NB = 16, 65536
 
 RECORD = os.path.join(REPO, "chiprun_out", "chip_smoke.jsonl")  # every phase line, in full
 # the flash-attention kernels built on TMA and wgmma (names as in csrc/)
-HOPPER_KERNELS = ("flash_fwd_tma_kernel", "flash_bwd_fused_kernel")
+HOPPER_KERNELS = ("flash_fwd_tma_kernel", "flash_bwd_fused_kernel", "flash_bwd_fused_wide_kernel")
 # the f32 kernels (CUDA cores, cp.async): the fused backward and the
 # forward's two; each built, and spilling nothing
 F32_KERNELS = ("flash_bwd_f32_fused_kernel", "flash_fwd_f32_narrow_kernel", "flash_fwd_f32_wide_kernel")
@@ -769,6 +783,10 @@ def phase_kernels(state):
         # bf16 shapes, the eval's decode vae_mid's)
         ("tp_parity_unet", 4, 4096, 4096, 40, ("float32",)),
         ("tp_eval_unet", 8, 4096, 4096, 40, ("bfloat16",)),
+        # SD1.5's 640-channel level (8 heads of 80) at the example config's
+        # buckets 832x832 and 1088x1088, train batch 8 (train's bucket steps)
+        ("sd15_bucket_832_l1", 64, 2704, 2704, 80, ("bfloat16",)),
+        ("sd15_bucket_1088_l1", 64, 4624, 4624, 80, ("bfloat16",)),
     ]
     results = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -850,14 +868,17 @@ def phase_kernels(state):
 
 # launches of one flash_attention_bwd call, by route (fa.backward_route)
 BWD_ROUTE_LAUNCHES = {
-    "fused": dict(bwd_fused=1, bwd_f32=0, bwd_dq=0, bwd_dkv=0),
-    "f32_fused": dict(bwd_fused=0, bwd_f32=1, bwd_dq=0, bwd_dkv=0),
-    "cuda_cores": dict(bwd_fused=0, bwd_f32=0, bwd_dq=1, bwd_dkv=1),
+    "fused": dict(bwd_fused=1, bwd_fused_wide=0, bwd_f32=0, bwd_dq=0, bwd_dkv=0),
+    "fused_wide": dict(bwd_fused=0, bwd_fused_wide=1, bwd_f32=0, bwd_dq=0, bwd_dkv=0),
+    "f32_fused": dict(bwd_fused=0, bwd_fused_wide=0, bwd_f32=1, bwd_dq=0, bwd_dkv=0),
+    "cuda_cores": dict(bwd_fused=0, bwd_fused_wide=0, bwd_f32=0, bwd_dq=1, bwd_dkv=1),
 }
 
 
 def bwd_launches(fa):
-    return dict(bwd_fused=fa.flash_attention_bwd_fused.launches, bwd_f32=fa.flash_attention_bwd_f32_fused.launches,
+    return dict(bwd_fused=fa.flash_attention_bwd_fused.launches,
+                bwd_fused_wide=fa.flash_attention_bwd_fused_wide.launches,
+                bwd_f32=fa.flash_attention_bwd_f32_fused.launches,
                 bwd_dq=fa.flash_attention_bwd_dq.launches, bwd_dkv=fa.flash_attention_bwd_dkv.launches)
 
 
@@ -917,6 +938,14 @@ def flash_backward_cases():
         # tp_parity's f32 row, 4 of the 8 heads a rank (tp_trainer's 8 rows
         # are ddp_unet_train's shape)
         ("tp_parity_unet_f32", 4, 4096, 4096, 40, torch.float32),
+        # SD1.5's 640-channel level (8 heads of 80) at the example config's
+        # buckets 832x832 and 1088x1088, batch 8 (train's bucket steps): the
+        # wide-head fused kernel, with the CUDA-core pair it replaced timed
+        # on the same inputs; D = 96 and 128 with counts off its tiles
+        ("sd15_bucket_832_l1", 64, 2704, 2704, 80, torch.bfloat16),
+        ("sd15_bucket_1088_l1", 64, 4624, 4624, 80, torch.bfloat16),
+        ("ragged_d96", 3, 1000, 1100, 96, torch.bfloat16),
+        ("ragged_d128", 2, 1500, 1300, 128, torch.bfloat16),
     ]
     rows = []
     for name, bh, sq, sk, d, dtype in cases:
@@ -927,7 +956,7 @@ def flash_backward_cases():
         o, lse = fa.flash_attention_fwd(q, k, v, scale)
         delta = (do.float() * o.float()).sum(-1)
         route = fa.backward_route(q, k, v, do)
-        fused = route == "fused"
+        fused = route in ("fused", "fused_wide")  # bf16: dQ's adds land in any order
         args = (q, k, v, do, lse, delta, scale)
         fa.reset_launch_counts()
         grads = fa.flash_attention_bwd(*args)
@@ -957,7 +986,7 @@ def flash_backward_cases():
         )
         ok = ok and repeat["dk_equal"] and repeat["dv_equal"] and (fused or repeat["dq_equal"])
         del grads, again, expected
-        reps = 10 if d <= 64 else 3
+        reps = 10 if d <= 128 else 3
         host = []
         call_ms = cuda_ms(lambda: fa.flash_attention_bwd(*args), reps, host=host)
         kernel_ms = profiled_kernel_ms(lambda: fa.flash_attention_bwd(*args), reps)
@@ -973,7 +1002,7 @@ def flash_backward_cases():
         except RuntimeError:  # no SDPA backend takes this shape/dtype
             pass
         pair_ms = None
-        if name == "unet_train_f32":  # the route it replaces, on the same inputs
+        if name == "unet_train_f32" or name.startswith("sd15_bucket"):  # the route it replaces, on the same inputs
             pair_ms = cuda_ms(
                 lambda: (fa.flash_attention_bwd_dq(*args), fa.flash_attention_bwd_dkv(*args)), 3, warmup=1
             )
@@ -986,7 +1015,7 @@ def flash_backward_cases():
         # dO V^T, P^T dO, dS^T Q (4 products) and the exps again, writing dK
         # and dV.
         n_parts = -(-sk // fa.F32_BWD_KEYS)
-        f32_q = {"fused": 2, "f32_fused": 2 * n_parts, "cuda_cores": 0}[route]
+        f32_q = {"fused": 2, "fused_wide": 2, "f32_fused": 2 * n_parts, "cuda_cores": 0}[route]
         bound = roofline.attention_bound(bh, sq, sk, d, name_dt, products=5, writes_q=1, writes_k=2, stats=2,
                                          f32_q=f32_q)
         per_kernel = {}
@@ -1846,9 +1875,11 @@ def phase_train_parity(state):
         return loss.item(), [g.float() for g in grads], launches
 
     # f32 takes the fused f32 backward kernel, bf16 the fused tensor-core one
-    kernel_launches = dict(fwd=5, fwd_routes={"f32": 5}, bwd_fused=0, bwd_f32=5, bwd_dq=0, bwd_dkv=0)
-    bf16_launches = dict(fwd=5, fwd_routes={"tma_narrow": 5}, bwd_fused=5, bwd_f32=0, bwd_dq=0, bwd_dkv=0)
-    plain_launches = dict(fwd=0, fwd_routes={}, bwd_fused=0, bwd_f32=0, bwd_dq=0, bwd_dkv=0)
+    kernel_launches = dict(fwd=5, fwd_routes={"f32": 5}, bwd_fused=0, bwd_fused_wide=0, bwd_f32=5, bwd_dq=0,
+                           bwd_dkv=0)
+    bf16_launches = dict(fwd=5, fwd_routes={"tma_narrow": 5}, bwd_fused=5, bwd_fused_wide=0, bwd_f32=0, bwd_dq=0,
+                         bwd_dkv=0)
+    plain_launches = dict(fwd=0, fwd_routes={}, bwd_fused=0, bwd_fused_wide=0, bwd_f32=0, bwd_dq=0, bwd_dkv=0)
     loss_k, grads_k, launches_k = loss_and_grads("auto", torch.float32)
     loss_p, grads_p, launches_p = loss_and_grads("xla", torch.float32)
 
@@ -1976,7 +2007,7 @@ def phase_train(state, warmup=2, steps=5, seed=0, dtype="bfloat16"):
     def lion_states():
         return [s.opt_state[1][0] for s in (unet_state, te_state)]
 
-    def step():
+    def step(batch=batch):
         out = train_step(
             unet_state, te_state, unet_ema, te_ema, batch, train_rng, frozen_vae, frozen_sched,
             strip_bos_eos_token=True, ema_rate=cfg.ema_rate,
@@ -2023,8 +2054,8 @@ def phase_train(state, warmup=2, steps=5, seed=0, dtype="bfloat16"):
     # model over its leaf table, the earlier entries never
     bwd = "flash_bwd_fused" if dtype == "bfloat16" else "flash_bwd_f32"
     expected = dict(
-        flash_fwd=6 * steps, flash_bwd_fused=0, flash_bwd_f32=0, flash_bwd_dq=0, flash_bwd_dkv=0,
-        lion_leaves=2 * steps, lion_single=0, lion_multi=0,
+        flash_fwd=6 * steps, flash_bwd_fused=0, flash_bwd_fused_wide=0, flash_bwd_f32=0, flash_bwd_dq=0,
+        flash_bwd_dkv=0, lion_leaves=2 * steps, lion_single=0, lion_multi=0,
     )
     expected[bwd] = 5 * steps
     # K1's routes: the UNet's 5 and the VAE encode's 1 a step, never the
@@ -2062,8 +2093,86 @@ def phase_train(state, warmup=2, steps=5, seed=0, dtype="bfloat16"):
             and grad_copies == 0):
         raise AssertionError(f"{phase} step failed its checks")
     profile = profile_step(step, f"one SD1.5 train step ({dtype}, batch 8, 512x512)", top=20)
+    if phase == "train":
+        buckets = {}
+        for res in TRAIN_BUCKETS:
+            by_shape = train_bucket(res, step, unet_state.model, seed + 2 + res)
+            add_launches(buckets, by_shape)
+        state["train_buckets_by_shape"] = buckets
     if phase == "train" and "trace_audit" in state["phases"]:
         state["train_step"], state["train_profile"] = step, profile  # trace_audit's, which frees the step
+
+
+# the example config's buckets (model_properties_example.json's
+# image_area_root and minimum_axis_length) that train steps at beside
+# 512x512: their 640-channel level (8 heads of 80; 52x52 and 68x68 latents,
+# 2,704 and 4,624 keys) goes to the flash kernels and its backward to the
+# wide-head fused kernel
+TRAIN_BUCKETS = (832, 1088)
+TRAIN_BUCKET_WARMUP, TRAIN_BUCKET_STEPS = 2, 3
+
+
+def train_bucket(res, step, unet, seed):
+    """The SD1.5 bf16 train step (``phase_train``'s ``step``, its state) at
+    the ``res`` x ``res`` bucket, batch 8, without gradient checkpointing
+    as the example config trains (1088x1088 peaks at ~44 GB): 2 warm-ups
+    and 3 timed steps, the launch counts zeroed just before those and read
+    just after. Per step K1 5 times on the narrow kernel at level 0 (320
+    channels, heads of 40), 5 on the wide one at level 1 (640 channels,
+    heads of 80) and once in the VAE encode; the fused backward 5 at level
+    0 and the wide-head one 5 at level 1; the CUDA-core pair and the f32
+    backward never; Lion's leaf table twice. Returns the timed steps'
+    launches by shape."""
+    import gc
+
+    import torch
+
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+    from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batch = {
+        "pixel_values": torch.rand(TRAIN_BATCH, 3, res, res, generator=gen, device="cuda") * 2 - 1,
+        "input_ids": torch.randint(0, 49408, (TRAIN_BATCH * TRAIN_CONCAT, 77), generator=gen, device="cuda"),
+    }
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    warm = [host_ms(lambda: step(batch)) for _ in range(TRAIN_BUCKET_WARMUP)]
+    fa.reset_launch_counts()
+    lk.reset_launch_counts()
+    timed = [host_ms(lambda: step(batch)) for _ in range(TRAIN_BUCKET_STEPS)]
+    launches = train_launches(fa, lk)
+    by_shape = launch_snapshot(fa, lk)
+    fwd_routes = dict(fa.flash_attention_fwd.launches_by_route)
+    peak = torch.cuda.max_memory_allocated()
+    n = TRAIN_BUCKET_STEPS
+    l0, l1 = (res // 8) ** 2, (res // 16) ** 2
+    want_shapes = dict(
+        flash_fwd={(64, l0, l0, 40, "bfloat16", "tma_narrow"): 5 * n, (64, l1, l1, 80, "bfloat16", "tma_wide"): 5 * n,
+                   (TRAIN_BATCH, l0, l0, 512, "bfloat16", "tma_wide"): n},
+        flash_bwd_fused={(64, l0, l0, 40, "bfloat16"): 5 * n},
+        flash_bwd_fused_wide={(64, l1, l1, 80, "bfloat16"): 5 * n},
+    )
+    want = dict(flash_fwd=11 * n, flash_bwd_fused=5 * n, flash_bwd_fused_wide=5 * n, flash_bwd_f32=0,
+                flash_bwd_dq=0, flash_bwd_dkv=0, lion_leaves=2 * n, lion_single=0, lion_multi=0)
+    losses = [loss.item() for _, loss in warm + timed]
+    ms = [t for t, _ in timed]
+    p50 = statistics.median(ms)
+    finite = all(map(math.isfinite, losses))
+    ok = finite and launches == want and all(by_shape[k] == v for k, v in want_shapes.items())
+    emit(
+        "train_bucket", resolution=[res, res], batch=TRAIN_BATCH, dtype="bfloat16",
+        gradient_checkpointing=unet.gradient_checkpointing, level1_keys=l1, warmup_ms=[t for t, _ in warm],
+        step_ms=ms, p50_ms=p50, images_per_s=TRAIN_BATCH / p50 * 1e3, losses=losses, finite=finite,
+        max_memory_allocated=peak, launches=launches, expected_launches=want, flash_fwd_launches_by_route=fwd_routes,
+        launches_by_shape={kernel: {"x".join(map(str, k)): v for k, v in shapes.items()}
+                           for kernel, shapes in by_shape.items() if shapes},
+        ok=ok,
+    )
+    if not ok:
+        raise AssertionError(f"train at {res}x{res} failed its checks")
+    return {k: v for k, v in by_shape.items() if v}
 
 
 def train_launches(fa, lk):
@@ -2084,7 +2193,8 @@ def expected_bounds(moved, state, fa, lk):
     for r in state.get("kernel_cases", []):
         rows[("flash_fwd", *r["shape_q"], r["shape_k"][1], r["dtype"])] = r["bound_ms"]
     for r in state.get("bwd_cases", []):
-        wrapper = {"fused": "flash_bwd_fused", "f32_fused": "flash_bwd_f32"}.get(r["route"])
+        wrapper = {"fused": "flash_bwd_fused", "fused_wide": "flash_bwd_fused_wide",
+                   "f32_fused": "flash_bwd_f32"}.get(r["route"])
         if wrapper:
             rows[(wrapper, *r["shape_q"], r["shape_k"][1], r["dtype"])] = r["bound_ms"]
     for r in state.get("lion_model_cases", []):
@@ -2305,7 +2415,8 @@ def phase_trace_audit(state):
 TRAINER_STEPS = 3  # steps per chunk (the example config's chunks run to the loader's end)
 # kernels the bf16 step never launches: the f32 and CUDA-core backwards, and
 # Lion's earlier entries (the leaf table takes every SD1.5 leaf)
-OFF_BF16_STEP = ("flash_bwd_f32", "flash_bwd_dq", "flash_bwd_dkv", "lion_single", "lion_multi")
+OFF_BF16_STEP = ("flash_bwd_fused_wide", "flash_bwd_f32", "flash_bwd_dq", "flash_bwd_dkv", "lion_single",
+                 "lion_multi")
 
 
 def _tree_bytes(path):
@@ -2619,8 +2730,9 @@ def phase_sdxl_train_parity(state, seed=7):
         if name.startswith("add_embedding."):
             add_embedding_max[name] = min(gk.abs().max().item(), ref)
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    kernel_launches = dict(fwd=10, fwd_routes={"f32": 10}, bwd_fused=0, bwd_f32=10, bwd_dq=0, bwd_dkv=0)
-    plain_launches = dict(fwd=0, fwd_routes={}, bwd_fused=0, bwd_f32=0, bwd_dq=0, bwd_dkv=0)
+    kernel_launches = dict(fwd=10, fwd_routes={"f32": 10}, bwd_fused=0, bwd_fused_wide=0, bwd_f32=10, bwd_dq=0,
+                           bwd_dkv=0)
+    plain_launches = dict(fwd=0, fwd_routes={}, bwd_fused=0, bwd_fused_wide=0, bwd_f32=0, bwd_dq=0, bwd_dkv=0)
     want_shapes = dict(flash_fwd={SDXL_PARITY_KEY + ("f32",): 10}, flash_bwd_f32={SDXL_PARITY_KEY: 10})
     ok = (
         math.isfinite(loss_k) and loss_rel <= TRAIN_LOSS_REL_TOL and worst <= TRAIN_GRAD_REL_TOL
@@ -2797,8 +2909,8 @@ def phase_sdxl_train(state, warmup=2, steps=5, bucket_steps=2, seed=0):
         # K1 20 a step (each of the 10 again in the blocks' recompute), the
         # fused bf16 backward 10, Lion's leaf table once per
         # MAX_LEAVES_PER_LAUNCH leaves; nothing else
-        want = dict(flash_fwd=20 * n, flash_bwd_fused=10 * n, flash_bwd_f32=0, flash_bwd_dq=0, flash_bwd_dkv=0,
-                    lion_leaves=per_step * n, lion_single=0, lion_multi=0)
+        want = dict(flash_fwd=20 * n, flash_bwd_fused=10 * n, flash_bwd_fused_wide=0, flash_bwd_f32=0,
+                    flash_bwd_dq=0, flash_bwd_dkv=0, lion_leaves=per_step * n, lion_single=0, lion_multi=0)
         want_shapes = dict(flash_fwd={key + ("tma_narrow",): 20 * n}, flash_bwd_fused={key: 10 * n},
                            lion_leaves={k: v * n for k, v in lion.items()})
         ok_launches[name] = lc == want and shapes == want_shapes and rts == {"tma_narrow": 20 * n}
@@ -2957,7 +3069,7 @@ def phase_sdxl_trainer(state, seed=0):
     del saved, saved_ema, template, restored
     gc.collect()
     torch.cuda.empty_cache()
-    off = ("flash_bwd_f32", "flash_bwd_dq", "flash_bwd_dkv", "lion_single", "lion_multi")
+    off = ("flash_bwd_fused_wide", "flash_bwd_f32", "flash_bwd_dq", "flash_bwd_dkv", "lion_single", "lion_multi")
     checks = dict(
         json=(final["chunk_number"], final["chunk_steps"], final["master_seed"], final["model_path"])
         == (1, 1, seed + 1, ckpt),
@@ -3087,9 +3199,9 @@ def phase_sd21_parity(state, seed=11):
     want_bwd = {l1: 5, l2: 5}
     ok_step = (
         math.isfinite(loss_k) and loss_rel <= TRAIN_LOSS_REL_TOL and worst <= TRAIN_GRAD_REL_TOL
-        and launches_k == dict(fwd=10, bwd_fused=0, bwd_f32=10, bwd_dq=0, bwd_dkv=0)
+        and launches_k == dict(fwd=10, bwd_fused=0, bwd_fused_wide=0, bwd_f32=10, bwd_dq=0, bwd_dkv=0)
         and by_shape == dict(flash_fwd=want_fwd, flash_bwd_f32=want_bwd)
-        and launches_p == dict(fwd=0, bwd_fused=0, bwd_f32=0, bwd_dq=0, bwd_dkv=0)
+        and launches_p == dict(fwd=0, bwd_fused=0, bwd_fused_wide=0, bwd_f32=0, bwd_dq=0, bwd_dkv=0)
     )
     emit(
         "sd21_parity", dtype="float32", batch=1, resolution=SD21_RES, max_rel_diff=rel, rel_tol=PARITY_REL_TOL,
@@ -3238,6 +3350,7 @@ def launch_wrappers(fa, lk):
     records give it."""
     return dict(
         flash_fwd=fa.flash_attention_fwd, flash_bwd_fused=fa.flash_attention_bwd_fused,
+        flash_bwd_fused_wide=fa.flash_attention_bwd_fused_wide,
         flash_bwd_f32=fa.flash_attention_bwd_f32_fused, flash_bwd_dq=fa.flash_attention_bwd_dq,
         flash_bwd_dkv=fa.flash_attention_bwd_dkv, lion_leaves=lk.lion8bit_update_leaves_,
         lion_single=lk.lion8bit_update_, lion_multi=lk.lion8bit_update_multi_,
@@ -4505,7 +4618,8 @@ def fsdp_trainer_rank(rank, workdir):
 def fsdp_nccl_rank(state_dir, workdir):
     """A one-rank NCCL world from torchrun's variables with the SDXL models
     sharded over a fsdp axis of one rank, started while the gloo ranks
-    train and built once the phase marks their checkpoint written: that
+    train, its world joined and its state built once the phase marks their
+    checkpoint written: that
     checkpoint read back whole (``restore_train_state``, one process), each gloo rank's
     slices of the restored UNet state fingerprinted for the gloo ranks' own,
     then 2 steps of ``train.aot``'s step table over the leg's cache (no
@@ -4524,13 +4638,15 @@ def fsdp_nccl_rank(state_dir, workdir):
 
     with open(os.path.join(workdir, "nccl_spec.json")) as f:
         spec = json.load(f)
+    # the card only once the gloo ranks are done: their two SDXL states
+    # leave it too little room for this process's context and NCCL's buffers
+    wait_for(os.path.join(workdir, "checkpoint_ready"))
     os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
     set_tf32(False)
     initialize_distributed()
     device = torch.device("cuda", 0)
     mesh = create_mesh(tuple(spec["mesh"]), device_type="cuda")
     config = sdxl_train_config(mesh_shape=spec["mesh"], fsdp_shard_params=True)
-    wait_for(os.path.join(workdir, "checkpoint_ready"))
     states = on_device_model_training_state(config, device=device, mesh=mesh)
     t0 = time.perf_counter()
     restored = restore_train_state(state_dir, {
@@ -4634,8 +4750,9 @@ def phase_fsdp_trainer(state, seed=0):
         json.dump(dict(config_path=config_path, cache=cache, run_dir=run_dir), f)
     ckpt = f"{base}@0"  # the chunk's
     # the one-rank NCCL world reads the gloo leg's checkpoint back and trains
-    # on; it starts up beside the gloo ranks and builds its SDXL state once
-    # they are done (the card holds the three states one after the other)
+    # on; it starts beside the gloo ranks and touches the card (its NCCL
+    # world, its SDXL state) once they are done: the card holds the three
+    # states one after the other
     nccl_cache = fsdp_cache(root, "nccl_cache", FSDP_NCCL_SHARDS)
     with open(os.path.join(workdir, "nccl_spec.json"), "w") as f:
         json.dump(dict(cache=nccl_cache, mesh=[1, 1, 1]), f)
@@ -6150,12 +6267,13 @@ def kernels_line(state):
     tp_fsdp_trainer = state.get("tp_fsdp_trainer_by_shape", {})
     tp_fsdp_nccl = state.get("tp_fsdp_nccl_by_shape", {})
     vae_polyphase = state.get("vae_polyphase_by_shape", {})
+    train_buckets = state.get("train_buckets_by_shape", {})  # train's 832x832 and 1088x1088 steps
     paths = {
         "bfloat16": [state.get(f"{p}_by_shape", {}) for p in ("slice", "sdxl", "sdxl_refiner", "sdxl_cache", "sd21")]
         + [train.get("flash_fwd", {}), sdxl_train.get("flash_fwd", {}), sd21_trainer.get("flash_fwd", {}),
            ddp_trainer.get("flash_fwd", {}), fsdp_trainer.get("flash_fwd", {}), tp_trainer.get("flash_fwd", {}),
            tp_nccl.get("flash_fwd", {}), tp_fsdp_trainer.get("flash_fwd", {}), tp_fsdp_nccl.get("flash_fwd", {}),
-           vae_polyphase.get("flash_fwd", {})],
+           vae_polyphase.get("flash_fwd", {}), train_buckets.get("flash_fwd", {})],
         "float32": [state.get(f"{p}_by_shape", {}) for p in ("parity", "sdxl_parity")]
         + [train_f32.get("flash_fwd", {}), sdxl_train_parity.get("flash_fwd", {}), sd21_parity.get("flash_fwd", {}),
            ddp_parity.get("flash_fwd", {}), fsdp_parity.get("flash_fwd", {}), tp_parity.get("flash_fwd", {}),
@@ -6206,6 +6324,9 @@ def kernels_line(state):
         "sd21_train_bucket_l2": [(sd21_trainer.get("flash_bwd_fused", {}), "sd21_trainer 896x640")],
         "ddp_unet_train": [(ddp_trainer.get("flash_bwd_fused", {}), "ddp_trainer ranks"),
                            (tp_trainer.get("flash_bwd_fused", {}), "tp_trainer ranks")],
+        # the wide-head fused kernel (route fused_wide)
+        "sd15_bucket_832_l1": [(train_buckets.get("flash_bwd_fused_wide", {}), "train 832x832")],
+        "sd15_bucket_1088_l1": [(train_buckets.get("flash_bwd_fused_wide", {}), "train 1088x1088")],
     }
     for row in state.get("bwd_cases", []):
         bh, sq, d = row["shape_q"]
@@ -6215,11 +6336,11 @@ def kernels_line(state):
             route="cuda", source=f"{CSRC}/flash_attention_bwd.cu", plain_ms=row["plain_ms"],
             library_ms=row["library_ms"],
         )
-        if row["case"] in bf16_paths:  # a train step runs the fused kernel at this shape
+        if row["case"] in bf16_paths:  # a train step runs a fused bf16 kernel at this shape
+            wrapper = "flash_attention_bwd_fused_wide" if row["route"] == "fused_wide" else "flash_attention_bwd_fused"
             for counts, path in bf16_paths[row["case"]]:
                 entries.append(dict(
-                    common, name=f"flash_attention_bwd_fused[{row['case']} {dims} bf16; K2 and K3 in one kernel; "
-                    f"path: {path}]",
+                    common, name=f"{wrapper}[{row['case']} {dims} bf16; K2 and K3 in one kernel; path: {path}]",
                     replaces=f"{JAX_OPS}/flash_attention.py:105,147",
                     launches=counts.get(shape, 0),
                     max_abs_err=max(row["max_abs_err"].values()), ms=row["call_ms"], bound_ms=row["bound_ms"],
@@ -6236,9 +6357,11 @@ def kernels_line(state):
                 ))
         elif row["route"] == "cuda_cores":
             # the CUDA-core pair, each kernel with its own time and work; the
-            # plain and library times are the whole backward's. No model
-            # path takes it (f32 and bf16 at D <= 64 have their fused
-            # kernels): its path is its own case, two calls.
+            # plain and library times are the whole backward's. No path
+            # of this script takes it (bf16 at D <= 128 and f32 at D <= 64
+            # have their fused kernels; train_f32 steps at 512x512, where
+            # the D = 80 level is plain attention): its path is its own
+            # case, two calls.
             for kernel, grads, line in (("dq", ("dq",), 105), ("dkv", ("dk", "dv"), 147)):
                 own = row["per_kernel"][kernel]
                 entries.append(dict(

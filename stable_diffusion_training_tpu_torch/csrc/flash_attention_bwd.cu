@@ -23,7 +23,7 @@
 // no TF32) the same five products at 67 TFLOP/s bound it: 6.41 ms at
 // (64, 4096, 40), 0.80 ms at train_parity's (8, 4096, 40).
 //
-// The design. Three routes, picked by the caller (ops/flash_attention.py,
+// The design. Four routes, picked by the caller (ops/flash_attention.py,
 // `backward_route`) by dtype, head dim and alignment:
 //
 // 1. bf16, D % 8 == 0, D <= 64 (`flash_bwd_fused_kernel<DP>`, DP = D rounded
@@ -63,7 +63,30 @@
 //    flight across the loop's back edge and ptxas serialises every
 //    wgmma); per-consumer dQ partials with no barrier between the
 //    consumers, started half a tile apart (twice the reduce-add bytes).
-// 2. f32, D % 4 == 0, D <= 64 (`flash_bwd_f32_fused_kernel<DP>`, DP = D
+// 2. bf16, D % 8 == 0, 64 < D <= 128 (`flash_bwd_fused_wide_kernel<DP>`,
+//    DP = D rounded up to 16: 80, 96, 112, 128): route 1's design and
+//    arithmetic for SD1.5's 640-channel level (8 heads of 80), with three
+//    changes that its registers and shared memory force. (a) 64-query
+//    tiles: S^T and dP^T take 32 registers each, beside dK and dV's DP
+//    (up to 128 at DP = 128), under the 232 that setmaxnreg leaves. (b) D
+//    spans two 64-column TMA boxes (zeros past D): S^T and dP^T run DP / 16
+//    k-steps over both (5 at D = 80, no product padded to 128); dV and dK
+//    run one wgmma for columns 0-63 and one of DP - 64 for the rest, each
+//    inside one 128-byte swizzle atom, as route 1's MN-major operands are.
+//    (c) dQ = dS K for the 64 queries over the block's 128 keys is split by
+//    columns: consumer w computes columns w DP / 2 .. (m64n40k16 at D = 80),
+//    its B operand K's columns from w DP / 2, which for consumer 1 is one
+//    more TMA box of K loaded at column DP / 2 (K's second chunk at
+//    DP = 128). Both consumers stage their columns of the tile's dQ rows,
+//    meet at a second barrier, and one thread adds the rows into the f32
+//    buffer. Shared memory: Q/dO 2 x 32 KB, K and V 64 KB, K's box 16 KB,
+//    dS^T 2 x 16 KB, staging 20 KB at D = 80 (198 KB in all). Numbers as
+//    route 1: P and dS rounded to bf16, f32 sums; dQ's adds land in any
+//    order. Compute bounds it as it does route 1 (five products, 0.38 ms
+//    at (64, 2704, 80), SD1.5's 832x832 level at batch 8); it runs at
+//    2.6-2.9x that on the card, a little faster than SDPA's backward
+//    (PERF.md).
+// 3. f32, D % 4 == 0, D <= 64 (`flash_bwd_f32_fused_kernel<DP>`, DP = D
 //    rounded up to 16, 32, 40, 48 or 64): one fused CUDA-core kernel, so
 //    S^T, dP^T and the exps are computed once (5 products, not the pair's
 //    7), deterministic. One block of 256 threads per (head, 128 keys); K and
@@ -94,18 +117,18 @@
 //    read their column operands as scalars (one load per 4 FMAs), and with
 //    8 warps an SM the two barriers a tile are not hidden: these hold the
 //    kernel at about 2x its bound.
-// 3. CUDA cores (`bwd_dq_kernel`, `bwd_dkv_kernel`): everything else (f32
-//    with D % 4 != 0 or D > 64, bf16 with D % 8 != 0 or D > 64). Two kernels
-//    following the TPU grid (dQ
-//    per query tile over the keys; dK/dV per key tile over the queries),
+// 4. CUDA cores (`bwd_dq_kernel`, `bwd_dkv_kernel`): everything else (f32
+//    with D % 4 != 0 or D > 64, bf16 with D % 8 != 0 or D > 128, unaligned
+//    bases). Two kernels following the TPU grid (dQ per query tile over the
+//    keys; dK/dV per key tile over the queries),
 //    deterministic. f32 FMA with the tiles staged in shared memory as f32,
 //    dS (and P) rounded to the input dtype through shared memory, tile
 //    shapes picked by the head dim as in the forward's CUDA-core kernel.
 //
 // TMA: Q, dO, K and V are 3-D tensor maps {D, S, B*H} with boxes of 64
-// columns and 128 rows (128-byte swizzle), so rows past S inside a head and
-// columns past D arrive as zeros. The TMA, mbarrier, wgmma and bulk
-// reduce helpers are in hopper_common.cuh.
+// columns and 128 rows (64 for route 2's Q and dO; 128-byte swizzle), so
+// rows past S inside a head and columns past D arrive as zeros. The TMA,
+// mbarrier, wgmma and bulk reduce helpers are in hopper_common.cuh.
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
 
@@ -734,6 +757,16 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// the dQ conversion after a fused kernel: dq = bf16(scale * dq_acc), (bh, sq, d)
+cudaError_t launch_dq_convert(const float* dq_acc, void* dq, int bh, int sq, int d, float scale,
+                              cudaStream_t stream) {
+  const size_t n4 = size_t(bh) * sq * d / 4;
+  const unsigned blocks = unsigned(n4 / 256 + 1 < 132 * 16 ? n4 / 256 + 1 : 132 * 16);
+  flash_bwd_dq_convert_kernel<<<blocks, 256, 0, stream>>>(reinterpret_cast<const float4*>(dq_acc),
+                                                          static_cast<__nv_bfloat162*>(dq), n4, scale);
+  return cudaGetLastError();
+}
+
 template <int DP>
 cudaError_t launch_fused(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                          const float* delta, float* dq_acc, void* dq, void* dk, void* dv, int bh, int sq,
@@ -754,11 +787,315 @@ cudaError_t launch_fused(const void* q, const void* k, const void* v, const void
                                                             d, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t n4 = size_t(bh) * sq * d / 4;
-  const unsigned blocks = unsigned(n4 / 256 + 1 < 132 * 16 ? n4 / 256 + 1 : 132 * 16);
-  flash_bwd_dq_convert_kernel<<<blocks, 256, 0, stream>>>(reinterpret_cast<const float4*>(dq_acc),
-                                                          static_cast<__nv_bfloat162*>(dq), n4, scale);
-  return cudaGetLastError();
+  return launch_dq_convert(dq_acc, dq, bh, sq, d, scale, stream);
+}
+
+// --- fused tensor-core kernel, wide heads: bf16, D % 8 == 0, 64 < D <= 128 ----
+
+template <int DP>
+struct FusedWideTile {
+  // consumer warpgroups, 64 keys each; warpgroup 0 produces
+  static constexpr int kConsumers = 2;
+  static constexpr int kConsumerThreads = 128 * kConsumers;
+  static constexpr int kThreadsTotal = 128 + kConsumerThreads;
+  static constexpr int BK = 64 * kConsumers;  // keys per block
+  static constexpr int BQ = 64;               // queries per streamed tile
+  static constexpr int kStages = 2;           // Q and dO tiles in flight
+  static constexpr int kLaunchRegs = 65536 / kThreadsTotal / 8 * 8;
+  static constexpr int kProducerRegs = 40;
+  static constexpr int kSpareRegs =
+      (kLaunchRegs * kThreadsTotal - 128 * kProducerRegs) / kConsumerThreads / 8 * 8;
+  static constexpr int kConsumerRegs = kSpareRegs > 240 ? 240 : kSpareRegs;
+  static constexpr int kQkSteps = DP / 16;  // 16-deep k-steps of S^T and dP^T over D, 4 a 64-column chunk
+  static constexpr int kSRegs = BQ / 2;     // f32 registers of S^T (and of dP^T) a thread
+  static constexpr int kHiN = DP - 64;      // dK and dV columns in the second 64-column chunk
+  static constexpr int kDqN = DP / 2;       // dQ columns a consumer computes
+  static constexpr uint32_t kQBytes = 2 * BQ * 128;  // a tile of Q or dO: two boxes of 64 columns
+  static constexpr uint32_t kKBytes = 2 * BK * 128;  // the block's K or V
+  // K's columns DP/2 .. as one more box (consumer 1's B of dQ); at DP = 128
+  // that is K's second chunk
+  static constexpr uint32_t kKhBytes = DP == 128 ? 0 : BK * 128;
+  static constexpr uint32_t kStageBytes = 2 * kQBytes;  // Q, then dO
+  static constexpr uint32_t kDsBytes = BK * 128;        // dS^T: BK rows of the tile's 64 queries
+  static constexpr uint32_t kStgBytes = BQ * DP * 4;    // a tile's f32 dQ rows, row-major
+  static constexpr uint32_t kOffK = kStages * kStageBytes;
+  static constexpr uint32_t kOffV = kOffK + kKBytes;
+  static constexpr uint32_t kOffKh = kOffV + kKBytes;
+  static constexpr uint32_t kOffDs = kOffKh + kKhBytes;
+  static constexpr uint32_t kOffStg = kOffDs + 2 * kDsBytes;
+  static constexpr uint32_t kOffStats = kOffStg + kStgBytes;  // [stage][lse2 | delta][BQ] f32
+  static constexpr uint32_t kOffBar = kOffStats + kStages * 2 * BQ * 4;
+  static constexpr uint32_t kBars = 1 + 2 * kStages;  // K/V full; Q/dO full and empty per stage
+  static constexpr size_t kSmemBytes = kOffBar + kBars * 8 + 1024;  // + slack to align to 1024
+  static_assert(DP % 16 == 0 && DP > 64 && DP <= 128, "head dim");
+  static_assert(kSmemBytes <= 232448, "shared memory per block");
+};
+
+// P^T = exp2(S^T c - lse2) in place: a wgmma accumulator over NQ queries
+// (its columns), `lse2` the queries' lse log2 e
+template <int NQ>
+__device__ __forceinline__ void exp2_scores(float (&s)[NQ / 2], const float* lse2, float c, int t) {
+#pragma unroll
+  for (int i = 0; i < NQ / 8; ++i) {
+    const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * i + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[4 * i + e] = fast_exp2(fmaf(s[4 * i + e], c, e & 1 ? -l.y : -l.x));
+  }
+}
+
+// dS^T = P^T (dP^T - delta) in place in dp
+template <int NQ>
+__device__ __forceinline__ void ds_scores(float (&dp)[NQ / 2], const float (&p)[NQ / 2], const float* delta, int t) {
+#pragma unroll
+  for (int i = 0; i < NQ / 8; ++i) {
+    const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * i + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dp[4 * i + e] = p[4 * i + e] * (dp[4 * i + e] - (e & 1 ? dl.y : dl.x));
+  }
+}
+
+// One row pair of a wgmma accumulator of N columns (starting at column
+// col0) scaled to bf16: the thread's row g (r = 0) or g + 8 (r = 1),
+// columns past d left out
+template <int N>
+__device__ __forceinline__ void store_bf16_row(__nv_bfloat16* out, const float (&acc)[N / 2], int r, int col0, int t,
+                                               int d, float scale) {
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+    const int col = col0 + 8 * i + 2 * t;  // d % 8 == 0: the pair is in or out together
+    if (col < d)
+      *reinterpret_cast<__nv_bfloat162*>(out + col) =
+          __floats2bfloat162_rn(acc[4 * i + 2 * r] * scale, acc[4 * i + 2 * r + 1] * scale);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(FusedWideTile<DP>::kThreadsTotal, 1)
+    flash_bwd_fused_wide_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                                const float* __restrict__ lse, const float* __restrict__ delta,
+                                float* __restrict__ dq_acc, __nv_bfloat16* __restrict__ dk,
+                                __nv_bfloat16* __restrict__ dv, int sq, int sk, int d, float scale) {
+  using C = FusedWideTile<DP>;
+  constexpr int BQ = C::BQ, BK = C::BK, NS = C::kStages;
+  extern __shared__ unsigned char fused_wide_smem_raw[];
+  // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows of 128 bytes
+  unsigned char* smem = fused_wide_smem_raw + ((1024 - (smem_u32(fused_wide_smem_raw) & 1023)) & 1023);
+  // stage st: Q at st * kStageBytes (two 64-column chunks of BQ rows), dO kQBytes after it
+  unsigned char* sQ = smem;
+  unsigned char* sK = smem + C::kOffK;  // two chunks of BK rows
+  unsigned char* sV = smem + C::kOffV;
+  unsigned char* sKh = C::kKhBytes ? smem + C::kOffKh : sK + BK * 128;  // K's columns DP/2 ..
+  unsigned char* sDs = smem + C::kOffDs;
+  float* sStg = reinterpret_cast<float*>(smem + C::kOffStg);
+  float* sStats = reinterpret_cast<float*>(smem + C::kOffStats);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + C::kOffBar);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + NS;
+
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * BK;
+  const int n_tiles = (sq + BQ - 1) / BQ;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+#pragma unroll
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(full + st, 1 + 32);  // the TMA thread and the stats warp
+      mbar_init(empty + st, C::kConsumerThreads);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: one thread loads K (and its columns from DP/2) and V once,
+    // then streams the Q and dO tiles; the next warp stages each tile's lse
+    // (base 2) and delta
+    setmaxnreg_dec<C::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * C::kKBytes + C::kKhBytes);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        tma_load_3d(sK + c * BK * 128, &tm_k, kv_full, 64 * c, k0, bh);
+        tma_load_3d(sV + c * BK * 128, &tm_v, kv_full, 64 * c, k0, bh);
+      }
+      if (C::kKhBytes) tma_load_3d(sKh, &tm_k, kv_full, DP / 2, k0, bh);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % NS;
+        unsigned char* stage = sQ + st * C::kStageBytes;
+        mbar_wait(empty + st, ((j / NS) & 1) ^ 1);
+        mbar_arrive_expect_tx(full + st, C::kStageBytes);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          tma_load_3d(stage + c * BQ * 128, &tm_q, full + st, 64 * c, j * BQ, bh);
+          tma_load_3d(stage + C::kQBytes + c * BQ * 128, &tm_do, full + st, 64 * c, j * BQ, bh);
+        }
+      }
+    } else if (threadIdx.x / 32 == 1) {
+      const int lane = threadIdx.x % 32;
+      const float* lb = lse + size_t(bh) * sq;
+      const float* db = delta + size_t(bh) * sq;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % NS;
+        mbar_wait(empty + st, ((j / NS) & 1) ^ 1);
+        float* stats = sStats + st * 2 * BQ;
+        for (int i = lane; i < BQ; i += 32) {
+          const int q = j * BQ + i;
+          stats[i] = q < sq ? lb[q] * kLog2e : kLseMasked;
+          stats[BQ + i] = q < sq ? db[q] : 0.f;
+        }
+        mbar_arrive(full + st);
+      }
+    }
+  } else {
+    setmaxnreg_inc<C::kConsumerRegs>();
+    const int w = threadIdx.x / 128 - 1;  // consumer warpgroup: keys 64w.. of the block, dQ columns w DP/2..
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int row = 64 * w + 16 * warp + g;  // this thread's first key row in the block
+    const bool reducer = w == 0 && tid == 0;  // the thread that adds the tile's dQ rows into dq_acc
+    const float c = scale * kLog2e;
+    // descriptors of stage 0 / buffer 0 / chunk 0; the others are fixed byte offsets
+    const uint64_t k_desc = wgmma_desc(sK + w * 64 * 128, 16, 1024);  // A of S^T, K-major
+    const uint64_t v_desc = wgmma_desc(sV + w * 64 * 128, 16, 1024);  // A of dP^T
+    const uint64_t q_desc = wgmma_desc(sQ, 16, 1024);                 // B of S^T, K-major
+    const uint64_t do_desc = wgmma_desc(sQ + C::kQBytes, 16, 1024);   // B of dP^T
+    const uint64_t q_mn = wgmma_desc(sQ, BQ * 128, 1024);                // B of dK, MN-major
+    const uint64_t do_mn = wgmma_desc(sQ + C::kQBytes, BQ * 128, 1024);  // B of dV, MN-major
+    const uint64_t ds_mn = wgmma_desc(sDs, BK * 128, 1024);              // A of dQ, MN-major
+    const uint64_t k_mn = wgmma_desc(w ? sKh : sK, BK * 128, 1024);      // B of dQ: columns w DP/2.., MN-major
+    // keys past sk (the last block) arrive as zeros; their P must be 0, not exp2(-lse2)
+    const bool ragged = k0 + BK > sk;
+    const bool row_ok[2] = {k0 + row < sk, k0 + row + 8 < sk};
+
+    float s[C::kSRegs], dp[C::kSRegs];
+    uint32_t pa[C::kSRegs / 8][4], da[C::kSRegs / 8][4];
+    // dK and dV: columns 0-63 (lo) and 64.. (hi), one wgmma each per k-step
+    float dk_lo[32], dk_hi[C::kHiN / 2], dv_lo[32], dv_hi[C::kHiN / 2], dq[C::kDqN / 2];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_lo[i] = dv_lo[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < C::kHiN / 2; ++i) dk_hi[i] = dv_hi[i] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % NS;
+      const uint32_t stage = st * C::kStageBytes;
+      const uint32_t buf = (j & 1) * C::kDsBytes;
+      mbar_wait(full + st, (j / NS) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < C::kQkSteps; ++ks)
+        Wgmma<BQ>::ss(s, wgmma_desc_advance(k_desc, (ks / 4) * BK * 128 + (ks % 4) * 32),
+                      wgmma_desc_advance(q_desc, stage + (ks / 4) * BQ * 128 + (ks % 4) * 32), ks > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int ks = 0; ks < C::kQkSteps; ++ks)
+        Wgmma<BQ>::ss(dp, wgmma_desc_advance(v_desc, (ks / 4) * BK * 128 + (ks % 4) * 32),
+                      wgmma_desc_advance(do_desc, stage + (ks / 4) * BQ * 128 + (ks % 4) * 32), ks > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // S^T is done
+      fence_regs(s);
+      const float* stats = sStats + st * 2 * BQ;
+      exp2_scores<BQ>(s, stats, c, t);  // while dP^T runs
+      if (ragged) {
+#pragma unroll
+        for (int i = 0; i < C::kSRegs; ++i)
+          if (!row_ok[(i % 4) / 2]) s[i] = 0.f;
+      }
+      wgmma_wait<0>();  // dP^T is done
+      fence_regs(dp);
+      ds_scores<BQ>(dp, s, stats + BQ, t);
+      pack_p(pa, s);
+      pack_p(da, dp);
+      // dS^T to shared memory first: the registers of an in-flight wgmma's
+      // A operand may not be read
+      store_ds<BK, BQ / 8>(sDs + buf, da, row, g, t);
+      fence_proxy_async_smem();
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        const uint32_t at = stage + kk * 16 * 128;  // queries 16 kk.. of chunk 0; chunk 1 BQ * 128 on
+        Wgmma<64>::rs(dv_lo, pa[kk], wgmma_desc_advance(do_mn, at), 1);
+        Wgmma<C::kHiN>::rs(dv_hi, pa[kk], wgmma_desc_advance(do_mn, at + BQ * 128), 1);
+        Wgmma<64>::rs(dk_lo, da[kk], wgmma_desc_advance(q_mn, at), 1);
+        Wgmma<C::kHiN>::rs(dk_hi, da[kk], wgmma_desc_advance(q_mn, at + BQ * 128), 1);
+      }
+      wgmma_commit();
+      if (reducer) bulk_wait_read<0>();  // the last tile's dQ rows have left the staging buffer
+      named_barrier_sync(1, C::kConsumerThreads);  // both consumers' dS^T are in shared memory
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        Wgmma<C::kDqN>::template ss<1, 1>(dq, wgmma_desc_advance(ds_mn, buf + kk * 16 * 128),
+                                          wgmma_desc_advance(k_mn, kk * 16 * 128), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(dk_lo);
+      fence_regs(dk_hi);
+      fence_regs(dv_lo);
+      fence_regs(dv_hi);
+      fence_regs(pa);
+      fence_regs(da);
+      mbar_arrive(empty + st);
+      // the tile's dQ rows (f32, unscaled) row-major, this consumer's
+      // columns; then one bulk reduce-add of the rows inside sq
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int i = 0; i < C::kDqN / 8; ++i) {
+          const int col = w * C::kDqN + 8 * i + 2 * t;  // d % 8 == 0: the pair is in or out together
+          if (col < d)
+            *reinterpret_cast<float2*>(sStg + (16 * warp + g + 8 * r) * d + col) =
+                make_float2(dq[4 * i + 2 * r], dq[4 * i + 2 * r + 1]);
+        }
+      fence_proxy_async_smem();
+      named_barrier_sync(2, C::kConsumerThreads);
+      if (reducer) {
+        const int q0 = j * BQ;
+        bulk_reduce_add_f32(dq_acc + (size_t(bh) * sq + q0) * d, sStg, uint32_t(min(BQ, sq - q0) * d * 4));
+        bulk_commit();
+      }
+    }
+    if (reducer) bulk_wait<0>();
+
+    // dK = scale dS^T Q and dV = P^T dO for this thread's keys
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const size_t key = size_t(k0) + row + 8 * r;
+      if (key >= size_t(sk)) continue;
+      __nv_bfloat16* okr = dk + (size_t(bh) * sk + key) * d;
+      __nv_bfloat16* ovr = dv + (size_t(bh) * sk + key) * d;
+      store_bf16_row<64>(okr, dk_lo, r, 0, t, d, scale);
+      store_bf16_row<C::kHiN>(okr, dk_hi, r, 64, t, d, scale);
+      store_bf16_row<64>(ovr, dv_lo, r, 0, t, d, 1.f);
+      store_bf16_row<C::kHiN>(ovr, dv_hi, r, 64, t, d, 1.f);
+    }
+  }
+}
+
+template <int DP>
+cudaError_t launch_fused_wide(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                              const float* delta, float* dq_acc, void* dq, void* dk, void* dv, int bh, int sq,
+                              int sk, int d, float scale, cudaStream_t stream) {
+  using C = FusedWideTile<DP>;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  if (!encode_bf16_3d(&tm_q, q, bh, sq, d, C::BQ) || !encode_bf16_3d(&tm_do, dout, bh, sq, d, C::BQ) ||
+      !encode_bf16_3d(&tm_k, k, bh, sk, d, C::BK) || !encode_bf16_3d(&tm_v, v, bh, sk, d, C::BK))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_bwd_fused_wide_kernel<DP>;
+  static unsigned devices_set = 0;
+  cudaError_t err = allow_smem_once(kernel, C::kSmemBytes, devices_set);
+  if (err != cudaSuccess) return err;
+  using B = __nv_bfloat16;
+  const dim3 grid((sk + C::BK - 1) / C::BK, bh);
+  kernel<<<grid, C::kThreadsTotal, C::kSmemBytes, stream>>>(tm_q, tm_k, tm_v, tm_do, lse, delta, dq_acc,
+                                                            static_cast<B*>(dk), static_cast<B*>(dv), sq, sk,
+                                                            d, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_dq_convert(dq_acc, dq, bh, sq, d, scale, stream);
 }
 
 // --- fused CUDA-core kernel: f32, D % 4 == 0, D <= 64 (cp.async, dQ by partials) ---
@@ -1130,6 +1467,25 @@ extern "C" int flash_attention_bwd_fused(const void* q, const void* k, const voi
   if (d <= 40) return int(launch_fused<40>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, bh, sq, sk, d, scale, s));
   if (d <= 48) return int(launch_fused<48>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, bh, sq, sk, d, scale, s));
   return int(launch_fused<64>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, bh, sq, sk, d, scale, s));
+}
+
+// The fused kernel for wide heads: bf16 only, d % 8 == 0, 64 < d <= 128,
+// every pointer 16-byte aligned; arguments and result as
+// flash_attention_bwd_fused's.
+extern "C" int flash_attention_bwd_fused_wide(const void* q, const void* k, const void* v,
+                                              const void* dout, const float* lse, const float* delta,
+                                              float* dq_acc, void* dq, void* dk, void* dv, int bh, int sq,
+                                              int sk, int d, float scale, void* stream) {
+  if (!valid_shape(bh, sq, sk, d) || d <= 64 || d > 128 || !aligned16({q, k, v, dout, dq_acc, dq, dk, dv}, d))
+    return int(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d <= 80)
+    return int(launch_fused_wide<80>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, bh, sq, sk, d, scale, s));
+  if (d <= 96)
+    return int(launch_fused_wide<96>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, bh, sq, sk, d, scale, s));
+  if (d <= 112)
+    return int(launch_fused_wide<112>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, bh, sq, sk, d, scale, s));
+  return int(launch_fused_wide<128>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, bh, sq, sk, d, scale, s));
 }
 
 // The fused f32 kernel: f32 only, d % 4 == 0, d <= 64, q, k, v, dout, dq_part

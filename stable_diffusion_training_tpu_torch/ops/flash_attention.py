@@ -15,13 +15,15 @@ Port of ``stable_diffusion_training_tpu/ops/flash_attention.py``:
   ``flash_attention_fwd_cuda_cores`` also runs on any input, to compare;
 - the backward (``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, launched by
   ``_flash_bwd``) is ``csrc/flash_attention_bwd.cu``, with ``delta =
-  rowsum(dO * O)`` computed here in f32 as ``_flash_bwd`` does. Three
+  rowsum(dO * O)`` computed here in f32 as ``_flash_bwd`` does. Four
   routes (``backward_route``): bf16 with D % 8 == 0, D <= 64 and 16-byte
   aligned tensors takes one fused tensor-core kernel
   (``flash_attention_bwd_fused``: S, P and dS once per key block, dQ summed
   across key blocks into a zeroed f32 buffer, so its order of additions
-  changes from run to run); f32 with D % 4 == 0, D <= 64 and 16-byte
-  aligned tensors takes one fused CUDA-core kernel
+  changes from run to run), and with 64 < D <= 128 its wide-head
+  counterpart (``flash_attention_bwd_fused_wide``, the same arithmetic:
+  SD1.5's 640-channel level has heads of 80); f32 with D % 4 == 0, D <= 64
+  and 16-byte aligned tensors takes one fused CUDA-core kernel
   (``flash_attention_bwd_f32_fused``: exact f32 products, each key block's
   dQ partial written apart and summed in key-block order by a second
   kernel, so dQ repeats bitwise); everything else takes two CUDA-core
@@ -55,6 +57,10 @@ MAX_HEAD_DIM = 512
 # csrc/flash_attention_bwd.cu, which must stay equal to these.
 FUSED_BWD_MAX_HEAD_DIM = 64
 FUSED_BWD_KEYS = 128
+# the wide-head fused kernel takes FUSED_BWD_MAX_HEAD_DIM < D <= this, in
+# blocks of FUSED_BWD_KEYS keys too (the entry's d > 128 check,
+# FusedWideTile::BK)
+FUSED_WIDE_BWD_MAX_HEAD_DIM = 128
 # the fused f32 backward kernel: the same, from the entry's d > 64 check and
 # F32Tile::BK (each key block writes one dQ partial)
 F32_BWD_MAX_HEAD_DIM = 64
@@ -244,6 +250,10 @@ _FUNCTIONS = {
         "flash_attention_bwd",
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
     ),
+    "flash_attention_bwd_fused_wide": (
+        "flash_attention_bwd",
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
+    ),
 }
 
 
@@ -260,9 +270,10 @@ def launch_work(name: str, shape: Sequence) -> Work:
     """The work of one launch of wrapper ``name`` at its shape key (bh, sq,
     sk, d, dtype[, route]), as ``utils.roofline.attention_work`` counts it:
     the forward reads Q, K, V and writes O and the lse; the fused backwards
-    do 5 products (S, dO V^T, P^T dO, dS^T Q, dS K) and the exps once,
-    reading Q, K, V, dO, lse and delta and writing dQ, dK and dV, the bf16
-    one also writing and reading its f32 dQ buffer, the f32 one its dQ
+    (bf16 at D <= 64 and above, f32) do 5 products (S, dO V^T, P^T dO, dS^T
+    Q, dS K) and the exps once, reading Q, K, V, dO, lse and delta and
+    writing dQ, dK and dV, the bf16 ones also writing and reading their f32
+    dQ buffer, the f32 one its dQ
     partials (one f32 (bh, sq, d) tensor per block of ``F32_BWD_KEYS``
     keys); the CUDA-core pair K2 (3 products, dQ) and K3 (4, dK and dV)."""
     bh, sq, sk, d, dtype = shape[:5]
@@ -270,6 +281,7 @@ def launch_work(name: str, shape: Sequence) -> Work:
         "flash_attention_fwd": dict(reads_q=1, writes_q=1),
         "flash_attention_fwd_cuda_cores": dict(reads_q=1, writes_q=1),
         "flash_attention_bwd_fused": dict(products=5, writes_q=1, writes_k=2, stats=2, f32_q=2),
+        "flash_attention_bwd_fused_wide": dict(products=5, writes_q=1, writes_k=2, stats=2, f32_q=2),
         "flash_attention_bwd_f32_fused": dict(products=5, writes_q=1, writes_k=2, stats=2,
                                               f32_q=2 * -(-sk // F32_BWD_KEYS)),
         "flash_attention_bwd_dq": dict(products=3, stats=2, writes_q=1),
@@ -420,9 +432,13 @@ def takes_fused_backward(q3, k3, v3, do3) -> bool:
     """Whether ``flash_attention_bwd`` sends these CUDA tensors to the fused
     kernel: bf16, D % 8 == 0, D <= ``FUSED_BWD_MAX_HEAD_DIM``, every base
     16-byte aligned (the tensor maps and the bulk adds need it)."""
+    return _takes_bf16(q3, k3, v3, do3, 0, FUSED_BWD_MAX_HEAD_DIM)
+
+
+def _takes_bf16(q3, k3, v3, do3, above: int, up_to: int) -> bool:
     d = q3.shape[-1]
     return (
-        q3.dtype == torch.bfloat16 and d % 8 == 0 and d <= FUSED_BWD_MAX_HEAD_DIM
+        q3.dtype == torch.bfloat16 and d % 8 == 0 and above < d <= up_to
         and all(t.data_ptr() % 16 == 0 for t in (q3, k3, v3, do3))
     )
 
@@ -431,13 +447,36 @@ def flash_attention_bwd_fused(q3, k3, v3, do3, lse, delta, scale: float):
     """dQ, dK, dV in bf16 from the fused kernel (K2 and K3 in one), counted
     in ``flash_attention_bwd_fused.launches``; the dQ buffer it adds into is
     zeroed here. CUDA tensors that ``takes_fused_backward`` accepts only."""
+    return _fused_bf16("flash_attention_bwd_fused", takes_fused_backward, f"D <= {FUSED_BWD_MAX_HEAD_DIM}",
+                       q3, k3, v3, do3, lse, delta, scale)
+
+
+def takes_fused_wide_backward(q3, k3, v3, do3) -> bool:
+    """Whether ``flash_attention_bwd`` sends these CUDA tensors to the fused
+    kernel for wide heads: bf16, D % 8 == 0, ``FUSED_BWD_MAX_HEAD_DIM`` < D
+    <= ``FUSED_WIDE_BWD_MAX_HEAD_DIM``, every base 16-byte aligned."""
+    return _takes_bf16(q3, k3, v3, do3, FUSED_BWD_MAX_HEAD_DIM, FUSED_WIDE_BWD_MAX_HEAD_DIM)
+
+
+def flash_attention_bwd_fused_wide(q3, k3, v3, do3, lse, delta, scale: float):
+    """dQ, dK, dV in bf16 from the fused kernel for wide heads (K2 and K3 in
+    one), counted in ``flash_attention_bwd_fused_wide.launches``; the dQ
+    buffer it adds into is zeroed here. CUDA tensors that
+    ``takes_fused_wide_backward`` accepts only."""
+    return _fused_bf16(
+        "flash_attention_bwd_fused_wide", takes_fused_wide_backward,
+        f"{FUSED_BWD_MAX_HEAD_DIM} < D <= {FUSED_WIDE_BWD_MAX_HEAD_DIM}", q3, k3, v3, do3, lse, delta, scale,
+    )
+
+
+def _fused_bf16(name, takes, head_dims, q3, k3, v3, do3, lse, delta, scale):
     _check_bwd(q3, k3, v3, do3, lse, delta)
-    if not _on_cuda("flash_attention_bwd_fused", q3):
-        raise ValueError("flash_attention_bwd_fused launches the CUDA kernel: CUDA tensors only")
-    if not takes_fused_backward(q3, k3, v3, do3):
+    if not _on_cuda(name, q3):
+        raise ValueError(f"{name} launches the CUDA kernel: CUDA tensors only")
+    if not takes(q3, k3, v3, do3):
         raise ValueError(
-            f"flash_attention_bwd_fused takes bf16 with D % 8 == 0, D <= {FUSED_BWD_MAX_HEAD_DIM} and "
-            f"16-byte aligned bases; got {q3.dtype}, D = {q3.shape[-1]}"
+            f"{name} takes bf16 with D % 8 == 0, {head_dims} and 16-byte aligned bases; "
+            f"got {q3.dtype}, D = {q3.shape[-1]}"
         )
     bh, sq, d = q3.shape
     dq_acc = torch.zeros((bh, sq, d), dtype=torch.float32, device=q3.device)
@@ -445,7 +484,7 @@ def flash_attention_bwd_fused(q3, k3, v3, do3, lse, delta, scale: float):
     dk = torch.empty_like(k3)
     dv = torch.empty_like(v3)
     _launch(
-        "flash_attention_bwd_fused", q3, k3,
+        name, q3, k3,
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         bh, sq, k3.shape[1], d, float(scale),
@@ -466,11 +505,14 @@ def takes_f32_fused_backward(q3, k3, v3, do3) -> bool:
 
 def backward_route(q3, k3, v3, do3) -> str:
     """The backward kernel(s) ``flash_attention_bwd`` launches for these CUDA
-    tensors: ``"fused"`` (bf16, tensor cores), ``"f32_fused"`` (f32, CUDA
-    cores, one fused kernel) or ``"cuda_cores"`` (the dQ and dK/dV pair, for
-    what neither fused kernel takes)."""
+    tensors: ``"fused"`` (bf16, tensor cores, D <= 64), ``"fused_wide"``
+    (bf16, tensor cores, 64 < D <= 128), ``"f32_fused"`` (f32, CUDA cores,
+    one fused kernel) or ``"cuda_cores"`` (the dQ and dK/dV pair, for what
+    no fused kernel takes)."""
     if takes_fused_backward(q3, k3, v3, do3):
         return "fused"
+    if takes_fused_wide_backward(q3, k3, v3, do3):
+        return "fused_wide"
     if takes_f32_fused_backward(q3, k3, v3, do3):
         return "f32_fused"
     return "cuda_cores"
@@ -514,6 +556,8 @@ def flash_attention_bwd(q3, k3, v3, do3, lse, delta, scale: float):
     route = backward_route(q3, k3, v3, do3)
     if route == "fused":
         return flash_attention_bwd_fused(q3, k3, v3, do3, lse, delta, scale)
+    if route == "fused_wide":
+        return flash_attention_bwd_fused_wide(q3, k3, v3, do3, lse, delta, scale)
     if route == "f32_fused":
         return flash_attention_bwd_f32_fused(q3, k3, v3, do3, lse, delta, scale)
     dq = flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta, scale)
@@ -528,6 +572,7 @@ _WRAPPERS = {
     "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
     "flash_attention_bwd_fused": flash_attention_bwd_fused,
     "flash_attention_bwd_f32_fused": flash_attention_bwd_f32_fused,
+    "flash_attention_bwd_fused_wide": flash_attention_bwd_fused_wide,
 }
 
 

@@ -11,13 +11,16 @@ Flash attention, forward (K1: the route ``forward_route`` names, whose
 counter alone moves; the f32 kernels repeat bitwise; the older CUDA-core
 kernel on every route's inputs through ``flash_attention_fwd_cuda_cores``)
 and backward (K2 dQ and K3 dK/dV, fused into
-one tensor-core kernel for bf16 with D % 8 == 0 and D <= 64, and into one
-CUDA-core kernel for f32 with D % 4 == 0 and D <= 64): shapes cover the
+one tensor-core kernel for bf16 with D % 8 == 0 and D <= 64, into its
+wide-head counterpart for 64 < D <= 128, and into one CUDA-core kernel for
+f32 with D % 4 == 0 and D <= 64): shapes cover the
 kernels behind each entry point, tensor cores for bf16 with D % 8 == 0
 (D <= 64 forward and backward, the forward's wide-head kernel for D = 80,
 128, 160, 512), CUDA cores for the f32 forward, the f32 backward at D <= 64
-(fused) and above (the dQ and dK/dV pair), and the bf16 backward at D = 36
-and above D = 64 (the pair); and the edges: one query and one key, a single
+(fused) and above (the dQ and dK/dV pair), the bf16 backward at D = 72
+(padded to 80), 80, 96 and 128 (the wide-head kernel) and at D = 36, 160
+and 512 (the pair); and
+the edges: one query and one key, a single
 ragged key tile, a last key tile of one key, and at the main path's D = 40
 and 512 query and key counts that are no multiple of the kernels' tiles;
 and the SDXL serving shapes, with one full-width SDXL UNet call counted.
@@ -54,16 +57,20 @@ TOL = {"float32": dict(o=1e-4, lse=1e-4, grad=1e-4, grad_fro=1e-5),
 GRAD_SCALE_FLOOR = 0.1
 SHAPES = [(4, 300, 300, 40), (2, 257, 129, 64), (3, 100, 70, 36), (2, 130, 190, 80),
           (1, 70, 100, 160), (1, 200, 333, 512), (3, 1, 1, 8), (2, 33, 5, 24),
-          (1, 17, 2049, 128), (3, 4000, 3900, 40), (2, 1000, 4100, 512)]
+          (1, 17, 2049, 128), (3, 4000, 3900, 40), (2, 1000, 4100, 512), (2, 333, 200, 96),
+          (1, 130, 129, 72)]
 
 
-# (fused bf16, fused f32, dQ, dK/dV) launches of one backward call, by route
-ROUTE_LAUNCHES = {"fused": (1, 0, 0, 0), "f32_fused": (0, 1, 0, 0), "cuda_cores": (0, 0, 1, 1)}
+# (fused bf16, fused bf16 wide heads, fused f32, dQ, dK/dV) launches of one
+# backward call, by route
+ROUTE_LAUNCHES = {"fused": (1, 0, 0, 0, 0), "fused_wide": (0, 1, 0, 0, 0), "f32_fused": (0, 0, 1, 0, 0),
+                  "cuda_cores": (0, 0, 0, 1, 1)}
 
 
 def _bwd_launches():
-    return (fa.flash_attention_bwd_fused.launches, fa.flash_attention_bwd_f32_fused.launches,
-            fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
+    return (fa.flash_attention_bwd_fused.launches, fa.flash_attention_bwd_fused_wide.launches,
+            fa.flash_attention_bwd_f32_fused.launches, fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches)
 
 
 def _need_cuda():
@@ -193,8 +200,11 @@ def test_backward_kernels_match_plain_version(bh, sq, sk, d, dtype):
     grads = fa.flash_attention_bwd(q, k, v, do, lse, delta, scale)
     torch.cuda.synchronize()
     route = fa.backward_route(q, k, v, do)
-    fused_route, align = ("fused", 8) if dtype == "bfloat16" else ("f32_fused", 4)
-    assert route == (fused_route if d <= 64 and d % align == 0 else "cuda_cores")
+    if dtype == "bfloat16":
+        want = "cuda_cores" if d % 8 or d > 128 else "fused" if d <= 64 else "fused_wide"
+    else:
+        want = "f32_fused" if d <= 64 and d % 4 == 0 else "cuda_cores"
+    assert route == want
     assert _bwd_launches() == ROUTE_LAUNCHES[route]
     expected = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale)
     for name, got, want in zip(("dq", "dk", "dv"), grads, expected):
@@ -225,26 +235,30 @@ def test_grads_flow_through_the_flash_route(dtype):
         assert all(t.grad is not None for t in leaves), backend
         launched = (fa.flash_attention_fwd.launches, *_bwd_launches())
         by_route = (1, *ROUTE_LAUNCHES["fused" if dtype == "bfloat16" else "f32_fused"])
-        assert launched == (by_route if backend == "flash" else (0, 0, 0, 0, 0)), backend
+        assert launched == (by_route if backend == "flash" else (0,) * 6), backend
         results.append([t.grad.float() for t in leaves])
     for got, want in zip(*results):
         torch.testing.assert_close(got, want, atol=TOL[dtype]["grad"], rtol=0)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bh,sq,sk,d", [(64, 4096, 4096, 40), (3, 4000, 3900, 40), (2, 257, 129, 64)])
+@pytest.mark.parametrize("bh,sq,sk,d", [(64, 4096, 4096, 40), (3, 4000, 3900, 40), (2, 257, 129, 64),
+                                        (64, 2704, 2704, 80), (3, 1000, 1100, 80), (2, 70, 390, 128)])
 def test_fused_backward_repeats(bh, sq, sk, d):
-    """The same inputs twice through the fused kernel: dK and dV bitwise
-    equal (each block sums its own queries in one order); dQ's f32 sums over
-    key blocks may land in another order, which after rounding to bf16 moves
-    an element by at most one ulp (2^-7 relative, of the largest |dQ|)."""
+    """The same inputs twice through the fused kernel (the wide-head one
+    above D = 64; SD1.5's 640-channel level at 832x832 is (64, 2704, 80)):
+    dK and dV bitwise equal (each block sums its own queries in one order);
+    dQ's f32 sums over key blocks may land in another order, which after
+    rounding to bf16 moves an element by at most one ulp (2^-7 relative, of
+    the largest |dQ|)."""
     _need_cuda()
     q, k, v, do = _qkv(bh, sq, sk, d, "bfloat16", seed=10)
     scale = d**-0.5
     o, lse = fa.flash_attention_fwd(q, k, v, scale)
     delta = (do.float() * o.float()).sum(-1)
-    first = fa.flash_attention_bwd_fused(q, k, v, do, lse, delta, scale)
-    second = fa.flash_attention_bwd_fused(q, k, v, do, lse, delta, scale)
+    fused = fa.flash_attention_bwd_fused if d <= 64 else fa.flash_attention_bwd_fused_wide
+    first = fused(q, k, v, do, lse, delta, scale)
+    second = fused(q, k, v, do, lse, delta, scale)
     torch.cuda.synchronize()
     assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
     dq1, dq2 = first[0].float(), second[0].float()
@@ -281,10 +295,23 @@ def test_f32_fused_backward_takes_only_its_route():
 
 
 @pytest.mark.cuda
+def test_fused_wide_backward_takes_only_its_route():
+    """The wide-head wrapper raises on what it does not take (f32, D <= 64,
+    D % 8 != 0, D > 128); ``flash_attention_bwd`` sends those elsewhere."""
+    _need_cuda()
+    for dtype, d in (("float32", 80), ("bfloat16", 64), ("bfloat16", 84), ("bfloat16", 136)):
+        q, k, v, do = _qkv(1, 64, 64, d, dtype)
+        lse = torch.zeros(1, 64, device="cuda")
+        assert not fa.takes_fused_wide_backward(q, k, v, do)
+        with pytest.raises(ValueError, match="flash_attention_bwd_fused_wide takes"):
+            fa.flash_attention_bwd_fused_wide(q, k, v, do, lse, lse, 0.1)
+
+
+@pytest.mark.cuda
 def test_fused_backward_takes_only_its_route():
     """The fused wrapper raises on what it does not take (f32, D % 8 != 0,
     D > 64) rather than computing it; ``flash_attention_bwd`` sends those to
-    the CUDA-core kernels."""
+    the wide-head kernel or the CUDA-core kernels."""
     _need_cuda()
     for dtype, d in (("float32", 40), ("bfloat16", 36), ("bfloat16", 80)):
         q, k, v, do = _qkv(1, 64, 64, d, dtype)

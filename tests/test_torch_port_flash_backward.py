@@ -11,12 +11,13 @@ Tolerance: f32, 1e-5 absolute on dQ, dK and dV (of magnitude ~1). Both sides
 form the same f32 products and sums in other orders, and JAX pads the
 sequences to its 128-row blocks with masked columns.
 
-The fused CUDA kernel (bf16 on the card) sums dQ over blocks of
-``FUSED_BWD_KEYS`` keys into one f32 buffer and scales and rounds it once at
-the end. ``test_fused_kernel_order_matches_jax_vjp`` holds a model of that
-summation order, written out in plain torch inside the test, to the JAX
-package; it runs none of the port's backward code. The kernel itself is
-held on the card against ``flash_attention_bwd_reference``
+The fused CUDA kernels (bf16 on the card, D <= 64 and 64 < D <= 128) sum
+dQ over blocks of ``FUSED_BWD_KEYS`` keys into one f32 buffer and scale and
+round it once at the end. ``test_fused_kernel_order_matches_jax_vjp`` holds
+a model of that summation order, written out in plain torch inside the
+test, to the JAX package; it runs none of the port's backward code. The
+kernels themselves are held on the card against
+``flash_attention_bwd_reference``
 (``chip_smoke.py``, ``tests/test_torch_port_cuda.py``), which the tests here
 hold against the JAX package. The fused f32 kernel's order of operations
 (key block by key block, dQ partials summed in key-block order) has its
@@ -45,6 +46,10 @@ SHAPES = [  # (B, Sq, Sk, H, D)
     pytest.param(2, 200, 130, 2, 40, id="ragged-sk-lt-sq-d40"),
     pytest.param(1, 150, 300, 1, 64, id="ragged-sk-gt-sq-d64"),
     pytest.param(1, 96, 77, 3, 36, id="cross-d36"),
+    # the wide-head fused kernel's head dims (SD1.5's 640-channel level has
+    # heads of 80), counts off its 64-query tiles and 128-key blocks
+    pytest.param(2, 200, 330, 1, 80, id="ragged-sk-gt-sq-d80"),
+    pytest.param(1, 150, 70, 2, 128, id="ragged-sk-lt-sq-d128"),
 ]
 
 
@@ -123,23 +128,26 @@ def _fused_order_backward(q3, k3, v3, do3, lse, delta, scale, keys=fa.FUSED_BWD_
 @pytest.mark.parametrize("dtype,atol", [("float32", ATOL), ("bfloat16", 1e-2)])
 def test_fused_kernel_order_matches_jax_vjp(dtype, atol):
     """Sq and Sk off the kernel's tiles (Sk = 300: key blocks of 128, 128
-    and 44; Sq = 200: a ragged 128-query tile). f32: 1e-5 as above; bf16:
-    1e-2 at grads ~1, as ``test_bf16_backward_rounds_p_and_ds`` (the JAX
-    kernel also rounds dQ once, from its f32 scratch)."""
-    b, sq, sk, h, d = 1, 200, 300, 2, 40
-    q, k, v, do = _inputs(b, sq, sk, h, d, seed=4)
-    jdt = getattr(jnp, dtype)
-    fn = lambda q, k, v: jax_fa.flash_attention(q, k, v, block_q=128, block_k=128, interpret=True)
-    _, vjp = jax.vjp(fn, *(jnp.asarray(x).astype(jdt) for x in (q, k, v)))
-    expected = [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(do).astype(jdt))]
-    q3, k3, v3, do3 = (_fold(x).to(getattr(torch, dtype)) for x in (q, k, v, do))
-    scale = d**-0.5
-    o3, lse = fa.flash_attention_fwd(q3, k3, v3, scale)
-    delta = (do3.float() * o3.float()).sum(-1)
-    grads = _fused_order_backward(q3, k3, v3, do3, lse, delta, scale)
-    for got, want in zip(grads, expected):
-        assert got.dtype == getattr(torch, dtype)
-        np.testing.assert_allclose(_unfold(got.float(), b, h), want, atol=atol, rtol=0)
+    and 44; Sq = 200: a ragged 128-query tile of the D <= 64 kernel, a
+    ragged 64-query tile of the wide-head one), at D = 40 and at D = 80,
+    which the wide-head kernel takes (its dQ, too, is added into the f32
+    buffer once per block of ``FUSED_BWD_KEYS`` keys). f32: 1e-5 as above;
+    bf16: 1e-2 at grads ~1, as ``test_bf16_backward_rounds_p_and_ds`` (the
+    JAX kernel also rounds dQ once, from its f32 scratch)."""
+    for b, sq, sk, h, d in ((1, 200, 300, 2, 40), (1, 200, 300, 1, 80)):
+        q, k, v, do = _inputs(b, sq, sk, h, d, seed=4)
+        jdt = getattr(jnp, dtype)
+        fn = lambda q, k, v: jax_fa.flash_attention(q, k, v, block_q=128, block_k=128, interpret=True)
+        _, vjp = jax.vjp(fn, *(jnp.asarray(x).astype(jdt) for x in (q, k, v)))
+        expected = [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(do).astype(jdt))]
+        q3, k3, v3, do3 = (_fold(x).to(getattr(torch, dtype)) for x in (q, k, v, do))
+        scale = d**-0.5
+        o3, lse = fa.flash_attention_fwd(q3, k3, v3, scale)
+        delta = (do3.float() * o3.float()).sum(-1)
+        grads = _fused_order_backward(q3, k3, v3, do3, lse, delta, scale)
+        for got, want in zip(grads, expected):
+            assert got.dtype == getattr(torch, dtype)
+            np.testing.assert_allclose(_unfold(got.float(), b, h), want, atol=atol, rtol=0, err_msg=f"D = {d}")
 
 
 def test_f32_fused_kernel_order_matches_jax_vjp():
@@ -166,18 +174,21 @@ def test_f32_fused_kernel_order_matches_jax_vjp():
     [("float32", 40, "f32_fused"), ("float32", 64, "f32_fused"), ("float32", 36, "f32_fused"),
      ("float32", 8, "f32_fused"), ("float32", 128, "cuda_cores"), ("float32", 30, "cuda_cores"),
      ("bfloat16", 40, "fused"), ("bfloat16", 64, "fused"), ("bfloat16", 36, "cuda_cores"),
-     ("bfloat16", 128, "cuda_cores")],
+     ("bfloat16", 80, "fused_wide"), ("bfloat16", 96, "fused_wide"), ("bfloat16", 128, "fused_wide"),
+     ("bfloat16", 136, "cuda_cores")],
 )
 def test_backward_routes_by_dtype_and_head_dim(dtype, d, route):
     """``backward_route``, the choice ``flash_attention_bwd`` makes for CUDA
     tensors: f32 with D % 4 == 0 and D <= 64 takes the fused f32 kernel,
-    bf16 with D % 8 == 0 and D <= 64 the fused tensor-core kernel, and the
-    rest (bf16 D = 36, f32 D = 128) the CUDA-core pair. The choice reads
-    dtype, head dim and alignment only, so it is checked on CPU tensors."""
+    bf16 with D % 8 == 0 the fused tensor-core kernel at D <= 64 and its
+    wide-head counterpart at 64 < D <= 128, and the rest (bf16 D = 36 and
+    136, f32 D = 128) the CUDA-core pair. The choice reads dtype, head dim
+    and alignment only, so it is checked on CPU tensors."""
     x = torch.zeros(2, 16, d, dtype=getattr(torch, dtype))
     assert fa.backward_route(x, x, x, x) == route
     assert fa.takes_f32_fused_backward(x, x, x, x) == (route == "f32_fused")
     assert fa.takes_fused_backward(x, x, x, x) == (route == "fused")
+    assert fa.takes_fused_wide_backward(x, x, x, x) == (route == "fused_wide")
     # an unaligned base (a view one element in) leaves the fused kernels
     y = torch.zeros(2 * 16 * d + 1, dtype=x.dtype)[1:].view(2, 16, d)
     assert fa.backward_route(y, y, y, y) == "cuda_cores"
@@ -261,5 +272,8 @@ def test_backward_kernel_wrappers_reject_cpu_tensors():
         fa.flash_attention_bwd_fused(x, x, x, x, lse, lse, 0.1)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         fa.flash_attention_bwd_f32_fused(x, x, x, x, lse, lse, 0.1)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fa.flash_attention_bwd_fused_wide(torch.zeros(1, 8, 80), torch.zeros(1, 8, 80), torch.zeros(1, 8, 80),
+                                          torch.zeros(1, 8, 80), lse, lse, 0.1)
     with pytest.raises(ValueError, match="dO must be"):
         fa.flash_attention_bwd(x, x, x, torch.zeros(1, 8, 40, dtype=torch.bfloat16), lse, lse, 0.1)
