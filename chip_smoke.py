@@ -49,7 +49,10 @@ Phases, one JSON line each:
    parallelism's per-rank shapes, (32, 4096, 40) and (4, 4096, 512) in bf16
    (ddp_trainer) and (8, 4096, 40) in f32 (ddp_parity), plus ragged cases
    (D = 40 and 512 with query and key counts off the tiles, D = 64 and 36),
-   each with its route (``forward_route``: bf16 narrow or wide tensor-core
+   at the bucket steps' 640-channel level in f32 too, and at D = 96 and
+   128 off the tiles (bf16 on route tma_mid, timed beside the wide kernel
+   it replaced on the same inputs),
+   each with its route (``forward_route``: bf16 narrow, mid or wide tensor-core
    kernel, the f32 kernels, the older CUDA-core kernel), whose counter
    alone must move, a repeat on the same inputs (bitwise equal on the f32
    route), the host's ms per call and the bytes the kernel streams from
@@ -64,9 +67,12 @@ Phases, one JSON line each:
    4624, 80), with the CUDA-core pair it replaced timed on the same inputs,
    and at D = 96 and 128 with counts off its tiles; the fused
    f32 kernel (K2 and K3 in one, CUDA cores) at
-   train_parity's (8, 4096, 40), train_f32's (64, 4096, 40) and the same
-   two ragged cases (and SDXL's and SD2.1's training shapes at D = 64, bf16
-   and f32); the CUDA-core K2 and K3 at D = 36 bf16 (and, timed
+   train_parity's (8, 4096, 40), train_f32's (64, 4096, 40), the same
+   two ragged cases (and SDXL's and SD2.1's training shapes at D = 64,
+   bf16 and f32), and at the 640-channel level's (64, 2704, 80) and (64,
+   4624, 80) and D = 96 and 128 off the tiles (64-key blocks; the pair
+   timed beside it at the level's shapes); the CUDA-core K2 and K3 at D =
+   36 bf16 (and, timed
    only, at (8, 4096, 40) f32 beside the fused f32 kernel): the whole
    call's time, each kernel's (torch.profiler), host ms per call, the fused
    kernels' dQ reduce-add or partial bytes, and two runs on the same inputs
@@ -149,11 +155,11 @@ Phases, one JSON line each:
    the example config's 832x832 and 1088x1088 buckets (``train_bucket``
    lines: 2 warm-up and 3 timed steps each, p50, images/s, peak memory,
    launches by route and shape): per step K1 5 on the narrow kernel at
-   level 0 (heads of 40), 5 on the wide one at level 1 (heads of 80) and
-   once in the VAE encode, the fused backward 5 at level 0 and the
-   wide-head fused backward 5 at level 1, the CUDA-core pair and the f32
-   backward never; without gradient checkpointing, as the example config
-   trains.
+   level 0 (heads of 40), 5 on the mid one at level 1 (heads of 80) and
+   once on the wide one in the VAE encode, the fused backward 5 at level 0
+   and the wide-head fused backward 5 at level 1, the CUDA-core pair and
+   the f32 backward never; without gradient checkpointing, as the example
+   config trains.
 11. ``trace_audit``: the same bf16 step once more under torch.profiler with
    the host's ops and their shapes (``record_shapes``), its Chrome trace
    read with the package (``utils.kernel_trace``, ``utils.roofline``): the
@@ -175,7 +181,12 @@ Phases, one JSON line each:
    backward 5, the bf16 one and the CUDA-core pair
    none, Lion as above with f32 grads), step p50, images/s, peak memory, then
    one step under torch.profiler (``profile`` line: the backward's device
-   time, the idle share). f32 dQ repeats bitwise; bf16 dQ does not.
+   time, the idle share). f32 dQ repeats bitwise; bf16 dQ does not. Then,
+   on the same state, the step at the example config's 832x832 bucket
+   (``train_bucket`` line, 2 warm-up and 3 timed steps): per step K1 11 on
+   route f32, the fused f32 backward 5 at level 0 and 5 at level 1 (heads
+   of 80, 64-key blocks), the CUDA-core pair never. 1088x1088 is left to
+   bf16 (f32 activations would about double its 43.8 GB).
 13. ``trainer``: the port's trainer through ``trainer.main``, the body of
    ``python -m stable_diffusion_training_tpu_torch.training``, with the same
    settings (SD1.5 ``sd15`` seeded weights, bf16, 512x512, batch 8) on
@@ -713,11 +724,11 @@ def fwd_l2_bytes(bh, sq, sk, d, dtype_name, route):
     """Bytes that K1 moves from L2 into the SMs in one call: every block
     streams its head's whole K and V, so query blocks x K+V bytes of a head.
     Query rows a block as in csrc/flash_attention_fwd.cu (TmaTile and
-    F32NarrowTile: 256 at D <= 64; F32WideTile and the wide TmaTile: 64
-    above); None on the older CUDA-core route."""
+    F32NarrowTile: 256 at D <= 64; the mid TmaTile 192; F32WideTile and the
+    wide TmaTile: 64); None on the older CUDA-core route."""
     if route == "cuda_cores":
         return None
-    rows = 256 if d <= 64 else 64
+    rows = 192 if route == "tma_mid" else 256 if d <= 64 else 64
     return -(-sq // rows) * bh * 2 * sk * d * (2 if dtype_name == "bfloat16" else 4)
 
 
@@ -784,9 +795,13 @@ def phase_kernels(state):
         ("tp_parity_unet", 4, 4096, 4096, 40, ("float32",)),
         ("tp_eval_unet", 8, 4096, 4096, 40, ("bfloat16",)),
         # SD1.5's 640-channel level (8 heads of 80) at the example config's
-        # buckets 832x832 and 1088x1088, train batch 8 (train's bucket steps)
-        ("sd15_bucket_832_l1", 64, 2704, 2704, 80, ("bfloat16",)),
-        ("sd15_bucket_1088_l1", 64, 4624, 4624, 80, ("bfloat16",)),
+        # buckets 832x832 and 1088x1088, train batch 8 (train's bucket steps,
+        # route tma_mid; train_f32's at 832x832), with the wide kernel it
+        # replaced timed on the same inputs; D = 96 and 128 off the tiles
+        ("sd15_bucket_832_l1", 64, 2704, 2704, 80, both),
+        ("sd15_bucket_1088_l1", 64, 4624, 4624, 80, both),
+        ("ragged_d96", 3, 1000, 1100, 96, both),
+        ("ragged_d128", 2, 1500, 1300, 128, ("bfloat16",)),
     ]
     results = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -820,18 +835,30 @@ def phase_kernels(state):
             kernel_ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, scale), reps, host=host)
             # the plain version, 10-100x slower, needs fewer calls to time
             plain_ms = cuda_ms(lambda: plain_by_heads(fa.flash_attention_fwd_reference, q, k, v, scale), 3, warmup=1)
-            cuda_cores = {}
+            compare = {}
             if name_dt == "float32" and not name.startswith("ragged"):
                 # the kernel the f32 route replaced, on the same inputs
                 o_cc, lse_cc = fa.flash_attention_fwd_cuda_cores(q, k, v, scale)
-                cuda_cores = dict(
+                compare = dict(
                     cuda_cores_ms=cuda_ms(lambda: fa.flash_attention_fwd_cuda_cores(q, k, v, scale), reps),
                     cuda_cores_max_abs_err_o=(o_cc - o_ref).abs().max().item(),
                     cuda_cores_max_abs_err_lse=(lse_cc - lse_ref).abs().max().item(),
                 )
-                ok = ok and cuda_cores["cuda_cores_max_abs_err_o"] <= tol["o"]
-                ok = ok and cuda_cores["cuda_cores_max_abs_err_lse"] <= tol["lse"]
+                ok = ok and compare["cuda_cores_max_abs_err_o"] <= tol["o"]
+                ok = ok and compare["cuda_cores_max_abs_err_lse"] <= tol["lse"]
                 del o_cc, lse_cc
+            if route == "tma_mid":
+                # the wide kernel (D padded to 128) that route tma_mid replaced, on the same inputs
+                o_w, lse_w = fa.flash_attention_fwd_tma_wide(q, k, v, scale)
+                wide_ms = cuda_ms(lambda: fa.flash_attention_fwd_tma_wide(q, k, v, scale), reps)
+                compare = dict(
+                    tma_wide_ms=wide_ms, tma_wide_max_abs_err_o=(o_w.float() - o_ref.float()).abs().max().item(),
+                    tma_wide_max_abs_err_lse=(lse_w - lse_ref).abs().max().item(),
+                    kernel_over_tma_wide=kernel_ms / wide_ms,
+                )
+                ok = ok and compare["tma_wide_max_abs_err_o"] <= tol["o"]
+                ok = ok and compare["tma_wide_max_abs_err_lse"] <= tol["lse"]
+                del o_w, lse_w
             try:  # as (1, B*H, S, D), the 4-D layout its fused backends take
                 library_ms = cuda_ms(
                     lambda: F.scaled_dot_product_attention(q[None], k[None], v[None], scale=scale),
@@ -847,7 +874,7 @@ def phase_kernels(state):
                 tol_lse=tol["lse"], ok=ok, kernel_ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                 kernel_tflops=flops / kernel_ms / 1e9, host_ms_per_call=host[0],
-                l2_to_sm_bytes=fwd_l2_bytes(bh, sq, sk, d, name_dt, route), **cuda_cores,
+                l2_to_sm_bytes=fwd_l2_bytes(bh, sq, sk, d, name_dt, route), **compare,
             )
             results.append(row)
             emit("kernels", **row)
@@ -946,6 +973,13 @@ def flash_backward_cases():
         ("sd15_bucket_1088_l1", 64, 4624, 4624, 80, torch.bfloat16),
         ("ragged_d96", 3, 1000, 1100, 96, torch.bfloat16),
         ("ragged_d128", 2, 1500, 1300, 128, torch.bfloat16),
+        # the same in f32: the fused f32 kernel's 64-key blocks (train_f32's
+        # 832x832 step; 1088x1088 timed only), the pair it replaced timed on
+        # the same inputs; D = 96 and 128 (48-query tiles) off its tiles
+        ("sd15_bucket_832_l1_f32", 64, 2704, 2704, 80, torch.float32),
+        ("sd15_bucket_1088_l1_f32", 64, 4624, 4624, 80, torch.float32),
+        ("ragged_d96_f32", 3, 1000, 1100, 96, torch.float32),
+        ("ragged_d128_f32", 2, 1500, 1300, 128, torch.float32),
     ]
     rows = []
     for name, bh, sq, sk, d, dtype in cases:
@@ -1014,7 +1048,7 @@ def flash_backward_cases():
         # K2 S, dO V^T, dS K (3 products) and the exps, writing dQ; K3 S,
         # dO V^T, P^T dO, dS^T Q (4 products) and the exps again, writing dK
         # and dV.
-        n_parts = -(-sk // fa.F32_BWD_KEYS)
+        n_parts = -(-sk // fa.f32_bwd_keys(d))
         f32_q = {"fused": 2, "fused_wide": 2, "f32_fused": 2 * n_parts, "cuda_cores": 0}[route]
         bound = roofline.attention_bound(bh, sq, sk, d, name_dt, products=5, writes_q=1, writes_k=2, stats=2,
                                          f32_q=f32_q)
@@ -2093,36 +2127,38 @@ def phase_train(state, warmup=2, steps=5, seed=0, dtype="bfloat16"):
             and grad_copies == 0):
         raise AssertionError(f"{phase} step failed its checks")
     profile = profile_step(step, f"one SD1.5 train step ({dtype}, batch 8, 512x512)", top=20)
-    if phase == "train":
-        buckets = {}
-        for res in TRAIN_BUCKETS:
-            by_shape = train_bucket(res, step, unet_state.model, seed + 2 + res)
-            add_launches(buckets, by_shape)
-        state["train_buckets_by_shape"] = buckets
+    buckets = {}
+    for res in TRAIN_BUCKETS[dtype]:
+        by_shape = train_bucket(res, step, unet_state.model, seed + 2 + res, dtype)
+        add_launches(buckets, by_shape)
+    state[f"{phase}_buckets_by_shape"] = buckets
     if phase == "train" and "trace_audit" in state["phases"]:
         state["train_step"], state["train_profile"] = step, profile  # trace_audit's, which frees the step
 
 
 # the example config's buckets (model_properties_example.json's
-# image_area_root and minimum_axis_length) that train steps at beside
-# 512x512: their 640-channel level (8 heads of 80; 52x52 and 68x68 latents,
-# 2,704 and 4,624 keys) goes to the flash kernels and its backward to the
-# wide-head fused kernel
-TRAIN_BUCKETS = (832, 1088)
+# image_area_root and minimum_axis_length) that train and train_f32 step at
+# beside 512x512: their 640-channel level (8 heads of 80; 52x52 and 68x68
+# latents, 2,704 and 4,624 keys) goes to the flash kernels (K1 route
+# tma_mid in bf16) and its backward to the wide-head fused kernel (bf16)
+# or the fused f32 one. f32 skips 1088x1088: the bf16 step there peaks at
+# 43.8 GB, and f32 activations about double that.
+TRAIN_BUCKETS = {"bfloat16": (832, 1088), "float32": (832,)}
 TRAIN_BUCKET_WARMUP, TRAIN_BUCKET_STEPS = 2, 3
 
 
-def train_bucket(res, step, unet, seed):
-    """The SD1.5 bf16 train step (``phase_train``'s ``step``, its state) at
-    the ``res`` x ``res`` bucket, batch 8, without gradient checkpointing
-    as the example config trains (1088x1088 peaks at ~44 GB): 2 warm-ups
-    and 3 timed steps, the launch counts zeroed just before those and read
-    just after. Per step K1 5 times on the narrow kernel at level 0 (320
-    channels, heads of 40), 5 on the wide one at level 1 (640 channels,
-    heads of 80) and once in the VAE encode; the fused backward 5 at level
-    0 and the wide-head one 5 at level 1; the CUDA-core pair and the f32
-    backward never; Lion's leaf table twice. Returns the timed steps'
-    launches by shape."""
+def train_bucket(res, step, unet, seed, dtype="bfloat16"):
+    """The SD1.5 train step (``phase_train``'s ``step``, its state; bf16 or
+    f32) at the ``res`` x ``res`` bucket, batch 8, without gradient
+    checkpointing as the example config trains (1088x1088 peaks at ~44 GB
+    in bf16): 2 warm-ups and 3 timed steps, the launch counts zeroed just
+    before those and read just after. Per step K1 5 times at level 0 (320
+    channels, heads of 40), 5 at level 1 (640 channels, heads of 80) and
+    once in the VAE encode: in bf16 on the narrow, the mid and the wide
+    tensor-core kernels, in f32 all on route f32; the backward 5 at level 0
+    and 5 at level 1: in bf16 the fused and the wide-head fused kernels, in
+    f32 the fused f32 one at both; the CUDA-core pair never; Lion's leaf
+    table twice. Returns the timed steps' launches by shape."""
     import gc
 
     import torch
@@ -2148,21 +2184,29 @@ def train_bucket(res, step, unet, seed):
     peak = torch.cuda.max_memory_allocated()
     n = TRAIN_BUCKET_STEPS
     l0, l1 = (res // 8) ** 2, (res // 16) ** 2
-    want_shapes = dict(
-        flash_fwd={(64, l0, l0, 40, "bfloat16", "tma_narrow"): 5 * n, (64, l1, l1, 80, "bfloat16", "tma_wide"): 5 * n,
-                   (TRAIN_BATCH, l0, l0, 512, "bfloat16", "tma_wide"): n},
-        flash_bwd_fused={(64, l0, l0, 40, "bfloat16"): 5 * n},
-        flash_bwd_fused_wide={(64, l1, l1, 80, "bfloat16"): 5 * n},
-    )
-    want = dict(flash_fwd=11 * n, flash_bwd_fused=5 * n, flash_bwd_fused_wide=5 * n, flash_bwd_f32=0,
-                flash_bwd_dq=0, flash_bwd_dkv=0, lion_leaves=2 * n, lion_single=0, lion_multi=0)
+    if dtype == "bfloat16":
+        want_shapes = dict(
+            flash_fwd={(64, l0, l0, 40, dtype, "tma_narrow"): 5 * n, (64, l1, l1, 80, dtype, "tma_mid"): 5 * n,
+                       (TRAIN_BATCH, l0, l0, 512, dtype, "tma_wide"): n},
+            flash_bwd_fused={(64, l0, l0, 40, dtype): 5 * n},
+            flash_bwd_fused_wide={(64, l1, l1, 80, dtype): 5 * n},
+        )
+        want = dict(flash_fwd=11 * n, flash_bwd_fused=5 * n, flash_bwd_fused_wide=5 * n, flash_bwd_f32=0)
+    else:
+        want_shapes = dict(
+            flash_fwd={(64, l0, l0, 40, dtype, "f32"): 5 * n, (64, l1, l1, 80, dtype, "f32"): 5 * n,
+                       (TRAIN_BATCH, l0, l0, 512, dtype, "f32"): n},
+            flash_bwd_f32={(64, l0, l0, 40, dtype): 5 * n, (64, l1, l1, 80, dtype): 5 * n},
+        )
+        want = dict(flash_fwd=11 * n, flash_bwd_fused=0, flash_bwd_fused_wide=0, flash_bwd_f32=10 * n)
+    want.update(flash_bwd_dq=0, flash_bwd_dkv=0, lion_leaves=2 * n, lion_single=0, lion_multi=0)
     losses = [loss.item() for _, loss in warm + timed]
     ms = [t for t, _ in timed]
     p50 = statistics.median(ms)
     finite = all(map(math.isfinite, losses))
     ok = finite and launches == want and all(by_shape[k] == v for k, v in want_shapes.items())
     emit(
-        "train_bucket", resolution=[res, res], batch=TRAIN_BATCH, dtype="bfloat16",
+        "train_bucket", resolution=[res, res], batch=TRAIN_BATCH, dtype=dtype,
         gradient_checkpointing=unet.gradient_checkpointing, level1_keys=l1, warmup_ms=[t for t, _ in warm],
         step_ms=ms, p50_ms=p50, images_per_s=TRAIN_BATCH / p50 * 1e3, losses=losses, finite=finite,
         max_memory_allocated=peak, launches=launches, expected_launches=want, flash_fwd_launches_by_route=fwd_routes,
@@ -2171,7 +2215,7 @@ def train_bucket(res, step, unet, seed):
         ok=ok,
     )
     if not ok:
-        raise AssertionError(f"train at {res}x{res} failed its checks")
+        raise AssertionError(f"train ({dtype}) at {res}x{res} failed its checks")
     return {k: v for k, v in by_shape.items() if v}
 
 
@@ -6236,6 +6280,7 @@ F32_FWD_PATHS = {
     "sdxl_train_parity_l1": "sdxl_train_parity", "sd21_parity_l1": "sd21_parity", "sd21_parity_l2": "sd21_parity",
     "vae_mid": "ddp_parity, fsdp_parity, tp_parity and tp_fsdp_parity ranks",
     "ddp_parity_unet": "ddp_parity and fsdp_parity ranks", "tp_parity_unet": "tp_parity and tp_fsdp_parity ranks",
+    "sd15_bucket_832_l1": "train_f32 at 832x832",
 }
 SHORT = {"bfloat16": "bf16", "float32": "f32"}
 
@@ -6268,6 +6313,7 @@ def kernels_line(state):
     tp_fsdp_nccl = state.get("tp_fsdp_nccl_by_shape", {})
     vae_polyphase = state.get("vae_polyphase_by_shape", {})
     train_buckets = state.get("train_buckets_by_shape", {})  # train's 832x832 and 1088x1088 steps
+    train_f32_buckets = state.get("train_f32_buckets_by_shape", {})  # train_f32's 832x832 step
     paths = {
         "bfloat16": [state.get(f"{p}_by_shape", {}) for p in ("slice", "sdxl", "sdxl_refiner", "sdxl_cache", "sd21")]
         + [train.get("flash_fwd", {}), sdxl_train.get("flash_fwd", {}), sd21_trainer.get("flash_fwd", {}),
@@ -6277,7 +6323,8 @@ def kernels_line(state):
         "float32": [state.get(f"{p}_by_shape", {}) for p in ("parity", "sdxl_parity")]
         + [train_f32.get("flash_fwd", {}), sdxl_train_parity.get("flash_fwd", {}), sd21_parity.get("flash_fwd", {}),
            ddp_parity.get("flash_fwd", {}), fsdp_parity.get("flash_fwd", {}), tp_parity.get("flash_fwd", {}),
-           tp_fsdp_parity.get("flash_fwd", {}), vae_polyphase.get("flash_fwd", {})],
+           tp_fsdp_parity.get("flash_fwd", {}), vae_polyphase.get("flash_fwd", {}),
+           train_f32_buckets.get("flash_fwd", {})],
     }
     entries = []
     for row in state.get("kernel_cases", []):
@@ -6306,6 +6353,8 @@ def kernels_line(state):
         "sd21_parity_l2_f32": [(sd21_parity.get("flash_bwd_f32", {}), "sd21_parity")],
         "tp_parity_unet_f32": [(tp_parity.get("flash_bwd_f32", {}), "tp_parity ranks"),
                                (tp_fsdp_parity.get("flash_bwd_f32", {}), "tp_fsdp_parity ranks")],
+        # 64-key blocks at SD1.5's heads of 80
+        "sd15_bucket_832_l1_f32": [(train_f32_buckets.get("flash_bwd_f32", {}), "train_f32 832x832")],
     }
     bf16_paths = {  # the fused bf16 kernel's, likewise
         "unet_train": [(train.get("flash_bwd_fused", {}), "train"),

@@ -86,8 +86,9 @@
 //    at (64, 2704, 80), SD1.5's 832x832 level at batch 8); it runs at
 //    2.6-2.9x that on the card, a little faster than SDPA's backward
 //    (PERF.md).
-// 3. f32, D % 4 == 0, D <= 64 (`flash_bwd_f32_fused_kernel<DP>`, DP = D
-//    rounded up to 16, 32, 40, 48 or 64): one fused CUDA-core kernel, so
+// 3. f32, D % 4 == 0, D <= 128 (`flash_bwd_f32_fused_kernel<DP>`, DP = D
+//    rounded up to 16, 32, 40, 48 or 64, and above 64 to a multiple of 16,
+//    80-128): one fused CUDA-core kernel, so
 //    S^T, dP^T and the exps are computed once (5 products, not the pair's
 //    7), deterministic. One block of 256 threads per (head, 128 keys); K and
 //    V of the block stay in shared memory as f32; 64-query tiles of Q, dO,
@@ -117,8 +118,22 @@
 //    read their column operands as scalars (one load per 4 FMAs), and with
 //    8 warps an SM the two barriers a tile are not hidden: these hold the
 //    kernel at about 2x its bound.
+//    Wide heads (64 < D <= 128; SD1.5's 640-channel level, heads of 80, in
+//    the f32 step at 832x832 and up): 64 keys a block, since dK and dV of
+//    128 keys would be 128 registers a thread at D = 128 and K, V, the ring
+//    and P^T/dS^T of 128 keys pass 227 KB from D = 80 on; 64-query tiles
+//    (48 at DP = 128, whose 64 would pass it too). S^T and dP^T: 4 keys x 4
+//    queries a thread; dK and dV: 4 keys x D/16 columns (cg + 16 c); dQ: 4
+//    queries x D/16 columns over all 64 keys, no halves and no hand-over.
+//    Shared memory 161 KB at DP = 80 (K, V 42 KB, the ring 85 KB, P^T and
+//    dS^T 34 KB), 209 KB at 112, 191 KB at 128. Twice the partials of 128-key
+//    blocks: at (64, 2704, 80) 43 of 55.4 MB, 2.38 GB written and read
+//    again (1.42 ms at 3.35 TB/s beside the products' 5.59 ms at 67
+//    TFLOP/s); 6.91 GB at (64, 4624, 80) (4.13 ms beside 16.3 ms). It runs
+//    at ~2.2x the products' bound there, 2.7-2.8x faster than the pair it
+//    replaced (PERF.md).
 // 4. CUDA cores (`bwd_dq_kernel`, `bwd_dkv_kernel`): everything else (f32
-//    with D % 4 != 0 or D > 64, bf16 with D % 8 != 0 or D > 128, unaligned
+//    with D % 4 != 0 or D > 128, bf16 with D % 8 != 0 or D > 128, unaligned
 //    bases). Two kernels following the TPU grid (dQ per query tile over the
 //    keys; dK/dV per key tile over the queries),
 //    deterministic. f32 FMA with the tiles staged in shared memory as f32,
@@ -1098,14 +1113,26 @@ cudaError_t launch_fused_wide(const void* q, const void* k, const void* v, const
   return launch_dq_convert(dq_acc, dq, bh, sq, d, scale, stream);
 }
 
-// --- fused CUDA-core kernel: f32, D % 4 == 0, D <= 64 (cp.async, dQ by partials) ---
+// --- fused CUDA-core kernel: f32, D % 4 == 0, D <= 128 (cp.async, dQ by partials) ---
 
 template <int DP>
 struct F32Tile {
   static constexpr int kThreads = 256;
-  static constexpr int BK = 128;      // keys per block
-  static constexpr int BQ = 64;       // queries per streamed tile
-  static constexpr int CPG = DP / 8;  // dK, dV and dQ columns a thread: cg + 8 c, c < CPG
+  // 64 < D <= 128: 64 keys a block. At 128 keys dK and dV alone would hold
+  // 128 registers a thread at D = 128, and K, V, the Q/dO ring and P^T/dS^T
+  // of 128 keys pass the 227 KB of shared memory from D = 80 on.
+  static constexpr bool kWideHead = DP > 64;
+  static constexpr int BK = kWideHead ? 64 : 128;  // keys per block
+  static constexpr int BQ = DP > 112 ? 48 : 64;    // queries per streamed tile (64 passes 227 KB at DP = 128)
+  static constexpr int KS = BK / 16;               // S^T keys a thread: s_kg + 16 i, i < KS
+  static constexpr int QS = BQ / 16;               // S^T and dQ queries a thread: 16 apart, QS of them
+  static constexpr int KVG = 1024 / BK;            // dK/dV column groups: keys 4 (tid / KVG) + r, r < 4
+  static constexpr int CPG = DP / KVG;             // dK and dV columns a thread: tid % KVG + KVG c
+  // dQ: D <= 64 sums two 64-key halves (128 threads each) that meet in
+  // shared memory; wide heads have one 64-key block and no halves
+  static constexpr int kHalves = kWideHead ? 1 : 2;
+  static constexpr int DQG = 16 / kHalves;         // dQ column groups of a half
+  static constexpr int DQC = DP / DQG;             // dQ columns a thread
   static constexpr int LD = DP + 4;   // row stride (floats) of K, V, Q, dO: [row][column]
   static constexpr int LDP = BK + 4;  // row stride of P^T and dS^T, kept as [query][key]
   // row stride of the dQ half handed between the two key halves (a bank
@@ -1117,8 +1144,9 @@ struct F32Tile {
   static constexpr int kOffP = kOffStage + 2 * kStage;
   static constexpr int kOffDs = kOffP + BQ * LDP;
   static constexpr int kOffRed = kOffDs + BQ * LDP;
-  static constexpr size_t kSmemBytes = size_t(kOffRed + BQ * LDR) * sizeof(float);
-  static_assert(DP % 8 == 0 && DP <= 64, "head dim");
+  static constexpr size_t kSmemBytes = size_t(kOffRed + (kHalves == 2 ? BQ * LDR : 0)) * sizeof(float);
+  static_assert(DP % 8 == 0 && DP <= 128 && (!kWideHead || DP % 16 == 0), "head dim");
+  static_assert(BK * BQ == 16 * 16 * KS * QS && (BK / 4) * KVG == kThreads, "thread maps");
   static_assert(kSmemBytes <= 232448, "shared memory per block");
 };
 
@@ -1130,14 +1158,15 @@ __global__ void __launch_bounds__(F32Tile<DP>::kThreads, 1)
                                float* __restrict__ dq_part, float* __restrict__ dk, float* __restrict__ dv,
                                int sq, int sk, int d, float scale) {
   using C = F32Tile<DP>;
-  constexpr int BK = C::BK, BQ = C::BQ, CPG = C::CPG, LD = C::LD, LDP = C::LDP, LDR = C::LDR;
+  constexpr int BK = C::BK, BQ = C::BQ, KS = C::KS, QS = C::QS, CPG = C::CPG, DQC = C::DQC;
+  constexpr int LD = C::LD, LDP = C::LDP, LDR = C::LDR;
   constexpr int kThreadsF32 = C::kThreads;
   extern __shared__ __align__(16) float f32_smem[];
   float* sK = f32_smem;                 // [key][column], zeros past sk and d
   float* sV = f32_smem + C::kOffV;
   float* sP = f32_smem + C::kOffP;      // P^T of the tile, [query][key]
   float* sDs = f32_smem + C::kOffDs;    // dS^T of the tile, [query][key]
-  float* sRed = f32_smem + C::kOffRed;  // the second key half's dQ rows, [query][column]
+  float* sRed = f32_smem + C::kOffRed;  // the second key half's dQ rows, [query][column] (D <= 64)
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int bh = blockIdx.y, k0 = blockIdx.x * BK;
@@ -1194,13 +1223,14 @@ __global__ void __launch_bounds__(F32Tile<DP>::kThreads, 1)
   cp_async_wait<0>();
   __syncthreads();
 
-  // S^T and dP^T: keys s_kg + 16 i (i < 8) x queries s_qg + 16 j (j < 4)
+  // S^T and dP^T: keys s_kg + 16 i (i < KS) x queries s_qg + 16 j (j < QS)
   const int s_kg = lane / 8 + 4 * (warp % 4), s_qg = lane % 8 + 8 * (warp / 4);
-  // dK and dV: keys 4 kv_kg + r (r < 4) x columns cg + 8 c
-  const int cg = lane % 8, kv_kg = lane / 8 + 4 * warp;
-  // dQ: queries dq_qg + 16 i (i < 4) x columns cg + 8 c over keys 64 half ..
-  // 64 half + 63; the two halves' sums meet in sRed
-  const int half = warp / 4, dq_qg = lane / 8 + 4 * (warp % 4);
+  // dK and dV: keys 4 kv_kg + r (r < 4) x columns cg + KVG c
+  const int cg = tid % C::KVG, kv_kg = tid / C::KVG;
+  // dQ: queries dq_qg + 16 i (i < QS) x columns dq_cg + DQG c over the 64
+  // keys 64 half ..; with two halves their sums meet in sRed
+  constexpr int kHalfThreads = kThreadsF32 / C::kHalves;
+  const int half = tid / kHalfThreads, dq_qg = (tid % kHalfThreads) / C::DQG, dq_cg = tid % C::DQG;
   const float c2 = scale * kLog2e;
   const bool ragged = k0 + BK > sk;  // the last block: its keys past sk get P = 0
 
@@ -1220,25 +1250,25 @@ __global__ void __launch_bounds__(F32Tile<DP>::kThreads, 1)
     const float* sD = sL + BQ;
 
     // S^T = K Q^T and dP^T = V dO^T, f32 FMA over the (padded) head dim
-    float s[8][4], dp[8][4];
+    float s[KS][QS], dp[KS][QS];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < KS; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) s[i][jj] = dp[i][jj] = 0.f;
+      for (int jj = 0; jj < QS; ++jj) s[i][jj] = dp[i][jj] = 0.f;
 #pragma unroll
     for (int c = 0; c < DP; c += 4) {
-      float4 qq[4], oo[4];
+      float4 qq[QS], oo[QS];
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < QS; ++jj) {
         qq[jj] = *reinterpret_cast<const float4*>(sQ + (s_qg + 16 * jj) * LD + c);
         oo[jj] = *reinterpret_cast<const float4*>(sO + (s_qg + 16 * jj) * LD + c);
       }
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < KS; ++i) {
         const float4 kk = *reinterpret_cast<const float4*>(sK + (s_kg + 16 * i) * LD + c);
         const float4 vv = *reinterpret_cast<const float4*>(sV + (s_kg + 16 * i) * LD + c);
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
+        for (int jj = 0; jj < QS; ++jj) {
           s[i][jj] = fmaf(kk.x, qq[jj].x, s[i][jj]);
           s[i][jj] = fmaf(kk.y, qq[jj].y, s[i][jj]);
           s[i][jj] = fmaf(kk.z, qq[jj].z, s[i][jj]);
@@ -1255,11 +1285,11 @@ __global__ void __launch_bounds__(F32Tile<DP>::kThreads, 1)
     // past sq have zero Q, dO, lse and delta: P = 1 there, but dS = 0 and P
     // meets only zero dO rows, so they add nothing.
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
+    for (int jj = 0; jj < QS; ++jj) {
       const int qi = s_qg + 16 * jj;
       const float l2 = sL[qi] * kLog2e, dl = sD[qi];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < KS; ++i) {
         const int key = s_kg + 16 * i;
         float p = fast_exp2(fmaf(s[i][jj], c2, -l2));
         if (ragged && k0 + key >= sk) p = 0.f;
@@ -1277,8 +1307,8 @@ __global__ void __launch_bounds__(F32Tile<DP>::kThreads, 1)
       float o[CPG], x[CPG];
 #pragma unroll
       for (int c = 0; c < CPG; ++c) {
-        o[c] = sO[qi * LD + cg + 8 * c];
-        x[c] = sQ[qi * LD + cg + 8 * c];
+        o[c] = sO[qi * LD + cg + C::KVG * c];
+        x[c] = sQ[qi * LD + cg + C::KVG * c];
       }
 #pragma unroll
       for (int c = 0; c < CPG; ++c) {
@@ -1293,18 +1323,18 @@ __global__ void __launch_bounds__(F32Tile<DP>::kThreads, 1)
       }
     }
 
-    // this block's dQ rows of the tile, dS K, over this thread's key half in
+    // this block's dQ rows of the tile, dS K, over this thread's 64 keys in
     // key order
-    float dq_acc[4][CPG];
+    float dq_acc[QS][DQC];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < QS; ++i)
 #pragma unroll
-      for (int c = 0; c < CPG; ++c) dq_acc[i][c] = 0.f;
+      for (int c = 0; c < DQC; ++c) dq_acc[i][c] = 0.f;
 #pragma unroll 2
     for (int kk = 64 * half; kk < 64 * half + 64; kk += 4) {
-      float ds[4][4];
+      float ds[QS][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < QS; ++i) {
         const float4 x = *reinterpret_cast<const float4*>(sDs + (dq_qg + 16 * i) * LDP + kk);
         ds[i][0] = x.x;
         ds[i][1] = x.y;
@@ -1313,37 +1343,42 @@ __global__ void __launch_bounds__(F32Tile<DP>::kThreads, 1)
       }
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
-        float kr[CPG];
+        float kr[DQC];
 #pragma unroll
-        for (int c = 0; c < CPG; ++c) kr[c] = sK[(kk + t) * LD + cg + 8 * c];
+        for (int c = 0; c < DQC; ++c) kr[c] = sK[(kk + t) * LD + dq_cg + C::DQG * c];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < QS; ++i)
 #pragma unroll
-          for (int c = 0; c < CPG; ++c) dq_acc[i][c] = fmaf(ds[i][t], kr[c], dq_acc[i][c]);
+          for (int c = 0; c < DQC; ++c) dq_acc[i][c] = fmaf(ds[i][t], kr[c], dq_acc[i][c]);
       }
     }
-    if (half == 1) {
+    if (C::kHalves == 2 && half == 1) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < QS; ++i)
 #pragma unroll
-        for (int c = 0; c < CPG; ++c) sRed[(dq_qg + 16 * i) * LDR + cg + 8 * c] = dq_acc[i][c];
+        for (int c = 0; c < DQC; ++c) sRed[(dq_qg + 16 * i) * LDR + dq_cg + 8 * c] = dq_acc[i][c];
     }
     cp_async_wait<0>();  // this thread's copies of the next tile have landed
     __syncthreads();     // the tile is consumed, sRed is written, the next tile is in
 
-    // first half + second half, written as this key block's dQ partial
+    // (first half + second half,) written as this key block's dQ partial
     // (unscaled) of the tile's rows inside sq; the next tile's sRed is
     // written only after its first barrier
     if (half == 0) {
       float* out = dq_part + ((size_t(blockIdx.x) * gridDim.y + bh) * sq + size_t(j) * BQ) * d;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < QS; ++i) {
         const int qi = dq_qg + 16 * i;
         if (j * BQ + qi >= sq) continue;
 #pragma unroll
-        for (int c = 0; c < CPG; ++c) {
-          const int col = cg + 8 * c;
-          if (col < d) out[size_t(qi) * d + col] = dq_acc[i][c] + sRed[qi * LDR + col];
+        for (int c = 0; c < DQC; ++c) {
+          const int col = dq_cg + C::DQG * c;
+          if (col < d) {
+            if constexpr (C::kHalves == 2)
+              out[size_t(qi) * d + col] = dq_acc[i][c] + sRed[qi * LDR + col];
+            else
+              out[size_t(qi) * d + col] = dq_acc[i][c];
+          }
         }
       }
     }
@@ -1358,7 +1393,7 @@ __global__ void __launch_bounds__(F32Tile<DP>::kThreads, 1)
     float* ovr = dv + (size_t(bh) * sk + key) * d;
 #pragma unroll
     for (int c = 0; c < CPG; ++c) {
-      const int col = cg + 8 * c;
+      const int col = cg + C::KVG * c;
       if (col < d) {
         okr[col] = dk_acc[r][c] * scale;
         ovr[col] = dv_acc[r][c];
@@ -1488,9 +1523,10 @@ extern "C" int flash_attention_bwd_fused_wide(const void* q, const void* k, cons
   return int(launch_fused_wide<128>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, bh, sq, sk, d, scale, s));
 }
 
-// The fused f32 kernel: f32 only, d % 4 == 0, d <= 64, q, k, v, dout, dq_part
-// and dq 16-byte aligned. dq_part (ceil(sk / 128), bh, sq, d) float32 is
-// scratch: each block of 128 keys writes its unscaled dQ partial there, and
+// The fused f32 kernel: f32 only, d % 4 == 0, d <= 128, q, k, v, dout, dq_part
+// and dq 16-byte aligned. dq_part (ceil(sk / BK), bh, sq, d) float32 is
+// scratch, BK = 128 keys at d <= 64 and 64 above (F32Tile::BK): each block of
+// keys writes its unscaled dQ partial there, and
 // a second kernel writes dq = scale * (the partials summed in key-block
 // order). Returns the first failed launch's cudaError_t (0 on success); does
 // not synchronise.
@@ -1503,11 +1539,15 @@ extern "C" int flash_attention_bwd_f32_fused(const float* q, const float* k, con
                         static_cast<const void*>(dout), static_cast<const void*>(dq_part),
                         static_cast<const void*>(dq)})
     addr |= reinterpret_cast<uintptr_t>(p);
-  if (!valid_shape(bh, sq, sk, d) || d > 64 || d % 4 != 0 || addr % 16 != 0) return int(cudaErrorInvalidValue);
+  if (!valid_shape(bh, sq, sk, d) || d > 128 || d % 4 != 0 || addr % 16 != 0) return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 16) return int(launch_f32_fused<16>(q, k, v, dout, lse, delta, dq_part, dq, dk, dv, bh, sq, sk, d, scale, s));
   if (d <= 32) return int(launch_f32_fused<32>(q, k, v, dout, lse, delta, dq_part, dq, dk, dv, bh, sq, sk, d, scale, s));
   if (d <= 40) return int(launch_f32_fused<40>(q, k, v, dout, lse, delta, dq_part, dq, dk, dv, bh, sq, sk, d, scale, s));
   if (d <= 48) return int(launch_f32_fused<48>(q, k, v, dout, lse, delta, dq_part, dq, dk, dv, bh, sq, sk, d, scale, s));
-  return int(launch_f32_fused<64>(q, k, v, dout, lse, delta, dq_part, dq, dk, dv, bh, sq, sk, d, scale, s));
+  if (d <= 64) return int(launch_f32_fused<64>(q, k, v, dout, lse, delta, dq_part, dq, dk, dv, bh, sq, sk, d, scale, s));
+  if (d <= 80) return int(launch_f32_fused<80>(q, k, v, dout, lse, delta, dq_part, dq, dk, dv, bh, sq, sk, d, scale, s));
+  if (d <= 96) return int(launch_f32_fused<96>(q, k, v, dout, lse, delta, dq_part, dq, dk, dv, bh, sq, sk, d, scale, s));
+  if (d <= 112) return int(launch_f32_fused<112>(q, k, v, dout, lse, delta, dq_part, dq, dk, dv, bh, sq, sk, d, scale, s));
+  return int(launch_f32_fused<128>(q, k, v, dout, lse, delta, dq_part, dq, dk, dv, bh, sq, sk, d, scale, s));
 }

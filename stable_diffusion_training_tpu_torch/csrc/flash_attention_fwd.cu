@@ -20,14 +20,14 @@
 //   for the train shape), then the bytes from L2: every block streams its
 //   head's whole K and V (8 MB), query blocks x 8 MB per head.
 //
-// The design. Four routes share the entry point `flash_attention_fwd`, which
+// The design. Five routes share the entry point `flash_attention_fwd`, which
 // picks one from the dtype, the head dim and the bases' alignment (the same
 // choice as ops/flash_attention.py's `forward_route`) and reports it:
 //
-// bf16, D % 8 == 0, every base 16-byte aligned: the tensor cores. The two
+// bf16, D % 8 == 0, every base 16-byte aligned: the tensor cores. The three
 // bf16 kernels are one template (`flash_fwd_tma_kernel`), warp-
 // specialised: warpgroup 0 produces (setmaxnreg down to 24 or 40), the
-// others consume (up to 112 or 232). One producer thread streams Q once
+// others consume (up to 112, 160 or 232). One producer thread streams Q once
 // and the K tiles, another the V tiles, each by TMA into a ring of stages
 // with a full and an empty mbarrier per stage; K and V have separate rings
 // because a tile's K is free once S is computed and its V only after P V.
@@ -54,8 +54,27 @@
 //    bytes of the 64-row mma.sync kernel this replaces. Shared memory: Q
 //    32 KB, K and V 2 x 3 x 8 KB = 80 KB (+1 KB for alignment); 640 threads,
 //    one block per SM.
-// 2. bf16, D % 8 == 0, 64 < D <= 512 (`flash_fwd_tma_kernel<DP, true>`, DP
-//    = 128, 256 or 512): O for 64 rows at D = 512 is 256 f32 registers a
+// 2. bf16, D % 8 == 0, 64 < D <= 128 (`flash_fwd_tma_kernel<DP, false>`, DP
+//    = D rounded up to 16: 80, 96, 112, 128; route `tma_mid`, SD1.5's
+//    640-channel level, 8 heads of 80): design 1 over two 64-column TMA
+//    boxes. Each consumer warpgroup owns 64 query rows and all of D, so S is
+//    computed once per warpgroup and nothing is exchanged: QK^T runs DP / 16
+//    k-steps across both boxes (5 at D = 80; TMA zero-fills columns 80-127,
+//    which no product reads), and P V runs one wgmma over V's columns 0-63
+//    and one over the DP - 64 in its second box (m64n64k16 + m64n16k16 at
+//    D = 80), each inside one 128-byte swizzle atom (an MN-major operand of
+//    80 columns would span 1.25 atoms), into one accumulator whose columns
+//    run on as a single m64nDP product's would: 40 f32 registers a thread
+//    at D = 80, 64 at 128. Three consumers (192 query rows a block): 160
+//    registers a consumer thread after the producer's setmaxnreg (four
+//    would leave 112, which O, S and P of D = 128 alone exceed). 64-key
+//    tiles, three stages: Q 48 KB, K and V 2 x 3 x 16 KB (+1 KB), 512
+//    threads, one block per SM. Bound at (64, 2704, 80): the products
+//    (150 GFLOP, 0.151 ms) and the exps (0.47 G, 0.13 ms on the SFUs); it
+//    runs at ~2.4x that, two and four consumers slower (PERF.md,
+//    probe_flash_fwd.py).
+// 3. bf16, D % 8 == 0, 128 < D <= 512 (`flash_fwd_tma_kernel<DP, true>`, DP
+//    = 256 or 512; route `tma_wide`): O for 64 rows at D = 512 is 256 f32 registers a
 //    thread in one warpgroup, so two consumer warpgroups split D: each owns
 //    half of O's columns (m64n256k16 at D = 512: 128 registers) and
 //    computes the partial S over its half of D (16 k-steps of m64n32k16).
@@ -66,8 +85,10 @@
 //    fewer L2 bytes than the 16-row kernel this replaces), 32-key tiles, two
 //    stages: Q 64 KB, K and V 2 x 2 x 32 KB, S halves 32 KB = 224 KB at
 //    DP = 512 (+1 KB), which leaves no room for a third stage or wider key
-//    tiles; 384 threads, one block per SM.
-// 3. f32, D % 4 == 0, every base 16-byte aligned (`flash_fwd_f32_narrow_kernel`
+//    tiles; 384 threads, one block per SM. Its DP = 128 instance (D padded
+//    to 128, 64 rows a block) ran 64 < D <= 128 until route 2 and stays
+//    callable (`flash_attention_fwd_tma_wide`) to compare with it.
+// 4. f32, D % 4 == 0, every base 16-byte aligned (`flash_fwd_f32_narrow_kernel`
 //    at D <= 64, `flash_fwd_f32_wide_kernel` above): exact f32 FMA on the
 //    CUDA cores (TF32 would change the numerics), so 67 TFLOP/s bounds them:
 //    2.56 ms at (64, 4096, 40), 4.10 ms at (8, 4096, 512). Both are
@@ -101,7 +122,7 @@
 //      chunk; 232,448 bytes of shared memory, the most a block may have.
 //      64 query rows a block stream a quarter of the L2 bytes of the
 //      CUDA-core kernel's 16-row blocks.
-// 4. CUDA cores (`flash_fwd_kernel`): what no route above takes: bf16 with
+// 5. CUDA cores (`flash_fwd_kernel`): what no route above takes: bf16 with
 //    D % 8 != 0, f32 with D % 4 != 0, or an unaligned base; head dims up to
 //    512. `flash_attention_fwd_cuda_cores` runs it on any input, to compare.
 //    f32 FMA with both operands staged in shared memory as f32. Each block
@@ -746,8 +767,10 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o, f
 
 template <int DP, bool kWide>
 struct TmaTile {
+  // route tma_mid: design 1 (all of D a consumer) over two 64-column boxes
+  static constexpr bool kMid = !kWide && DP > 64;
   // consumer warpgroups; warpgroup 0 produces
-  static constexpr int kConsumers = kWide ? 2 : 4;
+  static constexpr int kConsumers = kWide ? 2 : kMid ? 3 : 4;
   static constexpr int kThreadsTotal = 128 * (1 + kConsumers);
   static constexpr int BQ = kWide ? 64 : 64 * kConsumers;  // query rows per block
   static constexpr int BK = kWide ? 32 : 64;               // keys per shared-memory tile
@@ -777,7 +800,8 @@ struct TmaTile {
   static constexpr uint32_t kOffBar = kOffX + kXBytes;
   static constexpr uint32_t kBars = 1 + 4 * kStages;  // Q full; K and V full and empty per stage
   static constexpr size_t kSmemBytes = kOffBar + kBars * 8 + 1024;  // + slack to align to 1024
-  static_assert(kWide ? (DP % (64 * kConsumers) == 0 && DP <= 512) : (DP % 8 == 0 && DP <= 64),
+  static_assert(kWide ? (DP % (64 * kConsumers) == 0 && DP <= 512)
+                      : kMid ? (DP % 16 == 0 && DP <= 128) : (DP % 8 == 0 && DP <= 64),
                 "head dim");
   static_assert(kSmemBytes <= 232448, "shared memory per block");
 };
@@ -795,12 +819,23 @@ __device__ __forceinline__ void issue_qk(float (&s)[C::kSRegs], uint64_t q, uint
 }
 
 // O += P V for one key tile; P in registers, V (described by `v`) MN-major.
+// Route tma_mid: V's columns 0-63 and 64..DP-1 lie in two boxes, one wgmma
+// each (N = 64, then DP - 64) into O's first 32 registers and the rest,
+// which hold columns 64.. as one m64nDP accumulator would.
 template <class C>
 __device__ __forceinline__ void issue_pv(float (&o)[C::kORegs], const uint32_t (&p)[C::BK / 16][4],
                                          uint64_t v) {
 #pragma unroll
-  for (int kk = 0; kk < C::BK / 16; ++kk)
-    Wgmma<C::kPvN>::rs(o, p[kk], wgmma_desc_advance(v, kk * 16 * 128), 1);
+  for (int kk = 0; kk < C::BK / 16; ++kk) {
+    const uint64_t vk = wgmma_desc_advance(v, kk * 16 * 128);
+    if constexpr (C::kMid) {
+      Wgmma<64>::rs(*reinterpret_cast<float(*)[32]>(o), p[kk], vk, 1);
+      Wgmma<C::kPvN - 64>::rs(*reinterpret_cast<float(*)[C::kORegs - 32]>(o + 32), p[kk],
+                              wgmma_desc_advance(vk, C::BK * 128), 1);
+    } else {
+      Wgmma<C::kPvN>::rs(o, p[kk], vk, 1);
+    }
+  }
 }
 
 // Online softmax over one tile of raw logits in `s` (this thread's rows g
@@ -951,7 +986,7 @@ __global__ void __launch_bounds__(TmaTile<DP, kWide>::kThreadsTotal, 1)
     const int w = threadIdx.x / 128 - 1;  // consumer warpgroup
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-    // narrow: this consumer's 64 rows of Q; wide: its half of D, in Q, K and V
+    // narrow and mid: this consumer's 64 rows of Q; wide: its half of D, in Q, K and V
     const int chunk0 = kWide ? w * C::kChunks / C::kConsumers : 0;
     const uint64_t q_desc = wgmma_desc(sQ + (kWide ? chunk0 * BQ * 128 : w * 64 * 128), 16, 1024);
     const uint64_t k_desc = wgmma_desc(sK + chunk0 * BK * 128, 16, 1024);  // stage 0
@@ -1073,17 +1108,26 @@ cudaError_t launch_tma(const void* q, const void* k, const void* v, void* o, flo
 
 // The forward's routes, as ops/flash_attention.py's `forward_route` names
 // them; chosen from the dtype, the head dim and the bases' alignment.
-enum FwdRoute { kRouteCudaCores = 0, kRouteTmaNarrow = 1, kRouteTmaWide = 2, kRouteF32 = 3 };
+enum FwdRoute { kRouteCudaCores = 0, kRouteTmaNarrow = 1, kRouteTmaWide = 2, kRouteF32 = 3, kRouteTmaMid = 4 };
 
 int forward_route(const void* q, const void* k, const void* v, const void* o, int d, int dtype) {
   const bool aligned = bases_aligned16({q, k, v, o});
-  if (dtype == 1 && aligned && d % 8 == 0) return d <= 64 ? kRouteTmaNarrow : kRouteTmaWide;
+  if (dtype == 1 && aligned && d % 8 == 0) return d <= 64 ? kRouteTmaNarrow : d <= 128 ? kRouteTmaMid : kRouteTmaWide;
   if (dtype == 0 && aligned && d % 4 == 0) return kRouteF32;
   return kRouteCudaCores;
 }
 
 bool valid_fwd(int bh, int sq, int sk, int d, int dtype) {
   return bh >= 1 && bh <= 65535 && sq >= 1 && sk >= 1 && d >= 1 && d <= 512 && (dtype == 0 || dtype == 1);
+}
+
+// the wide bf16 kernel at its DP (128 for 64 < d <= 128, which route
+// tma_mid takes; 256; 512)
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int sq, int sk,
+                        int d, float scale, cudaStream_t s) {
+  if (d <= 128) return launch_tma<128, true>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
+  if (d <= 256) return launch_tma<256, true>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
+  return launch_tma<512, true>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
 }
 
 cudaError_t launch_cuda_cores(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int sq,
@@ -1114,10 +1158,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
       if (d <= 40) return int(launch_tma<40, false>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
       if (d <= 48) return int(launch_tma<48, false>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
       return int(launch_tma<64, false>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
+    case kRouteTmaMid:
+      if (d <= 80) return int(launch_tma<80, false>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
+      if (d <= 96) return int(launch_tma<96, false>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
+      if (d <= 112) return int(launch_tma<112, false>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
+      return int(launch_tma<128, false>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
     case kRouteTmaWide:
-      if (d <= 128) return int(launch_tma<128, true>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
-      if (d <= 256) return int(launch_tma<256, true>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
-      return int(launch_tma<512, true>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
+      return int(launch_wide(q, k, v, o, lse, bh, sq, sk, d, scale, s));
     default:
       return int(launch_cuda_cores(q, k, v, o, lse, bh, sq, sk, d, scale, dtype, s));
   }
@@ -1131,4 +1178,14 @@ extern "C" int flash_attention_fwd_cuda_cores(const void* q, const void* k, cons
                                               void* stream) {
   if (!valid_fwd(bh, sq, sk, d, dtype)) return int(cudaErrorInvalidValue);
   return int(launch_cuda_cores(q, k, v, o, lse, bh, sq, sk, d, scale, dtype, static_cast<cudaStream_t>(stream)));
+}
+
+// The wide bf16 kernel (`flash_fwd_tma_kernel<DP, true>`) on bf16 with
+// d % 8 == 0, 64 < d <= 512 and 16-byte aligned bases, whatever its route:
+// at 64 < d <= 128 the kernel route tma_mid replaced (D padded to 128),
+// kept callable to compare against it on the same inputs.
+extern "C" int flash_attention_fwd_tma_wide(const void* q, const void* k, const void* v, void* o, float* lse,
+                                            int bh, int sq, int sk, int d, float scale, void* stream) {
+  if (!valid_fwd(bh, sq, sk, d, 1) || d <= 64 || !aligned16({q, k, v, o}, d)) return int(cudaErrorInvalidValue);
+  return int(launch_wide(q, k, v, o, lse, bh, sq, sk, d, scale, static_cast<cudaStream_t>(stream)));
 }

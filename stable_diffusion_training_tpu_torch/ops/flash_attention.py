@@ -6,13 +6,16 @@ Port of ``stable_diffusion_training_tpu/ops/flash_attention.py``:
 - the forward (the Pallas ``_fwd_kernel`` launched by ``_flash_fwd_impl``)
   is ``csrc/flash_attention_fwd.cu``: O and the per-row logsumexp with f32
   logits and accumulator, P cast to V's dtype before the PV product, and the
-  ``l == 0`` guard. Four routes (``forward_route``): bf16 with D % 8 == 0
-  and 16-byte aligned tensors takes a tensor-core kernel, narrow (D <= 64)
-  or wide; f32 with D % 4 == 0 and 16-byte aligned tensors takes the f32
+  ``l == 0`` guard. Five routes (``forward_route``): bf16 with D % 8 == 0
+  and 16-byte aligned tensors takes a tensor-core kernel, narrow (D <= 64),
+  mid (64 < D <= 128: SD1.5's 640-channel level has heads of 80) or wide;
+  f32 with D % 4 == 0 and 16-byte aligned tensors takes the f32
   CUDA-core kernels (exact f32 products, fixed order: O and lse repeat
   bitwise; ``flash_attention_fwd_f32_model`` is their order in plain
   torch); everything else the older CUDA-core kernel, which
-  ``flash_attention_fwd_cuda_cores`` also runs on any input, to compare;
+  ``flash_attention_fwd_cuda_cores`` also runs on any input, to compare
+  (``flash_attention_fwd_tma_wide`` likewise runs the wide kernel at
+  64 < D <= 128, which the mid one replaced there);
 - the backward (``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, launched by
   ``_flash_bwd``) is ``csrc/flash_attention_bwd.cu``, with ``delta =
   rowsum(dO * O)`` computed here in f32 as ``_flash_bwd`` does. Four
@@ -22,11 +25,12 @@ Port of ``stable_diffusion_training_tpu/ops/flash_attention.py``:
   across key blocks into a zeroed f32 buffer, so its order of additions
   changes from run to run), and with 64 < D <= 128 its wide-head
   counterpart (``flash_attention_bwd_fused_wide``, the same arithmetic:
-  SD1.5's 640-channel level has heads of 80); f32 with D % 4 == 0, D <= 64
+  SD1.5's 640-channel level has heads of 80); f32 with D % 4 == 0, D <= 128
   and 16-byte aligned tensors takes one fused CUDA-core kernel
   (``flash_attention_bwd_f32_fused``: exact f32 products, each key block's
   dQ partial written apart and summed in key-block order by a second
-  kernel, so dQ repeats bitwise); everything else takes two CUDA-core
+  kernel, so dQ repeats bitwise; blocks of 128 keys at D <= 64, of 64
+  above); everything else takes two CUDA-core
   kernels, dQ (``flash_attention_bwd_dq``) and dK/dV
   (``flash_attention_bwd_dkv``);
 - ``FlashAttention`` is the ``torch.autograd.Function`` around them, the
@@ -61,10 +65,12 @@ FUSED_BWD_KEYS = 128
 # blocks of FUSED_BWD_KEYS keys too (the entry's d > 128 check,
 # FusedWideTile::BK)
 FUSED_WIDE_BWD_MAX_HEAD_DIM = 128
-# the fused f32 backward kernel: the same, from the entry's d > 64 check and
-# F32Tile::BK (each key block writes one dQ partial)
-F32_BWD_MAX_HEAD_DIM = 64
+# the fused f32 backward kernel: the same, from the entry's d > 128 check and
+# F32Tile::BK, 128 keys at D <= 64 and 64 above (each key block writes one
+# dQ partial)
+F32_BWD_MAX_HEAD_DIM = 128
 F32_BWD_KEYS = 128
+F32_BWD_WIDE_KEYS = 64
 # the f32 forward kernels: keys per tile of the narrow (D <= 64) and the
 # wide kernel (F32NarrowTile::BK and F32WideTile::BK in
 # csrc/flash_attention_fwd.cu) and the columns per chunk of D in whose order
@@ -73,7 +79,7 @@ F32_FWD_KEYS = 64
 F32_FWD_WIDE_KEYS = 128
 F32_FWD_CHUNK = 64
 # the forward's routes, indexed by the entry's FwdRoute code
-FWD_ROUTES = ("cuda_cores", "tma_narrow", "tma_wide", "f32")
+FWD_ROUTES = ("cuda_cores", "tma_narrow", "tma_wide", "f32", "tma_mid")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # library name -> sources under csrc/
 LIBRARIES = {
@@ -133,6 +139,12 @@ def flash_attention_fwd_f32_model(
     return acc / safe_l, ((m * c + torch.log2(safe_l)) * 0.6931471805599453)[..., 0]
 
 
+def f32_bwd_keys(d: int) -> int:
+    """Keys per block of the fused f32 backward at head dim ``d``: one dQ
+    partial each."""
+    return F32_BWD_KEYS if d <= 64 else F32_BWD_WIDE_KEYS
+
+
 def flash_attention_bwd_reference(
     q3: torch.Tensor,
     k3: torch.Tensor,
@@ -166,19 +178,25 @@ def flash_attention_bwd_f32_fused_model(
     scale: float,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The fused f32 kernel's order of operations in plain torch (f32 in,
-    f32 out): per block of ``F32_BWD_KEYS`` keys, P = exp2(S scale log2 e -
-    lse log2 e) and dS = P (dO V^T - delta); the block's dK and dV over all
-    queries; its dQ partial as the sum of its two 64-key halves' dS K. dQ is
-    scale times the partials summed in key-block order. A model for the CPU
-    tests; CUDA tensors take the kernel through ``flash_attention_bwd``."""
+    f32 out): per block of ``f32_bwd_keys(D)`` keys (128 at D <= 64, 64
+    above), P = exp2(S scale log2 e - lse log2 e) and dS = P (dO V^T -
+    delta); the block's dK and dV over all queries; its dQ partial: at D <=
+    64 the sum of its two 64-key halves' dS K, above dS K over its 64 keys.
+    dQ is scale times the partials summed in key-block order. A model for
+    the CPU tests; CUDA tensors take the kernel through
+    ``flash_attention_bwd``."""
     log2e = 1.4426950408889634
     lse2 = lse[..., None] * log2e
+    keys = f32_bwd_keys(q3.shape[-1])
     dks, dvs, dq = [], [], None
-    for k0 in range(0, k3.shape[1], F32_BWD_KEYS):
-        kb, vb = k3[:, k0:k0 + F32_BWD_KEYS], v3[:, k0:k0 + F32_BWD_KEYS]
+    for k0 in range(0, k3.shape[1], keys):
+        kb, vb = k3[:, k0:k0 + keys], v3[:, k0:k0 + keys]
         p = torch.exp2(torch.matmul(q3, kb.transpose(-1, -2)) * (scale * log2e) - lse2)
         ds = p * (torch.matmul(do3, vb.transpose(-1, -2)) - delta[..., None])
-        part = torch.matmul(ds[..., :64], kb[:, :64]) + torch.matmul(ds[..., 64:], kb[:, 64:])
+        if keys == F32_BWD_WIDE_KEYS:  # one 64-key block
+            part = torch.matmul(ds, kb)
+        else:  # two 64-key halves
+            part = torch.matmul(ds[..., :64], kb[:, :64]) + torch.matmul(ds[..., 64:], kb[:, 64:])
         dq = part if dq is None else dq + part
         dvs.append(torch.matmul(p.transpose(-1, -2), do3))
         dks.append(torch.matmul(ds.transpose(-1, -2), q3) * scale)
@@ -234,6 +252,10 @@ _FUNCTIONS = {
         "flash_attention_fwd",
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     ),
+    "flash_attention_fwd_tma_wide": (
+        "flash_attention_fwd",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
+    ),
     "flash_attention_bwd_dq": (
         "flash_attention_bwd",
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
@@ -274,16 +296,17 @@ def launch_work(name: str, shape: Sequence) -> Work:
     Q, dS K) and the exps once, reading Q, K, V, dO, lse and delta and
     writing dQ, dK and dV, the bf16 ones also writing and reading their f32
     dQ buffer, the f32 one its dQ
-    partials (one f32 (bh, sq, d) tensor per block of ``F32_BWD_KEYS``
+    partials (one f32 (bh, sq, d) tensor per block of ``f32_bwd_keys(d)``
     keys); the CUDA-core pair K2 (3 products, dQ) and K3 (4, dK and dV)."""
     bh, sq, sk, d, dtype = shape[:5]
     args = {
         "flash_attention_fwd": dict(reads_q=1, writes_q=1),
         "flash_attention_fwd_cuda_cores": dict(reads_q=1, writes_q=1),
+        "flash_attention_fwd_tma_wide": dict(reads_q=1, writes_q=1),
         "flash_attention_bwd_fused": dict(products=5, writes_q=1, writes_k=2, stats=2, f32_q=2),
         "flash_attention_bwd_fused_wide": dict(products=5, writes_q=1, writes_k=2, stats=2, f32_q=2),
         "flash_attention_bwd_f32_fused": dict(products=5, writes_q=1, writes_k=2, stats=2,
-                                              f32_q=2 * -(-sk // F32_BWD_KEYS)),
+                                              f32_q=2 * -(-sk // f32_bwd_keys(d))),
         "flash_attention_bwd_dq": dict(products=3, stats=2, writes_q=1),
         "flash_attention_bwd_dkv": dict(products=4, stats=2, writes_k=2),
     }[name]
@@ -359,14 +382,14 @@ def flash_attention_fwd(
 def forward_route(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor) -> str:
     """The forward kernel ``flash_attention_fwd`` launches for these CUDA
     tensors (the C entry makes the same choice and reports it): bf16 with
-    D % 8 == 0 ``"tma_narrow"`` (D <= 64) or ``"tma_wide"`` (tensor cores),
-    f32 with D % 4 == 0 ``"f32"`` (the f32 CUDA-core kernels), each with
-    every base 16-byte aligned; anything else ``"cuda_cores"`` (the older
-    CUDA-core kernel)."""
+    D % 8 == 0 ``"tma_narrow"`` (D <= 64), ``"tma_mid"`` (64 < D <= 128) or
+    ``"tma_wide"`` (tensor cores), f32 with D % 4 == 0 ``"f32"`` (the f32
+    CUDA-core kernels), each with every base 16-byte aligned; anything else
+    ``"cuda_cores"`` (the older CUDA-core kernel)."""
     d = q3.shape[-1]
     aligned = all(t.data_ptr() % 16 == 0 for t in (q3, k3, v3))
     if q3.dtype == torch.bfloat16 and aligned and d % 8 == 0:
-        return "tma_narrow" if d <= 64 else "tma_wide"
+        return "tma_narrow" if d <= 64 else "tma_mid" if d <= 128 else "tma_wide"
     if q3.dtype == torch.float32 and aligned and d % 4 == 0:
         return "f32"
     return "cuda_cores"
@@ -387,6 +410,32 @@ def flash_attention_fwd_cuda_cores(q3, k3, v3, scale: float) -> Tuple[torch.Tens
         "flash_attention_fwd_cuda_cores", q3, k3,
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(), lse.data_ptr(),
         bh, sq, k3.shape[1], d, float(scale), _DTYPE_CODES[q3.dtype],
+    )
+    return o, lse
+
+
+def flash_attention_fwd_tma_wide(q3, k3, v3, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """O and lse from the wide bf16 tensor-core kernel (route ``"tma_wide"``'s,
+    D padded to 128 at 64 < D <= 128), whatever the route: the kernel
+    ``"tma_mid"`` replaced at 64 < D <= 128, to compare with it on the same
+    inputs. Counted in ``flash_attention_fwd_tma_wide.launches``. bf16 CUDA
+    tensors with D % 8 == 0, 64 < D and 16-byte aligned bases only."""
+    _check(q3, k3, v3)
+    if not _on_cuda("flash_attention_fwd_tma_wide", q3):
+        raise ValueError("flash_attention_fwd_tma_wide launches the CUDA kernel: CUDA tensors only")
+    d = q3.shape[-1]
+    if forward_route(q3, k3, v3) not in ("tma_mid", "tma_wide"):
+        raise ValueError(
+            f"flash_attention_fwd_tma_wide takes bf16 with D % 8 == 0, D > 64 and 16-byte aligned bases; "
+            f"got {q3.dtype}, D = {d}"
+        )
+    bh, sq, _ = q3.shape
+    o = torch.empty_like(q3)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q3.device)
+    _launch(
+        "flash_attention_fwd_tma_wide", q3, k3,
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        bh, sq, k3.shape[1], d, float(scale),
     )
     return o, lse
 
@@ -494,8 +543,8 @@ def _fused_bf16(name, takes, head_dims, q3, k3, v3, do3, lse, delta, scale):
 
 def takes_f32_fused_backward(q3, k3, v3, do3) -> bool:
     """Whether ``flash_attention_bwd`` sends these CUDA tensors to the fused
-    f32 kernel: f32, D % 4 == 0, D <= ``F32_BWD_MAX_HEAD_DIM``, every base
-    16-byte aligned (its 16-byte copies need it)."""
+    f32 kernel: f32, D % 4 == 0, D <= ``F32_BWD_MAX_HEAD_DIM`` (128), every
+    base 16-byte aligned (its 16-byte copies need it)."""
     d = q3.shape[-1]
     return (
         q3.dtype == torch.float32 and d % 4 == 0 and d <= F32_BWD_MAX_HEAD_DIM
@@ -507,8 +556,8 @@ def backward_route(q3, k3, v3, do3) -> str:
     """The backward kernel(s) ``flash_attention_bwd`` launches for these CUDA
     tensors: ``"fused"`` (bf16, tensor cores, D <= 64), ``"fused_wide"``
     (bf16, tensor cores, 64 < D <= 128), ``"f32_fused"`` (f32, CUDA cores,
-    one fused kernel) or ``"cuda_cores"`` (the dQ and dK/dV pair, for what
-    no fused kernel takes)."""
+    one fused kernel, D <= 128) or ``"cuda_cores"`` (the dQ and dK/dV pair,
+    for what no fused kernel takes)."""
     if takes_fused_backward(q3, k3, v3, do3):
         return "fused"
     if takes_fused_wide_backward(q3, k3, v3, do3):
@@ -521,9 +570,9 @@ def backward_route(q3, k3, v3, do3) -> str:
 def flash_attention_bwd_f32_fused(q3, k3, v3, do3, lse, delta, scale: float):
     """dQ, dK, dV in f32 from the fused f32 kernel (K2 and K3 in one) and its
     dQ sum, counted in ``flash_attention_bwd_f32_fused.launches``; the dQ
-    partials' scratch ``(ceil(Sk / F32_BWD_KEYS), BH, Sq, D)`` is allocated
-    here. Deterministic: the same inputs give bitwise the same grads. CUDA
-    tensors that ``takes_f32_fused_backward`` accepts only."""
+    partials' scratch ``(ceil(Sk / f32_bwd_keys(D)), BH, Sq, D)`` is
+    allocated here. Deterministic: the same inputs give bitwise the same
+    grads. CUDA tensors that ``takes_f32_fused_backward`` accepts only."""
     _check_bwd(q3, k3, v3, do3, lse, delta)
     if not _on_cuda("flash_attention_bwd_f32_fused", q3):
         raise ValueError("flash_attention_bwd_f32_fused launches the CUDA kernel: CUDA tensors only")
@@ -534,7 +583,7 @@ def flash_attention_bwd_f32_fused(q3, k3, v3, do3, lse, delta, scale: float):
         )
     bh, sq, d = q3.shape
     sk = k3.shape[1]
-    dq_part = torch.empty((-(-sk // F32_BWD_KEYS), bh, sq, d), dtype=torch.float32, device=q3.device)
+    dq_part = torch.empty((-(-sk // f32_bwd_keys(d)), bh, sq, d), dtype=torch.float32, device=q3.device)
     dq = torch.empty_like(q3)
     dk = torch.empty_like(k3)
     dv = torch.empty_like(v3)
@@ -568,6 +617,7 @@ def flash_attention_bwd(q3, k3, v3, do3, lse, delta, scale: float):
 _WRAPPERS = {
     "flash_attention_fwd": flash_attention_fwd,
     "flash_attention_fwd_cuda_cores": flash_attention_fwd_cuda_cores,
+    "flash_attention_fwd_tma_wide": flash_attention_fwd_tma_wide,
     "flash_attention_bwd_dq": flash_attention_bwd_dq,
     "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
     "flash_attention_bwd_fused": flash_attention_bwd_fused,

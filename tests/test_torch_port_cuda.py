@@ -102,7 +102,7 @@ def test_cuda_kernel_matches_plain_version(bh, sq, sk, d, dtype):
     # cores unless D % 8 != 0
     route = fa.forward_route(q, k, v)
     assert route == ("f32" if dtype == "float32" else "cuda_cores" if d % 8 else
-                     "tma_narrow" if d <= 64 else "tma_wide")
+                     "tma_narrow" if d <= 64 else "tma_mid" if d <= 128 else "tma_wide")
     assert fa.flash_attention_fwd.launches_by_route == {route: 1}
     o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, d**-0.5)
     tol = TOL[dtype]
@@ -203,7 +203,7 @@ def test_backward_kernels_match_plain_version(bh, sq, sk, d, dtype):
     if dtype == "bfloat16":
         want = "cuda_cores" if d % 8 or d > 128 else "fused" if d <= 64 else "fused_wide"
     else:
-        want = "f32_fused" if d <= 64 and d % 4 == 0 else "cuda_cores"
+        want = "f32_fused" if d <= 128 and d % 4 == 0 else "cuda_cores"
     assert route == want
     assert _bwd_launches() == ROUTE_LAUNCHES[route]
     expected = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale)
@@ -266,10 +266,14 @@ def test_fused_backward_repeats(bh, sq, sk, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bh,sq,sk,d", [(8, 4096, 4096, 40), (3, 4000, 3900, 40), (4, 3000, 2100, 64), (2, 33, 5, 24)])
+@pytest.mark.parametrize("bh,sq,sk,d", [(8, 4096, 4096, 40), (3, 4000, 3900, 40), (4, 3000, 2100, 64), (2, 33, 5, 24),
+                                        (64, 2704, 2704, 80), (3, 1000, 1100, 96), (1, 130, 129, 72),
+                                        (2, 150, 70, 128)])
 def test_f32_fused_backward_repeats(bh, sq, sk, d):
     """The same inputs twice through the fused f32 kernel: dQ, dK and dV
-    bitwise equal (dQ's partials are summed in key-block order)."""
+    bitwise equal (dQ's partials are summed in key-block order), with
+    128-key blocks at D <= 64 and 64-key ones above (SD1.5's 640-channel
+    level at 832x832 is (64, 2704, 80); D = 128 streams 48-query tiles)."""
     _need_cuda()
     q, k, v, do = _qkv(bh, sq, sk, d, "float32", seed=11)
     scale = d**-0.5
@@ -283,15 +287,39 @@ def test_f32_fused_backward_repeats(bh, sq, sk, d):
 
 @pytest.mark.cuda
 def test_f32_fused_backward_takes_only_its_route():
-    """The fused f32 wrapper raises on what it does not take (bf16, D > 64,
+    """The fused f32 wrapper raises on what it does not take (bf16, D > 128,
     D % 4 != 0); ``flash_attention_bwd`` sends those elsewhere."""
     _need_cuda()
-    for dtype, d in (("bfloat16", 40), ("float32", 128), ("float32", 30)):
+    for dtype, d in (("bfloat16", 40), ("float32", 132), ("float32", 30)):
         q, k, v, do = _qkv(1, 64, 64, d, dtype)
         lse = torch.zeros(1, 64, device="cuda")
         assert not fa.takes_f32_fused_backward(q, k, v, do)
         with pytest.raises(ValueError, match="flash_attention_bwd_f32_fused takes"):
             fa.flash_attention_bwd_f32_fused(q, k, v, do, lse, lse, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,sk,d", [(64, 2704, 2704, 80), (3, 1000, 1100, 96), (1, 130, 129, 72),
+                                        (2, 150, 70, 128)])
+def test_mid_forward_matches_the_wide_kernel_it_replaced(bh, sq, sk, d):
+    """bf16 at 64 < D <= 128 (SD1.5's 640-channel level at 832x832 is (64,
+    2704, 80); D = 96, 72 and 128 off the tiles): ``flash_attention_fwd``
+    takes route tma_mid and only its counter moves; the wide kernel it
+    replaced there (``flash_attention_fwd_tma_wide``, counted apart) gives
+    O and lse within the bf16 bounds of the same plain version."""
+    _need_cuda()
+    q, k, v, _ = _qkv(bh, sq, sk, d, "bfloat16", seed=15)
+    assert fa.forward_route(q, k, v) == "tma_mid"
+    fa.reset_launch_counts()
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    o_w, lse_w = fa.flash_attention_fwd_tma_wide(q, k, v, d**-0.5)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches_by_route == {"tma_mid": 1}
+    assert fa.flash_attention_fwd_tma_wide.launches == 1
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, d**-0.5)
+    for got_o, got_lse in ((o, lse), (o_w, lse_w)):
+        torch.testing.assert_close(got_o.float(), o_ref.float(), atol=TOL["bfloat16"]["o"], rtol=0)
+        torch.testing.assert_close(got_lse, lse_ref, atol=TOL["bfloat16"]["lse"], rtol=0)
 
 
 @pytest.mark.cuda

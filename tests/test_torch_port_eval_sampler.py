@@ -11,6 +11,8 @@ tower 2 is read by both from ``model_path/text_encoder_2``, written once.
 Tolerance: images within 1e-5 in f32 (``IMAGE_TOL``): two DDIM steps at
 guidance 2; the models agree to ~1e-6 (``tests/test_torch_port_models.py``).
 The PNGs are 8-bit roundings of those images: at most one level apart.
+The refiner's img2img sampling is ``tests/test_torch_port_eval_sampler_refiner.py``
+(each file runs whole on one worker under ``--dist loadfile``).
 """
 
 import os
@@ -148,36 +150,6 @@ def test_text_to_image_matches_jax(tmp_path, monkeypatch, family):
     _assert_same(port_out, port_images, jax_out, jax_images, 2)
     assert all(m.training for m in port_models.values())
     assert sampler.maybe_sample(STEP + 1) is None  # off the interval
-
-
-def test_refiner_img2img_matches_jax(tmp_path, monkeypatch):
-    """A refiner UNet (5 time ids) with ``eval_sample_images``: the
-    images prepared from the PNG, refined at strength 0.5 of 4 steps with
-    JAX's eps and noise."""
-    fam = jax_configs.MODEL_FAMILIES["tiny_sdxl_refiner"]
-    rng = jax.random.PRNGKey(0)
-    nhwc = dict(data_format="NHWC")
-    unet, vae = JaxUNet(**fam["unet"], **nhwc), JaxVAE(**fam["vae"], **nhwc)
-    params = {"unet": unet.init(rng, batch_size=1, height=8, width=8), "vae": vae.init(rng)}
-    port_models = {"unet": _port(UNet2DConditionModel, configs.TINY_SDXL_REFINER_UNET, params["unet"]),
-                   "vae": _port(AutoencoderKL, configs.TINY_VAE, params["vae"]), "text_encoder": None}
-    image = tmp_path / "base.png"
-    Image.fromarray(np.random.default_rng(7).integers(0, 256, (40, 40, 3), dtype=np.uint8)).save(image)
-    base = dict(EVAL, model_path=_tower_2_dir(tmp_path), model_family="tiny_sdxl_refiner", sdxl_time_ids_count=5,
-                eval_sample_images=[str(image)], eval_refine_strength=0.5, eval_num_inference_steps=4,
-                eval_sample_prompt_ids=_ids(), master_seed=SEED)
-    jax_sampler = JaxEvalSampler(dict(base, eval_sample_dir=str(tmp_path / "jax")),
-                                 {"unet": unet, "vae": vae, "text_encoder": None}, None)
-    sampler = EvalSampler(dict(base, eval_sample_dir=str(tmp_path / "port")), port_models, None, device="cpu")
-    assert sampler._img2img and jax_sampler._img2img
-    np.testing.assert_array_equal(sampler._init_image.numpy(), np.asarray(jax_sampler._init_image))
-    sample_rng, noise_rng = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(SEED), STEP))
-    eps = np.asarray(jax.random.normal(sample_rng, (2, 16, 16, 4), dtype=jnp.float32)).transpose(0, 3, 1, 2)
-    noise = np.asarray(jax.random.normal(noise_rng, (2, 4, 16, 16), dtype=jnp.float32))
-    jax_params = dict(params, text_encoder=None)
-    jax_out, jax_images = _jax_images(jax_sampler, jax_params)
-    port_out, port_images = _port_images(sampler, monkeypatch, sample_eps=torch.tensor(eps), noise=torch.tensor(noise))
-    _assert_same(port_out, port_images, jax_out, jax_images, 2)
 
 
 def test_disabled_for_a_refiner_without_images():

@@ -115,12 +115,13 @@ def test_f32_kernel_model_matches_jax_kernel(bh, sq, sk, d):
 
 
 @pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
-@pytest.mark.parametrize("d", [8, 36, 40, 64, 128, 512, 30])
+@pytest.mark.parametrize("d", [8, 36, 40, 64, 80, 128, 512, 30])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_forward_routes_by_dtype_and_head_dim(dtype, d, aligned):
     """``forward_route``, the choice ``flash_attention_fwd`` (and its C
     entry) makes for CUDA tensors: bf16 with D % 8 == 0 a tensor-core kernel,
-    narrow up to D = 64 and wide above; f32 with D % 4 == 0 the f32 kernels;
+    narrow up to D = 64, mid above up to 128 (SD1.5's heads of 80) and wide
+    above that; f32 with D % 4 == 0 the f32 kernels;
     the rest (bf16 D = 36 or 30, f32 D = 30, any unaligned base) the older
     CUDA-core kernel. It reads dtype, head dim and alignment only, so it is
     checked on CPU tensors."""
@@ -132,7 +133,7 @@ def test_forward_routes_by_dtype_and_head_dim(dtype, d, aligned):
     if not aligned:
         route = "cuda_cores"
     elif dtype == "bfloat16":
-        route = "cuda_cores" if d % 8 else ("tma_narrow" if d <= 64 else "tma_wide")
+        route = "cuda_cores" if d % 8 else ("tma_narrow" if d <= 64 else "tma_mid" if d <= 128 else "tma_wide")
     else:
         route = "cuda_cores" if d % 4 else "f32"
     assert fa.forward_route(x, x, x) == route
@@ -196,6 +197,15 @@ def test_cuda_cores_wrapper_rejects_cpu_tensors():
     x = torch.zeros(1, 8, 40)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         fa.flash_attention_fwd_cuda_cores(x, x, x, 0.1)
+
+
+def test_tma_wide_wrapper_rejects_cpu_tensors():
+    """``flash_attention_fwd_tma_wide`` launches the wide tensor-core kernel,
+    which route ``tma_mid`` replaced at 64 < D <= 128: a CPU tensor is an
+    error there."""
+    x = torch.zeros(1, 8, 80, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fa.flash_attention_fwd_tma_wide(x, x, x, 0.1)
 
 
 def test_unknown_backend_raises():

@@ -155,8 +155,11 @@ def test_f32_fused_kernel_order_matches_jax_vjp():
     against ``jax.vjp`` in interpret mode, with Sq and Sk off the kernel's
     tiles (Sk = 300: key blocks of 128, 128 and 44, the last one inside its
     first 64-key half; Sq = 200: a ragged 64-query tile) at D = 40 and 36
-    (the kernel pads 36 to 40); f32, 1e-5 as above."""
-    for b, sq, sk, h, d in ((1, 200, 300, 2, 40), (1, 100, 130, 3, 36)):
+    (the kernel pads 36 to 40); at D = 80 (SD1.5's heads of 80: 64-key
+    blocks, dQ partials of one block each) on the tiles, and at D = 128
+    off them (Sk = 70: blocks of 64 and 6; Sq = 150: 48-query tiles, the
+    last of 6); f32, 1e-5 as above."""
+    for b, sq, sk, h, d in ((1, 200, 300, 2, 40), (1, 100, 130, 3, 36), (1, 128, 256, 2, 80), (1, 150, 70, 1, 128)):
         q, k, v, do = _inputs(b, sq, sk, h, d, seed=5)
         _, expected = _jax_grads(q, k, v, do)
         q3, k3, v3, do3 = (_fold(x) for x in (q, k, v, do))
@@ -172,17 +175,19 @@ def test_f32_fused_kernel_order_matches_jax_vjp():
 @pytest.mark.parametrize(
     "dtype,d,route",
     [("float32", 40, "f32_fused"), ("float32", 64, "f32_fused"), ("float32", 36, "f32_fused"),
-     ("float32", 8, "f32_fused"), ("float32", 128, "cuda_cores"), ("float32", 30, "cuda_cores"),
+     ("float32", 8, "f32_fused"), ("float32", 80, "f32_fused"), ("float32", 128, "f32_fused"),
+     ("float32", 132, "cuda_cores"), ("float32", 30, "cuda_cores"),
      ("bfloat16", 40, "fused"), ("bfloat16", 64, "fused"), ("bfloat16", 36, "cuda_cores"),
      ("bfloat16", 80, "fused_wide"), ("bfloat16", 96, "fused_wide"), ("bfloat16", 128, "fused_wide"),
      ("bfloat16", 136, "cuda_cores")],
 )
 def test_backward_routes_by_dtype_and_head_dim(dtype, d, route):
     """``backward_route``, the choice ``flash_attention_bwd`` makes for CUDA
-    tensors: f32 with D % 4 == 0 and D <= 64 takes the fused f32 kernel,
-    bf16 with D % 8 == 0 the fused tensor-core kernel at D <= 64 and its
-    wide-head counterpart at 64 < D <= 128, and the rest (bf16 D = 36 and
-    136, f32 D = 128) the CUDA-core pair. The choice reads dtype, head dim
+    tensors: f32 with D % 4 == 0 and D <= 128 takes the fused f32 kernel
+    (64-key blocks above D = 64: SD1.5's heads of 80), bf16 with D % 8 == 0
+    the fused tensor-core kernel at D <= 64 and its wide-head counterpart
+    at 64 < D <= 128, and the rest (bf16 D = 36 and 136, f32 D = 30 and
+    132) the CUDA-core pair. The choice reads dtype, head dim
     and alignment only, so it is checked on CPU tensors."""
     x = torch.zeros(2, 16, d, dtype=getattr(torch, dtype))
     assert fa.backward_route(x, x, x, x) == route
@@ -272,6 +277,9 @@ def test_backward_kernel_wrappers_reject_cpu_tensors():
         fa.flash_attention_bwd_fused(x, x, x, x, lse, lse, 0.1)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         fa.flash_attention_bwd_f32_fused(x, x, x, x, lse, lse, 0.1)
+    wide = torch.zeros(1, 8, 80)  # the fused f32 kernel's 64-key blocks
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fa.flash_attention_bwd_f32_fused(wide, wide, wide, wide, lse, lse, 0.1)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         fa.flash_attention_bwd_fused_wide(torch.zeros(1, 8, 80), torch.zeros(1, 8, 80), torch.zeros(1, 8, 80),
                                           torch.zeros(1, 8, 80), lse, lse, 0.1)

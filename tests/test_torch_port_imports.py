@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``stable_diffusion_training_tpu_torch``
-and none of the root scripts ``chip_smoke.py``, ``probe_flash_bwd.py`` and
-``probe_lion.py`` imports JAX, flax or the JAX package; the package
+and none of the root scripts ``chip_smoke.py``, ``probe_flash_bwd.py``,
+``probe_flash_fwd.py`` and ``probe_lion.py`` imports JAX, flax or the JAX package; the package
 imports on a CPU-only torch with no nvcc and no triton, the train and
 trainer slices' modules included, and none of its modules imports tqdm,
 transformers, safetensors, orbax or tensorboard when it is imported (the
@@ -38,7 +38,7 @@ SLICE_MODULES = (
     "utils/hostcache.py", "utils/kernel_trace.py", "utils/roofline.py",  # the profiling tools
 )
 KERNEL_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "lion8bit_update.cu")
-SCRIPTS = ("chip_smoke.py", "probe_flash_bwd.py", "probe_lion.py")  # run from the root on the card
+SCRIPTS = ("chip_smoke.py", "probe_flash_bwd.py", "probe_flash_fwd.py", "probe_lion.py")  # run from the root on the card
 
 
 def _port_files():
@@ -175,6 +175,24 @@ def test_probe_edits_match_the_fused_kernel_once():
         out = probe.variant_source(src, edits)
         assert (out == src) == (name == "base"), name
         assert probe.FUSED in out, name
+
+
+def test_forward_probe_edits_match_the_mid_tile_once():
+    """Each variant of ``probe_flash_fwd.py`` replaces the mid tile's count
+    of consumer warpgroups, a statement that occurs exactly once in the
+    forward's source, and the base variant is the source as it stands."""
+    sys.path.insert(0, REPO)
+    try:
+        import probe_flash_fwd as probe
+    finally:
+        sys.path.remove(REPO)
+    with open(os.path.join(REPO, PACKAGE, "csrc", "flash_attention_fwd.cu")) as f:
+        src = f.read()
+    assert set(probe.VARIANTS) == {"consumers_2", "consumers_3", "consumers_4"}
+    for name, edits in probe.VARIANTS.items():
+        out = probe.variant_source(src, edits)
+        assert (out == src) == (name == "consumers_3"), name
+        assert probe.KERNEL in out, name
 
 
 def test_lion_probe_edits_match_the_kernels_once():

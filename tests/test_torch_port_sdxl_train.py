@@ -1,7 +1,10 @@
 """SDXL training in the port against the JAX package's, on the CPU in f32:
 the micro-conditioned train step (``pooled_text_embeds`` and ``time_ids``
 into the UNet's ``text_time`` add-embedding), its batches from the offline
-latent cache, the step table's latent-cache buckets and the trainer.
+latent cache, the step table's latent-cache buckets and the trainer. The
+dual-tower, refiner and grad-accumulation step cases run from
+``tests/test_torch_port_sdxl_train_cached.py``, ``_refiner.py`` and
+``_accum.py`` (``CASES_BY_FILE``).
 
 Each step case starts both sides from one state (the JAX package's
 ``tiny_sdxl``, ``tiny_sdxl_dual`` or ``tiny_sdxl_refiner`` family, crossed
@@ -102,6 +105,16 @@ CASES = {  # id: (family, config overrides, batch source)
         "cache",
     ),
 }
+# the cases by file: each file runs whole on one worker (``--dist loadfile``),
+# so three go to test_torch_port_sdxl_train_cached.py, _refiner.py and
+# _accum.py, which import the check
+CASES_BY_FILE = {
+    "sdxl_train": ("in-step-context",),
+    "sdxl_train_cached": ("cached-dual-context",),
+    "sdxl_train_refiner": ("refiner",),
+    "sdxl_train_accum": ("grad-accumulation",),
+}
+assert sorted(sum(CASES_BY_FILE.values(), ())) == sorted(CASES)
 
 
 def _sdxl_config(cls, case):
@@ -169,8 +182,14 @@ def _jax_draws(accum):
     return [_draws(key, BATCH // accum) for key in jax.random.split(sample_rng, accum)]
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", CASES_BY_FILE["sdxl_train"])
 def test_micro_conditioned_step_matches_jax(case, tmp_path):
+    check_micro_conditioned_step(case, tmp_path)
+
+
+def check_micro_conditioned_step(case, tmp_path):
+    """One case's step against the JAX step's, and the add-embedding moved
+    on both sides."""
     cfg = _sdxl_config(TrainingConfig, case)
     jax_states = jax_training_state(_sdxl_config(JaxTrainingConfig, case))
     states = on_device_model_training_state(cfg, device="cpu")

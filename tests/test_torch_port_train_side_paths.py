@@ -2,7 +2,10 @@
 CPU in f32: grad accumulation, a frozen text encoder, the latent cache
 (``latent_moments`` batches), the cached context (``encoder_hidden_states``
 batches), ``vae_encode_chunk`` and gradient checkpointing (UNet blocks and
-feed-forwards).
+feed-forwards). Grad accumulation, the cached context with
+``vae_encode_chunk``, and the checkpointing cases run from
+``tests/test_torch_port_train_side_paths_accum.py``, ``_encode.py`` and
+``_remat.py`` (``CASES_BY_FILE``).
 
 Each case starts both sides from one state (the JAX package's ``tiny``
 family, crossed into the port as ``tests/test_torch_port_train_step.py``
@@ -49,6 +52,16 @@ CASES = {  # id: (config overrides, batch change)
     "gradient-checkpointing": (dict(gradient_checkpointing=True), None),
     "ff-gradient-checkpointing": (dict(ff_gradient_checkpointing=True), None),
 }
+# the cases by file: each file runs whole on one worker (``--dist loadfile``),
+# so the others go to test_torch_port_train_side_paths_accum.py, _encode.py
+# and _remat.py, which import this module's check and its JAX fixture
+CASES_BY_FILE = {
+    "train_side_paths": ("frozen-text-encoder", "latent-cache"),
+    "train_side_paths_accum": ("grad-accumulation",),
+    "train_side_paths_encode": ("cached-context", "vae-encode-chunk"),
+    "train_side_paths_remat": ("gradient-checkpointing", "ff-gradient-checkpointing"),
+}
+assert sorted(sum(CASES_BY_FILE.values(), ())) == sorted(CASES)
 RNG = jax.random.PRNGKey(7)
 STATICS = ("strip_bos_eos_token", "ema_rate", "grad_accumulation_steps", "train_text_encoder",
            "vae_encode_chunk")
@@ -129,8 +142,14 @@ def _jax_step(step, jax_states, case):
     )
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", CASES_BY_FILE["train_side_paths"])
 def test_side_path_matches_jax(case, jax_base):
+    check_side_path(case, jax_base)
+
+
+def check_side_path(case, jax_base):
+    """One side path's step against the JAX step's, and under gradient
+    checkpointing against the port's step without it, bit for bit."""
     jax_states, step, plain = jax_base
     overrides = CASES[case][0]
     j_out = plain if "checkpointing" in case else _jax_step(step, jax_states, CASES[case])

@@ -1,0 +1,16 @@
+"""The train step's side paths in the port against the JAX package's, on the
+CPU in f32: the cached text context (``encoder_hidden_states`` batches, the
+text encoder frozen) and ``vae_encode_chunk``. The cases, the check, its
+bounds and the module-scoped JAX state are
+``tests/test_torch_port_train_side_paths.py``'s (``CASES_BY_FILE``,
+``check_side_path``, ``jax_base``); the cases are split over files that
+``--dist loadfile`` runs on separate workers."""
+
+import pytest
+
+from test_torch_port_train_side_paths import CASES_BY_FILE, check_side_path, jax_base  # noqa: F401 (the fixture)
+
+
+@pytest.mark.parametrize("case", CASES_BY_FILE["train_side_paths_encode"])
+def test_side_path_matches_jax(case, jax_base):  # noqa: F811
+    check_side_path(case, jax_base)

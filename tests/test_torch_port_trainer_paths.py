@@ -1,10 +1,11 @@
 """The port's trainer (``trainer.main`` on ``tiny`` in f32 on the CPU) along
 its other paths, each a run of its own: the streaming loader built from a
 chunk directory (its batches bitwise the JAX loader's), eval sampling,
-the profiler trace, the options once unported, SDXL micro-conditioning over
-a latent cache, and the command line. The config and the run helpers are
-``tests/test_torch_port_trainer.py``'s; the runs that share its
-module-scoped fixture stay there."""
+the profiler trace, the options once unported (the slow ones in
+``tests/test_torch_port_trainer_options*.py``), SDXL
+micro-conditioning over a latent cache, and the command line. The config
+and the run helpers are ``tests/test_torch_port_trainer.py``'s; the runs
+that share its module-scoped fixture stay there."""
 
 import json
 import os
@@ -110,19 +111,39 @@ def test_profile_trace_dir_writes_a_trace(tmp_path):
     assert any("conv" in str(e.get("name", "")) for e in events)
 
 
-@pytest.mark.parametrize(
-    "overrides,error",
-    [
-        (dict(mesh_shape=[1, 2]), (ValueError, "the process group has 1")),  # a model_parallel axis of 2 ranks
-        (dict(fsdp_shard_params=True), None),  # ported: one process trains as the default does
-        (dict(tensor_parallel_shard_params=True), None),  # ported: likewise
-        # ported: fsdp and model_parallel axes together hold four ranks
-        (dict(mesh_shape=[1, 2, 2], tensor_parallel_shard_params=True), (ValueError, "the process group has 1")),
-        (dict(vae_polyphase_downsample=True), "trains"),  # ported: the encode's sums in another order
-    ],
-    ids=["mesh", "fsdp", "tensor-parallel", "tensor-parallel-with-fsdp", "polyphase"],
-)
+# the options' cases, by id; each file runs whole on one worker (``--dist
+# loadfile``), so the slow ones are split over this file,
+# ``test_torch_port_trainer_options.py``, ``_options_tp.py`` and
+# ``_options_polyphase.py``
+OPTIONS = {
+    "mesh": (dict(mesh_shape=[1, 2]), (ValueError, "the process group has 1")),  # a model_parallel axis of 2 ranks
+    "fsdp": (dict(fsdp_shard_params=True), None),  # ported: one process trains as the default does
+    "tensor-parallel": (dict(tensor_parallel_shard_params=True), None),  # ported: likewise
+    # ported: fsdp and model_parallel axes together hold four ranks
+    "tensor-parallel-with-fsdp": (dict(mesh_shape=[1, 2, 2], tensor_parallel_shard_params=True),
+                                  (ValueError, "the process group has 1")),
+    "polyphase": (dict(vae_polyphase_downsample=True), "trains"),  # ported: the encode's sums in another order
+}
+OPTIONS_BY_FILE = {
+    "trainer_paths": ("mesh", "tensor-parallel-with-fsdp"),
+    "trainer_options": ("fsdp",),
+    "trainer_options_tp": ("tensor-parallel",),
+    "trainer_options_polyphase": ("polyphase",),
+}
+assert sorted(sum(OPTIONS_BY_FILE.values(), ())) == sorted(OPTIONS)
+
+
+def options_params(ids):
+    """``parametrize`` arguments for the options ``ids``."""
+    return dict(argnames="overrides,error", argvalues=[OPTIONS[i] for i in ids], ids=list(ids))
+
+
+@pytest.mark.parametrize(**options_params(OPTIONS_BY_FILE["trainer_paths"]))
 def test_options_not_ported_raise(tmp_path, overrides, error):
+    check_option(tmp_path, overrides, error)
+
+
+def check_option(tmp_path, overrides, error):
     """Every option of the JAX package's config is ported: a mesh of more
     ranks than the process group stops the trainer with its size (a
     model_parallel axis of 2, fsdp and model_parallel axes of 2 together).
