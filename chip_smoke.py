@@ -466,8 +466,9 @@ RECORD = os.path.join(REPO, "chiprun_out", "chip_smoke.jsonl")  # every phase li
 # the flash-attention kernels built on TMA and wgmma (names as in csrc/)
 HOPPER_KERNELS = ("flash_fwd_tma_kernel", "flash_bwd_fused_kernel", "flash_bwd_fused_wide_kernel")
 # the f32 kernels (CUDA cores, cp.async): the fused backward and the
-# forward's two; each built, and spilling nothing
-F32_KERNELS = ("flash_bwd_f32_fused_kernel", "flash_fwd_f32_narrow_kernel", "flash_fwd_f32_wide_kernel")
+# forward's three; each built, and spilling nothing
+F32_KERNELS = ("flash_bwd_f32_fused_kernel", "flash_fwd_f32_narrow_kernel", "flash_fwd_f32_mid_kernel",
+               "flash_fwd_f32_wide_kernel")
 
 
 _T0 = time.perf_counter()
@@ -724,11 +725,17 @@ def fwd_l2_bytes(bh, sq, sk, d, dtype_name, route):
     """Bytes that K1 moves from L2 into the SMs in one call: every block
     streams its head's whole K and V, so query blocks x K+V bytes of a head.
     Query rows a block as in csrc/flash_attention_fwd.cu (TmaTile and
-    F32NarrowTile: 256 at D <= 64; the mid TmaTile 192; F32WideTile and the
-    wide TmaTile: 64); None on the older CUDA-core route."""
+    F32NarrowTile: 256 at D <= 64; the mid TmaTile 192; F32MidTile by
+    padded D, ``F32_FWD_MID_ROWS``; F32WideTile and the wide TmaTile: 64);
+    None on the older CUDA-core route."""
+    from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+
     if route == "cuda_cores":
         return None
-    rows = 192 if route == "tma_mid" else 256 if d <= 64 else 64
+    if route == "f32_mid":
+        rows = fa.F32_FWD_MID_ROWS[-(-d // 16) * 16]
+    else:
+        rows = 192 if route == "tma_mid" else 256 if d <= 64 else 64
     return -(-sq // rows) * bh * 2 * sk * d * (2 if dtype_name == "bfloat16" else 4)
 
 
@@ -796,12 +803,18 @@ def phase_kernels(state):
         ("tp_eval_unet", 8, 4096, 4096, 40, ("bfloat16",)),
         # SD1.5's 640-channel level (8 heads of 80) at the example config's
         # buckets 832x832 and 1088x1088, train batch 8 (train's bucket steps,
-        # route tma_mid; train_f32's at 832x832), with the wide kernel it
-        # replaced timed on the same inputs; D = 96 and 128 off the tiles
+        # route tma_mid; train_f32's at 832x832, route f32_mid), with the
+        # wide kernel each replaced timed on the same inputs; D = 96 and 128
+        # off the tiles
         ("sd15_bucket_832_l1", 64, 2704, 2704, 80, both),
         ("sd15_bucket_1088_l1", 64, 4624, 4624, 80, both),
         ("ragged_d96", 3, 1000, 1100, 96, both),
-        ("ragged_d128", 2, 1500, 1300, 128, ("bfloat16",)),
+        ("ragged_d128", 2, 1500, 1300, 128, both),
+        # the bucket steps' VAE encode mid-block, batch 8, after the
+        # encoder's 8x downsampling (104x104 and 136x136: 10,816 and 18,496
+        # tokens): train's 832x832 and 1088x1088, train_f32's 832x832
+        ("vae_encode_832", 8, 10816, 10816, 512, both),
+        ("vae_encode_1088", 8, 18496, 18496, 512, ("bfloat16",)),
     ]
     results = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -828,7 +841,7 @@ def phase_kernels(state):
             del again
             ok = (
                 err_o <= tol["o"] and err_lse <= tol["lse"] and by_route == {route: 2}
-                and (repeats or route != "f32")
+                and (repeats or route not in ("f32", "f32_mid"))
             )
             reps = 20 if d <= 64 else 5
             host = []
@@ -858,6 +871,18 @@ def phase_kernels(state):
                 )
                 ok = ok and compare["tma_wide_max_abs_err_o"] <= tol["o"]
                 ok = ok and compare["tma_wide_max_abs_err_lse"] <= tol["lse"]
+                del o_w, lse_w
+            if route == "f32_mid":
+                # the wide f32 kernel (D padded to 128) that route f32_mid replaced, on the same inputs
+                o_w, lse_w = fa.flash_attention_fwd_f32_wide(q, k, v, scale)
+                wide_ms = cuda_ms(lambda: fa.flash_attention_fwd_f32_wide(q, k, v, scale), reps)
+                compare.update(
+                    f32_wide_ms=wide_ms, f32_wide_max_abs_err_o=(o_w - o_ref).abs().max().item(),
+                    f32_wide_max_abs_err_lse=(lse_w - lse_ref).abs().max().item(),
+                    kernel_over_f32_wide=kernel_ms / wide_ms,
+                )
+                ok = ok and compare["f32_wide_max_abs_err_o"] <= tol["o"]
+                ok = ok and compare["f32_wide_max_abs_err_lse"] <= tol["lse"]
                 del o_w, lse_w
             try:  # as (1, B*H, S, D), the 4-D layout its fused backends take
                 library_ms = cuda_ms(
@@ -2140,9 +2165,9 @@ def phase_train(state, warmup=2, steps=5, seed=0, dtype="bfloat16"):
 # image_area_root and minimum_axis_length) that train and train_f32 step at
 # beside 512x512: their 640-channel level (8 heads of 80; 52x52 and 68x68
 # latents, 2,704 and 4,624 keys) goes to the flash kernels (K1 route
-# tma_mid in bf16) and its backward to the wide-head fused kernel (bf16)
-# or the fused f32 one. f32 skips 1088x1088: the bf16 step there peaks at
-# 43.8 GB, and f32 activations about double that.
+# tma_mid in bf16, f32_mid in f32) and its backward to the wide-head fused
+# kernel (bf16) or the fused f32 one. f32 skips 1088x1088: the bf16 step
+# there peaks at 43.8 GB, and f32 activations about double that.
 TRAIN_BUCKETS = {"bfloat16": (832, 1088), "float32": (832,)}
 TRAIN_BUCKET_WARMUP, TRAIN_BUCKET_STEPS = 2, 3
 
@@ -2155,7 +2180,9 @@ def train_bucket(res, step, unet, seed, dtype="bfloat16"):
     before those and read just after. Per step K1 5 times at level 0 (320
     channels, heads of 40), 5 at level 1 (640 channels, heads of 80) and
     once in the VAE encode: in bf16 on the narrow, the mid and the wide
-    tensor-core kernels, in f32 all on route f32; the backward 5 at level 0
+    tensor-core kernels, in f32 on the narrow, the mid and the wide f32
+    kernels (routes f32, f32_mid, f32), the wide one (which ran level 1
+    before route f32_mid) only in the VAE encode; the backward 5 at level 0
     and 5 at level 1: in bf16 the fused and the wide-head fused kernels, in
     f32 the fused f32 one at both; the CUDA-core pair never; Lion's leaf
     table twice. Returns the timed steps' launches by shape."""
@@ -2194,7 +2221,7 @@ def train_bucket(res, step, unet, seed, dtype="bfloat16"):
         want = dict(flash_fwd=11 * n, flash_bwd_fused=5 * n, flash_bwd_fused_wide=5 * n, flash_bwd_f32=0)
     else:
         want_shapes = dict(
-            flash_fwd={(64, l0, l0, 40, dtype, "f32"): 5 * n, (64, l1, l1, 80, dtype, "f32"): 5 * n,
+            flash_fwd={(64, l0, l0, 40, dtype, "f32"): 5 * n, (64, l1, l1, 80, dtype, "f32_mid"): 5 * n,
                        (TRAIN_BATCH, l0, l0, 512, dtype, "f32"): n},
             flash_bwd_f32={(64, l0, l0, 40, dtype): 5 * n, (64, l1, l1, 80, dtype): 5 * n},
         )
@@ -2204,12 +2231,16 @@ def train_bucket(res, step, unet, seed, dtype="bfloat16"):
     ms = [t for t, _ in timed]
     p50 = statistics.median(ms)
     finite = all(map(math.isfinite, losses))
-    ok = finite and launches == want and all(by_shape[k] == v for k, v in want_shapes.items())
+    # the compare-only wrappers (the wide kernels the mid routes replaced) never run on the path
+    compare_launches = fa.flash_attention_fwd_tma_wide.launches + fa.flash_attention_fwd_f32_wide.launches
+    ok = (finite and launches == want and all(by_shape[k] == v for k, v in want_shapes.items())
+          and compare_launches == 0)
     emit(
         "train_bucket", resolution=[res, res], batch=TRAIN_BATCH, dtype=dtype,
         gradient_checkpointing=unet.gradient_checkpointing, level1_keys=l1, warmup_ms=[t for t, _ in warm],
         step_ms=ms, p50_ms=p50, images_per_s=TRAIN_BATCH / p50 * 1e3, losses=losses, finite=finite,
         max_memory_allocated=peak, launches=launches, expected_launches=want, flash_fwd_launches_by_route=fwd_routes,
+        compare_wrapper_launches=compare_launches,
         launches_by_shape={kernel: {"x".join(map(str, k)): v for k, v in shapes.items()}
                            for kernel, shapes in by_shape.items() if shapes},
         ok=ok,
@@ -6280,7 +6311,7 @@ F32_FWD_PATHS = {
     "sdxl_train_parity_l1": "sdxl_train_parity", "sd21_parity_l1": "sd21_parity", "sd21_parity_l2": "sd21_parity",
     "vae_mid": "ddp_parity, fsdp_parity, tp_parity and tp_fsdp_parity ranks",
     "ddp_parity_unet": "ddp_parity and fsdp_parity ranks", "tp_parity_unet": "tp_parity and tp_fsdp_parity ranks",
-    "sd15_bucket_832_l1": "train_f32 at 832x832",
+    "sd15_bucket_832_l1": "train_f32 at 832x832", "vae_encode_832": "train_f32 at 832x832",
 }
 SHORT = {"bfloat16": "bf16", "float32": "f32"}
 

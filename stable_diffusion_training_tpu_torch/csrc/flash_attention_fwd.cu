@@ -20,7 +20,7 @@
 //   for the train shape), then the bytes from L2: every block streams its
 //   head's whole K and V (8 MB), query blocks x 8 MB per head.
 //
-// The design. Five routes share the entry point `flash_attention_fwd`, which
+// The design. Six routes share the entry point `flash_attention_fwd`, which
 // picks one from the dtype, the head dim and the bases' alignment (the same
 // choice as ops/flash_attention.py's `forward_route`) and reports it:
 //
@@ -89,10 +89,12 @@
 //    to 128, 64 rows a block) ran 64 < D <= 128 until route 2 and stays
 //    callable (`flash_attention_fwd_tma_wide`) to compare with it.
 // 4. f32, D % 4 == 0, every base 16-byte aligned (`flash_fwd_f32_narrow_kernel`
-//    at D <= 64, `flash_fwd_f32_wide_kernel` above): exact f32 FMA on the
+//    at D <= 64, `flash_fwd_f32_mid_kernel` at 64 < D <= 128, route
+//    `f32_mid`, `flash_fwd_f32_wide_kernel` above): exact f32 FMA on the
 //    CUDA cores (TF32 would change the numerics), so 67 TFLOP/s bounds them:
-//    2.56 ms at (64, 4096, 40), 4.10 ms at (8, 4096, 512). Both are
-//    FMA-issue problems, so both hold big register micro-tiles (one block of
+//    2.56 ms at (64, 4096, 40), 2.24 ms at (64, 2704, 80), 4.10 ms at
+//    (8, 4096, 512). The FMA instruction rate limits all three, so each
+//    holds big register micro-tiles (one block of
 //    8 warps an SM, up to 254 registers a thread): each float4 read from
 //    shared memory feeds 16 to 32 FMAs. The softmax is one FFMA and one exp2
 //    a logit (scale * log2 e folded in, the mask only on the last tile); row
@@ -109,6 +111,26 @@
 //      scalars, one load per 8 FMAs). Two barriers a tile; 164 KB of shared
 //      memory at DP = 40. Four rows a thread at two blocks an SM (16 warps,
 //      128 registers) measured slower.
+//    - mid (DP = D rounded up to 16: 80, 96, 112 or 128; SD1.5's 640-channel
+//      level, heads of 80): the narrow design over all of D, S summed in
+//      column order in one pass, no column padded at D = 80 (O's columns
+//      4 kg + 32 x as float4s, x < DP / 32, then 32 (DP / 32) + 2 kg as a
+//      float2 where DP % 32 == 16: 10 columns a thread at 80). A key's V
+//      columns are read as those float4s and that float2 (3 loads for 60
+//      FMAs at RT = 6). Shared memory: Q, P and two stages of K and V
+//      would take 245,760 bytes at DP = 80 and 256 rows, and cost rows a
+//      block at every DP, so V has one stage: the barrier that starts tile j (K_j is in, P V of tile j - 1
+//      is done) is where V_j and K_{j+1} are requested, V_j lands while
+//      S_j is computed and K_{j+1} while the rest of the tile is. Rows a
+//      thread: 6 at DP = 80 (192 a block, 183,296 bytes; 8 and 7 fit and
+//      took 4.33 and 4.31 ms against 6's 4.19 at (64, 2704, 80), the last
+//      wave and the last block of each head partly idle either way;
+//      probe_flash_fwd.py --route f32_mid), above the most that fit (RT =
+//      7, 6, 5 at DP = 96, 112, 128). 254 registers, no spills. The wide
+//      kernel's DP = 128 instance ran
+//      these head dims until then (37.5% of its FMAs multiplied padding at
+//      D = 80) and stays callable (`flash_attention_fwd_f32_wide`) to
+//      compare with it.
 //    - wide (DP = 128, 256 or 512): O for 64 rows x 512 columns is 128 f32
 //      registers a thread across 256 threads, and Q (132 KB at D = 512) fits
 //      beside a two-stage ring of 32 KB chunks but not beside whole K and V
@@ -720,6 +742,191 @@ __global__ void __launch_bounds__(kF32Threads, 1)
   }
 }
 
+template <int DP>
+struct F32MidTile {
+  // query rows a thread (rows rg + 32 i, i < RT): at DP = 80 six (eight and
+  // seven fit and measured slower), above the most that fit in shared
+  // memory beside two K stages, one V stage and P
+  static constexpr int RT = DP <= 80 ? 6 : DP <= 96 ? 7 : DP <= 112 ? 6 : 5;
+  static constexpr int BQ = 32 * RT;             // query rows a block
+  static constexpr int BK = 64;                  // keys a tile; a thread's logits are keys kg + 8 j, j < 8
+  static constexpr int NQUAD = DP / 32;          // O's float4 columns a thread: 4 kg + 32 x, x < NQUAD,
+  static constexpr int NPAIR = DP % 32 / 16;     // then a float2 at 32 NQUAD + 2 kg (DP = 80 and 112)
+  static constexpr int CPG = 4 * NQUAD + 2 * NPAIR;  // O columns a thread, DP / 8: none padded at 80
+  static constexpr int LD = DP + 4;    // row stride (floats) of Q and K: 8 keys' float4s hit 32 banks
+  static constexpr int LDP = BK + 8;   // row stride of P: a warp's 4 rows x 8 keys hit 32 banks
+  static constexpr int kOffK = BQ * LD;              // two K stages
+  static constexpr int kOffV = kOffK + 2 * BK * LD;  // one V stage, rows of DP (a warp reads one row)
+  static constexpr int kOffP = kOffV + BK * DP;
+  static constexpr size_t kSmemBytes = size_t(kOffP + BQ * LDP) * sizeof(float);
+  static_assert(DP % 16 == 0 && DP > 64 && DP <= 128 && 8 * CPG == DP, "head dim");
+  static_assert(kSmemBytes <= 232448, "shared memory per block");
+};
+
+// 64 < D <= 128: one block of 256 threads per (head, BQ query rows); the
+// design is in the note at the top of this file.
+template <int DP>
+__global__ void __launch_bounds__(kF32Threads, 1)
+    flash_fwd_f32_mid_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                             int sq, int sk, int d, float scale_log2) {
+  using C = F32MidTile<DP>;
+  constexpr int RT = C::RT, BQ = C::BQ, BK = C::BK, NQUAD = C::NQUAD, CPG = C::CPG, LD = C::LD, LDP = C::LDP;
+  extern __shared__ __align__(16) float f32_smem[];
+  float* sQ = f32_smem;
+  float* sV = f32_smem + C::kOffV;
+  float* sP = f32_smem + C::kOffP;  // P of the tile, [query][key]
+
+  const int tid = threadIdx.x;
+  const int rg = tid / 8, kg = tid % 8;  // the 8 lanes of a row group share its rows
+  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int n_tiles = (sk + BK - 1) / BK;
+  const float* kb = k + size_t(bh) * sk * d;
+  const float* vb = v + size_t(bh) * sk * d;
+  auto k_stage = [&](int j) { return f32_smem + C::kOffK + (j & 1) * BK * LD; };
+  auto fetch_k = [&](int j) {  // tile j's K, zeros past sk, as one cp.async group (empty past the last tile)
+    if (j < n_tiles) fetch_rows_f32<DP, LD>(k_stage(j), kb + size_t(j) * BK * d, BK, sk - j * BK, d, tid);
+    cp_async_commit();
+  };
+  fetch_rows_f32<DP, LD>(sQ, q + (size_t(bh) * sq + q0) * d, BQ, sq - q0, d, tid);
+  fetch_k(0);  // Q and the first K tile: one group
+
+  const float c = scale_log2;
+  float m[RT], l[RT], acc[RT][CPG];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < CPG; ++cc) acc[i][cc] = 0.f;
+  }
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();  // K of tile j is in for every thread; P V of tile j - 1 is done, so V's stage and P are free
+    fetch_rows_f32<DP, DP>(sV, vb + size_t(j) * BK * d, BK, sk - j * BK, d, tid);
+    cp_async_commit();  // V of tile j lands while S is computed
+    fetch_k(j + 1);     // into the stage that S of tile j - 1 read
+    const float* sK = k_stage(j);
+
+    // S = Q K^T over all of D in column order: RT rows x 8 keys a thread,
+    // each float4 of K feeding 4 RT FMAs
+    float s[RT][8];
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) s[i][jj] = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < DP; cc += 4) {
+      float4 qq[RT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) qq[i] = lds4(sQ + (rg + 32 * i) * LD + cc);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float4 kk = lds4(sK + (kg + 8 * jj) * LD + cc);
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          s[i][jj] = fmaf(qq[i].x, kk.x, s[i][jj]);
+          s[i][jj] = fmaf(qq[i].y, kk.y, s[i][jj]);
+          s[i][jj] = fmaf(qq[i].z, kk.z, s[i][jj]);
+          s[i][jj] = fmaf(qq[i].w, kk.w, s[i][jj]);
+        }
+      }
+    }
+
+    // online softmax in base 2, as the narrow kernel's
+    const int kv = sk - j * BK;
+    if (kv < BK) {
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+          if (kg + 8 * jj >= kv) s[i][jj] = kNegInf;
+    }
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) mx = fmaxf(mx, s[i][jj]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float ms = mx * c;  // = max of s * c: rounding is monotone
+      const float corr = fast_exp2(m[i] * c - ms);
+      m[i] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float p = fast_exp2(fmaf(s[i][jj], c, -ms));
+        sum += p;
+        sP[(rg + 32 * i) * LDP + kg + 8 * jj] = p;
+      }
+      l[i] = l[i] * corr + sum;  // this lane's share of the row sum
+#pragma unroll
+      for (int cc = 0; cc < CPG; ++cc) acc[i][cc] *= corr;
+    }
+    cp_async_wait<1>();  // V of tile j is in (K of tile j + 1 may still be in flight)
+    __syncthreads();     // P and V of the tile are in for every thread
+
+    // O += P V: RT rows x CPG columns a thread, in key order (P and V are 0
+    // past sk); a key's V columns come as NQUAD float4s and a float2
+#pragma unroll 4
+    for (int kk = 0; kk < BK; kk += 4) {
+      float4 p[RT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) p[i] = lds4(sP + (rg + 32 * i) * LDP + kk);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float* vrow = sV + (kk + t) * DP;
+        float vv[CPG];
+#pragma unroll
+        for (int x = 0; x < NQUAD; ++x) {
+          const float4 w = lds4(vrow + 4 * kg + 32 * x);
+          vv[4 * x] = w.x, vv[4 * x + 1] = w.y, vv[4 * x + 2] = w.z, vv[4 * x + 3] = w.w;
+        }
+        if constexpr (C::NPAIR > 0) {
+          const float2 w = *reinterpret_cast<const float2*>(vrow + 32 * NQUAD + 2 * kg);
+          vv[4 * NQUAD] = w.x, vv[4 * NQUAD + 1] = w.y;
+        }
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          const float pt = lane_of(p[i], t);
+#pragma unroll
+          for (int cc = 0; cc < CPG; ++cc) acc[i][cc] = fmaf(pt, vv[cc], acc[i][cc]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
+  }
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int row = q0 + rg + 32 * i;
+    if (row >= sq) continue;
+    const float safe_l = l[i] == 0.f ? 1.f : l[i];
+    float* orow = o + (size_t(bh) * sq + row) * d;
+#pragma unroll
+    for (int x = 0; x < NQUAD; ++x) {
+      const int col = 4 * kg + 32 * x;  // d % 4 == 0: the float4 is in or out together
+      if (col < d)
+        *reinterpret_cast<float4*>(orow + col) = make_float4(acc[i][4 * x] / safe_l, acc[i][4 * x + 1] / safe_l,
+                                                             acc[i][4 * x + 2] / safe_l, acc[i][4 * x + 3] / safe_l);
+    }
+    if constexpr (C::NPAIR > 0) {
+      const int col = 32 * NQUAD + 2 * kg;
+      if (col < d)
+        *reinterpret_cast<float2*>(orow + col) =
+            make_float2(acc[i][4 * NQUAD] / safe_l, acc[i][4 * NQUAD + 1] / safe_l);
+    }
+    if (kg == 0) lse[size_t(bh) * sq + row] = (m[i] * c + log2f(safe_l)) * kLn2;
+  }
+}
+
 template <typename Kernel>
 cudaError_t launch_f32(Kernel kernel, size_t smem, int bq, unsigned& devices_set, const void* q, const void* k,
                        const void* v, void* o, float* lse, int bh, int sq, int sk, int d, float scale,
@@ -750,6 +957,26 @@ cudaError_t launch_f32_wide(const void* q, const void* k, const void* v, void* o
                     sk, d, scale, stream);
 }
 
+template <int DP>
+cudaError_t launch_f32_mid(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int sq,
+                           int sk, int d, float scale, cudaStream_t stream) {
+  using C = F32MidTile<DP>;
+  static unsigned devices_set = 0;
+  return launch_f32(flash_fwd_f32_mid_kernel<DP>, C::kSmemBytes, C::BQ, devices_set, q, k, v, o, lse, bh, sq,
+                    sk, d, scale, stream);
+}
+
+// the wide f32 kernel at its DP (128 for 64 < d <= 128, which route f32_mid
+// takes; 256; 512)
+cudaError_t launch_f32_wide_dp(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int sq,
+                               int sk, int d, float scale, cudaStream_t s) {
+  if (d <= 128) return launch_f32_wide<128>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
+  if (d <= 256) return launch_f32_wide<256>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
+  return launch_f32_wide<512>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
+}
+
+// routes f32 (the narrow kernel at d <= 64, the wide one above 128) and
+// f32_mid (64 < d <= 128)
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int sq, int sk,
                          int d, float scale, cudaStream_t s) {
   if (d <= 16) return launch_f32_narrow<16>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
@@ -757,9 +984,11 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o, f
   if (d <= 40) return launch_f32_narrow<40>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
   if (d <= 48) return launch_f32_narrow<48>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
   if (d <= 64) return launch_f32_narrow<64>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
-  if (d <= 128) return launch_f32_wide<128>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
-  if (d <= 256) return launch_f32_wide<256>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
-  return launch_f32_wide<512>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
+  if (d <= 80) return launch_f32_mid<80>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
+  if (d <= 96) return launch_f32_mid<96>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
+  if (d <= 112) return launch_f32_mid<112>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
+  if (d <= 128) return launch_f32_mid<128>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
+  return launch_f32_wide_dp(q, k, v, o, lse, bh, sq, sk, d, scale, s);
 }
 
 
@@ -1108,12 +1337,14 @@ cudaError_t launch_tma(const void* q, const void* k, const void* v, void* o, flo
 
 // The forward's routes, as ops/flash_attention.py's `forward_route` names
 // them; chosen from the dtype, the head dim and the bases' alignment.
-enum FwdRoute { kRouteCudaCores = 0, kRouteTmaNarrow = 1, kRouteTmaWide = 2, kRouteF32 = 3, kRouteTmaMid = 4 };
+enum FwdRoute {
+  kRouteCudaCores = 0, kRouteTmaNarrow = 1, kRouteTmaWide = 2, kRouteF32 = 3, kRouteTmaMid = 4, kRouteF32Mid = 5
+};
 
 int forward_route(const void* q, const void* k, const void* v, const void* o, int d, int dtype) {
   const bool aligned = bases_aligned16({q, k, v, o});
   if (dtype == 1 && aligned && d % 8 == 0) return d <= 64 ? kRouteTmaNarrow : d <= 128 ? kRouteTmaMid : kRouteTmaWide;
-  if (dtype == 0 && aligned && d % 4 == 0) return kRouteF32;
+  if (dtype == 0 && aligned && d % 4 == 0) return d > 64 && d <= 128 ? kRouteF32Mid : kRouteF32;
   return kRouteCudaCores;
 }
 
@@ -1151,6 +1382,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   *route = forward_route(q, k, v, o, d, dtype);
   switch (*route) {
     case kRouteF32:
+    case kRouteF32Mid:
       return int(dispatch_f32(q, k, v, o, lse, bh, sq, sk, d, scale, s));
     case kRouteTmaNarrow:
       if (d <= 16) return int(launch_tma<16, false>(q, k, v, o, lse, bh, sq, sk, d, scale, s));
@@ -1188,4 +1420,15 @@ extern "C" int flash_attention_fwd_tma_wide(const void* q, const void* k, const 
                                             int bh, int sq, int sk, int d, float scale, void* stream) {
   if (!valid_fwd(bh, sq, sk, d, 1) || d <= 64 || !aligned16({q, k, v, o}, d)) return int(cudaErrorInvalidValue);
   return int(launch_wide(q, k, v, o, lse, bh, sq, sk, d, scale, static_cast<cudaStream_t>(stream)));
+}
+
+// The wide f32 kernel (`flash_fwd_f32_wide_kernel`) on f32 with d % 4 == 0,
+// 64 < d <= 512 and 16-byte aligned bases, whatever its route: at
+// 64 < d <= 128 the kernel route f32_mid replaced (D padded to 128), kept
+// callable to compare against it on the same inputs.
+extern "C" int flash_attention_fwd_f32_wide(const void* q, const void* k, const void* v, void* o, float* lse,
+                                            int bh, int sq, int sk, int d, float scale, void* stream) {
+  if (!valid_fwd(bh, sq, sk, d, 0) || d <= 64 || d % 4 != 0 || !bases_aligned16({q, k, v, o}))
+    return int(cudaErrorInvalidValue);
+  return int(launch_f32_wide_dp(q, k, v, o, lse, bh, sq, sk, d, scale, static_cast<cudaStream_t>(stream)));
 }

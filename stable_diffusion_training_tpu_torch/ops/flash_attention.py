@@ -6,16 +6,18 @@ Port of ``stable_diffusion_training_tpu/ops/flash_attention.py``:
 - the forward (the Pallas ``_fwd_kernel`` launched by ``_flash_fwd_impl``)
   is ``csrc/flash_attention_fwd.cu``: O and the per-row logsumexp with f32
   logits and accumulator, P cast to V's dtype before the PV product, and the
-  ``l == 0`` guard. Five routes (``forward_route``): bf16 with D % 8 == 0
+  ``l == 0`` guard. Six routes (``forward_route``): bf16 with D % 8 == 0
   and 16-byte aligned tensors takes a tensor-core kernel, narrow (D <= 64),
   mid (64 < D <= 128: SD1.5's 640-channel level has heads of 80) or wide;
-  f32 with D % 4 == 0 and 16-byte aligned tensors takes the f32
-  CUDA-core kernels (exact f32 products, fixed order: O and lse repeat
+  f32 with D % 4 == 0 and 16-byte aligned tensors takes an f32
+  CUDA-core kernel, narrow or wide (route ``f32``) or mid (64 < D <= 128,
+  route ``f32_mid``) (exact f32 products, fixed order: O and lse repeat
   bitwise; ``flash_attention_fwd_f32_model`` is their order in plain
   torch); everything else the older CUDA-core kernel, which
   ``flash_attention_fwd_cuda_cores`` also runs on any input, to compare
-  (``flash_attention_fwd_tma_wide`` likewise runs the wide kernel at
-  64 < D <= 128, which the mid one replaced there);
+  (``flash_attention_fwd_tma_wide`` and ``flash_attention_fwd_f32_wide``
+  likewise run the wide bf16 and f32 kernels at 64 < D <= 128, which the
+  mid ones replaced there);
 - the backward (``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, launched by
   ``_flash_bwd``) is ``csrc/flash_attention_bwd.cu``, with ``delta =
   rowsum(dO * O)`` computed here in f32 as ``_flash_bwd`` does. Four
@@ -71,15 +73,20 @@ FUSED_WIDE_BWD_MAX_HEAD_DIM = 128
 F32_BWD_MAX_HEAD_DIM = 128
 F32_BWD_KEYS = 128
 F32_BWD_WIDE_KEYS = 64
-# the f32 forward kernels: keys per tile of the narrow (D <= 64) and the
-# wide kernel (F32NarrowTile::BK and F32WideTile::BK in
-# csrc/flash_attention_fwd.cu) and the columns per chunk of D in whose order
-# S is summed; all must stay equal to the kernels'
+# the f32 forward kernels: keys per tile of the narrow (D <= 64) and the mid
+# (D <= F32_FWD_MID_MAX_HEAD_DIM) kernel and of the wide one
+# (F32NarrowTile::BK, F32MidTile::BK and F32WideTile::BK in
+# csrc/flash_attention_fwd.cu), the columns per chunk of D in whose order
+# the wide kernel sums S (the others sum all of D in one pass), and the mid
+# kernel's query rows a block by padded D (F32MidTile::BQ); all must stay
+# equal to the kernels'
 F32_FWD_KEYS = 64
 F32_FWD_WIDE_KEYS = 128
 F32_FWD_CHUNK = 64
+F32_FWD_MID_MAX_HEAD_DIM = 128
+F32_FWD_MID_ROWS = {80: 192, 96: 224, 112: 192, 128: 160}
 # the forward's routes, indexed by the entry's FwdRoute code
-FWD_ROUTES = ("cuda_cores", "tma_narrow", "tma_wide", "f32", "tma_mid")
+FWD_ROUTES = ("cuda_cores", "tma_narrow", "tma_wide", "f32", "tma_mid", "f32_mid")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # library name -> sources under csrc/
 LIBRARIES = {
@@ -110,10 +117,11 @@ def flash_attention_fwd_f32_model(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The f32 forward kernels' order of operations in plain torch (f32 in,
     f32 out): key tiles of ``F32_FWD_KEYS`` (``F32_FWD_WIDE_KEYS`` at D >
-    64) in order; per tile S = Q K^T summed over ``F32_FWD_CHUNK``-column
-    chunks of D in chunk order (one chunk at D <= 64), the running row max
-    m, P = exp2(S c - m c) with c = scale log2 e, O and l rescaled by
-    exp2(m_old c - m c) before P V and P's row sum are added; at the end
+    ``F32_FWD_MID_MAX_HEAD_DIM``) in order; per tile S = Q K^T over all of
+    D in column order in one pass (at D > ``F32_FWD_MID_MAX_HEAD_DIM``
+    summed over ``F32_FWD_CHUNK``-column chunks in chunk order); the running
+    row max m, P = exp2(S c - m c) with c = scale log2 e, O and l rescaled
+    by exp2(m_old c - m c) before P V and P's row sum are added; at the end
     O = O / l and lse = (m c + log2 l) ln 2, l == 0 taken as 1. A model for
     the CPU tests; CUDA tensors take the kernels through
     ``flash_attention_fwd``."""
@@ -122,12 +130,13 @@ def flash_attention_fwd_f32_model(
     m = torch.full((bh, sq, 1), -1e30, dtype=torch.float32, device=q3.device)
     l = torch.zeros((bh, sq, 1), dtype=torch.float32, device=q3.device)
     acc = torch.zeros((bh, sq, d), dtype=torch.float32, device=q3.device)
-    keys = F32_FWD_KEYS if d <= 64 else F32_FWD_WIDE_KEYS
+    keys = F32_FWD_KEYS if d <= F32_FWD_MID_MAX_HEAD_DIM else F32_FWD_WIDE_KEYS
+    chunk = d if d <= F32_FWD_MID_MAX_HEAD_DIM else F32_FWD_CHUNK
     for k0 in range(0, k3.shape[1], keys):
         kb, vb = k3[:, k0:k0 + keys], v3[:, k0:k0 + keys]
-        s = torch.matmul(q3[..., :F32_FWD_CHUNK], kb[..., :F32_FWD_CHUNK].transpose(-1, -2))
-        for c0 in range(F32_FWD_CHUNK, d, F32_FWD_CHUNK):
-            s = s + torch.matmul(q3[..., c0:c0 + F32_FWD_CHUNK], kb[..., c0:c0 + F32_FWD_CHUNK].transpose(-1, -2))
+        s = torch.matmul(q3[..., :chunk], kb[..., :chunk].transpose(-1, -2))
+        for c0 in range(chunk, d, chunk):
+            s = s + torch.matmul(q3[..., c0:c0 + chunk], kb[..., c0:c0 + chunk].transpose(-1, -2))
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         ms = m_new * c
         corr = torch.exp2(m * c - ms)
@@ -256,6 +265,10 @@ _FUNCTIONS = {
         "flash_attention_fwd",
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
     ),
+    "flash_attention_fwd_f32_wide": (
+        "flash_attention_fwd",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
+    ),
     "flash_attention_bwd_dq": (
         "flash_attention_bwd",
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
@@ -303,6 +316,7 @@ def launch_work(name: str, shape: Sequence) -> Work:
         "flash_attention_fwd": dict(reads_q=1, writes_q=1),
         "flash_attention_fwd_cuda_cores": dict(reads_q=1, writes_q=1),
         "flash_attention_fwd_tma_wide": dict(reads_q=1, writes_q=1),
+        "flash_attention_fwd_f32_wide": dict(reads_q=1, writes_q=1),
         "flash_attention_bwd_fused": dict(products=5, writes_q=1, writes_k=2, stats=2, f32_q=2),
         "flash_attention_bwd_fused_wide": dict(products=5, writes_q=1, writes_k=2, stats=2, f32_q=2),
         "flash_attention_bwd_f32_fused": dict(products=5, writes_q=1, writes_k=2, stats=2,
@@ -383,15 +397,16 @@ def forward_route(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor) -> str:
     """The forward kernel ``flash_attention_fwd`` launches for these CUDA
     tensors (the C entry makes the same choice and reports it): bf16 with
     D % 8 == 0 ``"tma_narrow"`` (D <= 64), ``"tma_mid"`` (64 < D <= 128) or
-    ``"tma_wide"`` (tensor cores), f32 with D % 4 == 0 ``"f32"`` (the f32
-    CUDA-core kernels), each with every base 16-byte aligned; anything else
-    ``"cuda_cores"`` (the older CUDA-core kernel)."""
+    ``"tma_wide"`` (tensor cores), f32 with D % 4 == 0 ``"f32_mid"`` (64 < D
+    <= 128) or ``"f32"`` (the narrow and the wide f32 CUDA-core kernels),
+    each with every base 16-byte aligned; anything else ``"cuda_cores"``
+    (the older CUDA-core kernel)."""
     d = q3.shape[-1]
     aligned = all(t.data_ptr() % 16 == 0 for t in (q3, k3, v3))
     if q3.dtype == torch.bfloat16 and aligned and d % 8 == 0:
         return "tma_narrow" if d <= 64 else "tma_mid" if d <= 128 else "tma_wide"
     if q3.dtype == torch.float32 and aligned and d % 4 == 0:
-        return "f32"
+        return "f32_mid" if 64 < d <= F32_FWD_MID_MAX_HEAD_DIM else "f32"
     return "cuda_cores"
 
 
@@ -434,6 +449,32 @@ def flash_attention_fwd_tma_wide(q3, k3, v3, scale: float) -> Tuple[torch.Tensor
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q3.device)
     _launch(
         "flash_attention_fwd_tma_wide", q3, k3,
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        bh, sq, k3.shape[1], d, float(scale),
+    )
+    return o, lse
+
+
+def flash_attention_fwd_f32_wide(q3, k3, v3, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """O and lse from the wide f32 CUDA-core kernel (route ``"f32"``'s above
+    D = 128, D padded to 128 at 64 < D <= 128), whatever the route: the
+    kernel ``"f32_mid"`` replaced at 64 < D <= 128, to compare with it on
+    the same inputs. Counted in ``flash_attention_fwd_f32_wide.launches``.
+    f32 CUDA tensors with D % 4 == 0, 64 < D and 16-byte aligned bases only."""
+    _check(q3, k3, v3)
+    if not _on_cuda("flash_attention_fwd_f32_wide", q3):
+        raise ValueError("flash_attention_fwd_f32_wide launches the CUDA kernel: CUDA tensors only")
+    d = q3.shape[-1]
+    if forward_route(q3, k3, v3) not in ("f32_mid", "f32") or d <= 64:
+        raise ValueError(
+            f"flash_attention_fwd_f32_wide takes f32 with D % 4 == 0, D > 64 and 16-byte aligned bases; "
+            f"got {q3.dtype}, D = {d}"
+        )
+    bh, sq, _ = q3.shape
+    o = torch.empty_like(q3)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q3.device)
+    _launch(
+        "flash_attention_fwd_f32_wide", q3, k3,
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(), lse.data_ptr(),
         bh, sq, k3.shape[1], d, float(scale),
     )
@@ -618,6 +659,7 @@ _WRAPPERS = {
     "flash_attention_fwd": flash_attention_fwd,
     "flash_attention_fwd_cuda_cores": flash_attention_fwd_cuda_cores,
     "flash_attention_fwd_tma_wide": flash_attention_fwd_tma_wide,
+    "flash_attention_fwd_f32_wide": flash_attention_fwd_f32_wide,
     "flash_attention_bwd_dq": flash_attention_bwd_dq,
     "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
     "flash_attention_bwd_fused": flash_attention_bwd_fused,

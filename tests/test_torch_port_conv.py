@@ -25,6 +25,7 @@ from stable_diffusion_training_tpu.ops import conv as jax_conv
 from stable_diffusion_training_tpu_torch.models import AutoencoderKL, configs
 from stable_diffusion_training_tpu_torch.models.hf_io import jax_params_to_state_dict
 from stable_diffusion_training_tpu_torch.ops.conv import polyphase_stride2_conv, stride2_conv_reference
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 ATOL = 1e-5
 BF16 = dict(rtol=1.6e-2, atol=1e-3)

@@ -48,6 +48,7 @@ import torch
 from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
 from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
 from stable_diffusion_training_tpu_torch.ops.attention import attention
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 TOL = {"float32": dict(o=1e-4, lse=1e-4, grad=1e-4, grad_fro=1e-5),
        "bfloat16": dict(o=1e-2, lse=1e-3, grad=1e-2, grad_fro=3.9e-3)}
@@ -98,10 +99,10 @@ def test_cuda_kernel_matches_plain_version(bh, sq, sk, d, dtype):
     torch.cuda.synchronize()
     assert fa.flash_attention_fwd.launches == 1
     # only the counter of the inputs' route moved: f32 always takes the f32
-    # kernels here (D % 4 == 0, fresh aligned tensors), bf16 the tensor
-    # cores unless D % 8 != 0
+    # kernels here (D % 4 == 0, fresh aligned tensors; the mid one at
+    # 64 < D <= 128), bf16 the tensor cores unless D % 8 != 0
     route = fa.forward_route(q, k, v)
-    assert route == ("f32" if dtype == "float32" else "cuda_cores" if d % 8 else
+    assert route == (("f32_mid" if 64 < d <= 128 else "f32") if dtype == "float32" else "cuda_cores" if d % 8 else
                      "tma_narrow" if d <= 64 else "tma_mid" if d <= 128 else "tma_wide")
     assert fa.flash_attention_fwd.launches_by_route == {route: 1}
     o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, d**-0.5)
@@ -112,13 +113,15 @@ def test_cuda_kernel_matches_plain_version(bh, sq, sk, d, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,sq,sk,d", [(64, 4096, 4096, 40), (3, 4000, 3900, 40), (2, 1000, 4100, 512),
-                                        (1, 200, 333, 512), (2, 33, 5, 24)])
+                                        (1, 200, 333, 512), (2, 33, 5, 24), (64, 2704, 2704, 80),
+                                        (3, 1000, 1100, 96), (2, 1500, 1300, 128)])
 def test_f32_forward_repeats(bh, sq, sk, d):
     """The same inputs twice through the f32 forward kernels: O and lse
-    bitwise equal (every sum runs in one fixed order)."""
+    bitwise equal (every sum runs in one fixed order); the mid kernel at
+    SD1.5's (64, 2704, 80) and at D = 96 and 128 off its tiles."""
     _need_cuda()
     q, k, v, _ = _qkv(bh, sq, sk, d, "float32", seed=12)
-    assert fa.forward_route(q, k, v) == "f32"
+    assert fa.forward_route(q, k, v) == ("f32_mid" if 64 < d <= 128 else "f32")
     first = fa.flash_attention_fwd(q, k, v)
     second = fa.flash_attention_fwd(q, k, v)
     torch.cuda.synchronize()
@@ -320,6 +323,30 @@ def test_mid_forward_matches_the_wide_kernel_it_replaced(bh, sq, sk, d):
     for got_o, got_lse in ((o, lse), (o_w, lse_w)):
         torch.testing.assert_close(got_o.float(), o_ref.float(), atol=TOL["bfloat16"]["o"], rtol=0)
         torch.testing.assert_close(got_lse, lse_ref, atol=TOL["bfloat16"]["lse"], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,sk,d", [(64, 2704, 2704, 80), (3, 1000, 1100, 96), (1, 130, 129, 84),
+                                        (2, 1500, 1300, 128)])
+def test_f32_mid_forward_matches_the_wide_kernel_it_replaced(bh, sq, sk, d):
+    """f32 at 64 < D <= 128 (SD1.5's 640-channel level at 832x832 is (64,
+    2704, 80); D = 96, 84 and 128 off the tiles): ``flash_attention_fwd``
+    takes route f32_mid and only its counter moves; the wide f32 kernel it
+    replaced there (``flash_attention_fwd_f32_wide``, counted apart) gives
+    O and lse within the f32 bounds of the same plain version."""
+    _need_cuda()
+    q, k, v, _ = _qkv(bh, sq, sk, d, "float32", seed=16)
+    assert fa.forward_route(q, k, v) == "f32_mid"
+    fa.reset_launch_counts()
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    o_w, lse_w = fa.flash_attention_fwd_f32_wide(q, k, v, d**-0.5)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches_by_route == {"f32_mid": 1}
+    assert fa.flash_attention_fwd_f32_wide.launches == 1
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, d**-0.5)
+    for got_o, got_lse in ((o, lse), (o_w, lse_w)):
+        torch.testing.assert_close(got_o, o_ref, atol=TOL["float32"]["o"], rtol=0)
+        torch.testing.assert_close(got_lse, lse_ref, atol=TOL["float32"]["lse"], rtol=0)
 
 
 @pytest.mark.cuda

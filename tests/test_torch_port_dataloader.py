@@ -30,6 +30,7 @@ from PIL import Image
 
 from stable_diffusion_training_tpu.data import dataloader as jax_dl
 from stable_diffusion_training_tpu_torch.data import dataloader as port_dl
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 COLUMNS = ["filepath", "caption", "width", "height", "repo_key"]
 

@@ -19,6 +19,7 @@ import torch
 from stable_diffusion_training_tpu.diffusion import DDPMScheduler as JaxDDPM
 from stable_diffusion_training_tpu.train.train_step import compute_snrs as jax_compute_snrs
 from stable_diffusion_training_tpu_torch.diffusion import CommonSchedulerState, DDPMScheduler, compute_snrs
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 SD_BETAS = dict(beta_start=0.00085, beta_end=0.012, num_train_timesteps=1000)
 EPS = np.finfo(np.float32).eps

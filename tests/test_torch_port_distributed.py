@@ -72,6 +72,7 @@ from stable_diffusion_training_tpu_torch.train.train_step import make_draws
 from stable_diffusion_training_tpu_torch.utils.json_io import read_json_file
 from test_torch_port_train_step import LR, PARAM_ATOL, STEP_OPTIONS, _batch, _config, _jax_draws, _load_jax_state
 from test_torch_port_trainer import _local_chunk, _rows, _weights, make_config_dict
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 WORLD = 2
 DEADLINE_S = 420  # the world takes ~1 min alone; its collectives time out at 120 s
@@ -224,16 +225,6 @@ def _wait(procs, deadline):
             p.kill()
         p.join(10)
     return [p.exitcode for p in procs]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """The module's own torch work on one thread, as its ranks run: tiny
-    models, and the test runners' other workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -43,6 +43,7 @@ from stable_diffusion_training_tpu_torch.models import (
 from stable_diffusion_training_tpu_torch.models.hf_io import jax_params_to_state_dict
 from stable_diffusion_training_tpu_torch.train import eval_sampler as port_eval
 from stable_diffusion_training_tpu_torch.train.eval_sampler import EvalSampler
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 IMAGE_TOL = 1e-5
 SEED, STEP = 3, 4

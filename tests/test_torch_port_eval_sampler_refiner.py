@@ -17,6 +17,7 @@ from stable_diffusion_training_tpu_torch.train.eval_sampler import EvalSampler
 from test_torch_port_eval_sampler import (
     EVAL, SEED, STEP, _assert_same, _ids, _jax_images, _port, _port_images, _tower_2_dir,
 )
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 
 def test_refiner_img2img_matches_jax(tmp_path, monkeypatch):

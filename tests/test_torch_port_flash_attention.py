@@ -38,6 +38,7 @@ from stable_diffusion_training_tpu_torch.ops.attention import (
     attention,
     dot_product_attention,
 )
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 TOL = {"float32": dict(o=2e-5, lse=2e-5), "bfloat16": dict(o=2e-2, lse=1e-4)}
 
@@ -96,12 +97,16 @@ def test_plain_version_matches_jax_kernel(bh, sq, sk, d, scale, dtype):
         pytest.param(3, 129, 65, 64, id="d64-one-key-past-a-tile"),
         pytest.param(1, 96, 160, 512, id="d512"),
         pytest.param(2, 70, 100, 160, id="d160-ragged-chunk"),
+        pytest.param(2, 300, 200, 80, id="d80-mid"),
+        pytest.param(2, 170, 130, 128, id="d128-mid"),
+        pytest.param(3, 97, 257, 84, id="d84-mid-padded-to-96"),
     ],
 )
 def test_f32_kernel_model_matches_jax_kernel(bh, sq, sk, d):
     """``flash_attention_fwd_f32_model``, the f32 kernels' order of
-    operations (64-key tiles, S summed over 64-column chunks of D, base-2
-    online softmax with the scale folded in), against the Pallas kernel in
+    operations (64-key tiles and all of D in one pass up to D = 128, 128-key
+    tiles and S summed over 64-column chunks of D above, base-2 online
+    softmax with the scale folded in), against the Pallas kernel in
     interpret mode at query and key counts off both sides' tiles; f32, 1e-5
     on O and lse."""
     q, k, v = _qkv(bh, sq, sk, d, seed=6)
@@ -121,7 +126,8 @@ def test_forward_routes_by_dtype_and_head_dim(dtype, d, aligned):
     """``forward_route``, the choice ``flash_attention_fwd`` (and its C
     entry) makes for CUDA tensors: bf16 with D % 8 == 0 a tensor-core kernel,
     narrow up to D = 64, mid above up to 128 (SD1.5's heads of 80) and wide
-    above that; f32 with D % 4 == 0 the f32 kernels;
+    above that; f32 with D % 4 == 0 the f32 kernels, mid (``f32_mid``) at
+    64 < D <= 128 and narrow or wide (``f32``) elsewhere;
     the rest (bf16 D = 36 or 30, f32 D = 30, any unaligned base) the older
     CUDA-core kernel. It reads dtype, head dim and alignment only, so it is
     checked on CPU tensors."""
@@ -135,7 +141,7 @@ def test_forward_routes_by_dtype_and_head_dim(dtype, d, aligned):
     elif dtype == "bfloat16":
         route = "cuda_cores" if d % 8 else ("tma_narrow" if d <= 64 else "tma_mid" if d <= 128 else "tma_wide")
     else:
-        route = "cuda_cores" if d % 4 else "f32"
+        route = "cuda_cores" if d % 4 else ("f32_mid" if 64 < d <= 128 else "f32")
     assert fa.forward_route(x, x, x) == route
     assert route in fa.FWD_ROUTES
 
@@ -206,6 +212,15 @@ def test_tma_wide_wrapper_rejects_cpu_tensors():
     x = torch.zeros(1, 8, 80, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         fa.flash_attention_fwd_tma_wide(x, x, x, 0.1)
+
+
+def test_f32_wide_wrapper_rejects_cpu_tensors():
+    """``flash_attention_fwd_f32_wide`` launches the wide f32 kernel, which
+    route ``f32_mid`` replaced at 64 < D <= 128: a CPU tensor is an error
+    there."""
+    x = torch.zeros(1, 8, 80)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fa.flash_attention_fwd_f32_wide(x, x, x, 0.1)
 
 
 def test_unknown_backend_raises():

@@ -36,6 +36,7 @@ import torch
 from stable_diffusion_training_tpu.ops import flash_attention as jax_fa
 from stable_diffusion_training_tpu.ops.attention import attention as jax_attention
 from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 # the module, not the ``attention`` function the package exports under its name
 attention_mod = importlib.import_module("stable_diffusion_training_tpu_torch.ops.attention")

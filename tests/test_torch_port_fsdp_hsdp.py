@@ -16,10 +16,10 @@ import time
 
 import numpy as np
 import pytest
-import torch
 
 import torch_dist_child as child
 from test_torch_port_distributed import _row_draws, _stack, assert_dump_matches, assert_ranks_equal
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 WORLD = 4
 MESH = (2, 2, 1)
@@ -38,8 +38,6 @@ def _case():
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("hsdp"))
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
     case = _case()
     cases = {"hsdp": dict(case, mesh=MESH, config=dict(case["config"], mesh_shape=list(MESH), fsdp_shard_params=True))}
     procs = child.start_world(tmp, cases, WORLD)
@@ -47,7 +45,6 @@ def world(tmp_path_factory):
         ref = child.run_step(case)
     finally:
         codes = child.wait_world(procs, time.monotonic() + DEADLINE_S)
-        torch.set_num_threads(threads)
     return dict(ref=ref, results=child.world_results(tmp, cases, WORLD), codes=codes)
 
 

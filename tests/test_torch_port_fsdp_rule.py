@@ -31,6 +31,7 @@ import torch
 import torch_dist_child as child
 from stable_diffusion_training_tpu_torch.optim import transforms
 from stable_diffusion_training_tpu_torch.parallel.sharding import MomentumShard, RowShard
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 WORLD = 2
 DEADLINE_S = 240
@@ -45,15 +46,12 @@ RULE = {
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("fsdp_rule"))
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
     cases = {f"rule-{path}": dict(kind="rule", mesh=(1, WORLD, 1), use_pallas=flag) for path, flag in PATHS.items()}
     procs = child.start_world(tmp, cases, WORLD)
     try:
         refs = {path: _one_process(flag) for path, flag in PATHS.items()}
     finally:
         codes = child.wait_world(procs, time.monotonic() + DEADLINE_S)
-        torch.set_num_threads(threads)
     return dict(refs=refs, results=child.world_results(tmp, cases, WORLD), codes=codes)
 
 

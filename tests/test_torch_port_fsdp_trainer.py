@@ -46,6 +46,7 @@ from stable_diffusion_training_tpu_torch.train import eval_sampler, trainer
 from stable_diffusion_training_tpu_torch.utils.json_io import read_json_file
 from test_torch_port_distributed import TRAINER_STEPS, _checkpoint_close, _losses_close, _memory_batches
 from test_torch_port_trainer import _rows, _weights, make_config_dict
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 WORLD = 2
 FSDP = dict(mesh_shape=[1, WORLD, 1], fsdp_shard_params=True)
@@ -98,28 +99,23 @@ def _one_process(path, images=None):
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("fsdp_trainer")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
+    one_cfg, one_path = make_config_dict(tmp, "one", chunk_limit=1, keep_trained_model_buffer=5,
+                                         eval_sample_dir=str(tmp / "eval_one"), **EVAL)
+    one_images = []
+    _one_process(one_path, one_images)
+    fsdp_cfg, fsdp_path = make_config_dict(tmp, "fsdp", chunk_limit=1, keep_trained_model_buffer=5,
+                                           eval_sample_dir=str(tmp / "eval_fsdp"), **EVAL, **FSDP)
+    _, from_one_path = _resume_config(tmp, "one", "fsdp_from_one", **FSDP)
+    cases = {name: dict(kind="trainer", loader="memory", batches=_memory_batches(), config_path=path, mesh=(1, 2, 1))
+             for name, path in (("fsdp", fsdp_path), ("fsdp_from_one", from_one_path))}
+    procs = child.start_world(str(tmp), cases, WORLD)
     try:
-        one_cfg, one_path = make_config_dict(tmp, "one", chunk_limit=1, keep_trained_model_buffer=5,
-                                             eval_sample_dir=str(tmp / "eval_one"), **EVAL)
-        one_images = []
-        _one_process(one_path, one_images)
-        fsdp_cfg, fsdp_path = make_config_dict(tmp, "fsdp", chunk_limit=1, keep_trained_model_buffer=5,
-                                               eval_sample_dir=str(tmp / "eval_fsdp"), **EVAL, **FSDP)
-        _, from_one_path = _resume_config(tmp, "one", "fsdp_from_one", **FSDP)
-        cases = {name: dict(kind="trainer", loader="memory", batches=_memory_batches(), config_path=path, mesh=(1, 2, 1))
-                 for name, path in (("fsdp", fsdp_path), ("fsdp_from_one", from_one_path))}
-        procs = child.start_world(str(tmp), cases, WORLD)
-        try:
-            one_resumed = _one_process(one_path)  # the one-process run's second chunk
-        finally:
-            codes = child.wait_world(procs, time.monotonic() + DEADLINE_S)
-        results = child.world_results(str(tmp), cases, WORLD)
-        _, from_fsdp_path = _resume_config(tmp, "fsdp", "one_from_fsdp")
-        from_fsdp_resumed = _one_process(from_fsdp_path)
+        one_resumed = _one_process(one_path)  # the one-process run's second chunk
     finally:
-        torch.set_num_threads(threads)
+        codes = child.wait_world(procs, time.monotonic() + DEADLINE_S)
+    results = child.world_results(str(tmp), cases, WORLD)
+    _, from_fsdp_path = _resume_config(tmp, "fsdp", "one_from_fsdp")
+    from_fsdp_resumed = _one_process(from_fsdp_path)
     return dict(tmp=tmp, codes=codes, results=results, one=one_cfg, fsdp=fsdp_cfg, one_images=one_images,
                 one_resumed=one_resumed, from_fsdp_resumed=from_fsdp_resumed)
 

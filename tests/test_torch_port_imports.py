@@ -15,6 +15,7 @@ import subprocess
 import sys
 
 import pytest
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = "stable_diffusion_training_tpu_torch"
@@ -193,6 +194,24 @@ def test_forward_probe_edits_match_the_mid_tile_once():
         out = probe.variant_source(src, edits)
         assert (out == src) == (name == "consumers_3"), name
         assert probe.KERNEL in out, name
+
+
+def test_forward_probe_f32_edits_match_the_mid_f32_tile_once():
+    """Each ``f32_mid`` variant of ``probe_flash_fwd.py`` replaces the mid
+    f32 tile's rows a thread, a statement that occurs exactly once in the
+    forward's source, and the base variant is the source as it stands."""
+    sys.path.insert(0, REPO)
+    try:
+        import probe_flash_fwd as probe
+    finally:
+        sys.path.remove(REPO)
+    with open(os.path.join(REPO, PACKAGE, "csrc", "flash_attention_fwd.cu")) as f:
+        src = f.read()
+    assert set(probe.F32_VARIANTS) == {"rows_8", "rows_7", "rows_6"}
+    for name, edits in probe.F32_VARIANTS.items():
+        out = probe.variant_source(src, edits)
+        assert (out == src) == (name == "rows_6"), name
+        assert probe.F32_KERNEL in out, name
 
 
 def test_lion_probe_edits_match_the_kernels_once():

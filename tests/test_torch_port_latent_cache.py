@@ -36,6 +36,7 @@ from stable_diffusion_training_tpu_torch.models import (
     configs,
 )
 from stable_diffusion_training_tpu_torch.models.hf_io import jax_params_to_state_dict
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 ATOL = 1e-5
 CONCAT, WIN = 3, 77

@@ -56,6 +56,7 @@ from stable_diffusion_training_tpu_torch.optim import (
     lion_8bit,
     scale_by_lion_8bit,
 )
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 EXAMPLE_EXCLUSIONS = [  # model_properties_example.json
     "bias", "scale", "embedding", "conv_in", "conv_out", "time_embedding", "embeddings",

@@ -26,6 +26,7 @@ import torch
 from stable_diffusion_training_tpu.ops.lion_kernel import _quantize as jax_quantize
 from stable_diffusion_training_tpu.ops.lion_kernel import fused_lion8bit_update as jax_fused
 from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 
 def _leaf(n, bs, seed=0, zero_blocks=0):

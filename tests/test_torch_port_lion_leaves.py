@@ -29,6 +29,7 @@ from stable_diffusion_training_tpu_torch.models.hf_io import momentum_from_jax
 from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
 from stable_diffusion_training_tpu_torch.optim import scale_by_lion_8bit
 from stable_diffusion_training_tpu_torch.optim.lion8bit import GRAD_COPIES
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 DENSE, CONV = (1, 0), (2, 3, 1, 0)
 

@@ -32,6 +32,7 @@ from stable_diffusion_training_tpu_torch.models import (
 from stable_diffusion_training_tpu_torch.models.hf_io import jax_params_to_state_dict
 from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
 from stable_diffusion_training_tpu_torch.pipeline import StableDiffusionPipeline
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 TOL = 1e-4
 # the scheduler the JAX package's checkpoint writer always embeds

@@ -15,6 +15,7 @@ import torch
 from stable_diffusion_training_tpu.utils import profiling as jax_profiling
 from stable_diffusion_training_tpu.utils import timing as jax_timing
 from stable_diffusion_training_tpu_torch.utils import profiling, timing
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 # perf_counter readings: a start and an end per step, irregular gaps
 READINGS = [0.0, 0.5, 1.0, 1.25, 2.0, 2.75, 3.0, 3.125, 4.0, 4.375, 5.0, 6.0]

@@ -33,6 +33,7 @@ from stable_diffusion_training_tpu_torch.diffusion import (
     add_noise,
     get_velocity,
 )
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 SCHEDULES = ["linear", "scaled_linear", "zero_snr_scaled_linear", "squaredcos_cap_v2"]
 SD_BETAS = dict(beta_start=0.00085, beta_end=0.012, num_train_timesteps=1000)

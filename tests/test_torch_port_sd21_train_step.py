@@ -32,6 +32,7 @@ from test_torch_port_train_step import (
     _load_jax_state,
     assert_step_matches_jax,
 )
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 
 @pytest.fixture(scope="module")

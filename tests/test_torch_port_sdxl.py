@@ -40,6 +40,7 @@ from stable_diffusion_training_tpu_torch.models import (
 from stable_diffusion_training_tpu_torch.models.hf_io import jax_params_to_state_dict
 from stable_diffusion_training_tpu_torch.ops import flash_attention as fa
 from stable_diffusion_training_tpu_torch.pipeline import StableDiffusionXLPipeline
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 ATOL = 1e-5
 IMAGE_TOL = 1e-4

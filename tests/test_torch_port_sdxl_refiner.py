@@ -40,6 +40,7 @@ from stable_diffusion_training_tpu_torch.models import (
 )
 from stable_diffusion_training_tpu_torch.models.hf_io import jax_params_to_state_dict
 from stable_diffusion_training_tpu_torch.pipeline import StableDiffusionXLImg2ImgPipeline, prepare_image
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 IMAGE_TOL = 1e-4
 SCHEDULER = dict(beta_start=0.00085, beta_end=0.012, beta_schedule="scaled_linear",

@@ -6,6 +6,7 @@ f32. The builders, inputs, draws and the 1e-4 image bound are
 import numpy as np
 
 from test_torch_port_sdxl_refiner import IMAGE_TOL, _both, _build, _inputs
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 
 def test_base_checkpoint_as_img2img_matches_jax():

@@ -80,6 +80,7 @@ from stable_diffusion_training_tpu_torch.train import (
 from stable_diffusion_training_tpu_torch.train.states import FrozenModel
 from test_torch_port_train_step import BATCH, _config, _load_jax_state, assert_step_matches_jax
 from test_torch_port_trainer import make_config_dict
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 RES, CONCAT = 64, 3
 LATENT = RES // 2  # the tiny VAE downsamples once

@@ -9,6 +9,7 @@ workers."""
 import pytest
 
 from test_torch_port_sdxl_train import CASES_BY_FILE, check_micro_conditioned_step
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 
 @pytest.mark.parametrize("case", CASES_BY_FILE["sdxl_train_accum"])

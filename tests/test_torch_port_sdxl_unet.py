@@ -24,6 +24,7 @@ from stable_diffusion_training_tpu_torch.diffusion import DDIMScheduler
 from stable_diffusion_training_tpu_torch.models import CLIPTextModelWithProjection, UNet2DConditionModel, configs
 from stable_diffusion_training_tpu_torch.models import hf_io
 from test_torch_port_sdxl import ATOL, SCHEDULER, _port, _rand
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 
 @pytest.fixture(scope="module")

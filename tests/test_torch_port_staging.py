@@ -16,6 +16,7 @@ import torch
 
 from stable_diffusion_training_tpu_torch.models import hf_io
 from stable_diffusion_training_tpu_torch.utils import staging
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 
 class _Event:

@@ -63,6 +63,7 @@ from stable_diffusion_training_tpu_torch.train import TrainingConfig, on_device_
 from stable_diffusion_training_tpu_torch.train import save_train_state
 from test_torch_port_distributed import STEP_CASES, _run_jax_step, _step_cases, assert_dump_matches, assert_ranks_equal
 from test_torch_port_train_step import _batch, _config, _jax_draws, _load_jax_state
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 WORLD = 2
 MESH = (1, 1, WORLD)
@@ -103,19 +104,14 @@ def _cases(tmp):
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("tp"))
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        cases, jax_inputs = _cases(tmp)
-        procs = child.start_world(tmp, cases, WORLD)
-        try:  # the one-process references, while the ranks run
-            refs = {name: child.run_step(case, draws_key="draws_one" if "draws_one" in case else "draws")
-                    for name, case in _step_cases().items()}
-            refs["jax"] = _run_jax_step(*jax_inputs)
-        finally:
-            codes = child.wait_world(procs, time.monotonic() + DEADLINE_S)
+    cases, jax_inputs = _cases(tmp)
+    procs = child.start_world(tmp, cases, WORLD)
+    try:  # the one-process references, while the ranks run
+        refs = {name: child.run_step(case, draws_key="draws_one" if "draws_one" in case else "draws")
+                for name, case in _step_cases().items()}
+        refs["jax"] = _run_jax_step(*jax_inputs)
     finally:
-        torch.set_num_threads(threads)
+        codes = child.wait_world(procs, time.monotonic() + DEADLINE_S)
     return dict(refs=refs, results=child.world_results(tmp, cases, WORLD), codes=codes, tmp=tmp)
 
 

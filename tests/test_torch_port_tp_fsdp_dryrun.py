@@ -35,6 +35,7 @@ from stable_diffusion_training_tpu_torch.train import TrainingConfig, on_device_
 from stable_diffusion_training_tpu_torch.train import save_train_state
 from test_torch_port_distributed import _run_jax_step, assert_dump_matches, assert_ranks_equal
 from test_torch_port_train_step import CONCAT, RES, _config, _load_jax_state
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 WORLD = 8
 MESH = (2, 2, 2)
@@ -69,30 +70,25 @@ def _jax_draws(rng, h, w):
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("tp_fsdp_dryrun"))
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
+    flags = dict(fsdp_shard_params=True, tensor_parallel_shard_params=True)
+    mesh = jax_create_mesh(shape=MESH, axis_names=("data_parallel", "fsdp", "model_parallel"),
+                           devices=jax.devices()[:WORLD])
+    jax_states = jax_training_state(_config(JaxTrainingConfig, "v-zero-snr", batch_size=BATCH, **flags),
+                                    mesh=mesh)
+    port_states = on_device_model_training_state(_config(TrainingConfig, "v-zero-snr"), device="cpu")
+    _load_jax_state(port_states, jax_states)
+    state_dir = os.path.join(tmp, "jax_state")
+    save_train_state(state_dir, *port_states[:4], torch.Generator())
+    torch.save(port_states[4].call.state_dict(), os.path.join(state_dir, "vae.pt"))
+    rng = jax.random.PRNGKey(7)
+    batch = _batch()
+    cases = {"dryrun": dict(kind="step", mesh=MESH, batch=batch, draws=_jax_draws(rng, RES // 2, RES // 2),
+                            state_dir=state_dir, config=dict(batch_size=BATCH, mesh_shape=list(MESH), **flags))}
+    procs = child.start_world(tmp, cases, WORLD)
     try:
-        flags = dict(fsdp_shard_params=True, tensor_parallel_shard_params=True)
-        mesh = jax_create_mesh(shape=MESH, axis_names=("data_parallel", "fsdp", "model_parallel"),
-                               devices=jax.devices()[:WORLD])
-        jax_states = jax_training_state(_config(JaxTrainingConfig, "v-zero-snr", batch_size=BATCH, **flags),
-                                        mesh=mesh)
-        port_states = on_device_model_training_state(_config(TrainingConfig, "v-zero-snr"), device="cpu")
-        _load_jax_state(port_states, jax_states)
-        state_dir = os.path.join(tmp, "jax_state")
-        save_train_state(state_dir, *port_states[:4], torch.Generator())
-        torch.save(port_states[4].call.state_dict(), os.path.join(state_dir, "vae.pt"))
-        rng = jax.random.PRNGKey(7)
-        batch = _batch()
-        cases = {"dryrun": dict(kind="step", mesh=MESH, batch=batch, draws=_jax_draws(rng, RES // 2, RES // 2),
-                                state_dir=state_dir, config=dict(batch_size=BATCH, mesh_shape=list(MESH), **flags))}
-        procs = child.start_world(tmp, cases, WORLD)
-        try:
-            ref = _run_jax_step(jax_states, mesh, batch, rng, port_states)
-        finally:
-            codes = child.wait_world(procs, time.monotonic() + DEADLINE_S)
+        ref = _run_jax_step(jax_states, mesh, batch, rng, port_states)
     finally:
-        torch.set_num_threads(threads)
+        codes = child.wait_world(procs, time.monotonic() + DEADLINE_S)
     return dict(ref=ref, results=child.world_results(tmp, cases, WORLD), codes=codes)
 
 

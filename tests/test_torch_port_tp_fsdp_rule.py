@@ -52,6 +52,7 @@ from stable_diffusion_training_tpu_torch.models.hf_io import jax_param_paths
 from stable_diffusion_training_tpu_torch.optim import transforms
 from stable_diffusion_training_tpu_torch.parallel.sharding import NestedShard, RowShard, ShardPlan
 from test_torch_port_train_step import _config
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 WORLD = 4
 MESH = (1, 2, 2)
@@ -87,8 +88,6 @@ def _jax_placement():
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("tp_fsdp_rule"))
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
     cases = {f"rule-{path}": dict(kind="rule", mesh=MESH, use_pallas=flag, tp=True, max_norm=MAX_NORM)
              for path, flag in PATHS.items()}
     cases["plan"] = dict(kind="plan", mesh=MESH, config=dict(BOTH, batch_size=2))
@@ -98,7 +97,6 @@ def world(tmp_path_factory):
         jax_specs = _jax_placement()
     finally:
         codes = child.wait_world(procs, time.monotonic() + DEADLINE_S)
-        torch.set_num_threads(threads)
     return dict(refs=refs, jax=jax_specs, results=child.world_results(tmp, cases, WORLD), codes=codes)
 
 

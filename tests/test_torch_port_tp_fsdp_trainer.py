@@ -43,6 +43,7 @@ from stable_diffusion_training_tpu_torch.train import trainer
 from test_torch_port_distributed import TRAINER_STEPS, _checkpoint_close, _losses_close, _memory_batches
 from test_torch_port_fsdp_trainer import EVAL, _one_process, _resume_config
 from test_torch_port_trainer import _rows, make_config_dict
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 WORLD = 4
 MESH = (1, 2, 2)
@@ -53,28 +54,23 @@ DEADLINE_S = 300
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("tp_fsdp_trainer")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
+    one_cfg, one_path = make_config_dict(tmp, "one", chunk_limit=1, keep_trained_model_buffer=5,
+                                         eval_sample_dir=str(tmp / "eval_one"), **EVAL)
+    one_images = []
+    _one_process(one_path, one_images)
+    run_cfg, run_path = make_config_dict(tmp, "tp_fsdp", chunk_limit=1, keep_trained_model_buffer=5,
+                                         eval_sample_dir=str(tmp / "eval_tp_fsdp"), **EVAL, **BOTH)
+    _, from_one_path = _resume_config(tmp, "one", "tp_fsdp_from_one", **BOTH)
+    cases = {name: dict(kind="trainer", loader="memory", batches=_memory_batches(), config_path=path, mesh=MESH)
+             for name, path in (("tp_fsdp", run_path), ("tp_fsdp_from_one", from_one_path))}
+    procs = child.start_world(str(tmp), cases, WORLD)
     try:
-        one_cfg, one_path = make_config_dict(tmp, "one", chunk_limit=1, keep_trained_model_buffer=5,
-                                             eval_sample_dir=str(tmp / "eval_one"), **EVAL)
-        one_images = []
-        _one_process(one_path, one_images)
-        run_cfg, run_path = make_config_dict(tmp, "tp_fsdp", chunk_limit=1, keep_trained_model_buffer=5,
-                                             eval_sample_dir=str(tmp / "eval_tp_fsdp"), **EVAL, **BOTH)
-        _, from_one_path = _resume_config(tmp, "one", "tp_fsdp_from_one", **BOTH)
-        cases = {name: dict(kind="trainer", loader="memory", batches=_memory_batches(), config_path=path, mesh=MESH)
-                 for name, path in (("tp_fsdp", run_path), ("tp_fsdp_from_one", from_one_path))}
-        procs = child.start_world(str(tmp), cases, WORLD)
-        try:
-            one_resumed = _one_process(one_path)  # the one-process run's second chunk
-        finally:
-            codes = child.wait_world(procs, time.monotonic() + DEADLINE_S)
-        results = child.world_results(str(tmp), cases, WORLD)
-        _, from_run_path = _resume_config(tmp, "tp_fsdp", "one_from_tp_fsdp")
-        from_run_resumed = _one_process(from_run_path)
+        one_resumed = _one_process(one_path)  # the one-process run's second chunk
     finally:
-        torch.set_num_threads(threads)
+        codes = child.wait_world(procs, time.monotonic() + DEADLINE_S)
+    results = child.world_results(str(tmp), cases, WORLD)
+    _, from_run_path = _resume_config(tmp, "tp_fsdp", "one_from_tp_fsdp")
+    from_run_resumed = _one_process(from_run_path)
     return dict(tmp=tmp, codes=codes, results=results, one=one_cfg, run=run_cfg, one_images=one_images,
                 one_resumed=one_resumed, from_run_resumed=from_run_resumed)
 

@@ -55,6 +55,7 @@ from stable_diffusion_training_tpu_torch.optim import transforms
 from stable_diffusion_training_tpu_torch.optim.lion8bit import scale_by_lion_8bit
 from stable_diffusion_training_tpu_torch.parallel import sharding
 from stable_diffusion_training_tpu_torch.train import config as port_config
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 T = 2
 AXIS = "model_parallel"

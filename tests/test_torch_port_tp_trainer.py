@@ -63,6 +63,7 @@ from test_torch_port_distributed import (
 )
 from test_torch_port_fsdp_trainer import EVAL, _one_process, _resume_config
 from test_torch_port_trainer import _local_chunk, _rows, _weights, make_config_dict
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 WORLD = 2
 MESH = (1, 1, WORLD)
@@ -74,35 +75,30 @@ DEADLINE_S = 300
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("tp_trainer")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
+    one_cfg, one_path = make_config_dict(tmp, "one", chunk_limit=1, keep_trained_model_buffer=5,
+                                         eval_sample_dir=str(tmp / "eval_one"), **EVAL)
+    one_images = []
+    _one_process(one_path, one_images)
+    tp_cfg, tp_path = make_config_dict(tmp, "tp", chunk_limit=1, keep_trained_model_buffer=5,
+                                       eval_sample_dir=str(tmp / "eval_tp"), **EVAL, **TP)
+    _, from_one_path = _resume_config(tmp, "one", "tp_from_one", **TP)
+    cases = {name: dict(kind="trainer", loader="memory", batches=_memory_batches(), config_path=path, mesh=MESH)
+             for name, path in (("tp", tp_path), ("tp_from_one", from_one_path))}
+    stream = dict(chunk_limit=1, repo={"repo_0": {}}, numb_of_dataloader_worker_thread=1)
+    _, stream_path = make_config_dict(tmp, "tp_stream", ramdisk_path=str(tmp / "ramdisk_tp"), **stream, **TP)
+    _, one_stream_path = make_config_dict(tmp, "one_stream", ramdisk_path=str(tmp / "ramdisk_one"), **stream)
+    _local_chunk(str(tmp / "ramdisk_tp"))
+    shutil.copytree(str(tmp / "ramdisk_tp"), str(tmp / "ramdisk_one"))
+    cases["tp_stream"] = dict(kind="trainer", loader="stream", config_path=stream_path, mesh=MESH)
+    procs = child.start_world(str(tmp), cases, WORLD)
     try:
-        one_cfg, one_path = make_config_dict(tmp, "one", chunk_limit=1, keep_trained_model_buffer=5,
-                                             eval_sample_dir=str(tmp / "eval_one"), **EVAL)
-        one_images = []
-        _one_process(one_path, one_images)
-        tp_cfg, tp_path = make_config_dict(tmp, "tp", chunk_limit=1, keep_trained_model_buffer=5,
-                                           eval_sample_dir=str(tmp / "eval_tp"), **EVAL, **TP)
-        _, from_one_path = _resume_config(tmp, "one", "tp_from_one", **TP)
-        cases = {name: dict(kind="trainer", loader="memory", batches=_memory_batches(), config_path=path, mesh=MESH)
-                 for name, path in (("tp", tp_path), ("tp_from_one", from_one_path))}
-        stream = dict(chunk_limit=1, repo={"repo_0": {}}, numb_of_dataloader_worker_thread=1)
-        _, stream_path = make_config_dict(tmp, "tp_stream", ramdisk_path=str(tmp / "ramdisk_tp"), **stream, **TP)
-        _, one_stream_path = make_config_dict(tmp, "one_stream", ramdisk_path=str(tmp / "ramdisk_one"), **stream)
-        _local_chunk(str(tmp / "ramdisk_tp"))
-        shutil.copytree(str(tmp / "ramdisk_tp"), str(tmp / "ramdisk_one"))
-        cases["tp_stream"] = dict(kind="trainer", loader="stream", config_path=stream_path, mesh=MESH)
-        procs = child.start_world(str(tmp), cases, WORLD)
-        try:
-            one_resumed = _one_process(one_path)  # the one-process run's second chunk
-            trainer.main(one_stream_path, tokenizer=child.StubTokenizer(), device="cpu")
-        finally:
-            codes = child.wait_world(procs, time.monotonic() + DEADLINE_S)
-        results = child.world_results(str(tmp), cases, WORLD)
-        _, from_tp_path = _resume_config(tmp, "tp", "one_from_tp")
-        from_tp_resumed = _one_process(from_tp_path)
+        one_resumed = _one_process(one_path)  # the one-process run's second chunk
+        trainer.main(one_stream_path, tokenizer=child.StubTokenizer(), device="cpu")
     finally:
-        torch.set_num_threads(threads)
+        codes = child.wait_world(procs, time.monotonic() + DEADLINE_S)
+    results = child.world_results(str(tmp), cases, WORLD)
+    _, from_tp_path = _resume_config(tmp, "tp", "one_from_tp")
+    from_tp_resumed = _one_process(from_tp_path)
     return dict(tmp=tmp, codes=codes, results=results, one=one_cfg, tp=tp_cfg, one_images=one_images,
                 one_resumed=one_resumed, from_tp_resumed=from_tp_resumed)
 
@@ -112,8 +108,6 @@ def dp_tp_world(tmp_path_factory):
     """One step on four ranks of a (2, 1, 2) mesh, and its one-process
     reference."""
     tmp = str(tmp_path_factory.mktemp("dp_tp"))
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
     plain = _step_cases()["plain"]
     cases = {"dp_tp": dict(plain, mesh=DP_TP_MESH, config=dict(mesh_shape=list(DP_TP_MESH),
                                                                 tensor_parallel_shard_params=True))}
@@ -122,7 +116,6 @@ def dp_tp_world(tmp_path_factory):
         ref = child.run_step(plain)
     finally:
         codes = child.wait_world(procs, time.monotonic() + DEADLINE_S)
-        torch.set_num_threads(threads)
     return dict(ref=ref, results=child.world_results(tmp, cases, 4), codes=codes)
 
 

@@ -34,6 +34,7 @@ from stable_diffusion_training_tpu.utils.tb_events import _int64, _ld
 from stable_diffusion_training_tpu_torch.ops import cuda_build, flash_attention, lion_kernel
 from stable_diffusion_training_tpu_torch.utils import hostcache, kernel_trace, roofline
 from stable_diffusion_training_tpu_torch.utils.profiling import annotate_launch
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

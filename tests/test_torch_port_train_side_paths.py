@@ -39,6 +39,7 @@ from stable_diffusion_training_tpu.train import (
 from stable_diffusion_training_tpu_torch.optim import QuantizedMomentum
 from stable_diffusion_training_tpu_torch.train import TrainingConfig, on_device_model_training_state, train_step
 from test_torch_port_train_step import BATCH, RES, _batch, _config, _load_jax_state, assert_step_matches_jax
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 LATENT = RES // 2  # the tiny VAE downsamples once
 TOKENS = 227  # 3 windows of 77, BOS/EOS stripped at the joins

@@ -8,6 +8,7 @@ The cases, the check, its bounds and the module-scoped JAX state are
 import pytest
 
 from test_torch_port_train_side_paths import CASES_BY_FILE, check_side_path, jax_base  # noqa: F401 (the fixture)
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 
 @pytest.mark.parametrize("case", CASES_BY_FILE["train_side_paths_accum"])

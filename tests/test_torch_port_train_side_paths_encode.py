@@ -9,6 +9,14 @@ bounds and the module-scoped JAX state are
 import pytest
 
 from test_torch_port_train_side_paths import CASES_BY_FILE, check_side_path, jax_base  # noqa: F401 (the fixture)
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
+
+# torch's intra-op threads here (tests/torch_threads.py). At one or two the
+# cached-context step's sums put one momentum code of
+# up_blocks.0.resnets.0.time_emb_proj.weight at 11 where the JAX step's is
+# 9, past the noise level of 10 that the bound allows; at four and eight
+# (the default before) every code is within it.
+TORCH_THREADS = 4
 
 
 @pytest.mark.parametrize("case", CASES_BY_FILE["train_side_paths_encode"])

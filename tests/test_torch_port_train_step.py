@@ -62,6 +62,7 @@ from stable_diffusion_training_tpu_torch.train import (
     train_step,
 )
 from stable_diffusion_training_tpu_torch.train.train_step import ema_update_
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 LR = 1e-6 / 7
 PARAM_ATOL = 2 * LR + 1e-6

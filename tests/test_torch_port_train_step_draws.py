@@ -10,6 +10,7 @@ import torch
 
 from stable_diffusion_training_tpu_torch.train import TrainingConfig, on_device_model_training_state, train_step
 from test_torch_port_train_step import BATCH, _batch, _config
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 
 def test_draw_seam_and_generator_draws_agree_in_shape():

@@ -16,6 +16,7 @@ from stable_diffusion_training_tpu_torch.train import TrainingConfig, on_device_
 from test_torch_port_train_step import (  # noqa: F401 (jax_step: the module fixture)
     CASES, RES, STEP_OPTIONS, _batch, _config, _jax_draws, _load_jax_state, assert_step_matches_jax, jax_step,
 )
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 # A tiny SD1.5-shaped UNet (convolution projections, one head count at every
 # level as SD1.5's 8) whose 160-channel level has 2 heads of 80, as SD1.5's

@@ -44,6 +44,7 @@ from stable_diffusion_training_tpu_torch.train import (
 )
 from stable_diffusion_training_tpu_torch.train import trainer
 from stable_diffusion_training_tpu_torch.utils.json_io import read_json_file
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 BATCH, RES, STEPS = 2, 64, 2
 

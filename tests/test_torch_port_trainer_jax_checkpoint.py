@@ -14,6 +14,7 @@ from stable_diffusion_training_tpu_torch.models.hf_io import jax_params_to_state
 from stable_diffusion_training_tpu_torch.train import load_models, training_config_from_dict
 from stable_diffusion_training_tpu_torch.utils.json_io import read_json_file
 from test_torch_port_trainer import _rows, _run, make_config_dict
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 
 def test_jax_checkpoint_is_the_port_trainers_model_path(tmp_path):

@@ -8,6 +8,7 @@ are split over files that ``--dist loadfile`` runs on separate workers."""
 import pytest
 
 from test_torch_port_trainer_paths import OPTIONS_BY_FILE, check_option, options_params
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 
 @pytest.mark.parametrize(**options_params(OPTIONS_BY_FILE["trainer_options_polyphase"]))

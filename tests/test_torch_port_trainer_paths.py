@@ -19,6 +19,7 @@ from stable_diffusion_training_tpu_torch.train import trainer, training_config_f
 from test_torch_port_trainer import (
     BATCH, RES, STEPS, _loader, _local_chunk, _rows, _run, _StubTokenizer, _weights, make_config_dict,
 )
+from torch_threads import _one_thread  # noqa: F401 (the fixture)
 
 
 def test_trainer_trains_from_a_chunk_directory(tmp_path, monkeypatch):
