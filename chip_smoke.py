@@ -51,7 +51,9 @@ Phases, one JSON line each:
    (D = 40 and 512 with query and key counts off the tiles, D = 64 and 36),
    at the bucket steps' 640-channel level in f32 too, and at D = 96 and
    128 off the tiles (bf16 on route tma_mid, timed beside the wide kernel
-   it replaced on the same inputs),
+   it replaced on the same inputs), at the bucket steps' level 0, (64,
+   10816, 40) in bf16 and f32 and (64, 18496, 40) in bf16 (held against
+   the plain version on 8 of the 64 heads, ``PLAIN_HEADS``),
    each with its route (``forward_route``: bf16 narrow, mid or wide tensor-core
    kernel, the f32 kernels, the older CUDA-core kernel), whose counter
    alone must move, a repeat on the same inputs (bitwise equal on the f32
@@ -65,7 +67,8 @@ Phases, one JSON line each:
    counterpart (bf16, 64 < D <= 128) at SD1.5's 640-channel level in
    train's 832x832 and 1088x1088 bucket steps, (64, 2704, 80) and (64,
    4624, 80), with the CUDA-core pair it replaced timed on the same inputs,
-   and at D = 96 and 128 with counts off its tiles; the fused
+   and at D = 96 and 128 with counts off its tiles; the fused kernel and
+   the fused f32 one at the bucket steps' level 0 as K1 above; the fused
    f32 kernel (K2 and K3 in one, CUDA cores) at
    train_parity's (8, 4096, 40), train_f32's (64, 4096, 40), the same
    two ragged cases (and SDXL's and SD2.1's training shapes at D = 64,
@@ -88,16 +91,18 @@ Phases, one JSON line each:
    bucket limit and the multi-leaf entry over the rest; codes and scales
    bitwise), with each route's device and host ms, the old route's copies
    and kernels apart, the bound and GB/s, and the aims met or missed; the
-   earlier entries on grads in JAX order over every SD1.5 leaf above the
-   bucket limit (single-leaf entry, one launch each) and over the UNet's
-   and CLIP's small-leaf buckets (multi-leaf entry), bs 16, bf16 grads,
-   exact and fast companders, plus a bs-64 leaf set, each counted on its
-   own case; the functional entry ``fused_lion8bit_update``
-   over the largest SD1.5 UNet leaf: narrow (K6) at bs 16 and 128 (the
-   cooperative variant) in bf16 and at bs 16 in f32, wide (K7) at bs 16 and
-   4 in bf16. That entry is the path that runs K6 and K7 (the JAX package
-   calls them from nowhere else): each case first drives it for three
-   updates with the counts zeroed just before and read just after.
+   entries on grads in JAX order (``lion_stream_kernel``) over every SD1.5
+   leaf above the bucket limit (single-leaf entry, one launch each) and
+   over the UNet's and CLIP's small-leaf buckets (multi-leaf entry), bs 16,
+   bf16 grads, exact and fast companders, plus a bs-64 leaf set, each
+   counted on its own case; the functional entry ``fused_lion8bit_update``
+   over the largest SD1.5 UNet leaf: narrow (K6) at bs 16 and 128 in bf16
+   and at bs 16 in f32, wide (K7) at bs 16 and 4 in bf16, each also held
+   bitwise against ``lion_leaves_kernel`` on a one-leaf table of the same
+   bytes and timed beside it. That entry is the path that runs K6 and K7
+   (the JAX package calls them from nowhere else): each case first drives
+   it for three updates with the counts zeroed just before and read just
+   after.
 4. ``parity``: one full-width SD1.5 UNet call at 512x512 in f32 (TF32 off),
    seeded weights, attention_backend "auto" (kernel) against "xla" (plain);
    K1 5 times, all on the f32 route.
@@ -260,8 +265,10 @@ Phases, one JSON line each:
    ranks, each a process of its own (``spawn``) on cuda:0, joined over
    gloo by ``core.initialize_distributed`` (NCCL takes one rank per card);
    SD1.5 at full width in f32 (TF32 off), the example recipe, a global
-   batch of 2 at 512x512 with fixed global draws. Rank 0 first takes the
-   step as one process over both rows; then each rank takes it on its row
+   batch of 2 at 512x512 with fixed global draws. This process first
+   takes the step as one process over both rows (``parity_reference``:
+   once for ``ddp_parity``, ``fsdp_parity`` and ``tp_fsdp_parity``, written
+   to a file that each phase's rank 0 maps); then each rank takes it on its row
    (``train_step(..., mesh=...)``: the loss scaled by 1/2, the grads summed
    in flat buckets). Checks: the ranks' params, EMA, codes and scales
    bitwise equal (sha256 of every state tensor); the loss within 1e-5 of
@@ -295,8 +302,8 @@ Phases, one JSON line each:
    directory ``.cache/chip_smoke_ddp/``, deleted at the end.
 22. ``fsdp_parity``: FSDP's step against one process. Two gloo ranks on
    cuda:0 as in ``ddp_parity``, SD1.5 at full width in f32 (TF32 off), a
-   global batch of 2 with fixed global draws; rank 0 first takes the step
-   as one process, then both take it on their row with the UNet and the
+   global batch of 2 with fixed global draws; the one-process step is
+   ``parity_reference``'s, then both ranks take it on their row with the UNet and the
    text encoder sharded over a ``[1, 2, 1]`` mesh's fsdp axis
    (``fsdp_shard_params``; FSDP2's all-gathers and reduce-scatters are
    copies between the ranks' mapped buffers, gloo barriers around them).
@@ -351,8 +358,8 @@ Phases, one JSON line each:
    leg's loss, launches and sums (none). Run directory
    ``.cache/chip_smoke_tp/``, deleted at the end.
 26. ``tp_fsdp_parity``: the SD1.5 train step at full width in f32 (TF32
-   off) over a global batch of 2, as one process (rank 0 first; the
-   reference kept in host memory), then on four gloo ranks of cuda:0 on a
+   off) over a global batch of 2, as one process (``parity_reference``),
+   then on four gloo ranks of cuda:0 on a
    ``[1, 2, 2]`` mesh with ``tensor_parallel_shard_params`` and
    ``fsdp_shard_params``: each fsdp rank one row, each model_parallel rank
    4 of the 8 heads, every leaf sharded over the fsdp pair. Checks:
@@ -469,6 +476,9 @@ HOPPER_KERNELS = ("flash_fwd_tma_kernel", "flash_bwd_fused_kernel", "flash_bwd_f
 # forward's three; each built, and spilling nothing
 F32_KERNELS = ("flash_bwd_f32_fused_kernel", "flash_fwd_f32_narrow_kernel", "flash_fwd_f32_mid_kernel",
                "flash_fwd_f32_wide_kernel")
+# the Lion stream kernel: built at every block size, grad dtype and
+# compander (8 x 2 x 2), spilling nothing
+STREAM_KERNEL, STREAM_INSTANCES = "lion_stream_kernel", 32
 
 
 _T0 = time.perf_counter()
@@ -580,8 +590,8 @@ def phase_build(state):
     every kernel, and for each flash-attention Hopper kernel (the forward's
     and the fused backward) its count of wgmma (``HGMMA``) and TMA load
     (``UTMALDG``) instructions. Those kernels must be built, use both and
-    spill nothing; the f32 kernels (``F32_KERNELS``) must be built and
-    spill nothing."""
+    spill nothing; the f32 kernels (``F32_KERNELS``) and the Lion stream
+    kernel's 32 instances must be built and spill nothing."""
     from stable_diffusion_training_tpu_torch.ops import cuda_build, flash_attention, lion_kernel
     from stable_diffusion_training_tpu_torch.utils import hostcache
 
@@ -631,9 +641,13 @@ def phase_build(state):
     spills = lambda k: k.get("spill_stores", 1) or k.get("spill_loads", 1)
     bad = {n: k for n, k in hopper.items() if spills(k) or not k.get("HGMMA") or not k.get("UTMALDG")}
     bad.update({n: k for n, k in f32.items() if spills(k)})
+    stream = {n: k for n, k in kernels.items() if STREAM_KERNEL in n}
+    bad.update({n: k for n, k in stream.items() if spills(k)})
     missing = [h for h in HOPPER_KERNELS + F32_KERNELS if not any(h in n for n in kernels)]
+    if len(stream) != STREAM_INSTANCES:
+        missing.append(f"{STREAM_KERNEL}: {len(stream)} of {STREAM_INSTANCES} instances")
     if missing or bad:
-        raise AssertionError(f"flash kernels missing {missing}, or spilling or lacking wgmma/TMA: {bad}")
+        raise AssertionError(f"kernels missing {missing}, or spilling or lacking wgmma/TMA: {bad}")
 
 
 def ptxas_functions(log):
@@ -704,6 +718,10 @@ def demangle_all(names):
 
 
 PLAIN_SCORE_BYTES = 8e9  # the plain attention's f32 scores above this run a slice of heads at a time
+# cases held against the plain version on this many of their heads (heads
+# are independent; the plain f32 scores of all 64 heads at 18,496 keys
+# would take 87.6 GB); the plain version is timed on all of them, one call
+PLAIN_HEADS = {"sd15_bucket_832_l0": 8, "sd15_bucket_1088_l0": 8, "sd15_bucket_832_l0_f32": 8}
 
 
 def plain_by_heads(fn, *args):
@@ -815,6 +833,12 @@ def phase_kernels(state):
         # tokens): train's 832x832 and 1088x1088, train_f32's 832x832
         ("vae_encode_832", 8, 10816, 10816, 512, both),
         ("vae_encode_1088", 8, 18496, 18496, 512, ("bfloat16",)),
+        # the bucket steps' level 0 (8 heads of 40 over the 104x104 and
+        # 136x136 latents), batch 8: train's 832x832 and 1088x1088
+        # (tma_narrow), train_f32's 832x832 (f32); held against the plain
+        # version on PLAIN_HEADS of the heads
+        ("sd15_bucket_832_l0", 64, 10816, 10816, 40, both),
+        ("sd15_bucket_1088_l0", 64, 18496, 18496, 40, ("bfloat16",)),
     ]
     results = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -833,9 +857,10 @@ def phase_kernels(state):
             again = fa.flash_attention_fwd(q, k, v, scale)
             torch.cuda.synchronize()
             by_route = dict(fa.flash_attention_fwd.launches_by_route)
-            o_ref, lse_ref = plain_by_heads(fa.flash_attention_fwd_reference, q, k, v, scale)
-            err_o = (o.float() - o_ref.float()).abs().max().item()
-            err_lse = (lse - lse_ref).abs().max().item()
+            held = PLAIN_HEADS.get(name, bh)  # the heads held against the plain version
+            o_ref, lse_ref = plain_by_heads(fa.flash_attention_fwd_reference, q[:held], k[:held], v[:held], scale)
+            err_o = (o[:held].float() - o_ref.float()).abs().max().item()
+            err_lse = (lse[:held] - lse_ref).abs().max().item()
             # the f32 kernels sum in fixed orders: a repeat is bitwise equal
             repeats = bool(torch.equal(o, again[0]) and torch.equal(lse, again[1]))
             del again
@@ -843,19 +868,20 @@ def phase_kernels(state):
                 err_o <= tol["o"] and err_lse <= tol["lse"] and by_route == {route: 2}
                 and (repeats or route not in ("f32", "f32_mid"))
             )
-            reps = 20 if d <= 64 else 5
+            reps = 20 if d <= 64 and name not in PLAIN_HEADS else 5
             host = []
             kernel_ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, scale), reps, host=host)
             # the plain version, 10-100x slower, needs fewer calls to time
-            plain_ms = cuda_ms(lambda: plain_by_heads(fa.flash_attention_fwd_reference, q, k, v, scale), 3, warmup=1)
+            plain_ms = cuda_ms(lambda: plain_by_heads(fa.flash_attention_fwd_reference, q, k, v, scale),
+                               *((1, 0) if name in PLAIN_HEADS else (3, 1)))
             compare = {}
-            if name_dt == "float32" and not name.startswith("ragged"):
+            if name_dt == "float32" and not name.startswith("ragged") and name not in PLAIN_HEADS:
                 # the kernel the f32 route replaced, on the same inputs
                 o_cc, lse_cc = fa.flash_attention_fwd_cuda_cores(q, k, v, scale)
                 compare = dict(
                     cuda_cores_ms=cuda_ms(lambda: fa.flash_attention_fwd_cuda_cores(q, k, v, scale), reps),
-                    cuda_cores_max_abs_err_o=(o_cc - o_ref).abs().max().item(),
-                    cuda_cores_max_abs_err_lse=(lse_cc - lse_ref).abs().max().item(),
+                    cuda_cores_max_abs_err_o=(o_cc[:held] - o_ref).abs().max().item(),
+                    cuda_cores_max_abs_err_lse=(lse_cc[:held] - lse_ref).abs().max().item(),
                 )
                 ok = ok and compare["cuda_cores_max_abs_err_o"] <= tol["o"]
                 ok = ok and compare["cuda_cores_max_abs_err_lse"] <= tol["lse"]
@@ -865,8 +891,8 @@ def phase_kernels(state):
                 o_w, lse_w = fa.flash_attention_fwd_tma_wide(q, k, v, scale)
                 wide_ms = cuda_ms(lambda: fa.flash_attention_fwd_tma_wide(q, k, v, scale), reps)
                 compare = dict(
-                    tma_wide_ms=wide_ms, tma_wide_max_abs_err_o=(o_w.float() - o_ref.float()).abs().max().item(),
-                    tma_wide_max_abs_err_lse=(lse_w - lse_ref).abs().max().item(),
+                    tma_wide_ms=wide_ms, tma_wide_max_abs_err_o=(o_w[:held].float() - o_ref.float()).abs().max().item(),
+                    tma_wide_max_abs_err_lse=(lse_w[:held] - lse_ref).abs().max().item(),
                     kernel_over_tma_wide=kernel_ms / wide_ms,
                 )
                 ok = ok and compare["tma_wide_max_abs_err_o"] <= tol["o"]
@@ -877,8 +903,8 @@ def phase_kernels(state):
                 o_w, lse_w = fa.flash_attention_fwd_f32_wide(q, k, v, scale)
                 wide_ms = cuda_ms(lambda: fa.flash_attention_fwd_f32_wide(q, k, v, scale), reps)
                 compare.update(
-                    f32_wide_ms=wide_ms, f32_wide_max_abs_err_o=(o_w - o_ref).abs().max().item(),
-                    f32_wide_max_abs_err_lse=(lse_w - lse_ref).abs().max().item(),
+                    f32_wide_ms=wide_ms, f32_wide_max_abs_err_o=(o_w[:held] - o_ref).abs().max().item(),
+                    f32_wide_max_abs_err_lse=(lse_w[:held] - lse_ref).abs().max().item(),
                     kernel_over_f32_wide=kernel_ms / wide_ms,
                 )
                 ok = ok and compare["f32_wide_max_abs_err_o"] <= tol["o"]
@@ -894,7 +920,7 @@ def phase_kernels(state):
             bound_ms, bound_by, flops = roofline.attention_bound(bh, sq, sk, d, name_dt, reads_q=1, writes_q=1)
             row = dict(
                 case=name, shape_q=[bh, sq, d], shape_k=[bh, sk, d], dtype=name_dt, route=route,
-                launches_by_route=by_route, repeats_bitwise=repeats,
+                launches_by_route=by_route, repeats_bitwise=repeats, plain_heads_held=held,
                 max_abs_err_o=err_o, max_abs_err_lse=err_lse, tol_o=tol["o"],
                 tol_lse=tol["lse"], ok=ok, kernel_ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -1005,6 +1031,12 @@ def flash_backward_cases():
         ("sd15_bucket_1088_l1_f32", 64, 4624, 4624, 80, torch.float32),
         ("ragged_d96_f32", 3, 1000, 1100, 96, torch.float32),
         ("ragged_d128_f32", 2, 1500, 1300, 128, torch.float32),
+        # the bucket steps' level 0 (8 heads of 40, batch 8): train's
+        # 832x832 and 1088x1088 (fused), train_f32's 832x832 (fused f32);
+        # held against the plain version on PLAIN_HEADS of the heads
+        ("sd15_bucket_832_l0", 64, 10816, 10816, 40, torch.bfloat16),
+        ("sd15_bucket_1088_l0", 64, 18496, 18496, 40, torch.bfloat16),
+        ("sd15_bucket_832_l0_f32", 64, 10816, 10816, 40, torch.float32),
     ]
     rows = []
     for name, bh, sq, sk, d, dtype in cases:
@@ -1022,10 +1054,13 @@ def flash_backward_cases():
         again = fa.flash_attention_bwd(*args)
         torch.cuda.synchronize()
         launches = bwd_launches(fa)
-        expected = plain_by_heads(fa.flash_attention_bwd_reference, *args)
+        held = PLAIN_HEADS.get(name, bh)  # the heads held against the plain version
+        expected = plain_by_heads(fa.flash_attention_bwd_reference,
+                                  *(a[:held] if torch.is_tensor(a) else a for a in args))
         errs, fro_errs, max_grads = {}, {}, {}
         ok = launches == {k: 2 * n for k, n in BWD_ROUTE_LAUNCHES[route].items()}
         for gname, got, want in zip(("dq", "dk", "dv"), grads, expected):
+            got = got[:held]
             diff = got.float() - want.float()
             errs[gname] = diff.abs().max().item()
             max_grads[gname] = want.float().abs().max().item()
@@ -1045,11 +1080,12 @@ def flash_backward_cases():
         )
         ok = ok and repeat["dk_equal"] and repeat["dv_equal"] and (fused or repeat["dq_equal"])
         del grads, again, expected
-        reps = 10 if d <= 128 else 3
+        reps = 10 if d <= 128 and name not in PLAIN_HEADS else 3
         host = []
         call_ms = cuda_ms(lambda: fa.flash_attention_bwd(*args), reps, host=host)
         kernel_ms = profiled_kernel_ms(lambda: fa.flash_attention_bwd(*args), reps)
-        plain_ms = cuda_ms(lambda: plain_by_heads(fa.flash_attention_bwd_reference, *args), 2, warmup=1)
+        plain_ms = cuda_ms(lambda: plain_by_heads(fa.flash_attention_bwd_reference, *args),
+                           *((1, 0) if name in PLAIN_HEADS else (2, 1)))
         library_ms = None
         try:  # SDPA's backward on (1, B*H, S, D), the yardstick only
             leaves = [t[None].detach().requires_grad_() for t in (q, k, v)]
@@ -1061,7 +1097,7 @@ def flash_backward_cases():
         except RuntimeError:  # no SDPA backend takes this shape/dtype
             pass
         pair_ms = None
-        if name == "unet_train_f32" or name.startswith("sd15_bucket"):  # the route it replaces, on the same inputs
+        if name == "unet_train_f32" or name.startswith("sd15_bucket") and "_l1" in name:  # the route it replaced
             pair_ms = cuda_ms(
                 lambda: (fa.flash_attention_bwd_dq(*args), fa.flash_attention_bwd_dkv(*args)), 3, warmup=1
             )
@@ -1092,7 +1128,7 @@ def flash_backward_cases():
         flops_run = bound[2] if route != "cuda_cores" else sum(k["flops"] for k in per_kernel.values())
         row = dict(
             case=name, shape_q=[bh, sq, d], shape_k=[bh, sk, d], dtype=name_dt, route=route, launches=launches,
-            max_abs_err=errs, max_abs_grad=max_grads, tol=BWD_TOLERANCE[name_dt],
+            plain_heads_held=held, max_abs_err=errs, max_abs_grad=max_grads, tol=BWD_TOLERANCE[name_dt],
             rel_fro_err=fro_errs, fro_tol=BWD_FRO_TOLERANCE[name_dt], repeat=repeat, ok=ok,
             call_ms=call_ms, kernel_ms=kernel_ms, host_ms_per_call=host[0], plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=bound[0], bound_by=bound[1], per_kernel=per_kernel,
@@ -1155,9 +1191,10 @@ def sd15_lion_leaves():
 
 
 def lion_cases():
-    """K4 (single leaf) and K5 (many leaves) against
-    ``lion8bit_update_reference``: update signs and scales equal, codes at
-    most one apart (CUDA's powf vs torch's pow), counted."""
+    """K4's single-leaf entry and K5's multi-leaf entry (both
+    ``lion_stream_kernel``) against ``lion8bit_update_reference``: update
+    signs and scales equal, codes at most one apart (CUDA's powf vs torch's
+    pow), counted."""
     import torch
 
     from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
@@ -1213,7 +1250,8 @@ def lion_cases():
         )
         nbytes = roofline.lion_bytes(n, n // bs, 2)  # bf16 grads
         row = dict(
-            case=name, entry=entry, compander=compander, bs=bs, leaves=len(sizes), elements=n,
+            case=name, kernel="lion_stream_kernel", entry=entry, compander=compander, bs=bs, leaves=len(sizes),
+            elements=n,
             path_launches=path_launches,
             launch_shapes=sorted({(m // bs, bs) for m in sizes}) if entry == "single"
             else [(len(sizes), n // bs, bs)],
@@ -1231,14 +1269,19 @@ def lion_cases():
 
 
 def lion_fused_cases():
-    """K6 (narrow) and K7 (wide) through ``fused_lion8bit_update`` over the
-    largest SD1.5 UNet leaf, against ``lion8bit_update_reference``: update
-    signs and scales equal, codes at most one apart, counted. Each case
-    first drives the entry, its path, for three updates (new codes and
-    scales fed back) with the launch counts zeroed just before and read
-    just after; then compares one update with the plain version and times
-    the kernel alone (``ms``, in place on copies) and the whole functional
-    entry (``entry_ms``, with its copies of the codes and scales)."""
+    """K6 (narrow) and K7 (wide) through ``fused_lion8bit_update``
+    (``lion_stream_kernel``) over the largest SD1.5 UNet leaf, against
+    ``lion8bit_update_reference``: update signs and scales equal, codes at
+    most one apart, counted; and against ``lion_leaves_kernel`` on a
+    one-leaf table of the same bytes (a 1-D leaf: its layouts agree):
+    signs, codes and scales bitwise equal. Each case first drives the
+    entry, its path, for three updates (new codes and scales fed back) with
+    the launch counts zeroed just before and read just after; then compares
+    one update with the plain version and the leaf-table kernel, and times
+    the kernel alone (``ms``, in place on copies), the leaf-table kernel on
+    the same inputs (``leaves_ms``) and the whole functional entry
+    (``entry_ms``, with its copies of the codes and scales), each kernel
+    launch's and entry call's host ms beside them."""
     import torch
 
     from stable_diffusion_training_tpu_torch.ops import lion_kernel as lk
@@ -1270,19 +1313,33 @@ def lion_fused_cases():
         updates_equal = bool(torch.equal(upd, e_upd))
         scales_equal = bool(torch.equal(new_scales[:, 0], e_scales))
         max_code_diff, codes_off = int(d.max()), int((d > 0).sum())
-        del d, e_upd, e_codes, e_scales, upd, new_codes, new_scales
+        table = lk.LeafTable([codes.clone()], [scales[:, 0].clone()], [(n,)], [None])
+        t_upd = lk.lion8bit_update_leaves_([grad], table)[0]
+        torch.cuda.synchronize()
+        equal_leaves = dict(
+            codes_equal_leaves=bool(torch.equal(new_codes, table.codes[0])),
+            scales_equal_leaves=bool(torch.equal(new_scales[:, 0], table.scales[0])),
+            updates_equal_leaves=bool(torch.equal(upd, t_upd)),
+        )
+        del d, e_upd, e_codes, e_scales, upd, new_codes, new_scales, t_upd
+        leaves_ms = cuda_ms(lambda: lk.lion8bit_update_leaves_([grad], table), 20)
+        del table
         work_codes, work_scales = codes.clone(), scales[:, 0].clone()
-        kernel_ms = cuda_ms(lambda: lk._launch_single(grad, work_codes, work_scales, 0.9, 0.99, False), 20)
-        entry_ms = cuda_ms(lambda: lk.fused_lion8bit_update(grad, codes, scales, layout=layout), 20)
+        host, entry_host = [], []
+        kernel_ms = cuda_ms(lambda: lk._launch_single(grad, work_codes, work_scales, 0.9, 0.99, False), 20,
+                            host=host)
+        entry_ms = cuda_ms(lambda: lk.fused_lion8bit_update(grad, codes, scales, layout=layout), 20, host=entry_host)
         plain_ms = cuda_ms(lambda: lk.lion8bit_update_reference(grad, codes, scales[:, 0]), 2, warmup=1)
         nbytes = roofline.lion_bytes(n, nb, grad.element_size())
         row = dict(
-            case=f"largest_unet_leaf_{layout}_bs{bs}_{name_dt}", layout=layout, bs=bs, dtype=name_dt,
-            elements=n, blocks=nb, cooperative=bs > 64, path_launches=launches,
+            case=f"largest_unet_leaf_{layout}_bs{bs}_{name_dt}", kernel="lion_stream_kernel", layout=layout, bs=bs,
+            dtype=name_dt, elements=n, blocks=nb, lanes_per_block=bs // min(bs, 16 // grad.element_size()),
+            tile_elements=lk.stream_tile_elements(bs, grad.element_size()), path_launches=launches,
             updates_equal=updates_equal, scales_equal=scales_equal, max_code_diff=max_code_diff,
-            codes_off_by_one=codes_off,
-            ok=updates_equal and scales_equal and max_code_diff <= 1 and launches == 3,
-            kernel_ms=kernel_ms, entry_ms=entry_ms, plain_ms=plain_ms,
+            codes_off_by_one=codes_off, **equal_leaves,
+            ok=updates_equal and scales_equal and max_code_diff <= 1 and launches == 3 and all(equal_leaves.values()),
+            kernel_ms=kernel_ms, leaves_ms=leaves_ms, entry_ms=entry_ms, plain_ms=plain_ms,
+            host_ms_per_call=host[0], entry_host_ms_per_call=entry_host[0],
             bound_ms=nbytes / roofline.PEAK_BYTES * 1e3, bound_by="bytes", gbytes_per_s=nbytes / kernel_ms / 1e6,
         )
         rows.append(row)
@@ -3943,10 +4000,89 @@ def compare_steps(got, want, before):
     return out
 
 
+PARITY_SEED = 3
+PARITY_REFERENCE = os.path.join(REPO, ".cache", "chip_smoke_parity_reference.pt")
+
+
+def parity_inputs(batch_size):
+    """The global batch (512x512 images, ``TRAIN_CONCAT`` windows of ids)
+    and the step's draws of the f32 parity phases, from ``PARITY_SEED``."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.train.train_step import make_draws
+
+    gen = torch.Generator().manual_seed(PARITY_SEED)
+    batch = {
+        "pixel_values": torch.rand(batch_size, 3, TRAIN_RES, TRAIN_RES, generator=gen) * 2 - 1,
+        "input_ids": torch.randint(0, 49408, (batch_size * TRAIN_CONCAT, 77), generator=gen),
+    }
+    latent = (batch_size, 4, TRAIN_RES // 8, TRAIN_RES // 8)
+    return {"batch": batch, "draws": make_draws(gen, latent, torch.float32, 1000, "cpu")}
+
+
+def parity_reference(state):
+    """The one-process SD1.5 f32 step (TF32 off) over ``parity_inputs(2)``
+    that ``ddp_parity``, ``fsdp_parity`` and ``tp_fsdp_parity`` hold their
+    ranks against: taken once, in this process, by the first of them to
+    run. The params before it and the trained params and momentum go to
+    host memory and from there to ``PARITY_REFERENCE``, which each phase's
+    rank 0 maps (``load_parity_reference``); the script deletes it at its
+    end."""
+    if "parity_reference" in state:
+        return state["parity_reference"]
+    import torch
+
+    from stable_diffusion_training_tpu_torch.train import on_device_model_training_state, train_step
+
+    t0 = time.perf_counter()
+    set_tf32(False)
+    inputs = parity_inputs(DDP_PARITY_BATCH)
+    device = torch.device("cuda", 0)
+    batch = {k: v.to(device) for k, v in inputs["batch"].items()}
+    draws = {k: v.to(device) for k, v in inputs["draws"].items()}
+    cfg = train_config(mixed_precision="float32", batch_size=DDP_PARITY_BATCH)
+    states = on_device_model_training_state(cfg, device=device)
+    models = (("unet", states[0]), ("text_encoder", states[1]))
+    before = {key: to_host(dict(s.params)) for key, s in models}
+    torch.cuda.synchronize()
+    t_step = time.perf_counter()
+    out = train_step(*states[:4], batch, None, states[4], states[5], draws=draws, mesh=None,
+                     strip_bos_eos_token=True, ema_rate=cfg.ema_rate,
+                     text_context_window=cfg.text_encoder_context_window)
+    loss = out[4]["loss"].item()
+    step_ms = (time.perf_counter() - t_step) * 1e3
+    params = {key: to_host(dict(s.params)) for key, s in models}  # the states, updated in place
+    momentum = {key: {n: (m.codes, m.scales) if hasattr(m, "codes") else m
+                      for n, m in to_host(dict(s.opt_state[1][0].mu_quant)).items()} for key, s in models}
+    del states, out, models, batch, draws
+    torch.cuda.empty_cache()
+    torch.save(dict(loss=loss, step_ms=step_ms, before=before, params=params, momentum=momentum), PARITY_REFERENCE)
+    ref = state["parity_reference"] = dict(
+        path=PARITY_REFERENCE, loss=loss, step_ms=step_ms, seconds=time.perf_counter() - t0,
+        bytes=os.path.getsize(PARITY_REFERENCE))
+    emit("parity_reference", **ref)
+    return ref
+
+
+def load_parity_reference():
+    """``(reference, before, loss, step ms)`` of ``parity_reference``'s
+    file, mapped into host memory: ``reference`` as ``compare_steps`` takes
+    it ({model: (params, momentum)})."""
+    import torch
+
+    from stable_diffusion_training_tpu_torch.optim import QuantizedMomentum
+
+    ref = torch.load(PARITY_REFERENCE, mmap=True)
+    reference = {key: (ref["params"][key], {n: QuantizedMomentum(*m) if isinstance(m, tuple) else m
+                                             for n, m in ref["momentum"][key].items()})
+                 for key in ref["params"]}
+    return reference, ref["before"], ref["loss"], ref["step_ms"]
+
+
 def ddp_parity_rank(rank, workdir):
-    """Rank 0 first takes the step as one process over the whole global
-    batch (the reference); then both ranks take it on their row, and rank 0
-    holds its result against the reference."""
+    """Rank 0 reads the one-process step over the whole global batch (the
+    reference, ``parity_reference``); both ranks take the step on their
+    row, and rank 0 holds its result against the reference."""
     import torch
 
     from stable_diffusion_training_tpu_torch.core import create_mesh, slice_batch_for_process
@@ -3978,14 +4114,7 @@ def ddp_parity_rank(rank, workdir):
 
     result, reference = {}, None
     if rank == 0:
-        ref_states = on_device_model_training_state(cfg, device=device)
-        before = {key: {n: p.detach().clone() for n, p in params.items()}
-                  for key, (params, _) in trained(ref_states).items()}
-        result["reference_loss"], result["reference_step_ms"] = step(ref_states, batch, None)
-        reference = trained(ref_states)
-        del ref_states  # the EMA and the frozen models go; the trained params and momentum stay
-        torch.cuda.empty_cache()
-    barrier()
+        reference, before, result["reference_loss"], result["reference_step_ms"] = load_parity_reference()
     mesh = create_mesh(device_type="cuda")
     states = on_device_model_training_state(cfg, device=device, mesh=mesh)
     allreduce = []
@@ -4001,11 +4130,12 @@ def ddp_parity_rank(rank, workdir):
     return result
 
 
-def phase_ddp_parity(state, seed=3):
+def phase_ddp_parity(state):
     """The SD1.5 train step at full width in f32 (TF32 off) over a global
-    batch of 2 at 512x512 with fixed global draws: as one process (rank 0
-    first), then on two ranks of one row each (gloo, cuda:0). The ranks' params, EMA, codes and scales
-    bitwise equal; the two-rank step against the one-process step within
+    batch of 2 at 512x512 with fixed global draws: as one process
+    (``parity_reference``, taken once for the three f32 parity phases),
+    then on two ranks of one row each (gloo, cuda:0). The ranks' params,
+    EMA, codes and scales bitwise equal; the two-rank step against the one-process step within
     tests/test_torch_port_train_step.py's bounds (loss 1e-5 relative,
     params 2 lr + 1e-6, 1e-3 of the update signs, 1e-4 of the codes more
     than one apart, scales 1e-2) with the full-width noise level of the
@@ -4014,19 +4144,11 @@ def phase_ddp_parity(state, seed=3):
     shapes."""
     import torch
 
-    from stable_diffusion_training_tpu_torch.train.train_step import make_draws
-
     workdir = os.path.join(REPO, ".cache", "chip_smoke_ddp_parity")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
-    gen = torch.Generator().manual_seed(seed)
-    batch = {
-        "pixel_values": torch.rand(DDP_PARITY_BATCH, 3, TRAIN_RES, TRAIN_RES, generator=gen) * 2 - 1,
-        "input_ids": torch.randint(0, 49408, (DDP_PARITY_BATCH * TRAIN_CONCAT, 77), generator=gen),
-    }
-    latent = (DDP_PARITY_BATCH, 4, TRAIN_RES // 8, TRAIN_RES // 8)
-    torch.save({"batch": batch, "draws": make_draws(gen, latent, torch.float32, 1000, "cpu")},
-               os.path.join(workdir, "inputs.pt"))
+    torch.save(parity_inputs(DDP_PARITY_BATCH), os.path.join(workdir, "inputs.pt"))
+    parity_reference(state)  # rank 0 holds the ranks' step against it
     port = free_port()
     t0 = time.perf_counter()
     run_ranks(ddp_rank, lambda r: ("ddp_parity", r, DDP_WORLD, port, workdir), DDP_WORLD)
@@ -4435,11 +4557,11 @@ def timed_fsdp_comms(sink):
 
 
 def fsdp_parity_rank(rank, workdir):
-    """Rank 0 first takes the step as one process over the whole global
-    batch (the reference); then both ranks take it on their row with the
-    models sharded over the fsdp axis, and gather the trained state whole:
-    rank 0 holds it against the reference, and each rank its local Lion
-    codes and scales against its slices of the gathered ones."""
+    """Rank 0 reads the one-process step over the whole global batch (the
+    reference, ``parity_reference``); both ranks take the step on their row
+    with the models sharded over the fsdp axis, and gather the trained
+    state whole: rank 0 holds it against the reference, and each rank its
+    local Lion codes and scales against its slices of the gathered ones."""
     import torch
 
     from stable_diffusion_training_tpu_torch.core import create_mesh, slice_batch_for_process
@@ -4463,17 +4585,8 @@ def fsdp_parity_rank(rank, workdir):
         return out[4]["loss"].item(), (time.perf_counter() - t0) * 1e3
 
     result, reference, before = {}, None, None
-    cfg = train_config(mixed_precision="float32", batch_size=FSDP_PARITY_BATCH)
     if rank == 0:
-        ref_states = on_device_model_training_state(cfg, device=device)
-        before = {key: {n: p.detach().clone() for n, p in s.params.items()}
-                  for key, s in (("unet", ref_states[0]), ("text_encoder", ref_states[1]))}
-        result["reference_loss"], result["reference_step_ms"] = step(ref_states, batch, None, cfg.ema_rate)
-        reference = {key: (s.params, s.opt_state[1][0].mu_quant)
-                     for key, s in (("unet", ref_states[0]), ("text_encoder", ref_states[1]))}
-        del ref_states
-        torch.cuda.empty_cache()
-    barrier()
+        reference, before, result["reference_loss"], result["reference_step_ms"] = load_parity_reference()
     cfg = train_config(mixed_precision="float32", batch_size=FSDP_PARITY_BATCH, mesh_shape=FSDP_MESH,
                        fsdp_shard_params=True)
     mesh = create_mesh(tuple(FSDP_MESH), device_type="cuda")
@@ -4496,11 +4609,12 @@ def fsdp_parity_rank(rank, workdir):
     return result
 
 
-def phase_fsdp_parity(state, seed=3):
+def phase_fsdp_parity(state):
     """The SD1.5 train step at full width in f32 (TF32 off) over a global
-    batch of 2 at 512x512 with fixed global draws: as one process (rank 0
-    first), then on two ranks of one row each (gloo, cuda:0) with the UNet
-    and the text encoder sharded over a ``[1, 2, 1]`` mesh's fsdp axis
+    batch of 2 at 512x512 with fixed global draws: as one process
+    (``parity_reference``, taken once for the three f32 parity phases),
+    then on two ranks of one row each (gloo, cuda:0) with the UNet and the
+    text encoder sharded over a ``[1, 2, 1]`` mesh's fsdp axis
     (``fsdp_shard_params``). Each rank gathers the trained params, EMA,
     codes and scales whole: the ranks' gathered states bitwise equal; rank
     0's against the one-process step within ``ddp_parity``'s bounds and
@@ -4510,19 +4624,11 @@ def phase_fsdp_parity(state, seed=3):
     leaves, the single-leaf entry once per leaf the rule keeps whole."""
     import torch
 
-    from stable_diffusion_training_tpu_torch.train.train_step import make_draws
-
     workdir = os.path.join(REPO, ".cache", "chip_smoke_fsdp_parity")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
-    gen = torch.Generator().manual_seed(seed)
-    batch = {
-        "pixel_values": torch.rand(FSDP_PARITY_BATCH, 3, TRAIN_RES, TRAIN_RES, generator=gen) * 2 - 1,
-        "input_ids": torch.randint(0, 49408, (FSDP_PARITY_BATCH * TRAIN_CONCAT, 77), generator=gen),
-    }
-    latent = (FSDP_PARITY_BATCH, 4, TRAIN_RES // 8, TRAIN_RES // 8)
-    torch.save({"batch": batch, "draws": make_draws(gen, latent, torch.float32, 1000, "cpu")},
-               os.path.join(workdir, "inputs.pt"))
+    torch.save(parity_inputs(FSDP_PARITY_BATCH), os.path.join(workdir, "inputs.pt"))
+    parity_reference(state)  # rank 0 holds the ranks' step against it
     port = free_port()
     t0 = time.perf_counter()
     run_ranks(ddp_rank, lambda r: ("fsdp_parity", r, FSDP_WORLD, port, workdir), FSDP_WORLD)
@@ -5713,9 +5819,9 @@ def to_host(tree):
 
 
 def tp_fsdp_parity_rank(rank, workdir):
-    """Rank 0 first takes the step as one process over the global batch
-    (the reference, kept in host memory with the params before it); then
-    the four ranks take it with the UNet's and the text encoder's
+    """Rank 0 reads the one-process step over the global batch and the
+    params before it (the reference, ``parity_reference``, mapped into host
+    memory); the four ranks take the step with the UNet's and the text encoder's
     projections split over the model_parallel axis and every leaf sharded
     over the fsdp axis, each fsdp rank on its row, counting and timing the
     TP sums and FSDP2's collectives, and gather the trained state whole
@@ -5747,19 +5853,8 @@ def tp_fsdp_parity_rank(rank, workdir):
         return out[4]["loss"].item(), (time.perf_counter() - t0) * 1e3
 
     result, reference, before = {}, None, None
-    # the mesh's rows (two blocks: the fsdp ranks split them), no split, no mesh: one process
-    cfg = train_config(mixed_precision="float32", batch_size=TP_FSDP_PARITY_BATCH, mesh_shape=TP_FSDP_MESH)
     if rank == 0:
-        ref_states = on_device_model_training_state(cfg, device=device)
-        before = {key: to_host(dict(s.params)) for key, s in (("unet", ref_states[0]), ("text_encoder", ref_states[1]))}
-        result["reference_loss"], result["reference_step_ms"] = step(ref_states, batch, None, cfg.ema_rate)
-        reference = {key: (to_host(dict(s.params)), to_host(dict(s.opt_state[1][0].mu_quant)))
-                     for key, s in (("unet", ref_states[0]), ("text_encoder", ref_states[1]))}
-        del ref_states
-        torch.cuda.empty_cache()
-        result["reference_max_memory_allocated"] = torch.cuda.max_memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-    barrier()
+        reference, before, result["reference_loss"], result["reference_step_ms"] = load_parity_reference()
     marks.append(("reference", time.perf_counter()))
     cfg = train_config(mixed_precision="float32", batch_size=TP_FSDP_PARITY_BATCH, mesh_shape=TP_FSDP_MESH,
                        fsdp_shard_params=True, tensor_parallel_shard_params=True)
@@ -5794,10 +5889,11 @@ def tp_fsdp_parity_rank(rank, workdir):
     return result
 
 
-def phase_tp_fsdp_parity(state, seed=3):
+def phase_tp_fsdp_parity(state):
     """The SD1.5 train step at full width in f32 (TF32 off) over a global
-    batch of 2 at 512x512 with fixed global draws: as one process (rank 0
-    first), then on four ranks (gloo, cuda:0) of a ``[1, 2, 2]`` mesh with
+    batch of 2 at 512x512 with fixed global draws: as one process
+    (``parity_reference``, taken once for the three f32 parity phases),
+    then on four ranks (gloo, cuda:0) of a ``[1, 2, 2]`` mesh with
     ``tensor_parallel_shard_params`` and ``fsdp_shard_params``: each fsdp
     rank takes one row, its two model_parallel ranks 4 of the 8 heads each,
     every leaf (the TP slices and the whole ones) sharded over the fsdp
@@ -5814,19 +5910,11 @@ def phase_tp_fsdp_parity(state, seed=3):
     versions at the rank's (4, 4096, 40)."""
     import torch
 
-    from stable_diffusion_training_tpu_torch.train.train_step import make_draws
-
     workdir = os.path.join(REPO, ".cache", "chip_smoke_tp_fsdp_parity")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
-    gen = torch.Generator().manual_seed(seed)
-    batch = {
-        "pixel_values": torch.rand(TP_FSDP_PARITY_BATCH, 3, TRAIN_RES, TRAIN_RES, generator=gen) * 2 - 1,
-        "input_ids": torch.randint(0, 49408, (TP_FSDP_PARITY_BATCH * TRAIN_CONCAT, 77), generator=gen),
-    }
-    latent = (TP_FSDP_PARITY_BATCH, 4, TRAIN_RES // 8, TRAIN_RES // 8)
-    torch.save({"batch": batch, "draws": make_draws(gen, latent, torch.float32, 1000, "cpu")},
-               os.path.join(workdir, "inputs.pt"))
+    torch.save(parity_inputs(TP_FSDP_PARITY_BATCH), os.path.join(workdir, "inputs.pt"))
+    parity_reference(state)  # rank 0 holds the ranks' step against it
     rows = TP_FSDP_PARITY_BATCH // FSDP_WORLD
     heads = sd15_heads() * rows // TP_WORLD
     held = hold_flash_f32(heads, (TRAIN_RES // 8) ** 2, 40)
@@ -5876,7 +5964,6 @@ def phase_tp_fsdp_parity(state, seed=3):
         tp_sums=[r["tp_sums"] for r in ranks], tp_sums_expected=sd15_tp_sums(),
         tp_sums_ms=[r["tp_sums_ms"] for r in ranks], comms_ms=[r["comms_ms"] for r in ranks],
         comms_calls=[r["comms_calls"] for r in ranks], seconds=[r["seconds"] for r in ranks],
-        reference_max_memory_allocated=ranks[0]["reference_max_memory_allocated"],
         step_max_memory_allocated=[r["step_max_memory_allocated"] for r in ranks],
         max_memory_allocated=[r["max_memory_allocated"] for r in ranks], kernels_held=held,
         launches_by_shape=[{k: {"x".join(map(str, s)): n for s, n in v.items()} for k, v in got.items()}
@@ -6312,6 +6399,7 @@ F32_FWD_PATHS = {
     "vae_mid": "ddp_parity, fsdp_parity, tp_parity and tp_fsdp_parity ranks",
     "ddp_parity_unet": "ddp_parity and fsdp_parity ranks", "tp_parity_unet": "tp_parity and tp_fsdp_parity ranks",
     "sd15_bucket_832_l1": "train_f32 at 832x832", "vae_encode_832": "train_f32 at 832x832",
+    "sd15_bucket_832_l0": "train_f32 at 832x832",
 }
 SHORT = {"bfloat16": "bf16", "float32": "f32"}
 
@@ -6386,6 +6474,7 @@ def kernels_line(state):
                                (tp_fsdp_parity.get("flash_bwd_f32", {}), "tp_fsdp_parity ranks")],
         # 64-key blocks at SD1.5's heads of 80
         "sd15_bucket_832_l1_f32": [(train_f32_buckets.get("flash_bwd_f32", {}), "train_f32 832x832")],
+        "sd15_bucket_832_l0_f32": [(train_f32_buckets.get("flash_bwd_f32", {}), "train_f32 832x832")],
     }
     bf16_paths = {  # the fused bf16 kernel's, likewise
         "unet_train": [(train.get("flash_bwd_fused", {}), "train"),
@@ -6407,6 +6496,9 @@ def kernels_line(state):
         # the wide-head fused kernel (route fused_wide)
         "sd15_bucket_832_l1": [(train_buckets.get("flash_bwd_fused_wide", {}), "train 832x832")],
         "sd15_bucket_1088_l1": [(train_buckets.get("flash_bwd_fused_wide", {}), "train 1088x1088")],
+        # level 0 (heads of 40) at those buckets: the D <= 64 fused kernel
+        "sd15_bucket_832_l0": [(train_buckets.get("flash_bwd_fused", {}), "train 832x832")],
+        "sd15_bucket_1088_l0": [(train_buckets.get("flash_bwd_fused", {}), "train 1088x1088")],
     }
     for row in state.get("bwd_cases", []):
         bh, sq, d = row["shape_q"]
@@ -6475,7 +6567,7 @@ def kernels_line(state):
             runs = train_paths[row["dtype"]]
         for counts, path in runs:
             entries.append(dict(
-                name=(f"lion8bit_update_leaves[{row['model']} {row['leaves']} leaves {row['elements']} elements "
+                name=(f"lion8bit_update_leaves[lion_leaves_kernel; {row['model']} {row['leaves']} leaves {row['elements']} elements "
                       f"bs{row['bs']} {SHORT[row['dtype']]} exact, grads in torch layout, "
                       f"{len(row['launch_shapes'])} launch(es) a call; path: {path}]"),
                 route="cuda", source=f"{CSRC}/lion8bit_update.cu",
@@ -6492,7 +6584,7 @@ def kernels_line(state):
         # them since the leaf table; their path is their kernels-phase case
         single = row["entry"] == "single"
         entries.append(dict(
-            name=(f"lion8bit_update{'' if single else '_multi'}[{row['case']} "
+            name=(f"lion8bit_update{'' if single else '_multi'}[lion_stream_kernel; {row['case']} "
                   f"{row['leaves']} leaves {row['elements']} elements bs{row['bs']} bf16 exact"
                   f"{', one launch per leaf' if single else ''}; path: its kernels-phase case]"),
             route="cuda", source=f"{CSRC}/lion8bit_update.cu",
@@ -6505,8 +6597,8 @@ def kernels_line(state):
     for row in state.get("lion_fused_cases", []):
         # K6/K7's path is their own entry: launches from each case's path run
         entries.append(dict(
-            name=(f"fused_lion8bit_update[layout={row['layout']} {row['blocks']}x{row['bs']} "
-                  f"{row['dtype']} exact{', cooperative' if row['cooperative'] else ''}; "
+            name=(f"fused_lion8bit_update[lion_stream_kernel; layout={row['layout']} {row['blocks']}x{row['bs']} "
+                  f"{row['dtype']} exact, {row['lanes_per_block']} lane(s) a block; "
                   f"path: the fused_lion8bit_update entry]"),
             route="cuda", source=f"{CSRC}/lion8bit_update.cu",
             replaces=f"{JAX_OPS}/lion_kernel.py:{393 if row['layout'] == 'narrow' else 221}",
@@ -6563,6 +6655,8 @@ def main(argv=None):
             runners[name](state)
             seconds[name] = time.perf_counter() - t0
     shutil.rmtree(SDXL_CACHE_DIR, ignore_errors=True)  # sdxl_train's, read again by fsdp_trainer
+    if os.path.exists(PARITY_REFERENCE):  # the f32 parity phases' shared reference
+        os.remove(PARITY_REFERENCE)
     emit("phase_seconds", seconds=seconds, total_s=time.perf_counter() - started)
 
     line = kernels_line(state)

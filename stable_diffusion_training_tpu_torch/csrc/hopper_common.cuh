@@ -91,6 +91,27 @@ __device__ __forceinline__ void fence_proxy_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// --- 1-D bulk copies (no tensor map) ----------------------------------------------
+
+// `bytes` (a multiple of 16) from device memory at `src` into shared memory
+// at `dst`, both 16-byte aligned, counted on `bar`'s transaction bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from shared memory at `src` to device memory at
+// `dst`, both 16-byte aligned: one asynchronous operation in this thread's
+// bulk group (bulk_commit, bulk_wait_read).
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(smem_u32(src)),
+               "r"(bytes)
+               : "memory");
+}
+
 // --- bulk reduce-add (no tensor map) ----------------------------------------------
 
 // Adds `bytes` (a multiple of 16) of f32 from shared memory at `src` into

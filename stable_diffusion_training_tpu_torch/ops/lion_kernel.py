@@ -6,22 +6,30 @@ shaped by its lane tiling; the card needs none of them. The port keeps one
 layout of the momentum, the reference order of ``lion_quant.py``: codes
 ``(n_blocks, bs)`` int8 and scales ``(n_blocks,)`` f32 per leaf, over the
 JAX leaf's flat element order. ``csrc/lion8bit_update.cu`` computes the
-update (see its header for the math and the numerics it keeps) with two
-kernels behind four entries:
+update (see its header for the math, the numerics it keeps and the two
+kernels' designs) with two kernels behind four entries:
 
 - ``lion8bit_update_leaves_`` (the role of the TPU's
   ``fused_lion8bit_update_dense``, K4, and
   ``fused_lion8bit_update_transposed_packed``, K5, on the train step):
-  every leaf of a ``LeafTable`` in one launch, grads and update signs in
-  torch layout; the table is built once per optimizer state;
-- ``lion8bit_update_`` (K4's earlier entry): one leaf per launch, the grad
-  in JAX order; the train step sends it only a leaf the table cannot take;
-- ``lion8bit_update_multi_`` (K5's earlier entry): many leaves in JAX order
-  in one launch through a table of pointers built per call;
+  ``lion_leaves_kernel``, every leaf of a ``LeafTable`` in one launch,
+  grads and update signs in torch layout; the table is built once per
+  optimizer state;
+- ``lion8bit_update_`` (K4's single-leaf entry): ``lion_stream_kernel`` on
+  one leaf, the grad in JAX order; the train step sends it only a leaf the
+  table cannot take (the FSDP and TP ranks' whole leaves among them);
+- ``lion8bit_update_multi_`` (K5's multi-leaf entry): ``lion_stream_kernel``
+  on many leaves in JAX order in one launch, through a leaf list built per
+  call;
 - ``fused_lion8bit_update`` (the TPU's public single-leaf entry, K6 with
   ``layout="narrow"`` and K7 with ``layout="wide"``): functional, with the
   JAX signature, scales ``(n_blocks, 1)``; both layouts hold the same
-  ``(n_blocks, bs)`` bytes, so both launch the one kernel.
+  ``(n_blocks, bs)`` bytes, so both launch ``lion_stream_kernel`` on a
+  list of one.
+
+``stream_tile_elements`` is the stream kernel's tile (the multi-leaf entry
+cuts its leaf list by it; the library refuses any other) and
+``stream_tiles`` models the kernel's tiles in plain Python for the CPU tests.
 
 The in-place entries update codes and scales and return the update sign in
 the grad's dtype. CPU tensors take the plain versions
@@ -45,7 +53,7 @@ LIBRARIES = {"lion8bit_update": ("lion8bit_update.cu",)}
 # offset ensuring x = 0 round-trips to exactly 0 through the odd-power compander
 ZERO_CROSSING_OFFSET = 3.7398995e-09
 POW5_C = float(127.0**-5)  # the fast compander's folded (q/127)^5 constant
-# block sizes the kernel is built for; 128 on its cooperative variant
+# block sizes the kernels are built for
 BLOCK_SIZES = (1, 2, 4, 8, 16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -154,12 +162,10 @@ _COMMON_ARGS = [ctypes.c_int] + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_i
 
 
 def _launch_single(grad, codes, scales, b1, b2, fast) -> torch.Tensor:
-    """One launch over one checked CUDA leaf; returns the update sign.
-    Counting is the calling entry's."""
+    """One launch of ``lion_stream_kernel`` over one checked CUDA leaf (the
+    leaf by value); returns the update sign. Counting is the calling
+    entry's."""
     nb, bs = codes.shape
-    for name, t in (("grad", grad), ("codes", codes), ("scales", scales)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned for the Lion kernel's vector loads")
     upd = torch.empty_like(grad)
     fn = _function(
         "lion8bit_update", [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + _COMMON_ARGS
@@ -184,9 +190,9 @@ def lion8bit_update_(
     compander: str = "exact",
 ) -> torch.Tensor:
     """Update one leaf: codes and scales in place; returns the update sign,
-    shaped and typed like ``grad`` (JAX flat order). The kernel (counted in
-    ``lion8bit_update_.launches``) for CUDA tensors, the plain version for
-    CPU tensors."""
+    shaped and typed like ``grad`` (JAX flat order). ``lion_stream_kernel``
+    (counted in ``lion8bit_update_.launches``) for CUDA tensors, the plain
+    version for CPU tensors."""
     _check_leaf(grad, codes, scales)
     fast = fast_compander(compander)
     nb, bs = codes.shape
@@ -209,9 +215,10 @@ def lion8bit_update_multi_(
     b2: float = 0.99,
     compander: str = "exact",
 ) -> List[torch.Tensor]:
-    """Update many leaves of one block size and grad dtype in one launch
-    (counted in ``lion8bit_update_multi_.launches``); per leaf as
-    ``lion8bit_update_``. CPU tensors take the plain version leaf by leaf."""
+    """Update many leaves of one block size and grad dtype in one launch of
+    ``lion_stream_kernel`` (counted in ``lion8bit_update_multi_.launches``);
+    per leaf as ``lion8bit_update_``. CPU tensors take the plain version
+    leaf by leaf."""
     if not grads or not (len(grads) == len(codes) == len(scales)):
         raise ValueError("need one or more leaves, each with grad, codes and scales")
     for g, c, s in zip(grads, codes, scales):
@@ -227,28 +234,30 @@ def lion8bit_update_multi_(
         raise ValueError("all leaves of one launch are on one device")
     fast = fast_compander(compander)
     updates = [torch.empty_like(g) for g in grads]
-    offsets = [0]
-    for c in codes:
-        offsets.append(offsets[-1] + c.shape[0])
+    dtype_code = _DTYPE_CODES[grads[0].dtype]
+    n_blocks = [c.shape[0] for c in codes]
+    tile_elems = stream_tile_elements(bs, grads[0].element_size())
+    tile_offsets = stream_tile_offsets(n_blocks, tile_elems // bs)
     device = grads[0].device
-    # the leaf table (4 pointers per leaf, then the block offsets) goes over
-    # from pinned memory without waiting: a copy from pageable memory would
-    # first wait for all the work queued on the device
+    # the leaf list (csrc StreamLeaf: 4 pointers and the block count per
+    # leaf, then the tile offsets) goes over from pinned memory without
+    # waiting: a copy from pageable memory would first wait for all the work
+    # queued on the device
     host = torch.tensor(
-        [t.data_ptr() for leaf in zip(grads, codes, scales, updates) for t in leaf] + offsets,
+        [v for g, c, s, u in zip(grads, codes, scales, updates)
+         for v in (g.data_ptr(), c.data_ptr(), s.data_ptr(), u.data_ptr(), c.shape[0])] + tile_offsets,
         dtype=torch.int64,
     ).pin_memory()
     table = host.to(device, non_blocking=True)
-    key = (len(grads), offsets[-1], bs, grads[0].dtype)
+    key = (len(grads), sum(n_blocks), bs, grads[0].dtype)
     fn = _function(
         "lion8bit_update_multi",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong] + _COMMON_ARGS,
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int] + _COMMON_ARGS,
     )
     with torch.cuda.device(device), _annotate("lion8bit_update_multi_", key):
         rc = fn(
-            table.data_ptr(), table[4 * len(grads):].data_ptr(), len(grads), offsets[-1], bs,
-            *_coefs(b1, b2), int(fast), _DTYPE_CODES[grads[0].dtype],
-            torch.cuda.current_stream().cuda_stream,
+            table.data_ptr(), table[5 * len(grads):].data_ptr(), len(grads), tile_offsets[-1], tile_elems, bs,
+            *_coefs(b1, b2), int(fast), dtype_code, torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"lion8bit_update_multi launch failed: cudaError {rc} ({len(grads)} leaves)")
@@ -282,8 +291,9 @@ def fused_lion8bit_update(
     that divides 128, and the exact compander only. The two layouts differ
     only in how the TPU's 128 lanes hold the blocks; the card computes both
     with the one kernel over the same bytes. ``rows_per_tile`` is the TPU's
-    tile height and has no effect on the card. CUDA tensors launch the kernel
-    (block sizes ``BLOCK_SIZES``; others raise) and are counted in
+    tile height and has no effect on the card. CUDA tensors launch
+    ``lion_stream_kernel`` on a list of one (block sizes ``BLOCK_SIZES``;
+    others raise) and are counted in
     ``fused_lion8bit_update.launches``, by ``(layout, n_blocks, bs, grad
     dtype)``; CPU tensors take ``lion8bit_update_reference``.
     """
@@ -301,7 +311,7 @@ def fused_lion8bit_update(
     new_codes = codes.clone(memory_format=torch.contiguous_format)
     new_scales = scales.reshape(nb).to(torch.float32, copy=True)
     flat = grad.reshape(-1)
-    if flat.data_ptr() % 16:  # a view at an odd offset: the kernel loads 16-byte vectors
+    if flat.data_ptr() % 16:  # a view at an odd offset: bulk copies need 16-byte aligned runs
         flat = flat.clone()
     _check_leaf(flat, new_codes, new_scales)
     if _on_cuda(flat, bs):
@@ -311,6 +321,50 @@ def fused_lion8bit_update(
     else:
         upd, new_codes, new_scales = lion8bit_update_reference(flat, codes, new_scales, b1, b2, compander)
     return upd.reshape(grad.shape), new_codes, new_scales.reshape(nb, 1).to(mu_scale_dtype)
+
+
+# --- lion_stream_kernel's tiles, in plain Python ----------------------------
+
+STREAM_STAGE_BYTES = 16384  # csrc/lion8bit_update.cu kStageBytes
+
+
+def stream_tile_elements(bs: int, itemsize: int) -> int:
+    """Elements of one ``lion_stream_kernel`` tile (``StreamTile::kElems``):
+    the largest power of two of whole blocks whose grads, codes and scales
+    fit ``STREAM_STAGE_BYTES``. ``lion8bit_update_multi_`` passes it with
+    every launch, and the library refuses a tile other than its own."""
+    fit = STREAM_STAGE_BYTES // (bs * (itemsize + 1) + 4) * bs
+    return 1 << (fit.bit_length() - 1)
+
+
+def stream_tile_offsets(n_blocks: Sequence[int], blocks_per_tile: int) -> List[int]:
+    """Each leaf's first tile and, last, the tile count: the kernel's leaf
+    list's prefix sums."""
+    offsets = [0]
+    for nb in n_blocks:
+        offsets.append(offsets[-1] + -(-nb // blocks_per_tile))
+    return offsets
+
+
+def stream_tiles(n_blocks: Sequence[int], bs: int, itemsize: int, bases: Sequence[Sequence[int]]):
+    """The kernel's tiles over a leaf list (``tile_desc``), in tile order:
+    ``(leaf, first block, blocks, bulk)``; ``bases`` holds each leaf's
+    (grad, codes, scales, signs) byte addresses. A tile moves by bulk copies
+    when its runs (grads, codes, scales, signs) are all 16-byte sized and
+    aligned, else by plain loads."""
+    per_tile = stream_tile_elements(bs, itemsize) // bs
+    offsets = stream_tile_offsets(n_blocks, per_tile)
+    tiles = []
+    for tile in range(offsets[-1]):
+        leaf = max(i for i in range(len(n_blocks)) if offsets[i] <= tile)  # the kernel's binary search
+        b0 = (tile - offsets[leaf]) * per_tile
+        blocks = min(per_tile, n_blocks[leaf] - b0)
+        g, c, s, u = bases[leaf]
+        starts = (g + b0 * bs * itemsize, c + b0 * bs, s + b0 * 4, u + b0 * bs * itemsize)
+        bulk = (blocks * bs * itemsize) % 16 == 0 and (blocks * bs) % 16 == 0 and blocks % 4 == 0 and all(
+            a % 16 == 0 for a in starts)
+        tiles.append((leaf, b0, blocks, bulk))
+    return tiles
 
 
 # --- every leaf of a model in one launch, in torch layout -------------------

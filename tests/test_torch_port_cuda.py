@@ -27,14 +27,21 @@ and the SDXL serving shapes, with one full-width SDXL UNet call counted.
 The fused bf16 backward adds dQ across key blocks in an order that changes
 from run to run: dK and dV repeat bitwise, dQ within a bf16 ulp. The fused
 f32 backward sums its dQ partials in key-block order: all three repeat
-bitwise. 8-bit Lion (the leaf table over grads in torch layout, K4 single
-leaf, K5 many leaves, and the functional entry: K6 narrow, K7 wide) at
-block sizes 1 to 128 (128 on the earlier kernel's cooperative variant):
-update signs and scales equal to the plain version's, codes at most one
-apart (CUDA's powf and torch's pow may differ by an ulp) and, between the
-leaf table and the single-leaf kernel, equal; a leaf the table cannot take
-goes the single-leaf route, counted there; a table of more leaves than one
-launch holds and more than 2^31 elements (SDXL's scale) takes two launches.
+bitwise. 8-bit Lion (the leaf table over grads in torch layout; the stream
+kernel behind K4's single leaf, K5's many leaves and the functional entry,
+K6 narrow and K7 wide) at block sizes 1 to 128, bf16 and f32 grads, both
+companders: update signs and scales equal to the plain version's, codes at
+most one apart (CUDA's powf and torch's pow may differ by an ulp) and,
+between the leaf table and the stream kernel, equal; both kernels' codes
+bitwise the plain version's (torch's pow on CUDA is powf) over every code
+and scale and over grads at every code's rounding boundary; the stream
+kernel on ragged tails, leaves shorter than one tile and leaves off
+16-byte boundaries (its plain-load tiles), on lists long enough that each
+CTA walks its ring of stages several times, and refusing a tile other
+than its own; a
+leaf the table cannot take goes the single-leaf route, counted there; a
+table of more leaves than one launch holds and more than 2^31 elements
+(SDXL's scale) takes two launches.
 The backward at SDXL training's shapes (D = 64 over 4,096 and 4,032 tokens)
 is held to its plain version on both fused routes. Tolerances are those of
 ``chip_smoke.py``. The fault this slice repaired is covered too: grads flow
@@ -412,6 +419,127 @@ def test_lion_kernel_matches_plain_version(bs, dtype, compander):
             assert int((c.int() - e_codes.int()).abs().max()) <= 1
 
 
+def _same_as_leaf_table(grad, codes, scales, compander):
+    """The leaf-table kernel's codes, scales and signs on a one-leaf table
+    of these bytes (a 1-D leaf: its layouts agree)."""
+    c, s = codes.clone(), scales.clone()
+    table = lk.LeafTable([c], [s], [(grad.numel(),)], [None])
+    # a copy: the leaf table takes only grads on 16-byte boundaries
+    upd = lk.lion8bit_update_leaves_([grad.reshape(-1).clone()], table, compander=compander)[0]
+    return upd, c, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compander", ["exact", "fast"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bs", lk.BLOCK_SIZES)
+def test_stream_kernel_matches_plain_version_at_every_block_size(bs, dtype, compander):
+    """``lion_stream_kernel`` behind all three entries on a leaf list of
+    mixed sizes: a ragged last tile, a leaf shorter than one tile, one of
+    exactly one tile, one of a block, and a grad that starts 4 bytes off a
+    16-byte boundary (every tile by plain loads). Signs and scales equal
+    the plain version's, codes at most one apart from it and bitwise the
+    leaf-table kernel's; one launch a call on each entry."""
+    _need_cuda()
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    per_tile = lk.stream_tile_elements(bs, itemsize) // bs
+    n_blocks = [3 * per_tile + 7, per_tile // 2 + 1, per_tile, 1, 2 * per_tile + 5]
+    grads, codes, scales = _lion_leaves([nb * bs for nb in n_blocks], bs, dtype, seed=bs + 31)
+    off = torch.empty(grads[-1].numel() + 16 // itemsize, dtype=dtype, device="cuda")
+    grads[-1] = off[4 // itemsize:4 // itemsize + grads[-1].numel()].copy_(grads[-1])
+    assert grads[-1].data_ptr() % 16 == 4
+    expected = [lk.lion8bit_update_reference(g, c, s, compander=compander) for g, c, s in zip(grads, codes, scales)]
+    lk.reset_launch_counts()
+    single = [(c.clone(), s.clone()) for c, s in zip(codes, scales)]
+    upd_single = [lk.lion8bit_update_(g, c, s, compander=compander) for g, (c, s) in zip(grads, single)]
+    multi = [(c.clone(), s.clone()) for c, s in zip(codes, scales)]
+    upd_multi = lk.lion8bit_update_multi_(grads, [c for c, _ in multi], [s for _, s in multi], compander=compander)
+    layouts = ["narrow"] + (["wide"] if bs < 128 and compander == "exact" else [])
+    fused = {layout: [lk.fused_lion8bit_update(g, c, s[:, None], layout=layout, compander=compander)
+                      for g, c, s in zip(grads, codes, scales)] for layout in layouts}
+    table = [_same_as_leaf_table(g, c, s, compander) for g, c, s in zip(grads, codes, scales)]
+    torch.cuda.synchronize()
+    assert lk.lion8bit_update_.launches == len(n_blocks) and lk.lion8bit_update_multi_.launches == 1
+    assert lk.fused_lion8bit_update.launches == len(n_blocks) * len(layouts)
+    for i, (e_upd, e_codes, e_scales) in enumerate(expected):
+        runs = [(upd_single[i], *single[i]), (upd_multi[i], *multi[i])]
+        runs += [(f[i][0], f[i][1], f[i][2][:, 0]) for f in fused.values()]
+        t_upd, t_codes, t_scales = table[i]
+        for u, c, s in runs:
+            assert u.dtype == dtype and u.shape == grads[i].shape
+            torch.testing.assert_close(u, e_upd, atol=0, rtol=0)
+            torch.testing.assert_close(s, e_scales, atol=0, rtol=0)
+            assert int((c.int() - e_codes.int()).abs().max()) <= 1
+            assert torch.equal(c, t_codes) and torch.equal(s, t_scales) and torch.equal(u, t_upd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bs", lk.BLOCK_SIZES)
+def test_stream_kernel_wraps_its_ring(bs, dtype):
+    """Leaf lists long enough that every persistent CTA walks its ring of
+    stages several times (the grid is at most SMs x 4 CTAs, each with 4
+    stages): a large aligned leaf; then, in the middle of the list, a leaf
+    with a ragged tail, a leaf whose grad starts 4 bytes off a 16-byte
+    boundary (every tile by plain loads, more tiles than the grid) and a
+    leaf of one block; then another large aligned leaf. So a CTA's walk
+    takes plain-load tiles between bulk ones and refills each stage after
+    its stores. Single-leaf and multi-leaf entries, exact compander: signs
+    and scales equal the plain version's, codes at most one apart."""
+    _need_cuda()
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    per_tile = lk.stream_tile_elements(bs, itemsize) // bs
+    ring = torch.cuda.get_device_properties(0).multi_processor_count * 4 * 4  # tiles the largest grid holds
+    n_blocks = [2 * ring * per_tile, 37 * per_tile + 5, (3 * ring // 2) * per_tile, 1, ring * per_tile + 3]
+    grads, codes, scales = _lion_leaves([nb * bs for nb in n_blocks], bs, dtype, seed=bs + 57)
+    off = torch.empty(grads[2].numel() + 16 // itemsize, dtype=dtype, device="cuda")
+    grads[2] = off[4 // itemsize:4 // itemsize + grads[2].numel()].copy_(grads[2])
+    assert grads[2].data_ptr() % 16 == 4
+    expected = [lk.lion8bit_update_reference(g, c, s) for g, c, s in zip(grads, codes, scales)]
+    lk.reset_launch_counts()
+    single = [(c.clone(), s.clone()) for c, s in zip(codes, scales)]
+    upd_single = [lk.lion8bit_update_(g, c, s) for g, (c, s) in zip(grads, single)]
+    multi = [(c.clone(), s.clone()) for c, s in zip(codes, scales)]
+    upd_multi = lk.lion8bit_update_multi_(grads, [c for c, _ in multi], [s for _, s in multi])
+    torch.cuda.synchronize()
+    assert lk.lion8bit_update_.launches == len(n_blocks) and lk.lion8bit_update_multi_.launches == 1
+    for i, (e_upd, e_codes, e_scales) in enumerate(expected):
+        for u, (c, s) in ((upd_single[i], single[i]), (upd_multi[i], multi[i])):
+            torch.testing.assert_close(u, e_upd, atol=0, rtol=0)
+            torch.testing.assert_close(s, e_scales, atol=0, rtol=0)
+            assert int((c.int() - e_codes.int()).abs().max()) <= 1
+
+
+@pytest.mark.cuda
+def test_stream_tile_is_the_librarys(monkeypatch):
+    """The multi-leaf entry cuts its leaf list by the Python model's tile
+    (``stream_tile_elements``), and the library launches only on its own:
+    at every block size and grad dtype, the list cut by that tile updates
+    as the plain version does, and one cut by twice or half of it is
+    refused, with nothing launched."""
+    _need_cuda()
+    tile = lk.stream_tile_elements
+    for bs in lk.BLOCK_SIZES:
+        for dtype in (torch.bfloat16, torch.float32):
+            itemsize = torch.empty((), dtype=dtype).element_size()
+            nb = 3 * tile(bs, itemsize) // bs + 5
+            (grad,), (codes,), (scales,) = _lion_leaves([nb * bs], bs, dtype, seed=bs)
+            e_upd, _, e_scales = lk.lion8bit_update_reference(grad, codes, scales)
+            for factor in (2, 0.5):
+                monkeypatch.setattr(lk, "stream_tile_elements", lambda b, i: int(tile(b, i) * factor))
+                c, s = codes.clone(), scales.clone()
+                lk.reset_launch_counts()
+                with pytest.raises(RuntimeError, match="launch failed"):
+                    lk.lion8bit_update_multi_([grad], [c], [s])
+                assert lk.lion8bit_update_multi_.launches == 0
+                assert torch.equal(c, codes) and torch.equal(s, scales), (bs, dtype, factor)
+            monkeypatch.setattr(lk, "stream_tile_elements", tile)
+            c, s = codes.clone(), scales.clone()
+            (upd,) = lk.lion8bit_update_multi_([grad], [c], [s])
+            torch.cuda.synchronize()
+            assert torch.equal(upd, e_upd) and torch.equal(s, e_scales), (bs, dtype)
+
+
 @pytest.mark.cuda
 def test_cuda_tensor_never_takes_the_plain_version():
     """A CUDA tensor the kernel does not take raises; it is not sent to the
@@ -556,13 +684,25 @@ def test_leaf_the_table_cannot_take_goes_the_old_route():
 
 @pytest.mark.cuda
 def test_leaf_table_momentum_is_the_single_leaf_kernels():
-    """The leaf-table kernel dequantizes through its 256-entry table and
-    requantizes through its approximation of powf; the single-leaf kernel
-    computes both outright. At bs 1 with b2 = 1 the new momentum is the
-    dequantized code over its scale and the new scale 1 / |momentum|: over
-    every code under 2^20 scales spread across 2^-20 ... 2^40 (and 1, the
-    zero guard's), the two kernels' scales, codes and signs are bitwise
-    equal, with both companders."""
+    """Both kernels dequantize through the 256-entry table and requantize
+    through the SFU's approximation of powf, calling powf only near a
+    half-integer. The plain version on the card computes both outright
+    (torch's pow of a float tensor on CUDA is CUDA's powf), so it is the
+    reference here, bit for bit, for the leaf-table kernel and the stream
+    kernel (single-leaf entry), with both companders:
+
+    - the dequant: at bs 1 with b2 = 1 the new momentum is the dequantized
+      code over its scale and the new scale 1 / |momentum|; over every code
+      under 2^20 scales spread across 2^-20 ... 2^40 (and 1, the zero
+      guard's), scales, codes and signs are equal;
+    - the requantization: at bs 128 with f32 grads and b2 = 0 the new
+      momentum is the grad, and every block holds a 1.0, so its new scale
+      is 1 and each other code is rint(127 powf(|g + off|, 0.2)) with its
+      sign. Over 2^20 grads, half of them put 127 |g + off|^0.2 within four
+      kRoundMargin of a half-integer (every code's rounding boundary, both
+      signs, where the approximation gives way to powf) and half spread
+      across 2^-30 ... 1, codes, scales and signs are equal.
+    """
     _need_cuda()
     n = 256 << 12
     gen = torch.Generator(device="cuda").manual_seed(21)
@@ -571,15 +711,34 @@ def test_leaf_table_momentum_is_the_single_leaf_kernels():
     scales = torch.exp2(exponent) * (1 + torch.rand(n, generator=gen, device="cuda"))
     scales[::97] = 1.0
     grad = (torch.randn(n, generator=gen, device="cuda") * 1e-3).bfloat16()
-    for compander in ("exact", "fast"):
-        table_c, table_s = codes.clone(), scales.clone()
-        table = lk.LeafTable([table_c], [table_s], [(n,)], [None])
-        upd = lk.lion8bit_update_leaves_([grad], table, b1=0.9, b2=1.0, compander=compander)[0]
-        single_c, single_s = codes.clone(), scales.clone()
-        single_upd = lk.lion8bit_update_(grad, single_c, single_s, b1=0.9, b2=1.0, compander=compander)
-        torch.cuda.synchronize()
-        assert torch.equal(table_s, single_s), compander
-        assert torch.equal(table_c, single_c) and torch.equal(upd, single_upd), compander
+    # requantization sweep: y = 127 |x|^0.2 at k + 1/2 + t, |t| <= 4 / 1024 (kRoundMargin 1 / 1024)
+    half = n // 2
+    k = torch.randint(0, 127, (half,), generator=gen, device="cuda", dtype=torch.float64)
+    t = (torch.rand(half, generator=gen, device="cuda", dtype=torch.float64) * 2 - 1) * 4 / 1024
+    near = ((k + 0.5 + t) / 127) ** 5
+    spread = torch.exp2(-30 * torch.rand(n - half, generator=gen, device="cuda", dtype=torch.float64))
+    x = torch.cat([near, spread])
+    x = x[torch.randperm(n, generator=gen, device="cuda")]
+    sign = torch.where(torch.rand(n, generator=gen, device="cuda") < 0.5, -1.0, 1.0).double()
+    sweep = (sign * x).float() - lk.ZERO_CROSSING_OFFSET  # g + off = +-x, rounded as the kernels do
+    sweep = sweep.reshape(-1, 128)
+    sweep[:, 0] = 1.0  # each block's absmax: new scale 1
+    sweep = sweep.reshape(-1)
+    sweep_codes, sweep_scales = lk.block_quantize(torch.randn(n, generator=gen, device="cuda") * 1e-4, 128)
+    cases = [("dequant", grad, codes, scales, 1.0), ("requantize", sweep, sweep_codes, sweep_scales, 0.0)]
+    for name, g, c0, s0, b2 in cases:
+        for compander in ("exact", "fast"):
+            e_upd, e_codes, e_scales = lk.lion8bit_update_reference(g, c0, s0, b1=0.9, b2=b2, compander=compander)
+            table_c, table_s = c0.clone(), s0.clone()
+            table = lk.LeafTable([table_c], [table_s], [(n,)], [None])
+            upd = lk.lion8bit_update_leaves_([g], table, b1=0.9, b2=b2, compander=compander)[0]
+            single_c, single_s = c0.clone(), s0.clone()
+            single_upd = lk.lion8bit_update_(g, single_c, single_s, b1=0.9, b2=b2, compander=compander)
+            torch.cuda.synchronize()
+            for kernel, (u, c, s) in (("leaves", (upd, table_c, table_s)), ("stream", (single_upd, single_c, single_s))):
+                assert torch.equal(s, e_scales), (name, compander, kernel)
+                assert torch.equal(u, e_upd), (name, compander, kernel)
+                assert torch.equal(c, e_codes), (name, compander, kernel, int((c != e_codes).sum()))
 
 
 @pytest.mark.cuda
